@@ -5,27 +5,45 @@
 
 Phases, each fatal on failure (exit code 1, no result line):
   1. card   - the GPU's name, and its name and power limit from nvidia-smi;
-  2. build  - nvcc builds every kernel of the path from csrc/, in parallel;
+  2. build  - nvcc builds every kernel of the paths from csrc/, in parallel;
   3. kernels - each kernel against its plain PyTorch version on the card at
-              the main path's shapes (Llama-3.2-1B, plus Llama-3.1-8B's w2
-              and ragged edges), with its time, the plain version's time,
-              a library yardstick's time (never used by the port) and the
-              bound: max(bytes / 3.35 TB/s, operations / 989 TFLOP/s bf16),
-              the H100 SXM data-sheet peaks;
-  4. main path - Llama-3.2-1B at full width (16 layers, random JQ4 weights
-              from a seed) through Engine.generate_tokens: a 512-token
-              prompt with 128 new tokens, a resume of that session, and
-              five time-to-first-token runs; the kernels' launch counters must
+              the paths' shapes (Llama-3.2-1B, plus Llama-3.1-8B's w2, head
+              size 128 and ragged edges), with its time, the plain version's
+              time, a library call's or yardstick's time (never used by the
+              port) and the bound: max(bytes / 3.35 TB/s, operations / 989
+              TFLOP/s bf16), the H100 SXM data-sheet peaks. K1 q4 matmul,
+              K3 flash prefill, K2 paged decode (16 slots, ragged lengths
+              1-2048 over 512 pages of 64, bf16 and q8 pools; 32 query heads
+              on one KV head; head size 128 with softcap and window), K4 KV write (decode, a 256-token
+              prefill chunk, bf16 and q8 pools, and the Engine's dense cache);
+  4. engine - Llama-3.2-1B at full width (16 layers, random JQ4 weights from
+              a seed) through Engine.generate_tokens: a 512-token prompt with
+              128 new tokens, a resume of that session, and five
+              time-to-first-token runs; the kernels' launch counters must
               match the path's expected counts; then the prefill logits of a
-              short prompt are held against the same weights run through
-              the plain path on the CPU (relative L2 error < 5e-2, bf16
+              short prompt are held against the same weights run through the
+              plain path on the CPU (relative L2 error < 5e-2, bf16
               activations on the card against f32 on the CPU);
   5. profile - torch.profiler's device time by kernel, device operations
               and the device's busy share for a 512-token prefill and for 32
-              decode steps of the main path.
+              decode steps of the Engine path;
+  6. serving - Llama-3.2-1B through BatchScheduler with the CLI's serving
+              defaults (16 slots, 512 pages of 64, bf16 pool, prefill chunk
+              256, decode lag 4, max_seq_len 2048): 24 requests made from a
+              seed (16 at once through start()/submit(), 8 more while the
+              batch runs; 8 seeded with temperature 0.8, top_p 0.95, top_k
+              40; a session resumed by a second request; a frequency penalty;
+              stop ids), then 4 requests on a q8 pool. Every request must end
+              with its count and finish reason, and K1-K4's launch counts must
+              equal what the scheduler's counts of prefill calls and decode
+              steps imply; then the paged forward's logits (a 24-token prefill
+              and 8 decode steps, bf16 and q8 pools) are held against the plain
+              f32 path on the CPU (relative L2 < 5e-2); prints total tok/s,
+              TTFT and inter-token p50/p95, and the device's busy share over
+              16 decode steps at 16 slots.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. --out also writes the per-shape details and
-the profile as JSON.
+the profiles as JSON.
 """
 
 from __future__ import annotations
@@ -43,6 +61,12 @@ BF16_OPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
 K1_TOL = 2e-2  # max |kernel - plain| <= K1_TOL * max |plain| (bf16 W tiles / bf16 out)
 K1_REL_L2 = 1e-2
 K3_TOL = 2e-2  # max |kernel - plain| on N(0, 1) inputs (bf16 in and out)
+# K2 on N(0, 1) inputs: f32 q and out, the JAX tests' tolerances (f32 sums in
+# another order; q8 values rounded to bf16 in both); bf16 q and out: each
+# element within one bf16 ulp of the plain output (2^-7 of its size, the
+# rounding of two f32 results that agree to ~1e-6) plus the f32 limit
+K2_TOL = {"bf16": 2e-5, "q8": 3e-3}
+K2_BF16_OUT_REL, K2_BF16_OUT_ABS = 2.0 ** -7, 2e-5
 LOGITS_REL_L2 = 5e-2
 N_TTFT = 5  # time-to-first-token runs; the median is reported
 SLEEP_CYCLES = 100_000_000  # ~50 ms at H100 clocks: the host queues every timed launch
@@ -149,7 +173,14 @@ def check_k1(torch, timer, details):
     L = c1.n_layers
     step = [per_shape[(s, 1)] for s in layer_shapes for _ in range(L)] + [per_shape[("lm_head", 1)]]
     summed = {key: sum(r[key] for r in step) for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    return dict(summed, max_abs_err=worst, bound_by="bytes", work="one decode step, M=1: "
+    # the serving path's decode step runs the same launches at M = n_slots = 16
+    step16 = [per_shape[(s, 16)] for s in layer_shapes for _ in range(L)] + [per_shape[("lm_head", 16)]]
+    ms16 = sum(r["ms"] for r in step16)
+    bound16 = sum(r["bound_ms"] for r in step16)
+    print(f"K1 one decode step at M=16 (the 16-slot serving step): {ms16:.4f} ms "
+          f"(bound {bound16:.4f}); at M=1: {summed['ms']:.4f} ms", flush=True)
+    return dict(summed, max_abs_err=worst, bound_by="bytes", ms_m16=ms16, bound_ms_m16=bound16,
+                work="one decode step, M=1: "
                 f"{L} x (wqkv, wo, w13, w2) + lm_head = {len(step)} launches")
 
 
@@ -215,10 +246,239 @@ def check_k3(torch, timer, details):
                      "n_kv=8, T=S=512, pos0=0, hd=64")
 
 
+# 16 rows of ragged live lengths for the paged kernels: 208 pages of 64 in
+# all; the rows of length 1 are empty decode slots on the scratch page
+K2_LENGTHS = [1, 2048, 1500, 1024, 777, 64, 65, 300, 2000, 129, 1, 513, 1800, 256, 999, 1234]
+N_PAGES, PAGE, P_MAX = 512, 64, 32
+
+
+def _page_tables(torch, lengths, g):
+    """[B, P_MAX] int32: distinct random pages (1 .. N_PAGES-1) per row for
+    its live length; rows of length 1 stay on the scratch page 0."""
+    pt = torch.zeros((len(lengths), P_MAX), dtype=torch.int32)
+    perm = (torch.randperm(N_PAGES - 1, generator=g) + 1).to(torch.int32)
+    nxt = 0
+    for b, ln in enumerate(lengths):
+        if ln == 1:
+            continue
+        n = -(-ln // PAGE)
+        pt[b, :n] = perm[nxt:nxt + n]
+        nxt += n
+    return pt.cuda()
+
+
+def _pools(torch, kind, n_kv, hd, g):
+    from jlama_tpu_torch.nn.qarray import QArray
+    from jlama_tpu_torch.quant.blockq import q8_quantize
+
+    pools = []
+    for _ in range(2):
+        x = torch.randn((n_kv, N_PAGES, PAGE, hd), generator=g, device="cuda")
+        if kind == "q8":
+            d, sc = q8_quantize(x)
+            pools.append(QArray(d, sc, "q8"))
+        else:
+            pools.append(x.to(torch.bfloat16))
+    return pools
+
+
+def _kv_bytes_per_key(kind, hd):
+    return hd * 1 + hd // 32 * 4 if kind == "q8" else hd * 2
+
+
+def check_k2(torch, timer, details):
+    import torch.nn.functional as F
+
+    from jlama_tpu_torch.ops.attention import paged_decode, paged_decode_plain
+
+    cases = [  # (label, H, n_kv, hd, pool kind, softcap, window)
+        ("serving", 32, 8, 64, "bf16", None, None),
+        ("serving", 32, 8, 64, "q8", None, None),
+        ("mqa g=32", 32, 1, 64, "bf16", None, None),
+        ("hd128 cap+win", 32, 8, 128, "bf16", 30.0, 256),
+    ]
+    g = torch.Generator(device="cuda").manual_seed(4)
+    gc = torch.Generator().manual_seed(4)
+    B = len(K2_LENGTHS)
+    lengths = torch.tensor(K2_LENGTHS, dtype=torch.int32, device="cuda")
+    worst, main = 0.0, None
+    for label, H, n_kv, hd, kind, cap, win in cases:
+        kp, vp = _pools(torch, kind, n_kv, hd, g)
+        pt = _page_tables(torch, K2_LENGTHS, gc)
+        q32 = torch.randn((B, H, hd), generator=g, device="cuda")
+        q16 = q32.to(torch.bfloat16)
+        scale = hd ** -0.5
+        got = paged_decode(q32, kp, vp, pt, lengths, scale, cap, win)
+        ref = paged_decode_plain(q32, kp, vp, pt, lengths, scale, cap, win)
+        got16 = paged_decode(q16, kp, vp, pt, lengths, scale, cap, win).float()
+        ref16 = paged_decode_plain(q16, kp, vp, pt, lengths, scale, cap, win).float()
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        d16 = (got16 - ref16).abs()
+        err16 = d16.max().item()
+        # worst |got16 - ref16| over its limit: <= 1 passes
+        ulps16 = (d16 / (K2_BF16_OUT_REL * ref16.abs() + K2_BF16_OUT_ABS)).max().item()
+        if not (err <= K2_TOL[kind] and ulps16 <= 1.0):
+            fail(f"K2 {label} {kind} hd={hd}: max_abs_err {err} (f32 q, limit {K2_TOL[kind]}), "
+                 f"{err16} (bf16 q; {ulps16:.3g} of the limit 2^-7 |plain| + "
+                 f"{K2_BF16_OUT_ABS})")
+        worst = max(worst, err)
+        ms = timer(lambda: paged_decode(q16, kp, vp, pt, lengths, scale, cap, win))
+        plain_ms = timer(lambda: paged_decode_plain(q16, kp, vp, pt, lengths, scale, cap, win))
+        # the live keys of each row, and the yardstick: the gather of the
+        # row's pages (dequantized for q8) followed by SDPA; two calls, so
+        # no "library" time
+        live = [ln - (max(0, ln - win) if win else 0) for ln in K2_LENGTHS]
+        kpos = torch.arange(P_MAX * PAGE, device="cuda")[None, :]
+        mask = kpos < lengths[:, None].long()
+        if win:
+            mask &= kpos >= lengths[:, None].long() - win
+
+        def gather(pool):
+            if kind == "q8":
+                d, sc = pool.data[:, pt.long()], pool.scales[:, pt.long()]
+                x = (d.float().reshape(*d.shape[:-1], -1, 32) * sc[..., None]).reshape(d.shape)
+                x = x.to(torch.bfloat16)
+            else:
+                x = pool[:, pt.long()]
+            return x.permute(1, 0, 2, 3, 4).reshape(B, n_kv, P_MAX * PAGE, hd)
+
+        yard_ms = None
+        if cap is None:
+            yard_ms = timer(lambda: F.scaled_dot_product_attention(
+                q16[:, :, None], gather(kp), gather(vp), attn_mask=mask[:, None, None, :],
+                scale=scale, enable_gqa=True))
+        nbytes = sum(live) * n_kv * 2 * _kv_bytes_per_key(kind, hd) + 2 * (2 * B * H * hd) \
+            + pt.numel() * 4 + B * 4
+        b_ms, b_by = bound(nbytes, 4.0 * H * hd * sum(live))
+        row = dict(kernel="paged_decode", case=label, pool=kind, B=B, H=H, n_kv=n_kv, hd=hd,
+                   page_size=PAGE, lengths=K2_LENGTHS, softcap=cap, window=win,
+                   max_abs_err=err, max_abs_err_bf16_out=err16, bf16_out_of_limit=ulps16,
+                   ms=ms, plain_ms=plain_ms,
+                   yardstick_ms=yard_ms, bound_ms=b_ms, bound_by=b_by)
+        details.append(row)
+        main = main or row
+        print(f"K2 {label:13s} {kind:4s} hd={hd:3d} B={B} H={H} n_kv={n_kv} cap={cap} win={win}:"
+              f" {ms:.4f} ms (plain {plain_ms:.4f}, yardstick gather+sdpa {yard_ms}, bound "
+              f"{b_ms:.4f} by {b_by}) err {err:.3g} (bf16 out {err16:.3g}, "
+              f"{ulps16:.3g} of its limit)", flush=True)
+        del kp, vp
+    L = 16
+    return dict(ms=main["ms"] * L, plain_ms=main["plain_ms"] * L, library_ms=None,
+                yardstick_ms=main["yardstick_ms"] * L, bound_ms=main["bound_ms"] * L,
+                bound_by=main["bound_by"], max_abs_err=worst,
+                work=f"one 16-slot decode step: {L} launches at B=16, H=32, n_kv=8, hd=64, "
+                     "bf16 pool, ragged lengths 1-2048 (K2_LENGTHS)")
+
+
+def _q8_close(torch, a, b) -> tuple[int, int]:
+    """(max |payload diff|, max scale diff in ulps) of two q8 pools."""
+    dd = (a.data.int() - b.data.int()).abs().max().item()
+    du = (a.scales.view(torch.int32).long() - b.scales.view(torch.int32).long()).abs().max().item()
+    return dd, du
+
+
+def check_k4(torch, timer, details):
+    from jlama_tpu_torch.nn.qarray import QArray
+    from jlama_tpu_torch.ops.kv_write import (
+        _slots, dense_page_table, dense_pool_view, kv_write, kv_write_plain)
+
+    n_kv, hd = 8, 64
+    g = torch.Generator(device="cuda").manual_seed(5)
+    gc = torch.Generator().manual_seed(5)
+    worst = 0.0
+    main = None
+    cases = [("decode", 16, 1, "bf16"), ("decode", 16, 1, "q8"),
+             ("prefill chunk", 4, 256, "bf16"), ("prefill chunk", 4, 256, "q8"),
+             ("engine dense", 1, 1, "bf16"), ("engine dense", 1, 512, "bf16")]
+    for label, B, T, kind in cases:
+        if label == "engine dense":
+            S = 2048
+            caches = [torch.randn((B, n_kv, S, hd), generator=g, device="cuda").to(torch.bfloat16)
+                      for _ in range(2)]
+            pools = [dense_pool_view(c) for c in caches]
+            pt = dense_page_table(B, "cuda")
+            p0 = 700 if T == 1 else 0
+            pos = (p0 + torch.arange(T, device="cuda"))[None, :].expand(B, T)
+            scratch = False
+        else:
+            pools = _pools(torch, kind, n_kv, hd, g)
+            if T == 1:
+                pt = _page_tables(torch, K2_LENGTHS, gc)
+                pos = (torch.tensor(K2_LENGTHS, device="cuda") - 1)[:, None]
+                scratch = True  # the empty slots write into page 0
+            else:
+                perm = (torch.randperm(N_PAGES - 1, generator=gc) + 1).to(torch.int32)
+                pt = perm[: B * P_MAX].reshape(B, P_MAX).cuda()
+                p0 = torch.randint(0, P_MAX * PAGE - T, (B,), generator=gc).cuda()
+                pos = p0[:, None] + torch.arange(T, device="cuda")[None, :]
+                scratch = False
+        kn = torch.randn((B, T, n_kv, hd), generator=g, device="cuda").to(torch.bfloat16)
+        vn = torch.randn((B, T, n_kv, hd), generator=g, device="cuda").to(torch.bfloat16)
+
+        def clone(p):
+            if isinstance(p, QArray):
+                return QArray(p.data.clone(), p.scales.clone(), "q8")
+            return p.clone()
+
+        mine = [clone(p) for p in pools]
+        plain = [clone(p) for p in pools]
+        kv_write(mine[0], mine[1], kn, vn, pt, pos)
+        kv_write_plain(plain[0], plain[1], kn, vn, pt, pos)
+        torch.cuda.synchronize()
+        live = slice(1, None) if scratch else slice(None)  # page 0: racing pad writes
+        if kind == "q8":
+            dd, du = 0, 0
+            for a, b in zip(mine, plain):
+                x, y = _q8_close(torch, QArray(a.data[:, live], a.scales[:, live], "q8"),
+                                 QArray(b.data[:, live], b.scales[:, live], "q8"))
+                dd, du = max(dd, x), max(du, y)
+            err = float(dd)
+            if dd > 1 or du > 1:
+                fail(f"K4 {label} q8 B={B} T={T}: payload differs by {dd}, scales by {du} ulp")
+        else:
+            err = max((a[:, live].float() - b[:, live].float()).abs().max().item()
+                      for a, b in zip(mine, plain))
+            if err != 0.0:
+                fail(f"K4 {label} {kind} B={B} T={T}: max_abs_err {err} (must be exact)")
+        worst = max(worst, err)
+        ms = timer(lambda: kv_write(mine[0], mine[1], kn, vn, pt, pos))
+        plain_ms = timer(lambda: kv_write_plain(plain[0], plain[1], kn, vn, pt, pos))
+        lib_ms = None
+        if kind == "bf16":  # one index_put_ per pool: the PyTorch call for this write
+            pages, offs, _ = _slots(pt, pos, pools[0].shape[2])
+            rk = kn.reshape(B * T, n_kv, hd).transpose(0, 1)
+            rv = vn.reshape(B * T, n_kv, hd).transpose(0, 1)
+
+            def lib():
+                plain[0][:, pages, offs] = rk
+                plain[1][:, pages, offs] = rv
+
+            lib_ms = timer(lib)
+        # K and V: each bf16 row read once, its pool slot (payload and q8
+        # scales) written once
+        nbytes = 2 * B * T * n_kv * (hd * 2 + _kv_bytes_per_key(kind, hd))
+        b_ms, b_by = bound(nbytes, 0.0)
+        row = dict(kernel="kv_write", case=label, pool=kind, B=B, T=T, n_kv=n_kv, hd=hd,
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=b_ms, bound_by=b_by)
+        details.append(row)
+        main = main or row
+        print(f"K4 {label:13s} {kind:4s} B={B:2d} T={T:3d}: {ms:.4f} ms (plain {plain_ms:.4f}, "
+              f"index_put_ x2 {lib_ms}, bound {b_ms:.5f} by {b_by}) err {err:.3g}", flush=True)
+    L = 16
+    return dict(ms=main["ms"] * L, plain_ms=main["plain_ms"] * L,
+                library_ms=main["library_ms"] * L, bound_ms=main["bound_ms"] * L,
+                bound_by="bytes", max_abs_err=worst,
+                work=f"one 16-slot decode step: {L} launches at B=16, T=1, n_kv=8, hd=64, "
+                     "bf16 pool; library_ms: one index_put_ per pool")
+
+
 def main_path(torch, card_note):
     from jlama_tpu_torch.models.base import forward_logits, params_to
     from jlama_tpu_torch.models.init import llama_1b_config, random_q4_params
-    from jlama_tpu_torch.ops.attention import flash_prefill
+    from jlama_tpu_torch.ops.attention import flash_prefill, paged_decode
+    from jlama_tpu_torch.ops.kv_write import kv_write
     from jlama_tpu_torch.ops.q4_matmul import q4_matmul
     from jlama_tpu_torch.runtime.engine import Engine
 
@@ -238,8 +498,8 @@ def main_path(torch, card_note):
     eng.drop_session("warm")
     torch.cuda.synchronize()
 
-    q4_matmul.launches = 0
-    flash_prefill.launches = 0
+    for k in (q4_matmul, flash_prefill, paged_decode, kv_write):
+        k.launches = 0
     ttfts, firsts = [], []
     for i in range(N_TTFT):  # each a new session: prefill + first token
         t1 = time.perf_counter()
@@ -251,17 +511,21 @@ def main_path(torch, card_note):
     resp = eng.generate_tokens(prompt, max_new_tokens=128, stop_ids=set(), session_id="main")
     resumed = eng.generate_tokens(more, max_new_tokens=32, stop_ids=set(), session_id="main")
     torch.cuda.synchronize()
-    launches = {"q4_matmul": q4_matmul.launches, "flash_prefill": flash_prefill.launches}
+    launches = {"q4_matmul": q4_matmul.launches, "flash_prefill": flash_prefill.launches,
+                "kv_write": kv_write.launches, "paged_decode": paged_decode.launches}
 
     n_prefill, n_decode = N_TTFT + 2, N_TTFT + 128 + 32
     per_layer_k1 = 4
     expect = {"q4_matmul": n_prefill * per_layer_k1 * cfg.n_layers
               + n_decode * (per_layer_k1 * cfg.n_layers + 1),
-              "flash_prefill": n_prefill * cfg.n_layers}
-    print(f"main path launches {launches}, expected {expect} "
-          f"({per_layer_k1 * cfg.n_layers + 1} K1 per decode step, "
-          f"{cfg.n_layers} K3 per prefill)", flush=True)
-    if launches != expect or min(launches.values()) == 0:
+              "flash_prefill": n_prefill * cfg.n_layers,
+              "kv_write": (n_prefill + n_decode) * cfg.n_layers,
+              "paged_decode": 0}  # the Engine's cache is dense
+    print(f"engine path launches {launches}, expected {expect} "
+          f"({per_layer_k1 * cfg.n_layers + 1} K1 and {cfg.n_layers} K4 per decode step, "
+          f"{cfg.n_layers} K3 and {cfg.n_layers} K4 per prefill)", flush=True)
+    if launches != expect or min(launches[k] for k in ("q4_matmul", "flash_prefill",
+                                                       "kv_write")) == 0:
         fail(f"launch counts {launches} != expected {expect}")
     for r, n in [(f, 1) for f in firsts] + [(resp, 128), (resumed, 32)]:
         if len(r.token_ids) != n or not all(0 <= t < cfg.vocab_size for t in r.token_ids):
@@ -336,6 +600,275 @@ def profile_path(torch, eng, prompt) -> dict:
     return out
 
 
+SERVE = dict(n_slots=16, n_pages=512, page_size=64, prefill_chunk=256, decode_lag=4,
+             max_seq_len=2048)  # jlama_tpu/cli.py's serving defaults
+KERNELS = ("q4_matmul", "paged_decode", "flash_prefill", "kv_write")
+
+
+def _kernel_fns():
+    from jlama_tpu_torch.ops.attention import flash_prefill, paged_decode
+    from jlama_tpu_torch.ops.kv_write import kv_write
+    from jlama_tpu_torch.ops.q4_matmul import q4_matmul
+
+    return {"q4_matmul": q4_matmul, "paged_decode": paged_decode,
+            "flash_prefill": flash_prefill, "kv_write": kv_write}
+
+
+def _reset_counts(sched):
+    for fn in _kernel_fns().values():
+        fn.launches = 0
+    sched.n_prefill_calls = sched.n_decode_steps = 0
+
+
+def _check_counts(sched, cfg, label) -> dict:
+    """K1-K4's launches against the scheduler's own counts: a prefill call
+    (T > 1) launches 4 K1, one K3 and one K4 per layer; a decode step 4 K1,
+    one K2 and one K4 per layer, and the lm_head's K1."""
+    got = {k: fn.launches for k, fn in _kernel_fns().items()}
+    L, n_pf, n_dec = cfg.n_layers, sched.n_prefill_calls, sched.n_decode_steps
+    expect = {"q4_matmul": n_pf * 4 * L + n_dec * (4 * L + 1), "paged_decode": n_dec * L,
+              "flash_prefill": n_pf * L, "kv_write": (n_pf + n_dec) * L}
+    print(f"{label}: {n_pf} prefill calls, {n_dec} decode steps; launches {got}, "
+          f"expected {expect}", flush=True)
+    if got != expect or min(got.values()) == 0:
+        fail(f"{label}: launch counts {got} != expected {expect}")
+    return dict(got, prefill_calls=n_pf, decode_steps=n_dec)
+
+
+def _check_finish(reqs, cfg, label):
+    from jlama_tpu_torch.runtime.engine import FinishReason
+
+    for r in reqs:
+        stops = r.stop_ids or set(cfg.eos_token_ids)
+        n, ids = len(r.out_ids), r.out_ids
+        if not all(0 <= t < cfg.vocab_size for t in ids) or any(t in stops for t in ids[:-1]):
+            fail(f"{label}: request {r.id}: bad ids or a stop id before the end: {ids[:8]}...")
+        if r.finish == FinishReason.MAX_TOKENS:
+            ok = n == r.max_new_tokens and (not ids or ids[-1] not in stops)
+        elif r.finish == FinishReason.STOP_TOKEN:
+            ok = 1 <= n <= r.max_new_tokens and ids[-1] in stops
+        else:
+            ok = False
+        if not ok:
+            fail(f"{label}: request {r.id} ended {r.finish} with {n} of {r.max_new_tokens} "
+                 f"tokens (error {r.error})")
+
+
+def _wait(reqs, timeout_s, label):
+    t0 = time.perf_counter()
+    for r in reqs:
+        if not r.done_event.wait(max(0.0, timeout_s - (time.perf_counter() - t0))):
+            fail(f"{label}: requests not done after {timeout_s} s")
+
+
+def _pct(xs, p):
+    return statistics.quantiles(xs, n=100, method="inclusive")[p - 1] if len(xs) > 1 else xs[0]
+
+
+def serving_path(torch, card_note):
+    from jlama_tpu_torch.models.init import llama_1b_config, random_q4_params
+    from jlama_tpu_torch.runtime.scheduler import BatchScheduler, GenRequest
+
+    cfg = llama_1b_config()
+    V = cfg.vocab_size
+    t0 = time.perf_counter()
+    params = random_q4_params(cfg, seed=0, device="cuda")
+    sched = BatchScheduler(params, cfg, kv_dtype=torch.bfloat16, device="cuda", **SERVE)
+    pool_gb = 2 * sched.kv.state.k_pool.numel() * 2 / 1e9
+    sched.warmup()
+    torch.cuda.synchronize()
+    print(f"serving: Llama-3.2-1B, {SERVE}, bf16 pool {pool_gb:.3f} GB; set-up and warm-up "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    g = torch.Generator().manual_seed(7)
+
+    def rint(lo, hi):
+        return int(torch.randint(lo, hi + 1, (1,), generator=g))
+
+    def ids(n):
+        return torch.randint(0, V, (n,), generator=g).tolist()
+
+    reqs = []
+    for i in range(23):
+        kw = dict(prompt_ids=ids(rint(32, 1024)), max_new_tokens=rint(64, 128))
+        if i < 8:  # seeded draws
+            kw.update(temperature=0.8, top_p=0.95, top_k=40, seed=100 + i)
+        elif i == 8:  # a session, resumed below by a second request
+            kw.update(prompt_ids=ids(200), session_id="chat")
+        elif i == 9:  # forces depth-1 windows while it runs
+            kw.update(frequency_penalty=0.5)
+        elif i == 10:  # stop ids: half the vocabulary, drawn from, so it stops early
+            kw.update(stop_ids=set(range(0, V, 2)), temperature=1.0, seed=5)
+        reqs.append(GenRequest(**kw))
+    follow = GenRequest(prompt_ids=ids(100), max_new_tokens=64, session_id="chat")
+
+    _reset_counts(sched)
+    t_start = time.perf_counter()
+    sched.start()
+    for r in reqs[:16]:
+        sched.submit(r)
+    # 8 more while the batch runs: once it has produced 16 tokens a slot,
+    # and the session's second request once its first is done
+    while sum(len(r.out_ids) for r in reqs[:16]) < 16 * 16:
+        if time.perf_counter() - t_start > 300:
+            fail("serving: no progress in 300 s")
+        time.sleep(0.005)
+    for r in reqs[16:]:
+        sched.submit(r)
+    _wait([reqs[8]], 300, "serving")
+    sched.submit(follow)
+    everything = reqs + [follow]
+    _wait(everything, 300, "serving")
+    wall = time.perf_counter() - t_start
+    sched.stop()
+    torch.cuda.synchronize()
+    counts = _check_counts(sched, cfg, "serving path")
+    _check_finish(everything, cfg, "serving")
+    if reqs[10].finish.name != "STOP_TOKEN":
+        fail(f"serving: the stop-id request ended {reqs[10].finish}")
+    pos = sched.session_state.get("chat", (None,))[0]
+    want = len(reqs[8].prompt_ids) + len(reqs[8].out_ids) + len(follow.prompt_ids) \
+        + len(follow.out_ids) - 1
+    if pos != want:
+        fail(f"serving: resumed session at position {pos}, expected {want}")
+    resps = [r.to_response() for r in everything]
+    n_gen = sum(r.generated_tokens for r in resps)
+    ttft = [r.prompt_time_ms for r in resps]
+    itl = [r.generate_time_ms / (r.generated_tokens - 1) for r in resps if r.generated_tokens > 1]
+    e2e = dict(requests=len(resps), generated_tokens=n_gen, wall_s=wall, tok_s=n_gen / wall,
+               ttft_ms_p50=_pct(ttft, 50), ttft_ms_p95=_pct(ttft, 95),
+               itl_ms_p50=_pct(itl, 50), itl_ms_p95=_pct(itl, 95),
+               finish={f: sum(r.finish_reason.name == f for r in resps)
+                       for f in ("MAX_TOKENS", "STOP_TOKEN")}, launches=counts)
+    print(f"serving: {len(resps)} requests, {n_gen} tokens in {wall:.2f} s = "
+          f"{n_gen / wall:.1f} tok/s; TTFT p50 {e2e['ttft_ms_p50']:.1f} ms, p95 "
+          f"{e2e['ttft_ms_p95']:.1f} ms; inter-token p50 {e2e['itl_ms_p50']:.2f} ms, p95 "
+          f"{e2e['itl_ms_p95']:.2f} ms; finishes {e2e['finish']} on {card_note}", flush=True)
+
+    e2e["profile"] = _serving_profile(torch, sched, cfg, ids)
+    e2e["logits_rel_l2"] = {"bf16": _paged_logits_check(torch, sched, cfg, torch.bfloat16, ids)}
+    params = sched.params
+    del sched
+    torch.cuda.empty_cache()
+
+    # a short run on a q8 pool
+    sq = BatchScheduler(params, cfg, kv_dtype="q8", device="cuda", fuse=False, **SERVE)
+    q8reqs = [GenRequest(prompt_ids=ids(rint(100, 300)), max_new_tokens=32,
+                         **({"temperature": 0.8, "seed": 3} if i == 0 else {}))
+              for i in range(4)]
+    _reset_counts(sq)
+    sq.start()
+    for r in q8reqs:
+        sq.submit(r)
+    _wait(q8reqs, 300, "q8 serving")
+    sq.stop()
+    torch.cuda.synchronize()
+    e2e["q8_launches"] = _check_counts(sq, cfg, "q8 serving path")
+    _check_finish(q8reqs, cfg, "q8 serving")
+    e2e["logits_rel_l2"]["q8"] = _paged_logits_check(torch, sq, cfg, "q8", ids)
+    del sq
+    return counts, e2e
+
+
+def _serving_profile(torch, sched, cfg, ids) -> dict:
+    """The device's busy share over 16 decode steps at 16 slots (chained
+    windows of 4), with torch.profiler (whose own host cost lowers the busy
+    share it reports: a lower bound)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from jlama_tpu_torch.runtime.scheduler import GenRequest, RequestState
+
+    reqs = [GenRequest(prompt_ids=ids(64), max_new_tokens=64) for _ in range(16)]
+    for r in reqs:
+        sched.submit(r)
+    while not all(r.state == RequestState.RUNNING and r.out_ids for r in reqs):
+        sched.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        n0 = sched.n_decode_steps
+        while sched.n_decode_steps - n0 < 16:
+            sched.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        n_steps = sched.n_decode_steps - n0
+    while not all(r.state == RequestState.DONE for r in reqs):
+        sched.step()
+    groups = {"q4_matmul": 0.0, "paged_decode": 0.0, "kv_write": 0.0, "other": 0.0}
+    kernels = []
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            kernels.append((e.self_device_time_total / 1e3, e.count, e.key))
+    kernels.sort(reverse=True)
+    dev_ms = sum(k[0] for k in kernels)
+    if dev_ms <= 0:
+        fail("serving profile: the profiler saw no device time")
+    for ms, _, key in kernels:
+        grp = ("q4_matmul" if "q4_ge" in key else "paged_decode" if "paged_decode" in key
+               else "kv_write" if "kv_write" in key else "other")
+        groups[grp] += ms
+    n_ops = sum(c for _, c, _ in kernels)
+    print(f"profile serving decode, {n_steps} steps at 16 slots: wall {wall_ms:.2f} ms "
+          f"(profiler on), device {dev_ms:.2f} ms, busy share {dev_ms / wall_ms:.3f}, "
+          f"{n_ops} device ops ({n_ops / n_steps:.0f} per step); by group "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in groups.items()), flush=True)
+    for ms, c, key in kernels[:12]:
+        print(f"  {ms:8.3f} ms {c:6d}x {key[:90]}")
+    return dict(steps=n_steps, wall_ms=wall_ms, device_ms=dev_ms, busy_share=dev_ms / wall_ms,
+                device_ops=n_ops, by_group_ms=groups,
+                top=[dict(ms=ms, count=c, kernel=key[:90]) for ms, c, key in kernels[:12]])
+
+
+def _paged_logits_check(torch, sched, cfg, kv_dtype, ids) -> float:
+    """The paged forward's logits on the card (bf16 activations, K1-K4)
+    against the same weights, dequantized once to f32, and the same pool kind
+    on the CPU (plain versions): a 24-token prefill and 8 decode steps."""
+    from jlama_tpu_torch.kv.paged import PagedKVCache
+    from jlama_tpu_torch.models.base import forward_logits
+    from jlama_tpu_torch.nn.qarray import QArray
+
+    toks = torch.tensor([ids(32)])
+    pos = torch.arange(32)[None, :]
+
+    def run(params, device, dtype):
+        kv = PagedKVCache(cfg, n_pages=4, page_size=64, max_pages_per_seq=2, dtype=kv_dtype,
+                          device=device)
+        kv.alloc.ensure_capacity("s", 32, 64)
+        pt = torch.from_numpy(kv.page_table(["s"])).to(device)
+        cache = (kv.layer_states(), pt)
+        outs = []
+        with torch.inference_mode():
+            lg, _ = forward_logits(params, cfg, toks[:, :24].to(device), pos[:, :24].to(device),
+                                   cache, dtype=dtype)
+            outs.append(lg)
+            for t in range(24, 32):
+                lg, _ = forward_logits(params, cfg, toks[:, t:t + 1].to(device),
+                                       pos[:, t:t + 1].to(device), cache, dtype=dtype)
+                outs.append(lg)
+        return torch.cat(outs, dim=1).float().cpu()
+
+    gpu = run(sched.params, "cuda", torch.bfloat16)
+
+    def deq(v):
+        if isinstance(v, list):
+            return [deq(x) for x in v]
+        if isinstance(v, dict):
+            return {k: deq(x) for k, x in v.items()}
+        if isinstance(v, QArray):
+            return v.dequantize(torch.float32).cpu()
+        return v.float().cpu()
+
+    ref = run(deq(sched.params), "cpu", torch.float32)
+    finite = bool(torch.isfinite(gpu).all())
+    rel = ((gpu - ref).norm() / ref.norm()).item()
+    print(f"paged logits [1, 32, {cfg.vocab_size}] ({kv_dtype} pool; 24-token prefill + 8 "
+          f"decode steps) vs plain f32 on the CPU: rel L2 {rel:.3g} (limit {LOGITS_REL_L2}), "
+          f"finite {finite}", flush=True)
+    if not finite or not rel < LOGITS_REL_L2 or tuple(gpu.shape) != (1, 32, cfg.vocab_size):
+        fail(f"paged logits ({kv_dtype}): rel L2 {rel}, finite {finite}, shape {tuple(gpu.shape)}")
+    return rel
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write per-shape details as JSON here")
@@ -374,39 +907,53 @@ def main() -> None:
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {src}: {line.strip()}")
 
+    details: list[dict] = []
+    out = {"card": smi, "shapes": details}
     # 3. kernels against their plain versions
     timer = Timer(torch)
     print(f"bound = max(bytes / {HBM_BYTES_PER_S / 1e12:.2f} TB/s, operations / "
-          f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16): the H100 SXM data-sheet peaks at 700 W "
-          "(a PCIe card or a lower power limit has lower peaks)", flush=True)
-    details: list[dict] = []
-    k1 = check_k1(torch, timer, details)
-    k3 = check_k3(torch, timer, details)
+          f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16): the H100 SXM data-sheet peaks at "
+          "700 W (a PCIe card or a lower power limit has lower peaks)", flush=True)
+    kern = {"q4_matmul": check_k1(torch, timer, details),
+            "paged_decode": check_k2(torch, timer, details),
+            "flash_prefill": check_k3(torch, timer, details),
+            "kv_write": check_k4(torch, timer, details)}
     del timer
-
-    # 4. the main path
-    launches, e2e, (eng, prompt) = main_path(torch, smi)
-    # 5. where the main path's time goes
-    prof = profile_path(torch, eng, prompt)
+    # 4. and 5. the Engine path and where its time goes
+    engine_launches, e2e, (eng, prompt) = main_path(torch, smi)
+    out["engine"] = e2e
+    out["profile"] = profile_path(torch, eng, prompt)
     del eng
+    torch.cuda.empty_cache()
+    print(f"card {smi}: engine " + json.dumps(e2e), flush=True)
+    # 6. serving
+    serving_launches, serving = serving_path(torch, smi)
+    out["serving"] = serving
+    print(f"card {smi}: serving " + json.dumps(
+        {k: v for k, v in serving.items() if k != "profile"}), flush=True)
 
-    kernels = [
-        dict(name="q4_matmul", route="cuda", source="jlama_tpu_torch/csrc/q4_matmul.cu",
-             replaces="jlama_tpu/ops/pallas_q4.py:113", launches=launches["q4_matmul"], **k1),
-        dict(name="flash_prefill", route="cuda", source="jlama_tpu_torch/csrc/flash_prefill.cu",
-             replaces="jlama_tpu/ops/pallas_attention.py:41",
-             launches=launches["flash_prefill"], **k3),
-    ]
+    routes = {
+        "q4_matmul": ("jlama_tpu_torch/csrc/q4_matmul.cu", "jlama_tpu/ops/pallas_q4.py:113"),
+        "paged_decode": ("jlama_tpu_torch/csrc/paged_decode.cu",
+                         "jlama_tpu/ops/pallas_attention.py:190"),
+        "flash_prefill": ("jlama_tpu_torch/csrc/flash_prefill.cu",
+                          "jlama_tpu/ops/pallas_attention.py:41"),
+        "kv_write": ("jlama_tpu_torch/csrc/kv_write.cu", "jlama_tpu/ops/pallas_kv.py:27"),
+    }
+    kernels = []
+    for k in KERNELS:
+        src, rep = routes[k]
+        row = dict(name=k, route="cuda", source=src, replaces=rep,
+                   launches=serving_launches.get(k), launches_engine=engine_launches.get(k))
+        row.update(kern[k])
+        kernels.append(row)
+    out["kernels"] = kernels
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps(
-            {"card": smi, "kernels": kernels, "shapes": details, "main_path": e2e,
-             "profile": prof}, indent=1))
-    print(f"card {smi}: " + json.dumps(e2e), flush=True)
+        Path(args.out).write_text(json.dumps(out, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
-
 
 if __name__ == "__main__":
     main()

@@ -88,12 +88,18 @@ def forward_hidden(
     cfg: ModelConfig,
     tokens: torch.Tensor,  # [B, T]
     positions: torch.Tensor,  # [B, T] absolute positions
-    kv_cache: KVCache | None,
+    kv_cache: KVCache | tuple[list, torch.Tensor] | None,
     dtype=torch.bfloat16,
     attn_window: int | None = None,
     inv_freq: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, KVCache | None]:
+) -> tuple[torch.Tensor, KVCache | tuple[list, torch.Tensor] | None]:
     """Run embedding + all transformer layers. Returns (hidden [B,T,D], cache).
+
+    kv_cache: None, a dense `KVCache`, or a paged cache `(states,
+    page_tables)`: a per-layer list of `PagedKVState` pools (views of the
+    stacked pool, see `kv.paged.PagedKVCache.layer_states`) and one [B, P]
+    int32 page-table tensor. Every cache is written in place and returned as
+    it came.
 
     inv_freq: the RoPE inverse frequencies on the tokens' device (see
     `rope_inv_freq`); a caller in a decode loop passes them so the step does
@@ -117,7 +123,13 @@ def forward_hidden(
         sw = None
         if cfg.sliding_window is not None and cfg.model_type == "gemma2" and l % 2 == 0:
             sw = cfg.sliding_window
-        cache_l = kv_cache.layers[l] if kv_cache is not None else None
+        if kv_cache is None:
+            cache_l = None
+        elif isinstance(kv_cache, KVCache):
+            cache_l = kv_cache.layers[l]
+        else:
+            states, page_tables = kv_cache
+            cache_l = L.PagedLayerCache(states[l].k_pool, states[l].v_pool, page_tables)
         x, _ = _block(x, layer, cfg, positions, cache_l, cos, sin, sw, attn_window)
     return x, kv_cache
 

@@ -6,6 +6,10 @@
 `(data, scales, fmt)`. Layers may be stacked (`{key: [L, ...]}`) or a
 per-layer list of dicts. Leaves are q4, q8 or float; numpy arrays of the
 `bfloat16` extension dtype are read through their 16-bit patterns.
+
+`from_jax_kv_state(state)` does the same for a paged KV state
+(`jlama_tpu.kv.paged.PagedKVState`): pools compare pool for pool with the
+JAX package after the same writes.
 """
 
 from __future__ import annotations
@@ -58,3 +62,18 @@ def from_jax_params(tree: dict, device=None) -> dict:
         layers = [{k: _layer_slice(v, l) for k, v in layers.items()} for l in range(n)]
     out["layers"] = [{k: _leaf(v, device) for k, v in d.items()} for d in layers]
     return out
+
+
+def from_jax_kv_state(state, device=None):
+    """The port's `PagedKVState` from a numpy'd JAX `PagedKVState`: a pair
+    (k_pool, v_pool), each an array [.., n_kv, n_pages, ps, hd] or a q8 pool
+    as the tuple (int8 data, f32 scales, "q8"); on `device` (CUDA unless the
+    caller names one)."""
+    from ..kv.paged import PagedKVState
+
+    device = resolve_device(device)
+    k, v = state
+    for pool in (k, v):
+        if _is_qleaf(pool) and pool[2] != "q8":
+            raise ValueError(f"KV pools are float or q8, got {pool[2]!r}")
+    return PagedKVState(_leaf(k, device), _leaf(v, device))

@@ -1,15 +1,17 @@
-"""Transformer layers as plain functions on tensors (counterpart of the
-dense-cache parts of `jlama_tpu/nn/layers.py`).
+"""Transformer layers as plain functions on tensors (counterpart of
+`jlama_tpu/nn/layers.py`, its dense-cache and paged-cache paths).
 
 Conventions, as in the JAX package:
 - activations: [B, T, D]
-- attention KV cache per layer: k, v [B, n_kv, S, head_size]
+- attention KV cache per layer: dense k, v [B, n_kv, S, head_size], or a
+  `PagedLayerCache` (one layer's pools [n_kv, n_pages, ps, hd] and the
+  batch's page tables [B, P])
 - weights: [out, in] (HF Linear layout) — see ops.linear
 
-Difference from the JAX package: the cache is updated in place
-(`_update_cache`), since torch tensors are mutable and the write then costs
-only the T new rows. The paged branch of `self_attention_block` comes with
-the serving slice.
+Difference from the JAX package: caches are written in place, by the K4
+kernel (`ops/kv_write.py`), since torch tensors are mutable and the write
+then costs only the T new rows; the dense cache is a pool of B pages of S
+slots to it.
 """
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ModelConfig
-from ..ops.attention import HEAD_SIZES, flash_prefill
+from ..kv.paged import gather_kv_layer, page_size_of, write_kv_layer
+from ..ops.attention import HEAD_SIZES, flash_prefill, paged_decode
+from ..ops.kv_write import dense_page_table, dense_pool_view, kv_write
 from ..ops.linear import linear
 from .rope import apply_rope
 
@@ -81,6 +85,14 @@ def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
 class KVLayerCache(NamedTuple):
     k: torch.Tensor  # [B, n_kv, S, hd]
     v: torch.Tensor  # [B, n_kv, S, hd]
+
+
+class PagedLayerCache(NamedTuple):
+    """One layer's slice of the paged pool + the batch's page tables."""
+
+    k_pool: object  # [n_kv, n_pages, ps, hd]: a tensor or a q8 QArray
+    v_pool: object
+    page_tables: torch.Tensor  # [B, P] int32
 
 
 def attention_scores_mask(
@@ -179,17 +191,21 @@ def self_attention_block(
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
-    k_new = k.transpose(1, 2)  # [B, n_kv, T, hd]
-    v_new = v.transpose(1, 2)
+    if isinstance(cache, PagedLayerCache):
+        out = _paged_attention(q, k, v, cache, cfg, positions, sliding_window, attn_window)
+        out = out.reshape(B, T, cfg.n_heads * hd)
+        return linear(out, params["wo"], params.get("wo.bias")), cache
+
     if cache is not None:
-        _update_cache(cache.k, k_new, positions)
-        _update_cache(cache.v, v_new, positions)
+        # K4 on the dense cache: B pages of S slots, row b on page b
+        kv_write(dense_pool_view(cache.k), dense_pool_view(cache.v), k, v,
+                 dense_page_table(B, k.device), positions)
         k_att, v_att = cache.k, cache.v
         if attn_window is not None and attn_window < k_att.shape[2]:
             k_att = k_att[:, :, :attn_window]
             v_att = v_att[:, :, :attn_window]
     else:
-        k_att, v_att = k_new, v_new
+        k_att, v_att = k.transpose(1, 2), v.transpose(1, 2)  # [B, n_kv, T, hd]
     kv_len = k_att.shape[2]
     scale = attention_scale(cfg)
 
@@ -217,14 +233,34 @@ def self_attention_block(
     return out, cache
 
 
-def _update_cache(cache: torch.Tensor, new: torch.Tensor, positions: torch.Tensor) -> None:
-    """Write new [B, n_kv, T, hd] into cache [B, n_kv, S, hd] in place, row b's
-    T tokens at slots positions[b] (contiguous from positions[b, 0], as the
-    JAX package's dynamic_update_slice writes them). The slot indices stay
-    on the device, so the write needs no host sync."""
-    new = new.to(cache.dtype)
-    for b in range(cache.shape[0]):
-        cache[b].index_copy_(1, positions[b].to(torch.int64), new[b])
+def _paged_attention(q, k, v, cache: PagedLayerCache, cfg: ModelConfig, positions,
+                     sliding_window, attn_window) -> torch.Tensor:
+    """The paged branch (`jlama_tpu/nn/layers.py:258-393`): write the new
+    rows into the pool (K4), then T == 1 takes K2 over the live pages, T > 1
+    takes K3 over the gathered live window, and what neither kernel is built
+    for takes the dense masked path. q [B, T, H, hd] -> [B, T, H, hd]."""
+    B, T, H, hd = q.shape
+    write_kv_layer(cache.k_pool, cache.v_pool, k, v, cache.page_tables, positions)
+    ps = page_size_of(cache.k_pool)
+    page_tables = cache.page_tables
+    if attn_window is not None:
+        # static live-context bound: only the page-table columns that can
+        # hold tokens < attn_window
+        page_tables = page_tables[:, : min(-(-attn_window // ps), page_tables.shape[1])]
+    scale = attention_scale(cfg)
+    softcap = cfg.attn_logit_softcap
+    kernel_ok = cfg.causal and hd in HEAD_SIZES
+    if T == 1 and kernel_ok:
+        out = paged_decode(q[:, 0], cache.k_pool, cache.v_pool, page_tables,
+                           positions[:, 0] + 1, scale, softcap=softcap, window=sliding_window)
+        return out[:, None]
+    k_g, v_g = gather_kv_layer(cache.k_pool, cache.v_pool, page_tables, dtype=q.dtype)
+    k_att, v_att = k_g.transpose(1, 2), v_g.transpose(1, 2)  # [B, n_kv, S, hd] views
+    if T > 1 and kernel_ok:
+        return flash_prefill(q.transpose(1, 2), k_att, v_att, positions[:, 0], scale,
+                             softcap=softcap, window=sliding_window).transpose(1, 2)
+    mask = attention_scores_mask(positions, k_att.shape[2], cfg.causal, sliding_window)
+    return multi_head_attention(q, k_att, v_att, mask, scale, softcap)
 
 
 # ---------------------------------------------------------------------------

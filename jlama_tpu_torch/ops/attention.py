@@ -1,5 +1,5 @@
-"""K3: flash prefill attention (counterpart of
-`jlama_tpu/ops/pallas_attention.py::flash_prefill`).
+"""K3: flash prefill attention and K2: paged decode attention (counterparts
+of `jlama_tpu/ops/pallas_attention.py::flash_prefill` and `::paged_decode`).
 
 Replaces the TPU kernel `jlama_tpu/ops/pallas_attention.py:_flash_kernel`
 (launched by `_flash_prefill_jit`) with the hand-written CUDA kernel in
@@ -14,8 +14,26 @@ skipping); tensor cores come in a later PR.
 
 `flash_prefill_plain` is the same function as dense masked attention in
 PyTorch. `flash_prefill` runs it for tensors on the CPU only; a CUDA tensor
-launches the kernel or raises. The paged decode kernel (K2) comes with the
-serving slice.
+launches the kernel or raises.
+
+K2 replaces the TPU kernel `jlama_tpu/ops/pallas_attention.py:
+_paged_decode_kernel` (launched by `_paged_decode_jit`), and the library
+`paged_attention` branch of the JAX package's layers, with the hand-written
+CUDA kernel in `csrc/paged_decode.cu`: T = 1 GQA attention that reads K/V
+through the page tables, only the row's live pages (a window skips whole
+pages), q8 pools dequantized in the kernel, online softmax in f32. Any head
+count takes it, at head size 64 or 128 (the JAX gate on head and head-count
+multiples is a Mosaic limit).
+
+What bounds K2 on the H100: the live KV bytes. This first kernel walks each
+(row, KV head)'s pages in one block of 4 warps, 64 keys per shared-memory
+tile; splitting long rows over several blocks comes in a later PR.
+
+`paged_decode_plain` gathers the row's pages and runs the same masked f32
+softmax. Both follow the TPU kernel's q8 rounding (int8 times the f32 block
+scale, rounded to bf16, before the dots) and keep the probabilities in f32
+(the TPU kernel rounds them to the pool's value type). `paged_decode` runs
+the plain version for tensors on the CPU only.
 """
 
 from __future__ import annotations
@@ -24,7 +42,10 @@ import ctypes
 
 import torch
 
+from ..kv.paged import gather_pool
+from ..nn.qarray import QArray
 from . import _build
+from .kv_write import POOL_CODE, pool_parts
 
 NEG_INF = -1e30
 
@@ -36,6 +57,10 @@ _SIGNATURES = {
     "flash_prefill": [_C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I]
     + [_L] * 12
     + [_F, _F, _I, _I, _C]
+}
+_PD_SIGNATURES = {
+    "paged_decode": [_C, _L, _L, _C, _L, _L] + [_C, _L, _L, _L] * 4
+    + [_C, _L, _I, _C, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _C]
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZES = (64, 128)
@@ -102,3 +127,100 @@ def flash_prefill(q, k, v, pos0, scale, softcap=None, causal=True, window=None):
 
 
 flash_prefill.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2: paged decode
+# ---------------------------------------------------------------------------
+
+
+def _gather_pages(pool, page_tables) -> torch.Tensor:
+    """Each row's pages [B, n_kv, P*ps, hd] in f32; q8 values rounded to bf16
+    as the kernels round them."""
+    dtype = torch.bfloat16 if isinstance(pool, QArray) else torch.float32
+    return gather_pool(pool, page_tables, dtype).to(torch.float32).transpose(1, 2)
+
+
+def paged_decode_plain(q, k_pool, v_pool, page_tables, lengths, scale, softcap=None,
+                       window=None):
+    """q [B, H, hd]; pools [n_kv, n_pages, ps, hd] (tensors or q8 QArrays);
+    page_tables [B, P]; lengths [B] -> [B, H, hd] in q's dtype."""
+    B, H, hd = q.shape
+    k = _gather_pages(k_pool, page_tables)
+    v = _gather_pages(v_pool, page_tables)
+    n_kv, S = k.shape[1], k.shape[2]
+    s = torch.einsum("bkgd,bksd->bkgs", q.reshape(B, n_kv, H // n_kv, hd).to(torch.float32),
+                     k) * scale
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    kpos = torch.arange(S, device=q.device)[None, :]
+    ln = lengths.to(device=q.device, dtype=torch.int64)[:, None]
+    mask = kpos < ln
+    if window is not None:
+        mask &= kpos >= ln - window
+    mask = mask[:, None, None, :]
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgs,bksd->bkgd", p, v) / torch.where(l == 0, torch.ones_like(l), l)
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+def paged_decode(q, k_pool, v_pool, page_tables, lengths, scale, softcap=None, window=None):
+    """q [B, H, hd] (any b/h strides, unit last stride); pools [n_kv,
+    n_pages, ps, hd] (tensors or q8 QArrays; any head/page/slot strides);
+    page_tables [B, P] int; lengths [B] int (live keys per row) -> [B, H, hd]
+    in q's dtype."""
+    if q.device.type == "cpu":
+        return paged_decode_plain(q, k_pool, v_pool, page_tables, lengths, scale, softcap,
+                                  window)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode: unsupported device {q.device}")
+    kd, ks, kind, blk = pool_parts(k_pool, "paged_decode")
+    vd, vs, vkind, vblk = pool_parts(v_pool, "paged_decode")
+    B, H, hd = q.shape
+    n_kv, _, ps, _ = kd.shape
+    if kind != vkind or kind not in POOL_CODE or vd.shape != kd.shape or kd.shape[-1] != hd \
+            or vblk != blk:
+        raise ValueError(f"paged_decode: pools {kind} {tuple(kd.shape)} / {vkind} "
+                         f"{tuple(vd.shape)} for q {tuple(q.shape)}")
+    if H % n_kv:
+        raise ValueError(f"paged_decode: {H} heads over {n_kv} KV heads")
+    if hd not in HEAD_SIZES:
+        raise ValueError(f"paged_decode: head size {hd} not in {HEAD_SIZES}")
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"paged_decode: q dtype {q.dtype}")
+    for t in [q, kd, vd] + ([ks, vs] if kind == "q8" else []):
+        if t.device != q.device or t.stride(-1) != 1:
+            raise ValueError("paged_decode: q and pools on one device, with a unit last stride")
+    page_tables = page_tables.to(device=q.device, dtype=torch.int32)
+    lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    if page_tables.dim() != 2 or page_tables.shape[0] != B or page_tables.stride(1) != 1 \
+            or page_tables.shape[1] == 0 or lengths.shape != (B,):
+        raise ValueError(f"paged_decode: page_tables {tuple(page_tables.shape)}, lengths "
+                         f"{tuple(lengths.shape)} for B={B}")
+    out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
+    if B == 0:
+        return out
+
+    def pool_args(data, scales):
+        sc = scales if scales is not None else data
+        return [data.data_ptr(), *data.stride()[:3]], \
+            [sc.data_ptr() if scales is not None else None, *sc.stride()[:3]]
+
+    (k_a, ks_a), (v_a, vs_a) = pool_args(kd, ks), pool_args(vd, vs)
+    lib = _build.load("paged_decode", _PD_SIGNATURES)
+    err = lib.paged_decode(
+        q.data_ptr(), q.stride(0), q.stride(1), out.data_ptr(), out.stride(0), out.stride(1),
+        *k_a, *v_a, *ks_a, *vs_a,
+        page_tables.data_ptr(), page_tables.stride(0), page_tables.shape[1],
+        lengths.data_ptr(), B, H, n_kv, hd, ps, blk, float(scale), float(softcap or 0.0),
+        int(window or 0), _DTYPE_CODE[q.dtype], POOL_CODE[kind],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "paged_decode")
+    paged_decode.launches += 1
+    return out
+
+
+paged_decode.launches = 0

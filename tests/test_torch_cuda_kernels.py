@@ -88,3 +88,137 @@ def test_engine_on_card_matches_cpu_logits(cuda):
     # the tiled K1 path (M = 32 > 16) rounds x and W to bf16 on the card
     rel = ((got.cpu() - ref).norm() / ref.norm()).item()
     assert rel < 3e-2, rel
+
+
+def _pools(cuda, kind, shape, g):
+    from jlama_tpu_torch.nn.qarray import QArray
+    from jlama_tpu_torch.quant.blockq import q8_quantize
+
+    out = []
+    for _ in range(2):
+        x = torch.randn(shape, generator=g, device=cuda)
+        if kind == "q8":
+            out.append(QArray(*q8_quantize(x), "q8"))
+        else:
+            out.append(x.to(torch.bfloat16 if kind == "bf16" else torch.float32))
+    return out
+
+
+def _layer(pool, l):
+    from jlama_tpu_torch.nn.qarray import QArray
+
+    return QArray(pool.data[l], pool.scales[l], "q8") if isinstance(pool, QArray) else pool[l]
+
+
+@pytest.mark.parametrize("hd,cap,win", [(64, None, None), (128, 30.0, 20), (64, None, 9)])
+@pytest.mark.parametrize("kind", ["f32", "bf16", "q8"])
+# groups of 4, 32 (MQA: two full blocks of 16 rows) and 24 (a partial block)
+@pytest.mark.parametrize("H,n_kv", [(8, 2), (32, 1), (48, 2)])
+def test_paged_decode_kernel_matches_plain(cuda, kind, hd, cap, win, H, n_kv):
+    from jlama_tpu_torch.ops.attention import paged_decode, paged_decode_plain
+
+    g = torch.Generator(device=cuda).manual_seed(hd + int(cap or 0))
+    B, ps, n_pages, P = 5, 16, 40, 6
+    # stacked [L=2, ...] pools, read through layer 1's strided view
+    kp, vp = (_layer(p, 1) for p in _pools(cuda, kind, (2, n_kv, n_pages, ps, hd), g))
+    lengths = torch.tensor([1, 37, 96, 50, 17], dtype=torch.int32, device=cuda)
+    pt = (torch.randperm(n_pages - 1, device=cuda)[: B * P] + 1).to(torch.int32).reshape(B, P)
+    pt[0] = 0  # an empty decode slot: length 1 on the scratch page
+    q = torch.randn((B, H, hd), generator=g, device=cuda)
+    before = paged_decode.launches
+    got = paged_decode(q, kp, vp, pt, lengths, hd ** -0.5, cap, win)
+    assert paged_decode.launches == before + 1
+    ref = paged_decode_plain(q, kp, vp, pt, lengths, hd ** -0.5, cap, win)
+    torch.cuda.synchronize()
+    tol = 3e-3 if kind == "q8" else 2e-5
+    assert (got - ref).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("B,T", [(4, 1), (3, 37)])
+@pytest.mark.parametrize("kind", ["f32", "bf16", "q8"])
+def test_kv_write_kernel_matches_plain(cuda, kind, B, T):
+    from jlama_tpu_torch.nn.qarray import QArray
+    from jlama_tpu_torch.ops.kv_write import kv_write, kv_write_plain
+
+    g = torch.Generator(device=cuda).manual_seed(B * T)
+    n_kv, ps, n_pages, P, hd = 2, 16, 20, 4, 64
+    stacked = _pools(cuda, kind, (2, n_kv, n_pages, ps, hd), g)
+
+    def clone(p):
+        return QArray(p.data.clone(), p.scales.clone(), "q8") if isinstance(p, QArray) \
+            else p.clone()
+
+    mine = [clone(p) for p in stacked]
+    plain = [clone(p) for p in stacked]
+    pt = (torch.randperm(n_pages - 1, device=cuda)[: B * P] + 1).to(torch.int32).reshape(B, P)
+    pt[-1] = 0  # a pad row on the scratch page
+    start = torch.tensor([0, 5, 40, 60][:B], device=cuda)  # the last row runs past its table
+    pos = start[:, None] + torch.arange(T, device=cuda)[None, :]
+    new = [torch.randn((B, T, n_kv, hd), generator=g, device=cuda).to(torch.bfloat16)
+           for _ in range(2)]
+    before = kv_write.launches
+    kv_write(_layer(mine[0], 1), _layer(mine[1], 1), *new, pt, pos)
+    assert kv_write.launches == before + 1
+    kv_write_plain(_layer(plain[0], 1), _layer(plain[1], 1), *new, pt, pos)
+    torch.cuda.synchronize()
+    for a, b in zip(mine, plain):  # page 0 left out: the pad row's writes race there
+        if kind == "q8":
+            assert (a.data[:, :, 1:].int() - b.data[:, :, 1:].int()).abs().max() <= 1
+            ulp = a.scales[:, :, 1:].view(torch.int32).long() \
+                - b.scales[:, :, 1:].view(torch.int32).long()
+            assert ulp.abs().max() <= 1
+        else:
+            assert torch.equal(a[:, :, 1:], b[:, :, 1:])
+
+
+def test_kv_write_kernel_dense_engine_view(cuda):
+    from jlama_tpu_torch.ops.kv_write import dense_page_table, dense_pool_view, kv_write
+
+    cache = torch.randn((2, 4, 32, 64), device=cuda).to(torch.bfloat16)
+    ref = cache.clone()
+    new = torch.randn((2, 3, 4, 64), device=cuda)  # f32 rows into a bf16 cache
+    pos = torch.tensor([[7, 8, 9], [29, 30, 31]], device=cuda)
+    kv_write(dense_pool_view(cache), dense_pool_view(cache), new, new,
+             dense_page_table(2, cuda), pos)
+    for b in range(2):
+        ref[b, :, pos[b]] = new[b].transpose(0, 1).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(cache, ref)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, "q8"])
+def test_paged_forward_on_card_matches_cpu_logits(cuda, kv_dtype):
+    from jlama_tpu_torch.config import from_hf_config
+    from jlama_tpu_torch.kv.paged import PagedKVCache
+    from jlama_tpu_torch.models.base import forward_logits, fuse_params, params_to
+    from jlama_tpu_torch.models.init import init_params
+
+    cfg = from_hf_config({
+        "model_type": "llama", "hidden_size": 256, "intermediate_size": 512,
+        "num_attention_heads": 4, "num_key_value_heads": 2, "num_hidden_layers": 2,
+        "rms_norm_eps": 1e-5, "vocab_size": 256, "max_position_embeddings": 128,
+        "rope_theta": 10000.0, "bos_token_id": 1, "eos_token_id": 2,
+        "hidden_act": "silu", "tie_word_embeddings": False,
+    })
+    params = fuse_params(init_params(cfg, seed=0, dtype=torch.float32, device="cpu"))
+    toks = torch.tensor([[1, 5, 9, 42, 7, 13, 99, 100] * 3])
+
+    def run(p, device):
+        kv = PagedKVCache(cfg, n_pages=6, page_size=16, max_pages_per_seq=2, dtype=kv_dtype,
+                          device=device)
+        kv.alloc.ensure_capacity("s", 32, 16)
+        cache = (kv.layer_states(), torch.from_numpy(kv.page_table(["s"])).to(device))
+        outs = [forward_logits(p, cfg, toks[:, :16].to(device),
+                               torch.arange(16, device=device)[None], cache,
+                               dtype=torch.float32)[0]]
+        for t in range(16, 24):
+            outs.append(forward_logits(p, cfg, toks[:, t:t + 1].to(device),
+                                       torch.tensor([[t]], device=device), cache,
+                                       dtype=torch.float32)[0])
+        return torch.cat(outs, dim=1).cpu()
+
+    ref = run(params, "cpu")
+    got = run(params_to(params, cuda), cuda)
+    # every K1 call here is a GEMV (M <= 16): f32 dequant, sums in another order
+    rel = ((got - ref).norm() / ref.norm()).item()
+    assert rel < 3e-2, rel

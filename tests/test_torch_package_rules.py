@@ -1,6 +1,7 @@
 """Rules of the port package: no JAX and nothing of jlama_tpu, no optional
-text-processing packages on the Engine/load_params import path, CUDA by
-default with no quiet CPU fall-back, and plain versions on the CPU."""
+text-processing or HTTP packages on the Engine/load_params and serving import
+paths, CUDA by default with no quiet CPU fall-back, and plain versions on the
+CPU."""
 
 import ast
 import shutil
@@ -50,11 +51,16 @@ def test_optional_packages_only_in_tokenizers():
 
 
 def test_engine_import_path_is_clean():
+    """The Engine and serving paths (scheduler, paged KV, metrics) pull in
+    none of jax, jlama_tpu, the optional packages or aiohttp."""
     code = (
         "import sys\n"
         "import jlama_tpu_torch.runtime.engine, jlama_tpu_torch.models.loader\n"
         "import jlama_tpu_torch.models.init, jlama_tpu_torch.models.convert\n"
-        f"bad = [m for m in sys.modules if m.split('.')[0] in {OPTIONAL + ('jax', 'jlama_tpu')!r}]\n"
+        "import jlama_tpu_torch.runtime.scheduler, jlama_tpu_torch.kv.paged\n"
+        "import jlama_tpu_torch.utils.metrics\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{OPTIONAL + ('jax', 'jlama_tpu', 'aiohttp')!r}]\n"
         "bad += [m for m in sys.modules if m.startswith('jlama_tpu_torch.tokenizers')]\n"
         "print(sorted(bad))\n"
     )
@@ -64,10 +70,12 @@ def test_engine_import_path_is_clean():
 
 
 def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
-    from jlama_tpu_torch.models.convert import from_jax_params
+    from jlama_tpu_torch.kv.paged import PagedKVCache
+    from jlama_tpu_torch.models.convert import from_jax_kv_state, from_jax_params
     from jlama_tpu_torch.models.init import init_params, llama_1b_config, random_q4_params
     from jlama_tpu_torch.models.loader import load_params
     from jlama_tpu_torch.runtime.engine import Engine
+    from jlama_tpu_torch.runtime.scheduler import BatchScheduler
     from jlama_tpu_torch.config import from_hf_config
     from tests.helpers import TINY_LLAMA_CONFIG
 
@@ -85,6 +93,15 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         Engine(params, cfg)
     assert Engine(params, cfg, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchScheduler(params, cfg, n_slots=2, n_pages=8, page_size=8, max_seq_len=32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagedKVCache(cfg, n_pages=8, page_size=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        from_jax_kv_state((np.zeros((1, 1, 2, 2, 16), np.float32),) * 2)
+    sched = BatchScheduler(params, cfg, n_slots=2, n_pages=8, page_size=8, max_seq_len=32,
+                           device="cpu")
+    assert sched.device.type == "cpu" and sched.kv.state.k_pool.device.type == "cpu"
 
 
 def test_cpu_run_goes_through_plain_versions(monkeypatch):
@@ -139,7 +156,8 @@ def test_chip_smoke_refuses_without_gpu_or_package(tmp_path):
 
 def test_wrappers_reject_other_devices():
     from jlama_tpu_torch.nn.qarray import quantize_q4
-    from jlama_tpu_torch.ops.attention import flash_prefill
+    from jlama_tpu_torch.ops.attention import flash_prefill, paged_decode
+    from jlama_tpu_torch.ops.kv_write import kv_write
     from jlama_tpu_torch.ops.q4_matmul import q4_matmul
 
     w = quantize_q4(np.ones((8, 32), np.float32)).to("meta")
@@ -148,3 +166,52 @@ def test_wrappers_reject_other_devices():
     q = torch.ones((1, 2, 4, 64), device="meta")
     with pytest.raises(ValueError, match="device"):
         flash_prefill(q, q, q, torch.zeros(1, dtype=torch.int32), 0.1)
+    pool = torch.ones((2, 4, 8, 64), device="meta")
+    pt = torch.zeros((1, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="device"):
+        paged_decode(torch.ones((1, 4, 64), device="meta"), pool, pool, pt,
+                     torch.ones(1, dtype=torch.int32), 0.1)
+    rows = torch.ones((1, 1, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="device"):
+        kv_write(pool, pool, rows, rows, pt, torch.zeros((1, 1), dtype=torch.int64))
+
+
+def test_cpu_serving_goes_through_plain_versions(monkeypatch):
+    """A device="cpu" scheduler at head size 64 reaches the paged-decode, KV
+    write, flash-prefill and q4 wrappers, which run their plain versions
+    (as often as the scheduler's prefill calls and decode steps imply) and
+    count no launch."""
+    from jlama_tpu_torch.config import from_hf_config
+    from jlama_tpu_torch.models.init import init_params
+    from jlama_tpu_torch.ops import attention, kv_write as kvw, q4_matmul
+    from jlama_tpu_torch.runtime.scheduler import BatchScheduler
+    from tests.helpers import TINY_LLAMA_CONFIG
+
+    cfg = from_hf_config(dict(TINY_LLAMA_CONFIG, hidden_size=128, num_attention_heads=2,
+                              num_key_value_heads=1))
+    calls = {"q4": 0, "flash": 0, "paged": 0, "kv": 0}
+
+    def counting(key, fn):
+        def wrapped(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(q4_matmul, "q4_matmul_plain", counting("q4", q4_matmul.q4_matmul_plain))
+    monkeypatch.setattr(attention, "flash_prefill_plain",
+                        counting("flash", attention.flash_prefill_plain))
+    monkeypatch.setattr(attention, "paged_decode_plain",
+                        counting("paged", attention.paged_decode_plain))
+    monkeypatch.setattr(kvw, "kv_write_plain", counting("kv", kvw.kv_write_plain))
+    fns = (q4_matmul.q4_matmul, attention.flash_prefill, attention.paged_decode, kvw.kv_write)
+    launches = [f.launches for f in fns]
+    params = init_params(cfg, seed=0, quantize="q4", device="cpu", dtype=torch.float32)
+    sched = BatchScheduler(params, cfg, n_slots=2, n_pages=16, page_size=8, max_seq_len=64,
+                           kv_dtype=torch.float32, compute_dtype=torch.float32, device="cpu")
+    resp = sched.generate(list(range(1, 12)), max_new_tokens=3, stop_ids={-1})
+    assert len(resp.token_ids) == 3
+    L, n_pf, n_dec = cfg.n_layers, sched.n_prefill_calls, sched.n_decode_steps
+    assert (n_pf, n_dec) == (1, 3)
+    assert calls == {"q4": 4 * L * (n_pf + n_dec), "flash": L * n_pf, "paged": L * n_dec,
+                     "kv": L * (n_pf + n_dec)}
+    assert [f.launches for f in fns] == launches
