@@ -15,7 +15,12 @@ Phases, each fatal on failure (exit code 1, no result line):
               K3 flash prefill, K2 paged decode (16 slots, ragged lengths
               1-2048 over 512 pages of 64, bf16 and q8 pools; 32 query heads
               on one KV head; head size 128 with softcap and window), K4 KV write (decode, a 256-token
-              prefill chunk, bf16 and q8 pools, and the Engine's dense cache);
+              prefill chunk, bf16 and q8 pools, and the Engine's dense cache),
+              K5 W4A8 matmul (Llama-3.2-1B's wqkv, wo, w13, w2 at M = 1, 16,
+              256, 512, the f32-out lm_head at M = 1, 16, Llama-3.1-8B's w2
+              and an uneven N; its in-launch int8 activations must equal
+              q8_quantize(x, 256) exactly; bound against 1,979 TOP/s int8),
+              with K1 and torch.matmul on a bf16 weight beside it;
   4. engine - Llama-3.2-1B at full width (16 layers, random JQ4 weights from
               a seed) through Engine.generate_tokens: a 512-token prompt with
               128 new tokens, a resume of that session, and five
@@ -40,7 +45,20 @@ Phases, each fatal on failure (exit code 1, no result line):
               and 8 decode steps, bf16 and q8 pools) are held against the plain
               f32 path on the CPU (relative L2 < 5e-2); prints total tok/s,
               TTFT and inter-token p50/p95, and the device's busy share over
-              16 decode steps at 16 slots.
+              16 decode steps at 16 slots;
+  7. q4s serving - the same model and serving settings through
+              BatchScheduler(weight_format="q4s"): the q4s conversion's time,
+              12 requests from a seed (8 at once, 4 while the batch runs; 4
+              seeded at temperature 0.8), K5's launches equal to the formula of
+              phase 6's K1 and K1 at 0, the paged logits against the same q4s
+              weights through K5's plain version in f32 on the CPU (relative
+              L2 < 5e-2), and its serving numbers and busy share beside phase
+              6's;
+  8. perplexity - eval.ppl.score_tokens on the card over 2,048 token ids from
+              a seed (windows of 1024, stride 512) with the q4 weights and
+              their q4s conversion: both perplexities (random weights: only
+              their relative delta and the path mean anything), K5 launched in
+              the q4s run and K1 in the q4 run only.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. --out also writes the per-shape details and
 the profiles as JSON.
@@ -50,6 +68,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -58,6 +77,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
+INT8_OPS_PER_S = 1979e12  # H100 SXM data sheet, dense int8 tensor cores
 K1_TOL = 2e-2  # max |kernel - plain| <= K1_TOL * max |plain| (bf16 W tiles / bf16 out)
 K1_REL_L2 = 1e-2
 K3_TOL = 2e-2  # max |kernel - plain| on N(0, 1) inputs (bf16 in and out)
@@ -67,6 +87,10 @@ K3_TOL = 2e-2  # max |kernel - plain| on N(0, 1) inputs (bf16 in and out)
 # rounding of two f32 results that agree to ~1e-6) plus the f32 limit
 K2_TOL = {"bf16": 2e-5, "q8": 3e-3}
 K2_BF16_OUT_REL, K2_BF16_OUT_ABS = 2.0 ** -7, 2e-5
+# K5 against its plain version: the same exact integer dots; f32 out within
+# 1e-5 max|plain| (the f32 group sums in another order); bf16 out within one
+# bf16 ulp (at most 2^-7 of the value) of the plain output plus that
+K5_TOL, K5_BF16_OUT_REL = 1e-5, 2.0 ** -7
 LOGITS_REL_L2 = 5e-2
 N_TTFT = 5  # time-to-first-token runs; the median is reported
 SLEEP_CYCLES = 100_000_000  # ~50 ms at H100 clocks: the host queues every timed launch
@@ -77,8 +101,8 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+def bound(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S) -> tuple[float, str]:
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -182,6 +206,88 @@ def check_k1(torch, timer, details):
     return dict(summed, max_abs_err=worst, bound_by="bytes", ms_m16=ms16, bound_ms_m16=bound16,
                 work="one decode step, M=1: "
                 f"{L} x (wqkv, wo, w13, w2) + lm_head = {len(step)} launches")
+
+
+def check_k5(torch, timer, details):
+    from jlama_tpu_torch.models.init import llama_1b_config, llama_8b_config
+    from jlama_tpu_torch.nn.qarray import QArray
+    from jlama_tpu_torch.ops.q4_matmul import q4_matmul
+    from jlama_tpu_torch.ops.w8a8 import (
+        BITS_PER_WEIGHT, q4s_matmul, q4s_matmul_plain, quantize_x_on_card, to_q4s)
+    from jlama_tpu_torch.quant.blockq import q8_quantize
+
+    c1, c8 = llama_1b_config(), llama_8b_config()
+    D, Hf, V = c1.embedding_length, c1.hidden_length, c1.vocab_size
+    qkv = (c1.n_heads + 2 * c1.n_kv_heads) * c1.head_size
+    layer_shapes = {"wqkv": (qkv, D), "wo": (D, D), "w13": (2 * Hf, D), "w2": (D, Hf)}
+    cases = [(name, n, k, m, torch.bfloat16)
+             for m in (1, 16, 256, 512) for name, (n, k) in layer_shapes.items()]
+    cases += [("lm_head", V, D, m, torch.float32) for m in (1, 16)]
+    cases += [("8b_w2", c8.embedding_length, c8.hidden_length, m, torch.bfloat16)
+              for m in (1, 16, 512)]
+    cases += [("uneven_n", 1000, 2048, m, torch.bfloat16) for m in (1, 37)]
+    g = torch.Generator(device="cuda").manual_seed(11)
+    worst = 0.0
+    per_shape = {}
+    for name, n, k, m, out_dtype in cases:
+        q4 = QArray(torch.randint(0, 256, (n, k // 2), generator=g, device="cuda",
+                                  dtype=torch.uint8),
+                    (torch.rand((n, k // 32), generator=g, device="cuda") + 0.5) * 0.0043)
+        w = to_q4s(q4)
+        x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+        x[0, :256] = 0  # an all-zero activation group: scale 0
+        xq, xs = quantize_x_on_card(x)
+        rq, rs = q8_quantize(x.float().cpu(), block=256)
+        if not (torch.equal(xq.cpu(), rq) and torch.equal(xs.cpu(), rs)):
+            fail(f"K5 {name} M={m}: in-launch int8 activations differ from q8_quantize(x, 256): "
+                 f"{int((xq.cpu() != rq).sum())} codes, {int((xs.cpu() != rs).sum())} scales")
+        got = q4s_matmul(x, w, out_dtype).float()
+        ref = q4s_matmul_plain(x, w, torch.float32)
+        torch.cuda.synchronize()
+        d = (got - ref).abs()
+        err, scale = d.max().item(), ref.abs().max().item()
+        lim = K5_TOL * scale
+        if out_dtype == torch.bfloat16:
+            lim = lim + K5_BF16_OUT_REL * ref.abs()
+        if not bool((d <= lim).all()):
+            fail(f"K5 {name} M={m} N={n} K={k} {out_dtype}: max_abs_err {err} (max|ref| {scale})")
+        worst = max(worst, err)
+        del xq, xs, ref, got
+        wd = w.dequantize(torch.bfloat16)
+        ms = timer(lambda: q4s_matmul(x, w, out_dtype))
+        plain_ms = timer(lambda: q4s_matmul_plain(x, w, out_dtype))
+        yard_ms = timer(lambda: torch.matmul(x, wd.t()))
+        k1_ms = timer(lambda: q4_matmul(x, q4, out_dtype))
+        del wd
+        out_size = 4 if out_dtype == torch.float32 else 2
+        nbytes = n * k * BITS_PER_WEIGHT / 8 + m * k * 2 + m * n * out_size
+        b_ms, b_by = bound(nbytes, 2.0 * m * n * k, INT8_OPS_PER_S)
+        row = dict(kernel="w8a8_matmul", shape=name, M=m, N=n, K=k, max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, library_ms=None, yardstick_ms=yard_ms, k1_ms=k1_ms,
+                   bound_ms=b_ms, bound_by=b_by)
+        details.append(row)
+        per_shape[(name, m)] = row
+        print(f"K5 {name:8s} M={m:4d} N={n:6d} K={k:5d}: {ms:.4f} ms (plain {plain_ms:.4f}, "
+              f"torch.matmul bf16 {yard_ms:.4f}, K1 {k1_ms:.4f}, bound {b_ms:.4f} by {b_by}) "
+              f"err {err:.3g}", flush=True)
+    # the JSON line's K5 work: one decode step of the q4s serving path at M = 1
+    # and M = 16: 16 layers x (wqkv, wo, w13, w2) + the lm_head, beside K1
+    L = c1.n_layers
+    steps = {}
+    for m in (1, 16):
+        step = [per_shape[(s, m)] for s in layer_shapes for _ in range(L)] \
+            + [per_shape[("lm_head", m)]]
+        steps[m] = {key: sum(r[key] for r in step)
+                    for key in ("ms", "plain_ms", "yardstick_ms", "k1_ms", "bound_ms")}
+        print(f"K5 one decode step at M={m}: {steps[m]['ms']:.4f} ms (K1 {steps[m]['k1_ms']:.4f},"
+              f" torch.matmul bf16 {steps[m]['yardstick_ms']:.4f}, bound "
+              f"{steps[m]['bound_ms']:.4f})", flush=True)
+    return dict(steps[1], library_ms=None, max_abs_err=worst, bound_by="bytes",
+                ms_m16=steps[16]["ms"], k1_ms_m16=steps[16]["k1_ms"],
+                bound_ms_m16=steps[16]["bound_ms"],
+                work=f"one decode step, M=1: {L} x (wqkv, wo, w13, w2) + lm_head = "
+                     f"{4 * L + 1} launches; yardstick: torch.matmul on bf16 weights; "
+                     "k1_ms: K1 on the same JQ4 weights")
 
 
 def check_k3(torch, timer, details):
@@ -602,16 +708,17 @@ def profile_path(torch, eng, prompt) -> dict:
 
 SERVE = dict(n_slots=16, n_pages=512, page_size=64, prefill_chunk=256, decode_lag=4,
              max_seq_len=2048)  # jlama_tpu/cli.py's serving defaults
-KERNELS = ("q4_matmul", "paged_decode", "flash_prefill", "kv_write")
+KERNELS = ("q4_matmul", "paged_decode", "flash_prefill", "kv_write", "w8a8_matmul")
 
 
 def _kernel_fns():
     from jlama_tpu_torch.ops.attention import flash_prefill, paged_decode
     from jlama_tpu_torch.ops.kv_write import kv_write
     from jlama_tpu_torch.ops.q4_matmul import q4_matmul
+    from jlama_tpu_torch.ops.w8a8 import q4s_matmul
 
     return {"q4_matmul": q4_matmul, "paged_decode": paged_decode,
-            "flash_prefill": flash_prefill, "kv_write": kv_write}
+            "flash_prefill": flash_prefill, "kv_write": kv_write, "w8a8_matmul": q4s_matmul}
 
 
 def _reset_counts(sched):
@@ -620,17 +727,19 @@ def _reset_counts(sched):
     sched.n_prefill_calls = sched.n_decode_steps = 0
 
 
-def _check_counts(sched, cfg, label) -> dict:
-    """K1-K4's launches against the scheduler's own counts: a prefill call
-    (T > 1) launches 4 K1, one K3 and one K4 per layer; a decode step 4 K1,
-    one K2 and one K4 per layer, and the lm_head's K1."""
+def _check_counts(sched, cfg, label, matmul="q4_matmul") -> dict:
+    """The kernels' launches against the scheduler's own counts: a prefill
+    call (T > 1) launches 4 matmuls (K1, or K5 for q4s weights), one K3 and
+    one K4 per layer; a decode step 4 matmuls, one K2 and one K4 per layer,
+    and the lm_head's matmul. The other matmul kernel launches no time."""
     got = {k: fn.launches for k, fn in _kernel_fns().items()}
     L, n_pf, n_dec = cfg.n_layers, sched.n_prefill_calls, sched.n_decode_steps
-    expect = {"q4_matmul": n_pf * 4 * L + n_dec * (4 * L + 1), "paged_decode": n_dec * L,
+    other = "w8a8_matmul" if matmul == "q4_matmul" else "q4_matmul"
+    expect = {matmul: n_pf * 4 * L + n_dec * (4 * L + 1), other: 0, "paged_decode": n_dec * L,
               "flash_prefill": n_pf * L, "kv_write": (n_pf + n_dec) * L}
     print(f"{label}: {n_pf} prefill calls, {n_dec} decode steps; launches {got}, "
           f"expected {expect}", flush=True)
-    if got != expect or min(got.values()) == 0:
+    if got != expect or min(v for k, v in got.items() if k != other) == 0:
         fail(f"{label}: launch counts {got} != expected {expect}")
     return dict(got, prefill_calls=n_pf, decode_steps=n_dec)
 
@@ -770,6 +879,148 @@ def serving_path(torch, card_note):
     return counts, e2e
 
 
+def q4s_serving_path(torch, card_note, q4_serving):
+    """Phase 7: W4A8 serving, BatchScheduler(weight_format="q4s")."""
+    from jlama_tpu_torch.models.base import fuse_params
+    from jlama_tpu_torch.models.init import llama_1b_config, random_q4_params
+    from jlama_tpu_torch.nn.qarray import QArray
+    from jlama_tpu_torch.ops.w8a8 import prepare_params_for_w8a8
+    from jlama_tpu_torch.runtime.scheduler import BatchScheduler, GenRequest
+
+    cfg = llama_1b_config()
+    V = cfg.vocab_size
+    params = random_q4_params(cfg, seed=0, device="cuda")
+    # the conversion on its own, timed: fuse, then to_q4s of every 2-D weight
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    conv = prepare_params_for_w8a8(fuse_params(params))
+    torch.cuda.synchronize()
+    conv_s = time.perf_counter() - t0
+
+    def nbytes(v):
+        if isinstance(v, list):
+            return sum(nbytes(x) for x in v)
+        if isinstance(v, dict):
+            return sum(nbytes(x) for x in v.values())
+        if isinstance(v, QArray) and v.fmt == "q4s":
+            return v.data.nbytes + sum(t.nbytes for t in v.scales)
+        return 0
+
+    q4s_gb = nbytes(conv) / 1e9
+    del conv
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sched = BatchScheduler(params, cfg, weight_format="q4s", kv_dtype=torch.bfloat16,
+                           device="cuda", **SERVE)
+    del params
+    sched.warmup()
+    torch.cuda.synchronize()
+    print(f"q4s serving: Llama-3.2-1B, {SERVE}; q4s conversion (fuse + to_q4s on the card) "
+          f"{conv_s:.3f} s, q4s weights {q4s_gb:.3f} GB; set-up and warm-up "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    g = torch.Generator().manual_seed(8)
+
+    def rint(lo, hi):
+        return int(torch.randint(lo, hi + 1, (1,), generator=g))
+
+    def ids(n):
+        return torch.randint(0, V, (n,), generator=g).tolist()
+
+    reqs = []
+    for i in range(12):
+        kw = dict(prompt_ids=ids(rint(32, 1024)), max_new_tokens=rint(64, 128))
+        if i < 4:  # seeded draws
+            kw.update(temperature=0.8, top_p=0.95, top_k=40, seed=200 + i)
+        reqs.append(GenRequest(**kw))
+    _reset_counts(sched)
+    t_start = time.perf_counter()
+    sched.start()
+    for r in reqs[:8]:
+        sched.submit(r)
+    # 4 more while the batch runs: once it has produced 16 tokens a slot
+    while sum(len(r.out_ids) for r in reqs[:8]) < 8 * 16:
+        if time.perf_counter() - t_start > 300:
+            fail("q4s serving: no progress in 300 s")
+        time.sleep(0.005)
+    for r in reqs[8:]:
+        sched.submit(r)
+    _wait(reqs, 300, "q4s serving")
+    wall = time.perf_counter() - t_start
+    sched.stop()
+    torch.cuda.synchronize()
+    counts = _check_counts(sched, cfg, "q4s serving path", matmul="w8a8_matmul")
+    _check_finish(reqs, cfg, "q4s serving")
+    resps = [r.to_response() for r in reqs]
+    n_gen = sum(r.generated_tokens for r in resps)
+    ttft = [r.prompt_time_ms for r in resps]
+    itl = [r.generate_time_ms / (r.generated_tokens - 1) for r in resps if r.generated_tokens > 1]
+    e2e = dict(requests=len(resps), generated_tokens=n_gen, wall_s=wall, tok_s=n_gen / wall,
+               ttft_ms_p50=_pct(ttft, 50), ttft_ms_p95=_pct(ttft, 95),
+               itl_ms_p50=_pct(itl, 50), itl_ms_p95=_pct(itl, 95),
+               finish={f: sum(r.finish_reason.name == f for r in resps)
+                       for f in ("MAX_TOKENS", "STOP_TOKEN")}, launches=counts,
+               conversion_s=conv_s, q4s_weights_gb=q4s_gb)
+    e2e["profile"] = _serving_profile(torch, sched, cfg, ids)
+    e2e["logits_rel_l2"] = _paged_logits_check(torch, sched, cfg, torch.bfloat16, ids)
+    q4 = q4_serving
+    print(f"q4s serving: {len(resps)} requests, {n_gen} tokens in {wall:.2f} s = "
+          f"{n_gen / wall:.1f} tok/s (phase 6, q4, 24 requests: {q4['tok_s']:.1f}); TTFT p50 "
+          f"{e2e['ttft_ms_p50']:.1f} ms (q4 {q4['ttft_ms_p50']:.1f}), p95 "
+          f"{e2e['ttft_ms_p95']:.1f} ms (q4 {q4['ttft_ms_p95']:.1f}); inter-token p50 "
+          f"{e2e['itl_ms_p50']:.2f} ms (q4 {q4['itl_ms_p50']:.2f}), p95 {e2e['itl_ms_p95']:.2f} ms "
+          f"(q4 {q4['itl_ms_p95']:.2f}); busy share over 16 decode steps "
+          f"{e2e['profile']['busy_share']:.3f} (q4 {q4['profile']['busy_share']:.3f}); finishes "
+          f"{e2e['finish']} on {card_note}", flush=True)
+    del sched
+    torch.cuda.empty_cache()
+    return counts, e2e
+
+
+PPL_TOKENS, PPL_SEQ, PPL_STRIDE = 2048, 1024, 512
+
+
+def ppl_path(torch) -> dict:
+    """Phase 8: eval.ppl.score_tokens on the card with the q4 weights and
+    their q4s conversion. Random weights: the level means nothing, so only
+    the relative delta and the kernels' launches are reported."""
+    from jlama_tpu_torch.eval.ppl import score_tokens
+    from jlama_tpu_torch.models.init import llama_1b_config, random_q4_params
+    from jlama_tpu_torch.ops.w8a8 import prepare_params_for_w8a8
+
+    cfg = llama_1b_config()
+    params = random_q4_params(cfg, seed=0, device="cuda")
+    ids = torch.randint(0, cfg.vocab_size, (PPL_TOKENS,),
+                        generator=torch.Generator().manual_seed(9)).numpy()
+    n_win = 1 + (PPL_TOKENS - PPL_SEQ) // PPL_STRIDE
+    fns = _kernel_fns()
+    out = {}
+    for fmt, p in (("q4", params), ("q4s", prepare_params_for_w8a8(params))):
+        for fn in fns.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ppl = score_tokens(p, cfg, ids, seq_len=PPL_SEQ, stride=PPL_STRIDE, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {k: fns[k].launches for k in ("q4_matmul", "w8a8_matmul", "flash_prefill")}
+        # unfused weights: 7 projections per layer, and the lm_head, per window
+        mm = n_win * (7 * cfg.n_layers + 1)
+        expect = {"q4_matmul": mm if fmt == "q4" else 0, "w8a8_matmul": mm if fmt == "q4s" else 0,
+                  "flash_prefill": n_win * cfg.n_layers}
+        print(f"perplexity ({fmt}): {ppl:.6g} over {PPL_TOKENS} random ids, windows of "
+              f"{PPL_SEQ} stride {PPL_STRIDE} ({n_win} windows, f32 activations) in "
+              f"{secs:.2f} s; launches {got}, expected {expect}", flush=True)
+        if not math.isfinite(ppl) or got != expect:
+            fail(f"perplexity ({fmt}): {ppl}, launches {got} != {expect}")
+        out[fmt] = dict(ppl=ppl, seconds=secs, launches=got)
+    delta = (out["q4s"]["ppl"] - out["q4"]["ppl"]) / out["q4"]["ppl"]
+    print(f"perplexity: q4s against q4, relative delta {delta:.3g} (random weights: the "
+          "levels mean nothing)", flush=True)
+    out["relative_delta"] = delta
+    return out
+
+
 def _serving_profile(torch, sched, cfg, ids) -> dict:
     """The device's busy share over 16 decode steps at 16 slots (chained
     windows of 4), with torch.profiler (whose own host cost lowers the busy
@@ -794,7 +1045,8 @@ def _serving_profile(torch, sched, cfg, ids) -> dict:
         n_steps = sched.n_decode_steps - n0
     while not all(r.state == RequestState.DONE for r in reqs):
         sched.step()
-    groups = {"q4_matmul": 0.0, "paged_decode": 0.0, "kv_write": 0.0, "other": 0.0}
+    groups = {"q4_matmul": 0.0, "w8a8_matmul": 0.0, "paged_decode": 0.0, "kv_write": 0.0,
+              "other": 0.0}
     kernels = []
     for e in prof.key_averages():
         if str(e.device_type).endswith("CUDA"):
@@ -804,7 +1056,8 @@ def _serving_profile(torch, sched, cfg, ids) -> dict:
     if dev_ms <= 0:
         fail("serving profile: the profiler saw no device time")
     for ms, _, key in kernels:
-        grp = ("q4_matmul" if "q4_ge" in key else "paged_decode" if "paged_decode" in key
+        grp = ("q4_matmul" if "q4_ge" in key else "w8a8_matmul" if "w8a8_" in key
+               else "paged_decode" if "paged_decode" in key
                else "kv_write" if "kv_write" in key else "other")
         groups[grp] += ms
     n_ops = sum(c for _, c, _ in kernels)
@@ -820,9 +1073,11 @@ def _serving_profile(torch, sched, cfg, ids) -> dict:
 
 
 def _paged_logits_check(torch, sched, cfg, kv_dtype, ids) -> float:
-    """The paged forward's logits on the card (bf16 activations, K1-K4)
-    against the same weights, dequantized once to f32, and the same pool kind
-    on the CPU (plain versions): a 24-token prefill and 8 decode steps."""
+    """The paged forward's logits on the card (bf16 activations, K1-K5)
+    against the same weights and the same pool kind on the CPU (plain
+    versions, f32 activations): q4 and q8 weights dequantized once to f32,
+    q4s weights as they are, through K5's plain version (int8 activations
+    included); a 24-token prefill and 8 decode steps."""
     from jlama_tpu_torch.kv.paged import PagedKVCache
     from jlama_tpu_torch.models.base import forward_logits
     from jlama_tpu_torch.nn.qarray import QArray
@@ -855,7 +1110,7 @@ def _paged_logits_check(torch, sched, cfg, kv_dtype, ids) -> float:
         if isinstance(v, dict):
             return {k: deq(x) for k, x in v.items()}
         if isinstance(v, QArray):
-            return v.dequantize(torch.float32).cpu()
+            return v.to("cpu") if v.fmt == "q4s" else v.dequantize(torch.float32).cpu()
         return v.float().cpu()
 
     ref = run(deq(sched.params), "cpu", torch.float32)
@@ -917,7 +1172,8 @@ def main() -> None:
     kern = {"q4_matmul": check_k1(torch, timer, details),
             "paged_decode": check_k2(torch, timer, details),
             "flash_prefill": check_k3(torch, timer, details),
-            "kv_write": check_k4(torch, timer, details)}
+            "kv_write": check_k4(torch, timer, details),
+            "w8a8_matmul": check_k5(torch, timer, details)}
     del timer
     # 4. and 5. the Engine path and where its time goes
     engine_launches, e2e, (eng, prompt) = main_path(torch, smi)
@@ -931,6 +1187,13 @@ def main() -> None:
     out["serving"] = serving
     print(f"card {smi}: serving " + json.dumps(
         {k: v for k, v in serving.items() if k != "profile"}), flush=True)
+    # 7. q4s serving
+    q4s_launches, q4s_serving = q4s_serving_path(torch, smi, serving)
+    out["q4s_serving"] = q4s_serving
+    print(f"card {smi}: q4s serving " + json.dumps(
+        {k: v for k, v in q4s_serving.items() if k != "profile"}), flush=True)
+    # 8. perplexity
+    out["perplexity"] = ppl_path(torch)
 
     routes = {
         "q4_matmul": ("jlama_tpu_torch/csrc/q4_matmul.cu", "jlama_tpu/ops/pallas_q4.py:113"),
@@ -939,12 +1202,19 @@ def main() -> None:
         "flash_prefill": ("jlama_tpu_torch/csrc/flash_prefill.cu",
                           "jlama_tpu/ops/pallas_attention.py:41"),
         "kv_write": ("jlama_tpu_torch/csrc/kv_write.cu", "jlama_tpu/ops/pallas_kv.py:27"),
+        "w8a8_matmul": ("jlama_tpu_torch/csrc/w8a8_matmul.cu",
+                        "jlama_tpu/ops/pallas_w8a8.py:176"),
     }
     kernels = []
     for k in KERNELS:
         src, rep = routes[k]
-        row = dict(name=k, route="cuda", source=src, replaces=rep,
-                   launches=serving_launches.get(k), launches_engine=engine_launches.get(k))
+        if k == "w8a8_matmul":  # its path: q4s serving (phase 7)
+            launches = dict(launches=q4s_launches[k], launches_engine=None,
+                            launches_ppl=out["perplexity"]["q4s"]["launches"][k])
+        else:
+            launches = dict(launches=serving_launches.get(k),
+                            launches_engine=engine_launches.get(k))
+        row = dict(name=k, route="cuda", source=src, replaces=rep, **launches)
         row.update(kern[k])
         kernels.append(row)
     out["kernels"] = kernels

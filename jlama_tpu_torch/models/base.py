@@ -135,10 +135,14 @@ def forward_hidden(
 
 
 def _concat_rows(ws):
-    """Concatenate weights along the output-row axis (tensors or QArrays:
-    block scales are per row along the input axis, so a row concat never
-    crosses a block)."""
+    """Concatenate weights along the output-row axis (tensors or q4/q8
+    QArrays: block scales are per row along the input axis, so a row concat
+    never crosses a block). q4s is refused: fuse first, then re-quantize
+    (`ops/w8a8.py::prepare_params_for_w8a8`), as the JAX scheduler does."""
     if isinstance(ws[0], QArray):
+        if any(w.fmt == "q4s" for w in ws):
+            raise ValueError("q4s weights are not fused: fuse the q4 weights first, "
+                             "then convert them with prepare_params_for_w8a8")
         return QArray(
             torch.cat([w.data for w in ws], dim=-2),
             torch.cat([w.scales for w in ws], dim=-2),

@@ -4,8 +4,11 @@
 `load_params` or `init_params`) with every leaf already turned into numpy
 (the port imports nothing of JAX), a QArray leaf given as the tuple
 `(data, scales, fmt)`. Layers may be stacked (`{key: [L, ...]}`) or a
-per-layer list of dicts. Leaves are q4, q8 or float; numpy arrays of the
-`bfloat16` extension dtype are read through their 16-bit patterns.
+per-layer list of dicts. Leaves are q4, q8, q4s or float; numpy arrays of the
+`bfloat16` extension dtype are read through their 16-bit patterns. A q4s leaf
+`(data, (sigma, swk), "q4s")` in the JAX layout (data [ngrp, N, 128] in the
+`_group_perm` column order, sigma [ngrp, N, 8], swk [ngrp, 1, N]) is mapped
+into the port's q4s layout (`ops/w8a8.py`): the same numbers.
 
 `from_jax_kv_state(state)` does the same for a paged KV state
 (`jlama_tpu.kv.paged.PagedKVState`): pools compare pool for pool with the
@@ -19,6 +22,7 @@ import torch
 
 from ..device import resolve_device
 from ..nn.qarray import QArray
+from ..ops.w8a8 import BPG, GROUP, pack_q4s
 
 
 def _is_qleaf(v) -> bool:
@@ -34,9 +38,31 @@ def _tensor(a, device) -> torch.Tensor:
     return t.to(device)
 
 
+def _jax_group_perm() -> np.ndarray:
+    """The JAX q4s column order inside one nibble plane of a group: packed
+    column c holds the element of block (c mod 4) at within-block index
+    (c // 4) (a copy of `jlama_tpu/ops/pallas_w8a8.py:_group_perm`)."""
+    c = np.arange(GROUP // 2)
+    bpp = BPG // 2
+    return (c % bpp) * 32 + c // bpp
+
+
+def _q4s_leaf(data, sigma, swk, device) -> QArray:
+    d = _tensor(data, device)  # [ngrp, N, 128]
+    ngrp, n, _ = d.shape
+    inv = torch.from_numpy(np.argsort(_jax_group_perm())).to(device)
+    lo, hi = (d & 0x0F)[:, :, inv], (d >> 4)[:, :, inv]  # element order per half
+    nib = torch.cat([lo, hi], dim=2).transpose(0, 1).reshape(n, ngrp * GROUP)
+    sig = _tensor(sigma, device).transpose(0, 1).reshape(n, ngrp * BPG).contiguous()
+    sw = _tensor(swk, device)[:, 0, :].t().contiguous().float()
+    return QArray(pack_q4s(nib), (sig, sw), "q4s")
+
+
 def _leaf(v, device):
     if _is_qleaf(v):
         data, scales, fmt = v
+        if fmt == "q4s":
+            return _q4s_leaf(data, *scales, device)
         if fmt not in ("q4", "q8"):
             raise ValueError(f"unsupported QArray format {fmt!r}")
         return QArray(_tensor(data, device), _tensor(scales, device).float(), fmt)
@@ -45,7 +71,8 @@ def _leaf(v, device):
 
 def _layer_slice(v, l):
     if _is_qleaf(v):
-        return (v[0][l], v[1][l], v[2])
+        scales = tuple(s[l] for s in v[1]) if isinstance(v[1], tuple) else v[1][l]
+        return (v[0][l], scales, v[2])
     return v[l]
 
 

@@ -20,11 +20,13 @@ they finish:
   penalties from per-slot token counts kept on the device;
 - sessions: pages stay with a session between requests, least recently used
   idle sessions are suspended to host RAM beyond `max_sessions` or when the
-  pool runs out, and resume into fresh pages.
+  pool runs out, and resume into fresh pages;
+- `weight_format="q4s"`: W4A8 serving (the JAX CLI's `serve --pallas
+  w8a8`): the 2-D q4 weights are re-quantized to q4s once, after fusing, and
+  every projection and the lm_head take K5.
 
 Not ported yet (see ROADMAP.md): meshes (tp/dp page groups), the multi-host
-step channel, the q4s weight format, MoE, tool-call finishes, and suspending
-to disk.
+step channel, MoE, tool-call finishes, and suspending to disk.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from ..kv.paged import PagedKVCache
 from ..models.base import forward_hidden, fuse_params, lm_logits, params_to, rope_inv_freq
 from ..nn.qarray import QArray
 from ..nn.sampling import sample_token
+from ..ops.w8a8 import prepare_params_for_w8a8
 from ..utils.metrics import GLOBAL_METRICS
 from .engine import FinishReason, Response, _bucket
 
@@ -132,11 +135,20 @@ class BatchScheduler:
         max_sessions: int = 64,
         fuse: bool = True,
         decode_lag: int | None = None,
+        weight_format: str | None = None,
         step_channel=None,
         device=None,
     ):
         """kv_dtype: a torch float dtype or "q8". device: CUDA unless named;
-        raises without CUDA and without it. The params are moved there."""
+        raises without CUDA and without it. The params are moved there.
+
+        weight_format: None keeps the weights as they are. "q4s" re-quantizes
+        the 2-D q4 weights to the W4A8 format after fusing (q4s rows are never
+        concatenated), and a tied lm_head gets a q4s copy. "q4k", the TPU
+        kernel's own q4 layout in the JAX package, leaves q4 as it is: K1
+        reads the checkpoint's JQ4 layout directly."""
+        if weight_format not in (None, "q4k", "q4s"):
+            raise ValueError(f"weight_format {weight_format!r}: expected None, 'q4k' or 'q4s'")
         if mesh is not None:
             raise NotImplementedError("meshes (tp/dp serving) are not ported yet")
         if step_channel is not None:
@@ -145,6 +157,8 @@ class BatchScheduler:
         params = params_to(params, self.device)
         if fuse:
             params = fuse_params(params)
+        if weight_format == "q4s":
+            params = prepare_params_for_w8a8(params)
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer

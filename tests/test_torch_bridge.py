@@ -12,8 +12,11 @@ from jlama_tpu_torch.nn.qarray import QArray
 
 
 def jax_tree_to_numpy(tree):
-    """Every leaf to numpy; a JAX QArray to (data, scales, fmt)."""
+    """Every leaf to numpy; a JAX QArray to (data, scales, fmt), q4s scales
+    as the pair (sigma, swk)."""
     if isinstance(tree, JQArray):
+        if isinstance(tree.scales, tuple):
+            return (np.asarray(tree.data), tuple(np.asarray(s) for s in tree.scales), tree.fmt)
         return (np.asarray(tree.data), np.asarray(tree.scales), tree.fmt)
     if isinstance(tree, dict):
         return {k: jax_tree_to_numpy(v) for k, v in tree.items()}

@@ -222,3 +222,99 @@ def test_paged_forward_on_card_matches_cpu_logits(cuda, kv_dtype):
     # every K1 call here is a GEMV (M <= 16): f32 dequant, sums in another order
     rel = ((got - ref).norm() / ref.norm()).item()
     assert rel < 3e-2, rel
+
+
+def _q4s_weight(n, k, g, device):
+    """A q4s weight made by to_q4s from random JQ4 (nibbles uniform, scales
+    positive), on `device`."""
+    from jlama_tpu_torch.nn.qarray import QArray
+    from jlama_tpu_torch.ops.w8a8 import to_q4s
+
+    q4 = QArray(torch.randint(0, 256, (n, k // 2), generator=g, device=device,
+                              dtype=torch.uint8),
+                (torch.rand((n, k // 32), generator=g, device=device) + 0.5) * 0.0043)
+    return to_q4s(q4)
+
+
+@pytest.mark.parametrize("m,n,k", [(1, 256, 256), (5, 1000, 512), (16, 384, 1024),
+                                   (17, 520, 768), (130, 1000, 2048), (2, 64, 14336),
+                                   (16, 4096, 14336), (300, 96, 14336)])
+@pytest.mark.parametrize("x_dtype,out_dtype", [(torch.bfloat16, torch.bfloat16),
+                                               (torch.float32, torch.float32),
+                                               (torch.bfloat16, torch.float32)])
+def test_w8a8_kernel_matches_plain(cuda, m, n, k, x_dtype, out_dtype):
+    """K5 against its plain version run on the CPU: f32 out within 1e-5 *
+    max|plain| (exact integer dots; the f32 group sums in another order in
+    the decode kernel); bf16 out within one bf16 ulp (at most 2^-7 of the
+    value) plus that."""
+    from jlama_tpu_torch.ops.w8a8 import q4s_matmul, q4s_matmul_plain
+
+    g = torch.Generator(device=cuda).manual_seed(m * n + k)
+    w = _q4s_weight(n, k, g, cuda)
+    x = torch.randn((m, k), generator=g, device=cuda).to(x_dtype)
+    x[0, :256] = 0  # an all-zero activation group: scale 0
+    before = q4s_matmul.launches
+    got = q4s_matmul(x, w, out_dtype)
+    assert q4s_matmul.launches == before + 1 and got.dtype == out_dtype
+    ref = q4s_matmul_plain(x.cpu(), w.to("cpu"), torch.float32)
+    torch.cuda.synchronize()
+    lim = 1e-5 * ref.abs().max()
+    if out_dtype == torch.bfloat16:
+        lim = lim + 2.0 ** -7 * ref.abs()
+    assert torch.all((got.float().cpu() - ref).abs() <= lim)
+
+
+@pytest.mark.parametrize("m,k", [(1, 256), (16, 2048), (37, 14336)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w8a8_activation_quantization_exact(cuda, m, k, dtype):
+    """The kernel's in-launch activation quantization equals q8_quantize(x,
+    256) bit for bit: int8 codes and f32 scales."""
+    from jlama_tpu_torch.ops.w8a8 import quantize_x_on_card
+    from jlama_tpu_torch.quant.blockq import q8_quantize
+
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+    x = (torch.randn((m, k), generator=g, device=cuda)
+         * torch.rand((m, 1), generator=g, device=cuda) * 10).to(dtype)
+    x[0, :256] = 0
+    xq, xs = quantize_x_on_card(x)
+    rq, rs = q8_quantize(x.cpu().float(), block=256)
+    torch.cuda.synchronize()
+    assert torch.equal(xq.cpu(), rq) and torch.equal(xs.cpu(), rs)
+
+
+def test_q4s_forward_on_card_matches_cpu_logits(cuda):
+    """A q4s model (every projection and the lm_head through K5) on the card
+    against the same weights through K5's plain version on the CPU, in f32:
+    rel L2 < 3e-2, as the q4 forwards above. Each K5 call is exact against
+    the plain version on the same input, but the int8 quantization is
+    discontinuous: a last-bit difference in an activation (the other ops sum
+    in another order) can move its code by one, and the layers after it
+    carry that on. The embedding is float so that layer 0's input holds no
+    exact rounding ties (a q4 row after the norm does)."""
+    from jlama_tpu_torch.config import from_hf_config
+    from jlama_tpu_torch.models.base import forward_logits, fuse_params, params_to
+    from jlama_tpu_torch.models.init import init_params
+    from jlama_tpu_torch.nn.qarray import quantize_q4
+    from jlama_tpu_torch.ops.w8a8 import prepare_params_for_w8a8, q4s_matmul
+
+    cfg = from_hf_config({
+        "model_type": "llama", "hidden_size": 256, "intermediate_size": 512,
+        "num_attention_heads": 4, "num_key_value_heads": 2, "num_hidden_layers": 2,
+        "rms_norm_eps": 1e-5, "vocab_size": 512, "max_position_embeddings": 128,
+        "rope_theta": 10000.0, "bos_token_id": 1, "eos_token_id": 2,
+        "hidden_act": "silu", "tie_word_embeddings": False,
+    })
+    params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    params["lm_head"] = quantize_q4(params["lm_head"].numpy())
+    params = prepare_params_for_w8a8(fuse_params(params))
+    assert params["lm_head"].fmt == "q4s"
+    for T in (1, 32):  # the decode kernel and the prefill kernel
+        toks = torch.tensor([[1, 5, 9, 42, 7, 13, 99, 100] * 4])[:, :T]
+        pos = torch.arange(T)[None, :]
+        ref, _ = forward_logits(params, cfg, toks, pos, None, dtype=torch.float32)
+        before = q4s_matmul.launches
+        got, _ = forward_logits(params_to(params, cuda), cfg, toks.to(cuda), pos.to(cuda), None,
+                                dtype=torch.float32)
+        assert q4s_matmul.launches == before + 4 * cfg.n_layers + 1
+        rel = ((got.cpu() - ref).norm() / ref.norm()).item()
+        assert rel < 3e-2, (T, rel)

@@ -51,14 +51,15 @@ def test_optional_packages_only_in_tokenizers():
 
 
 def test_engine_import_path_is_clean():
-    """The Engine and serving paths (scheduler, paged KV, metrics) pull in
-    none of jax, jlama_tpu, the optional packages or aiohttp."""
+    """The Engine, serving (scheduler, paged KV, metrics, q4s) and perplexity
+    paths pull in none of jax, jlama_tpu, the optional packages or aiohttp."""
     code = (
         "import sys\n"
         "import jlama_tpu_torch.runtime.engine, jlama_tpu_torch.models.loader\n"
         "import jlama_tpu_torch.models.init, jlama_tpu_torch.models.convert\n"
         "import jlama_tpu_torch.runtime.scheduler, jlama_tpu_torch.kv.paged\n"
-        "import jlama_tpu_torch.utils.metrics\n"
+        "import jlama_tpu_torch.utils.metrics, jlama_tpu_torch.ops.w8a8\n"
+        "import jlama_tpu_torch.eval.ppl\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{OPTIONAL + ('jax', 'jlama_tpu', 'aiohttp')!r}]\n"
         "bad += [m for m in sys.modules if m.startswith('jlama_tpu_torch.tokenizers')]\n"
@@ -215,3 +216,40 @@ def test_cpu_serving_goes_through_plain_versions(monkeypatch):
     assert calls == {"q4": 4 * L * (n_pf + n_dec), "flash": L * n_pf, "paged": L * n_dec,
                      "kv": L * (n_pf + n_dec)}
     assert [f.launches for f in fns] == launches
+
+
+def test_cpu_q4s_serving_goes_through_plain_versions(monkeypatch):
+    """A device="cpu" scheduler with weight_format="q4s" sends every
+    projection and the tied lm_head to K5's wrapper, which runs the plain
+    version (4 per layer per forward, and the lm_head per decode step) and
+    counts no launch; K1 is not reached."""
+    from jlama_tpu_torch.config import from_hf_config
+    from jlama_tpu_torch.models.init import init_params
+    from jlama_tpu_torch.nn.qarray import quantize_q4
+    from jlama_tpu_torch.ops import q4_matmul, w8a8
+    from jlama_tpu_torch.runtime.scheduler import BatchScheduler
+    from tests.helpers import TINY_LLAMA_CONFIG
+
+    cfg = from_hf_config(dict(TINY_LLAMA_CONFIG, hidden_size=256, intermediate_size=512,
+                              tie_word_embeddings=True))
+    calls = {"q4s": 0, "q4": 0}
+
+    def counting(key, fn):
+        def wrapped(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(w8a8, "q4s_matmul_plain", counting("q4s", w8a8.q4s_matmul_plain))
+    monkeypatch.setattr(q4_matmul, "q4_matmul_plain", counting("q4", q4_matmul.q4_matmul_plain))
+    launches = (w8a8.q4s_matmul.launches, q4_matmul.q4_matmul.launches)
+    params = init_params(cfg, seed=0, quantize="q4", device="cpu", dtype=torch.float32)
+    params["embed"] = quantize_q4(params["embed"].numpy())
+    sched = BatchScheduler(params, cfg, n_slots=2, n_pages=16, page_size=8, max_seq_len=64,
+                           kv_dtype=torch.float32, compute_dtype=torch.float32, device="cpu",
+                           weight_format="q4s")
+    resp = sched.generate(list(range(1, 12)), max_new_tokens=3, stop_ids={-1})
+    assert len(resp.token_ids) == 3
+    L, n_pf, n_dec = cfg.n_layers, sched.n_prefill_calls, sched.n_decode_steps
+    assert calls == {"q4s": 4 * L * (n_pf + n_dec) + n_dec, "q4": 0}
+    assert (w8a8.q4s_matmul.launches, q4_matmul.q4_matmul.launches) == launches
