@@ -18,9 +18,13 @@ Phases, each fatal on failure (exit code 1, no result line):
               prefill chunk, bf16 and q8 pools, and the Engine's dense cache),
               K5 W4A8 matmul (Llama-3.2-1B's wqkv, wo, w13, w2 at M = 1, 16,
               256, 512, the f32-out lm_head at M = 1, 16, Llama-3.1-8B's w2
-              and an uneven N; its in-launch int8 activations must equal
-              q8_quantize(x, 256) exactly; bound against 1,979 TOP/s int8),
-              with K1 and torch.matmul on a bf16 weight beside it;
+              and an uneven N; on an input that quantizes losslessly its
+              output must equal the plain version's bit for bit, which holds
+              its in-launch int8 activations to q8_quantize(x, 256); bound
+              against 1,979 TOP/s int8), with K1 and torch.matmul on a bf16
+              weight beside it. K1, K3 and K5 are also held at phase 8's
+              shapes: one 1024-token window with f32 activations through the
+              unfused projections and the f32-out lm_head;
   4. engine - Llama-3.2-1B at full width (16 layers, random JQ4 weights from
               a seed) through Engine.generate_tokens: a 512-token prompt with
               128 new tokens, a resume of that session, and five
@@ -47,7 +51,8 @@ Phases, each fatal on failure (exit code 1, no result line):
               TTFT and inter-token p50/p95, and the device's busy share over
               16 decode steps at 16 slots;
   7. q4s serving - the same model and serving settings through
-              BatchScheduler(weight_format="q4s"): the q4s conversion's time,
+              BatchScheduler(weight_format="q4s"): its construction's time
+              (fuse and the q4s conversion on the card),
               12 requests from a seed (8 at once, 4 while the batch runs; 4
               seeded at temperature 0.8), K5's launches equal to the formula of
               phase 6's K1 and K1 at 0, the paged logits against the same q4s
@@ -80,7 +85,8 @@ BF16_OPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
 INT8_OPS_PER_S = 1979e12  # H100 SXM data sheet, dense int8 tensor cores
 K1_TOL = 2e-2  # max |kernel - plain| <= K1_TOL * max |plain| (bf16 W tiles / bf16 out)
 K1_REL_L2 = 1e-2
-K3_TOL = 2e-2  # max |kernel - plain| on N(0, 1) inputs (bf16 in and out)
+# K3: max |kernel - plain| on N(0, 1) inputs, bf16 in and out / f32 in and out
+K3_TOL = {"bf16": 2e-2, "f32": 2e-5}
 # K2 on N(0, 1) inputs: f32 q and out, the JAX tests' tolerances (f32 sums in
 # another order; q8 values rounded to bf16 in both); bf16 q and out: each
 # element within one bf16 ulp of the plain output (2^-7 of its size, the
@@ -143,6 +149,27 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
+PPL_TOKENS, PPL_SEQ, PPL_STRIDE = 2048, 1024, 512
+
+
+def _dt(dtype) -> str:
+    return str(dtype).replace("torch.", "").replace("float32", "f32").replace("bfloat16", "bf16")
+
+
+def _ppl_window_cases(c1) -> list[tuple]:
+    """The matmuls of one score_tokens window (phase 8): f32 activations at M =
+    PPL_SEQ through the unfused projections (wq and wo, wk and wv, w1 and w3
+    share a shape) and the lm_head, f32 out."""
+    import torch
+
+    D, Hf, V = c1.embedding_length, c1.hidden_length, c1.vocab_size
+    kv = c1.n_kv_heads * c1.head_size
+    f32 = torch.float32
+    shapes = {"wq/wo": (D, D), "wk/wv": (kv, D), "w1/w3": (Hf, D), "w2": (D, Hf),
+              "lm_head": (V, D)}
+    return [(name, n, k, PPL_SEQ, f32, f32) for name, (n, k) in shapes.items()]
+
+
 def check_k1(torch, timer, details):
     from jlama_tpu_torch.models.init import llama_1b_config, llama_8b_config
     from jlama_tpu_torch.nn.qarray import QArray
@@ -152,20 +179,22 @@ def check_k1(torch, timer, details):
     D, Hf, V = c1.embedding_length, c1.hidden_length, c1.vocab_size
     qkv = (c1.n_heads + 2 * c1.n_kv_heads) * c1.head_size
     layer_shapes = {"wqkv": (qkv, D), "wo": (D, D), "w13": (2 * Hf, D), "w2": (D, Hf)}
-    cases = [(name, n, k, m, torch.bfloat16)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(name, n, k, m, bf16, bf16)
              for m in (1, 16, 512) for name, (n, k) in layer_shapes.items()]
-    cases += [("lm_head", V, D, m, torch.float32) for m in (1, 16, 512)]
-    cases += [("8b_w2", c8.embedding_length, c8.hidden_length, m, torch.bfloat16)
+    cases += [("lm_head", V, D, m, bf16, f32) for m in (1, 16, 512)]
+    cases += [("8b_w2", c8.embedding_length, c8.hidden_length, m, bf16, bf16)
               for m in (1, 16, 512)]
-    cases += [("uneven_n", 1000, 2048, m, torch.bfloat16) for m in (1, 37)]
+    cases += [("uneven_n", 1000, 2048, m, bf16, bf16) for m in (1, 37)]
+    cases += _ppl_window_cases(c1)
     g = torch.Generator(device="cuda").manual_seed(1)
     worst = 0.0
     per_shape = {}
-    for name, n, k, m, out_dtype in cases:
+    for name, n, k, m, x_dtype, out_dtype in cases:
         w = QArray(torch.randint(0, 256, (n, k // 2), generator=g, device="cuda",
                                  dtype=torch.uint8),
                    (torch.rand((n, k // 32), generator=g, device="cuda") + 0.5) * 0.0043)
-        x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+        x = torch.randn((m, k), generator=g, device="cuda").to(x_dtype)
         got = q4_matmul(x, w, out_dtype).float()
         ref = q4_matmul_plain(x, w.data, w.scales, torch.float32)
         torch.cuda.synchronize()
@@ -176,20 +205,21 @@ def check_k1(torch, timer, details):
             fail(f"K1 {name} M={m} N={n} K={k}: max_abs_err {err} (max|ref| {scale}), "
                  f"rel L2 {rel}")
         worst = max(worst, err)
-        wd = w.dequantize(torch.bfloat16)
+        wd, xb = w.dequantize(torch.bfloat16), x.to(torch.bfloat16)
         ms = timer(lambda: q4_matmul(x, w, out_dtype))
         plain_ms = timer(lambda: q4_matmul_plain(x, w.data, w.scales, out_dtype))
-        lib_ms = timer(lambda: torch.matmul(x, wd.t()))
-        del wd
-        out_size = 4 if out_dtype == torch.float32 else 2
-        nbytes = m * k * 2 + n * k // 2 + n * k // 32 * 4 + m * n * out_size
+        lib_ms = timer(lambda: torch.matmul(xb, wd.t()))
+        del wd, xb
+        nbytes = m * k * x.element_size() + n * k // 2 + n * k // 32 * 4 \
+            + m * n * (4 if out_dtype == torch.float32 else 2)
         b_ms, b_by = bound(nbytes, 2.0 * m * n * k)
-        row = dict(kernel="q4_matmul", shape=name, M=m, N=n, K=k, max_abs_err=err,
-                   rel_l2=rel, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        row = dict(kernel="q4_matmul", shape=name, M=m, N=n, K=k, x_dtype=str(x_dtype),
+                   max_abs_err=err, rel_l2=rel, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                    bound_ms=b_ms, bound_by=b_by)
         details.append(row)
         per_shape[(name, m)] = row
-        print(f"K1 {name:8s} M={m:4d} N={n:6d} K={k:5d}: {ms:.4f} ms (plain {plain_ms:.4f},"
+        print(f"K1 {name:8s} M={m:4d} N={n:6d} K={k:5d} x {_dt(x_dtype)} out {_dt(out_dtype)}: "
+              f"{ms:.4f} ms (plain {plain_ms:.4f},"
               f" torch.matmul bf16 {lib_ms:.4f}, bound {b_ms:.4f} by {b_by}) err {err:.3g}",
               flush=True)
     # the JSON line's K1 work: one decode step of the main path (M = 1):
@@ -208,39 +238,50 @@ def check_k1(torch, timer, details):
                 f"{L} x (wqkv, wo, w13, w2) + lm_head = {len(step)} launches")
 
 
+def _lossless_k5_case(torch, QArray, w, m, x_dtype, g):
+    """An input that q8_quantize(x, 256) reproduces exactly (integers in
+    [-127, 127] times 0.5, each group holding a 127, one all-zero group: codes
+    the integers, scales 0.5 or 0) and w with every swk set to 2^-8. Each
+    group's (d * 0.5) * 2^-8 is then exact, and so is every f32 sum of them in
+    any order while it stays below 2^24 units of 2^-9 (at these shapes a few
+    million at most)."""
+    k = w.shape[1]
+    ints = torch.randint(-127, 128, (m, k), generator=g, device="cuda").float()
+    ints[:, ::256] = 127.0
+    ints[0, :256] = 0.0
+    sigma, swk = w.scales
+    return (ints * 0.5).to(x_dtype), QArray(w.data, (sigma, torch.full_like(swk, 2.0 ** -8)),
+                                            "q4s")
+
+
 def check_k5(torch, timer, details):
     from jlama_tpu_torch.models.init import llama_1b_config, llama_8b_config
     from jlama_tpu_torch.nn.qarray import QArray
     from jlama_tpu_torch.ops.q4_matmul import q4_matmul
-    from jlama_tpu_torch.ops.w8a8 import (
-        BITS_PER_WEIGHT, q4s_matmul, q4s_matmul_plain, quantize_x_on_card, to_q4s)
-    from jlama_tpu_torch.quant.blockq import q8_quantize
+    from jlama_tpu_torch.ops.w8a8 import BITS_PER_WEIGHT, q4s_matmul, q4s_matmul_plain, to_q4s
 
     c1, c8 = llama_1b_config(), llama_8b_config()
     D, Hf, V = c1.embedding_length, c1.hidden_length, c1.vocab_size
     qkv = (c1.n_heads + 2 * c1.n_kv_heads) * c1.head_size
     layer_shapes = {"wqkv": (qkv, D), "wo": (D, D), "w13": (2 * Hf, D), "w2": (D, Hf)}
-    cases = [(name, n, k, m, torch.bfloat16)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(name, n, k, m, bf16, bf16)
              for m in (1, 16, 256, 512) for name, (n, k) in layer_shapes.items()]
-    cases += [("lm_head", V, D, m, torch.float32) for m in (1, 16)]
-    cases += [("8b_w2", c8.embedding_length, c8.hidden_length, m, torch.bfloat16)
+    cases += [("lm_head", V, D, m, bf16, f32) for m in (1, 16)]
+    cases += [("8b_w2", c8.embedding_length, c8.hidden_length, m, bf16, bf16)
               for m in (1, 16, 512)]
-    cases += [("uneven_n", 1000, 2048, m, torch.bfloat16) for m in (1, 37)]
+    cases += [("uneven_n", 1000, 2048, m, bf16, bf16) for m in (1, 37)]
+    cases += _ppl_window_cases(c1)
     g = torch.Generator(device="cuda").manual_seed(11)
     worst = 0.0
     per_shape = {}
-    for name, n, k, m, out_dtype in cases:
+    for name, n, k, m, x_dtype, out_dtype in cases:
         q4 = QArray(torch.randint(0, 256, (n, k // 2), generator=g, device="cuda",
                                   dtype=torch.uint8),
                     (torch.rand((n, k // 32), generator=g, device="cuda") + 0.5) * 0.0043)
         w = to_q4s(q4)
-        x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+        x = torch.randn((m, k), generator=g, device="cuda").to(x_dtype)
         x[0, :256] = 0  # an all-zero activation group: scale 0
-        xq, xs = quantize_x_on_card(x)
-        rq, rs = q8_quantize(x.float().cpu(), block=256)
-        if not (torch.equal(xq.cpu(), rq) and torch.equal(xs.cpu(), rs)):
-            fail(f"K5 {name} M={m}: in-launch int8 activations differ from q8_quantize(x, 256): "
-                 f"{int((xq.cpu() != rq).sum())} codes, {int((xs.cpu() != rs).sum())} scales")
         got = q4s_matmul(x, w, out_dtype).float()
         ref = q4s_matmul_plain(x, w, torch.float32)
         torch.cuda.synchronize()
@@ -252,22 +293,30 @@ def check_k5(torch, timer, details):
         if not bool((d <= lim).all()):
             fail(f"K5 {name} M={m} N={n} K={k} {out_dtype}: max_abs_err {err} (max|ref| {scale})")
         worst = max(worst, err)
-        del xq, xs, ref, got
-        wd = w.dequantize(torch.bfloat16)
+        del ref, got
+        # the in-launch quantization, exactly: on a lossless input every sum is
+        # exact, so a single code or scale off shows as an unequal output
+        xl, wl = _lossless_k5_case(torch, QArray, w, m, x_dtype, g)
+        if not torch.equal(q4s_matmul(xl, wl, out_dtype), q4s_matmul_plain(xl, wl, out_dtype)):
+            fail(f"K5 {name} M={m} N={n} K={k}: the output on a lossless input differs from "
+                 "the plain version's (the in-launch int8 activations differ from q8_quantize)")
+        del xl, wl
+        wd, xb = w.dequantize(torch.bfloat16), x.to(torch.bfloat16)
         ms = timer(lambda: q4s_matmul(x, w, out_dtype))
         plain_ms = timer(lambda: q4s_matmul_plain(x, w, out_dtype))
-        yard_ms = timer(lambda: torch.matmul(x, wd.t()))
+        yard_ms = timer(lambda: torch.matmul(xb, wd.t()))
         k1_ms = timer(lambda: q4_matmul(x, q4, out_dtype))
-        del wd
+        del wd, xb
         out_size = 4 if out_dtype == torch.float32 else 2
-        nbytes = n * k * BITS_PER_WEIGHT / 8 + m * k * 2 + m * n * out_size
+        nbytes = n * k * BITS_PER_WEIGHT / 8 + m * k * x.element_size() + m * n * out_size
         b_ms, b_by = bound(nbytes, 2.0 * m * n * k, INT8_OPS_PER_S)
-        row = dict(kernel="w8a8_matmul", shape=name, M=m, N=n, K=k, max_abs_err=err, ms=ms,
-                   plain_ms=plain_ms, library_ms=None, yardstick_ms=yard_ms, k1_ms=k1_ms,
-                   bound_ms=b_ms, bound_by=b_by)
+        row = dict(kernel="w8a8_matmul", shape=name, M=m, N=n, K=k, x_dtype=str(x_dtype),
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                   yardstick_ms=yard_ms, k1_ms=k1_ms, bound_ms=b_ms, bound_by=b_by)
         details.append(row)
         per_shape[(name, m)] = row
-        print(f"K5 {name:8s} M={m:4d} N={n:6d} K={k:5d}: {ms:.4f} ms (plain {plain_ms:.4f}, "
+        print(f"K5 {name:8s} M={m:4d} N={n:6d} K={k:5d} x {_dt(x_dtype)} out {_dt(out_dtype)}: "
+              f"{ms:.4f} ms (plain {plain_ms:.4f}, "
               f"torch.matmul bf16 {yard_ms:.4f}, K1 {k1_ms:.4f}, bound {b_ms:.4f} by {b_by}) "
               f"err {err:.3g}", flush=True)
     # the JSON line's K5 work: one decode step of the q4s serving path at M = 1
@@ -296,30 +345,32 @@ def check_k3(torch, timer, details):
     from jlama_tpu_torch.ops.attention import flash_prefill, flash_prefill_plain
 
     H, n_kv = 32, 8
-    cases = [  # (B, T, S, pos0, hd, softcap, window)
-        (1, 512, 512, 0, 64, None, None),  # the main path's 512-token prefill
-        (1, 512, 1024, 512, 64, None, None),
-        (1, 512, 1024, 300, 64, None, None),
-        (1, 512, 512, 0, 128, None, None),
-        (1, 512, 1024, 512, 128, None, None),
-        (2, 512, 1024, 400, 128, 30.0, 256),  # softcap + window
-        (1, 200, 333, 100, 64, None, None),  # ragged T and S
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # (B, T, S, pos0, hd, softcap, window, dtype)
+        (1, 512, 512, 0, 64, None, None, bf16),  # the main path's 512-token prefill
+        (1, 512, 1024, 512, 64, None, None, bf16),
+        (1, 512, 1024, 300, 64, None, None, bf16),
+        (1, 512, 512, 0, 128, None, None, bf16),
+        (1, 512, 1024, 512, 128, None, None, bf16),
+        (2, 512, 1024, 400, 128, 30.0, 256, bf16),  # softcap + window
+        (1, 200, 333, 100, 64, None, None, bf16),  # ragged T and S
+        (1, PPL_SEQ, PPL_SEQ, 0, 64, None, None, f32),  # a score_tokens window (phase 8)
     ]
     g = torch.Generator(device="cuda").manual_seed(2)
     worst = 0.0
     main = None
-    for B, T, S, p0, hd, cap, win in cases:
-        q = torch.randn((B, H, T, hd), generator=g, device="cuda").to(torch.bfloat16)
-        k = torch.randn((B, n_kv, S, hd), generator=g, device="cuda").to(torch.bfloat16)
-        v = torch.randn((B, n_kv, S, hd), generator=g, device="cuda").to(torch.bfloat16)
+    for B, T, S, p0, hd, cap, win, dtype in cases:
+        q = torch.randn((B, H, T, hd), generator=g, device="cuda").to(dtype)
+        k = torch.randn((B, n_kv, S, hd), generator=g, device="cuda").to(dtype)
+        v = torch.randn((B, n_kv, S, hd), generator=g, device="cuda").to(dtype)
         pos0 = torch.full((B,), p0, dtype=torch.int32, device="cuda")
         scale = hd ** -0.5
         got = flash_prefill(q, k, v, pos0, scale, softcap=cap, window=win).float()
         ref = flash_prefill_plain(q, k, v, pos0, scale, softcap=cap, window=win).float()
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
-        if not err <= K3_TOL:
-            fail(f"K3 B={B} T={T} S={S} pos0={p0} hd={hd}: max_abs_err {err}")
+        if not err <= K3_TOL[_dt(dtype)]:
+            fail(f"K3 B={B} T={T} S={S} pos0={p0} hd={hd} {_dt(dtype)}: max_abs_err {err}")
         worst = max(worst, err)
         ms = timer(lambda: flash_prefill(q, k, v, pos0, scale, softcap=cap, window=win))
         plain_ms = timer(lambda: flash_prefill_plain(q, k, v, pos0, scale, softcap=cap,
@@ -334,14 +385,15 @@ def check_k3(torch, timer, details):
         if cap is None:  # SDPA has no softcap
             lib_ms = timer(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, scale=scale, enable_gqa=True))
-        nbytes = 2 * (2 * B * H * T * hd + 2 * B * n_kv * S * hd)
+        nbytes = q.element_size() * (2 * B * H * T * hd + 2 * B * n_kv * S * hd)
         b_ms, b_by = bound(nbytes, 4.0 * hd * live_pairs)
         row = dict(kernel="flash_prefill", B=B, H=H, n_kv=n_kv, T=T, S=S, pos0=p0, hd=hd,
-                   softcap=cap, window=win, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                   softcap=cap, window=win, dtype=str(dtype), max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         details.append(row)
         main = main or row
-        print(f"K3 B={B} T={T} S={S:5d} pos0={p0:4d} hd={hd:3d} cap={cap} win={win}: "
+        print(f"K3 B={B} T={T:4d} S={S:5d} pos0={p0:4d} hd={hd:3d} cap={cap} win={win} "
+              f"{_dt(dtype)}: "
               f"{ms:.4f} ms (plain {plain_ms:.4f}, sdpa {lib_ms}, bound {b_ms:.4f} by {b_by})"
               f" err {err:.3g}", flush=True)
     L = 16
@@ -881,43 +933,29 @@ def serving_path(torch, card_note):
 
 def q4s_serving_path(torch, card_note, q4_serving):
     """Phase 7: W4A8 serving, BatchScheduler(weight_format="q4s")."""
-    from jlama_tpu_torch.models.base import fuse_params
     from jlama_tpu_torch.models.init import llama_1b_config, random_q4_params
-    from jlama_tpu_torch.nn.qarray import QArray
-    from jlama_tpu_torch.ops.w8a8 import prepare_params_for_w8a8
     from jlama_tpu_torch.runtime.scheduler import BatchScheduler, GenRequest
 
     cfg = llama_1b_config()
     V = cfg.vocab_size
     params = random_q4_params(cfg, seed=0, device="cuda")
-    # the conversion on its own, timed: fuse, then to_q4s of every 2-D weight
+    # the constructor, timed: fuse, to_q4s of every 2-D weight on the card, the pool
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    conv = prepare_params_for_w8a8(fuse_params(params))
-    torch.cuda.synchronize()
-    conv_s = time.perf_counter() - t0
-
-    def nbytes(v):
-        if isinstance(v, list):
-            return sum(nbytes(x) for x in v)
-        if isinstance(v, dict):
-            return sum(nbytes(x) for x in v.values())
-        if isinstance(v, QArray) and v.fmt == "q4s":
-            return v.data.nbytes + sum(t.nbytes for t in v.scales)
-        return 0
-
-    q4s_gb = nbytes(conv) / 1e9
-    del conv
-    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     sched = BatchScheduler(params, cfg, weight_format="q4s", kv_dtype=torch.bfloat16,
                            device="cuda", **SERVE)
+    torch.cuda.synchronize()
+    conv_s = time.perf_counter() - t0
     del params
+    q4s = [sched.params["lm_head"]] + [w for layer in sched.params["layers"]
+                                       for w in layer.values() if getattr(w, "fmt", "") == "q4s"]
+    q4s_gb = sum(w.data.nbytes + sum(t.nbytes for t in w.scales) for w in q4s) / 1e9
+    t0 = time.perf_counter()
     sched.warmup()
     torch.cuda.synchronize()
-    print(f"q4s serving: Llama-3.2-1B, {SERVE}; q4s conversion (fuse + to_q4s on the card) "
-          f"{conv_s:.3f} s, q4s weights {q4s_gb:.3f} GB; set-up and warm-up "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"q4s serving: Llama-3.2-1B, {SERVE}; BatchScheduler(weight_format='q4s') "
+          f"construction (fuse + to_q4s on the card + pool) {conv_s:.3f} s, {len(q4s)} q4s "
+          f"weights {q4s_gb:.3f} GB; warm-up {time.perf_counter() - t0:.2f} s", flush=True)
 
     g = torch.Generator().manual_seed(8)
 
@@ -960,7 +998,7 @@ def q4s_serving_path(torch, card_note, q4_serving):
                itl_ms_p50=_pct(itl, 50), itl_ms_p95=_pct(itl, 95),
                finish={f: sum(r.finish_reason.name == f for r in resps)
                        for f in ("MAX_TOKENS", "STOP_TOKEN")}, launches=counts,
-               conversion_s=conv_s, q4s_weights_gb=q4s_gb)
+               construction_s=conv_s, q4s_weights_gb=q4s_gb)
     e2e["profile"] = _serving_profile(torch, sched, cfg, ids)
     e2e["logits_rel_l2"] = _paged_logits_check(torch, sched, cfg, torch.bfloat16, ids)
     q4 = q4_serving
@@ -975,9 +1013,6 @@ def q4s_serving_path(torch, card_note, q4_serving):
     del sched
     torch.cuda.empty_cache()
     return counts, e2e
-
-
-PPL_TOKENS, PPL_SEQ, PPL_STRIDE = 2048, 1024, 512
 
 
 def ppl_path(torch) -> dict:

@@ -59,9 +59,14 @@ class QArray:
                       self.fmt)
 
     def unpack(self) -> torch.Tensor:
-        """Quantized integer values in original element order (int8)."""
+        """Quantized integer values in original element order (int8); for
+        q4s the 4-bit values, without sigma."""
         if self.fmt == "q4":
             return blockq.q4_unpack(self.data)
+        if self.fmt == "q4s":
+            from ..ops.w8a8 import q4s_unpack
+
+            return q4s_unpack(self.data)
         return self.data
 
     def dequantize(self, dtype=torch.float32) -> torch.Tensor:

@@ -51,7 +51,6 @@ _C = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "w8a8_matmul": [_C, _I, _C, _C, _C, _C, _I, _I, _I, _I, _C],
-    "w8a8_quantize_x": [_C, _I, _C, _C, _I, _I, _C],
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # rows of a weight converted at once: bounds to_q4s's f32 temporaries
@@ -186,23 +185,6 @@ def q4s_matmul_plain(x: torch.Tensor, w: QArray, out_dtype) -> torch.Tensor:
     return acc.to(out_dtype).reshape(*lead, n)
 
 
-def _check(x: torch.Tensor, what: str) -> int:
-    if x.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {x.device}")
-    if x.dtype not in _DTYPE_CODE:
-        raise ValueError(f"{what}: x dtype {x.dtype} not supported")
-    if x.shape[-1] % GROUP:
-        raise ValueError(f"{what}: K {x.shape[-1]} is not a multiple of {GROUP}")
-    return x.shape[-1]
-
-
-def _rows(x: torch.Tensor, k: int) -> torch.Tensor:
-    x2 = x.reshape(-1, k).contiguous()
-    if x2.data_ptr() % 16:  # a view at an odd offset: the kernel loads 16 bytes at a time
-        x2 = x2.clone()
-    return x2
-
-
 def q4s_matmul(x: torch.Tensor, w: QArray, out_dtype=None) -> torch.Tensor:
     """y = q8(x) @ q4s(w).T for arbitrary leading dims of x; w a q4s QArray
     [N, K]."""
@@ -211,7 +193,13 @@ def q4s_matmul(x: torch.Tensor, w: QArray, out_dtype=None) -> torch.Tensor:
         raise ValueError(f"q4s_matmul takes fmt q4s, got {w.fmt!r}")
     if x.device.type == "cpu":
         return q4s_matmul_plain(x, w, out_dtype)
-    k = _check(x, "q4s_matmul")
+    if x.device.type != "cuda":
+        raise ValueError(f"q4s_matmul: unsupported device {x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"q4s_matmul: x dtype {x.dtype} not supported")
+    k = x.shape[-1]
+    if k % GROUP:
+        raise ValueError(f"q4s_matmul: K {k} is not a multiple of {GROUP}")
     data, (sigma, swk) = w.data, w.scales
     if any(t.device != x.device for t in (data, sigma, swk)):
         raise ValueError("q4s_matmul: x and the weight must be on the same device")
@@ -231,7 +219,9 @@ def q4s_matmul(x: torch.Tensor, w: QArray, out_dtype=None) -> torch.Tensor:
         raise ValueError(f"q4s_matmul: out dtype {out_dtype} not supported")
 
     lead = x.shape[:-1]
-    x2 = _rows(x, k)
+    x2 = x.reshape(-1, k).contiguous()
+    if x2.data_ptr() % 16:  # a view at an odd offset: the kernel loads 16 bytes at a time
+        x2 = x2.clone()
     m = x2.shape[0]
     y = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
@@ -248,20 +238,3 @@ def q4s_matmul(x: torch.Tensor, w: QArray, out_dtype=None) -> torch.Tensor:
 
 
 q4s_matmul.launches = 0
-
-
-def quantize_x_on_card(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The int8 activations and group scales that K5 computes inside its
-    launch, written out by the same device routine (a check entry point, not
-    on the path): (int8 [M, K], f32 [M, K/256]) for x [M, K] on the card."""
-    k = _check(x, "quantize_x_on_card")
-    x2 = _rows(x, k)
-    m = x2.shape[0]
-    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
-    xs = torch.empty((m, k // GROUP), dtype=torch.float32, device=x.device)
-    lib = _build.load("w8a8_matmul", _SIGNATURES)
-    err = lib.w8a8_quantize_x(x2.data_ptr(), _DTYPE_CODE[x2.dtype], xq.data_ptr(),
-                              xs.data_ptr(), m, k,
-                              torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "quantize_x_on_card")
-    return xq, xs

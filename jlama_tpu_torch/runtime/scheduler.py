@@ -144,11 +144,12 @@ class BatchScheduler:
 
         weight_format: None keeps the weights as they are. "q4s" re-quantizes
         the 2-D q4 weights to the W4A8 format after fusing (q4s rows are never
-        concatenated), and a tied lm_head gets a q4s copy. "q4k", the TPU
-        kernel's own q4 layout in the JAX package, leaves q4 as it is: K1
-        reads the checkpoint's JQ4 layout directly."""
-        if weight_format not in (None, "q4k", "q4s"):
-            raise ValueError(f"weight_format {weight_format!r}: expected None, 'q4k' or 'q4s'")
+        concatenated), and a tied lm_head gets a q4s copy. The JAX package's
+        "q4k" (its TPU kernel's own q4 layout) has no counterpart and raises:
+        K1 reads the checkpoint's JQ4 layout as it is, so None serves q4."""
+        if weight_format not in (None, "q4s"):
+            raise ValueError(f"weight_format {weight_format!r}: expected None or 'q4s' "
+                             "(q4 weights need no repack: pass None)")
         if mesh is not None:
             raise NotImplementedError("meshes (tp/dp serving) are not ported yet")
         if step_channel is not None:

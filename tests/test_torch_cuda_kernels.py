@@ -267,19 +267,28 @@ def test_w8a8_kernel_matches_plain(cuda, m, n, k, x_dtype, out_dtype):
 @pytest.mark.parametrize("m,k", [(1, 256), (16, 2048), (37, 14336)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_w8a8_activation_quantization_exact(cuda, m, k, dtype):
-    """The kernel's in-launch activation quantization equals q8_quantize(x,
-    256) bit for bit: int8 codes and f32 scales."""
-    from jlama_tpu_torch.ops.w8a8 import quantize_x_on_card
+    """The kernel's in-launch activation quantization, held through its
+    output: on an input that q8_quantize reproduces exactly (integers in
+    [-127, 127] times 0.5, each group holding a 127, one all-zero group) and
+    a weight whose swk are all 2^-8, every product and f32 sum is exact in
+    any order, so the output equals the plain version's bit for bit (f32 and
+    bf16 out) only if every code and scale does."""
+    from jlama_tpu_torch.nn.qarray import QArray
+    from jlama_tpu_torch.ops.w8a8 import q4s_matmul, q4s_matmul_plain
     from jlama_tpu_torch.quant.blockq import q8_quantize
 
     g = torch.Generator(device=cuda).manual_seed(m + k)
-    x = (torch.randn((m, k), generator=g, device=cuda)
-         * torch.rand((m, 1), generator=g, device=cuda) * 10).to(dtype)
-    x[0, :256] = 0
-    xq, xs = quantize_x_on_card(x)
-    rq, rs = q8_quantize(x.cpu().float(), block=256)
-    torch.cuda.synchronize()
-    assert torch.equal(xq.cpu(), rq) and torch.equal(xs.cpu(), rs)
+    w = _q4s_weight(384, k, g, cuda)
+    w = QArray(w.data, (w.scales[0], torch.full_like(w.scales[1], 2.0 ** -8)), "q4s")
+    ints = torch.randint(-127, 128, (m, k), generator=g, device=cuda).float()
+    ints[:, ::256] = 127.0
+    ints[0, :256] = 0.0
+    x = (ints * 0.5).to(dtype)
+    xq, _ = q8_quantize(x.float(), block=256)
+    assert torch.equal(xq.float() * 0.5, x.float())  # lossless
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = q4s_matmul(x, w, out_dtype).cpu()
+        assert torch.equal(got, q4s_matmul_plain(x.cpu(), w.to("cpu"), out_dtype))
 
 
 def test_q4s_forward_on_card_matches_cpu_logits(cuda):

@@ -63,6 +63,7 @@ def test_to_q4s_matches_jax(n, k, case):
     pq = w8a8.to_q4s(QArray(torch.from_numpy(packed), torch.from_numpy(scales), "q4"))
     vals, sigma, swk = _jax_q4s_np(jq)
     np.testing.assert_array_equal(w8a8.q4s_unpack(pq.data).numpy(), vals)
+    np.testing.assert_array_equal(pq.unpack().numpy(), vals)
     np.testing.assert_array_equal(pq.scales[0].numpy(), sigma)
     np.testing.assert_array_equal(pq.scales[1].numpy(), swk)
     assert pq.shape == (n, k) and pq.data.shape == (n, k // 2)
@@ -320,10 +321,11 @@ def test_q4s_scheduler_converts_after_fusing(q4s_model):
     layer = sched.params["layers"][0]
     assert {layer[k].fmt for k in ("wqkv", "wo", "w13", "w2")} == {"q4s"}
     assert sched.params["lm_head"].fmt == "q4s" and sched.params["embed"].fmt == "q4"
-    with pytest.raises(ValueError, match="weight_format"):
-        _port_sched(q4s_model, weight_format="q8")
-    q4k = _port_sched(q4s_model, weight_format="q4k")  # K1 reads JQ4 as it is
-    assert q4k.params["layers"][0]["wqkv"].fmt == "q4" and "lm_head" not in q4k.params
+    for bad in ("q8", "q4k"):  # q4k: K1 reads JQ4 as it is, so None serves q4
+        with pytest.raises(ValueError, match="weight_format"):
+            _port_sched(q4s_model, weight_format=bad)
+    q4 = _port_sched(q4s_model, weight_format=None)
+    assert q4.params["layers"][0]["wqkv"].fmt == "q4" and "lm_head" not in q4.params
 
 
 def test_q4s_greedy_single_matches_jax(q4s_model, jax_q4s_ids):
