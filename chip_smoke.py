@@ -63,7 +63,17 @@ Phases, each fatal on failure (exit code 1, no result line):
               a seed (windows of 1024, stride 512) with the q4 weights and
               their q4s conversion: both perplexities (random weights: only
               their relative delta and the path mean anything), K5 launched in
-              the q4s run and K1 in the q4 run only.
+              the q4s run and K1 in the q4 run only;
+  9. design benches - the TPU design benches P1-P3 as card benches
+              (jlama_tpu_torch/scripts/): kbench_q4's 25 variants at
+              Llama-3.2-1B's four (N, K) and Llama-3.1-8B's two, and
+              kbench_w8a8's 10 at (8192, 2048) and (2048, 8192), each at M = 1
+              and 16, with torch.matmul on a bf16 weight, K1 and K5 beside
+              each shape; probe_int4 (M = 8, 4096 x 4096) and probe_sigma_i16
+              (M = 1, 256 x 512). Every kernel against its plain version
+              (limits beside the constants), its time, the plain version's time (once
+              per function and shape), the bytes it reads and its bound; one
+              line per (variant, shape, M), every wrapper launched.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. --out also writes the per-shape details and
 the profiles as JSON.
@@ -80,9 +90,6 @@ import sys
 import time
 from pathlib import Path
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-BF16_OPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
-INT8_OPS_PER_S = 1979e12  # H100 SXM data sheet, dense int8 tensor cores
 K1_TOL = 2e-2  # max |kernel - plain| <= K1_TOL * max |plain| (bf16 W tiles / bf16 out)
 K1_REL_L2 = 1e-2
 # K3: max |kernel - plain| on N(0, 1) inputs, bf16 in and out / f32 in and out
@@ -98,55 +105,20 @@ K2_BF16_OUT_REL, K2_BF16_OUT_ABS = 2.0 ** -7, 2e-5
 # bf16 ulp (at most 2^-7 of the value) of the plain output plus that
 K5_TOL, K5_BF16_OUT_REL = 1e-5, 2.0 ** -7
 LOGITS_REL_L2 = 5e-2
+# phase 9 (design benches), each kernel against its plain version on the same
+# inputs (jlama_tpu_torch/scripts/_common.py's BF16_REL and F32_REORDER):
+# the float variants, and pb8, pgb8 and pk4 (exact int32 dots, an f32 combine
+# in another order), within one bf16 ulp of the plain output (2^-7 of it) plus
+# 2e-4 max|plain| for the f32 sums in another order (the rank-1 variants
+# subtract terms up to ~30x the output); di8, di8b and the sigma probes (one
+# exact integer sum, at most one float operation) equal
+BENCH_MAIN = (8192, 2048, 1)  # the kernels line's shape: 1B's w13-sized GEMV at M = 1
 N_TTFT = 5  # time-to-first-token runs; the median is reported
-SLEEP_CYCLES = 100_000_000  # ~50 ms at H100 clocks: the host queues every timed launch
 
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def bound(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S) -> tuple[float, str]:
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
-
-
-class Timer:
-    """Median device ms of a call, each launch after an L2 flush (the main path
-    finds its weights cold: a decode step streams ~0.65 GB between two uses).
-    The flush reads a 128 MB buffer: a write would leave the L2 full of dirty
-    lines whose write-back the timed launch would pay for. A device-side
-    sleep ahead of the timed launches lets the host enqueue all of them
-    first, so the events time the device's work and not the wrapper's host
-    cost between two events."""
-
-    def __init__(self, torch):
-        self.torch = torch
-        self.flush = torch.zeros(128 << 20, dtype=torch.uint8, device="cuda")
-        # a quarter second of load first, so the first timed call does not
-        # pay for the clocks ramping up from idle
-        a = torch.randn((4096, 4096), device="cuda", dtype=torch.bfloat16)
-        t0 = time.perf_counter()
-        while time.perf_counter() - t0 < 0.25:
-            for _ in range(50):
-                a @ a
-            torch.cuda.synchronize()
-
-    def __call__(self, fn, reps: int = 10) -> float:
-        torch = self.torch
-        fn()
-        torch.cuda.synchronize()
-        ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(reps)]
-        torch.cuda._sleep(SLEEP_CYCLES)
-        for s, e in ev:
-            self.flush.sum()
-            s.record()
-            fn()
-            e.record()
-        torch.cuda.synchronize()
-        return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
 PPL_TOKENS, PPL_SEQ, PPL_STRIDE = 2048, 1024, 512
@@ -171,6 +143,7 @@ def _ppl_window_cases(c1) -> list[tuple]:
 
 
 def check_k1(torch, timer, details):
+    from jlama_tpu_torch.utils.cuda_timer import bound
     from jlama_tpu_torch.models.init import llama_1b_config, llama_8b_config
     from jlama_tpu_torch.nn.qarray import QArray
     from jlama_tpu_torch.ops.q4_matmul import q4_matmul, q4_matmul_plain
@@ -255,6 +228,7 @@ def _lossless_k5_case(torch, QArray, w, m, x_dtype, g):
 
 
 def check_k5(torch, timer, details):
+    from jlama_tpu_torch.utils.cuda_timer import bound, INT8_OPS_PER_S
     from jlama_tpu_torch.models.init import llama_1b_config, llama_8b_config
     from jlama_tpu_torch.nn.qarray import QArray
     from jlama_tpu_torch.ops.q4_matmul import q4_matmul
@@ -340,6 +314,7 @@ def check_k5(torch, timer, details):
 
 
 def check_k3(torch, timer, details):
+    from jlama_tpu_torch.utils.cuda_timer import bound
     import torch.nn.functional as F
 
     from jlama_tpu_torch.ops.attention import flash_prefill, flash_prefill_plain
@@ -445,6 +420,7 @@ def _kv_bytes_per_key(kind, hd):
 
 
 def check_k2(torch, timer, details):
+    from jlama_tpu_torch.utils.cuda_timer import bound
     import torch.nn.functional as F
 
     from jlama_tpu_torch.ops.attention import paged_decode, paged_decode_plain
@@ -537,6 +513,7 @@ def _q8_close(torch, a, b) -> tuple[int, int]:
 
 
 def check_k4(torch, timer, details):
+    from jlama_tpu_torch.utils.cuda_timer import bound
     from jlama_tpu_torch.nn.qarray import QArray
     from jlama_tpu_torch.ops.kv_write import (
         _slots, dense_page_table, dense_pool_view, kv_write, kv_write_plain)
@@ -1159,6 +1136,100 @@ def _paged_logits_check(torch, sched, cfg, kv_dtype, ids) -> float:
     return rel
 
 
+def _bench_line(r) -> str:
+    """One compact line per (variant, shape, M)."""
+    head = f"{r['bench']:15s} {r['variant']:17s} {r['N']:>6d}x{r['K']:<5d} M={r['M']:<2d}"
+    if r["kind"] != "variant":
+        return f"{head} {r['ms']:.4f} ms ({r['kind']})"
+    line = (f"{head} {r['ms']:.4f} ms plain {r['plain_ms']:.4f} bound {r['bound_ms']:.4f} "
+            f"({100 * r['bound_share']:.1f}%) {r['bytes'] / 1e6:.2f} MB")
+    if r.get("gbps_q4"):
+        line += f" {r['gbps_q4']:.1f} GB/s(q4)"
+    line += f" err {r['max_abs_err']:.3g} ({r['limit_ratio']:.2f} of limit)"
+    if r.get("wrong"):
+        line += f" WRONG({r['rel_err_exact']:.1e})"
+    return line
+
+
+def design_benches(torch) -> dict:
+    """Phase 9: the TPU design benches P1-P3 as card benches. Each port
+    module's run() on the card: kbench_q4's variants at Llama-3.2-1B's four
+    (N, K) and Llama-3.1-8B's two (w1/w3, w2), and kbench_w8a8's at the JAX
+    bench's two shapes, at M = 1 and 16; the probes at their own shapes. Every kernel is held against its plain version
+    (limit_ratio <= 1) and each wrapper must have launched."""
+    from jlama_tpu_torch.scripts import (
+        _common, kbench_q4, kbench_w8a8, probe_int4, probe_sigma_i16)
+    from jlama_tpu_torch.utils.cuda_timer import Timer
+
+    mods = {"kbench_q4": kbench_q4, "kbench_w8a8": kbench_w8a8, "probe_int4": probe_int4,
+            "probe_sigma_i16": probe_sigma_i16}
+    print(f"design benches: each kernel within {_common.BF16_REL} |plain| + "
+          f"{_common.F32_REORDER} max|plain| of its plain version (di8, di8b and the sigma "
+          "probes: equal); WRONG(rel): the variant's own function misses the exact "
+          "product by more than the JAX bench's limit", flush=True)
+    q4_shapes = kbench_q4.SHAPES_1B + kbench_q4.SHAPES_8B
+    t0 = time.perf_counter()
+    timer = Timer()
+    for mod in mods.values():
+        for w in mod.WRAPPERS:
+            w.launches = 0
+    runs = []
+    for m in (1, 16):
+        runs.append(("kbench_q4", kbench_q4.run(list(kbench_q4.VARIANTS), q4_shapes, m, "cuda",
+                                                timer=timer)))
+        runs.append(("kbench_w8a8", kbench_w8a8.run(list(kbench_w8a8.VARIANTS),
+                                                    kbench_w8a8.SHAPES, m, "cuda", timer=timer)))
+    runs.append(("probe_int4", probe_int4.run(["xla", "pallas", "bitcast"], "cuda", timer=timer)))
+    runs.append(("probe_sigma_i16", probe_sigma_i16.run(list(probe_sigma_i16.PROBES), "cuda",
+                                                        timer=timer)))
+    torch.cuda.synchronize()
+    launches = {f"{b}.{w.__name__}": w.launches for b, mod in mods.items() for w in mod.WRAPPERS}
+    secs = time.perf_counter() - t0
+    rows = [dict(r, bench=b) for b, rs in runs for r in rs]
+    for r in rows:
+        print(_bench_line(r), flush=True)
+    bad = [r for r in rows if r["kind"] == "variant" and not r["limit_ratio"] <= 1.0]
+    if bad:
+        fail("design benches: kernels outside their limit against the plain version: "
+             + "; ".join(_bench_line(r) for r in bad[:5]))
+    if min(launches.values()) == 0:
+        fail(f"design benches: a kernel never launched: {launches}")
+    print(f"design benches: {len(rows)} rows in {secs:.1f} s; launches {launches}", flush=True)
+
+    def at(bench, variant, n, k, m):
+        return next(r for r in rows if (r["bench"], r["variant"], r["N"], r["K"], r["M"])
+                    == (bench, variant, n, k, m))
+
+    n, k, m = BENCH_MAIN
+    lib = {"kbench_q4": at("kbench_q4", "torch.matmul bf16", n, k, m),
+           "kbench_w8a8": at("kbench_q4", "torch.matmul bf16", n, k, m)}
+    p4, ps = probe_int4, probe_sigma_i16
+    lib["probe_int4"] = at("probe_int4", "torch.matmul bf16", p4.N, p4.K, p4.M)
+    lib["probe_sigma_i16"] = at("probe_sigma_i16", "torch.matmul f32", ps.N, ps.K, 1)
+    # (bench, wrapper, the variant whose row the kernels line reports)
+    bodies = [("kbench_q4", v, v) for v in ("v3a", "v3b", "v4", "v7", "v8", "v8b", "v9", "v11",
+                                            "dot2", "di8", "stream")]
+    bodies += [("kbench_w8a8", "pb8", "pb8"), ("kbench_w8a8", "pgb", "pgb8"),
+               ("kbench_w8a8", "di8b", "di8b"), ("kbench_w8a8", "pk4", "pk4"),
+               ("probe_int4", "u4_convert", "pallas"), ("probe_int4", "u4_bitcast", "bitcast")]
+    bodies += [("probe_sigma_i16", w.__name__, name) for name, w in ps.PROBES.items()]
+    kernels = []
+    for bench, body, variant in bodies:
+        main = (at(bench, variant, n, k, m) if bench in ("kbench_q4", "kbench_w8a8") else
+                next(r for r in rows if r["bench"] == bench and r["variant"] == variant))
+        mine = [r for r in rows if r["bench"] == bench and r.get("body") == body
+                and r["kind"] == "variant"]
+        kernels.append(dict(
+            name=f"{bench}.{body}", route="cuda", source=f"jlama_tpu_torch/csrc/{bench}.cu",
+            replaces=mods[bench].REPLACES[body], launches=launches[f"{bench}.{body}"],
+            max_abs_err=max(r["max_abs_err"] for r in mine), ms=main["ms"],
+            plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=lib[bench]["ms"],
+            work=f"{variant} at N={main['N']}, K={main['K']}, M={main['M']}; library_ms: "
+                 f"{lib[bench]['variant']} at that shape"))
+    return dict(rows=rows, kernels=kernels, seconds=secs, launches=launches)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write per-shape details as JSON here")
@@ -1200,7 +1271,9 @@ def main() -> None:
     details: list[dict] = []
     out = {"card": smi, "shapes": details}
     # 3. kernels against their plain versions
-    timer = Timer(torch)
+    from jlama_tpu_torch.utils.cuda_timer import BF16_OPS_PER_S, HBM_BYTES_PER_S, Timer
+
+    timer = Timer()
     print(f"bound = max(bytes / {HBM_BYTES_PER_S / 1e12:.2f} TB/s, operations / "
           f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16): the H100 SXM data-sheet peaks at "
           "700 W (a PCIe card or a lower power limit has lower peaks)", flush=True)
@@ -1229,6 +1302,10 @@ def main() -> None:
         {k: v for k, v in q4s_serving.items() if k != "profile"}), flush=True)
     # 8. perplexity
     out["perplexity"] = ppl_path(torch)
+    # 9. design benches
+    benches = design_benches(torch)
+    out["design_benches"] = dict(rows=benches["rows"], seconds=benches["seconds"],
+                                 launches=benches["launches"])
 
     routes = {
         "q4_matmul": ("jlama_tpu_torch/csrc/q4_matmul.cu", "jlama_tpu/ops/pallas_q4.py:113"),
@@ -1252,6 +1329,7 @@ def main() -> None:
         row = dict(name=k, route="cuda", source=src, replaces=rep, **launches)
         row.update(kern[k])
         kernels.append(row)
+    kernels += benches["kernels"]
     out["kernels"] = kernels
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

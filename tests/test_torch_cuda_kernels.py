@@ -327,3 +327,94 @@ def test_q4s_forward_on_card_matches_cpu_logits(cuda):
         assert q4s_matmul.launches == before + 4 * cfg.n_layers + 1
         rel = ((got.cpu() - ref).norm() / ref.norm()).item()
         assert rel < 3e-2, (T, rel)
+
+
+# ---- the design benches (P1-P3): each kernel against its plain version on the
+# card, at a ragged shape and a Llama-3.2-1B one, at M = 1 and 16 -------------
+
+BENCH_SHAPES = [(1003, 1024), (8192, 2048)]
+
+
+def _q4_bench_names():
+    from jlama_tpu_torch.scripts import kbench_q4
+
+    return [v for v in kbench_q4.VARIANTS if v != "i4x"]
+
+
+@pytest.mark.parametrize("m", [1, 16])
+@pytest.mark.parametrize("n,k", BENCH_SHAPES)
+@pytest.mark.parametrize("name", _q4_bench_names())
+def test_kbench_q4_kernel_matches_plain(cuda, name, n, k, m):
+    from jlama_tpu_torch.scripts import _common, kbench_q4 as kb
+
+    x, packed, scales = kb.make_inputs(n, k, m, cuda)
+    s16 = scales.to(torch.bfloat16)
+    wrapper, kw, form, _ = kb.VARIANTS[name]
+    args = (x, packed, s16) + ((s16.repeat_interleave(16, dim=1),) if form == "expanded" else ())
+    before = wrapper.launches
+    got = wrapper(*args, **kw)
+    assert wrapper.launches == before + 1 and got.shape == (m, n)
+    ref = kb._plain_of(wrapper, kw)[1](*args)
+    torch.cuda.synchronize()
+    err, ratio = _common.limit_ratio(got, ref, name in kb.EXACT)
+    assert ratio <= 1.0, (name, err, ratio)
+
+
+@pytest.mark.parametrize("m", [1, 16])
+@pytest.mark.parametrize("n,k", BENCH_SHAPES)
+@pytest.mark.parametrize("name", ["pb8", "pgb8", "pgbf", "di8b", "pk4"])
+def test_kbench_w8a8_kernel_matches_plain(cuda, name, n, k, m):
+    from jlama_tpu_torch.quant.blockq import q4_unpack, q8_quantize
+    from jlama_tpu_torch.scripts import _common, kbench_w8a8 as kb
+
+    x, packed, scales, sg = kb.make_inputs(n, k, m, cuda)
+    xq, xs = q8_quantize(x)
+    blocks = lambda: kb.blocks_plain(xq, xs, packed, scales)  # noqa: E731
+    calls = {
+        "pb8": (lambda: kb.pb8(x, packed, scales), blocks),
+        "pgb8": (lambda: kb.pgb(x, packed, scales), blocks),
+        "pgbf": (lambda: kb.pgb(x, packed, scales, dom="bf16"),
+                 lambda: kb.float_plain(x, packed, scales)),
+        "di8b": (lambda: kb.di8b(x, q4_unpack(packed), scales),
+                 lambda: kb.int8_plain(xq, q4_unpack(packed), scales)),
+        "pk4": (lambda: kb.pk4(x, packed, sg), lambda: kb.groups_plain(xq, packed, sg)),
+    }
+    wrapper = kb.VARIANTS[name][0]
+    before = wrapper.launches
+    got = calls[name][0]()
+    assert wrapper.launches == before + 1 and got.shape == (m, n)
+    ref = calls[name][1]()
+    torch.cuda.synchronize()
+    err, ratio = _common.limit_ratio(got, ref, name in kb.EXACT)
+    assert ratio <= 1.0, (name, err, ratio)
+
+
+@pytest.mark.parametrize("m", [1, 8, 16])
+@pytest.mark.parametrize("n,k", [(1003, 1024), (4096, 4096)])
+@pytest.mark.parametrize("probe", ["pallas", "bitcast"])
+def test_probe_int4_kernel_matches_plain(cuda, probe, n, k, m):
+    from jlama_tpu_torch.scripts import _common, probe_int4 as pi
+
+    x, packed, s = pi.make_inputs(n, k, m, cuda)
+    fn = pi.PROBES[probe]
+    before = fn.launches
+    got = fn(x, packed, s)
+    assert fn.launches == before + 1
+    ref = pi.u4_plain(x, packed, s)
+    torch.cuda.synchronize()
+    assert _common.limit_ratio(got, ref, exact=False)[1] <= 1.0
+
+
+@pytest.mark.parametrize("m", [1, 16])
+@pytest.mark.parametrize("n,k", [(1003, 1024), (256, 512)])
+def test_probe_sigma_kernels_equal_plain(cuda, n, k, m):
+    from jlama_tpu_torch.scripts import probe_sigma_i16 as ps
+
+    x, w, sigma = ps.make_inputs(n, k, m, cuda)
+    ref = ps.sigma_plain(x, w, sigma)
+    for fn in ps.WRAPPERS:
+        before = fn.launches
+        got = fn(x, w, sigma)
+        assert fn.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), fn.__name__

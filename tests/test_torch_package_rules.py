@@ -51,8 +51,8 @@ def test_optional_packages_only_in_tokenizers():
 
 
 def test_engine_import_path_is_clean():
-    """The Engine, serving (scheduler, paged KV, metrics, q4s) and perplexity
-    paths pull in none of jax, jlama_tpu, the optional packages or aiohttp."""
+    """The Engine, serving (scheduler, paged KV, metrics, q4s), perplexity and
+    card-bench paths pull in none of jax, jlama_tpu, the optional packages or aiohttp."""
     code = (
         "import sys\n"
         "import jlama_tpu_torch.runtime.engine, jlama_tpu_torch.models.loader\n"
@@ -60,6 +60,8 @@ def test_engine_import_path_is_clean():
         "import jlama_tpu_torch.runtime.scheduler, jlama_tpu_torch.kv.paged\n"
         "import jlama_tpu_torch.utils.metrics, jlama_tpu_torch.ops.w8a8\n"
         "import jlama_tpu_torch.eval.ppl\n"
+        "import jlama_tpu_torch.scripts.kbench_q4, jlama_tpu_torch.scripts.kbench_w8a8\n"
+        "import jlama_tpu_torch.scripts.probe_int4, jlama_tpu_torch.scripts.probe_sigma_i16\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{OPTIONAL + ('jax', 'jlama_tpu', 'aiohttp')!r}]\n"
         "bad += [m for m in sys.modules if m.startswith('jlama_tpu_torch.tokenizers')]\n"
@@ -253,3 +255,25 @@ def test_cpu_q4s_serving_goes_through_plain_versions(monkeypatch):
     L, n_pf, n_dec = cfg.n_layers, sched.n_prefill_calls, sched.n_decode_steps
     assert calls == {"q4s": 4 * L * (n_pf + n_dec) + n_dec, "q4": 0}
     assert (w8a8.q4s_matmul.launches, q4_matmul.q4_matmul.launches) == launches
+
+
+def test_bench_mains_need_cuda_or_explicit_cpu(monkeypatch):
+    """Each card bench's main() raises without a GPU unless --device cpu is
+    given, and its wrappers raise on a device that is neither."""
+    from jlama_tpu_torch.scripts import kbench_q4, kbench_w8a8, probe_int4, probe_sigma_i16
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for mod in (kbench_q4, kbench_w8a8, probe_int4, probe_sigma_i16):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.main([])
+    meta = {dt: torch.empty((8, 256), dtype=dt, device="meta")
+            for dt in (torch.bfloat16, torch.uint8, torch.int8, torch.float32)}
+    with pytest.raises(ValueError, match="device"):
+        kbench_q4.v3a(meta[torch.bfloat16], meta[torch.uint8], meta[torch.bfloat16])
+    with pytest.raises(ValueError, match="device"):
+        probe_int4.u4_bitcast(meta[torch.bfloat16], meta[torch.uint8], meta[torch.bfloat16])
+    with pytest.raises(ValueError, match="device"):
+        probe_sigma_i16.c_i16mul_i32dot(meta[torch.int8], meta[torch.uint8], meta[torch.uint8])
+    with pytest.raises(ValueError, match="device"):
+        kbench_w8a8.pk4(meta[torch.bfloat16], meta[torch.uint8], meta[torch.float32],
+                        xq=meta[torch.int8])
