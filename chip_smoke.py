@@ -8,7 +8,10 @@ Phases, each fatal on failure (exit code 1, no result line):
   2. build  - nvcc builds every kernel of the paths from csrc/, in parallel;
   3. kernels - each kernel against its plain PyTorch version on the card at
               the paths' shapes (Llama-3.2-1B, plus Llama-3.1-8B's w2, head
-              size 128 and ragged edges), with its time, the plain version's
+              size 128 and ragged edges; K1 at M = 1 through its GEMV, at M
+              = 2, 8, 13 and 16 through its bf16 tensor-core route, at M =
+              512 through its tiled kernel, and the summed 16-slot decode
+              step against torch.matmul's), with its time, the plain version's
               time, a library call's or yardstick's time (never used by the
               port) and the bound: max(bytes / 3.35 TB/s, operations / 989
               TFLOP/s bf16), the H100 SXM data-sheet peaks. K1 q4 matmul,
@@ -84,6 +87,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -114,6 +118,8 @@ LOGITS_REL_L2 = 5e-2
 # exact integer sum, at most one float operation) equal
 BENCH_MAIN = (8192, 2048, 1)  # the kernels line's shape: 1B's w13-sized GEMV at M = 1
 N_TTFT = 5  # time-to-first-token runs; the median is reported
+# K1's device kernels in a profile: the GEMV, the tensor-core route, the tiled kernel
+K1_NAMES = re.compile(r"q4_(gemv|mma|gemm)_kernel")
 
 
 def fail(msg: str) -> None:
@@ -153,9 +159,11 @@ def check_k1(torch, timer, details):
     qkv = (c1.n_heads + 2 * c1.n_kv_heads) * c1.head_size
     layer_shapes = {"wqkv": (qkv, D), "wo": (D, D), "w13": (2 * Hf, D), "w2": (D, Hf)}
     bf16, f32 = torch.bfloat16, torch.float32
+    # M = 1: the GEMV; 2, 8, 13, 16: the tensor-core route (one and two token
+    # tiles, a ragged one); 512: the tiled kernel
     cases = [(name, n, k, m, bf16, bf16)
-             for m in (1, 16, 512) for name, (n, k) in layer_shapes.items()]
-    cases += [("lm_head", V, D, m, bf16, f32) for m in (1, 16, 512)]
+             for m in (1, 2, 8, 13, 16, 512) for name, (n, k) in layer_shapes.items()]
+    cases += [("lm_head", V, D, m, bf16, f32) for m in (1, 2, 8, 13, 16, 512)]
     cases += [("8b_w2", c8.embedding_length, c8.hidden_length, m, bf16, bf16)
               for m in (1, 16, 512)]
     cases += [("uneven_n", 1000, 2048, m, bf16, bf16) for m in (1, 37)]
@@ -204,9 +212,12 @@ def check_k1(torch, timer, details):
     step16 = [per_shape[(s, 16)] for s in layer_shapes for _ in range(L)] + [per_shape[("lm_head", 16)]]
     ms16 = sum(r["ms"] for r in step16)
     bound16 = sum(r["bound_ms"] for r in step16)
-    print(f"K1 one decode step at M=16 (the 16-slot serving step): {ms16:.4f} ms "
-          f"(bound {bound16:.4f}); at M=1: {summed['ms']:.4f} ms", flush=True)
+    lib16 = sum(r["library_ms"] for r in step16)
+    print(f"K1 one decode step at M=16 (the 16-slot serving step): K1 {ms16:.4f} ms, "
+          f"torch.matmul bf16 {lib16:.4f} ms, bound {bound16:.4f} ms; at M=1: K1 "
+          f"{summed['ms']:.4f} ms", flush=True)
     return dict(summed, max_abs_err=worst, bound_by="bytes", ms_m16=ms16, bound_ms_m16=bound16,
+                library_ms_m16=lib16,
                 work="one decode step, M=1: "
                 f"{L} x (wqkv, wo, w13, w2) + lm_head = {len(step)} launches")
 
@@ -720,7 +731,7 @@ def profile_path(torch, eng, prompt) -> dict:
             fail(f"profile {label}: the profiler saw no device time")
         groups = {"q4_matmul": 0.0, "flash_prefill": 0.0, "other": 0.0}
         for ms, _, key in kernels:
-            g = ("q4_matmul" if "q4_ge" in key else
+            g = ("q4_matmul" if K1_NAMES.search(key) else
                  "flash_prefill" if "flash_prefill" in key else "other")
             groups[g] += ms
         n_ops = sum(c for _, c, _ in kernels)
@@ -1068,7 +1079,7 @@ def _serving_profile(torch, sched, cfg, ids) -> dict:
     if dev_ms <= 0:
         fail("serving profile: the profiler saw no device time")
     for ms, _, key in kernels:
-        grp = ("q4_matmul" if "q4_ge" in key else "w8a8_matmul" if "w8a8_" in key
+        grp = ("q4_matmul" if K1_NAMES.search(key) else "w8a8_matmul" if "w8a8_" in key
                else "paged_decode" if "paged_decode" in key
                else "kv_write" if "kv_write" in key else "other")
         groups[grp] += ms

@@ -21,8 +21,8 @@
 // integers below 2^24 (|d_g| <= 256 * 127 * 112).
 //
 // The activation quantization equals quant/blockq.py::q8_quantize exactly:
-// iscale = (1 / amax) * 127 (torch's `127.0 / t` is `t.reciprocal() * 127`),
-// scale = amax / 127, q = floor(x * iscale + 0.5) with the multiply and the
+// iscale = 127 / amax and scale = amax / 127, each one correctly rounded
+// division, q = floor(x * iscale + 0.5) with the multiply and the
 // add rounded separately (no FMA contraction), clip to +-127, scale 0 for an
 // all-zero group. An input that quantizes losslessly, with power-of-two group
 // scales on both sides, makes every product and sum exact, so the output
@@ -106,7 +106,7 @@ __device__ __forceinline__ float quantize8(const float* v, uint2* dst) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  const float iscale = amax > 0.0f ? __fmul_rn(__frcp_rn(amax), 127.0f) : 0.0f;
+  const float iscale = amax > 0.0f ? __fdiv_rn(127.0f, amax) : 0.0f;
   uint32_t w[2] = {0u, 0u};
 #pragma unroll
   for (int i = 0; i < 8; ++i) {

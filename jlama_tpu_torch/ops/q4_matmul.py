@@ -10,10 +10,15 @@ Replaces the TPU kernel `jlama_tpu/ops/pallas_q4.py:_q4_matmul_kernel`
   and keeping the checkpoint layout lets a tied lm_head share the embedding
   table (the TPU path makes a second, permuted copy).
 - What bounds it on the H100: decode (M ≤ 16) streams 0.625 bytes per weight
-  (4-bit payload + f32 scale) against 3.35 TB/s, so the kernel is a
-  weight-streaming GEMV with 128-bit loads and dequant in registers; prefill
-  is tensor-core bound and dequantizes each W tile to bf16 in shared memory
-  for `wmma` bf16 → f32.
+  (4-bit payload + f32 scale) against 3.35 TB/s; prefill is tensor-core
+  bound. Three routes, each launched by the same `q4_matmul` call:
+  - M = 1, and f32 x at M ≤ 16: a weight-streaming GEMV on the CUDA cores
+    (128-bit loads, dequant in registers, f32 products);
+  - bf16 x at 2 ≤ M ≤ 16: `mma.sync` on the bf16 tensor cores, with the
+    nibbles dequantized to exact bf16 (n − 8) in registers and each
+    32-block's f32 partial scaled by its f32 scale (the GEMV's numerics);
+  - M > 16: a tiled kernel that dequantizes each W tile to bf16 in shared
+    memory for `wmma` bf16 → f32.
 
 `q4_matmul_plain` is the same function in plain PyTorch (f32 dequant, f32
 matmul). `q4_matmul` runs it for tensors on the CPU only; a CUDA tensor

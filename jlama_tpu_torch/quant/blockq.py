@@ -149,8 +149,11 @@ def q8_quantize(
     xb = x.reshape(*shape[:-1], shape[-1] // block, block).to(torch.float32)
     amax = xb.abs().amax(dim=-1)
     pos = amax > 0
-    iscale = torch.where(pos, 127.0 / amax, torch.zeros_like(amax))
-    scale = torch.where(pos, amax / 127.0, torch.zeros_like(amax))
+    # true divisions by a tensor: PyTorch's CUDA division by a Python scalar
+    # multiplies by the reciprocal, which rounds differently from NumPy and XLA
+    c127 = torch.full_like(amax, 127.0)
+    iscale = torch.where(pos, c127 / amax, torch.zeros_like(amax))
+    scale = torch.where(pos, amax / c127, torch.zeros_like(amax))
     q = torch.clamp(torch.floor(xb * iscale[..., None] + 0.5), -127, 127)
     return q.to(torch.int8).reshape(shape), scale
 

@@ -21,8 +21,37 @@ def cuda():
     return torch.device("cuda")
 
 
+def q8_tie_inputs(n_groups=3125, block=32, seed=0):
+    """n_groups * block (10^5 by default) f32 values made from a seed with
+    numpy, in groups of `block`: random group maxima (an eighth of them 127,
+    where 127 / amax is 1), half the values drawn uniformly and half set to
+    (k + 1/2) / (127 / amax) for an integer k, so that x * 127 / amax lands
+    exactly on a half wherever that quotient is exact in f32."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    amax = rng.uniform(0.01, 8.0, n_groups).astype(np.float32)
+    amax[: n_groups // 8] = 127.0
+    x = rng.uniform(-1, 1, (n_groups, block)).astype(np.float32) * amax[:, None]
+    iscale = np.float32(127) / amax
+    k = rng.integers(-127, 127, (n_groups, block)).astype(np.float32)
+    half = ((k + np.float32(0.5)) / iscale[:, None]).astype(np.float32)
+    x = np.where(rng.uniform(size=(n_groups, block)) < 0.5,
+                 np.clip(half, -amax[:, None], amax[:, None]), x)
+    sign = np.where(rng.uniform(size=n_groups) < 0.5, -1.0, 1.0).astype(np.float32)
+    x[np.arange(n_groups), rng.integers(0, block, n_groups)] = amax * sign
+    return x.reshape(-1)
+
+
+# M = 2..16 with bf16 x takes the tensor-core route (both token tiles, ragged
+# ones), M = 1 and f32 x the GEMV, M > 16 the tiled kernel; N not a multiple
+# of 16; K = 96 (3 blocks, fewer than the 8 warps), 2048 and 14336; a tuple is
+# x's leading dims
 @pytest.mark.parametrize("m,n,k", [(1, 256, 256), (3, 1000, 2048), (16, 512, 128),
-                                   (17, 384, 96), (130, 520, 640), (2, 64, 14336)])
+                                   (17, 384, 96), (130, 520, 640), (2, 64, 14336),
+                                   (2, 1000, 96), (5, 24, 2048), (8, 1000, 14336),
+                                   (9, 24, 96), (13, 1000, 2048), (16, 1000, 14336),
+                                   (16, 24, 2048), ((2, 3), 1000, 2048)])
 @pytest.mark.parametrize("x_dtype,out_dtype", [(torch.bfloat16, torch.bfloat16),
                                                (torch.float32, torch.float32),
                                                (torch.bfloat16, torch.float32)])
@@ -30,18 +59,59 @@ def test_q4_matmul_kernel_matches_plain(cuda, m, n, k, x_dtype, out_dtype):
     from jlama_tpu_torch.nn.qarray import QArray
     from jlama_tpu_torch.ops.q4_matmul import q4_matmul, q4_matmul_plain
 
-    g = torch.Generator(device=cuda).manual_seed(m * n + k)
+    lead = m if isinstance(m, tuple) else (m,)
+    rows = 1
+    for d in lead:
+        rows *= d
+    g = torch.Generator(device=cuda).manual_seed(rows * n + k)
     w = QArray(torch.randint(0, 256, (n, k // 2), generator=g, device=cuda, dtype=torch.uint8),
                torch.rand((n, k // 32), generator=g, device=cuda) * 0.01)
-    x = torch.randn((m, k), generator=g, device=cuda).to(x_dtype)
+    x = torch.randn((*lead, k), generator=g, device=cuda).to(x_dtype)
     before = q4_matmul.launches
     got = q4_matmul(x, w, out_dtype)
     assert q4_matmul.launches == before + 1 and got.dtype == out_dtype
+    assert got.shape == (*lead, n)
     ref = q4_matmul_plain(x, w.data, w.scales, torch.float32)
     torch.cuda.synchronize()
-    # GEMV (m <= 16) dequantizes exactly in f32; the tiled path rounds W to bf16
-    tol = 2e-2 if (m > 16 or out_dtype == torch.bfloat16) else 1e-4
+    # M <= 16 dequantizes exactly (products exact in f32, f32 scales; only the
+    # order of the f32 sums differs); the tiled path rounds W to bf16
+    tol = 2e-2 if (rows > 16 or out_dtype == torch.bfloat16) else 1e-4
     assert (got.float() - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+def test_q4_matmul_both_m16_routes_launch(cuda):
+    """At M = 16 bf16 x takes the tensor-core route and f32 x the GEMV: each
+    call counts one launch and meets its own limit (bf16 out: 2e-2 of
+    max|ref|; f32 out: 1e-4)."""
+    from jlama_tpu_torch.nn.qarray import QArray
+    from jlama_tpu_torch.ops.q4_matmul import q4_matmul, q4_matmul_plain
+
+    g = torch.Generator(device=cuda).manual_seed(16)
+    n, k = 2048, 2048
+    w = QArray(torch.randint(0, 256, (n, k // 2), generator=g, device=cuda, dtype=torch.uint8),
+               torch.rand((n, k // 32), generator=g, device=cuda) * 0.01)
+    x = torch.randn((16, k), generator=g, device=cuda)
+    for x_dtype, out_dtype, tol in ((torch.bfloat16, torch.bfloat16, 2e-2),
+                                    (torch.float32, torch.float32, 1e-4)):
+        xi = x.to(x_dtype)
+        before = q4_matmul.launches
+        got = q4_matmul(xi, w, out_dtype)
+        assert q4_matmul.launches == before + 1
+        ref = q4_matmul_plain(xi, w.data, w.scales, torch.float32)
+        torch.cuda.synchronize()
+        assert (got.float() - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+def test_q8_quantize_on_card_equals_cpu(cuda):
+    """q8_quantize on the card equals it on the CPU bit for bit (codes and
+    scales), on values that land exactly on rounding ties."""
+    from jlama_tpu_torch.quant.blockq import q8_quantize
+
+    x = torch.from_numpy(q8_tie_inputs()).reshape(-1, 32)
+    cq, cs = q8_quantize(x)
+    gq, gs = q8_quantize(x.to(cuda))
+    assert torch.equal(gq.cpu(), cq)
+    assert torch.equal(gs.cpu().view(torch.int32), cs.view(torch.int32))
 
 
 @pytest.mark.parametrize("B,T,S,pos0,hd,cap,win", [
@@ -162,11 +232,9 @@ def test_kv_write_kernel_matches_plain(cuda, kind, B, T):
     kv_write_plain(_layer(plain[0], 1), _layer(plain[1], 1), *new, pt, pos)
     torch.cuda.synchronize()
     for a, b in zip(mine, plain):  # page 0 left out: the pad row's writes race there
-        if kind == "q8":
-            assert (a.data[:, :, 1:].int() - b.data[:, :, 1:].int()).abs().max() <= 1
-            ulp = a.scales[:, :, 1:].view(torch.int32).long() \
-                - b.scales[:, :, 1:].view(torch.int32).long()
-            assert ulp.abs().max() <= 1
+        if kind == "q8":  # both round as q8_quantize does: equal
+            assert torch.equal(a.data[:, :, 1:], b.data[:, :, 1:])
+            assert torch.equal(a.scales[:, :, 1:], b.scales[:, :, 1:])
         else:
             assert torch.equal(a[:, :, 1:], b[:, :, 1:])
 

@@ -102,7 +102,7 @@ def jax_out(tmp_path_factory):
 
 def _port(name, d, m, jax_out):
     """The port's function on the same inputs; the kernels take the JAX
-    side's int8 activations (see test_activation_codes_within_one_of_jax)."""
+    side's int8 activations, equal to the port's (test_activation_codes_within_one_of_jax)."""
     from jlama_tpu_torch.quant.blockq import q4_unpack
 
     x = torch.from_numpy(d[f"x{m}"]).to(torch.bfloat16)
@@ -131,17 +131,15 @@ def _port(name, d, m, jax_out):
 
 
 def test_activation_codes_within_one_of_jax(jax_out):
-    """The port's q8_quantize computes 127 / amax as PyTorch does, the
-    reciprocal times 127 (two roundings): where x . 127 / amax lands on a
-    half, its code can differ by one from the JAX package's (one such code
-    in these inputs). The scales are equal."""
+    """The port's q8_quantize against the JAX package's on the bench's
+    inputs: codes and scales equal (both divide 127 / amax and amax / 127
+    correctly rounded)."""
     from jlama_tpu_torch.quant.blockq import q8_quantize
 
     d = _inputs()
     for m in MS:
         xq, xs = q8_quantize(torch.from_numpy(d[f"x{m}"]).to(torch.bfloat16))
-        diff = np.abs(xq.numpy().astype(np.int32) - jax_out[f"xq_{m}"].astype(np.int32))
-        assert diff.max() <= 1 and (diff > 0).sum() <= 2
+        np.testing.assert_array_equal(xq.numpy(), jax_out[f"xq_{m}"])
         np.testing.assert_array_equal(xs.numpy(), jax_out[f"xs_{m}"])
 
 
