@@ -10,8 +10,13 @@ Phases, each fatal on failure (exit code 1, no result line):
               the paths' shapes (Llama-3.2-1B, plus Llama-3.1-8B's w2, head
               size 128 and ragged edges; K1 at M = 1 through its GEMV, at M
               = 2, 8, 13 and 16 through its bf16 tensor-core route, at M =
-              512 through its tiled kernel, and the summed 16-slot decode
-              step against torch.matmul's), with its time, the plain version's
+              37, 511, 512 and 1024 (256-token chunks of 4 rows) through its
+              wgmma route, there also against its rounding model (x and W
+              rounded to bf16, f32 sums) and bit-equal on a second call, with
+              Llama-3.1-8B's four layer shapes at M = 512, the summed 16-slot
+              decode step and the summed 512-token prefill against
+              torch.matmul's, and the host time of one wrapper call at M =
+              512 and 16), with its time, the plain version's
               time, a library call's or yardstick's time (never used by the
               port) and the bound: max(bytes / 3.35 TB/s, operations / 989
               TFLOP/s bf16), the H100 SXM data-sheet peaks. K1 q4 matmul,
@@ -96,6 +101,10 @@ from pathlib import Path
 
 K1_TOL = 2e-2  # max |kernel - plain| <= K1_TOL * max |plain| (bf16 W tiles / bf16 out)
 K1_REL_L2 = 1e-2
+# K1 past M = 16 against q4_matmul_tiled_plain, its rounding model: the same
+# exact bf16 products, f32 sums in another order (K1_MODEL_TOL of max|model|),
+# plus one bf16 ulp of the value (2^-7 of it) for a bf16 output
+K1_MODEL_TOL, K1_BF16_OUT_REL = 1e-4, 2.0 ** -7
 # K3: max |kernel - plain| on N(0, 1) inputs, bf16 in and out / f32 in and out
 K3_TOL = {"bf16": 2e-2, "f32": 2e-5}
 # K2 on N(0, 1) inputs: f32 q and out, the JAX tests' tolerances (f32 sums in
@@ -118,8 +127,8 @@ LOGITS_REL_L2 = 5e-2
 # exact integer sum, at most one float operation) equal
 BENCH_MAIN = (8192, 2048, 1)  # the kernels line's shape: 1B's w13-sized GEMV at M = 1
 N_TTFT = 5  # time-to-first-token runs; the median is reported
-# K1's device kernels in a profile: the GEMV, the tensor-core route, the tiled kernel
-K1_NAMES = re.compile(r"q4_(gemv|mma|gemm)_kernel")
+# K1's device kernels in a profile: the GEMV, the mma route, the wgmma route
+K1_NAMES = re.compile(r"q4_(gemv|mma|wgmma)_kernel")
 
 
 def fail(msg: str) -> None:
@@ -148,61 +157,97 @@ def _ppl_window_cases(c1) -> list[tuple]:
     return [(name, n, k, PPL_SEQ, f32, f32) for name, (n, k) in shapes.items()]
 
 
+def _host_us(torch, fn, n=200) -> float:
+    """Host microseconds of one call: n calls enqueued back to back."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def check_k1(torch, timer, details):
     from jlama_tpu_torch.utils.cuda_timer import bound
     from jlama_tpu_torch.models.init import llama_1b_config, llama_8b_config
     from jlama_tpu_torch.nn.qarray import QArray
-    from jlama_tpu_torch.ops.q4_matmul import q4_matmul, q4_matmul_plain
+    from jlama_tpu_torch.ops.q4_matmul import q4_matmul, q4_matmul_plain, q4_matmul_tiled_plain
 
     c1, c8 = llama_1b_config(), llama_8b_config()
     D, Hf, V = c1.embedding_length, c1.hidden_length, c1.vocab_size
     qkv = (c1.n_heads + 2 * c1.n_kv_heads) * c1.head_size
     layer_shapes = {"wqkv": (qkv, D), "wo": (D, D), "w13": (2 * Hf, D), "w2": (D, Hf)}
+    D8 = c8.embedding_length
+    qkv8 = (c8.n_heads + 2 * c8.n_kv_heads) * c8.head_size
     bf16, f32 = torch.bfloat16, torch.float32
     # M = 1: the GEMV; 2, 8, 13, 16: the tensor-core route (one and two token
-    # tiles, a ragged one); 512: the tiled kernel
+    # tiles, a ragged one); 511, 512, 1024 (the scheduler's 256-token chunk x
+    # 4 rows): the wgmma route
     cases = [(name, n, k, m, bf16, bf16)
-             for m in (1, 2, 8, 13, 16, 512) for name, (n, k) in layer_shapes.items()]
+             for m in (1, 2, 8, 13, 16, 511, 512, 1024) for name, (n, k) in layer_shapes.items()]
     cases += [("lm_head", V, D, m, bf16, f32) for m in (1, 2, 8, 13, 16, 512)]
-    cases += [("8b_w2", c8.embedding_length, c8.hidden_length, m, bf16, bf16)
-              for m in (1, 16, 512)]
+    cases += [("8b_w2", D8, c8.hidden_length, m, bf16, bf16) for m in (1, 16, 512)]
+    cases += [(name, n, k, 512, bf16, bf16) for name, (n, k) in
+              {"8b_wqkv": (qkv8, D8), "8b_wo": (D8, D8), "8b_w13": (2 * c8.hidden_length, D8)}.items()]
     cases += [("uneven_n", 1000, 2048, m, bf16, bf16) for m in (1, 37)]
     cases += _ppl_window_cases(c1)
     g = torch.Generator(device="cuda").manual_seed(1)
-    worst = 0.0
+    worst = worst_model = 0.0
     per_shape = {}
+    host_us = {}
     for name, n, k, m, x_dtype, out_dtype in cases:
         w = QArray(torch.randint(0, 256, (n, k // 2), generator=g, device="cuda",
                                  dtype=torch.uint8),
                    (torch.rand((n, k // 32), generator=g, device="cuda") + 0.5) * 0.0043)
         x = torch.randn((m, k), generator=g, device="cuda").to(x_dtype)
-        got = q4_matmul(x, w, out_dtype).float()
+        got = q4_matmul(x, w, out_dtype)
         ref = q4_matmul_plain(x, w.data, w.scales, torch.float32)
         torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
+        err = (got.float() - ref).abs().max().item()
         scale = ref.abs().max().item()
-        rel = ((got - ref).norm() / ref.norm()).item()
+        rel = ((got.float() - ref).norm() / ref.norm()).item()
         if not (err <= K1_TOL * scale and rel <= K1_REL_L2):
             fail(f"K1 {name} M={m} N={n} K={k}: max_abs_err {err} (max|ref| {scale}), "
                  f"rel L2 {rel}")
+        del ref
         worst = max(worst, err)
+        model_err = None
+        if m > 16:  # the wgmma route: its rounding model, and the same bits twice
+            model = q4_matmul_tiled_plain(x, w.data, w.scales, torch.float32)
+            d = (got.float() - model).abs()
+            lim = K1_MODEL_TOL * model.abs().max().item()
+            if out_dtype == torch.bfloat16:
+                lim = lim + K1_BF16_OUT_REL * model.abs()
+            model_err = d.max().item()
+            if not bool((d <= lim).all()):
+                fail(f"K1 {name} M={m} N={n} K={k}: {model_err} from the rounding model "
+                     f"(max|model| {model.abs().max().item()})")
+            if not torch.equal(q4_matmul(x, w, out_dtype), got):
+                fail(f"K1 {name} M={m} N={n} K={k}: a second call gave other bits")
+            worst_model = max(worst_model, model_err)
+            del model, d, lim
+        del got
         wd, xb = w.dequantize(torch.bfloat16), x.to(torch.bfloat16)
         ms = timer(lambda: q4_matmul(x, w, out_dtype))
         plain_ms = timer(lambda: q4_matmul_plain(x, w.data, w.scales, out_dtype))
         lib_ms = timer(lambda: torch.matmul(xb, wd.t()))
         del wd, xb
+        if name == "w13" and m in (16, 512):
+            host_us[m] = _host_us(torch, lambda: q4_matmul(x, w, out_dtype))
         nbytes = m * k * x.element_size() + n * k // 2 + n * k // 32 * 4 \
             + m * n * (4 if out_dtype == torch.float32 else 2)
         b_ms, b_by = bound(nbytes, 2.0 * m * n * k)
         row = dict(kernel="q4_matmul", shape=name, M=m, N=n, K=k, x_dtype=str(x_dtype),
-                   max_abs_err=err, rel_l2=rel, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=b_ms, bound_by=b_by)
+                   max_abs_err=err, rel_l2=rel, model_err=model_err, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         details.append(row)
         per_shape[(name, m)] = row
         print(f"K1 {name:8s} M={m:4d} N={n:6d} K={k:5d} x {_dt(x_dtype)} out {_dt(out_dtype)}: "
               f"{ms:.4f} ms (plain {plain_ms:.4f},"
-              f" torch.matmul bf16 {lib_ms:.4f}, bound {b_ms:.4f} by {b_by}) err {err:.3g}",
-              flush=True)
+              f" torch.matmul bf16 {lib_ms:.4f}, bound {b_ms:.4f} by {b_by}) err {err:.3g}"
+              + ("" if model_err is None else f", from the model {model_err:.3g}"), flush=True)
     # the JSON line's K1 work: one decode step of the main path (M = 1):
     # 16 layers x (wqkv, wo, w13, w2) + the lm_head
     L = c1.n_layers
@@ -216,10 +261,23 @@ def check_k1(torch, timer, details):
     print(f"K1 one decode step at M=16 (the 16-slot serving step): K1 {ms16:.4f} ms, "
           f"torch.matmul bf16 {lib16:.4f} ms, bound {bound16:.4f} ms; at M=1: K1 "
           f"{summed['ms']:.4f} ms", flush=True)
+    # the Engine's 512-token prefill bucket: 16 layers x (wqkv, wo, w13, w2)
+    # at M = 512 (the lm_head runs on the last position only)
+    pre = [per_shape[(s, 512)] for s in layer_shapes for _ in range(L)]
+    pre_ms, pre_lib, pre_bound = (sum(r[key] for r in pre)
+                                  for key in ("ms", "library_ms", "bound_ms"))
+    print(f"K1 one 512-token prefill ({len(pre)} launches at M=512): K1 {pre_ms:.4f} ms, "
+          f"torch.matmul bf16 {pre_lib:.4f} ms, bound {pre_bound:.4f} ms", flush=True)
+    print(f"K1 host time of one wrapper call (w13): {host_us[512]:.1f} us at M=512 (wgmma "
+          f"route, x's tensor map made per call), {host_us[16]:.1f} us at M=16", flush=True)
     return dict(summed, max_abs_err=worst, bound_by="bytes", ms_m16=ms16, bound_ms_m16=bound16,
-                library_ms_m16=lib16,
+                library_ms_m16=lib16, max_err_from_model=worst_model,
+                ms_prefill512=pre_ms, library_ms_prefill512=pre_lib,
+                bound_ms_prefill512=pre_bound, host_us_m512=host_us[512],
+                host_us_m16=host_us[16],
                 work="one decode step, M=1: "
-                f"{L} x (wqkv, wo, w13, w2) + lm_head = {len(step)} launches")
+                f"{L} x (wqkv, wo, w13, w2) + lm_head = {len(step)} launches; "
+                f"*_prefill512: one 512-token prefill, {L} x (wqkv, wo, w13, w2) at M=512")
 
 
 def _lossless_k5_case(torch, QArray, w, m, x_dtype, g):

@@ -55,29 +55,33 @@
 //               a block, 16 warps, a deeper unroll and weight loads that skip
 //               L1 were each no faster at the six bench shapes.
 //             No cp.async/TMA pipeline, no wgmma, no new layout yet.
-//   M > 16  - q4_gemm_kernel: 64x128 output tile per block of 8 warps; each
-//             64-wide K step dequantizes the W tile to bf16 in shared memory
-//             and multiplies with nvcuda::wmma bf16 -> f32 (16x16x16). No
-//             cp.async/TMA pipelining and no wgmma yet: a later PR's work.
+//   bf16 x, M > 16 - q4_wgmma_kernel (prefill: Engine's 512-token bucket, the
+//             scheduler's 256-token chunks times rows, perplexity windows of
+//             1024 whose f32 x the wrapper casts to bf16 first, as the TPU
+//             wrapper does): a warp-specialised Hopper GEMM. One producer warp
+//             keeps a ring of 4 shared-memory stages fed with TMA (x, packed W)
+//             under mbarriers; one warpgroup dequantizes each stage's W to
+//             bf16((n - 8) * s) in the 128-byte swizzle; one or two
+//             warpgroups run wgmma bf16 -> f32 on it. The
+//             tile (64 or 128 tokens x 64 or 128 rows) is chosen per shape so
+//             that every SM gets a block. See the kernel's comment.
 // Each route returns its own launch error; none falls back to another.
 // Ragged M and N edges are masked; K must be a multiple of 32; x and y are
-// row-major contiguous; x is bf16 or f32, y is bf16 or f32.
+// row-major contiguous; x is bf16 or f32 (bf16 only past M = 16), y is bf16 or f32.
 
-#include <cuda_runtime.h>
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder comes through the runtime
 #include <cuda_bf16.h>
-#include <mma.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
 #include <type_traits>
-
-using namespace nvcuda;
 
 namespace {
 
 enum DType { kF32 = 0, kBF16 = 1 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
@@ -328,94 +332,415 @@ void launch_mma(const __nv_bfloat16* x, const uint8_t* w, const float* s, TY* y,
     q4_mma_kernel<TY, 1, NT><<<(N + 15) / 16, kMmaWarps * 32, 0, st>>>(x, w, s, y, M, N, K);
 }
 
-// ---- M > 16: q4_gemm_kernel -----------------------------------------------
+// ---- bf16 x, M > 16: q4_wgmma_kernel ----------------------------------------
+//
+// A TN GEMM per (BM tokens x BN weight rows) output tile, K in steps of kBK =
+// 64 (one 128-byte row of bf16), through a ring of kStages shared-memory stages:
+//   * the producer warp (the block's last) waits for a stage to be free, then
+//     one lane starts two TMA loads into it under full[s]: x [BM x 64] bf16
+//     (128-byte swizzle, as wgmma reads it) and the packed W bytes [BN x 32];
+//   * warpgroup 0 dequantizes the stage's packed bytes into the bf16 W tile
+//     [BN x 64], written in the same 128-byte swizzle as TMA writes x (16-byte
+//     chunk c of row r at chunk c ^ (r % 8)): dq2 makes the exact bf16 pair (n
+//     - 8), which is widened to f32, multiplied by the f32 scale (read from
+//     global one step ahead) and rounded once to bf16, so each weight is
+//     bf16((n - 8) * s) with the product in f32, as before; then
+//     fence.proxy.async (the stores are generic, wgmma reads through the
+//     async proxy) and bready[s];
+//   * BM / 64 consumer warpgroups each run four wgmma.mma_async
+//     m64nBNk16 bf16 -> f32 a stage on their 64 token rows (A = x, B = the W
+//     tile, both K-major from shared memory), keep one stage's group in flight
+//     and free the stage before it (empty[s], with warpgroup 0's arrival);
+//   * the accumulators [64 tokens x BN rows] are y's own row-major layout: the
+//     epilogue stores them in the output type, masking tokens >= M, rows >= N.
+// x and W past M, N or K arrive as zeros (TMA's out-of-bounds fill) and their
+// scales as 0, so every product there is 0 * finite. Each output is one
+// block's sum in a fixed order: the result is deterministic.
+// On the H100 a deeper ring (up to 8 stages, or a separate ring of W tiles),
+// two dequant warpgroups taking turns, suspend-hinted barrier waits and one
+// polling lane a warp were each no faster; what holds the route at about 2x
+// torch.matmul is measured in PERF.md.
 
-constexpr int BM = 64, BN = 128, BK = 64, LDS = BK + 8, kGemmThreads = 256;
+constexpr int kStages = 4;
+constexpr int kBK = 64;             // K per stage
+constexpr int kRowBytes = kBK * 2;  // one row of an x or W tile in shared memory
+constexpr int kDqThreads = 128;     // warpgroup 0
 
-template <typename TX, typename TY>
-__global__ void __launch_bounds__(kGemmThreads)
-q4_gemm_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ w,
-               const float* __restrict__ s, TY* __restrict__ y, int M, int N, int K) {
-  __shared__ __align__(32) __nv_bfloat16 As[BM * LDS];
-  __shared__ __align__(32) __nv_bfloat16 Bs[BN * LDS];
-  __shared__ __align__(32) float Cs[kGemmThreads / 32][16 * 16];
+template <int BM, int BN>
+struct TileCfg {
+  static constexpr int kConsumers = BM / 64;
+  static constexpr int kThreads = kDqThreads + 128 * kConsumers + 32;  // + the producer warp
+  static constexpr int kProducerWarp = (kThreads - 32) / 32;
+  static constexpr int kMinBlocks = (BM == 64 && BN == 64) ? 2 : 1;
+  static constexpr int kXBytes = BM * kRowBytes;       // x tile, bf16, swizzled
+  static constexpr int kBBytes = BN * kRowBytes;       // dequantized W tile, bf16, swizzled
+  static constexpr int kPBytes = BN * kBK / 2;         // packed W tile
+  // the three rings, then full/bready/empty barriers, plus slack to align to 1024
+  static constexpr int kSmem = kStages * (kXBytes + kBBytes + kPBytes) + 3 * kStages * 8 + 1024;
+};
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int wm = warp >> 2;  // 2 warp rows of 32 output rows
-  const int wn = warp & 3;   // 4 warp columns of 32 output columns
-  const int nb = K >> 5;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2][2];
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Spins until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// The exact bf16 pair (n - 8) times the f32 scale, each product rounded once.
+__device__ __forceinline__ uint32_t scale2(uint32_t pair, float f) {
+  const float lo = __uint_as_float(pair << 16) * f;
+  const float hi = __uint_as_float(pair & 0xFFFF0000u) * f;
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// wgmma shared-memory descriptor of a K-major tile in the 128-byte swizzle:
+// 8-row groups 1024 bytes apart (SBO); the tile's base is 1024-aligned, and a
+// k16 step within the 64-wide row advances the start address by 32 bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+template <int R>
+__device__ __forceinline__ void fence_operands(float (&d)[R]) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.0f);
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // x tile [BM, BK] -> bf16 in shared memory (zero past M and K)
-    for (int i = tid; i < BM * BK; i += kGemmThreads) {
-      const int r = i / BK, col = i % BK;
-      const int gm = m0 + r, gk = k0 + col;
-      const float v = (gm < M && gk < K) ? to_f32(x[(size_t)gm * K + gk]) : 0.0f;
-      As[r * LDS + col] = __float2bfloat16(v);
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d[64 x BN] = A[64 x 16] . B[BN x 16]^T (+ d if accumulate), bf16 in, f32 out
+__device__ __forceinline__ void wgmma_k16(float (&d)[64], uint64_t da, uint64_t db,
+                                          int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_k16(float (&d)[32], uint64_t da, uint64_t db,
+                                          int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void store2(float* y, size_t i, bool pair, bool second, float a,
+                                       float b) {
+  if (pair) {
+    *reinterpret_cast<float2*>(y + i) = make_float2(a, b);
+  } else {
+    y[i] = a;
+    if (second) y[i + 1] = b;
+  }
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* y, size_t i, bool pair, bool second,
+                                       float a, float b) {
+  if (pair) {
+    *reinterpret_cast<__nv_bfloat162*>(y + i) = __floats2bfloat162_rn(a, b);
+  } else {
+    y[i] = __float2bfloat16(a);
+    if (second) y[i + 1] = __float2bfloat16(b);
+  }
+}
+
+template <typename TY, int BM, int BN>
+__global__ void __launch_bounds__(TileCfg<BM, BN>::kThreads, TileCfg<BM, BN>::kMinBlocks)
+q4_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                const __grid_constant__ CUtensorMap wmap, const float* __restrict__ s,
+                TY* __restrict__ y, int M, int N, int K) {
+  using C = TileCfg<BM, BN>;
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle is a function of the shared address: tiles start 1024-aligned
+  uint8_t* const xs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* const bs = xs + kStages * C::kXBytes;
+  uint8_t* const pk = bs + kStages * C::kBBytes;
+  // full[s]: x and packed W landed; bready[s]: W tile dequantized; empty[s]:
+  // the stage's last readers are done
+  const uint32_t full0 = smem_u32(pk + kStages * C::kPBytes);
+  const uint32_t bready0 = full0 + 8 * kStages, empty0 = bready0 + 8 * kStages;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int nb = K >> 5, n_k = (K + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full0 + 8 * i, 1);  // the TMA lane's expect_tx
+      mbar_init(bready0 + 8 * i, kDqThreads / 32);
+      mbar_init(empty0 + 8 * i, kDqThreads / 32 + 4 * C::kConsumers);
     }
-    // W tile: BN rows x 2 blocks of 32, one (row, block) per thread
-    {
-      const int r = tid >> 1, blk = tid & 1;
-      const int gn = n0 + r, kb = (k0 >> 5) + blk;
-      __nv_bfloat16* dst = Bs + r * LDS + blk * 32;
-      if (gn < N && kb < nb) {
-        const uint4 pk = __ldg(reinterpret_cast<const uint4*>(w + (size_t)gn * (K >> 1)) + kb);
-        const float sc = __ldg(s + (size_t)gn * nb + kb);
-        float wv[32];
-        unpack_block(pk, wv);
-#pragma unroll
-        for (int e = 0; e < 32; ++e) dst[e] = __float2bfloat16(wv[e] * sc);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 32; ++e) dst[e] = __float2bfloat16(0.0f);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == C::kProducerWarp) {
+    for (int kt = 0; kt < n_k; ++kt) {
+      const int st = kt % kStages, lap = kt / kStages;
+      if (lap > 0) mbar_wait(empty0 + 8 * st, (lap - 1) & 1);
+      const uint32_t full = full0 + 8 * st;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(full, C::kXBytes + C::kPBytes);
+        tma_load_2d(smem_u32(xs + st * C::kXBytes), &xmap, kt * kBK, m0, full);
+        tma_load_2d(smem_u32(pk + st * C::kPBytes), &wmap, kt * (kBK / 2), n0, full);
       }
     }
-    __syncthreads();
+  } else if (warp < kDqThreads / 32) {
+    // each thread's scales (one per 32-block it dequantizes), read one step
+    // ahead: their row stride, 4 K / 32 bytes, is not a multiple of 16 at
+    // every K, so they take no TMA
+    float f_next[BN / 64];
+    const auto load_scales = [&](int kt, float* f) {
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bfr[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * LDS + kk, LDS);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bfr[j], Bs + (wn * 32 + j * 16) * LDS + kk, LDS);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(c[i][j], a[i], bfr[j], c[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: each warp stages one 16x16 fragment at a time, then writes the
-  // in-range elements in the output type
-  float* cw = Cs[warp];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(cw, c[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int gm = m0 + wm * 32 + i * 16 + (e >> 4);
-        const int gn = n0 + wn * 32 + j * 16 + (e & 15);
-        if (gm < M && gn < N) y[(size_t)gm * N + gn] = from_f32<TY>(cw[e]);
+      for (int i = 0; i < BN / 64; ++i) {
+        const int q = threadIdx.x + kDqThreads * i;
+        const int gn = n0 + (q >> 1), kb = 2 * kt + (q & 1);
+        f[i] = (gn < N && kb < nb) ? __ldg(s + (size_t)gn * nb + kb) : 0.0f;
       }
+    };
+    load_scales(0, f_next);
+    for (int kt = 0; kt < n_k; ++kt) {
+      float f_now[BN / 64];
+#pragma unroll
+      for (int i = 0; i < BN / 64; ++i) f_now[i] = f_next[i];
+      if (kt + 1 < n_k) load_scales(kt + 1, f_next);
+      const int st = kt % kStages;
+      mbar_wait(full0 + 8 * st, (kt / kStages) & 1);
+      const uint8_t* const pks = pk + st * C::kPBytes;
+      uint8_t* const b = bs + st * C::kBBytes;
+#pragma unroll
+      for (int i = 0; i < BN / 64; ++i) {
+        const int q = threadIdx.x + kDqThreads * i;  // 32-block q % 2 of row q / 2
+        const int row = q >> 1, blk = q & 1;
+        const uint4 p = *reinterpret_cast<const uint4*>(pks + 16 * q);
+        const float f = f_now[i];
+        const uint32_t wd[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          // chunk c holds block elements 8c..8c+7: the low nibbles of bytes 0-7
+          // (c = 0) and 8-15 (c = 1), the high nibbles of the same (c = 2, 3).
+          // Byte order (b0, b2, b1, b3) puts elements (e, e+1) where dq2 reads
+          // its pair, and (e+2, e+3) eight bits up.
+          const int sh = 4 * (c >> 1);
+          const uint32_t v0 = __byte_perm(wd[2 * (c & 1)], 0, 0x3120) >> sh;
+          const uint32_t v1 = __byte_perm(wd[2 * (c & 1) + 1], 0, 0x3120) >> sh;
+          uint4 o;
+          o.x = scale2(dq2(v0), f);
+          o.y = scale2(dq2(v0 >> 8), f);
+          o.z = scale2(dq2(v1), f);
+          o.w = scale2(dq2(v1 >> 8), f);
+          *reinterpret_cast<uint4*>(b + row * kRowBytes + (((blk * 4 + c) ^ (row & 7)) << 4)) = o;
+        }
+      }
+      // generic stores and reads of the stage, ordered before the async
+      // proxy's next use of it (wgmma reads, the next round's TMA writes)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(bready0 + 8 * st);
+        mbar_arrive(empty0 + 8 * st);
+      }
+    }
+  } else {
+    const int cw = warp - kDqThreads / 32;  // consumer warp; warpgroup cw / 4 owns 64 tokens
+    // no zero fill: the first product overwrites d (an instruction writing
+    // the accumulators would make ptxas serialize the wgmmas)
+    float d[BN / 2];
+    for (int kt = 0; kt < n_k; ++kt) {
+      const int st = kt % kStages;
+      const uint32_t ph = (kt / kStages) & 1;
+      mbar_wait(full0 + 8 * st, ph);
+      mbar_wait(bready0 + 8 * st, ph);
+      const uint32_t a = smem_u32(xs + st * C::kXBytes + (cw >> 2) * 64 * kRowBytes);
+      const uint32_t bb = smem_u32(bs + st * C::kBBytes);
+      fence_operands(d);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_k16(d, sw128_desc(a + 32 * kk), sw128_desc(bb + 32 * kk), kt > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done: free it
+      fence_operands(d);
+      if (kt > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((kt - 1) % kStages));
+    }
+    wgmma_wait<0>();
+    fence_operands(d);
+    // d[4j + 2h + e]: token 16 (cw % 4) + lane / 4 + 8h, row 8j + 2 (lane % 4) + e
+    const int tok = m0 + 64 * (cw >> 2) + 16 * (cw & 3) + (lane >> 2);
+    const bool even_n = (N & 1) == 0;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + 8 * j + 2 * (lane & 3);
+      if (n >= N) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = tok + 8 * h;
+        if (m < M)
+          store2(y, (size_t)m * N + n, even_n && n + 1 < N, n + 1 < N, d[4 * j + 2 * h],
+                 d[4 * j + 2 * h + 1]);
+      }
     }
   }
+}
+
+// cuTensorMapEncodeTiled (libcuda) looked up through the CUDA runtime, so the
+// library links no -lcuda; the lookup needs CUDA 12.5 or later
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiledFn>(p)
+                                                                 : nullptr;
+  }();
+  return fn;
+}
+
+// A 2-D map over a row-major [rows, cols] array, box [box_rows, box_cols].
+bool encode_2d(CUtensorMap* map, CUtensorMapDataType dt, int elem_bytes, const void* ptr,
+               uint64_t rows, uint64_t cols, uint32_t box_rows, uint32_t box_cols,
+               CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * elem_bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return fn(map, dt, 2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The packed weights' maps, by (address, N, K, BN): a weight keeps its map
+// across calls; a new tensor at a freed one's address and shape gets the same
+// map, so an entry never goes stale.
+bool weight_map(CUtensorMap* map, const uint8_t* w, int N, int K, int BN) {
+  static std::mutex mu;
+  static std::map<std::tuple<uintptr_t, int, int, int>, CUtensorMap> cache;
+  const auto key = std::make_tuple(reinterpret_cast<uintptr_t>(w), N, K, BN);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *map = it->second;
+    return true;
+  }
+  if (!encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, N, K / 2, BN, kBK / 2,
+                 CU_TENSOR_MAP_SWIZZLE_NONE))
+    return false;
+  cache.emplace(key, *map);
+  return true;
+}
+
+template <typename TY, int BM, int BN>
+cudaError_t launch_wgmma(const __nv_bfloat16* x, const uint8_t* w, const float* s, TY* y, int M,
+                         int N, int K, cudaStream_t st) {
+  using C = TileCfg<BM, BN>;
+  CUtensorMap xmap, wmap;  // x's address changes with every call: its map is made per launch
+  if (!encode_2d(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K, BM, kBK,
+                 CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !weight_map(&wmap, w, N, K, BN))
+    return cudaErrorInvalidValue;
+  static uint32_t smem_set = 0;  // devices whose attribute is set (bit per device)
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (!(smem_set >> dev & 1u)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        q4_wgmma_kernel<TY, BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+    if (e != cudaSuccess) return e;
+    smem_set |= 1u << dev;
+  }
+  // token tiles fastest: the blocks that share a weight tile run together
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
+  q4_wgmma_kernel<TY, BM, BN><<<grid, C::kThreads, C::kSmem, st>>>(xmap, wmap, s, y, M, N, K);
+  return cudaGetLastError();
+}
+
+// The largest tile that still gives every SM a block; 128 tokens only past 64.
+template <typename TY>
+cudaError_t launch_tiled(const __nv_bfloat16* x, const uint8_t* w, const float* s, TY* y, int M,
+                         int N, int K, cudaStream_t st) {
+  const auto blocks = [&](int bm, int bn) { return ((M + bm - 1) / bm) * ((N + bn - 1) / bn); };
+  const int sms = sm_count();
+  if (M > 64 && blocks(128, 128) >= sms) return launch_wgmma<TY, 128, 128>(x, w, s, y, M, N, K, st);
+  if (M > 64 && blocks(128, 64) >= sms) return launch_wgmma<TY, 128, 64>(x, w, s, y, M, N, K, st);
+  if (blocks(64, 128) >= sms) return launch_wgmma<TY, 64, 128>(x, w, s, y, M, N, K, st);
+  return launch_wgmma<TY, 64, 64>(x, w, s, y, M, N, K, st);
 }
 
 template <typename TX, typename TY, int MT>
@@ -427,8 +752,8 @@ void launch_gemv(const void* x, const uint8_t* w, const float* s, void* y, int M
 }
 
 template <typename TX, typename TY>
-void launch(const void* x, const uint8_t* w, const float* s, void* y, int M, int N, int K,
-            cudaStream_t st) {
+cudaError_t launch(const void* x, const uint8_t* w, const float* s, void* y, int M, int N, int K,
+                   cudaStream_t st) {
   if (M <= 1) {
     launch_gemv<TX, TY, 1>(x, w, s, y, M, N, K, st);
   } else if (M <= 16) {
@@ -443,17 +768,19 @@ void launch(const void* x, const uint8_t* w, const float* s, void* y, int M, int
       else if (M <= 8) launch_gemv<TX, TY, 8>(x, w, s, y, M, N, K, st);
       else launch_gemv<TX, TY, 16>(x, w, s, y, M, N, K, st);
     }
+  } else if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
+    return launch_tiled<TY>(static_cast<const __nv_bfloat16*>(x), w, s, static_cast<TY*>(y), M,
+                            N, K, st);
   } else {
-    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    q4_gemm_kernel<TX, TY><<<grid, kGemmThreads, 0, st>>>(
-        static_cast<const TX*>(x), w, s, static_cast<TY*>(y), M, N, K);
+    return cudaErrorInvalidValue;  // the wrapper casts f32 x to bf16 past M = 16
   }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success); 1 (cudaErrorInvalidValue)
-// for arguments the kernel does not take.
+// for arguments the kernel does not take (f32 x at M > 16 among them).
 extern "C" int q4_matmul(const void* x, int x_dtype, const void* w, const void* scales,
                          void* y, int y_dtype, int M, int N, int K, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || (K & 31)) return static_cast<int>(cudaErrorInvalidValue);
@@ -461,14 +788,12 @@ extern "C" int q4_matmul(const void* x, int x_dtype, const void* w, const void* 
   const uint8_t* wp = static_cast<const uint8_t*>(w);
   const float* sp = static_cast<const float*>(scales);
   if (x_dtype == kBF16 && y_dtype == kBF16)
-    launch<__nv_bfloat16, __nv_bfloat16>(x, wp, sp, y, M, N, K, st);
-  else if (x_dtype == kBF16 && y_dtype == kF32)
-    launch<__nv_bfloat16, float>(x, wp, sp, y, M, N, K, st);
-  else if (x_dtype == kF32 && y_dtype == kBF16)
-    launch<float, __nv_bfloat16>(x, wp, sp, y, M, N, K, st);
-  else if (x_dtype == kF32 && y_dtype == kF32)
-    launch<float, float>(x, wp, sp, y, M, N, K, st);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(launch<__nv_bfloat16, __nv_bfloat16>(x, wp, sp, y, M, N, K, st));
+  if (x_dtype == kBF16 && y_dtype == kF32)
+    return static_cast<int>(launch<__nv_bfloat16, float>(x, wp, sp, y, M, N, K, st));
+  if (x_dtype == kF32 && y_dtype == kBF16)
+    return static_cast<int>(launch<float, __nv_bfloat16>(x, wp, sp, y, M, N, K, st));
+  if (x_dtype == kF32 && y_dtype == kF32)
+    return static_cast<int>(launch<float, float>(x, wp, sp, y, M, N, K, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -17,12 +17,18 @@ Replaces the TPU kernel `jlama_tpu/ops/pallas_q4.py:_q4_matmul_kernel`
   - bf16 x at 2 ≤ M ≤ 16: `mma.sync` on the bf16 tensor cores, with the
     nibbles dequantized to exact bf16 (n − 8) in registers and each
     32-block's f32 partial scaled by its f32 scale (the GEMV's numerics);
-  - M > 16: a tiled kernel that dequantizes each W tile to bf16 in shared
-    memory for `wmma` bf16 → f32.
+  - M > 16 (prefill): a warp-specialised Hopper GEMM: TMA loads into a ring
+    of shared-memory stages under mbarriers, one warpgroup dequantizing each
+    W tile to bf16 in the 128-byte swizzle, `wgmma` bf16 → f32. It takes bf16
+    x only, so f32 x (a perplexity window) is cast to bf16 here first, as the
+    TPU wrapper casts x before its kernel.
 
 `q4_matmul_plain` is the same function in plain PyTorch (f32 dequant, f32
 matmul). `q4_matmul` runs it for tensors on the CPU only; a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises. `q4_matmul_tiled_plain` models the M > 16
+route's rounding (x and each weight rounded to bf16, exact products, f32
+sums); the tests hold that route to it, and nothing on a serving path calls
+it.
 """
 
 from __future__ import annotations
@@ -49,6 +55,17 @@ def q4_matmul_plain(
     return torch.matmul(x.to(torch.float32), w.t()).to(out_dtype)
 
 
+def q4_matmul_tiled_plain(
+    x: torch.Tensor, data: torch.Tensor, scales: torch.Tensor, out_dtype
+) -> torch.Tensor:
+    """The M > 16 route's numerics in plain PyTorch: x rounded to bf16, each
+    weight bf16((n − 8) · s) with the product in f32, f32 products and sums,
+    then out_dtype."""
+    w = blockq.q4_dequantize(data, scales).to(torch.bfloat16).to(torch.float32)
+    xb = x.to(torch.bfloat16).to(torch.float32)
+    return torch.matmul(xb, w.t()).to(out_dtype)
+
+
 def q4_matmul(x: torch.Tensor, w: QArray, out_dtype=None) -> torch.Tensor:
     """y = x @ deq(w).T for arbitrary leading dims of x; w a q4 QArray [N, K]."""
     out_dtype = out_dtype or x.dtype
@@ -72,14 +89,18 @@ def q4_matmul(x: torch.Tensor, w: QArray, out_dtype=None) -> torch.Tensor:
         raise ValueError(f"q4_matmul: x last dim {x.shape[-1]} != K {k} (K % 32 == 0)")
     if data.data_ptr() % 16:
         raise ValueError("q4_matmul: weight data must be 16-byte aligned")
+    if scales.data_ptr() % 4:  # the kernels load them 4 bytes at a time
+        raise ValueError("q4_matmul: weight scales must be 4-byte aligned")
     if x.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
         raise ValueError(f"q4_matmul: dtypes {x.dtype} -> {out_dtype} not supported")
 
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k).contiguous()
-    if x2.data_ptr() % 16:  # a view at an odd offset: the kernel loads 16 bytes at a time
+    if x2.data_ptr() % 16:  # a view at an odd offset: loads (and TMA) take 16-byte aligned x
         x2 = x2.clone()
     m = x2.shape[0]
+    if m > 16 and x2.dtype == torch.float32:  # the M > 16 route takes bf16 x
+        x2 = x2.to(torch.bfloat16)
     y = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
         return y.reshape(*lead, n)

@@ -44,20 +44,25 @@ def q8_tie_inputs(n_groups=3125, block=32, seed=0):
 
 
 # M = 2..16 with bf16 x takes the tensor-core route (both token tiles, ragged
-# ones), M = 1 and f32 x the GEMV, M > 16 the tiled kernel; N not a multiple
-# of 16; K = 96 (3 blocks, fewer than the 8 warps), 2048 and 14336; a tuple is
-# x's leading dims
+# ones), M = 1 and f32 x the GEMV, M > 16 the wgmma route (f32 x cast to bf16
+# by the wrapper); N not a multiple of 16; K = 96 (3 blocks, fewer than the 8
+# warps; half a 64-wide K step at the end), 2048 and 14336; a tuple is x's
+# leading dims. Past M = 16: the 1B prefill's wqkv at M = 511, w2 at 512, a
+# perplexity window's 1024 rows at an uneven N, 37 rows of the 8B w2 and one
+# exact 64 x 128 x 128 tile, beside 17 x 384 x 96 and 130 x 520 x 640.
 @pytest.mark.parametrize("m,n,k", [(1, 256, 256), (3, 1000, 2048), (16, 512, 128),
                                    (17, 384, 96), (130, 520, 640), (2, 64, 14336),
                                    (2, 1000, 96), (5, 24, 2048), (8, 1000, 14336),
                                    (9, 24, 96), (13, 1000, 2048), (16, 1000, 14336),
-                                   (16, 24, 2048), ((2, 3), 1000, 2048)])
+                                   (16, 24, 2048), ((2, 3), 1000, 2048),
+                                   (511, 3072, 2048), (512, 2048, 8192), (1024, 1000, 2048),
+                                   (37, 2048, 14336), (64, 128, 128)])
 @pytest.mark.parametrize("x_dtype,out_dtype", [(torch.bfloat16, torch.bfloat16),
                                                (torch.float32, torch.float32),
                                                (torch.bfloat16, torch.float32)])
 def test_q4_matmul_kernel_matches_plain(cuda, m, n, k, x_dtype, out_dtype):
     from jlama_tpu_torch.nn.qarray import QArray
-    from jlama_tpu_torch.ops.q4_matmul import q4_matmul, q4_matmul_plain
+    from jlama_tpu_torch.ops.q4_matmul import q4_matmul, q4_matmul_plain, q4_matmul_tiled_plain
 
     lead = m if isinstance(m, tuple) else (m,)
     rows = 1
@@ -77,6 +82,20 @@ def test_q4_matmul_kernel_matches_plain(cuda, m, n, k, x_dtype, out_dtype):
     # order of the f32 sums differs); the tiled path rounds W to bf16
     tol = 2e-2 if (rows > 16 or out_dtype == torch.bfloat16) else 1e-4
     assert (got.float() - ref).abs().max().item() <= tol * ref.abs().max().item()
+    if rows > 16:
+        # against the route's rounding model: the same exact products, f32
+        # sums in another order (1e-4 of max|ref|), plus one bf16 ulp (2^-7 of
+        # the value) for a bf16 output
+        model = q4_matmul_tiled_plain(x, w.data, w.scales, torch.float32)
+        lim = 1e-4 * model.abs().max().item()
+        if out_dtype == torch.bfloat16:
+            lim = lim + 2.0 ** -7 * model.abs()
+        assert bool(((got.float() - model).abs() <= lim).all())
+        # the same call again, bit for bit (a missing proxy fence shows as a
+        # result that changes between runs)
+        again = q4_matmul(x, w, out_dtype)
+        assert q4_matmul.launches == before + 2
+        assert torch.equal(again, got)
 
 
 def test_q4_matmul_both_m16_routes_launch(cuda):

@@ -259,11 +259,13 @@ def test_cpu_q4s_serving_goes_through_plain_versions(monkeypatch):
 
 def test_bench_mains_need_cuda_or_explicit_cpu(monkeypatch):
     """Each card bench's main() raises without a GPU unless --device cpu is
-    given, and its wrappers raise on a device that is neither."""
-    from jlama_tpu_torch.scripts import kbench_q4, kbench_w8a8, probe_int4, probe_sigma_i16
+    given (k1_ablate runs on the card only), and its wrappers raise on a
+    device that is neither."""
+    from jlama_tpu_torch.scripts import (k1_ablate, kbench_q4, kbench_w8a8, probe_int4,
+                                         probe_sigma_i16)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for mod in (kbench_q4, kbench_w8a8, probe_int4, probe_sigma_i16):
+    for mod in (kbench_q4, kbench_w8a8, probe_int4, probe_sigma_i16, k1_ablate):
         with pytest.raises(RuntimeError, match="CUDA"):
             mod.main([])
     meta = {dt: torch.empty((8, 256), dtype=dt, device="meta")

@@ -16,7 +16,7 @@ from jlama_tpu.ops.linear import linear as jlinear
 from jlama_tpu.ops.pallas_q4 import q4_matmul as jq4_matmul
 from jlama_tpu_torch.nn.qarray import QArray
 from jlama_tpu_torch.ops import linear as tlinear_mod
-from jlama_tpu_torch.ops.q4_matmul import q4_matmul, q4_matmul_plain
+from jlama_tpu_torch.ops.q4_matmul import q4_matmul, q4_matmul_plain, q4_matmul_tiled_plain
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -51,6 +51,29 @@ def test_plain_q4_matmul_matches_jax(shape_x, n):
     exact = x.astype(np.float64) @ np.asarray(jw.dequantize(jnp.float32)).T.astype(np.float64)
     rel = np.linalg.norm(got - exact) / np.linalg.norm(exact)
     assert rel < 5e-3, rel
+
+
+# the M > 16 route's rounding model (x and each weight rounded to bf16, f32
+# products and sums): against the JAX kernel at its tolerances, and within the
+# bf16 rounding of an exact product (rel L2 < 5e-3), as q4_matmul_plain is
+@pytest.mark.parametrize("m,n,k", [(17, 64, 96), (17, 40, 2048), (130, 96, 640),
+                                   (130, 32, 256)])
+def test_tiled_plain_matches_jax_and_exact(m, n, k):
+    x, jw, tw = _case((m, k), n, seed=m * n + k)
+    xt = torch.from_numpy(x)
+    got = q4_matmul_tiled_plain(xt, tw.data, tw.scales, torch.float32).numpy()
+    assert got.shape == (m, n)
+    jk = np.asarray(jq4_matmul(jnp.asarray(x), jw, out_dtype=jnp.float32, interpret=True))
+    atol = 5e-2 * max(1.0, np.sqrt(k / 512))
+    np.testing.assert_allclose(got, jk, rtol=2e-2, atol=atol)
+    exact = x.astype(np.float64) @ np.asarray(jw.dequantize(jnp.float32)).T.astype(np.float64)
+    rel = np.linalg.norm(got - exact) / np.linalg.norm(exact)
+    assert rel < 5e-3, rel
+    plain = q4_matmul_plain(xt, tw.data, tw.scales, torch.float32).numpy()
+    assert np.linalg.norm(plain - exact) / np.linalg.norm(exact) < 5e-3
+    # bf16 out is the f32 result rounded once
+    assert torch.equal(q4_matmul_tiled_plain(xt, tw.data, tw.scales, torch.bfloat16),
+                       torch.from_numpy(got).to(torch.bfloat16))
 
 
 def test_cpu_wrapper_runs_plain_and_counts_nothing():
