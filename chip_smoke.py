@@ -20,7 +20,13 @@ Phases, each fatal on failure (exit code 1, no result line):
               time, a library call's or yardstick's time (never used by the
               port) and the bound: max(bytes / 3.35 TB/s, operations / 989
               TFLOP/s bf16), the H100 SXM data-sheet peaks. K1 q4 matmul,
-              K3 flash prefill, K2 paged decode (16 slots, ragged lengths
+              K3 flash prefill (Llama-3.2-1B's heads at T = 512 and 200,
+              4 x 256-token serving chunks with a different pos0 per row,
+              head size 128, softcap + window, and an f32 1024-token window;
+              its bf16 route also against its rounding model, P rounded to
+              bf16 per key tile, and bit-equal on a second call; SDPA with the
+              boolean mask and, where pos0 = 0 and T = S, is_causal; the host
+              time of one wrapper call), K2 paged decode (16 slots, ragged lengths
               1-2048 over 512 pages of 64, bf16 and q8 pools; 32 query heads
               on one KV head; head size 128 with softcap and window), K4 KV write (decode, a 256-token
               prefill chunk, bf16 and q8 pools, and the Engine's dense cache),
@@ -107,6 +113,10 @@ K1_REL_L2 = 1e-2
 K1_MODEL_TOL, K1_BF16_OUT_REL = 1e-4, 2.0 ** -7
 # K3: max |kernel - plain| on N(0, 1) inputs, bf16 in and out / f32 in and out
 K3_TOL = {"bf16": 2e-2, "f32": 2e-5}
+# K3's bf16 route against flash_prefill_tiled_plain, its rounding model (P
+# rounded to bf16 per key tile, as the kernel rounds it): max abs, 5x under
+# K3_TOL; the rest is f32 sums in another order and the bf16 output's rounding
+K3_MODEL_TOL = 4e-3
 # K2 on N(0, 1) inputs: f32 q and out, the JAX tests' tolerances (f32 sums in
 # another order; q8 values rounded to bf16 in both); bf16 q and out: each
 # element within one bf16 ulp of the plain output (2^-7 of its size, the
@@ -386,66 +396,104 @@ def check_k3(torch, timer, details):
     from jlama_tpu_torch.utils.cuda_timer import bound
     import torch.nn.functional as F
 
-    from jlama_tpu_torch.ops.attention import flash_prefill, flash_prefill_plain
+    from jlama_tpu_torch.ops.attention import (KEY_TILE, flash_prefill, flash_prefill_plain,
+                                               flash_prefill_tiled_plain)
 
     H, n_kv = 32, 8
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [  # (B, T, S, pos0, hd, softcap, window, dtype)
+    cases = [  # (B, T, S, pos0 (one for all rows, or one per row), hd, softcap, window, dtype)
         (1, 512, 512, 0, 64, None, None, bf16),  # the main path's 512-token prefill
         (1, 512, 1024, 512, 64, None, None, bf16),
         (1, 512, 1024, 300, 64, None, None, bf16),
-        (1, 512, 512, 0, 128, None, None, bf16),
+        (1, 512, 512, 0, 128, None, None, bf16),  # Llama-3.1-8B's head size
         (1, 512, 1024, 512, 128, None, None, bf16),
         (2, 512, 1024, 400, 128, 30.0, 256, bf16),  # softcap + window
         (1, 200, 333, 100, 64, None, None, bf16),  # ragged T and S
+        (4, 256, 1024, (0, 256, 512, 768), 64, None, None, bf16),  # serving chunks, 4 rows
+        (2, 256, 1024, (128, 640), 128, None, None, bf16),
         (1, PPL_SEQ, PPL_SEQ, 0, 64, None, None, f32),  # a score_tokens window (phase 8)
     ]
     g = torch.Generator(device="cuda").manual_seed(2)
-    worst = 0.0
-    main = None
+    worst = worst_model = 0.0
+    main = host_us = None
     for B, T, S, p0, hd, cap, win, dtype in cases:
         q = torch.randn((B, H, T, hd), generator=g, device="cuda").to(dtype)
         k = torch.randn((B, n_kv, S, hd), generator=g, device="cuda").to(dtype)
         v = torch.randn((B, n_kv, S, hd), generator=g, device="cuda").to(dtype)
-        pos0 = torch.full((B,), p0, dtype=torch.int32, device="cuda")
+        rows = p0 if isinstance(p0, tuple) else (p0,) * B
+        pos0 = torch.tensor(rows, dtype=torch.int32, device="cuda")
         scale = hd ** -0.5
-        got = flash_prefill(q, k, v, pos0, scale, softcap=cap, window=win).float()
+        label = f"K3 B={B} T={T} S={S} pos0={p0} hd={hd} {_dt(dtype)}"
+
+        def run():
+            return flash_prefill(q, k, v, pos0, scale, softcap=cap, window=win)
+
+        got = run()
         ref = flash_prefill_plain(q, k, v, pos0, scale, softcap=cap, window=win).float()
         torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
+        err = (got.float() - ref).abs().max().item()
         if not err <= K3_TOL[_dt(dtype)]:
-            fail(f"K3 B={B} T={T} S={S} pos0={p0} hd={hd} {_dt(dtype)}: max_abs_err {err}")
+            fail(f"{label}: max_abs_err {err}")
         worst = max(worst, err)
-        ms = timer(lambda: flash_prefill(q, k, v, pos0, scale, softcap=cap, window=win))
+        model_err = None
+        if dtype == bf16:  # the tensor-core route: its rounding model, the same bits twice
+            model = flash_prefill_tiled_plain(q, k, v, pos0, scale, softcap=cap, window=win,
+                                              block_s=KEY_TILE[hd])
+            model_err = (got.float() - model.float()).abs().max().item()
+            if not model_err <= K3_MODEL_TOL:
+                fail(f"{label}: {model_err} from the rounding model (limit {K3_MODEL_TOL})")
+            if not torch.equal(run(), got):
+                fail(f"{label}: a second call gave other bits")
+            worst_model = max(worst_model, model_err)
+            del model
+        del got, ref
+        ms = timer(run)
         plain_ms = timer(lambda: flash_prefill_plain(q, k, v, pos0, scale, softcap=cap,
                                                      window=win))
-        qp = p0 + torch.arange(T, device="cuda")[:, None]
-        kp = torch.arange(S, device="cuda")[None, :]
-        mask = kp <= qp
+        qp = pos0[:, None, None] + torch.arange(T, device="cuda")[None, :, None]
+        kp = torch.arange(S, device="cuda")[None, None, :]
+        mask = kp <= qp  # [B, T, S]
         if win is not None:
             mask &= kp > qp - win
-        live_pairs = int(mask.sum().item()) * B * H
-        lib_ms = None
+        live_pairs = int(mask.sum().item()) * H
+        sdpa_mask_ms = sdpa_causal_ms = None
         if cap is None:  # SDPA has no softcap
-            lib_ms = timer(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, scale=scale, enable_gqa=True))
+            sdpa_mask_ms = timer(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask[:, None], scale=scale, enable_gqa=True))
+            if win is None and T == S and set(rows) == {0}:  # the same function, top-left causal
+                sdpa_causal_ms = timer(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, scale=scale, enable_gqa=True))
+        sdpa = [t for t in (sdpa_mask_ms, sdpa_causal_ms) if t is not None]
+        lib_ms = min(sdpa) if sdpa else None
         nbytes = q.element_size() * (2 * B * H * T * hd + 2 * B * n_kv * S * hd)
         b_ms, b_by = bound(nbytes, 4.0 * hd * live_pairs)
-        row = dict(kernel="flash_prefill", B=B, H=H, n_kv=n_kv, T=T, S=S, pos0=p0, hd=hd,
-                   softcap=cap, window=win, dtype=str(dtype), max_abs_err=err, ms=ms,
-                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        row = dict(kernel="flash_prefill", B=B, H=H, n_kv=n_kv, T=T, S=S, pos0=list(rows), hd=hd,
+                   softcap=cap, window=win, dtype=str(dtype), max_abs_err=err,
+                   model_err=model_err, ms=ms, plain_ms=plain_ms, sdpa_mask_ms=sdpa_mask_ms,
+                   sdpa_causal_ms=sdpa_causal_ms, library_ms=lib_ms, bound_ms=b_ms,
+                   bound_by=b_by)
+        if main is None:
+            main = row
+            host_us = _host_us(torch, run)
+            row["host_us"] = host_us
         details.append(row)
-        main = main or row
-        print(f"K3 B={B} T={T:4d} S={S:5d} pos0={p0:4d} hd={hd:3d} cap={cap} win={win} "
-              f"{_dt(dtype)}: "
-              f"{ms:.4f} ms (plain {plain_ms:.4f}, sdpa {lib_ms}, bound {b_ms:.4f} by {b_by})"
-              f" err {err:.3g}", flush=True)
+        print(f"K3 B={B} T={T:4d} S={S:5d} pos0={p0} hd={hd:3d} cap={cap} win={win} "
+              f"{_dt(dtype)}: {ms:.4f} ms (plain {plain_ms:.4f}, sdpa masked {sdpa_mask_ms}, "
+              f"sdpa is_causal {sdpa_causal_ms}, bound {b_ms:.4f} by {b_by}) err {err:.3g}"
+              + ("" if model_err is None else f", from the model {model_err:.3g}"), flush=True)
     L = 16
-    return dict(ms=main["ms"] * L, plain_ms=main["plain_ms"] * L,
-                library_ms=main["library_ms"] * L, bound_ms=main["bound_ms"] * L,
-                bound_by=main["bound_by"], max_abs_err=worst,
+    summed = {key: main[key] * L for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    print(f"K3 one 512-token prefill ({L} launches at B=1, T=S=512, hd=64): K3 "
+          f"{summed['ms']:.4f} ms, plain {summed['plain_ms']:.4f}, sdpa masked "
+          f"{main['sdpa_mask_ms'] * L:.4f}, sdpa is_causal {main['sdpa_causal_ms'] * L:.4f}, "
+          f"bound {summed['bound_ms']:.4f}; host time of one wrapper call {host_us:.1f} us "
+          "(three tensor maps made in it)", flush=True)
+    return dict(summed, bound_by=main["bound_by"], max_abs_err=worst,
+                max_err_from_model=worst_model, host_us=host_us,
+                sdpa_mask_ms=main["sdpa_mask_ms"] * L, sdpa_causal_ms=main["sdpa_causal_ms"] * L,
                 work=f"one 512-token prefill of the main path: {L} launches at B=1, H=32, "
-                     "n_kv=8, T=S=512, pos0=0, hd=64")
+                     "n_kv=8, T=S=512, pos0=0, hd=64; library_ms: the faster of SDPA with the "
+                     "boolean mask and SDPA is_causal=True")
 
 
 # 16 rows of ragged live lengths for the paged kernels: 208 pages of 64 in

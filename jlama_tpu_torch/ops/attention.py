@@ -2,19 +2,30 @@
 of `jlama_tpu/ops/pallas_attention.py::flash_prefill` and `::paged_decode`).
 
 Replaces the TPU kernel `jlama_tpu/ops/pallas_attention.py:_flash_kernel`
-(launched by `_flash_prefill_jit`) with the hand-written CUDA kernel in
+(launched by `_flash_prefill_jit`) with the hand-written CUDA kernels in
 `csrc/flash_prefill.cu`: T > 1 offset-causal GQA attention (query i of a
 chunk starting at pos0[b] sees keys ≤ pos0[b] + i), optional softcap and
 sliding window, online softmax in f32, no [B, H, T, S] score tensor.
 
 What bounds it on the H100: the operations (4·T·S·hd per head, about half of
-them skipped by causality). This first kernel runs them on the CUDA cores
-(warp-per-8-query-rows, lane-per-key, shared-memory K/V tiles, causal tile
-skipping); tensor cores come in a later PR.
+them skipped by causality). Two routes, by the inputs' type:
+
+- bf16: the tensor cores. TMA loads K/V tiles of `KEY_TILE[hd]` keys into a
+  ring of shared-memory stages under mbarriers; `wgmma` computes S = Q·Kᵀ
+  and O += P·V with P from registers; the online softmax runs on the
+  accumulator registers. P is rounded to bf16 against its tile's running
+  max before P·V, as the TPU kernel rounds it (`p.astype(v.dtype)`);
+  `flash_prefill_tiled_plain` is that rounding in plain PyTorch, the model
+  the tests hold the route to (nothing on a serving path calls it). TMA needs
+  16-byte aligned bases and batch/head/row strides: a view without them
+  raises.
+- f32 (a perplexity window, held to 2e-5): the CUDA cores (warp per 8 query
+  rows, lane per key, shared-memory K/V tiles, causal tile skipping), P
+  kept in f32.
 
 `flash_prefill_plain` is the same function as dense masked attention in
 PyTorch. `flash_prefill` runs it for tensors on the CPU only; a CUDA tensor
-launches the kernel or raises.
+launches a kernel or raises.
 
 K2 replaces the TPU kernel `jlama_tpu/ops/pallas_attention.py:
 _paged_decode_kernel` (launched by `_paged_decode_jit`), and the library
@@ -64,6 +75,9 @@ _PD_SIGNATURES = {
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZES = (64, 128)
+# keys per tile of the bf16 route (csrc/flash_prefill.cu: 8192 / hd, one 16
+# KB K or V tile): the tile against whose running max P is rounded
+KEY_TILE = {64: 128, 128: 64}
 
 
 def flash_prefill_plain(q, k, v, pos0, scale, softcap=None, causal=True, window=None):
@@ -88,9 +102,52 @@ def flash_prefill_plain(q, k, v, pos0, scale, softcap=None, causal=True, window=
     return out.reshape(B, H, T, hd).to(q.dtype)
 
 
+def flash_prefill_tiled_plain(q, k, v, pos0, scale, softcap=None, causal=True, window=None,
+                              block_s=None):
+    """The bf16 route's rounding in plain PyTorch: the online softmax over key
+    tiles of `block_s` (default: the route's `KEY_TILE[hd]`) at multiples of
+    it from key 0, f32 scores, max and sum, P cast to v's dtype before P·V
+    (f32 products and sums). Masked keys get P = 0. Same shapes as
+    `flash_prefill_plain`."""
+    B, H, T, hd = q.shape
+    block_s = block_s or KEY_TILE[hd]
+    n_kv, S = k.shape[1], k.shape[2]
+    g = H // n_kv
+    qg = q.reshape(B, n_kv, g, T, hd).to(torch.float32)
+    q_pos = pos0.to(device=q.device, dtype=torch.int64)[:, None] \
+        + torch.arange(T, device=q.device)[None, :]
+    m = torch.full((B, n_kv, g, T, 1), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, n_kv, g, T, hd), dtype=torch.float32, device=q.device)
+    for s0 in range(0, S, block_s):
+        kt = k[:, :, s0:s0 + block_s].to(torch.float32)
+        vt = v[:, :, s0:s0 + block_s]
+        s = torch.einsum("bkgth,bksh->bkgts", qg, kt) * scale
+        if softcap is not None:
+            s = torch.tanh(s / softcap) * softcap
+        k_pos = s0 + torch.arange(kt.shape[2], device=q.device)[None, None, :]
+        mask = torch.ones((B, T, kt.shape[2]), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_pos <= q_pos[:, :, None]
+        if window is not None:
+            mask &= k_pos > q_pos[:, :, None] - window
+        mask = mask[:, None, None]
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(mask, torch.exp(s - m_new), torch.zeros_like(s))
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bkgts,bksh->bkgth", p.to(v.dtype).to(torch.float32),
+                                         vt.to(torch.float32))
+        m = m_new
+    out = acc / torch.where(l == 0, torch.ones_like(l), l)
+    return out.reshape(B, H, T, hd).to(q.dtype)
+
+
 def flash_prefill(q, k, v, pos0, scale, softcap=None, causal=True, window=None):
     """q [B,H,T,hd], k/v [B,n_kv,S,hd] (any batch/head/row strides, unit last
-    stride), pos0 [B] int -> [B,H,T,hd] in q's dtype."""
+    stride; bf16: 16-byte aligned bases and strides), pos0 [B] int ->
+    [B,H,T,hd] in q's dtype."""
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, pos0, scale, softcap, causal, window)
     if q.device.type != "cuda":
@@ -104,9 +161,19 @@ def flash_prefill(q, k, v, pos0, scale, softcap=None, causal=True, window=None):
         raise ValueError(f"flash_prefill: head size {hd} not in {HEAD_SIZES}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_prefill: dtypes {q.dtype}/{k.dtype}/{v.dtype}")
+    strides = []
     for t in (q, k, v):
-        if t.device != q.device or t.stride(-1) != 1:
+        st = t.stride()
+        if t.device != q.device or st[3] != 1:
             raise ValueError("flash_prefill: q/k/v on one device with a unit last stride")
+        # the bf16 route loads by TMA: a 16-byte aligned base and batch/head/row
+        # strides (those of a dimension of size 1 are never used)
+        if q.dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(
+                x % 8 for x, n in zip(st[:3], t.shape[:3]) if n > 1)):
+            raise ValueError("flash_prefill: the bf16 route loads q/k/v by TMA: 16-byte aligned "
+                             f"base and batch/head/row strides (got offset {t.data_ptr() % 16}, "
+                             f"strides {tuple(st)})")
+        strides += st[:3]
     pos0 = pos0.to(device=q.device, dtype=torch.int32).contiguous()
     if pos0.shape != (B,):
         raise ValueError(f"flash_prefill: pos0 shape {tuple(pos0.shape)} != ({B},)")
@@ -117,7 +184,7 @@ def flash_prefill(q, k, v, pos0, scale, softcap=None, causal=True, window=None):
     err = lib.flash_prefill(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), pos0.data_ptr(),
         _DTYPE_CODE[q.dtype], B, H, n_kv, T, S, hd,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        *strides, *out.stride()[:3],
         float(scale), float(softcap or 0.0), int(window or 0), int(bool(causal)),
         torch.cuda.current_stream(q.device).cuda_stream,
     )

@@ -1,9 +1,15 @@
 """What the card benches share: the limits a kernel is held to against its
-plain version, the check itself, and argument checks for the wrappers."""
+plain version, the check itself, argument checks for the wrappers, and the
+builds of a kernel source with parts cut out (the ablation scripts)."""
 
 from __future__ import annotations
 
+import ctypes
+import subprocess
+
 import torch
+
+from ..ops import _build
 
 # A float variant against its plain version: both round the same products to
 # bf16, so they differ only by the f32 sums taken in another order. Each
@@ -76,3 +82,37 @@ def card_row(row: dict, timer, call, got: torch.Tensor, plain, plain_ms: dict, k
     row["bound_ms"], row["bound_by"] = bound(nbytes, ops, ops_per_s or BF16_OPS_PER_S)
     row["bound_share"] = row["bound_ms"] / row["ms"]
     return row
+
+
+def build_cut_copies(name: str, cuts: dict[str, list[tuple[str, str]]],
+                     signatures: dict[str, list]) -> dict[str, ctypes.CDLL]:
+    """For each entry of `cuts`, a copy of `csrc/<name>.cu` with its (old,
+    new) text replacements, compiled in parallel with nvcc into
+    `_build/ablate_<name>/` and loaded with `signatures`. Raises when a cut
+    no longer finds its text in the source, or when nvcc fails."""
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    out = _build.BUILD_DIR / f"ablate_{name}"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for cut, subs in cuts.items():
+        text = src
+        for old, new in subs:
+            if old not in text:
+                raise RuntimeError(f"{cut} no longer applies to csrc/{name}.cu")
+            text = text.replace(old, new)
+        (out / f"{cut}.cu").write_text(text)
+        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"lib{cut}.so"),
+               str(out / f"{cut}.cu")]
+        procs[cut] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True)
+    libs = {}
+    for cut, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {cut} of csrc/{name}.cu:\n{log}")
+        lib = ctypes.CDLL(str(out / f"lib{cut}.so"))
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[cut] = lib
+    return libs

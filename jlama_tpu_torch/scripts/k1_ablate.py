@@ -3,9 +3,9 @@
     python -m jlama_tpu_torch.scripts.k1_ablate [--out FILE]
 
 Builds `csrc/q4_matmul.cu` as it is and copies of it with parts of the
-wgmma route cut out, each with nvcc into `_build/ablate/`, and times every
-build at Llama-3.2-1B's prefill shapes (M = 512) beside `torch.matmul` on a
-bf16 weight and the bound:
+wgmma route cut out, each with nvcc into `_build/ablate_q4_matmul/`, and
+times every build at Llama-3.2-1B's prefill shapes (M = 512) beside
+`torch.matmul` on a bf16 weight and the bound:
 
 - `route`: the source as it is;
 - `no_fence`: without the dequant warpgroup's `fence.proxy.async` (its output
@@ -25,9 +25,7 @@ limit. Card only: it raises without a GPU.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import subprocess
 from pathlib import Path
 
 import torch
@@ -37,6 +35,7 @@ from ..nn.qarray import QArray
 from ..ops import _build
 from ..ops.q4_matmul import _SIGNATURES, q4_matmul_tiled_plain
 from ..utils.cuda_timer import Timer, bound
+from ._common import SLEEP_CYCLES, build_cut_copies
 
 _DEQUANT = """          uint4 o;
           o.x = scale2(dq2(v0), f);
@@ -66,37 +65,8 @@ SHAPES = {"wqkv": (3072, 2048), "wo": (2048, 2048), "w13": (16384, 2048), "w2": 
 M = 512
 
 
-def build_all() -> dict[str, ctypes.CDLL]:
-    """Every ablation's library, compiled in parallel."""
-    src = (_build.CSRC / "q4_matmul.cu").read_text()
-    out = _build.BUILD_DIR / "ablate"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, subs in ABLATIONS.items():
-        text = src
-        for old, new in subs:
-            if old not in text:
-                raise RuntimeError(f"k1_ablate: {name} no longer applies to csrc/q4_matmul.cu")
-            text = text.replace(old, new)
-        (out / f"{name}.cu").write_text(text)
-        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"lib{name}.so"),
-               str(out / f"{name}.cu")]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                       text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"k1_ablate: nvcc failed for {name}:\n{log}")
-        lib = ctypes.CDLL(str(out / f"lib{name}.so"))
-        lib.q4_matmul.argtypes = _SIGNATURES["q4_matmul"]
-        lib.q4_matmul.restype = ctypes.c_int
-        libs[name] = lib
-    return libs
-
-
 def run(dev: torch.device) -> list[dict]:
-    libs = build_all()
+    libs = build_cut_copies("q4_matmul", ABLATIONS, _SIGNATURES)
     timer = Timer(dev)
     g = torch.Generator(device=dev).manual_seed(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -119,7 +89,7 @@ def run(dev: torch.device) -> list[dict]:
             _build.check(lib.q4_matmul(*args), f"k1_ablate {name}")
             torch.cuda.synchronize(dev)
             err = ((y.float() - model).abs() / lim).max().item()
-            row[name] = dict(ms=timer(lambda: lib.q4_matmul(*args), sleep_cycles=20_000_000),
+            row[name] = dict(ms=timer(lambda: lib.q4_matmul(*args), sleep_cycles=SLEEP_CYCLES),
                              err_over_limit=err)
         rows.append(row)
         print(f"{shape} M={M} N={n} K={k}: torch.matmul {lib_ms:.4f} ms, bound {b_ms:.4f}; "

@@ -133,25 +133,89 @@ def test_q8_quantize_on_card_equals_cpu(cuda):
     assert torch.equal(gs.cpu().view(torch.int32), cs.view(torch.int32))
 
 
-@pytest.mark.parametrize("B,T,S,pos0,hd,cap,win", [
-    (1, 64, 64, 0, 64, None, None), (2, 40, 100, 60, 128, None, None),
-    (1, 33, 77, 20, 64, 30.0, 16), (1, 128, 512, 384, 128, None, None),
+# pos0 an int: the same for every row; a tuple: one per row. S = 700 and 333
+# are not multiples of the bf16 route's key tile (128 at hd 64, 64 at hd
+# 128). H 32 / n_kv 8 are Llama-3.2-1B's heads: T = S = 512 is its prefill
+# (query tiles of 64), B = 4 x T = 256 a serving chunk (tiles of 128).
+@pytest.mark.parametrize("B,T,S,pos0,hd,cap,win,H,n_kv", [
+    (1, 64, 64, 0, 64, None, None, 8, 2), (2, 40, 100, 60, 128, None, None, 8, 2),
+    (1, 33, 77, 20, 64, 30.0, 16, 8, 2), (1, 128, 512, 384, 128, None, None, 8, 2),
+    (3, 100, 700, (0, 300, 600), 64, None, None, 8, 2),
+    (2, 77, 333, (256, 5), 128, None, None, 8, 2),
+    (2, 64, 300, (10, 200), 128, 30.0, 40, 8, 2),
+    (1, 512, 512, 0, 64, None, None, 32, 8),
+    (4, 256, 1024, (0, 256, 512, 768), 64, None, None, 32, 8),
+    (4, 256, 768, (0, 100, 300, 512), 128, None, None, 32, 8),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_prefill_kernel_matches_plain(cuda, B, T, S, pos0, hd, cap, win, dtype):
-    from jlama_tpu_torch.ops.attention import flash_prefill, flash_prefill_plain
+def test_flash_prefill_kernel_matches_plain(cuda, B, T, S, pos0, hd, cap, win, H, n_kv, dtype):
+    """Within 2e-5 (f32) or 2e-2 (bf16) of the plain version; the bf16 route
+    also within 4e-3 of its rounding model (P rounded to bf16 per key tile)
+    and bit-equal on a repeat."""
+    from jlama_tpu_torch.ops.attention import (flash_prefill, flash_prefill_plain,
+                                               flash_prefill_tiled_plain)
 
     g = torch.Generator(device=cuda).manual_seed(T * S + hd)
-    H, n_kv = 8, 2
     q = torch.randn((B, H, T, hd), generator=g, device=cuda).to(dtype)
     k = torch.randn((B, n_kv, S, hd), generator=g, device=cuda).to(dtype)
     v = torch.randn((B, n_kv, S, hd), generator=g, device=cuda).to(dtype)
-    p0 = torch.full((B,), pos0, dtype=torch.int32, device=cuda)
+    p0 = torch.tensor(pos0 if isinstance(pos0, tuple) else (pos0,) * B, dtype=torch.int32,
+                      device=cuda)
+    before = flash_prefill.launches
     got = flash_prefill(q, k, v, p0, hd ** -0.5, softcap=cap, window=win)
+    assert flash_prefill.launches == before + 1
     ref = flash_prefill_plain(q, k, v, p0, hd ** -0.5, softcap=cap, window=win)
     torch.cuda.synchronize()
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     assert (got.float() - ref.float()).abs().max().item() <= tol
+    if dtype == torch.bfloat16:
+        model = flash_prefill_tiled_plain(q, k, v, p0, hd ** -0.5, softcap=cap, window=win)
+        assert (got.float() - model.float()).abs().max().item() <= 4e-3
+        assert torch.equal(flash_prefill(q, k, v, p0, hd ** -0.5, softcap=cap, window=win), got)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_prefill_kernel_not_causal(cuda, hd, dtype):
+    """causal=False (every key < S for every row), with a ragged S and a
+    different pos0 per row: the plain version's limits, and for bf16 the
+    rounding model's 4e-3 and a bit-equal repeat."""
+    from jlama_tpu_torch.ops.attention import (flash_prefill, flash_prefill_plain,
+                                               flash_prefill_tiled_plain)
+
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    B, H, n_kv, T, S = 2, 8, 2, 96, 200
+    q = torch.randn((B, H, T, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, n_kv, S, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, n_kv, S, hd), generator=g, device=cuda).to(dtype)
+    p0 = torch.tensor([0, 70], dtype=torch.int32, device=cuda)
+    got = flash_prefill(q, k, v, p0, hd ** -0.5, causal=False)
+    ref = flash_prefill_plain(q, k, v, p0, hd ** -0.5, causal=False)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+    if dtype == torch.bfloat16:
+        model = flash_prefill_tiled_plain(q, k, v, p0, hd ** -0.5, causal=False)
+        assert (got.float() - model.float()).abs().max().item() <= 4e-3
+        assert torch.equal(flash_prefill(q, k, v, p0, hd ** -0.5, causal=False), got)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_flash_prefill_misaligned_view_raises(cuda, which):
+    """The bf16 route loads by TMA: a view one element off a 16-byte boundary
+    raises, and nothing is launched."""
+    from jlama_tpu_torch.ops.attention import flash_prefill
+
+    B, H, n_kv, T, S, hd = 1, 8, 2, 64, 64, 64
+    shapes = {"q": (B, H, T, hd), "k": (B, n_kv, S, hd), "v": (B, n_kv, S, hd)}
+    t = {n: torch.randn(sh, device=cuda).to(torch.bfloat16) for n, sh in shapes.items()}
+    base = torch.zeros(t[which].numel() + 1, dtype=torch.bfloat16, device=cuda)
+    t[which] = base[1:].view(shapes[which])  # storage offset one element (2 bytes)
+    before = flash_prefill.launches
+    with pytest.raises(ValueError, match="TMA"):
+        flash_prefill(t["q"], t["k"], t["v"], torch.zeros(B, dtype=torch.int32, device=cuda),
+                      hd ** -0.5)
+    assert flash_prefill.launches == before
 
 
 def test_engine_on_card_matches_cpu_logits(cuda):
