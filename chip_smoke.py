@@ -34,9 +34,13 @@ Phases, each fatal on failure (exit code 1, no result line):
               256, 512, the f32-out lm_head at M = 1, 16, Llama-3.1-8B's w2
               and an uneven N; on an input that quantizes losslessly its
               output must equal the plain version's bit for bit, which holds
-              its in-launch int8 activations to q8_quantize(x, 256); bound
+              its int8 activations to q8_quantize(x, 256); past M = 16, its
+              wgmma route, on every input and on a second call too; bound
               against 1,979 TOP/s int8), with K1 and torch.matmul on a bf16
-              weight beside it. K1, K3 and K5 are also held at phase 8's
+              weight beside it, and at M = 512 torch._int_mm on the int8
+              codes (no group scales); the summed 512-token q4s prefill and
+              the host time of one wrapper call at M = 512 and 16. K1, K3 and
+              K5 are also held at phase 8's
               shapes: one 1024-token window with f32 activations through the
               unfused projections and the f32-out lm_head;
   4. engine - Llama-3.2-1B at full width (16 layers, random JQ4 weights from
@@ -311,7 +315,8 @@ def check_k5(torch, timer, details):
     from jlama_tpu_torch.models.init import llama_1b_config, llama_8b_config
     from jlama_tpu_torch.nn.qarray import QArray
     from jlama_tpu_torch.ops.q4_matmul import q4_matmul
-    from jlama_tpu_torch.ops.w8a8 import BITS_PER_WEIGHT, q4s_matmul, q4s_matmul_plain, to_q4s
+    from jlama_tpu_torch.ops.w8a8 import (BITS_PER_WEIGHT, decode_max_m, int8_operands,
+                                          q4s_matmul, q4s_matmul_plain, to_q4s)
 
     c1, c8 = llama_1b_config(), llama_8b_config()
     D, Hf, V = c1.embedding_length, c1.hidden_length, c1.vocab_size
@@ -325,9 +330,15 @@ def check_k5(torch, timer, details):
               for m in (1, 16, 512)]
     cases += [("uneven_n", 1000, 2048, m, bf16, bf16) for m in (1, 37)]
     cases += _ppl_window_cases(c1)
+    # rows that are no 16-byte multiple, which the TMA store takes through a
+    # padded stride: an odd N in bf16, and GPT-2's tied lm_head (vocabulary
+    # 50,257, K 768) in a perplexity window
+    cases += [("odd_n", 1001, 2048, 37, bf16, bf16), ("gpt2_lm_head", 50257, 768, PPL_SEQ, f32, f32)]
     g = torch.Generator(device="cuda").manual_seed(11)
+    max_decode_m = decode_max_m()
     worst = 0.0
     per_shape = {}
+    host_us = {}
     for name, n, k, m, x_dtype, out_dtype in cases:
         q4 = QArray(torch.randint(0, 256, (n, k // 2), generator=g, device="cuda",
                                   dtype=torch.uint8),
@@ -335,7 +346,9 @@ def check_k5(torch, timer, details):
         w = to_q4s(q4)
         x = torch.randn((m, k), generator=g, device="cuda").to(x_dtype)
         x[0, :256] = 0  # an all-zero activation group: scale 0
-        got = q4s_matmul(x, w, out_dtype).float()
+        label = f"K5 {name} M={m} N={n} K={k} x {_dt(x_dtype)} out {_dt(out_dtype)}"
+        got_raw = q4s_matmul(x, w, out_dtype)
+        got = got_raw.float()
         ref = q4s_matmul_plain(x, w, torch.float32)
         torch.cuda.synchronize()
         d = (got - ref).abs()
@@ -344,15 +357,21 @@ def check_k5(torch, timer, details):
         if out_dtype == torch.bfloat16:
             lim = lim + K5_BF16_OUT_REL * ref.abs()
         if not bool((d <= lim).all()):
-            fail(f"K5 {name} M={m} N={n} K={k} {out_dtype}: max_abs_err {err} (max|ref| {scale})")
+            fail(f"{label}: max_abs_err {err} (max|ref| {scale})")
         worst = max(worst, err)
-        del ref, got
-        # the in-launch quantization, exactly: on a lossless input every sum is
-        # exact, so a single code or scale off shows as an unequal output
+        del ref, got, d, lim
+        if m > max_decode_m:  # the wgmma route: the plain version's bits, the same bits twice
+            if not torch.equal(got_raw, q4s_matmul_plain(x, w, out_dtype)):
+                fail(f"{label}: the wgmma route's output differs from the plain version's")
+            if not torch.equal(q4s_matmul(x, w, out_dtype), got_raw):
+                fail(f"{label}: a second call gave other bits")
+        del got_raw
+        # the activation quantization, exactly: on a lossless input every sum
+        # is exact, so a single code or scale off shows as an unequal output
         xl, wl = _lossless_k5_case(torch, QArray, w, m, x_dtype, g)
         if not torch.equal(q4s_matmul(xl, wl, out_dtype), q4s_matmul_plain(xl, wl, out_dtype)):
-            fail(f"K5 {name} M={m} N={n} K={k}: the output on a lossless input differs from "
-                 "the plain version's (the in-launch int8 activations differ from q8_quantize)")
+            fail(f"{label}: the output on a lossless input differs from the plain version's "
+                 "(the kernel's int8 activations differ from q8_quantize)")
         del xl, wl
         wd, xb = w.dequantize(torch.bfloat16), x.to(torch.bfloat16)
         ms = timer(lambda: q4s_matmul(x, w, out_dtype))
@@ -360,18 +379,26 @@ def check_k5(torch, timer, details):
         yard_ms = timer(lambda: torch.matmul(xb, wd.t()))
         k1_ms = timer(lambda: q4_matmul(x, q4, out_dtype))
         del wd, xb
+        int_mm_ms = None
+        if m == 512:  # the library's int8 GEMM on the same codes, without the group scales
+            xq8, wq8 = int8_operands(x, w)
+            int_mm_ms = timer(lambda: torch._int_mm(xq8, wq8.t()))
+            del xq8, wq8
+        if name == "w13" and m in (16, 512):
+            host_us[m] = _host_us(torch, lambda: q4s_matmul(x, w, out_dtype))
         out_size = 4 if out_dtype == torch.float32 else 2
         nbytes = n * k * BITS_PER_WEIGHT / 8 + m * k * x.element_size() + m * n * out_size
         b_ms, b_by = bound(nbytes, 2.0 * m * n * k, INT8_OPS_PER_S)
         row = dict(kernel="w8a8_matmul", shape=name, M=m, N=n, K=k, x_dtype=str(x_dtype),
                    max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                   yardstick_ms=yard_ms, k1_ms=k1_ms, bound_ms=b_ms, bound_by=b_by)
+                   yardstick_ms=yard_ms, k1_ms=k1_ms, int_mm_ms=int_mm_ms, bound_ms=b_ms,
+                   bound_by=b_by)
         details.append(row)
         per_shape[(name, m)] = row
-        print(f"K5 {name:8s} M={m:4d} N={n:6d} K={k:5d} x {_dt(x_dtype)} out {_dt(out_dtype)}: "
-              f"{ms:.4f} ms (plain {plain_ms:.4f}, "
-              f"torch.matmul bf16 {yard_ms:.4f}, K1 {k1_ms:.4f}, bound {b_ms:.4f} by {b_by}) "
-              f"err {err:.3g}", flush=True)
+        print(f"{label}: {ms:.4f} ms (plain {plain_ms:.4f}, torch.matmul bf16 {yard_ms:.4f}, "
+              f"K1 {k1_ms:.4f}"
+              + ("" if int_mm_ms is None else f", torch._int_mm {int_mm_ms:.4f}")
+              + f", bound {b_ms:.4f} by {b_by}) err {err:.3g}", flush=True)
     # the JSON line's K5 work: one decode step of the q4s serving path at M = 1
     # and M = 16: 16 layers x (wqkv, wo, w13, w2) + the lm_head, beside K1
     L = c1.n_layers
@@ -384,12 +411,27 @@ def check_k5(torch, timer, details):
         print(f"K5 one decode step at M={m}: {steps[m]['ms']:.4f} ms (K1 {steps[m]['k1_ms']:.4f},"
               f" torch.matmul bf16 {steps[m]['yardstick_ms']:.4f}, bound "
               f"{steps[m]['bound_ms']:.4f})", flush=True)
+    # the q4s 512-token prefill: 16 layers x (wqkv, wo, w13, w2) at M = 512
+    pre = [per_shape[(s, 512)] for s in layer_shapes for _ in range(L)]
+    keys = ("ms", "k1_ms", "yardstick_ms", "bound_ms", "int_mm_ms")
+    pre_sum = {key: sum(r[key] for r in pre) for key in keys}
+    print(f"K5 one 512-token prefill ({len(pre)} launches at M=512): K5 {pre_sum['ms']:.4f} ms, "
+          f"K1 {pre_sum['k1_ms']:.4f} ms, torch.matmul bf16 {pre_sum['yardstick_ms']:.4f} ms, "
+          f"torch._int_mm on the int8 codes {pre_sum['int_mm_ms']:.4f} ms, bound "
+          f"{pre_sum['bound_ms']:.4f} ms", flush=True)
+    print(f"K5 host time of one wrapper call (w13): {host_us[512]:.1f} us at M=512 (the "
+          f"pre-pass, the scratch, three tensor maps made per call), {host_us[16]:.1f} us at "
+          "M=16", flush=True)
     return dict(steps[1], library_ms=None, max_abs_err=worst, bound_by="bytes",
                 ms_m16=steps[16]["ms"], k1_ms_m16=steps[16]["k1_ms"],
                 bound_ms_m16=steps[16]["bound_ms"],
+                **{f"{key}_prefill512": v for key, v in pre_sum.items()},
+                host_us_m512=host_us[512], host_us_m16=host_us[16],
                 work=f"one decode step, M=1: {L} x (wqkv, wo, w13, w2) + lm_head = "
                      f"{4 * L + 1} launches; yardstick: torch.matmul on bf16 weights; "
-                     "k1_ms: K1 on the same JQ4 weights")
+                     "k1_ms: K1 on the same JQ4 weights; *_prefill512: one 512-token "
+                     f"prefill, {L} x (wqkv, wo, w13, w2) at M=512; int_mm: torch._int_mm "
+                     "on the int8 codes, without the group scales")
 
 
 def check_k3(torch, timer, details):

@@ -2,14 +2,14 @@
 //
 // Replaces jlama_tpu/ops/pallas_w8a8.py:_w8a8_kernel (launched by
 // q4s_matmul_2d, with the activation quantization of its :266). Computes
-//   y[M,N] = sum_g (d_g[m,n] * xs[m,g]) * swk[n,g],   f32, g in [0, K/256),
+//   y[M,N] = sum_g (d_g[m,n] * xs[m,g]) * swk[n,g],   f32, g in [0, K/256) in order,
 //   d_g[m,n] = sum_{c in group g} xq[m,c] * (value[n,c] * sigma[n,c/32]),
-// where (xq, xs) = q8_quantize(x, 256) (int8 per 256-group, amax/127) is
-// computed inside this launch, and the weights are the port's q4s layout
-// (ops/w8a8.py): packed uint8 [N, K/2], each (row, group) of 128 bytes stored
-// as [quad t][block b][byte i] of JQ4 half-block bytes (low nibble element
-// j, high nibble element j+16 of byte j = 4t+i), nibble = value + 8 in
-// [1, 15]; sigma uint8 [N, K/32] in [1, 16]; swk float32 [N, K/256].
+// where (xq, xs) = q8_quantize(x, 256) (int8 per 256-group, amax/127), and
+// the weights are the port's q4s layout (ops/w8a8.py): packed uint8 [N, K/2],
+// each (row, group) of 128 bytes stored as [quad t][block b][byte i] of JQ4
+// half-block bytes (low nibble element j, high nibble element j+16 of byte j
+// = 4t+i), nibble = value + 8 in [1, 15]; sigma uint8 [N, K/32] in [1, 16];
+// swk float32 [N, K/256].
 //
 // The signed form. Each weight is built as the s8 value (nibble - 8) * sigma,
 // in [-112, 112] since q4s never stores nibble 0: nibble * sigma <= 240 fits a
@@ -18,50 +18,106 @@
 // byte the two's complement s8 of (nibble - 8) * sigma. With that no +8
 // offset correction is needed: the int32 group sum d_g equals the TPU
 // kernel's offset form d - 8 * corr (:216-231) exactly, both being exact
-// integers below 2^24 (|d_g| <= 256 * 127 * 112).
+// integers: |d_g| <= 256 * 127 * 128 < 2^22, a nibble 0 (-128) included.
 //
 // The activation quantization equals quant/blockq.py::q8_quantize exactly:
 // iscale = 127 / amax and scale = amax / 127, each one correctly rounded
-// division, q = floor(x * iscale + 0.5) with the multiply and the
-// add rounded separately (no FMA contraction), clip to +-127, scale 0 for an
-// all-zero group. An input that quantizes losslessly, with power-of-two group
-// scales on both sides, makes every product and sum exact, so the output
-// equals the plain version's bit for bit only if every code and scale does.
+// division, q = floor(x * iscale + 0.5) with the multiply and the add rounded
+// separately (no FMA contraction), clip to +-127, scale 0 for an all-zero
+// group, from x as given (f32 x is never rounded to bf16 first). Each group's
+// (d_g * xs) * swk and its sum into the f32 accumulator are rounded once each,
+// in g order, as the plain version's are, so the prefill route equals
+// q4s_matmul_plain bit for bit on any input; the decode route sums its groups
+// per warp, then over warps.
 //
 // What bounds it on the H100: in decode (M <= 16) the weight stream, 4.375
 // bits per weight against 3.35 TB/s (the x rows are a few KB and stay in
 // L1/L2); in prefill (M in the hundreds or thousands) the int8 tensor cores
 // (1,979 TOP/s dense).
 //
-// Design: int8 tensor cores through mma.sync.m16n8k32 (s8 x s8 -> s32). One
-// k32 step is exactly one 32-block, so the B fragment of a thread (column n,
-// k rows 4t..4t+3 and 16+4t..16+4t+3) is the low and high nibbles of one
-// 4-byte word of the block, all under one sigma; the layout puts a thread's
-// words of the group's 8 blocks in 32 contiguous bytes (two 16-byte loads).
-// The x tile of a group is quantized into shared memory (int8 rows padded to
-// 272 bytes, so the A fragment loads are free of bank conflicts) by the block
-// that reads it: each block redoes this for the x rows it needs, a few KB per
-// group, so that the whole linear is one launch. After each group the int32
-// fragment is scaled by xs and swk into f32 registers.
-//   decode  (M <= 16) - w8a8_decode_kernel: a block of 8 warps owns 8 * NF
-//           output columns (NF = 2 or 4 n8 fragments), and its warps split
-//           the groups (warp w takes g = w, w + 8, ...), each quantizing its
-//           own groups' x tile (16 rows, rows >= M zero); the 8 warps' f32
-//           partials are summed in warp order at the end. Many blocks stream
-//           the weights at small N.
-//   prefill (M > 16)  - w8a8_prefill_kernel: 64 x 64 output tile per block of
-//           8 warps (2 along M x 4 along N, each 2 m16 x 2 n8 fragments),
-//           looping over the groups in order with a block-wide quantized x
-//           tile per group. Its f32 sums run over g in order, as the plain
-//           version's do; the decode kernel's order is (per warp, in order)
-//           then over warps.
-// No cp.async/TMA pipelining and no wgmma yet: a later PR's work. Ragged M
-// and N edges are masked; K must be a multiple of 256; x and y are row-major
-// contiguous; x is bf16 or f32, y is bf16 or f32.
+// Routes:
+//   decode  (M <= 16) - w8a8_decode_kernel, mma.sync.m16n8k32 (s8 x s8 -> s32).
+//           One k32 step is exactly one 32-block, so the B fragment of a
+//           thread (column n, k rows 4t..4t+3 and 16+4t..16+4t+3) is the low
+//           and high nibbles of one 4-byte word of the block, all under one
+//           sigma; the layout puts a thread's words of the group's 8 blocks in
+//           32 contiguous bytes (two 16-byte loads). A block of 8 warps owns
+//           8 * NF output columns (NF = 2 or 4 n8 fragments), and its warps
+//           split the groups (warp w takes g = w, w + 8, ...), each quantizing
+//           its own groups' x tile (16 rows, rows >= M zero; int8 rows padded
+//           to 272 bytes, so the A fragment loads are free of bank conflicts)
+//           into shared memory; after each group the int32 fragment is scaled
+//           by xs and swk into f32 registers, and the 8 warps' f32 partials
+//           are summed in warp order at the end. Many blocks stream the
+//           weights at small N.
+//   prefill (M > 16)  - two launches, one wrapper call:
+//     w8a8_quantize_kernel: x once into xq int8 [M, K] and xs f32 [K/256, Mp]
+//           (group-major, Mp = M rounded up to 4, so that one group's scales
+//           of a token tile are one TMA box), one warp per (row, group), as
+//           the TPU wrapper quantizes x once before its kernel;
+//     w8a8_wgmma_kernel<TY, BM, WG>: a warp-specialised GEMM per (BM tokens x
+//           BN = 64 WG weight rows) output tile, one 256-group per stage of a
+//           kStages ring in shared memory under full/empty mbarriers:
+//       * a producer warpgroup (one lane issues, setmaxnreg gives its
+//         registers to the consumers) loads by TMA the group's xq [BM x 256]
+//         (two boxes of 128-byte rows in the 128-byte swizzle, as wgmma reads
+//         them), the packed weight bytes [BN x 128] (128-byte swizzle: the
+//         consumers' 16-byte reads of them are then free of bank conflicts)
+//         and xs [BM];
+//       * consumer warpgroup c owns weight rows 64c..64c+63 of the tile: the
+//         weights are wgmma's A operand from registers (weight rows are the
+//         instruction's M side, tokens its N side, so the accumulator is
+//         y^T). Thread (gid, t) of warp w holds rows 16w + gid and + 8, k
+//         4t..4t+3 and 16+4t..16+4t+3 of each k32 step: exactly the low and
+//         high nibbles of word t of each 32-block, which the q4s layout puts
+//         in bytes 32t..32t+31 of the row's group. Two 16-byte shared loads
+//         a row and four integer operations a word (expand_lo/hi) give the
+//         group's eight A fragments; no shared-memory store and no proxy
+//         fence. B = the xq tile (K-major, the 128-byte swizzle descriptor,
+//         +32 bytes a k32 step). Eight wgmma.mma_async m64nBMk32 .s32.s8.s8
+//         a group, the first with scale-d = 0, so the s32 accumulator starts
+//         each group at 0 without an instruction writing it; then wait and
+//         promote: acc += (float(d) * xs[tok]) * swk[row], each operation
+//         rounded once, and free the stage. float(d) is exact without I2F
+//         (a quarter of the FP32 rate): |d| < 2^22, so the bits d +
+//         0x4B400000 are the float 1.5 * 2^23 + d, and subtracting 1.5 *
+//         2^23 is exact. sigma and swk (rows of 24 and 12 bytes at K = 768,
+//         which TMA cannot map) are read from global one group ahead. With
+//         two consumer warpgroups, named barriers make them take turns at the
+//         tensor cores (0, 1, 0, 1, ...), so one's products run while the
+//         other expands and promotes;
+//       * epilogue: every consumer is done with the ring, so each warpgroup
+//         stages its [BM tokens x 64 rows] of y in the output type in the
+//         ring's x area (128-byte swizzle, so the accumulator layout's
+//         scattered stores meet no bank conflicts), a proxy fence, and TMA
+//         stores of 128-byte boxes: rows past M and N are dropped there, as
+//         TMA zero-fills xq, the weights and xs past M and N on the way in
+//         (sigma and swk read as 0 there).
+//       The role branches take the warp index through a shuffle, so ptxas
+//       knows them warp-uniform: in a branch it cannot prove uniform it
+//       serializes register-A wgmmas behind warpgroup arrives (C7520). Tiles:
+//       128 x 128 (two consumer warpgroups, one block an SM) once that gives
+//       two thirds of the SMs a block, else 64 x 64 (one, two blocks an SM).
+//       Each output is one block's sum in g order: the result is
+//       deterministic and equal to the plain version's. What bounds it on
+//       the H100 (scripts/k5_ablate.py): the CUDA-core work of a 128 x 128
+//       group, about 600 instructions a consumer thread (expansion and
+//       promotion), exceeds the 1,024 cycles its products take on the int8
+//       tensor cores, and overlaps them only in part.
+// Ragged M and N edges are masked; K must be a multiple of 256; x and y are
+// row-major; x is contiguous, y's rows are ldy >= N elements apart; x is
+// bf16 or f32, y is bf16 or f32. Past M = 16 the TMA store needs y's row
+// stride a 16-byte multiple (the wrapper pads it for any N, and the store
+// drops the columns past N), and the caller supplies the xq/xs scratch.
 
-#include <cuda_runtime.h>
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder comes through the runtime
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
 
 namespace {
 
@@ -118,26 +174,24 @@ __device__ __forceinline__ float quantize8(const float* v, uint2* dst) {
   return amax > 0.0f ? __fdiv_rn(amax, 127.0f) : 0.0f;
 }
 
-// Rows r0 + i * rstep (i < R) of a quantized x tile from x rows m0 + r0 +
-// i * rstep, group g; rows at or past M become zeros with scale 0. The R
-// rows' loads are issued together, so a warp waits for memory once per R
-// rows.
+// Rows r0..r0 + R - 1 of a quantized x tile from the same x rows, group g;
+// rows at or past M become zeros with scale 0. The R rows' loads are issued
+// together, so a warp waits for memory once per R rows.
 template <int R, typename TX>
 __device__ __forceinline__ void quantize_rows(const TX* __restrict__ x, int M, int K, int g,
-                                              int lane, int r0, int rstep, int m0,
-                                              int8_t* tile, float* xs) {
+                                              int lane, int r0, int8_t* tile, float* xs) {
   float v[R][8];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
-    const int m = m0 + r0 + i * rstep;
+    const int m = r0 + i;
     if (m < M) load_x8(x + (size_t)m * K + g * kGroup + lane * 8, v[i]);
   }
 #pragma unroll
   for (int i = 0; i < R; ++i) {
-    const int r = r0 + i * rstep;
+    const int r = r0 + i;
     uint2* dst = reinterpret_cast<uint2*>(tile + r * kRowBytes + lane * 8);
     float sc = 0.0f;
-    if (m0 + r < M) sc = quantize8(v[i], dst);
+    if (r < M) sc = quantize8(v[i], dst);
     else *dst = make_uint2(0u, 0u);
     if (lane == 0) xs[r] = sc;
   }
@@ -222,12 +276,13 @@ __device__ __forceinline__ void scale_add(float* acc, const int* c, float xs0, f
 }
 
 constexpr int kDecWarps = 8;
+constexpr int kDecodeMaxM = 16;  // the decode route's largest M; the prefill route above it
 
 template <typename TX, typename TY, int NF>
 __global__ void __launch_bounds__(kDecWarps * 32)
 w8a8_decode_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ w,
                    const uint8_t* __restrict__ sg, const float* __restrict__ sw,
-                   TY* __restrict__ y, int M, int N, int K) {
+                   TY* __restrict__ y, int M, int N, int K, int ldy) {
   // per warp: a 16-row quantized x tile; reused for the partial sums at the end
   __shared__ __align__(16) int8_t tiles[kDecWarps][16 * kRowBytes];
   __shared__ float xs[kDecWarps][16];
@@ -253,7 +308,7 @@ w8a8_decode_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < NF; ++j) load_w(w, sg, sw, n0 + j * 8, gid, tig, g, N, K, f[j]);
     __syncwarp();  // the previous group's A loads are done
-    for (int r0 = 0; r0 < M; r0 += 4) quantize_rows<4>(x, M, K, g, lane, r0, 1, 0, tile, xs[warp]);
+    for (int r0 = 0; r0 < M; r0 += 4) quantize_rows<4>(x, M, K, g, lane, r0, tile, xs[warp]);
     __syncwarp();
     int c[NF][4];
 #pragma unroll
@@ -293,91 +348,392 @@ w8a8_decode_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ w,
       for (int v = 0; v < kDecWarps; ++v) s += red[((v * NF + j) * 4 + e) * 32 + lane];
       const int row = gid + (e >> 1) * 8;
       const int col = n0 + j * 8 + tig * 2 + (e & 1);
-      if (row < M && col < N) y[(size_t)row * N + col] = from_f32<TY>(s);
+      if (row < M && col < N) y[(size_t)row * ldy + col] = from_f32<TY>(s);
     }
   }
 }
 
-constexpr int kPfWarpsM = 2, kPfWarpsN = 4;  // warps along M and N
-constexpr int kPfMF = 2, kPfNF = 2;          // m16 and n8 fragments per warp
-constexpr int kPfBM = kPfWarpsM * kPfMF * 16;  // 64
-constexpr int kPfBN = kPfWarpsN * kPfNF * 8;   // 64
-constexpr int kPfThreads = kPfWarpsM * kPfWarpsN * 32;
+// ---- M > 16: w8a8_quantize_kernel, then w8a8_wgmma_kernel --------------------
 
-template <typename TX, typename TY>
-__global__ void __launch_bounds__(kPfThreads)
-w8a8_prefill_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ w,
-                    const uint8_t* __restrict__ sg, const float* __restrict__ sw,
-                    TY* __restrict__ y, int M, int N, int K) {
-  __shared__ __align__(16) int8_t tile[kPfBM * kRowBytes];
-  __shared__ float xs[kPfBM];
+constexpr int kQuantWarps = 8;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int wm = warp / kPfWarpsN, wn = warp % kPfWarpsN;
-  const int m0 = blockIdx.y * kPfBM;
-  const int nw = blockIdx.x * kPfBN + wn * kPfNF * 8;
+// xq[m, g-th group] and xs[g, m] = q8_quantize of x[m, group g]: one warp per
+// (row, group), lane l taking values 8l..8l+7.
+template <typename TX>
+__global__ void __launch_bounds__(kQuantWarps * 32)
+w8a8_quantize_kernel(const TX* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ xs,
+                     int M, int K, int Mp) {
   const int G = K / kGroup;
+  const int item = blockIdx.x * kQuantWarps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (item >= M * G) return;  // warp-uniform
+  const int m = item / G, g = item - m * G;
+  const size_t off = (size_t)m * K + g * kGroup + lane * 8;
+  float v[8];
+  load_x8(x + off, v);
+  const float sc = quantize8(v, reinterpret_cast<uint2*>(xq + off));
+  if (lane == 0) xs[(size_t)g * Mp + m] = sc;
+}
 
-  float acc[kPfMF][kPfNF][4];
+constexpr int kStages = 4;
+constexpr int kBoxBytes = 128;  // one row of a TMA box: one 128-byte swizzle row
+
+template <int BM, int WG>
+struct Tile {
+  static constexpr int kBN = 64 * WG;                  // weight rows
+  static constexpr int kThreads = 128 * (WG + 1);     // + the producer warpgroup
+  static constexpr int kMinBlocks = WG == 1 ? 2 : 1;
+  // registers a thread after setmaxnreg: the producer's few, the rest of the
+  // block's (65536 / kMinBlocks at entry) to the consumers, in units of 8
+  static constexpr int kProducerRegs = 40;
+  static constexpr int kConsumerRegs =
+      (65536 / kMinBlocks - 128 * kProducerRegs) / (128 * WG) / 8 * 8;
+  static constexpr int kXBytes = BM * kGroup;          // xq: two boxes [BM x 128]
+  static constexpr int kWBytes = kBN * (kGroup / 2);   // packed weights [BN x 128]
+  static constexpr int kSBytes = BM * 4;               // xs of the BM tokens
+  // the x, W and xs rings, then the full/empty barriers, plus slack to align to 1024
+  static constexpr int kSmem = kStages * (kXBytes + kWBytes + kSBytes) + 2 * kStages * 8 + 1024;
+  // the epilogue's staging, f32 at most, fits in the x ring
+  static_assert(WG * BM * 64 * 4 <= kStages * kXBytes, "staging space");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Spins until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// One box of shared memory out to a 2-D map, in the bulk async group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile in the 128-byte swizzle:
+// 8-row groups 1024 bytes apart (SBO); the tile's base is 1024-aligned, and a
+// k32 step of int8 within the 128-byte row advances the start address by 32.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+template <int R>
+__device__ __forceinline__ void fence_operands(int (&d)[R]) {
 #pragma unroll
-  for (int i = 0; i < kPfMF; ++i)
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[kBlocksPerGroup][4]) {
 #pragma unroll
-    for (int j = 0; j < kPfNF; ++j)
+  for (int i = 0; i < kBlocksPerGroup; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// d[64 x 64] (+)= A[64 x 32] . B[64 x 32]^T, s8 in, s32 out; A from registers
+// (four s8x4 a thread), B K-major in shared memory
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 128] (+)= A[64 x 32] . B[128 x 32]^T, the same at BM = 128
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]),
+        "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// float(d), exactly, for |d| < 2^22: the bits d + 0x4B400000 are the float
+// 1.5 * 2^23 + d (one ulp is 1 there), and the subtraction is exact.
+__device__ __forceinline__ float exact_f32(int d) {
+  return __fadd_rn(__int_as_float(d + 0x4B400000), -12582912.0f);
+}
+
+// The four s8 weights (nibble - 8) * sigma of the low (hi = 0) or high (hi =
+// 1) nibbles of the packed word w, in four integer operations: with c = the
+// bytes 256 - 8 sigma, byte i of n_i * sigma + c is (n_i - 8) * sigma mod 256
+// and carries one into byte i + 1 exactly where n_i >= 8 (bit 3 of n_i), so
+// subtracting those carries leaves the bytes, with no per-byte masking.
+// `c` = 0x01010100 - sigma * 0x08080808 (mod 2^32), one per block and row.
+__device__ __forceinline__ uint32_t expand_lo(uint32_t w, uint32_t sigma, uint32_t c) {
+  return (w & 0x0F0F0F0Fu) * sigma + c - ((w & 0x08080808u) << 5);
+}
+__device__ __forceinline__ uint32_t expand_hi(uint32_t w, uint32_t sigma, uint32_t c) {
+  return ((w >> 4) & 0x0F0F0F0Fu) * sigma + c - ((w & 0x80808080u) << 1);
+}
+
+// Named barriers of the prefill kernel (0 is __syncthreads): every consumer;
+// warpgroup c's own (2 + c); the two warpgroups' turns at the tensor cores.
+constexpr int kBarConsumers = 1, kBarOwn = 2, kBarTurn = 4;
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Byte offset of element (row r, column c) of a staged y box: rows of 128
+// bytes in the 128-byte swizzle (16-byte chunk j of row r at j ^ (r % 8)),
+// 128 / sizeof(TY) columns a box, boxes of `rows` rows one after another.
+template <typename TY>
+__device__ __forceinline__ uint32_t staged(int r, int c, int rows) {
+  constexpr int kCols = kBoxBytes / sizeof(TY);
+  const uint32_t byte = (c % kCols) * sizeof(TY);
+  return (c / kCols) * rows * kBoxBytes + r * kBoxBytes + ((((byte >> 4) ^ r) & 7) << 4) +
+         (byte & 15);
+}
+
+// A consumer warpgroup's part of w8a8_wgmma_kernel: warpgroup wg (warp wq of
+// it) owns weight rows 64 wg..64 wg + 63 of the tile.
+template <typename TY, int BM, int WG>
+__device__ __forceinline__ void consume(uint8_t* xt, const uint8_t* wt, const float* st,
+                                        uint32_t full0, uint32_t empty0, const CUtensorMap* ymap,
+                                        const uint8_t* __restrict__ sg,
+                                        const float* __restrict__ sw, int wg, int wq, int lane,
+                                        int m0, int n0, int N, int K) {
+  using T = Tile<BM, WG>;
+  const int G = K / kGroup;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int rl = 64 * wg + 16 * wq + gid;  // the thread's tile rows: rl and rl + 8
+  const int r0 = n0 + rl, r1 = r0 + 8;
+  // sigma and swk of the thread's two rows, read one group ahead (0 past N)
+  uint2 sig_next[2];
+  float swk_next[2];
+  const auto load_scales = [&](int g) {
+    const int rows[2] = {r0, r1};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool in = rows[h] < N;
+      sig_next[h] = in ? __ldg(reinterpret_cast<const uint2*>(sg + (size_t)rows[h] * (K >> 5)) + g)
+                       : make_uint2(0u, 0u);
+      swk_next[h] = in ? __ldg(sw + (size_t)rows[h] * G + g) : 0.0f;
+    }
+  };
+  load_scales(0);
+
+  float acc[BM / 2];
+#pragma unroll
+  for (int i = 0; i < BM / 2; ++i) acc[i] = 0.0f;
+  int d[BM / 2];  // the group's s32 sums, d[4j + 2h + e]: row rl + 8h, token 8j + 2 tig + e
 
   for (int g = 0; g < G; ++g) {
-    WFrag f[kPfNF];
+    const int s = g % kStages;
+    const uint2 sig[2] = {sig_next[0], sig_next[1]};
+    const float swk[2] = {swk_next[0], swk_next[1]};
+    if (g + 1 < G) load_scales(g + 1);
+    mbar_wait(full0 + 8 * s, (g / kStages) & 1);
+    // word b of a row = block b's bytes 4 tig..4 tig + 3: chunks 2 tig and
+    // 2 tig + 1 of the row's 128 bytes, swizzled by the row (rl % 8 = gid)
+    const uint8_t* const wr = wt + s * T::kWBytes + rl * kBoxBytes;
+    uint32_t w0[kBlocksPerGroup], w1[kBlocksPerGroup];
 #pragma unroll
-    for (int j = 0; j < kPfNF; ++j) load_w(w, sg, sw, nw + j * 8, gid, tig, g, N, K, f[j]);
-    __syncthreads();  // the previous group's A loads are done
-    // warp w quantizes tile rows w, w + 8, ..., w + 56, four at a time
-    constexpr int kWarps = kPfThreads / 32;
-#pragma unroll
-    for (int r0 = 0; r0 < kPfBM; r0 += 4 * kWarps)
-      quantize_rows<4>(x, M, K, g, lane, r0 + warp, kWarps, m0, tile, xs);
-    __syncthreads();
-    int c[kPfMF][kPfNF][4];
-#pragma unroll
-    for (int i = 0; i < kPfMF; ++i)
-#pragma unroll
-      for (int j = 0; j < kPfNF; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) c[i][j][e] = 0;
+    for (int c = 0; c < 2; ++c) {
+      const int off = ((2 * tig + c) ^ gid) << 4;
+      const uint4 p0 = *reinterpret_cast<const uint4*>(wr + off);
+      const uint4 p1 = *reinterpret_cast<const uint4*>(wr + 8 * kBoxBytes + off);
+      w0[4 * c] = p0.x; w0[4 * c + 1] = p0.y; w0[4 * c + 2] = p0.z; w0[4 * c + 3] = p0.w;
+      w1[4 * c] = p1.x; w1[4 * c + 1] = p1.y; w1[4 * c + 2] = p1.z; w1[4 * c + 3] = p1.w;
+    }
+    // the A fragments of the group's eight k32 steps: rows rl / rl + 8 at k
+    // 4 tig.. (low nibbles) and 16 + 4 tig.. (high nibbles)
+    uint32_t a[kBlocksPerGroup][4];
 #pragma unroll
     for (int b = 0; b < kBlocksPerGroup; ++b) {
-      uint32_t bb[kPfNF][2];
-#pragma unroll
-      for (int j = 0; j < kPfNF; ++j) build_b(f[j], b, bb[j]);
-#pragma unroll
-      for (int i = 0; i < kPfMF; ++i) {
-        uint32_t a[4];
-        load_a(tile, wm * kPfMF * 16 + i * 16, b, gid, tig, a);
-#pragma unroll
-        for (int j = 0; j < kPfNF; ++j) mma_s8(c[i][j], a[0], a[1], a[2], a[3], bb[j][0], bb[j][1]);
-      }
+      const uint32_t s0 = ((b < 4 ? sig[0].x : sig[0].y) >> (8 * (b & 3))) & 0xFFu;
+      const uint32_t s1 = ((b < 4 ? sig[1].x : sig[1].y) >> (8 * (b & 3))) & 0xFFu;
+      const uint32_t c0 = 0x01010100u - s0 * 0x08080808u, c1 = 0x01010100u - s1 * 0x08080808u;
+      a[b][0] = expand_lo(w0[b], s0, c0);
+      a[b][1] = expand_lo(w1[b], s1, c1);
+      a[b][2] = expand_hi(w0[b], s0, c0);
+      a[b][3] = expand_hi(w1[b], s1, c1);
     }
+    const uint32_t xa = smem_u32(xt + s * T::kXBytes);
+    // two warpgroups take turns at the tensor cores (0, 1, 0, 1, ...), so
+    // one's products run while the other promotes and expands
+    if (WG == 2 && (wg == 1 || g > 0)) named_sync(kBarTurn + wg, 256);
+    fence_operands(a);  // every A fragment is built before the first product reads one
+    fence_operands(d);
+    wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < kPfMF; ++i) {
-      const int r = wm * kPfMF * 16 + i * 16 + gid;
-      const float xs0 = xs[r], xs1 = xs[r + 8];
+    for (int b = 0; b < kBlocksPerGroup; ++b)
+      wgmma_s8(d, a[b], sw128_desc(xa + (b >> 2) * BM * kBoxBytes + 32 * (b & 3)), b > 0);
+    wgmma_commit();
+    if (WG == 2 && (wg == 0 || g + 1 < G)) named_arrive(kBarTurn + 1 - wg, 256);
+    wgmma_wait0();
+    fence_operands(d);
+    fence_operands(a);  // the A registers stay untouched until the products are done
+    const float* const xs = st + s * BM;
 #pragma unroll
-      for (int j = 0; j < kPfNF; ++j) scale_add(acc[i][j], c[i][j], xs0, xs1, f[j].sw);
+    for (int j = 0; j < BM / 8; ++j) {
+      const float2 xv = *reinterpret_cast<const float2*>(xs + 8 * j + 2 * tig);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * h + e;
+          const float x = e ? xv.y : xv.x;
+          acc[i] = __fadd_rn(acc[i], __fmul_rn(__fmul_rn(exact_f32(d[i]), x), swk[h]));
+        }
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);  // the stage's xq, weights and xs are read
   }
 
+  // every consumer is done with the ring: stage y^T's tile as y in its x area
+  named_sync(kBarConsumers, 128 * WG);
+  TY* const yt = reinterpret_cast<TY*>(xt + wg * BM * 64 * sizeof(TY));
 #pragma unroll
-  for (int i = 0; i < kPfMF; ++i) {
+  for (int j = 0; j < BM / 8; ++j)
 #pragma unroll
-    for (int j = 0; j < kPfNF; ++j) {
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = m0 + wm * kPfMF * 16 + i * 16 + gid + (e >> 1) * 8;
-        const int col = nw + j * 8 + tig * 2 + (e & 1);
-        if (row < M && col < N) y[(size_t)row * N + col] = from_f32<TY>(acc[i][j][e]);
+      for (int e = 0; e < 2; ++e) {
+        const int tok = 8 * j + 2 * tig + e, col = 16 * wq + gid + 8 * h;
+        *reinterpret_cast<TY*>(reinterpret_cast<uint8_t*>(yt) + staged<TY>(tok, col, BM)) =
+            from_f32<TY>(acc[4 * j + 2 * h + e]);
+      }
+  // generic stores, then the async proxy's reads of them (the TMA store)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  named_sync(kBarOwn + wg, 128);
+  if ((threadIdx.x & 127) == 0) {
+    constexpr int kCols = kBoxBytes / sizeof(TY);
+#pragma unroll
+    for (int bx = 0; bx < 64 / kCols; ++bx)
+      tma_store_2d(ymap, smem_u32(reinterpret_cast<uint8_t*>(yt) + bx * BM * kBoxBytes),
+                   n0 + 64 * wg + bx * kCols, m0);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");  // before the block exits
+  }
+}
+
+template <typename TY, int BM, int WG>
+__global__ void __launch_bounds__(Tile<BM, WG>::kThreads, Tile<BM, WG>::kMinBlocks)
+w8a8_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                  const __grid_constant__ CUtensorMap wmap,
+                  const __grid_constant__ CUtensorMap smap,
+                  const __grid_constant__ CUtensorMap ymap, const uint8_t* __restrict__ sg,
+                  const float* __restrict__ sw, int N, int K) {
+  using T = Tile<BM, WG>;
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle is a function of the shared address: tiles start 1024-aligned
+  uint8_t* const xt = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* const wt = xt + kStages * T::kXBytes;
+  float* const st = reinterpret_cast<float*>(wt + kStages * T::kWBytes);
+  // full[s]: the stage's xq, weights and xs landed; empty[s]: its readers are done
+  const uint32_t full0 = smem_u32(st + kStages * BM), empty0 = full0 + 8 * kStages;
+
+  // warp and warpgroup through a shuffle: values the compiler knows to be
+  // warp-uniform, so the role branches below are not divergent paths (in one,
+  // ptxas serializes the register-A wgmmas behind warpgroup arrives)
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0), lane = threadIdx.x & 31;
+  const int wg = warp >> 2;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * T::kBN;
+  const int G = K / kGroup;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full0 + 8 * i, 1);            // the TMA lane's expect_tx
+      mbar_init(empty0 + 8 * i, 4 * WG);      // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == WG) {  // the producer warpgroup: one lane issues the loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(T::kProducerRegs));
+    if (threadIdx.x == 128 * WG) {
+      for (int g = 0; g < G; ++g) {
+        const int s = g % kStages, lap = g / kStages;
+        if (lap > 0) mbar_wait(empty0 + 8 * s, (lap - 1) & 1);
+        const uint32_t full = full0 + 8 * s;
+        const uint32_t xdst = smem_u32(xt + s * T::kXBytes);
+        mbar_arrive_expect_tx(full, T::kXBytes + T::kWBytes + T::kSBytes);
+        tma_load_2d(xdst, &xmap, g * kGroup, m0, full);
+        tma_load_2d(xdst + BM * kBoxBytes, &xmap, g * kGroup + kBoxBytes, m0, full);
+        tma_load_2d(smem_u32(wt + s * T::kWBytes), &wmap, g * (kGroup / 2), n0, full);
+        tma_load_2d(smem_u32(st + s * BM), &smap, m0, g, full);
       }
     }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(T::kConsumerRegs));
+    consume<TY, BM, WG>(xt, wt, st, full0, empty0, &ymap, sg, sw, wg, warp & 3, lane, m0, n0, N,
+                        K);
   }
 }
 
@@ -393,43 +749,167 @@ int sm_count() {
 }
 
 template <typename TX, typename TY>
-void launch(const void* x, const uint8_t* w, const uint8_t* sg, const float* sw, void* y,
-            int M, int N, int K, cudaStream_t st) {
+cudaError_t launch_decode(const void* x, const uint8_t* w, const uint8_t* sg, const float* sw,
+                          void* y, int M, int N, int K, int ldy, cudaStream_t st) {
   const TX* xp = static_cast<const TX*>(x);
   TY* yp = static_cast<TY*>(y);
-  if (M <= 16) {
-    // 4 fragments a block once that still gives two blocks per SM, else 2
-    if ((N + 31) / 32 >= 2 * sm_count())
-      w8a8_decode_kernel<TX, TY, 4><<<(N + 31) / 32, kDecWarps * 32, 0, st>>>(xp, w, sg, sw, yp, M, N, K);
-    else
-      w8a8_decode_kernel<TX, TY, 2><<<(N + 15) / 16, kDecWarps * 32, 0, st>>>(xp, w, sg, sw, yp, M, N, K);
-  } else {
-    dim3 grid((N + kPfBN - 1) / kPfBN, (M + kPfBM - 1) / kPfBM);
-    w8a8_prefill_kernel<TX, TY><<<grid, kPfThreads, 0, st>>>(xp, w, sg, sw, yp, M, N, K);
+  // 4 fragments a block once that still gives two blocks per SM, else 2
+  if ((N + 31) / 32 >= 2 * sm_count())
+    w8a8_decode_kernel<TX, TY, 4><<<(N + 31) / 32, kDecWarps * 32, 0, st>>>(xp, w, sg, sw, yp, M, N, K, ldy);
+  else
+    w8a8_decode_kernel<TX, TY, 2><<<(N + 15) / 16, kDecWarps * 32, 0, st>>>(xp, w, sg, sw, yp, M, N, K, ldy);
+  return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled (libcuda) looked up through the CUDA runtime, so the
+// library links no -lcuda; the lookup needs CUDA 12.5 or later
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiledFn>(p)
+                                                                 : nullptr;
+  }();
+  return fn;
+}
+
+// A 2-D map over [rows, cols] elements with a row stride of `stride` bytes,
+// box [box_rows, box_cols]; loads past an edge are zero-filled, stores there
+// dropped.
+bool encode_2d(CUtensorMap* map, CUtensorMapDataType dt, const void* ptr, uint64_t rows,
+               uint64_t cols, uint64_t stride, uint32_t box_rows, uint32_t box_cols,
+               CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {stride};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return fn(map, dt, 2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The packed weights' maps, by (address, N, K, BN): a weight keeps its map
+// across calls; a new tensor at a freed one's address and shape gets the same
+// map, so an entry never goes stale.
+bool weight_map(CUtensorMap* map, const uint8_t* w, int N, int K, int BN) {
+  static std::mutex mu;
+  static std::map<std::tuple<uintptr_t, int, int, int>, CUtensorMap> cache;
+  const auto key = std::make_tuple(reinterpret_cast<uintptr_t>(w), N, K, BN);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *map = it->second;
+    return true;
   }
+  if (!encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K / 2, K / 2, BN, kBoxBytes,
+                 CU_TENSOR_MAP_SWIZZLE_128B))
+    return false;
+  cache.emplace(key, *map);
+  return true;
+}
+
+template <typename TY, int BM, int WG>
+cudaError_t launch_wgmma(const int8_t* xq, const float* xs, int Mp, const uint8_t* w,
+                         const uint8_t* sg, const float* sw, TY* y, int M, int N, int K,
+                         int ldy, cudaStream_t st) {
+  using T = Tile<BM, WG>;
+  const CUtensorMapDataType ydt =
+      sizeof(TY) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  // xq, xs and y change with every call: their maps are made per launch. y's
+  // map has N columns over rows of ldy: the store drops the columns past N.
+  CUtensorMap xmap, wmap, smap, ymap;
+  if (!encode_2d(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, xq, M, K, K, BM, kBoxBytes,
+                 CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !weight_map(&wmap, w, N, K, T::kBN) ||
+      !encode_2d(&smap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, xs, K / kGroup, M, (uint64_t)Mp * 4, 1,
+                 BM, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !encode_2d(&ymap, ydt, y, M, N, (uint64_t)ldy * sizeof(TY), BM, kBoxBytes / sizeof(TY),
+                 CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  static uint32_t smem_set = 0;  // devices whose attribute is set (bit per device)
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (!(smem_set >> dev & 1u)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        w8a8_wgmma_kernel<TY, BM, WG>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+    if (e != cudaSuccess) return e;
+    smem_set |= 1u << dev;
+  }
+  // token tiles fastest: the blocks that share a weight tile run together
+  const dim3 grid((M + BM - 1) / BM, (N + T::kBN - 1) / T::kBN);
+  w8a8_wgmma_kernel<TY, BM, WG><<<grid, T::kThreads, T::kSmem, st>>>(xmap, wmap, smap, ymap, sg,
+                                                                     sw, N, K);
+  return cudaGetLastError();
+}
+
+template <typename TX, typename TY>
+cudaError_t launch_prefill(const void* x, const uint8_t* w, const uint8_t* sg, const float* sw,
+                           void* y, int M, int N, int K, int ldy, int8_t* xq, float* xs,
+                           cudaStream_t st) {
+  if (xq == nullptr || xs == nullptr || (long long)M * (K / kGroup) >= (1ll << 31) ||
+      ((long long)ldy * sizeof(TY)) % 16)
+    return cudaErrorInvalidValue;
+  const int Mp = (M + 3) & ~3;
+  const int items = M * (K / kGroup);
+  w8a8_quantize_kernel<TX><<<(items + kQuantWarps - 1) / kQuantWarps, kQuantWarps * 32, 0, st>>>(
+      static_cast<const TX*>(x), xq, xs, M, K, Mp);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  // 128 x 128 once that gives two thirds of the SMs a block, else 64 x 64 at
+  // two blocks an SM (measured on the H100 at the Llama-3.2-1B prefill shapes)
+  TY* yp = static_cast<TY*>(y);
+  const long long big = (long long)((M + 127) / 128) * ((N + 127) / 128);
+  if (M > 64 && 3 * big >= 2 * sm_count())
+    return launch_wgmma<TY, 128, 2>(xq, xs, Mp, w, sg, sw, yp, M, N, K, ldy, st);
+  return launch_wgmma<TY, 64, 1>(xq, xs, Mp, w, sg, sw, yp, M, N, K, ldy, st);
+}
+
+template <typename TX, typename TY>
+cudaError_t launch(const void* x, const uint8_t* w, const uint8_t* sg, const float* sw, void* y,
+                   int M, int N, int K, int ldy, int8_t* xq, float* xs, cudaStream_t st) {
+  if (M <= kDecodeMaxM) return launch_decode<TX, TY>(x, w, sg, sw, y, M, N, K, ldy, st);
+  return launch_prefill<TX, TY>(x, w, sg, sw, y, M, N, K, ldy, xq, xs, st);
 }
 
 }  // namespace
 
+// The decode route's largest M: the one threshold of the two routes, which
+// the wrapper reads to know when to pass the prefill route's scratch.
+extern "C" int w8a8_decode_max_m() { return kDecodeMaxM; }
+
 // Returns the cudaError_t of the launch (0 on success); 1 (cudaErrorInvalidValue)
-// for arguments the kernel does not take.
+// for arguments the kernels do not take. y's rows are ldy >= N elements apart;
+// past w8a8_decode_max_m() the TMA store needs them 16-byte multiples (the
+// columns past N are not written), and xq (int8 [M, K]) and xs (f32 [K/256,
+// Mp], Mp = M rounded up to 4) are the caller's scratch, 16-byte aligned;
+// below it they are not read and may be null.
 extern "C" int w8a8_matmul(const void* x, int x_dtype, const void* w, const void* sigma,
-                           const void* swk, void* y, int y_dtype, int M, int N, int K,
-                           void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % kGroup) return static_cast<int>(cudaErrorInvalidValue);
+                           const void* swk, void* y, int y_dtype, int M, int N, int K, int ldy,
+                           void* xq, void* xs, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % kGroup || ldy < N)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* wp = static_cast<const uint8_t*>(w);
   const uint8_t* sp = static_cast<const uint8_t*>(sigma);
   const float* swp = static_cast<const float*>(swk);
+  int8_t* xqp = static_cast<int8_t*>(xq);
+  float* xsp = static_cast<float*>(xs);
   if (x_dtype == kBF16 && y_dtype == kBF16)
-    launch<__nv_bfloat16, __nv_bfloat16>(x, wp, sp, swp, y, M, N, K, st);
-  else if (x_dtype == kBF16 && y_dtype == kF32)
-    launch<__nv_bfloat16, float>(x, wp, sp, swp, y, M, N, K, st);
-  else if (x_dtype == kF32 && y_dtype == kBF16)
-    launch<float, __nv_bfloat16>(x, wp, sp, swp, y, M, N, K, st);
-  else if (x_dtype == kF32 && y_dtype == kF32)
-    launch<float, float>(x, wp, sp, swp, y, M, N, K, st);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    return launch<__nv_bfloat16, __nv_bfloat16>(x, wp, sp, swp, y, M, N, K, ldy, xqp, xsp, st);
+  if (x_dtype == kBF16 && y_dtype == kF32)
+    return launch<__nv_bfloat16, float>(x, wp, sp, swp, y, M, N, K, ldy, xqp, xsp, st);
+  if (x_dtype == kF32 && y_dtype == kBF16)
+    return launch<float, __nv_bfloat16>(x, wp, sp, swp, y, M, N, K, ldy, xqp, xsp, st);
+  if (x_dtype == kF32 && y_dtype == kF32)
+    return launch<float, float>(x, wp, sp, swp, y, M, N, K, ldy, xqp, xsp, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -2,10 +2,25 @@
 `jlama_tpu/ops/pallas_w8a8.py`).
 
 Replaces the TPU kernel `jlama_tpu/ops/pallas_w8a8.py:_w8a8_kernel`
-(launched by `q4s_matmul_2d`) with the hand-written CUDA kernel in
+(launched by `q4s_matmul_2d`) with the hand-written CUDA kernels in
 `csrc/w8a8_matmul.cu`. y = q8(x) · q4s(W)ᵀ: activations quantized to int8 per
-256-group (amax/127) in the same launch, exact int32 dots per group, f32
-accumulation of the group products.
+256-group (amax/127), exact int32 dots per group, f32 accumulation of the
+group products in group order. Two routes, by the token count M:
+
+- M ≤ 16 (decode): `w8a8_decode_kernel` quantizes x inside its launch and
+  runs `mma.sync` s8;
+- M > 16 (prefill): `w8a8_quantize_kernel` writes the int8 codes and group
+  scales of x once into scratch that the wrapper allocates (xq int8 [M, K],
+  xs f32 [K/256, Mp], Mp = M rounded up to 4), then `w8a8_wgmma_kernel` runs
+  a TMA + mbarrier ring and `wgmma` s8 with the weights as the A operand from
+  registers, and stores y by TMA. It equals `q4s_matmul_plain` bit for bit.
+  TMA needs y's row stride a 16-byte multiple: for any other N (GPT-2's
+  50,257-row lm_head) the wrapper pads the stride, the store drops the
+  columns past N, and the wrapper returns a contiguous copy of the N columns.
+  One wrapper call counts one launch in `q4s_matmul.launches`, on either route.
+
+The threshold between the routes has one owner, the C source
+(`w8a8_decode_max_m`, read by `decode_max_m()`).
 
 The q4s format (the JAX package's numbers, the port's own byte layout). JQ4
 weights are re-quantized once, at load, over groups of 256 (8 JQ4 blocks):
@@ -22,14 +37,15 @@ Layout: `data` is uint8 [N, K/2], row n's bytes contiguous. Within a row each
 group's 128 bytes are the 8 blocks in JQ4's half-block order (byte j of a
 block holds element j in the low nibble and j + 16 in the high nibble),
 stored as [quad t (4)][block b (8)][byte i (4)]: byte j = 4t + i of block b
-sits at 32t + 4b + i, so the thread of an `mma` B fragment that needs bytes
-4t..4t+3 of every block of the group reads 32 contiguous bytes. The TPU's
-group-major `[ngrp, N, 128]` layout and its `_group_perm` column order serve
-only `pltpu.repeat` and the TPU's sequential group axis, and are not carried
-over (`models/convert.py` maps them).
+sits at 32t + 4b + i, so the thread of an `mma` fragment (the decode route's
+B, the prefill route's A) that needs bytes 4t..4t+3 of every block of the
+group reads 32 contiguous bytes. The TPU's group-major `[ngrp, N, 128]`
+layout and its `_group_perm` column order serve only `pltpu.repeat` and the
+TPU's sequential group axis, and are not carried over (`models/convert.py`
+maps them).
 
 `q4s_matmul_plain` is the same function in plain PyTorch; `q4s_matmul` runs it
-for tensors on the CPU only, and a CUDA tensor launches the kernel or raises.
+for tensors on the CPU only, and a CUDA tensor launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -50,9 +66,11 @@ _QUADS = 4  # 4-byte words per 16-byte block
 _C = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "w8a8_matmul": [_C, _I, _C, _C, _C, _C, _I, _I, _I, _I, _C],
+    "w8a8_matmul": [_C, _I, _C, _C, _C, _C, _I, _I, _I, _I, _I, _C, _C, _C],
+    "w8a8_decode_max_m": [],
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 # rows of a weight converted at once: bounds to_q4s's f32 temporaries
 _CONVERT_ELEMS = 1 << 25
 
@@ -73,6 +91,16 @@ def q4s_unpack(data: torch.Tensor) -> torch.Tensor:
     *lead, n, kh = data.shape
     canon = data.reshape(*lead, n, 2 * kh // GROUP, _QUADS, BPG, 4).transpose(-3, -2)
     return blockq.q4_unpack(canon.reshape(*lead, n, kh))
+
+
+def int8_operands(x: torch.Tensor, w: QArray) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 operands of K5's group dots: q8_quantize(x, 256)'s codes [M, K]
+    and the weights' (nibble - 8) * sigma [N, K]. `torch._int_mm` on them is
+    the library's int8 GEMM without the group scales: a yardstick for the
+    card benches only, never called by `q4s_matmul`."""
+    xq, _ = blockq.q8_quantize(x.float(), block=GROUP)
+    sig = w.scales[0].repeat_interleave(blockq.BLOCK_SIZE, dim=1).to(torch.int16)
+    return xq, (q4s_unpack(w.data).to(torch.int16) * sig).to(torch.int8)
 
 
 def _to_q4s_rows(packed: torch.Tensor, scales: torch.Tensor):
@@ -185,6 +213,12 @@ def q4s_matmul_plain(x: torch.Tensor, w: QArray, out_dtype) -> torch.Tensor:
     return acc.to(out_dtype).reshape(*lead, n)
 
 
+def decode_max_m() -> int:
+    """The decode route's largest M, from the built kernel (needs nvcc); the
+    prefill route takes every larger M."""
+    return _build.load("w8a8_matmul", _SIGNATURES).w8a8_decode_max_m()
+
+
 def q4s_matmul(x: torch.Tensor, w: QArray, out_dtype=None) -> torch.Tensor:
     """y = q8(x) @ q4s(w).T for arbitrary leading dims of x; w a q4s QArray
     [N, K]."""
@@ -220,20 +254,29 @@ def q4s_matmul(x: torch.Tensor, w: QArray, out_dtype=None) -> torch.Tensor:
 
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k).contiguous()
-    if x2.data_ptr() % 16:  # a view at an odd offset: the kernel loads 16 bytes at a time
+    if x2.data_ptr() % 16:  # a view at an odd offset: the kernels load 16 bytes at a time
         x2 = x2.clone()
     m = x2.shape[0]
-    y = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
-        return y.reshape(*lead, n)
+        return torch.empty((*lead, n), dtype=out_dtype, device=x.device)
     lib = _build.load("w8a8_matmul", _SIGNATURES)
+    ldy, xq, xs = n, None, None
+    if m > lib.w8a8_decode_max_m():
+        per_16 = 16 // _ELEM_BYTES[out_dtype]  # the TMA store's row stride: 16-byte multiples
+        ldy = -(-n // per_16) * per_16
+        xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+        xs = torch.empty((k // GROUP, (m + 3) // 4 * 4), dtype=torch.float32, device=x.device)
+    y = torch.empty((m, ldy), dtype=out_dtype, device=x.device)
     err = lib.w8a8_matmul(
         x2.data_ptr(), _DTYPE_CODE[x2.dtype], data.data_ptr(), sigma.data_ptr(),
-        swk.data_ptr(), y.data_ptr(), _DTYPE_CODE[out_dtype], m, n, k,
+        swk.data_ptr(), y.data_ptr(), _DTYPE_CODE[out_dtype], m, n, k, ldy,
+        None if xq is None else xq.data_ptr(), None if xs is None else xs.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "q4s_matmul")
     q4s_matmul.launches += 1
+    if ldy != n:
+        y = y[:, :n].contiguous()
     return y.reshape(*lead, n)
 
 

@@ -387,18 +387,26 @@ def _q4s_weight(n, k, g, device):
     return to_q4s(q4)
 
 
+# M <= 16 takes the decode route, M > 16 the wgmma route (pre-pass, TMA ring,
+# wgmma s8): 17 and 300 rows at K = 768 (sigma and swk rows of 24 and 12
+# bytes, which TMA cannot map), 130 rows at N = 1000, 300 rows at N = 96, a
+# perplexity window's 1024 rows (f32 x in the f32 parametrisation), and the
+# 1B w13 at 512.
 @pytest.mark.parametrize("m,n,k", [(1, 256, 256), (5, 1000, 512), (16, 384, 1024),
-                                   (17, 520, 768), (130, 1000, 2048), (2, 64, 14336),
-                                   (16, 4096, 14336), (300, 96, 14336)])
+                                   (17, 520, 768), (300, 384, 768), (130, 1000, 2048),
+                                   (2, 64, 14336), (16, 4096, 14336), (300, 96, 14336),
+                                   (1024, 1000, 2048), (512, 16384, 2048)])
 @pytest.mark.parametrize("x_dtype,out_dtype", [(torch.bfloat16, torch.bfloat16),
                                                (torch.float32, torch.float32),
                                                (torch.bfloat16, torch.float32)])
 def test_w8a8_kernel_matches_plain(cuda, m, n, k, x_dtype, out_dtype):
-    """K5 against its plain version run on the CPU: f32 out within 1e-5 *
-    max|plain| (exact integer dots; the f32 group sums in another order in
-    the decode kernel); bf16 out within one bf16 ulp (at most 2^-7 of the
-    value) plus that."""
-    from jlama_tpu_torch.ops.w8a8 import q4s_matmul, q4s_matmul_plain
+    """K5 against its plain version run on the CPU. Past M = 16 (the wgmma
+    route: exact integer dots, each group's products and sums rounded in
+    group order, as the plain version's) bit for bit, and bit for bit on a
+    second call. At M <= 16 (the decode route sums its groups per warp, then
+    over warps): f32 out within 1e-5 * max|plain|; bf16 out within one bf16
+    ulp (at most 2^-7 of the value) plus that."""
+    from jlama_tpu_torch.ops.w8a8 import decode_max_m, q4s_matmul, q4s_matmul_plain
 
     g = torch.Generator(device=cuda).manual_seed(m * n + k)
     w = _q4s_weight(n, k, g, cuda)
@@ -407,12 +415,54 @@ def test_w8a8_kernel_matches_plain(cuda, m, n, k, x_dtype, out_dtype):
     before = q4s_matmul.launches
     got = q4s_matmul(x, w, out_dtype)
     assert q4s_matmul.launches == before + 1 and got.dtype == out_dtype
+    if m > decode_max_m():
+        assert torch.equal(got.cpu(), q4s_matmul_plain(x.cpu(), w.to("cpu"), out_dtype))
+        assert torch.equal(q4s_matmul(x, w, out_dtype), got)
+        return
     ref = q4s_matmul_plain(x.cpu(), w.to("cpu"), torch.float32)
     torch.cuda.synchronize()
     lim = 1e-5 * ref.abs().max()
     if out_dtype == torch.bfloat16:
         lim = lim + 2.0 ** -7 * ref.abs()
     assert torch.all((got.float().cpu() - ref).abs() <= lim)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w8a8_prefill_takes_views_and_leading_dims(cuda, dtype):
+    """The wgmma route on x given as a view at an offset that is not 16-byte
+    aligned (the wrapper clones it) and with leading dims: the plain
+    version's bits."""
+    from jlama_tpu_torch.ops.w8a8 import q4s_matmul, q4s_matmul_plain
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    w = _q4s_weight(384, 512, g, cuda)
+    flat = torch.randn(3 * 40 * 512 + 1, generator=g, device=cuda).to(dtype)
+    x = flat[1:].view(3, 40, 512)  # 2 or 4 bytes past an aligned base
+    assert x.data_ptr() % 16
+    got = q4s_matmul(x, w, dtype)
+    assert got.shape == (3, 40, 384)
+    assert torch.equal(got.cpu(), q4s_matmul_plain(x.cpu(), w.to("cpu"), dtype))
+
+
+# y rows that are no 16-byte multiple: GPT-2's tied lm_head (vocabulary
+# 50,257, K 768) in a perplexity window (f32 x and out, 1024 rows), an odd N
+# in bf16, and f32 out at N = 1003
+@pytest.mark.parametrize("m,n,k,x_dtype,out_dtype", [
+    (1024, 50257, 768, torch.float32, torch.float32),
+    (37, 1001, 256, torch.bfloat16, torch.bfloat16),
+    (300, 1003, 768, torch.bfloat16, torch.float32)])
+def test_w8a8_prefill_any_n(cuda, m, n, k, x_dtype, out_dtype):
+    """Past M = 16 the output goes out by TMA, which needs 16-byte row
+    strides: the wrapper pads y's stride and returns the N columns, contiguous
+    and equal to the plain version's bits."""
+    from jlama_tpu_torch.ops.w8a8 import q4s_matmul, q4s_matmul_plain
+
+    g = torch.Generator(device=cuda).manual_seed(n)
+    w = _q4s_weight(n, k, g, cuda)
+    x = torch.randn((m, k), generator=g, device=cuda).to(x_dtype)
+    got = q4s_matmul(x, w, out_dtype)
+    assert got.shape == (m, n) and got.is_contiguous() and got.dtype == out_dtype
+    assert torch.equal(got.cpu(), q4s_matmul_plain(x.cpu(), w.to("cpu"), out_dtype))
 
 
 @pytest.mark.parametrize("m,k", [(1, 256), (16, 2048), (37, 14336)])

@@ -259,13 +259,14 @@ def test_cpu_q4s_serving_goes_through_plain_versions(monkeypatch):
 
 def test_bench_mains_need_cuda_or_explicit_cpu(monkeypatch):
     """Each card bench's main() raises without a GPU unless --device cpu is
-    given (k1_ablate and k3_ablate run on the card only), and its wrappers
+    given (k1_ablate, k3_ablate and k5_ablate run on the card only), and its wrappers
     raise on a device that is neither."""
-    from jlama_tpu_torch.scripts import (k1_ablate, k3_ablate, kbench_q4, kbench_w8a8,
-                                         probe_int4, probe_sigma_i16)
+    from jlama_tpu_torch.scripts import (k1_ablate, k3_ablate, k5_ablate, kbench_q4,
+                                         kbench_w8a8, probe_int4, probe_sigma_i16)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for mod in (kbench_q4, kbench_w8a8, probe_int4, probe_sigma_i16, k1_ablate, k3_ablate):
+    for mod in (kbench_q4, kbench_w8a8, probe_int4, probe_sigma_i16, k1_ablate, k3_ablate,
+                k5_ablate):
         with pytest.raises(RuntimeError, match="CUDA"):
             mod.main([])
     meta = {dt: torch.empty((8, 256), dtype=dt, device="meta")
@@ -282,7 +283,8 @@ def test_bench_mains_need_cuda_or_explicit_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("script,source", [("k1_ablate", "q4_matmul"),
-                                           ("k3_ablate", "flash_prefill")])
+                                           ("k3_ablate", "flash_prefill"),
+                                           ("k5_ablate", "w8a8_matmul")])
 def test_ablation_cuts_apply_to_the_source(script, source):
     """Every cut of an ablation script finds its text in the kernel source
     exactly once (on the card the script raises when one does not)."""
