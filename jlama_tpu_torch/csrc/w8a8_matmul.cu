@@ -26,9 +26,8 @@
 // separately (no FMA contraction), clip to +-127, scale 0 for an all-zero
 // group, from x as given (f32 x is never rounded to bf16 first). Each group's
 // (d_g * xs) * swk and its sum into the f32 accumulator are rounded once each,
-// in g order, as the plain version's are, so the prefill route equals
-// q4s_matmul_plain bit for bit on any input; the decode route sums its groups
-// per warp, then over warps.
+// in g order, as the plain version's are, so both routes equal
+// q4s_matmul_plain bit for bit on any input.
 //
 // What bounds it on the H100: in decode (M <= 16) the weight stream, 4.375
 // bits per weight against 3.35 TB/s (the x rows are a few KB and stay in
@@ -36,20 +35,35 @@
 // (1,979 TOP/s dense).
 //
 // Routes:
-//   decode  (M <= 16) - w8a8_decode_kernel, mma.sync.m16n8k32 (s8 x s8 -> s32).
-//           One k32 step is exactly one 32-block, so the B fragment of a
-//           thread (column n, k rows 4t..4t+3 and 16+4t..16+4t+3) is the low
-//           and high nibbles of one 4-byte word of the block, all under one
-//           sigma; the layout puts a thread's words of the group's 8 blocks in
-//           32 contiguous bytes (two 16-byte loads). A block of 8 warps owns
-//           8 * NF output columns (NF = 2 or 4 n8 fragments), and its warps
-//           split the groups (warp w takes g = w, w + 8, ...), each quantizing
-//           its own groups' x tile (16 rows, rows >= M zero; int8 rows padded
-//           to 272 bytes, so the A fragment loads are free of bank conflicts)
-//           into shared memory; after each group the int32 fragment is scaled
-//           by xs and swk into f32 registers, and the 8 warps' f32 partials
-//           are summed in warp order at the end. Many blocks stream the
-//           weights at small N.
+//   decode  (M <= 16) - two launches, one wrapper call (one at M <= 2):
+//     w8a8_quantize_kernel<TX, true>: x once into xq (each group's codes as
+//           the decode kernel's B fragment tile, frag_offset) and xs f32
+//           [K/256, Mp], so no block quantizes x again;
+//     w8a8_decode_kernel<TY, T, J, W>: launched with programmatic dependent
+//           launch, so its blocks issue their first weight loads and scale
+//           loads while the pre-pass runs and wait for it (griddepcontrol.wait)
+//           only before copying its codes. A block owns 16 T weight rows (T =
+//           2 once that gives every SM a block, else 1); its W warps (8; 16
+//           at T = 1 with more than 8 groups and at most a block an SM) split
+//           the 256-groups in rounds
+//           (warp w takes g = W r + w). Each warp streams its groups' [16 T
+//           rows x 128 bytes] weight boxes by TMA (the prefill route's map,
+//           128-byte swizzle) into its own ring of stages under mbarriers,
+//           issued a ring ahead, and its groups' code tiles and scales by
+//           bulk copies into its own buffer, one group ahead. The weights are
+//           mma.sync.m16n8k32 s8's A operand from registers (rows gid and gid
+//           + 8, k 4 tig.. and 16 + 4 tig..: the low and high nibbles of word
+//           tig of each 32-block, expand_lo/hi); the tokens are its n8 side,
+//           so M <= 8 takes one product per row tile and k32 step (J = 1),
+//           M <= 16 two (J = 2), where x on the M side would always take 16
+//           rows. Each group's f32 products (float(d) * xs) * swk go to
+//           shared memory; after each round the block sums them into its
+//           accumulators in group order, so the result is the plain
+//           version's. sigma and swk are read from global (rows of 24 and 12
+//           bytes at K = 768, which TMA cannot map), a round ahead. At M <=
+//           kInlineMaxM (2, the faster side of a timed comparison at M = 1,
+//           2, 4, 8 and 16 on the H100) each warp quantizes its group's rows
+//           of x itself instead: one launch, no scratch.
 //   prefill (M > 16)  - two launches, one wrapper call:
 //     w8a8_quantize_kernel: x once into xq int8 [M, K] and xs f32 [K/256, Mp]
 //           (group-major, Mp = M rounded up to 4, so that one group's scales
@@ -125,7 +139,6 @@ enum DType { kF32 = 0, kBF16 = 1 };
 
 constexpr int kGroup = 256;             // activation group and swk group
 constexpr int kBlocksPerGroup = 8;      // 32-blocks (sigma) per group
-constexpr int kRowBytes = kGroup + 16;  // padded int8 row of a quantized x tile
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
@@ -153,9 +166,10 @@ __device__ __forceinline__ void load_x8(const float* p, float* v) {
 }
 
 // One warp quantizes one 256-group of an x row: lane l holds values 8l..8l+7
-// in `v` and stores their int8 codes, 8 bytes, at `dst` (the lane's own
-// slot). Returns the group's scale (every lane).
-__device__ __forceinline__ float quantize8(const float* v, uint2* dst) {
+// in `v`; their int8 codes come back as two words (values 8l..8l+3 in `lo`,
+// 8l+4..8l+7 in `hi`, byte i the value i of each four). Returns the group's
+// scale (every lane).
+__device__ __forceinline__ float quantize8(const float* v, uint32_t& lo, uint32_t& hi) {
   float amax = 0.0f;
 #pragma unroll
   for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(v[i]));
@@ -170,41 +184,20 @@ __device__ __forceinline__ float quantize8(const float* v, uint2* dst) {
     q = fminf(fmaxf(q, -127.0f), 127.0f);
     w[i >> 2] |= (static_cast<uint32_t>(static_cast<int>(q)) & 0xFFu) << (8 * (i & 3));
   }
-  *dst = make_uint2(w[0], w[1]);
+  lo = w[0];
+  hi = w[1];
   return amax > 0.0f ? __fdiv_rn(amax, 127.0f) : 0.0f;
 }
 
-// Rows r0..r0 + R - 1 of a quantized x tile from the same x rows, group g;
-// rows at or past M become zeros with scale 0. The R rows' loads are issued
-// together, so a warp waits for memory once per R rows.
-template <int R, typename TX>
-__device__ __forceinline__ void quantize_rows(const TX* __restrict__ x, int M, int K, int g,
-                                              int lane, int r0, int8_t* tile, float* xs) {
-  float v[R][8];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int m = r0 + i;
-    if (m < M) load_x8(x + (size_t)m * K + g * kGroup + lane * 8, v[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int r = r0 + i;
-    uint2* dst = reinterpret_cast<uint2*>(tile + r * kRowBytes + lane * 8);
-    float sc = 0.0f;
-    if (r < M) sc = quantize8(v[i], dst);
-    else *dst = make_uint2(0u, 0u);
-    if (lane == 0) xs[r] = sc;
-  }
-}
-
-// (nibble - 8) * sigma for the four nibbles of `nib4` (one per byte, each in
-// [0, 15]) as four s8 bytes: nibble * sigma <= 240 leaves no carry between
-// bytes, and the SWAR subtraction a - b computes each byte modulo 256 without
-// borrows between bytes.
-__device__ __forceinline__ uint32_t signed_weights(uint32_t nib4, uint32_t sigma) {
-  const uint32_t a = nib4 * sigma;
-  const uint32_t b = (8u * sigma) * 0x01010101u;
-  return ((a | 0x80808080u) - (b & 0x7F7F7F7Fu)) ^ ((a ^ ~b) & 0x80808080u);
+// Byte offset, in a group's fragment tile [j (J)][q (4)][mma lane (32)][16
+// bytes], of lane l's code word `word` (0: values 8l..8l+3, 1: 8l+4..8l+7 of
+// the group) of token m: code k = 32 b + 16 h + 4 t + i of token 8 j + gid is
+// byte 4 ((2 b + h) % 4) + i of chunk q = (2 b + h) / 4 of mma lane 4 gid + t,
+// so that lane's B fragments (b0 = half 0, b1 = half 1 of each block) are its
+// four 16-byte chunks, and a warp's read of one chunk each is conflict-free.
+__device__ __forceinline__ int frag_offset(int m, int lane, int word) {
+  const int w2 = 2 * (lane >> 2) + ((lane >> 1) & 1), t = 2 * (lane & 1) + word;
+  return (((m >> 3) * 4 + (w2 >> 2)) * 32 + 4 * (m & 7) + t) * 16 + (w2 & 3) * 4;
 }
 
 // c[0..3] += A (16x32 s8, row) . B (32x8 s8, col), int32.
@@ -217,162 +210,44 @@ __device__ __forceinline__ void mma_s8(int* c, uint32_t a0, uint32_t a1, uint32_
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// A fragment of rows r0..r0+15 of a quantized x tile for k32 step b:
-// a0/a1 rows gid/gid+8 at bytes 4t..4t+3, a2/a3 the same rows at 16+4t.
-__device__ __forceinline__ void load_a(const int8_t* tile, int r0, int b, int gid, int tig,
-                                       uint32_t* a) {
-  const int8_t* p = tile + (r0 + gid) * kRowBytes + b * 32 + tig * 4;
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * kRowBytes);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 16);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * kRowBytes + 16);
-}
-
-// One n8 fragment's weights for one group: the thread's B column n (its
-// 32 bytes of the group, 8 sigmas) and the swk of its two C columns.
-struct WFrag {
-  uint4 w[2];
-  uint2 s;
-  float sw[2];
-};
-
-__device__ __forceinline__ void load_w(const uint8_t* __restrict__ w,
-                                       const uint8_t* __restrict__ sg,
-                                       const float* __restrict__ sw, int nb, int gid, int tig,
-                                       int g, int N, int K, WFrag& f) {
-  const int n = nb + gid;
-  if (n < N) {
-    const uint4* p = reinterpret_cast<const uint4*>(w + (size_t)n * (K >> 1) + g * 128 + tig * 32);
-    f.w[0] = __ldg(p);
-    f.w[1] = __ldg(p + 1);
-    f.s = __ldg(reinterpret_cast<const uint2*>(sg + (size_t)n * (K >> 5) + g * kBlocksPerGroup));
-  } else {
-    f.w[0] = f.w[1] = make_uint4(0u, 0u, 0u, 0u);
-    f.s = make_uint2(0u, 0u);
-  }
-  const int G = K / kGroup;
-#pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    const int nc = nb + tig * 2 + c;
-    f.sw[c] = nc < N ? __ldg(sw + (size_t)nc * G + g) : 0.0f;
-  }
-}
-
-// The B fragment of k32 step b (block b of the group).
-__device__ __forceinline__ void build_b(const WFrag& f, int b, uint32_t* bb) {
-  const uint32_t word = reinterpret_cast<const uint32_t*>(f.w)[b];
-  const uint32_t sig = ((b < 4 ? f.s.x : f.s.y) >> (8 * (b & 3))) & 0xFFu;
-  bb[0] = signed_weights(word & 0x0F0F0F0Fu, sig);
-  bb[1] = signed_weights((word >> 4) & 0x0F0F0F0Fu, sig);
-}
-
-// acc += (d * xs[row]) * swk[col], each product and the sum rounded apart.
-__device__ __forceinline__ void scale_add(float* acc, const int* c, float xs0, float xs1,
-                                          const float* sw) {
-  acc[0] = __fadd_rn(acc[0], __fmul_rn(__fmul_rn(static_cast<float>(c[0]), xs0), sw[0]));
-  acc[1] = __fadd_rn(acc[1], __fmul_rn(__fmul_rn(static_cast<float>(c[1]), xs0), sw[1]));
-  acc[2] = __fadd_rn(acc[2], __fmul_rn(__fmul_rn(static_cast<float>(c[2]), xs1), sw[0]));
-  acc[3] = __fadd_rn(acc[3], __fmul_rn(__fmul_rn(static_cast<float>(c[3]), xs1), sw[1]));
-}
-
-constexpr int kDecWarps = 8;
 constexpr int kDecodeMaxM = 16;  // the decode route's largest M; the prefill route above it
 
-template <typename TX, typename TY, int NF>
-__global__ void __launch_bounds__(kDecWarps * 32)
-w8a8_decode_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ w,
-                   const uint8_t* __restrict__ sg, const float* __restrict__ sw,
-                   TY* __restrict__ y, int M, int N, int K, int ldy) {
-  // per warp: a 16-row quantized x tile; reused for the partial sums at the end
-  __shared__ __align__(16) int8_t tiles[kDecWarps][16 * kRowBytes];
-  __shared__ float xs[kDecWarps][16];
-  static_assert(kDecWarps * NF * 4 * 32 * sizeof(float) <= sizeof(tiles), "reduction space");
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int n0 = blockIdx.x * (NF * 8);
-  const int G = K / kGroup;
-  int8_t* tile = tiles[warp];
-  for (int r = M; r < 16; ++r)  // rows past M stay zero
-    *reinterpret_cast<uint2*>(tile + r * kRowBytes + lane * 8) = make_uint2(0u, 0u);
-  if (lane < 16 && lane >= M) xs[warp][lane] = 0.0f;
-
-  float acc[NF][4];
-#pragma unroll
-  for (int j = 0; j < NF; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
-
-  for (int g = warp; g < G; g += kDecWarps) {
-    WFrag f[NF];  // issued first: their latency overlaps the quantization
-#pragma unroll
-    for (int j = 0; j < NF; ++j) load_w(w, sg, sw, n0 + j * 8, gid, tig, g, N, K, f[j]);
-    __syncwarp();  // the previous group's A loads are done
-    for (int r0 = 0; r0 < M; r0 += 4) quantize_rows<4>(x, M, K, g, lane, r0, tile, xs[warp]);
-    __syncwarp();
-    int c[NF][4];
-#pragma unroll
-    for (int j = 0; j < NF; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) c[j][e] = 0;
-#pragma unroll
-    for (int b = 0; b < kBlocksPerGroup; ++b) {
-      uint32_t a[4];
-      load_a(tile, 0, b, gid, tig, a);
-#pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        uint32_t bb[2];
-        build_b(f[j], b, bb);
-        mma_s8(c[j], a[0], a[1], a[2], a[3], bb[0], bb[1]);
-      }
-    }
-    const float xs0 = xs[warp][gid], xs1 = xs[warp][gid + 8];
-#pragma unroll
-    for (int j = 0; j < NF; ++j) scale_add(acc[j], c[j], xs0, xs1, f[j].sw);
-  }
-
-  __syncthreads();  // every warp is done with its tile: reuse the space
-  float* red = reinterpret_cast<float*>(&tiles[0][0]);  // [warp][NF * 4][32 lanes]
-#pragma unroll
-  for (int j = 0; j < NF; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) red[((warp * NF + j) * 4 + e) * 32 + lane] = acc[j][e];
-  __syncthreads();
-  if (warp != 0) return;
-#pragma unroll
-  for (int j = 0; j < NF; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float s = 0.0f;
-#pragma unroll
-      for (int v = 0; v < kDecWarps; ++v) s += red[((v * NF + j) * 4 + e) * 32 + lane];
-      const int row = gid + (e >> 1) * 8;
-      const int col = n0 + j * 8 + tig * 2 + (e & 1);
-      if (row < M && col < N) y[(size_t)row * ldy + col] = from_f32<TY>(s);
-    }
-  }
-}
-
-// ---- M > 16: w8a8_quantize_kernel, then w8a8_wgmma_kernel --------------------
+// ---- the pre-pass of both routes: w8a8_quantize_kernel ------------------------
 
 constexpr int kQuantWarps = 8;
 
 // xq[m, g-th group] and xs[g, m] = q8_quantize of x[m, group g]: one warp per
-// (row, group), lane l taking values 8l..8l+7.
-template <typename TX>
+// (row, group), lane l taking values 8l..8l+7. kDecodeOrder: xq holds each
+// group's codes as one fragment tile of the decode kernel's B operand
+// (frag_offset; J = ceil(M / 8) token tiles, 2048 J bytes a group, tokens
+// past M unwritten), else in element order ([M, K]).
+// It lets the grid that depends on it launch at once (programmatic dependent
+// launch): that grid's griddepcontrol.wait still waits for this one to end.
+template <typename TX, bool kDecodeOrder>
 __global__ void __launch_bounds__(kQuantWarps * 32)
 w8a8_quantize_kernel(const TX* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ xs,
                      int M, int K, int Mp) {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int G = K / kGroup;
   const int item = blockIdx.x * kQuantWarps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (item >= M * G) return;  // warp-uniform
   const int m = item / G, g = item - m * G;
-  const size_t off = (size_t)m * K + g * kGroup + lane * 8;
+  const size_t row = (size_t)m * K + g * kGroup;
   float v[8];
-  load_x8(x + off, v);
-  const float sc = quantize8(v, reinterpret_cast<uint2*>(xq + off));
+  load_x8(x + row + lane * 8, v);
+  uint32_t lo, hi;
+  const float sc = quantize8(v, lo, hi);
+  if (kDecodeOrder) {
+    int8_t* const tile = xq + (size_t)g * ((M + 7) >> 3) * 2048;
+    *reinterpret_cast<uint32_t*>(tile + frag_offset(m, lane, 0)) = lo;
+    *reinterpret_cast<uint32_t*>(tile + frag_offset(m, lane, 1)) = hi;
+  } else {
+    *reinterpret_cast<uint2*>(xq + row + lane * 8) = make_uint2(lo, hi);
+  }
   if (lane == 0) xs[(size_t)g * Mp + m] = sc;
 }
+
+// ---- M > 16: w8a8_quantize_kernel, then w8a8_wgmma_kernel --------------------
 
 constexpr int kStages = 4;
 constexpr int kBoxBytes = 128;  // one row of a TMA box: one 128-byte swizzle row
@@ -737,6 +612,240 @@ w8a8_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
+// ---- M <= 16: w8a8_quantize_kernel<TX, true>, then w8a8_decode_kernel ---------
+
+// At or below this M the decode kernel quantizes x itself, each warp its
+// group's rows (one launch); above it the pre-pass does, once per call.
+constexpr int kInlineMaxM = 2;
+static_assert(kInlineMaxM >= 0 && kInlineMaxM <= 8, "in-launch quantization takes one token tile");
+
+// A decode block: W warps, 16 T weight rows (T row tiles of 16), 8 J tokens
+// (J = 1 for M <= 8, else 2).
+template <int T, int J, int W>
+struct DecTile {
+  static constexpr int kBN = 16 * T;
+  static constexpr int kBox = kBN * kBoxBytes;           // one (row tile, group) box of weights
+  static constexpr int kS = T == 1 ? 2 : 1;              // weight stages a warp
+  static constexpr int kTok = 8 * J;
+  static constexpr int kPStride = kBN + 4;               // floats a token's products: no bank conflicts
+  static constexpr int kXCodes = J * 2048;               // a group's fragment tile of codes
+  static constexpr int kXBuf = kXCodes + 4 * kDecodeMaxM;  // codes, then the group's scales
+  static constexpr int kRing = W * kS * kBox;
+  static constexpr int kProd = W * kTok * kPStride * 4;
+  static constexpr int kX = W * kXBuf;
+  static constexpr int kSmem = kRing + kProd + kX + W * (kS + 1) * 8 + 1024;
+  static constexpr int kAcc = (kTok * kBN + W * 32 - 1) / (W * 32);
+  static constexpr int kMinBlocks = W == 8 ? 2 : 1;
+  static_assert(kRing % 1024 == 0 && kProd % 16 == 0 && kXBuf % 16 == 0, "layout");
+};
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both 16-byte
+// aligned, by the bulk-copy engine, completing on mbarrier `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          dst),
+      "l"(__cvta_generic_to_global(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// y[M, N] for M <= 16, as the file's header sets out: block b owns weight
+// rows 16 T b.. 16 T b + 16 T - 1, warp w of it the groups g = W r + w; each
+// group's products go to shared memory, and after each round the block sums
+// them into its f32 accumulators in group order, each sum rounded once, as
+// the plain version does: deterministic, and equal to it bit for bit. The
+// weights, the codes and the scales come a ring, a group and a round ahead;
+// the even and odd blocks' products go to two accumulators (two chains of
+// mma.sync a token tile). kInline (M <= kInlineMaxM): each warp quantizes its
+// group's M rows of x itself, into its code buffer.
+template <typename TX, typename TY, int T, int J, int W, bool kInline>
+__global__ void __launch_bounds__(W * 32, DecTile<T, J, W>::kMinBlocks)
+w8a8_decode_kernel(const __grid_constant__ CUtensorMap wmap, const TX* __restrict__ x,
+                   const int8_t* xq, const float* xs, const uint8_t* __restrict__ sg,
+                   const float* __restrict__ sw, TY* __restrict__ y, int M, int N, int K,
+                   int ldy, int Mp) {
+  using D = DecTile<T, J, W>;
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle is a function of the shared address: boxes start 1024-aligned
+  uint8_t* const ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* const prod = reinterpret_cast<float*>(ring + D::kRing);  // [warp][token][row]
+  uint8_t* const xbufs = ring + D::kRing + D::kProd;
+  const uint32_t bar0 = smem_u32(xbufs + D::kX);
+
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0), lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int n0 = blockIdx.x * D::kBN;
+  const int G = K / kGroup;
+  const int rounds = (G + W - 1) / W;
+  uint8_t* const wring = ring + warp * D::kS * D::kBox;
+  const uint32_t full0 = bar0 + 8 * warp * D::kS;  // the weight stages' barriers
+  const uint32_t xbar = bar0 + 8 * (W * D::kS + warp);  // the x buffer's
+  float* const wprod = prod + warp * D::kTok * D::kPStride;
+  uint8_t* const xb = xbufs + warp * D::kXBuf;
+  float* const xbs = reinterpret_cast<float*>(xb + D::kXCodes);
+  const uint32_t xbytes = D::kXCodes + 4 * Mp;
+  const size_t xstride = (size_t)((M + 7) >> 3) * 2048;  // the pre-pass's bytes a group
+
+  if (lane == 0) {  // the warp's ring: its first kS groups
+    for (int s = 0; s <= D::kS; ++s) mbar_init(s < D::kS ? full0 + 8 * s : xbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int r = 0; r < D::kS && r * W + warp < G; ++r) {
+      mbar_arrive_expect_tx(full0 + 8 * r, D::kBox);
+      tma_load_2d(smem_u32(wring + r * D::kBox), &wmap, (r * W + warp) * (kGroup / 2), n0,
+                  full0 + 8 * r);
+    }
+  }
+  __syncwarp();
+  // sigma (the group's 8 block scales) and swk of the thread's rows 16 i + gid
+  // and + 8 of each row tile (0 past N), loaded a round ahead
+  uint2 sig[T][2];
+  float swk[T][2];
+  const auto load_scales = [&](int g) {
+#pragma unroll
+    for (int i = 0; i < T; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = n0 + 16 * i + gid + 8 * h;
+        const bool in = row < N;
+        sig[i][h] = in ? __ldg(reinterpret_cast<const uint2*>(sg + (size_t)row * (K >> 5)) + g)
+                       : make_uint2(0u, 0u);
+        swk[i][h] = in ? __ldg(sw + (size_t)row * G + g) : 0.0f;
+      }
+  };
+  if (warp < G) load_scales(warp);
+  if constexpr (!kInline) {
+    // the pre-pass may still run: xq and xs are read only past this
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+    if (lane == 0 && warp < G) {
+      mbar_arrive_expect_tx(xbar, xbytes);
+      bulk_load(smem_u32(xb), xq + warp * xstride, D::kXCodes, xbar);
+      bulk_load(smem_u32(xbs), xs + (size_t)warp * Mp, 4 * Mp, xbar);
+    }
+  }
+
+  float acc[D::kAcc];
+#pragma unroll
+  for (int q = 0; q < D::kAcc; ++q) acc[q] = 0.0f;
+
+  for (int r = 0; r < rounds; ++r) {
+    const int g = r * W + warp;
+    if (g < G) {  // warp-uniform
+      if constexpr (kInline) {  // the group's M rows of x, quantized by this warp
+        constexpr int R = kInlineMaxM > 0 ? kInlineMaxM : 1;
+        float v[R][8];
+#pragma unroll
+        for (int m = 0; m < R; ++m)
+          if (m < M) load_x8(x + (size_t)m * K + g * kGroup + lane * 8, v[m]);
+#pragma unroll
+        for (int m = 0; m < R; ++m)
+          if (m < M) {
+            uint32_t lo, hi;
+            const float sc = quantize8(v[m], lo, hi);
+            *reinterpret_cast<uint32_t*>(xb + frag_offset(m, lane, 0)) = lo;
+            *reinterpret_cast<uint32_t*>(xb + frag_offset(m, lane, 1)) = hi;
+            if (lane == 0) xbs[m] = sc;
+          }
+        __syncwarp();
+      } else {
+        mbar_wait(xbar, r & 1);
+      }
+      // the group's B fragments (tokens past M hold what they hold: their
+      // products are never summed) and the scales of tokens 8 j + 2 tig and + 1
+      uint32_t bx[J][16];
+      float xv[J][2];
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const uint4 u = *reinterpret_cast<const uint4*>(xb + ((j * 4 + q) * 32 + lane) * 16);
+          bx[j][4 * q] = u.x; bx[j][4 * q + 1] = u.y; bx[j][4 * q + 2] = u.z; bx[j][4 * q + 3] = u.w;
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) xv[j][e] = xbs[min(8 * j + 2 * tig + e, M - 1)];
+      }
+      if constexpr (!kInline) {
+        __syncwarp();  // every lane has read the buffer: the next group's, one round ahead
+        if (lane == 0 && g + W < G) {
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          mbar_arrive_expect_tx(xbar, xbytes);
+          bulk_load(smem_u32(xb), xq + (g + W) * xstride, D::kXCodes, xbar);
+          bulk_load(smem_u32(xbs), xs + (size_t)(g + W) * Mp, 4 * Mp, xbar);
+        }
+      }
+      const int s = r % D::kS;
+      mbar_wait(full0 + 8 * s, (r / D::kS) & 1);
+      const uint8_t* const box = wring + s * D::kBox;
+#pragma unroll
+      for (int i = 0; i < T; ++i) {
+        // word b of rows 16 i + gid (w0) and + 8 (w1): block b's bytes 4 tig..
+        // 4 tig + 3, chunks 2 tig and 2 tig + 1 of the row, swizzled by the row
+        const uint8_t* const wr = box + (16 * i + gid) * kBoxBytes;
+        uint32_t w0[kBlocksPerGroup], w1[kBlocksPerGroup];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int off = ((2 * tig + c) ^ gid) << 4;
+          const uint4 p0 = *reinterpret_cast<const uint4*>(wr + off);
+          const uint4 p1 = *reinterpret_cast<const uint4*>(wr + 8 * kBoxBytes + off);
+          w0[4 * c] = p0.x; w0[4 * c + 1] = p0.y; w0[4 * c + 2] = p0.z; w0[4 * c + 3] = p0.w;
+          w1[4 * c] = p1.x; w1[4 * c + 1] = p1.y; w1[4 * c + 2] = p1.z; w1[4 * c + 3] = p1.w;
+        }
+        int d[2][J][4];  // the even and the odd blocks' sums: two chains of products
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+#pragma unroll
+          for (int j = 0; j < J; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) d[p][j][e] = 0;
+#pragma unroll
+        for (int b = 0; b < kBlocksPerGroup; ++b) {
+          const uint32_t s0 = ((b < 4 ? sig[i][0].x : sig[i][0].y) >> (8 * (b & 3))) & 0xFFu;
+          const uint32_t s1 = ((b < 4 ? sig[i][1].x : sig[i][1].y) >> (8 * (b & 3))) & 0xFFu;
+          const uint32_t c0 = 0x01010100u - s0 * 0x08080808u, c1 = 0x01010100u - s1 * 0x08080808u;
+          const uint32_t a0 = expand_lo(w0[b], s0, c0), a1 = expand_lo(w1[b], s1, c1);
+          const uint32_t a2 = expand_hi(w0[b], s0, c0), a3 = expand_hi(w1[b], s1, c1);
+#pragma unroll
+          for (int j = 0; j < J; ++j)
+            mma_s8(d[b & 1][j], a0, a1, a2, a3, bx[j][2 * b], bx[j][2 * b + 1]);
+        }
+        // d[j][e]: row 16 i + gid + 8 (e / 2), token 8 j + 2 tig + e % 2
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            wprod[(8 * j + 2 * tig + (e & 1)) * D::kPStride + 16 * i + gid + 8 * (e >> 1)] =
+                __fmul_rn(__fmul_rn(exact_f32(d[0][j][e] + d[1][j][e]), xv[j][e & 1]),
+                          swk[i][e >> 1]);
+      }
+      if (g + W < G) load_scales(g + W);
+      __syncwarp();  // every lane has read the stage: refill it, kS groups ahead
+      if (lane == 0 && g + D::kS * W < G) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive_expect_tx(full0 + 8 * s, D::kBox);
+        tma_load_2d(smem_u32(box), &wmap, (g + D::kS * W) * (kGroup / 2), n0, full0 + 8 * s);
+      }
+    }
+    __syncthreads();  // the round's products are in
+    // acc += the products of groups W r, W r + 1, ... in order
+    const int ngr = min(W, G - r * W);
+#pragma unroll
+    for (int q = 0; q < D::kAcc; ++q) {
+      const int idx = threadIdx.x + q * W * 32;
+      const int tok = idx / D::kBN, row = idx % D::kBN;
+      if (idx < D::kTok * D::kBN && tok < M)
+        for (int v = 0; v < ngr; ++v)
+          acc[q] = __fadd_rn(acc[q], prod[(v * D::kTok + tok) * D::kPStride + row]);
+    }
+    if (r + 1 < rounds) __syncthreads();  // the products are read: the next round's may come
+  }
+#pragma unroll
+  for (int q = 0; q < D::kAcc; ++q) {
+    const int idx = threadIdx.x + q * W * 32;
+    const int tok = idx / D::kBN, n = n0 + idx % D::kBN;
+    if (idx < D::kTok * D::kBN && tok < M && n < N) y[(size_t)tok * ldy + n] = from_f32<TY>(acc[q]);
+  }
+}
+
 int sm_count() {
   static int sms = 0;
   if (sms == 0) {
@@ -746,19 +855,6 @@ int sm_count() {
     if (sms <= 0) sms = 132;
   }
   return sms;
-}
-
-template <typename TX, typename TY>
-cudaError_t launch_decode(const void* x, const uint8_t* w, const uint8_t* sg, const float* sw,
-                          void* y, int M, int N, int K, int ldy, cudaStream_t st) {
-  const TX* xp = static_cast<const TX*>(x);
-  TY* yp = static_cast<TY*>(y);
-  // 4 fragments a block once that still gives two blocks per SM, else 2
-  if ((N + 31) / 32 >= 2 * sm_count())
-    w8a8_decode_kernel<TX, TY, 4><<<(N + 31) / 32, kDecWarps * 32, 0, st>>>(xp, w, sg, sw, yp, M, N, K, ldy);
-  else
-    w8a8_decode_kernel<TX, TY, 2><<<(N + 15) / 16, kDecWarps * 32, 0, st>>>(xp, w, sg, sw, yp, M, N, K, ldy);
-  return cudaGetLastError();
 }
 
 // cuTensorMapEncodeTiled (libcuda) looked up through the CUDA runtime, so the
@@ -817,6 +913,80 @@ bool weight_map(CUtensorMap* map, const uint8_t* w, int N, int K, int BN) {
   return true;
 }
 
+// One decode launch; after the pre-pass (kInline false) with programmatic
+// dependent launch, so its blocks start their weight loads while the pre-pass
+// runs.
+template <typename TX, typename TY, int T, int J, int W, bool kInline>
+cudaError_t launch_decode_kernel(const uint8_t* w, const TX* x, const int8_t* xq, const float* xs,
+                                 const uint8_t* sg, const float* sw, TY* y, int M, int N, int K,
+                                 int ldy, int Mp, cudaStream_t st) {
+  using D = DecTile<T, J, W>;
+  CUtensorMap wmap;
+  if (!weight_map(&wmap, w, N, K, D::kBN)) return cudaErrorInvalidValue;
+  static uint32_t smem_set = 0;  // devices whose attribute is set (bit per device)
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (!(smem_set >> dev & 1u)) {
+    const cudaError_t e = cudaFuncSetAttribute(w8a8_decode_kernel<TX, TY, T, J, W, kInline>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, D::kSmem);
+    if (e != cudaSuccess) return e;
+    smem_set |= 1u << dev;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + D::kBN - 1) / D::kBN);
+  cfg.blockDim = dim3(W * 32);
+  cfg.dynamicSmemBytes = D::kSmem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = kInline ? 0 : 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, w8a8_decode_kernel<TX, TY, T, J, W, kInline>, wmap,
+                                           x, xq, xs, sg, sw, y, M, N, K, ldy, Mp);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <typename TX, typename TY, int T, int W>
+cudaError_t launch_decode_tile(const TX* x, const uint8_t* w, const uint8_t* sg, const float* sw,
+                               TY* y, int M, int N, int K, int ldy, int8_t* xq, float* xs,
+                               cudaStream_t st) {
+  const int Mp = (M + 3) & ~3;
+  if constexpr (kInlineMaxM > 0) {
+    if (M <= kInlineMaxM)
+      return launch_decode_kernel<TX, TY, T, 1, W, true>(w, x, nullptr, nullptr, sg, sw, y, M, N,
+                                                         K, ldy, Mp, st);
+  }
+  if (xq == nullptr || xs == nullptr) return cudaErrorInvalidValue;
+  const int items = M * (K / kGroup);
+  w8a8_quantize_kernel<TX, true><<<(items + kQuantWarps - 1) / kQuantWarps, kQuantWarps * 32, 0, st>>>(
+      x, xq, xs, M, K, Mp);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  if (M <= 8)
+    return launch_decode_kernel<int8_t, TY, T, 1, W, false>(w, nullptr, xq, xs, sg, sw, y, M, N, K,
+                                                            ldy, Mp, st);
+  return launch_decode_kernel<int8_t, TY, T, 2, W, false>(w, nullptr, xq, xs, sg, sw, y, M, N, K,
+                                                          ldy, Mp, st);
+}
+
+template <typename TX, typename TY>
+cudaError_t launch_decode(const void* x, const uint8_t* w, const uint8_t* sg, const float* sw,
+                          void* y, int M, int N, int K, int ldy, int8_t* xq, float* xs,
+                          cudaStream_t st) {
+  const TX* xp = static_cast<const TX*>(x);
+  TY* yp = static_cast<TY*>(y);
+  // 32-row tiles once that gives every SM a block; else 16-row tiles, and 16
+  // warps a block (half the rounds) when the groups outnumber 8 warps and
+  // the blocks fit on the SMs at once
+  const int sms = sm_count(), G = K / kGroup;
+  if ((N + 31) / 32 >= sms)
+    return launch_decode_tile<TX, TY, 2, 8>(xp, w, sg, sw, yp, M, N, K, ldy, xq, xs, st);
+  if (G > 8 && (N + 15) / 16 <= sms)
+    return launch_decode_tile<TX, TY, 1, 16>(xp, w, sg, sw, yp, M, N, K, ldy, xq, xs, st);
+  return launch_decode_tile<TX, TY, 1, 8>(xp, w, sg, sw, yp, M, N, K, ldy, xq, xs, st);
+}
+
 template <typename TY, int BM, int WG>
 cudaError_t launch_wgmma(const int8_t* xq, const float* xs, int Mp, const uint8_t* w,
                          const uint8_t* sg, const float* sw, TY* y, int M, int N, int K,
@@ -860,7 +1030,7 @@ cudaError_t launch_prefill(const void* x, const uint8_t* w, const uint8_t* sg, c
     return cudaErrorInvalidValue;
   const int Mp = (M + 3) & ~3;
   const int items = M * (K / kGroup);
-  w8a8_quantize_kernel<TX><<<(items + kQuantWarps - 1) / kQuantWarps, kQuantWarps * 32, 0, st>>>(
+  w8a8_quantize_kernel<TX, false><<<(items + kQuantWarps - 1) / kQuantWarps, kQuantWarps * 32, 0, st>>>(
       static_cast<const TX*>(x), xq, xs, M, K, Mp);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
@@ -876,22 +1046,27 @@ cudaError_t launch_prefill(const void* x, const uint8_t* w, const uint8_t* sg, c
 template <typename TX, typename TY>
 cudaError_t launch(const void* x, const uint8_t* w, const uint8_t* sg, const float* sw, void* y,
                    int M, int N, int K, int ldy, int8_t* xq, float* xs, cudaStream_t st) {
-  if (M <= kDecodeMaxM) return launch_decode<TX, TY>(x, w, sg, sw, y, M, N, K, ldy, st);
+  if (M <= kDecodeMaxM) return launch_decode<TX, TY>(x, w, sg, sw, y, M, N, K, ldy, xq, xs, st);
   return launch_prefill<TX, TY>(x, w, sg, sw, y, M, N, K, ldy, xq, xs, st);
 }
 
 }  // namespace
 
-// The decode route's largest M: the one threshold of the two routes, which
-// the wrapper reads to know when to pass the prefill route's scratch.
+// The decode route's largest M (the prefill route above it), which the
+// wrapper reads to shape y's row stride and the scratch.
 extern "C" int w8a8_decode_max_m() { return kDecodeMaxM; }
+
+// The largest M at which the decode kernel quantizes x itself: the caller's
+// scratch is not read there and may be null.
+extern "C" int w8a8_inline_max_m() { return kInlineMaxM; }
 
 // Returns the cudaError_t of the launch (0 on success); 1 (cudaErrorInvalidValue)
 // for arguments the kernels do not take. y's rows are ldy >= N elements apart;
 // past w8a8_decode_max_m() the TMA store needs them 16-byte multiples (the
-// columns past N are not written), and xq (int8 [M, K]) and xs (f32 [K/256,
-// Mp], Mp = M rounded up to 4) are the caller's scratch, 16-byte aligned;
-// below it they are not read and may be null.
+// columns past N are not written). xq (int8 [max(M, w8a8_decode_max_m()), K])
+// and xs (f32 [K/256, Mp], Mp = M rounded up to 4) are the caller's scratch,
+// 16-byte aligned, written and read by the launches of this call (not read at
+// M <= w8a8_inline_max_m(), where they may be null).
 extern "C" int w8a8_matmul(const void* x, int x_dtype, const void* w, const void* sigma,
                            const void* swk, void* y, int y_dtype, int M, int N, int K, int ldy,
                            void* xq, void* xs, void* stream) {

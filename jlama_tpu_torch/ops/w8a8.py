@@ -5,22 +5,28 @@ Replaces the TPU kernel `jlama_tpu/ops/pallas_w8a8.py:_w8a8_kernel`
 (launched by `q4s_matmul_2d`) with the hand-written CUDA kernels in
 `csrc/w8a8_matmul.cu`. y = q8(x) · q4s(W)ᵀ: activations quantized to int8 per
 256-group (amax/127), exact int32 dots per group, f32 accumulation of the
-group products in group order. Two routes, by the token count M:
+group products in group order. Both routes quantize x once per call, mostly
+by a pre-pass (`w8a8_quantize_kernel`) into scratch that the wrapper
+allocates (xq int8, xs f32 [K/256, Mp], Mp = M rounded up to 4), and both
+equal `q4s_matmul_plain` bit for bit. Two routes, by the token count M:
 
-- M ≤ 16 (decode): `w8a8_decode_kernel` quantizes x inside its launch and
-  runs `mma.sync` s8;
-- M > 16 (prefill): `w8a8_quantize_kernel` writes the int8 codes and group
-  scales of x once into scratch that the wrapper allocates (xq int8 [M, K],
-  xs f32 [K/256, Mp], Mp = M rounded up to 4), then `w8a8_wgmma_kernel` runs
-  a TMA + mbarrier ring and `wgmma` s8 with the weights as the A operand from
-  registers, and stores y by TMA. It equals `q4s_matmul_plain` bit for bit.
-  TMA needs y's row stride a 16-byte multiple: for any other N (GPT-2's
-  50,257-row lm_head) the wrapper pads the stride, the store drops the
-  columns past N, and the wrapper returns a contiguous copy of the N columns.
-  One wrapper call counts one launch in `q4s_matmul.launches`, on either route.
+- M ≤ 16 (decode): `w8a8_decode_kernel`, launched as the pre-pass's
+  programmatic dependent, streams the weights by TMA and each group's codes
+  by bulk copies into per-warp mbarrier rings; its warps split the groups,
+  run `mma.sync` s8 with the weights as the A operand from registers and the
+  tokens on the n8 side, and sum the group products in group order through
+  shared memory. At M ≤ `w8a8_inline_max_m()` (2) it quantizes x itself, in
+  one launch and without scratch;
+- M > 16 (prefill): `w8a8_wgmma_kernel` runs a TMA + mbarrier ring and
+  `wgmma` s8 with the weights as the A operand from registers, and stores y
+  by TMA. TMA needs y's row stride a 16-byte multiple: for any other N
+  (GPT-2's 50,257-row lm_head) the wrapper pads the stride, the store drops
+  the columns past N, and the wrapper returns a contiguous copy of the N
+  columns.
 
-The threshold between the routes has one owner, the C source
-(`w8a8_decode_max_m`, read by `decode_max_m()`).
+One wrapper call counts one launch in `q4s_matmul.launches`, on either route.
+The thresholds have one owner, the C source (`w8a8_decode_max_m`, read by
+`decode_max_m()`, and `w8a8_inline_max_m`).
 
 The q4s format (the JAX package's numbers, the port's own byte layout). JQ4
 weights are re-quantized once, at load, over groups of 256 (8 JQ4 blocks):
@@ -37,8 +43,8 @@ Layout: `data` is uint8 [N, K/2], row n's bytes contiguous. Within a row each
 group's 128 bytes are the 8 blocks in JQ4's half-block order (byte j of a
 block holds element j in the low nibble and j + 16 in the high nibble),
 stored as [quad t (4)][block b (8)][byte i (4)]: byte j = 4t + i of block b
-sits at 32t + 4b + i, so the thread of an `mma` fragment (the decode route's
-B, the prefill route's A) that needs bytes 4t..4t+3 of every block of the
+sits at 32t + 4b + i, so the thread of an `mma` fragment (the A operand of
+both routes' products) that needs bytes 4t..4t+3 of every block of the
 group reads 32 contiguous bytes. The TPU's group-major `[ngrp, N, 128]`
 layout and its `_group_perm` column order serve only `pltpu.repeat` and the
 TPU's sequential group axis, and are not carried over (`models/convert.py`
@@ -68,6 +74,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "w8a8_matmul": [_C, _I, _C, _C, _C, _C, _I, _I, _I, _I, _I, _C, _C, _C],
     "w8a8_decode_max_m": [],
+    "w8a8_inline_max_m": [],
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
@@ -260,17 +267,23 @@ def q4s_matmul(x: torch.Tensor, w: QArray, out_dtype=None) -> torch.Tensor:
     if m == 0:
         return torch.empty((*lead, n), dtype=out_dtype, device=x.device)
     lib = _build.load("w8a8_matmul", _SIGNATURES)
-    ldy, xq, xs = n, None, None
-    if m > lib.w8a8_decode_max_m():
+    ldy, dmax = n, lib.w8a8_decode_max_m()
+    if m > dmax:
         per_16 = 16 // _ELEM_BYTES[out_dtype]  # the TMA store's row stride: 16-byte multiples
         ldy = -(-n // per_16) * per_16
-        xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
-        xs = torch.empty((k // GROUP, (m + 3) // 4 * 4), dtype=torch.float32, device=x.device)
+    xq = xs = None
+    if m > lib.w8a8_inline_max_m():  # the pre-pass's scratch, in one allocation
+        # xq: [M, K] codes, or at M <= dmax fragment tiles of 8 or 16 tokens;
+        # then xs f32 [K/256, M rounded up to 4], 256-byte aligned
+        xq_bytes = max(m, dmax) * k
+        scratch = torch.empty(xq_bytes + k // GROUP * ((m + 3) // 4 * 4) * 4, dtype=torch.uint8,
+                              device=x.device)
+        xq = scratch.data_ptr()
+        xs = xq + xq_bytes
     y = torch.empty((m, ldy), dtype=out_dtype, device=x.device)
     err = lib.w8a8_matmul(
         x2.data_ptr(), _DTYPE_CODE[x2.dtype], data.data_ptr(), sigma.data_ptr(),
-        swk.data_ptr(), y.data_ptr(), _DTYPE_CODE[out_dtype], m, n, k, ldy,
-        None if xq is None else xq.data_ptr(), None if xs is None else xs.data_ptr(),
+        swk.data_ptr(), y.data_ptr(), _DTYPE_CODE[out_dtype], m, n, k, ldy, xq, xs,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "q4s_matmul")

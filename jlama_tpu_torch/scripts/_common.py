@@ -85,13 +85,16 @@ def card_row(row: dict, timer, call, got: torch.Tensor, plain, plain_ms: dict, k
 
 
 def build_cut_copies(name: str, cuts: dict[str, list[tuple[str, str]]],
-                     signatures: dict[str, list]) -> dict[str, ctypes.CDLL]:
-    """For each entry of `cuts`, a copy of `csrc/<name>.cu` with its (old,
-    new) text replacements, compiled in parallel with nvcc into
-    `_build/ablate_<name>/` and loaded with `signatures`. Raises when a cut
-    no longer finds its text in the source, or when nvcc fails."""
-    src = (_build.CSRC / f"{name}.cu").read_text()
-    out = _build.BUILD_DIR / f"ablate_{name}"
+                     signatures: dict[str, list], src: str | None = None,
+                     tag: str = "") -> dict[str, ctypes.CDLL]:
+    """For each entry of `cuts`, a copy of `csrc/<name>.cu` (or of the source
+    text `src`) with its (old, new) text replacements, compiled in parallel
+    with nvcc into `_build/ablate_<name><tag>/` and loaded with `signatures`.
+    Raises when a cut no longer finds its text in the source, or when nvcc
+    fails."""
+    if src is None:
+        src = (_build.CSRC / f"{name}.cu").read_text()
+    out = _build.BUILD_DIR / f"ablate_{name}{tag}"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for cut, subs in cuts.items():

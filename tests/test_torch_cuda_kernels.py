@@ -387,12 +387,22 @@ def _q4s_weight(n, k, g, device):
     return to_q4s(q4)
 
 
-# M <= 16 takes the decode route, M > 16 the wgmma route (pre-pass, TMA ring,
-# wgmma s8): 17 and 300 rows at K = 768 (sigma and swk rows of 24 and 12
-# bytes, which TMA cannot map), 130 rows at N = 1000, 300 rows at N = 96, a
-# perplexity window's 1024 rows (f32 x in the f32 parametrisation), and the
-# 1B w13 at 512.
+# M <= 16 takes the decode route (x quantized in the launch to M = 2, else by
+# the pre-pass; per-warp TMA rings; mma.sync s8 with the tokens on the n8
+# side: one token tile to M = 8, two above; row tiles of 32 or 16 weight rows
+# by N, 8 or 16 warps), M > 16 the wgmma route (pre-pass, TMA ring, wgmma s8).
+# Decode: M = 1, 8 and 16 at N = 1000 and N = 96 (ragged row tiles), K = 768
+# (sigma and swk rows of 24 and 12 bytes, which TMA cannot map; 3 groups for
+# 8 warps) and K = 14336 (56 groups: 16 warps at N = 96 and 64, 7 rounds of 8
+# at Llama-3.1-8B's w2, N = 4096); 13 rows at N = 9000 and 4 at N = 5000
+# (32-row tiles, ragged). Prefill: 17 and 300 rows at K = 768, 130 rows at N =
+# 1000, 300 rows at N = 96, a perplexity window's 1024 rows (f32 x in the f32
+# parametrisation), and the 1B w13 at 512.
 @pytest.mark.parametrize("m,n,k", [(1, 256, 256), (5, 1000, 512), (16, 384, 1024),
+                                   (1, 1000, 768), (8, 1000, 768), (16, 1000, 768),
+                                   (1, 96, 14336), (8, 96, 14336), (16, 96, 14336),
+                                   (1, 4096, 14336), (8, 4096, 14336), (13, 9000, 2048),
+                                   (4, 5000, 1024),
                                    (17, 520, 768), (300, 384, 768), (130, 1000, 2048),
                                    (2, 64, 14336), (16, 4096, 14336), (300, 96, 14336),
                                    (1024, 1000, 2048), (512, 16384, 2048)])
@@ -400,13 +410,11 @@ def _q4s_weight(n, k, g, device):
                                                (torch.float32, torch.float32),
                                                (torch.bfloat16, torch.float32)])
 def test_w8a8_kernel_matches_plain(cuda, m, n, k, x_dtype, out_dtype):
-    """K5 against its plain version run on the CPU. Past M = 16 (the wgmma
-    route: exact integer dots, each group's products and sums rounded in
-    group order, as the plain version's) bit for bit, and bit for bit on a
-    second call. At M <= 16 (the decode route sums its groups per warp, then
-    over warps): f32 out within 1e-5 * max|plain|; bf16 out within one bf16
-    ulp (at most 2^-7 of the value) plus that."""
-    from jlama_tpu_torch.ops.w8a8 import decode_max_m, q4s_matmul, q4s_matmul_plain
+    """K5 against its plain version run on the CPU, on either route: exact
+    integer dots, each group's products and their sums rounded in group
+    order, as the plain version's, so bit for bit, and bit for bit on a
+    second call."""
+    from jlama_tpu_torch.ops.w8a8 import q4s_matmul, q4s_matmul_plain
 
     g = torch.Generator(device=cuda).manual_seed(m * n + k)
     w = _q4s_weight(n, k, g, cuda)
@@ -415,16 +423,8 @@ def test_w8a8_kernel_matches_plain(cuda, m, n, k, x_dtype, out_dtype):
     before = q4s_matmul.launches
     got = q4s_matmul(x, w, out_dtype)
     assert q4s_matmul.launches == before + 1 and got.dtype == out_dtype
-    if m > decode_max_m():
-        assert torch.equal(got.cpu(), q4s_matmul_plain(x.cpu(), w.to("cpu"), out_dtype))
-        assert torch.equal(q4s_matmul(x, w, out_dtype), got)
-        return
-    ref = q4s_matmul_plain(x.cpu(), w.to("cpu"), torch.float32)
-    torch.cuda.synchronize()
-    lim = 1e-5 * ref.abs().max()
-    if out_dtype == torch.bfloat16:
-        lim = lim + 2.0 ** -7 * ref.abs()
-    assert torch.all((got.float().cpu() - ref).abs() <= lim)
+    assert torch.equal(got.cpu(), q4s_matmul_plain(x.cpu(), w.to("cpu"), out_dtype))
+    assert torch.equal(q4s_matmul(x, w, out_dtype), got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -468,9 +468,10 @@ def test_w8a8_prefill_any_n(cuda, m, n, k, x_dtype, out_dtype):
 @pytest.mark.parametrize("m,k", [(1, 256), (16, 2048), (37, 14336)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_w8a8_activation_quantization_exact(cuda, m, k, dtype):
-    """The kernel's in-launch activation quantization, held through its
-    output: on an input that q8_quantize reproduces exactly (integers in
-    [-127, 127] times 0.5, each group holding a 127, one all-zero group) and
+    """The kernels' activation quantization (in the launch at M = 1, else
+    the pre-pass), held through their output: on an input that q8_quantize
+    reproduces exactly (integers in [-127, 127] times 0.5, each group
+    holding a 127, one all-zero group) and
     a weight whose swk are all 2^-8, every product and f32 sum is exact in
     any order, so the output equals the plain version's bit for bit (f32 and
     bf16 out) only if every code and scale does."""

@@ -282,17 +282,19 @@ def test_bench_mains_need_cuda_or_explicit_cpu(monkeypatch):
                         xq=meta[torch.int8])
 
 
-@pytest.mark.parametrize("script,source", [("k1_ablate", "q4_matmul"),
-                                           ("k3_ablate", "flash_prefill"),
-                                           ("k5_ablate", "w8a8_matmul")])
-def test_ablation_cuts_apply_to_the_source(script, source):
+@pytest.mark.parametrize("script,source,table", [("k1_ablate", "q4_matmul", "ABLATIONS"),
+                                                 ("k3_ablate", "flash_prefill", "ABLATIONS"),
+                                                 ("k5_ablate", "w8a8_matmul", "ABLATIONS"),
+                                                 ("k5_ablate", "w8a8_matmul",
+                                                  "DECODE_ABLATIONS")])
+def test_ablation_cuts_apply_to_the_source(script, source, table):
     """Every cut of an ablation script finds its text in the kernel source
     exactly once (on the card the script raises when one does not)."""
     import importlib
 
     from jlama_tpu_torch.ops import _build
 
-    cuts = importlib.import_module(f"jlama_tpu_torch.scripts.{script}").ABLATIONS
+    cuts = getattr(importlib.import_module(f"jlama_tpu_torch.scripts.{script}"), table)
     src = (_build.CSRC / f"{source}.cu").read_text()
     for name, subs in cuts.items():
         for old, _ in subs:
