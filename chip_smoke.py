@@ -28,7 +28,11 @@ Phases, each fatal on failure (exit code 1, no result line):
               boolean mask and, where pos0 = 0 and T = S, is_causal; the host
               time of one wrapper call), K2 paged decode (16 slots, ragged lengths
               1-2048 over 512 pages of 64, bf16 and q8 pools; 32 query heads
-              on one KV head; head size 128 with softcap and window), K4 KV write (decode, a 256-token
+              on one KV head; head size 128 with softcap and window; the
+              Engine's dense cache, one 2,048-slot row with 640 live keys cut
+              to a 1,024-slot window, with SDPA on its live prefix as the
+              library call; each bit-equal on a repeat, with the host time of
+              one wrapper call), K4 KV write (decode, a 256-token
               prefill chunk, bf16 and q8 pools, and the Engine's dense cache),
               K5 W4A8 matmul (Llama-3.2-1B's wqkv, wo, w13, w2 at M = 1, 16,
               256, 512, w13 and w2 at M = 2, 4, 8, 13, the f32-out lm_head at
@@ -48,13 +52,18 @@ Phases, each fatal on failure (exit code 1, no result line):
               a seed) through Engine.generate_tokens: a 512-token prompt with
               128 new tokens, a resume of that session, and five
               time-to-first-token runs; the kernels' launch counters must
-              match the path's expected counts; then the prefill logits of a
+              match the path's expected counts (K2 takes each decode step's
+              attention on the dense cache); then the prefill logits of a
               short prompt are held against the same weights run through the
               plain path on the CPU (relative L2 error < 5e-2, bf16
-              activations on the card against f32 on the CPU);
-  5. profile - torch.profiler's device time by kernel, device operations
-              and the device's busy share for a 512-token prefill and for 32
-              decode steps of the Engine path;
+              activations on the card against f32 on the CPU), and so are
+              the logits of a 16-token prefill and 8 decode steps through
+              the dense cache (bf16 on the card, K2 for each step);
+  5. profile - torch.profiler's device time by kernel and kernel group,
+              device operations and the device's busy share for a 512-token
+              prefill and for 32 decode steps of the Engine path; the decode
+              window must run none of the library kernels the dense
+              attention ran before K2 took it (DENSE_ATTN_NAMES);
   6. serving - Llama-3.2-1B through BatchScheduler with the CLI's serving
               defaults (16 slots, 512 pages of 64, bf16 pool, prefill chunk
               256, decode lag 4, max_seq_len 2048): 24 requests made from a
@@ -142,6 +151,9 @@ N_TTFT = 5  # time-to-first-token runs; the median is reported
 K1_NAMES = re.compile(r"q4_(gemv|mma|wgmma)_kernel")
 # K5's: the decode kernel, the pre-pass of both routes, the wgmma route
 K5_NAMES = re.compile(r"w8a8_(decode|quantize|wgmma)_kernel")
+# what the Engine's dense T = 1 attention ran before K2 took it: cuBLAS's
+# batched GEMV and f32 GEMM, and PyTorch's softmax
+DENSE_ATTN_NAMES = re.compile(r"softmax|cublasGemv|gemmSN|xmma_gemm_f32")
 
 
 def fail(msg: str) -> None:
@@ -577,66 +589,92 @@ def _kv_bytes_per_key(kind, hd):
     return hd * 1 + hd // 32 * 4 if kind == "q8" else hd * 2
 
 
+# the Engine's dense decode through K2: one row of a 2,048-slot bf16 cache
+# with 640 live keys, cut to the Engine's window bucket for them (1,024)
+DENSE_S, DENSE_WIN, DENSE_LIVE = 2048, 1024, 640
+
+
 def check_k2(torch, timer, details):
     from jlama_tpu_torch.utils.cuda_timer import bound
     import torch.nn.functional as F
 
     from jlama_tpu_torch.ops.attention import paged_decode, paged_decode_plain
+    from jlama_tpu_torch.ops.kv_write import dense_page_table, dense_pool_view
 
     cases = [  # (label, H, n_kv, hd, pool kind, softcap, window)
         ("serving", 32, 8, 64, "bf16", None, None),
         ("serving", 32, 8, 64, "q8", None, None),
         ("mqa g=32", 32, 1, 64, "bf16", None, None),
         ("hd128 cap+win", 32, 8, 128, "bf16", 30.0, 256),
+        ("dense engine", 32, 8, 64, "bf16", None, None),
     ]
     g = torch.Generator(device="cuda").manual_seed(4)
     gc = torch.Generator().manual_seed(4)
-    B = len(K2_LENGTHS)
-    lengths = torch.tensor(K2_LENGTHS, dtype=torch.int32, device="cuda")
-    worst, main = 0.0, None
+    worst, main, dense = 0.0, None, None
     for label, H, n_kv, hd, kind, cap, win in cases:
-        kp, vp = _pools(torch, kind, n_kv, hd, g)
-        pt = _page_tables(torch, K2_LENGTHS, gc)
+        if label == "dense engine":  # [1, n_kv, S, hd] cut to the window: one page
+            lens = [DENSE_LIVE]
+            kc, vc = (torch.randn((1, n_kv, DENSE_S, hd), generator=g, device="cuda")
+                      .to(torch.bfloat16) for _ in range(2))
+            kp, vp = dense_pool_view(kc[:, :, :DENSE_WIN]), dense_pool_view(vc[:, :, :DENSE_WIN])
+            pt = dense_page_table(1, torch.device("cuda"))
+        else:
+            lens = K2_LENGTHS
+            kp, vp = _pools(torch, kind, n_kv, hd, g)
+            pt = _page_tables(torch, K2_LENGTHS, gc)
+        B = len(lens)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
         q32 = torch.randn((B, H, hd), generator=g, device="cuda")
         q16 = q32.to(torch.bfloat16)
         scale = hd ** -0.5
-        got = paged_decode(q32, kp, vp, pt, lengths, scale, cap, win)
-        ref = paged_decode_plain(q32, kp, vp, pt, lengths, scale, cap, win)
-        got16 = paged_decode(q16, kp, vp, pt, lengths, scale, cap, win).float()
-        ref16 = paged_decode_plain(q16, kp, vp, pt, lengths, scale, cap, win).float()
+
+        def call(q):
+            return paged_decode(q, kp, vp, pt, lengths, scale, cap, win)
+
+        def plain(q):
+            return paged_decode_plain(q, kp, vp, pt, lengths, scale, cap, win)
+
+        got, ref = call(q32), plain(q32)
+        got16, ref16 = call(q16), plain(q16)
+        again = call(q16)
         torch.cuda.synchronize()
+        bit_equal = torch.equal(again, got16)
         err = (got - ref).abs().max().item()
-        d16 = (got16 - ref16).abs()
+        d16 = (got16.float() - ref16.float()).abs()
         err16 = d16.max().item()
         # worst |got16 - ref16| over its limit: <= 1 passes
-        ulps16 = (d16 / (K2_BF16_OUT_REL * ref16.abs() + K2_BF16_OUT_ABS)).max().item()
-        if not (err <= K2_TOL[kind] and ulps16 <= 1.0):
+        ulps16 = (d16 / (K2_BF16_OUT_REL * ref16.float().abs() + K2_BF16_OUT_ABS)).max().item()
+        if not (err <= K2_TOL[kind] and ulps16 <= 1.0 and bit_equal):
             fail(f"K2 {label} {kind} hd={hd}: max_abs_err {err} (f32 q, limit {K2_TOL[kind]}), "
                  f"{err16} (bf16 q; {ulps16:.3g} of the limit 2^-7 |plain| + "
-                 f"{K2_BF16_OUT_ABS})")
+                 f"{K2_BF16_OUT_ABS}), bit-equal on a repeat: {bit_equal}")
         worst = max(worst, err)
-        ms = timer(lambda: paged_decode(q16, kp, vp, pt, lengths, scale, cap, win))
-        plain_ms = timer(lambda: paged_decode_plain(q16, kp, vp, pt, lengths, scale, cap, win))
-        # the live keys of each row, and the yardstick: the gather of the
-        # row's pages (dequantized for q8) followed by SDPA; two calls, so
-        # no "library" time
-        live = [ln - (max(0, ln - win) if win else 0) for ln in K2_LENGTHS]
-        kpos = torch.arange(P_MAX * PAGE, device="cuda")[None, :]
-        mask = kpos < lengths[:, None].long()
-        if win:
-            mask &= kpos >= lengths[:, None].long() - win
+        ms = timer(lambda: call(q16))
+        plain_ms = timer(lambda: plain(q16))
+        host_us = _host_us(torch, lambda: call(q16))
+        # the live keys of each row, and the yardsticks: for the paged cases
+        # the gather of the row's pages (dequantized for q8) followed by SDPA
+        # (two calls, so no "library" time); for the dense row one SDPA call
+        # on its live prefix
+        live = [ln - (max(0, ln - win) if win else 0) for ln in lens]
+        yard_ms = lib_ms = None
+        if label == "dense engine":
+            lib_ms = timer(lambda: F.scaled_dot_product_attention(
+                q16[:, :, None], kc[:, :, :DENSE_LIVE], vc[:, :, :DENSE_LIVE], scale=scale,
+                enable_gqa=True))
+        elif cap is None:
+            kpos = torch.arange(P_MAX * PAGE, device="cuda")[None, :]
+            mask = kpos < lengths[:, None].long()
 
-        def gather(pool):
-            if kind == "q8":
-                d, sc = pool.data[:, pt.long()], pool.scales[:, pt.long()]
-                x = (d.float().reshape(*d.shape[:-1], -1, 32) * sc[..., None]).reshape(d.shape)
-                x = x.to(torch.bfloat16)
-            else:
-                x = pool[:, pt.long()]
-            return x.permute(1, 0, 2, 3, 4).reshape(B, n_kv, P_MAX * PAGE, hd)
+            def gather(pool):
+                if kind == "q8":
+                    d, sc = pool.data[:, pt.long()], pool.scales[:, pt.long()]
+                    x = (d.float().reshape(*d.shape[:-1], -1, 32) * sc[..., None]).reshape(
+                        d.shape).to(torch.bfloat16)
+                else:
+                    x = pool[:, pt.long()]
+                return x.permute(1, 0, 2, 3, 4).reshape(B, n_kv, P_MAX * PAGE, hd)
 
-        yard_ms = None
-        if cap is None:
             yard_ms = timer(lambda: F.scaled_dot_product_attention(
                 q16[:, :, None], gather(kp), gather(vp), attn_mask=mask[:, None, None, :],
                 scale=scale, enable_gqa=True))
@@ -644,23 +682,32 @@ def check_k2(torch, timer, details):
             + pt.numel() * 4 + B * 4
         b_ms, b_by = bound(nbytes, 4.0 * H * hd * sum(live))
         row = dict(kernel="paged_decode", case=label, pool=kind, B=B, H=H, n_kv=n_kv, hd=hd,
-                   page_size=PAGE, lengths=K2_LENGTHS, softcap=cap, window=win,
-                   max_abs_err=err, max_abs_err_bf16_out=err16, bf16_out_of_limit=ulps16,
-                   ms=ms, plain_ms=plain_ms,
-                   yardstick_ms=yard_ms, bound_ms=b_ms, bound_by=b_by)
+                   page_size=kp.shape[2] if kind != "q8" else PAGE, lengths=lens, softcap=cap,
+                   window=win, max_abs_err=err, max_abs_err_bf16_out=err16,
+                   bf16_out_of_limit=ulps16, bit_equal_repeat=bit_equal, ms=ms,
+                   plain_ms=plain_ms, yardstick_ms=yard_ms, library_ms=lib_ms, bound_ms=b_ms,
+                   bound_by=b_by, host_us=host_us)
         details.append(row)
         main = main or row
+        if label == "dense engine":
+            dense = row
         print(f"K2 {label:13s} {kind:4s} hd={hd:3d} B={B} H={H} n_kv={n_kv} cap={cap} win={win}:"
-              f" {ms:.4f} ms (plain {plain_ms:.4f}, yardstick gather+sdpa {yard_ms}, bound "
-              f"{b_ms:.4f} by {b_by}) err {err:.3g} (bf16 out {err16:.3g}, "
-              f"{ulps16:.3g} of its limit)", flush=True)
+              f" {ms:.4f} ms (plain {plain_ms:.4f}, yardstick gather+sdpa {yard_ms}, sdpa "
+              f"{lib_ms}, bound {b_ms:.4f} by {b_by}, {b_ms / ms:.3f} of it) err {err:.3g} "
+              f"(bf16 out {err16:.3g}, {ulps16:.3g} of its limit), bit-equal repeat, host "
+              f"{host_us:.1f} us a call", flush=True)
         del kp, vp
     L = 16
     return dict(ms=main["ms"] * L, plain_ms=main["plain_ms"] * L, library_ms=None,
                 yardstick_ms=main["yardstick_ms"] * L, bound_ms=main["bound_ms"] * L,
-                bound_by=main["bound_by"], max_abs_err=worst,
+                bound_by=main["bound_by"], max_abs_err=worst, host_us=main["host_us"],
+                engine_step_ms=dense["ms"] * L, engine_step_library_ms=dense["library_ms"] * L,
+                engine_step_bound_ms=dense["bound_ms"] * L,
                 work=f"one 16-slot decode step: {L} launches at B=16, H=32, n_kv=8, hd=64, "
-                     "bf16 pool, ragged lengths 1-2048 (K2_LENGTHS)")
+                     "bf16 pool, ragged lengths 1-2048 (K2_LENGTHS); engine_step: one "
+                     f"single-stream decode step, {L} launches on the dense cache (1 row, "
+                     f"{DENSE_LIVE} live keys, window {DENSE_WIN}), library: SDPA on the live "
+                     "prefix")
 
 
 def _q8_close(torch, a, b) -> tuple[int, int]:
@@ -813,12 +860,11 @@ def main_path(torch, card_note):
               + n_decode * (per_layer_k1 * cfg.n_layers + 1),
               "flash_prefill": n_prefill * cfg.n_layers,
               "kv_write": (n_prefill + n_decode) * cfg.n_layers,
-              "paged_decode": 0}  # the Engine's cache is dense
+              "paged_decode": n_decode * cfg.n_layers}  # K2 on the dense cache
     print(f"engine path launches {launches}, expected {expect} "
-          f"({per_layer_k1 * cfg.n_layers + 1} K1 and {cfg.n_layers} K4 per decode step, "
-          f"{cfg.n_layers} K3 and {cfg.n_layers} K4 per prefill)", flush=True)
-    if launches != expect or min(launches[k] for k in ("q4_matmul", "flash_prefill",
-                                                       "kv_write")) == 0:
+          f"({per_layer_k1 * cfg.n_layers + 1} K1, {cfg.n_layers} K2 and {cfg.n_layers} K4 per "
+          f"decode step, {cfg.n_layers} K3 and {cfg.n_layers} K4 per prefill)", flush=True)
+    if launches != expect or min(launches.values()) == 0:
         fail(f"launch counts {launches} != expected {expect}")
     for r, n in [(f, 1) for f in firsts] + [(resp, 128), (resumed, 32)]:
         if len(r.token_ids) != n or not all(0 <= t < cfg.vocab_size for t in r.token_ids):
@@ -847,10 +893,52 @@ def main_path(torch, card_note):
           f" (limit {LOGITS_REL_L2}), finite {finite}", flush=True)
     if not finite or not rel < LOGITS_REL_L2 or tuple(gpu.shape) != (1, 24, cfg.vocab_size):
         fail(f"logits check: rel L2 {rel}, finite {finite}, shape {tuple(gpu.shape)}")
+    dec_rel = _dense_decode_logits_check(torch, eng.params, cfg, prompt[:24])
     e2e = dict(ttft_ms=ttft_ms, ttft_ms_runs=ttfts, decode_tok_s=decode_tps, logits_rel_l2=rel,
+               decode_logits_rel_l2=dec_rel,
                decode_ms_per_token=resp.generate_time_ms / 128,
                prefill_ms_512=resp.prompt_time_ms)
     return launches, e2e, (eng, prompt)
+
+
+def _dense_decode_logits_check(torch, params, cfg, ids) -> float:
+    """The `Engine`'s dense decode on the card (a bf16 cache, bf16
+    activations; K2 takes each step's attention) against the same weights on
+    the CPU (dequantized once to f32, an f32 cache, the plain versions): a
+    16-token prefill and 8 decode steps, relative L2 of the logits."""
+    from jlama_tpu_torch.models.base import KVCache, forward_logits
+    from jlama_tpu_torch.nn.qarray import QArray
+
+    toks = torch.tensor([ids])
+    pos = torch.arange(len(ids))[None, :]
+
+    def run(params, device, dtype):
+        cache = KVCache.init(cfg, 1, 64, dtype, device)
+        with torch.inference_mode():
+            outs = [forward_logits(params, cfg, toks[:, :16].to(device), pos[:, :16].to(device),
+                                   cache, dtype=dtype)[0]]
+            for t in range(16, len(ids)):
+                outs.append(forward_logits(params, cfg, toks[:, t:t + 1].to(device),
+                                           pos[:, t:t + 1].to(device), cache, dtype=dtype)[0])
+        return torch.cat(outs, dim=1).float().cpu()
+
+    def deq(v):
+        if isinstance(v, list):
+            return [deq(x) for x in v]
+        if isinstance(v, dict):
+            return {k: deq(x) for k, x in v.items()}
+        return v.dequantize(torch.float32).cpu() if isinstance(v, QArray) else v.float().cpu()
+
+    gpu = run(params, "cuda", torch.bfloat16)
+    ref = run(deq(params), "cpu", torch.float32)
+    finite = bool(torch.isfinite(gpu).all())
+    rel = ((gpu - ref).norm() / ref.norm()).item()
+    print(f"dense decode logits [1, {len(ids)}, {cfg.vocab_size}] (16-token prefill + "
+          f"{len(ids) - 16} decode steps through K2, bf16 cache) vs plain f32 on the CPU: rel L2 "
+          f"{rel:.3g} (limit {LOGITS_REL_L2}), finite {finite}", flush=True)
+    if not finite or not rel < LOGITS_REL_L2 or tuple(gpu.shape) != (1, len(ids), cfg.vocab_size):
+        fail(f"dense decode logits: rel L2 {rel}, finite {finite}, shape {tuple(gpu.shape)}")
+    return rel
 
 
 def profile_path(torch, eng, prompt) -> dict:
@@ -876,11 +964,16 @@ def profile_path(torch, eng, prompt) -> dict:
         dev_ms = sum(k[0] for k in kernels)
         if dev_ms <= 0:
             fail(f"profile {label}: the profiler saw no device time")
-        groups = {"q4_matmul": 0.0, "flash_prefill": 0.0, "other": 0.0}
+        groups = {"q4_matmul": 0.0, "flash_prefill": 0.0, "paged_decode": 0.0, "kv_write": 0.0,
+                  "other": 0.0}
         for ms, _, key in kernels:
             g = ("q4_matmul" if K1_NAMES.search(key) else
-                 "flash_prefill" if "flash_prefill" in key else "other")
+                 next((k for k in ("flash_prefill", "paged_decode", "kv_write") if k in key),
+                      "other"))
             groups[g] += ms
+        dense_attn = [key for _, _, key in kernels if DENSE_ATTN_NAMES.search(key)]
+        if n > 1 and dense_attn:
+            fail(f"profile {label}: the dense attention's library kernels ran: {dense_attn}")
         n_ops = sum(c for _, c, _ in kernels)
         out[label] = dict(wall_ms=wall_ms, device_ms=dev_ms, busy_share=dev_ms / wall_ms,
                           device_ops=n_ops, by_group_ms=groups,

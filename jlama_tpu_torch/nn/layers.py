@@ -11,7 +11,8 @@ Conventions, as in the JAX package:
 Difference from the JAX package: caches are written in place, by the K4
 kernel (`ops/kv_write.py`), since torch tensors are mutable and the write
 then costs only the T new rows; the dense cache is a pool of B pages of S
-slots to it.
+slots to it, and to K2, which takes its T = 1 attention (the JAX package's
+dense decode runs the masked dense path there).
 """
 
 from __future__ import annotations
@@ -209,7 +210,13 @@ def self_attention_block(
     kv_len = k_att.shape[2]
     scale = attention_scale(cfg)
 
-    if T > 1 and cfg.causal and hd in HEAD_SIZES:
+    if cache is not None and T == 1 and cfg.causal and hd in HEAD_SIZES:
+        # K2 on the dense cache, cut to the window (a view): B pages of
+        # kv_len slots, row b on page b, its live keys those <= its position
+        out = paged_decode(q[:, 0], dense_pool_view(k_att), dense_pool_view(v_att),
+                           dense_page_table(B, q.device), positions[:, 0] + 1, scale,
+                           softcap=cfg.attn_logit_softcap, window=sliding_window)[:, None]
+    elif T > 1 and cfg.causal and hd in HEAD_SIZES:
         # K3: unlike the JAX gate (head_size % 128, a Mosaic limit), any
         # head size the kernel is built for takes it, Llama-3.2-1B's 64 too
         out = flash_prefill(

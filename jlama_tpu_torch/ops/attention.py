@@ -31,14 +31,24 @@ K2 replaces the TPU kernel `jlama_tpu/ops/pallas_attention.py:
 _paged_decode_kernel` (launched by `_paged_decode_jit`), and the library
 `paged_attention` branch of the JAX package's layers, with the hand-written
 CUDA kernel in `csrc/paged_decode.cu`: T = 1 GQA attention that reads K/V
-through the page tables, only the row's live pages (a window skips whole
-pages), q8 pools dequantized in the kernel, online softmax in f32. Any head
-count takes it, at head size 64 or 128 (the JAX gate on head and head-count
-multiples is a Mosaic limit).
+through the page tables, q8 pools dequantized in the kernel, online softmax
+in f32. Any head count takes it, at head size 64 or 128 (the JAX gate on head
+and head-count multiples is a Mosaic limit). The `Engine`'s dense cache is a
+pool to it too (`ops/kv_write.py::dense_pool_view`): B pages of S slots.
 
-What bounds K2 on the H100: the live KV bytes. This first kernel walks each
-(row, KV head)'s pages in one block of 4 warps, 64 keys per shared-memory
-tile; splitting long rows over several blocks comes in a later PR.
+What bounds K2 on the H100: the live KV bytes. The kernel splits each row's
+keys over blocks (flash-decoding); a block holds all query rows of its KV
+head, streams 64-key tiles through a ring of `cp.async` stages, each warp
+taking 16 keys of a tile, and writes an f32 partial, which the last block of
+the row to arrive merges in split order (so a repeat is bit-equal). Two
+routes, by the inputs' type: bf16 q on a bf16 or q8 pool takes the tensor
+cores (`mma.sync` for Q·Kᵀ and for P·V, P as two bf16 halves, so it keeps 16
+bits more than bf16); f32 q or an f32 pool the CUDA cores (f32 FMAs, held to
+2e-5). The split comes from static shapes (`page_tables.shape[1] × ps`, the
+route, the card's SM count; `_plan`), the partials' scratch is a
+`torch.empty` of that size, and the merge's tickets a zeroed buffer kept per
+device that the kernel leaves zeroed: the wrapper never reads `lengths` on
+the host, so a CUDA graph can capture the launch as it is.
 
 `paged_decode_plain` gathers the row's pages and runs the same masked f32
 softmax. Both follow the TPU kernel's q8 rounding (int8 times the f32 block
@@ -50,6 +60,7 @@ the plain version for tensors on the CPU only.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -71,7 +82,8 @@ _SIGNATURES = {
 }
 _PD_SIGNATURES = {
     "paged_decode": [_C, _L, _L, _C, _L, _L] + [_C, _L, _L, _L] * 4
-    + [_C, _L, _I, _C, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _C]
+    + [_C, _L, _I, _C, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _C, _C, _I, _I, _C],
+    "paged_decode_plan": [_I] * 9 + [ctypes.POINTER(ctypes.c_int64)],
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZES = (64, 128)
@@ -260,6 +272,14 @@ def paged_decode(q, k_pool, v_pool, page_tables, lengths, scale, softcap=None, w
     for t in [q, kd, vd] + ([ks, vs] if kind == "q8" else []):
         if t.device != q.device or t.stride(-1) != 1:
             raise ValueError("paged_decode: q and pools on one device, with a unit last stride")
+    for t in (kd, vd):  # the kernel copies 16-byte units (a stride of a size-1 dim is unused)
+        if t.data_ptr() % 16 or any(x * t.element_size() % 16
+                                    for x, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
+            raise ValueError("paged_decode: pool bases and head/page/slot strides must be "
+                             f"16-byte multiples (got offset {t.data_ptr() % 16}, strides "
+                             f"{tuple(t.stride())} of {t.element_size()}-byte elements)")
+    if kind == "q8" and blk % 16:
+        raise ValueError(f"paged_decode: q8 blocks of {blk}: the kernel takes multiples of 16")
     page_tables = page_tables.to(device=q.device, dtype=torch.int32)
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     if page_tables.dim() != 2 or page_tables.shape[0] != B or page_tables.stride(1) != 1 \
@@ -277,12 +297,17 @@ def paged_decode(q, k_pool, v_pool, page_tables, lengths, scale, softcap=None, w
 
     (k_a, ks_a), (v_a, vs_a) = pool_args(kd, ks), pool_args(vd, vs)
     lib = _build.load("paged_decode", _PD_SIGNATURES)
+    P = page_tables.shape[1]
+    n_splits, split_keys, part_floats, n_tickets = _plan(
+        B, H, n_kv, hd, P, ps, _DTYPE_CODE[q.dtype], POOL_CODE[kind], q.device.index)
+    part = torch.empty(part_floats, dtype=torch.float32, device=q.device)
     err = lib.paged_decode(
         q.data_ptr(), q.stride(0), q.stride(1), out.data_ptr(), out.stride(0), out.stride(1),
         *k_a, *v_a, *ks_a, *vs_a,
-        page_tables.data_ptr(), page_tables.stride(0), page_tables.shape[1],
+        page_tables.data_ptr(), page_tables.stride(0), P,
         lengths.data_ptr(), B, H, n_kv, hd, ps, blk, float(scale), float(softcap or 0.0),
         int(window or 0), _DTYPE_CODE[q.dtype], POOL_CODE[kind],
+        part.data_ptr(), _tickets(q.device, n_tickets).data_ptr(), n_splits, split_keys,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "paged_decode")
@@ -291,3 +316,28 @@ def paged_decode(q, k_pool, v_pool, page_tables, lengths, scale, softcap=None, w
 
 
 paged_decode.launches = 0
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(B, H, n_kv, hd, P, ps, q_code, pool_code, device_index) -> tuple[int, int, int, int]:
+    """(n_splits, split_keys, floats of the partials, tickets) of a call, from
+    `csrc/paged_decode.cu`'s own rule (static shapes, route and SM count)."""
+    lib = _build.load("paged_decode", _PD_SIGNATURES)
+    out = (ctypes.c_int64 * 4)()
+    _build.check(lib.paged_decode_plan(B, H, n_kv, hd, P, ps, q_code, pool_code, device_index,
+                                       out), "paged_decode_plan")
+    return tuple(out)
+
+
+# per device: the merge's tickets, zero between calls (each kernel resets the
+# ones it took); grown, never shrunk. Calls on one stream at a time.
+_TICKETS: dict[torch.device, torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 2 * (0 if t is None else t.numel())), dtype=torch.int32,
+                        device=device)
+        _TICKETS[device] = t
+    return t

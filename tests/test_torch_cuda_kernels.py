@@ -263,28 +263,127 @@ def _layer(pool, l):
     return QArray(pool.data[l], pool.scales[l], "q8") if isinstance(pool, QArray) else pool[l]
 
 
-@pytest.mark.parametrize("hd,cap,win", [(64, None, None), (128, 30.0, 20), (64, None, 9)])
+# "short": 5 rows within one split of the kernel; "long": rows up to 2,000
+# keys on pages of 16, which take several splits, and a row of length 0
+K2_ROWS = {"short": ([1, 37, 96, 50, 17], 6), "long": ([0, 2000, 1037, 16, 1], 125)}
+
+
+def _k2_page_tables(cuda, lengths, P, ps, n_pages):
+    """[B, P] int32 of distinct random pages (1 .. n_pages-1) over each row's
+    live keys; empty decode slots (length 0 or 1) on the scratch page 0."""
+    pt = torch.zeros((len(lengths), P), dtype=torch.int32, device=cuda)
+    perm = (torch.randperm(n_pages - 1, device=cuda) + 1).to(torch.int32)
+    nxt = 0
+    for b, ln in enumerate(lengths):
+        n = -(-ln // ps) if ln > 1 else 0
+        pt[b, :n] = perm[nxt:nxt + n]
+        nxt += n
+    return pt
+
+
+@pytest.mark.parametrize("hd,cap,win", [(64, None, None), (128, 30.0, 20), (64, None, 9),
+                                        (64, None, 700)])
 @pytest.mark.parametrize("kind", ["f32", "bf16", "q8"])
-# groups of 4, 32 (MQA: two full blocks of 16 rows) and 24 (a partial block)
-@pytest.mark.parametrize("H,n_kv", [(8, 2), (32, 1), (48, 2)])
-def test_paged_decode_kernel_matches_plain(cuda, kind, hd, cap, win, H, n_kv):
+# groups of 4, 32 (MQA), 24 (a partial row group) and 1
+@pytest.mark.parametrize("H,n_kv", [(8, 2), (32, 1), (48, 2), (8, 8)])
+@pytest.mark.parametrize("rows", ["short", "long"])
+# f32 q: the CUDA-core route; bf16 q on a bf16 or q8 pool: the tensor cores,
+# held to one bf16 ulp of the output (2^-7 |plain|) beside the same limit
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_kernel_matches_plain(cuda, q_dtype, rows, kind, hd, cap, win, H, n_kv):
     from jlama_tpu_torch.ops.attention import paged_decode, paged_decode_plain
 
     g = torch.Generator(device=cuda).manual_seed(hd + int(cap or 0))
-    B, ps, n_pages, P = 5, 16, 40, 6
+    lens, P = K2_ROWS[rows]
+    B, ps = len(lens), 16
+    n_pages = sum(-(-ln // ps) for ln in lens) + 8
     # stacked [L=2, ...] pools, read through layer 1's strided view
     kp, vp = (_layer(p, 1) for p in _pools(cuda, kind, (2, n_kv, n_pages, ps, hd), g))
-    lengths = torch.tensor([1, 37, 96, 50, 17], dtype=torch.int32, device=cuda)
-    pt = (torch.randperm(n_pages - 1, device=cuda)[: B * P] + 1).to(torch.int32).reshape(B, P)
-    pt[0] = 0  # an empty decode slot: length 1 on the scratch page
-    q = torch.randn((B, H, hd), generator=g, device=cuda)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    pt = _k2_page_tables(cuda, lens, P, ps, n_pages)
+    q = torch.randn((B, H, hd), generator=g, device=cuda).to(q_dtype)
     before = paged_decode.launches
-    got = paged_decode(q, kp, vp, pt, lengths, hd ** -0.5, cap, win)
+    got = paged_decode(q, kp, vp, pt, lengths, hd ** -0.5, cap, win).float()
     assert paged_decode.launches == before + 1
-    ref = paged_decode_plain(q, kp, vp, pt, lengths, hd ** -0.5, cap, win)
+    ref = paged_decode_plain(q, kp, vp, pt, lengths, hd ** -0.5, cap, win).float()
     torch.cuda.synchronize()
     tol = 3e-3 if kind == "q8" else 2e-5
-    assert (got - ref).abs().max().item() <= tol
+    if q_dtype == torch.float32:
+        assert (got - ref).abs().max().item() <= tol
+    else:
+        assert torch.all((got - ref).abs() <= 2.0 ** -7 * ref.abs() + tol)
+    if lens[0] == 0:
+        assert torch.all(got[0] == 0)
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_kernel_long_row_rolls_its_lookups(cuda, q_dtype):
+    """One row of 40,000 keys on pages of 64 and one KV head: too few (row, KV
+    head) pairs to fill the card, so each split holds more than the 8 tiles
+    whose page lookups a block loads up front, and the rest are looked up a
+    tile at a time (both routes)."""
+    from jlama_tpu_torch.ops.attention import paged_decode, paged_decode_plain
+
+    g = torch.Generator(device=cuda).manual_seed(40)
+    n, ps, hd, H = 40_000, 64, 64, 4
+    P = -(-n // ps)
+    kp, vp = _pools(cuda, "bf16", (1, P + 1, ps, hd), g)
+    pt = (torch.randperm(P, device=cuda) + 1).to(torch.int32)[None, :]
+    lengths = torch.tensor([n], dtype=torch.int32, device=cuda)
+    q = torch.randn((1, H, hd), generator=g, device=cuda).to(q_dtype)
+    got = paged_decode(q, kp, vp, pt, lengths, hd ** -0.5).float()
+    ref = paged_decode_plain(q, kp, vp, pt, lengths, hd ** -0.5).float()
+    torch.cuda.synchronize()
+    if q_dtype == torch.float32:
+        assert (got - ref).abs().max().item() <= 2e-5
+    else:
+        assert torch.all((got - ref).abs() <= 2.0 ** -7 * ref.abs() + 2e-5)
+
+
+@pytest.mark.parametrize("length,win", [(1, None), (600, None), (640, None), (640, 100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_kernel_dense_view(cuda, dtype, length, win):
+    """The Engine's route: one row's dense cache [1, n_kv, 1024, hd], cut to
+    a 640-slot window, as one page of 640 slots (page stride n_kv * 1024 *
+    hd); f32 within 2e-5, bf16 within one bf16 ulp (2^-7 |plain|) + 2e-5."""
+    from jlama_tpu_torch.ops.attention import paged_decode, paged_decode_plain
+    from jlama_tpu_torch.ops.kv_write import dense_page_table, dense_pool_view
+
+    g = torch.Generator(device=cuda).manual_seed(length)
+    H, n_kv, hd, S, W = 32, 8, 64, 1024, 640
+    k, v = (torch.randn((1, n_kv, S, hd), generator=g, device=cuda).to(dtype) for _ in range(2))
+    q = torch.randn((1, H, hd), generator=g, device=cuda).to(dtype)
+    args = (q, dense_pool_view(k[:, :, :W]), dense_pool_view(v[:, :, :W]),
+            dense_page_table(1, cuda), torch.tensor([length], device=cuda), hd ** -0.5, None,
+            win)
+    before = paged_decode.launches
+    got = paged_decode(*args).float()
+    assert paged_decode.launches == before + 1
+    ref = paged_decode_plain(*args).float()
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        assert (got - ref).abs().max().item() <= 2e-5
+    else:
+        assert torch.all((got - ref).abs() <= 2.0 ** -7 * ref.abs() + 2e-5)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "q8"])
+def test_paged_decode_kernel_repeat_is_bit_equal(cuda, kind):
+    """Rows over several splits: the last block of a row merges the splits in
+    split order, whichever block comes last, so a repeat is equal bit for bit."""
+    from jlama_tpu_torch.ops.attention import paged_decode
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    lens, P = K2_ROWS["long"]
+    B, ps, H, n_kv, hd = len(lens), 16, 32, 8, 64
+    n_pages = sum(-(-ln // ps) for ln in lens) + 8
+    kp, vp = _pools(cuda, kind, (n_kv, n_pages, ps, hd), g)
+    pt = _k2_page_tables(cuda, lens, P, ps, n_pages)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q = torch.randn((B, H, hd), generator=g, device=cuda).to(torch.bfloat16)
+    first = paged_decode(q, kp, vp, pt, lengths, hd ** -0.5)
+    for _ in range(3):
+        assert torch.equal(paged_decode(q, kp, vp, pt, lengths, hd ** -0.5), first)
 
 
 @pytest.mark.parametrize("B,T", [(4, 1), (3, 37)])

@@ -108,8 +108,9 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
 
 
 def test_cpu_run_goes_through_plain_versions(monkeypatch):
-    """A device="cpu" generation at head size 64 reaches both kernels'
-    wrappers, which run the plain versions and count no launch."""
+    """A device="cpu" generation at head size 64 reaches the q4, flash-prefill
+    and paged-decode wrappers (the last for each decode step's attention on
+    the dense cache), which run the plain versions and count no launch."""
     from jlama_tpu_torch.config import from_hf_config
     from jlama_tpu_torch.models.init import init_params
     from jlama_tpu_torch.ops import attention, q4_matmul
@@ -119,7 +120,7 @@ def test_cpu_run_goes_through_plain_versions(monkeypatch):
     cfg = from_hf_config(dict(TINY_LLAMA_CONFIG, hidden_size=128, num_attention_heads=2,
                               num_key_value_heads=1))
     assert cfg.head_size == 64
-    calls = {"q4": 0, "flash": 0}
+    calls = {"q4": 0, "flash": 0, "paged": 0}
 
     def counting(key, fn):
         def wrapped(*a, **kw):
@@ -131,7 +132,10 @@ def test_cpu_run_goes_through_plain_versions(monkeypatch):
                         counting("q4", q4_matmul.q4_matmul_plain))
     monkeypatch.setattr(attention, "flash_prefill_plain",
                         counting("flash", attention.flash_prefill_plain))
-    launches = (q4_matmul.q4_matmul.launches, attention.flash_prefill.launches)
+    monkeypatch.setattr(attention, "paged_decode_plain",
+                        counting("paged", attention.paged_decode_plain))
+    fns = (q4_matmul.q4_matmul, attention.flash_prefill, attention.paged_decode)
+    launches = [f.launches for f in fns]
     params = init_params(cfg, seed=0, quantize="q4", device="cpu", dtype=torch.float32)
     eng = Engine(params, cfg, device="cpu", max_seq_len=64, kv_dtype=torch.float32,
                  compute_dtype=torch.float32)
@@ -141,7 +145,8 @@ def test_cpu_run_goes_through_plain_versions(monkeypatch):
     # (float embedding, tied: torch.matmul) and 4 per layer per step
     assert calls["flash"] == cfg.n_layers
     assert calls["q4"] == 4 * cfg.n_layers * (1 + 3)
-    assert (q4_matmul.q4_matmul.launches, attention.flash_prefill.launches) == launches
+    assert calls["paged"] == cfg.n_layers * 3
+    assert [f.launches for f in fns] == launches
 
 
 def test_chip_smoke_refuses_without_gpu_or_package(tmp_path):
@@ -286,7 +291,8 @@ def test_bench_mains_need_cuda_or_explicit_cpu(monkeypatch):
                                                  ("k3_ablate", "flash_prefill", "ABLATIONS"),
                                                  ("k5_ablate", "w8a8_matmul", "ABLATIONS"),
                                                  ("k5_ablate", "w8a8_matmul",
-                                                  "DECODE_ABLATIONS")])
+                                                  "DECODE_ABLATIONS"),
+                                                 ("k2_ablate", "paged_decode", "ABLATIONS")])
 def test_ablation_cuts_apply_to_the_source(script, source, table):
     """Every cut of an ablation script finds its text in the kernel source
     exactly once (on the card the script raises when one does not)."""

@@ -163,6 +163,32 @@ def test_paged_decode_plain_matches_jax_kernel(quantized, hd, softcap, window):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("softcap,window", [(None, None), (30.0, None), (None, 7), (20.0, 5)])
+def test_paged_decode_plain_dense_view_matches_jax_dense_decode(softcap, window):
+    """K2's route for the Engine's dense T = 1 attention: the dense cache [B,
+    n_kv, S, hd] cut to its window and seen as B pages of that many slots
+    (dense_pool_view, dense_page_table, lengths = position + 1), against the
+    JAX package's dense decode step (multi_head_attention under that step's
+    attention_scores_mask), in f32."""
+    from jlama_tpu.nn.layers import attention_scores_mask, multi_head_attention
+
+    rng = np.random.default_rng(11)
+    B, H, n_kv, hd, S, W = 3, 8, 2, 64, 40, 24
+    q = rng.standard_normal((B, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, n_kv, S, hd)).astype(np.float32)
+    v = rng.standard_normal((B, n_kv, S, hd)).astype(np.float32)
+    pos = np.array([[0], [13], [23]], np.int32)  # each row's new token
+    scale = hd ** -0.5
+    mask = attention_scores_mask(jnp.asarray(pos), W, True, window)
+    ref = multi_head_attention(jnp.asarray(q[:, None]), jnp.asarray(k[:, :, :W]),
+                               jnp.asarray(v[:, :, :W]), mask, scale, softcap)[:, 0]
+    kt, vt = torch.from_numpy(k), torch.from_numpy(v)
+    got = paged_decode_plain(torch.from_numpy(q), dense_pool_view(kt[:, :, :W]),
+                             dense_pool_view(vt[:, :, :W]), dense_page_table(B, kt.device),
+                             torch.from_numpy(pos[:, 0] + 1), scale, softcap, window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
+
+
 def test_paged_decode_plain_zero_length_rows_are_zero():
     pool = torch.randn((1, 2, 4, 64))
     out = paged_decode_plain(torch.randn((2, 2, 64)), pool, pool,
