@@ -8,15 +8,20 @@ Phases, each fatal on failure (exit code 1, no result line):
   2. build  - nvcc builds every kernel of the paths from csrc/, in parallel;
   3. kernels - each kernel against its plain PyTorch version on the card at
               the paths' shapes (Llama-3.2-1B, plus Llama-3.1-8B's w2, head
-              size 128 and ragged edges; K1 at M = 1 through its GEMV, at M
-              = 2, 8, 13 and 16 through its bf16 tensor-core route, at M =
-              37, 511, 512 and 1024 (256-token chunks of 4 rows) through its
-              wgmma route, there also against its rounding model (x and W
-              rounded to bf16, f32 sums) and bit-equal on a second call, with
-              Llama-3.1-8B's four layer shapes at M = 512, the summed 16-slot
-              decode step and the summed 512-token prefill against
-              torch.matmul's, and the host time of one wrapper call at M =
-              512 and 16), with its time, the plain version's
+              size 128 and ragged edges; K1 at M = 1 through its GEMV
+              (Llama-3.2-1B's four layer shapes and f32-out lm_head,
+              Llama-3.1-8B's four and its lm_head, an uneven N; f32 x at M = 1
+              and 16 too), each bit-equal on a second call, at M = 2, 8, 13
+              and 16 through its bf16 mma route, at M = 37, 511, 512 and 1024
+              (256-token chunks of 4 rows) through its wgmma route, there also
+              against its rounding model (x and W rounded to bf16, f32 sums)
+              and bit-equal on a second call, with Llama-3.1-8B's four layer
+              shapes at M = 512; the summed single-stream decode steps (1B:
+              65 launches, also less 65 timed empty launches, the timer's
+              floor after its flush; 8B: 129), the summed 16-slot decode step
+              and the summed 512-token prefill against torch.matmul's, and the
+              host time of one wrapper call at M = 512, 16 and 1), with its
+              time, the plain version's
               time, a library call's or yardstick's time (never used by the
               port) and the bound: max(bytes / 3.35 TB/s, operations / 989
               TFLOP/s bf16), the H100 SXM data-sheet peaks. K1 q4 matmul,
@@ -198,7 +203,8 @@ def check_k1(torch, timer, details):
     from jlama_tpu_torch.utils.cuda_timer import bound
     from jlama_tpu_torch.models.init import llama_1b_config, llama_8b_config
     from jlama_tpu_torch.nn.qarray import QArray
-    from jlama_tpu_torch.ops.q4_matmul import q4_matmul, q4_matmul_plain, q4_matmul_tiled_plain
+    from jlama_tpu_torch.ops.q4_matmul import (q4_matmul, q4_matmul_plain, q4_matmul_tiled_plain,
+                                               takes_gemv)
 
     c1, c8 = llama_1b_config(), llama_8b_config()
     D, Hf, V = c1.embedding_length, c1.hidden_length, c1.vocab_size
@@ -207,15 +213,17 @@ def check_k1(torch, timer, details):
     D8 = c8.embedding_length
     qkv8 = (c8.n_heads + 2 * c8.n_kv_heads) * c8.head_size
     bf16, f32 = torch.bfloat16, torch.float32
-    # M = 1: the GEMV; 2, 8, 13, 16: the tensor-core route (one and two token
-    # tiles, a ragged one); 511, 512, 1024 (the scheduler's 256-token chunk x
-    # 4 rows): the wgmma route
+    # M = 1: the GEMV; 2, 8, 13, 16: the mma route (one and two token tiles, a
+    # ragged one); 511, 512, 1024 (the scheduler's 256-token chunk x 4 rows):
+    # the wgmma route; f32 x at M = 1 and 16 (w13): the GEMV
     cases = [(name, n, k, m, bf16, bf16)
              for m in (1, 2, 8, 13, 16, 511, 512, 1024) for name, (n, k) in layer_shapes.items()]
     cases += [("lm_head", V, D, m, bf16, f32) for m in (1, 2, 8, 13, 16, 512)]
-    cases += [("8b_w2", D8, c8.hidden_length, m, bf16, bf16) for m in (1, 16, 512)]
-    cases += [(name, n, k, 512, bf16, bf16) for name, (n, k) in
-              {"8b_wqkv": (qkv8, D8), "8b_wo": (D8, D8), "8b_w13": (2 * c8.hidden_length, D8)}.items()]
+    cases += [("w13", 2 * Hf, D, m, f32, f32) for m in (1, 16)]
+    shapes8 = {"8b_wqkv": (qkv8, D8), "8b_wo": (D8, D8), "8b_w13": (2 * c8.hidden_length, D8),
+               "8b_w2": (D8, c8.hidden_length)}
+    cases += [(name, n, k, m, bf16, bf16) for name, (n, k) in shapes8.items() for m in (1, 512)]
+    cases += [("8b_w2", D8, c8.hidden_length, 16, bf16, bf16), ("8b_lm_head", V, D8, 1, bf16, f32)]
     cases += [("uneven_n", 1000, 2048, m, bf16, bf16) for m in (1, 37)]
     cases += _ppl_window_cases(c1)
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -239,6 +247,9 @@ def check_k1(torch, timer, details):
         del ref
         worst = max(worst, err)
         model_err = None
+        gemv = takes_gemv(m, x_dtype)
+        if gemv and not torch.equal(q4_matmul(x, w, out_dtype), got):
+            fail(f"K1 {name} M={m} N={n} K={k}: a second call of the GEMV gave other bits")
         if m > 16:  # the wgmma route: its rounding model, and the same bits twice
             model = q4_matmul_tiled_plain(x, w.data, w.scales, torch.float32)
             d = (got.float() - model).abs()
@@ -259,16 +270,17 @@ def check_k1(torch, timer, details):
         plain_ms = timer(lambda: q4_matmul_plain(x, w.data, w.scales, out_dtype))
         lib_ms = timer(lambda: torch.matmul(xb, wd.t()))
         del wd, xb
-        if name == "w13" and m in (16, 512):
+        if name == "w13" and m in (1, 16, 512) and x_dtype == bf16:
             host_us[m] = _host_us(torch, lambda: q4_matmul(x, w, out_dtype))
         nbytes = m * k * x.element_size() + n * k // 2 + n * k // 32 * 4 \
             + m * n * (4 if out_dtype == torch.float32 else 2)
         b_ms, b_by = bound(nbytes, 2.0 * m * n * k)
         row = dict(kernel="q4_matmul", shape=name, M=m, N=n, K=k, x_dtype=str(x_dtype),
-                   max_abs_err=err, rel_l2=rel, model_err=model_err, ms=ms, plain_ms=plain_ms,
+                   max_abs_err=err, rel_l2=rel, model_err=model_err, repeat_bit_equal=gemv
+                   or m > 16 or None, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         details.append(row)
-        per_shape[(name, m)] = row
+        per_shape.setdefault((name, m), row)  # the bf16-x row where f32 x runs the same shape
         print(f"K1 {name:8s} M={m:4d} N={n:6d} K={k:5d} x {_dt(x_dtype)} out {_dt(out_dtype)}: "
               f"{ms:.4f} ms (plain {plain_ms:.4f},"
               f" torch.matmul bf16 {lib_ms:.4f}, bound {b_ms:.4f} by {b_by}) err {err:.3g}"
@@ -278,6 +290,20 @@ def check_k1(torch, timer, details):
     L = c1.n_layers
     step = [per_shape[(s, 1)] for s in layer_shapes for _ in range(L)] + [per_shape[("lm_head", 1)]]
     summed = {key: sum(r[key] for r in step) for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    # the timer's floor: one empty kernel after the same L2 flush, 65 times
+    empty_ms = timer(lambda: torch.cuda._sleep(1))
+    step_less_empty = summed["ms"] - len(step) * empty_ms
+    # Llama-3.1-8B's single-stream step: 32 layers x (wqkv, wo, w13, w2) + its lm_head
+    step8 = [per_shape[(s, 1)] for s in shapes8 for _ in range(c8.n_layers)] \
+        + [per_shape[("8b_lm_head", 1)]]
+    ms8, lib8, bound8 = (sum(r[key] for r in step8) for key in ("ms", "library_ms", "bound_ms"))
+    print(f"K1 one single-stream decode step (M=1, {len(step)} launches): K1 "
+          f"{summed['ms']:.4f} ms, less {len(step)} empty launches of {empty_ms:.4f} ms (the "
+          f"timer's floor after its flush) {step_less_empty:.4f} ms; torch.matmul bf16 "
+          f"{summed['library_ms']:.4f} ms, bound {summed['bound_ms']:.4f} ms", flush=True)
+    print(f"K1 one Llama-3.1-8B decode step (M=1, {len(step8)} launches): K1 {ms8:.4f} ms, less "
+          f"the empty launches {ms8 - len(step8) * empty_ms:.4f} ms; torch.matmul bf16 "
+          f"{lib8:.4f} ms, bound {bound8:.4f} ms", flush=True)
     # the serving path's decode step runs the same launches at M = n_slots = 16
     step16 = [per_shape[(s, 16)] for s in layer_shapes for _ in range(L)] + [per_shape[("lm_head", 16)]]
     ms16 = sum(r["ms"] for r in step16)
@@ -294,14 +320,18 @@ def check_k1(torch, timer, details):
     print(f"K1 one 512-token prefill ({len(pre)} launches at M=512): K1 {pre_ms:.4f} ms, "
           f"torch.matmul bf16 {pre_lib:.4f} ms, bound {pre_bound:.4f} ms", flush=True)
     print(f"K1 host time of one wrapper call (w13): {host_us[512]:.1f} us at M=512 (wgmma "
-          f"route, x's tensor map made per call), {host_us[16]:.1f} us at M=16", flush=True)
-    return dict(summed, max_abs_err=worst, bound_by="bytes", ms_m16=ms16, bound_ms_m16=bound16,
+          f"route, x's tensor map made per call), {host_us[16]:.1f} us at M=16, "
+          f"{host_us[1]:.1f} us at M=1 (the plan from a cache)", flush=True)
+    return dict(summed, max_abs_err=worst, bound_by="bytes", empty_launch_ms=empty_ms,
+                ms_less_empty=step_less_empty, ms_8b=ms8, library_ms_8b=lib8, bound_ms_8b=bound8,
+                ms_m16=ms16, bound_ms_m16=bound16,
                 library_ms_m16=lib16, max_err_from_model=worst_model,
                 ms_prefill512=pre_ms, library_ms_prefill512=pre_lib,
                 bound_ms_prefill512=pre_bound, host_us_m512=host_us[512],
-                host_us_m16=host_us[16],
+                host_us_m16=host_us[16], host_us_m1=host_us[1],
                 work="one decode step, M=1: "
                 f"{L} x (wqkv, wo, w13, w2) + lm_head = {len(step)} launches; "
+                f"*_8b: Llama-3.1-8B's, {c8.n_layers} x 4 + lm_head; "
                 f"*_prefill512: one 512-token prefill, {L} x (wqkv, wo, w13, w2) at M=512")
 
 
@@ -403,7 +433,7 @@ def check_k5(torch, timer, details):
                    yardstick_ms=yard_ms, k1_ms=k1_ms, int_mm_ms=int_mm_ms, bound_ms=b_ms,
                    bound_by=b_by, bound_share=b_ms / ms)
         details.append(row)
-        per_shape[(name, m)] = row
+        per_shape.setdefault((name, m), row)  # the bf16-x row where f32 x runs the same shape
         print(f"{label}: {ms:.4f} ms (plain {plain_ms:.4f}, torch.matmul bf16 {yard_ms:.4f}, "
               f"K1 {k1_ms:.4f}"
               + ("" if int_mm_ms is None else f", torch._int_mm {int_mm_ms:.4f}")
@@ -1546,6 +1576,8 @@ def main() -> None:
     engine_launches, e2e, (eng, prompt) = main_path(torch, smi)
     out["engine"] = e2e
     out["profile"] = profile_path(torch, eng, prompt)
+    kern["q4_matmul"]["profile_decode32_ms"] = \
+        out["profile"]["decode 32 tokens"]["by_group_ms"]["q4_matmul"]
     del eng
     torch.cuda.empty_cache()
     print(f"card {smi}: engine " + json.dumps(e2e), flush=True)

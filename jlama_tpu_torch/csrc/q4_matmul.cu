@@ -18,16 +18,24 @@
 // In prefill (M in the hundreds) the tensor cores (989 TFLOP/s bf16 dense).
 //
 // Routes:
-//   M = 1, and f32 x at M <= 16 - q4_gemv_kernel: one warp per output row;
-//             lanes stride over the K/32 blocks with one 128-bit load each,
-//             dequantize in registers and dot with up to 16 x rows read
-//             through the read-only cache; a warp-shuffle reduction ends each
-//             row. Every product and sum is f32 on the CUDA cores, x as given.
+//   M = 1, and f32 x at M <= 16 - q4_gemv_kernel (single-stream decode): the
+//             weight stream on the CUDA cores. Each weight row is read once,
+//             a 16-byte 32-block a lane, a warp's next loads in flight while it
+//             computes; as many blocks as the SMs hold, each walking tiles of
+//             rows; x's block read once for a warp's rows; (n - 8) made
+//             exactly by a byte permute under 2^23 and one subtraction, no
+//             conversion; rows a warp and slices of K from the wrapper's plan
+//             (gemv_plan), so that every SM gets a tile where N allows. Each
+//             product x * (n - 8) exact in f32, f32 sums, each 32-block's
+//             partial scaled by its f32 scale; the slices meet in shared
+//             memory in order (no atomics). A tensor-core GEMV at M = 1 was no
+//             faster: the stream, not the math, bounds it (PERF.md, PR 12).
+//             See the kernel's comment.
 //   bf16 x, 2 <= M <= 16 - q4_mma_kernel: the same sums on the bf16 tensor
-//             cores (mma.sync m16n8k16, f32 accumulate). At M = 16 the GEMV
-//             spends 16 multiply-adds a weight on the CUDA cores and runs at a
-//             few percent of the weight stream's bound; the tensor cores take
-//             them off. Numerics are the GEMV's: (nibble - 8) is exact in
+//             cores (mma.sync m16n8k16, f32 accumulate). At M = 16 a CUDA-core
+//             GEMV spends 16 multiply-adds a weight and runs at a few percent
+//             of the weight stream's bound; the tensor cores take them off.
+//             Numerics are the GEMVs': (nibble - 8) is exact in
 //             bf16, each product x * (nibble - 8) is exact in f32, and each
 //             32-block's partial sum is scaled by its f32 scale with one fmaf
 //             per weight row (the scale is never rounded to bf16 nor folded
@@ -89,6 +97,43 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);
 }
 
+// ---- M = 1, and f32 x at M <= 16: q4_gemv_kernel ----------------------------
+//
+// The weight stream on the CUDA cores. A tile of R * kGemvWarps / S rows is
+// one block's work: each warp R rows (R = 4, 2 or 1 at M = 1, else 1) and one
+// of S slices of their 32-blocks; R and S come from the wrapper's plan
+// (q4_matmul.py:gemv_plan), which picks them from N, K and the SM count so that
+// every SM gets a tile where N and K allow. The grid is as many blocks as the SMs hold at once (at
+// most one a tile), and each block walks tiles blockIdx.x, + gridDim.x, ...
+// A lane takes 32-blocks kb0 + lane, + 32, ...: each load is one 16-byte
+// 32-block, and a warp's load of a row is 512 contiguous bytes. A load group
+// is kGemvSteps such loads for each of the warp's R rows, with their scales;
+// a warp issues the next group's loads (the next tile's, at a tile's end)
+// before it computes the current one, so the stream does not stop while the
+// SM does arithmetic. Then it reads x's 32 values of each block once (through
+// L1, where the SM's warps share them) and dots them with that block of each
+// of its rows. (n - 8) is made exactly without a conversion: __byte_perm puts
+// the nibble under the exponent of 2^23 (the float 2^23 + n), and one
+// subtraction of 2^23 + 8 leaves n - 8. Each product x * (n - 8) is exact in
+// f32, each 32-block's f32 partial is scaled by its f32 scale (fmaf), and a
+// tile's sums meet in shared memory in slice order: no atomics, so a repeat
+// gives the same bits. x as given (bf16 or f32, never rounded). Rows at or
+// past N read row N - 1 and are not stored.
+
+constexpr int kGemvWarps = 8;
+constexpr int kGemvSteps = 1;  // 32-blocks of each row a lane loads in one group
+
+// A slice [kb0, kb1) of K's 32-blocks: S runs of gemv_slice_len blocks, whole
+// multiples of 32, the last one short.
+__device__ __forceinline__ int gemv_slice_len(int nb, int S) {
+  return ((nb + 31) / 32 + S - 1) / S * 32;
+}
+
+__device__ __forceinline__ void gemv_slice(int nb, int S, int slice, int& kb0, int& kb1) {
+  kb0 = min(nb, slice * gemv_slice_len(nb, S));
+  kb1 = min(nb, kb0 + gemv_slice_len(nb, S));
+}
+
 // 32 consecutive x values (one block's worth) into registers.
 __device__ __forceinline__ void load_x32(const __nv_bfloat16* p, float* out) {
   const uint4* p4 = reinterpret_cast<const uint4*>(p);
@@ -117,80 +162,147 @@ __device__ __forceinline__ void load_x32(const float* p, float* out) {
   }
 }
 
-// One packed 32-block (16 bytes) -> 32 signed values (nibble - 8), in
-// element order.
-__device__ __forceinline__ void unpack_block(uint4 pk, float* wv) {
-  const uint32_t words[4] = {pk.x, pk.y, pk.z, pk.w};
+// n - 8 of byte j of v, whose bytes each hold one nibble, exactly: the byte
+// under the exponent bits of 2^23 is the float 2^23 + n.
+__device__ __forceinline__ float nib(uint32_t v, int j) {
+  return __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7650u | j)) - 8388616.0f;
+}
+
+// One packed 32-block -> its 32 values (n - 8), in element order: byte j holds
+// element j low and j + 16 high.
+__device__ __forceinline__ void deq_block(uint4 pk, float* wv) {
+  const uint32_t wd[4] = {pk.x, pk.y, pk.z, pk.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
+    const uint32_t lo = wd[i] & 0x0F0F0F0Fu, hi = (wd[i] >> 4) & 0x0F0F0F0Fu;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const uint32_t byte = (words[i] >> (8 * j)) & 0xFFu;
-      wv[i * 4 + j] = static_cast<float>(byte & 0xFu) - 8.0f;
-      wv[16 + i * 4 + j] = static_cast<float>(byte >> 4) - 8.0f;
+      wv[4 * i + j] = nib(lo, j);
+      wv[16 + 4 * i + j] = nib(hi, j);
     }
   }
 }
 
-constexpr int kGemvWarps = 8;
+__device__ __forceinline__ float dot32(const float* a, const float* b) {
+  float d = 0.0f;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) d = fmaf(a[e], b[e], d);
+  return d;
+}
 
-template <typename TX, typename TY, int MT>
+template <typename TX, typename TY, int MT, int R>
 __global__ void __launch_bounds__(kGemvWarps * 32)
 q4_gemv_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ w,
-               const float* __restrict__ s, TY* __restrict__ y, int M, int N, int K) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * kGemvWarps + warp;
-  if (n >= N) return;  // whole warp leaves together
+               const float* __restrict__ s, TY* __restrict__ y, int M, int N, int K, int S) {
+  __shared__ float red[kGemvWarps][R * MT];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int groups = kGemvWarps / S, grp = warp / S, slice = warp % S;
   const int nb = K >> 5;
-  const uint4* wrow = reinterpret_cast<const uint4*>(w + (size_t)n * (K >> 1));
-  const float* srow = s + (size_t)n * nb;
-  float acc[MT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) acc[m] = 0.0f;
+  int kb0, kb1;
+  gemv_slice(nb, S, slice, kb0, kb1);
+  // The block's warps walk the same items (tile, load group): tiles blockIdx.x,
+  // + gridDim.x, ..., each in the load groups of the longest slice, so that
+  // the block's barriers line up; a short slice's last groups load nothing.
+  const int n_it = (gemv_slice_len(nb, S) + 32 * kGemvSteps - 1) / (32 * kGemvSteps);
+  const int tiles = (N + R * groups - 1) / (R * groups);
 
-  for (int b = lane; b < nb; b += 32) {
-    const uint4 pk = __ldg(wrow + b);
-    const float sc = __ldg(srow + b);
-    float wv[32];
-    unpack_block(pk, wv);
+  const auto load = [&](int tile, int it, uint4 (*qk)[R], float (*qs)[R]) {
+    const int n0 = (tile * groups + grp) * R, b0 = kb0 + it * 32 * kGemvSteps + lane;
 #pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      if (m < M) {
-        float xv[32];
-        load_x32(x + (size_t)m * K + (size_t)b * 32, xv);
-        float d = 0.0f;
+    for (int r = 0; r < R; ++r) {
+      const int n = min(n0 + r, N - 1);
+      const uint4* wr = reinterpret_cast<const uint4*>(w + (size_t)n * (K >> 1));
+      const float* sr = s + (size_t)n * nb;
 #pragma unroll
-        for (int e = 0; e < 32; ++e) d = fmaf(xv[e], wv[e], d);
-        acc[m] = fmaf(d, sc, acc[m]);
+      for (int u = 0; u < kGemvSteps; ++u) {
+        const bool live = tile < tiles && b0 + 32 * u < kb1;
+        qk[u][r] = live ? __ldg(wr + b0 + 32 * u) : make_uint4(0u, 0u, 0u, 0u);
+        qs[u][r] = live ? __ldg(sr + b0 + 32 * u) : 0.0f;
       }
     }
-  }
+  };
+  float acc[R][MT];
 #pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    if (m < M) {
-      float v = acc[m];
+  for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane == 0) y[(size_t)m * N + n] = from_f32<TY>(v);
+    for (int m = 0; m < MT; ++m) acc[r][m] = 0.0f;
+
+  uint4 pk[kGemvSteps][R];
+  float sc[kGemvSteps][R];
+  int tile = blockIdx.x, it = 0;
+  load(tile, it, pk, sc);
+  while (tile < tiles) {
+    int next_tile = tile, next_it = it + 1;
+    if (next_it == n_it) {
+      next_it = 0;
+      next_tile += gridDim.x;
     }
+    uint4 nk[kGemvSteps][R];
+    float ns[kGemvSteps][R];
+    load(next_tile, next_it, nk, ns);  // in flight while this group computes
+#pragma unroll
+    for (int u = 0; u < kGemvSteps; ++u) {
+      const int b = kb0 + it * 32 * kGemvSteps + lane + 32 * u;
+      if (b >= kb1) break;
+      float xv[32], wv[32];
+      if constexpr (MT == 1) {
+        load_x32(x + (size_t)b * 32, xv);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          deq_block(pk[u][r], wv);
+          acc[r][0] = fmaf(dot32(xv, wv), sc[u][r], acc[r][0]);
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          deq_block(pk[u][r], wv);
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            if (m < M) {
+              load_x32(x + (size_t)m * K + (size_t)b * 32, xv);
+              acc[r][m] = fmaf(dot32(xv, wv), sc[u][r], acc[r][m]);
+            }
+          }
+        }
+      }
+    }
+    if (next_it == 0) {  // the tile's sums: across the lanes, then the slices in order
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          float v = acc[r][m];
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+          if (lane == 0) red[warp][r * MT + m] = v;
+          acc[r][m] = 0.0f;
+        }
+      __syncthreads();
+      if (threadIdx.x < groups * R * MT) {
+        const int g = threadIdx.x / (R * MT), q = threadIdx.x % (R * MT);
+        const int r = q / MT, m = q % MT;
+        float v = 0.0f;
+        for (int sl = 0; sl < S; ++sl) v += red[g * S + sl][q];
+        const int n = (tile * groups + g) * R + r;
+        if (n < N && m < M) y[(size_t)m * N + n] = from_f32<TY>(v);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int u = 0; u < kGemvSteps; ++u)
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        pk[u][r] = nk[u][r];
+        sc[u][r] = ns[u][r];
+      }
+    tile = next_tile;
+    it = next_it;
   }
 }
 
 // ---- bf16 x, 2 <= M <= 16: q4_mma_kernel ---------------------------------
 
 constexpr int kMmaWarps = 8;
-constexpr uint32_t kBf16x2_136 = 0x43084308u;  // (136, 136) in bf16
-
-// The nibbles at bits [3:0] and [19:16] of v as the bf16 pair (n_lo - 8,
-// n_hi - 8), exactly: the OR makes 128 + n (exponent 2^7, n in the low
-// mantissa bits), the subtraction of 136 is exact.
-__device__ __forceinline__ uint32_t dq2(uint32_t v) {
-  uint32_t r = (v & 0x000F000Fu) | 0x43004300u, k = kBf16x2_136;
-  __nv_bfloat162 h = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&r),
-                             *reinterpret_cast<__nv_bfloat162*>(&k));
-  return *reinterpret_cast<uint32_t*>(&h);
-}
 
 // d = A (16x16 bf16, row) . B (16x8 bf16, col) + c, f32.
 __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1,
@@ -201,6 +313,18 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b
       : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
         "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+constexpr uint32_t kBf16x2_136 = 0x43084308u;  // (136, 136) in bf16
+
+// The nibbles at bits [3:0] and [19:16] of v as the bf16 pair (n_lo - 8,
+// n_hi - 8), exactly: the OR makes 128 + n (exponent 2^7, n in the low
+// mantissa bits), the subtraction of 136 is exact.
+__device__ __forceinline__ uint32_t dq2(uint32_t v) {
+  uint32_t r = (v & 0x000F000Fu) | 0x43004300u, k = kBf16x2_136;
+  __nv_bfloat162 h = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&r),
+                             *reinterpret_cast<__nv_bfloat162*>(&k));
+  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 // y[M, N] for bf16 x and 2 <= M <= 16; block = 16 * RT weight rows, NT token
@@ -743,57 +867,84 @@ cudaError_t launch_tiled(const __nv_bfloat16* x, const uint8_t* w, const float* 
   return launch_wgmma<TY, 64, 64>(x, w, s, y, M, N, K, st);
 }
 
-template <typename TX, typename TY, int MT>
-void launch_gemv(const void* x, const uint8_t* w, const float* s, void* y, int M, int N,
-                 int K, cudaStream_t st) {
-  dim3 grid((N + kGemvWarps - 1) / kGemvWarps);
-  q4_gemv_kernel<TX, TY, MT><<<grid, kGemvWarps * 32, 0, st>>>(
-      static_cast<const TX*>(x), w, s, static_cast<TY*>(y), M, N, K);
+// As many blocks as the SMs hold at once, at most one a tile: each block walks
+// tiles blockIdx.x, + gridDim.x, ...
+template <typename TX, typename TY, int MT, int R>
+cudaError_t launch_gemv_tiles(const TX* x, const uint8_t* w, const float* s, TY* y, int M, int N,
+                              int K, int S, int tiles, cudaStream_t st) {
+  static int per_sm = 0;  // blocks an SM holds, from the kernel's registers
+  if (per_sm == 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, q4_gemv_kernel<TX, TY, MT, R>, kGemvWarps * 32, 0);
+    if (e != cudaSuccess) return e;
+    per_sm = max(per_sm, 1);
+  }
+  const int grid = min(tiles, per_sm * sm_count());
+  q4_gemv_kernel<TX, TY, MT, R><<<grid, kGemvWarps * 32, 0, st>>>(x, w, s, y, M, N, K, S);
+  return cudaGetLastError();
+}
+
+// The GEMV with the plan's rows a warp (R) and slices a row (S).
+template <typename TX, typename TY>
+cudaError_t launch_gemv(const TX* x, const uint8_t* w, const float* s, TY* y, int M, int N,
+                        int K, int rows, int S, cudaStream_t st) {
+  if (S < 1 || S > kGemvWarps || kGemvWarps % S) return cudaErrorInvalidValue;
+  const int tiles = (N + rows * (kGemvWarps / S) - 1) / (rows * (kGemvWarps / S));
+  if (M == 1) {
+    if (rows == 4) return launch_gemv_tiles<TX, TY, 1, 4>(x, w, s, y, M, N, K, S, tiles, st);
+    if (rows == 2) return launch_gemv_tiles<TX, TY, 1, 2>(x, w, s, y, M, N, K, S, tiles, st);
+    if (rows == 1) return launch_gemv_tiles<TX, TY, 1, 1>(x, w, s, y, M, N, K, S, tiles, st);
+    return cudaErrorInvalidValue;
+  } else if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
+    return cudaErrorInvalidValue;  // bf16 x at M = 2-16 takes the mma route
+  } else {
+    if (rows != 1) return cudaErrorInvalidValue;
+    if (M <= 2) return launch_gemv_tiles<TX, TY, 2, 1>(x, w, s, y, M, N, K, S, tiles, st);
+    if (M <= 4) return launch_gemv_tiles<TX, TY, 4, 1>(x, w, s, y, M, N, K, S, tiles, st);
+    if (M <= 8) return launch_gemv_tiles<TX, TY, 8, 1>(x, w, s, y, M, N, K, S, tiles, st);
+    return launch_gemv_tiles<TX, TY, 16, 1>(x, w, s, y, M, N, K, S, tiles, st);
+  }
 }
 
 template <typename TX, typename TY>
-cudaError_t launch(const void* x, const uint8_t* w, const float* s, void* y, int M, int N, int K,
-                   cudaStream_t st) {
-  if (M <= 1) {
-    launch_gemv<TX, TY, 1>(x, w, s, y, M, N, K, st);
-  } else if (M <= 16) {
-    if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
-      const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
-      TY* yp = static_cast<TY*>(y);
-      if (M <= 8) launch_mma<TY, 1>(xp, w, s, yp, M, N, K, st);
-      else launch_mma<TY, 2>(xp, w, s, yp, M, N, K, st);
-    } else {
-      if (M <= 2) launch_gemv<TX, TY, 2>(x, w, s, y, M, N, K, st);
-      else if (M <= 4) launch_gemv<TX, TY, 4>(x, w, s, y, M, N, K, st);
-      else if (M <= 8) launch_gemv<TX, TY, 8>(x, w, s, y, M, N, K, st);
-      else launch_gemv<TX, TY, 16>(x, w, s, y, M, N, K, st);
-    }
-  } else if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
-    return launch_tiled<TY>(static_cast<const __nv_bfloat16*>(x), w, s, static_cast<TY*>(y), M,
-                            N, K, st);
+cudaError_t launch(const void* xv, const uint8_t* w, const float* s, void* yv, int M, int N,
+                   int K, int rows, int slices, cudaStream_t st) {
+  const TX* x = static_cast<const TX*>(xv);
+  TY* y = static_cast<TY*>(yv);
+  constexpr bool bf16 = std::is_same<TX, __nv_bfloat16>::value;
+  if (M == 1 || (!bf16 && M <= 16))
+    return launch_gemv<TX, TY>(x, w, s, y, M, N, K, rows, slices, st);
+  if constexpr (bf16) {
+    if (M <= 8) launch_mma<TY, 1>(x, w, s, y, M, N, K, st);
+    else if (M <= 16) launch_mma<TY, 2>(x, w, s, y, M, N, K, st);
+    else return launch_tiled<TY>(x, w, s, y, M, N, K, st);
+    return cudaGetLastError();
   } else {
     return cudaErrorInvalidValue;  // the wrapper casts f32 x to bf16 past M = 16
   }
-  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success); 1 (cudaErrorInvalidValue)
-// for arguments the kernel does not take (f32 x at M > 16 among them).
+// for arguments the kernel does not take (f32 x at M > 16 among them). rows
+// and slices are the GEMV routes' plan (q4_matmul.py:gemv_plan): weight rows a
+// warp and slices of K a row; the other routes ignore them.
 extern "C" int q4_matmul(const void* x, int x_dtype, const void* w, const void* scales,
-                         void* y, int y_dtype, int M, int N, int K, void* stream) {
+                         void* y, int y_dtype, int M, int N, int K, int rows, int slices,
+                         void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || (K & 31)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* wp = static_cast<const uint8_t*>(w);
   const float* sp = static_cast<const float*>(scales);
   if (x_dtype == kBF16 && y_dtype == kBF16)
-    return static_cast<int>(launch<__nv_bfloat16, __nv_bfloat16>(x, wp, sp, y, M, N, K, st));
+    return static_cast<int>(launch<__nv_bfloat16, __nv_bfloat16>(x, wp, sp, y, M, N, K, rows,
+                                                                 slices, st));
   if (x_dtype == kBF16 && y_dtype == kF32)
-    return static_cast<int>(launch<__nv_bfloat16, float>(x, wp, sp, y, M, N, K, st));
+    return static_cast<int>(launch<__nv_bfloat16, float>(x, wp, sp, y, M, N, K, rows, slices, st));
   if (x_dtype == kF32 && y_dtype == kBF16)
-    return static_cast<int>(launch<float, __nv_bfloat16>(x, wp, sp, y, M, N, K, st));
+    return static_cast<int>(launch<float, __nv_bfloat16>(x, wp, sp, y, M, N, K, rows, slices, st));
   if (x_dtype == kF32 && y_dtype == kF32)
-    return static_cast<int>(launch<float, float>(x, wp, sp, y, M, N, K, st));
+    return static_cast<int>(launch<float, float>(x, wp, sp, y, M, N, K, rows, slices, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -44,7 +44,7 @@ def q8_tie_inputs(n_groups=3125, block=32, seed=0):
 
 
 # M = 2..16 with bf16 x takes the tensor-core route (both token tiles, ragged
-# ones), M = 1 and f32 x the GEMV, M > 16 the wgmma route (f32 x cast to bf16
+# ones), M = 1 and f32 x the GEMV routes, M > 16 the wgmma route (f32 x cast to bf16
 # by the wrapper); N not a multiple of 16; K = 96 (3 blocks, fewer than the 8
 # warps; half a 64-wide K step at the end), 2048 and 14336; a tuple is x's
 # leading dims. Past M = 16: the 1B prefill's wqkv at M = 511, w2 at 512, a
@@ -119,6 +119,47 @@ def test_q4_matmul_both_m16_routes_launch(cuda):
         ref = q4_matmul_plain(xi, w.data, w.scales, torch.float32)
         torch.cuda.synchronize()
         assert (got.float() - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+# The GEMV routes (bf16 x at M = 1 on the tensor cores, f32 x at M <= 16 on
+# the CUDA cores): Llama-3.2-1B's decode shapes at M = 1, ragged N (1, 96,
+# 1000: half tiles, rows past N), K tails that fill no step or slice (32, 96,
+# 800) and the 8B w2's 14336, f32 x at M = 2, 5 and 16. Each is held to the
+# plain version (f32 out: 1e-4 of max|ref|, the f32 sums in another order; bf16
+# out: that plus one bf16 ulp of the value), counts one launch a call, and
+# gives the same bits on a second call.
+GEMV_CASES = [(1, 3072, 2048), (1, 16384, 2048), (1, 2048, 8192), (1, 1, 2048), (1, 96, 2048),
+              (1, 1000, 2048), (1, 300, 32), (1, 100, 96), (1, 1000, 800), (1, 512, 14336),
+              (2, 1000, 2048), (5, 96, 800), (16, 1000, 2048), (16, 64, 14336), (5, 1, 32)]
+
+
+@pytest.mark.parametrize("m,n,k,x_dtype,out_dtype", [
+    (m, n, k, xd, od) for m, n, k in GEMV_CASES
+    for xd, od in ((torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+                   (torch.float32, torch.float32), (torch.float32, torch.bfloat16))
+    if m == 1 or xd == torch.float32])  # bf16 x at M > 1 takes the mma route (above)
+def test_q4_gemv_routes_match_plain_and_repeat(cuda, m, n, k, x_dtype, out_dtype):
+    from jlama_tpu_torch.nn.qarray import QArray
+    from jlama_tpu_torch.ops.q4_matmul import q4_matmul, q4_matmul_plain, takes_gemv
+
+    assert takes_gemv(m, x_dtype)
+    g = torch.Generator(device=cuda).manual_seed(m * n + k)
+    w = QArray(torch.randint(0, 256, (n, k // 2), generator=g, device=cuda, dtype=torch.uint8),
+               (torch.rand((n, k // 32), generator=g, device=cuda) + 0.5) * 0.0043)
+    x = torch.randn((m, k), generator=g, device=cuda).to(x_dtype)
+    before = q4_matmul.launches
+    got = q4_matmul(x, w, out_dtype)
+    assert q4_matmul.launches == before + 1 and got.dtype == out_dtype
+    assert got.shape == (m, n)
+    ref = q4_matmul_plain(x, w.data, w.scales, torch.float32)
+    torch.cuda.synchronize()
+    lim = 1e-4 * ref.abs().max().item()
+    if out_dtype == torch.bfloat16:
+        lim = lim + 2.0 ** -7 * ref.abs()
+    assert bool(((got.float() - ref).abs() <= lim).all())
+    again = q4_matmul(x, w, out_dtype)
+    assert q4_matmul.launches == before + 2
+    assert torch.equal(again, got)
 
 
 def test_q8_quantize_on_card_equals_cpu(cuda):
