@@ -37,8 +37,16 @@ Phases, each fatal on failure (exit code 1, no result line):
               Engine's dense cache, one 2,048-slot row with 640 live keys cut
               to a 1,024-slot window, with SDPA on its live prefix as the
               library call; each bit-equal on a repeat, with the host time of
-              one wrapper call), K4 KV write (decode, a 256-token
-              prefill chunk, bf16 and q8 pools, and the Engine's dense cache),
+              one wrapper call), K4 KV write with RoPE on q and k fused
+              (q, k, v the split views of one QKV output: the 16-slot
+              decode, a 256-token prefill chunk of 4 rows, bf16 and q8
+              pools, the Engine's dense cache at T = 1 and 512, head size
+              128 and 256; q_rot and float pools exact, q8 within 1 code
+              and 1 ulp, bit-equal on a repeat; beside it the unfused chain
+              of two apply_rope calls and K4 without RoPE, the parent
+              tree's chain as PyTorch calls (two apply_rope, two
+              index_put_) and an empty launch; and the write alone, without
+              RoPE, at the first cases' shapes),
               K5 W4A8 matmul (Llama-3.2-1B's wqkv, wo, w13, w2 at M = 1, 16,
               256, 512, w13 and w2 at M = 2, 4, 8, 13, the f32-out lm_head at
               M = 1, 16, Llama-3.1-8B's w2 and an uneven N; on either route
@@ -58,15 +66,18 @@ Phases, each fatal on failure (exit code 1, no result line):
               128 new tokens, a resume of that session, and five
               time-to-first-token runs; the kernels' launch counters must
               match the path's expected counts (K2 takes each decode step's
-              attention on the dense cache); then the prefill logits of a
+              attention on the dense cache), and nn.layers.apply_rope must
+              not run on the card (K4 rotates q and k on every cached path,
+              here and in phases 5-7); then the prefill logits of a
               short prompt are held against the same weights run through the
               plain path on the CPU (relative L2 error < 5e-2, bf16
               activations on the card against f32 on the CPU), and so are
               the logits of a 16-token prefill and 8 decode steps through
               the dense cache (bf16 on the card, K2 for each step);
   5. profile - torch.profiler's device time by kernel and kernel group,
-              device operations and the device's busy share for a 512-token
-              prefill and for 32 decode steps of the Engine path; the decode
+              device operations (per token too) and the device's busy share
+              for a 512-token prefill and for 32 decode steps of the Engine
+              path; the decode
               window must run none of the library kernels the dense
               attention ran before K2 took it (DENSE_ATTN_NAMES);
   6. serving - Llama-3.2-1B through BatchScheduler with the CLI's serving
@@ -748,20 +759,35 @@ def _q8_close(torch, a, b) -> tuple[int, int]:
 
 
 def check_k4(torch, timer, details):
+    """K4 against its plain version. The RoPE cases are the main path's call
+    (q, k and v as the split views of one fused QKV output, rotated by
+    cos/sin, q_rot returned): each also against the unfused chain (two
+    `apply_rope` and K4 without RoPE), the parent tree's chain as PyTorch
+    calls where the pool is float (two `apply_rope` and one `index_put_` per
+    pool: the yardstick) and an empty launch after the same flush. The cases
+    without RoPE are the write alone (models without RoPE)."""
     from jlama_tpu_torch.utils.cuda_timer import bound
     from jlama_tpu_torch.nn.qarray import QArray
+    from jlama_tpu_torch.nn.rope import apply_rope
     from jlama_tpu_torch.ops.kv_write import (
         _slots, dense_page_table, dense_pool_view, kv_write, kv_write_plain)
 
-    n_kv, hd = 8, 64
+    H, n_kv = 32, 8
     g = torch.Generator(device="cuda").manual_seed(5)
     gc = torch.Generator().manual_seed(5)
+    empty_ms = timer(lambda: torch.cuda._sleep(1))
     worst = 0.0
     main = None
-    cases = [("decode", 16, 1, "bf16"), ("decode", 16, 1, "q8"),
-             ("prefill chunk", 4, 256, "bf16"), ("prefill chunk", 4, 256, "q8"),
-             ("engine dense", 1, 1, "bf16"), ("engine dense", 1, 512, "bf16")]
-    for label, B, T, kind in cases:
+    cases = [  # (label, B, T, hd, pool kind, RoPE)
+        ("decode", 16, 1, 64, "bf16", True), ("decode", 16, 1, 64, "q8", True),
+        ("prefill chunk", 4, 256, 64, "bf16", True), ("prefill chunk", 4, 256, 64, "q8", True),
+        ("engine dense", 1, 1, 64, "bf16", True), ("engine dense", 1, 512, 64, "bf16", True),
+        ("decode hd128", 16, 1, 128, "bf16", True), ("decode hd256", 16, 1, 256, "bf16", True),
+        ("decode", 16, 1, 64, "bf16", False), ("decode", 16, 1, 64, "q8", False),
+        ("prefill chunk", 4, 256, 64, "bf16", False), ("prefill chunk", 4, 256, 64, "q8", False),
+        ("engine dense", 1, 1, 64, "bf16", False), ("engine dense", 1, 512, 64, "bf16", False)]
+    print(f"K4: an empty launch after the flush {empty_ms:.4f} ms", flush=True)
+    for label, B, T, hd, kind, rope in cases:
         if label == "engine dense":
             S = 2048
             caches = [torch.randn((B, n_kv, S, hd), generator=g, device="cuda").to(torch.bfloat16)
@@ -783,65 +809,108 @@ def check_k4(torch, timer, details):
                 p0 = torch.randint(0, P_MAX * PAGE - T, (B,), generator=gc).cuda()
                 pos = p0[:, None] + torch.arange(T, device="cuda")[None, :]
                 scratch = False
-        kn = torch.randn((B, T, n_kv, hd), generator=g, device="cuda").to(torch.bfloat16)
-        vn = torch.randn((B, T, n_kv, hd), generator=g, device="cuda").to(torch.bfloat16)
+        qkv = torch.randn((B, T, (H + 2 * n_kv) * hd), generator=g, device="cuda").to(
+            torch.bfloat16)
+        q, kn, vn = qkv.split((H * hd, n_kv * hd, n_kv * hd), dim=-1)
+        q, kn, vn = q.reshape(B, T, H, hd), kn.reshape(B, T, n_kv, hd), vn.reshape(B, T, n_kv, hd)
+        inv = 1.0 / (500000.0 ** (torch.arange(0, hd, 2, device="cuda").float() / hd))
+        ang = pos[..., None].float() * inv
+        rot = dict(q=q, cos=torch.cos(ang), sin=torch.sin(ang)) if rope else {}
 
         def clone(p):
             if isinstance(p, QArray):
                 return QArray(p.data.clone(), p.scales.clone(), "q8")
             return p.clone()
 
-        mine = [clone(p) for p in pools]
-        plain = [clone(p) for p in pools]
-        kv_write(mine[0], mine[1], kn, vn, pt, pos)
-        kv_write_plain(plain[0], plain[1], kn, vn, pt, pos)
+        mine, again, plain = ([clone(p) for p in pools] for _ in range(3))
+        got = kv_write(mine[0], mine[1], kn, vn, pt, pos, **rot)
+        rep = kv_write(again[0], again[1], kn, vn, pt, pos, **rot)
+        ref = kv_write_plain(plain[0], plain[1], kn, vn, pt, pos, **rot)
         torch.cuda.synchronize()
         live = slice(1, None) if scratch else slice(None)  # page 0: racing pad writes
+        bit_equal = not rope or torch.equal(rep, got)
+        if rope and not torch.equal(got, ref):
+            fail(f"K4 {label} hd={hd} B={B} T={T}: q_rot differs from the plain version by "
+                 f"{(got.float() - ref.float()).abs().max().item()} (must be exact)")
         if kind == "q8":
             dd, du = 0, 0
-            for a, b in zip(mine, plain):
+            for a, b, c in zip(mine, plain, again):
                 x, y = _q8_close(torch, QArray(a.data[:, live], a.scales[:, live], "q8"),
                                  QArray(b.data[:, live], b.scales[:, live], "q8"))
                 dd, du = max(dd, x), max(du, y)
+                bit_equal &= torch.equal(a.data[:, live], c.data[:, live]) \
+                    and torch.equal(a.scales[:, live], c.scales[:, live])
             err = float(dd)
             if dd > 1 or du > 1:
                 fail(f"K4 {label} q8 B={B} T={T}: payload differs by {dd}, scales by {du} ulp")
         else:
             err = max((a[:, live].float() - b[:, live].float()).abs().max().item()
                       for a, b in zip(mine, plain))
+            bit_equal &= all(torch.equal(a[:, live], c[:, live]) for a, c in zip(mine, again))
             if err != 0.0:
                 fail(f"K4 {label} {kind} B={B} T={T}: max_abs_err {err} (must be exact)")
+        if not bit_equal:
+            fail(f"K4 {label} {kind} hd={hd} B={B} T={T}: a repeat is not equal bit for bit")
         worst = max(worst, err)
-        ms = timer(lambda: kv_write(mine[0], mine[1], kn, vn, pt, pos))
-        plain_ms = timer(lambda: kv_write_plain(plain[0], plain[1], kn, vn, pt, pos))
-        lib_ms = None
-        if kind == "bf16":  # one index_put_ per pool: the PyTorch call for this write
-            pages, offs, _ = _slots(pt, pos, pools[0].shape[2])
-            rk = kn.reshape(B * T, n_kv, hd).transpose(0, 1)
+        ms = timer(lambda: kv_write(mine[0], mine[1], kn, vn, pt, pos, **rot))
+        plain_ms = timer(lambda: kv_write_plain(plain[0], plain[1], kn, vn, pt, pos, **rot))
+        host_us = _host_us(torch, lambda: kv_write(mine[0], mine[1], kn, vn, pt, pos, **rot))
+        unfused_ms = yard_ms = lib_ms = None
+        pages, offs, _ = _slots(pt, pos, pools[0].shape[2] if kind != "q8" else PAGE)
+        if rope:  # the chain before the fusion: RoPE as ATen calls, then K4 alone
+
+            def unfused():
+                apply_rope(q, rot["cos"], rot["sin"])
+                kv_write(mine[0], mine[1], apply_rope(kn, rot["cos"], rot["sin"]), vn, pt, pos)
+
+            unfused_ms = timer(unfused)
+        if kind == "bf16":  # one index_put_ per pool, after RoPE as ATen calls where it runs
             rv = vn.reshape(B * T, n_kv, hd).transpose(0, 1)
 
             def lib():
-                plain[0][:, pages, offs] = rk
+                k = apply_rope(kn, rot["cos"], rot["sin"]) if rope else kn
+                if rope:
+                    apply_rope(q, rot["cos"], rot["sin"])
+                plain[0][:, pages, offs] = k.reshape(B * T, n_kv, hd).transpose(0, 1)
                 plain[1][:, pages, offs] = rv
 
-            lib_ms = timer(lib)
-        # K and V: each bf16 row read once, its pool slot (payload and q8
-        # scales) written once
-        nbytes = 2 * B * T * n_kv * (hd * 2 + _kv_bytes_per_key(kind, hd))
-        b_ms, b_by = bound(nbytes, 0.0)
-        row = dict(kernel="kv_write", case=label, pool=kind, B=B, T=T, n_kv=n_kv, hd=hd,
-                   max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=b_ms, bound_by=b_by)
+            if rope:
+                yard_ms = timer(lib)
+            else:
+                lib_ms = timer(lib)
+        # each input read once (q, k, v, cos/sin, positions, one page-table
+        # entry a row), each output written once (q_rot, the pool slots with
+        # their q8 scales); the rotation's 6 operations a pair
+        rows = B * T
+        nbytes = rows * (2 * n_kv * (hd * 2 + _kv_bytes_per_key(kind, hd)) + 8 + 4)
+        ops = 0.0
+        if rope:
+            nbytes += rows * (2 * H * hd * 2 + 2 * (hd // 2) * 4)
+            ops = rows * (H + n_kv) * (hd // 2) * 6.0
+        b_ms, b_by = bound(nbytes, ops)
+        row = dict(kernel="kv_write", case=label, pool=kind, rope=rope, B=B, T=T,
+                   H=H if rope else 0, n_kv=n_kv, hd=hd, max_abs_err=err,
+                   bit_equal_repeat=bit_equal, ms=ms,
+                   plain_ms=plain_ms, unfused_ms=unfused_ms, yardstick_ms=yard_ms,
+                   library_ms=lib_ms, empty_launch_ms=empty_ms, bound_ms=b_ms, bound_by=b_by,
+                   host_us=host_us)
         details.append(row)
         main = main or row
-        print(f"K4 {label:13s} {kind:4s} B={B:2d} T={T:3d}: {ms:.4f} ms (plain {plain_ms:.4f}, "
-              f"index_put_ x2 {lib_ms}, bound {b_ms:.5f} by {b_by}) err {err:.3g}", flush=True)
+        print(f"K4 {label:13s} {kind:4s} {'rope' if rope else 'kv  '} hd={hd:3d} B={B:2d} "
+              f"T={T:3d}: {ms:.4f} ms (plain {plain_ms:.4f}, unfused apply_rope x2 + K4 "
+              f"{unfused_ms}, yardstick apply_rope x2 + index_put_ x2 {yard_ms}, index_put_ x2 "
+              f"{lib_ms}, empty launch {empty_ms:.4f}, bound {b_ms:.5f} by {b_by}) err "
+              f"{err:.3g}, bit-equal repeat, host {host_us:.1f} us a call", flush=True)
     L = 16
-    return dict(ms=main["ms"] * L, plain_ms=main["plain_ms"] * L,
-                library_ms=main["library_ms"] * L, bound_ms=main["bound_ms"] * L,
-                bound_by="bytes", max_abs_err=worst,
-                work=f"one 16-slot decode step: {L} launches at B=16, T=1, n_kv=8, hd=64, "
-                     "bf16 pool; library_ms: one index_put_ per pool")
+    return dict(ms=main["ms"] * L, plain_ms=main["plain_ms"] * L, library_ms=None,
+                yardstick_ms=main["yardstick_ms"] * L, unfused_ms=main["unfused_ms"] * L,
+                empty_launch_ms=empty_ms, bound_ms=main["bound_ms"] * L, bound_by=main["bound_by"],
+                max_abs_err=worst, host_us=main["host_us"],
+                work=f"one 16-slot decode step: {L} launches at B=16, T=1, H=32, n_kv=8, hd=64, "
+                     "bf16 pool, RoPE on q and k fused; library: none (no one PyTorch call "
+                     "rotates and writes a paged pool); yardstick: the parent tree's chain as "
+                     "PyTorch calls, apply_rope x2 and one index_put_ per pool; unfused: "
+                     "apply_rope x2 and K4 without RoPE")
 
 
 def main_path(torch, card_note):
@@ -870,6 +939,7 @@ def main_path(torch, card_note):
 
     for k in (q4_matmul, flash_prefill, paged_decode, kv_write):
         k.launches = 0
+    _unfused_rope_calls(reset=True)
     ttfts, firsts = [], []
     for i in range(N_TTFT):  # each a new session: prefill + first token
         t1 = time.perf_counter()
@@ -883,6 +953,9 @@ def main_path(torch, card_note):
     torch.cuda.synchronize()
     launches = {"q4_matmul": q4_matmul.launches, "flash_prefill": flash_prefill.launches,
                 "kv_write": kv_write.launches, "paged_decode": paged_decode.launches}
+    if _unfused_rope_calls():
+        fail(f"engine path: apply_rope ran {_unfused_rope_calls()} times on the card apart "
+             "from K4 (a cached path rotates q and k in K4 only)")
 
     n_prefill, n_decode = N_TTFT + 2, N_TTFT + 128 + 32
     per_layer_k1 = 4
@@ -978,6 +1051,7 @@ def profile_path(torch, eng, prompt) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
+    _unfused_rope_calls(reset=True)
     for label, ids, n in (("prefill 511 + first token", prompt, 1),
                           ("decode 32 tokens", [], 32)):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1005,15 +1079,44 @@ def profile_path(torch, eng, prompt) -> dict:
         if n > 1 and dense_attn:
             fail(f"profile {label}: the dense attention's library kernels ran: {dense_attn}")
         n_ops = sum(c for _, c, _ in kernels)
+        if _unfused_rope_calls():
+            fail(f"profile {label}: apply_rope ran {_unfused_rope_calls()} times on the card "
+                 "apart from K4")
         out[label] = dict(wall_ms=wall_ms, device_ms=dev_ms, busy_share=dev_ms / wall_ms,
-                          device_ops=n_ops, by_group_ms=groups,
+                          device_ops=n_ops, device_ops_per_token=n_ops / n, by_group_ms=groups,
                           top=[dict(ms=ms, count=c, kernel=key[:90]) for ms, c, key in kernels[:12]])
         print(f"profile {label}: wall {wall_ms:.2f} ms (profiler on), device {dev_ms:.2f} ms, "
-              f"busy share {dev_ms / wall_ms:.3f}, {n_ops} device ops; by group "
+              f"busy share {dev_ms / wall_ms:.3f}, {n_ops} device ops ({n_ops / n:.1f} per "
+              f"token); by group "
               + ", ".join(f"{g} {v:.2f} ms" for g, v in groups.items()), flush=True)
         for ms, c, key in kernels[:12]:
             print(f"  {ms:8.3f} ms {c:6d}x {key[:90]}")
     return out
+
+
+def _count_unfused_rope() -> None:
+    """Wrap `nn.layers.apply_rope`, the RoPE that runs apart from K4 (on the
+    path without a cache), in a counter of its calls on the card. Phases 4-7
+    drive only cached paths, where K4 rotates q and k: they must make none."""
+    from jlama_tpu_torch.nn import layers
+
+    inner = layers.apply_rope
+
+    def apply_rope(x, cos, sin):
+        apply_rope.calls += x.is_cuda
+        return inner(x, cos, sin)
+
+    apply_rope.calls = 0
+    layers.apply_rope = apply_rope
+
+
+def _unfused_rope_calls(reset: bool = False) -> int:
+    from jlama_tpu_torch.nn import layers
+
+    n = layers.apply_rope.calls
+    if reset:
+        layers.apply_rope.calls = 0
+    return n
 
 
 SERVE = dict(n_slots=16, n_pages=512, page_size=64, prefill_chunk=256, decode_lag=4,
@@ -1034,6 +1137,7 @@ def _kernel_fns():
 def _reset_counts(sched):
     for fn in _kernel_fns().values():
         fn.launches = 0
+    _unfused_rope_calls(reset=True)
     sched.n_prefill_calls = sched.n_decode_steps = 0
 
 
@@ -1047,10 +1151,13 @@ def _check_counts(sched, cfg, label, matmul="q4_matmul") -> dict:
     other = "w8a8_matmul" if matmul == "q4_matmul" else "q4_matmul"
     expect = {matmul: n_pf * 4 * L + n_dec * (4 * L + 1), other: 0, "paged_decode": n_dec * L,
               "flash_prefill": n_pf * L, "kv_write": (n_pf + n_dec) * L}
+    rope = _unfused_rope_calls()
     print(f"{label}: {n_pf} prefill calls, {n_dec} decode steps; launches {got}, "
-          f"expected {expect}", flush=True)
+          f"expected {expect}; apply_rope apart from K4 {rope} times (expected 0)", flush=True)
     if got != expect or min(v for k, v in got.items() if k != other) == 0:
         fail(f"{label}: launch counts {got} != expected {expect}")
+    if rope:
+        fail(f"{label}: apply_rope ran {rope} times on the card apart from K4")
     return dict(got, prefill_calls=n_pf, decode_steps=n_dec)
 
 
@@ -1328,6 +1435,7 @@ def _serving_profile(torch, sched, cfg, ids) -> dict:
     while not all(r.state == RequestState.RUNNING and r.out_ids for r in reqs):
         sched.step()
     torch.cuda.synchronize()
+    _unfused_rope_calls(reset=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         n0 = sched.n_decode_steps
@@ -1359,9 +1467,13 @@ def _serving_profile(torch, sched, cfg, ids) -> dict:
             k5[name] = dict(ms=k5.get(name, {}).get("ms", 0.0) + ms,
                             count=k5.get(name, {}).get("count", 0) + c)
     n_ops = sum(c for _, c, _ in kernels)
+    if _unfused_rope_calls():
+        fail(f"serving profile: apply_rope ran {_unfused_rope_calls()} times on the card apart "
+             "from K4")
     print(f"profile serving decode, {n_steps} steps at 16 slots: wall {wall_ms:.2f} ms "
           f"(profiler on), device {dev_ms:.2f} ms, busy share {dev_ms / wall_ms:.3f}, "
-          f"{n_ops} device ops ({n_ops / n_steps:.0f} per step); by group "
+          f"{n_ops} device ops ({n_ops / n_steps:.1f} per step, {n_ops / n_steps / 16:.1f} per "
+          f"token); by group "
           + ", ".join(f"{k} {v:.2f} ms" for k, v in groups.items()), flush=True)
     for ms, c, key in kernels[:12]:
         print(f"  {ms:8.3f} ms {c:6d}x {key[:90]}")
@@ -1369,7 +1481,8 @@ def _serving_profile(torch, sched, cfg, ids) -> dict:
         print("  K5 by kernel: " + ", ".join(f"{k} {v['ms']:.2f} ms ({v['count']}x)"
                                            for k, v in k5.items()), flush=True)
     return dict(steps=n_steps, wall_ms=wall_ms, device_ms=dev_ms, busy_share=dev_ms / wall_ms,
-                device_ops=n_ops, by_group_ms=groups, k5_kernels=k5,
+                device_ops=n_ops, device_ops_per_step=n_ops / n_steps, by_group_ms=groups,
+                k5_kernels=k5,
                 top=[dict(ms=ms, count=c, kernel=key[:90]) for ms, c, key in kernels[:12]])
 
 
@@ -1573,6 +1686,7 @@ def main() -> None:
             "w8a8_matmul": check_k5(torch, timer, details)}
     del timer
     # 4. and 5. the Engine path and where its time goes
+    _count_unfused_rope()
     engine_launches, e2e, (eng, prompt) = main_path(torch, smi)
     out["engine"] = e2e
     out["profile"] = profile_path(torch, eng, prompt)

@@ -12,7 +12,8 @@ scales [..., head_size / blk] with blk = 32, or head_size where 32 does not
 divide it.
 
 Difference from the JAX package: the pools are updated in place (torch
-tensors are mutable), by the K4 kernel (`ops/kv_write.py`); a layer's pool is
+tensors are mutable), by the K4 kernel (`ops/kv_write.py`), which also
+applies RoPE to q and k in the same launch; a layer's pool is
 a view of the stacked pool, so the forward pass takes a per-layer list of
 views (`PagedKVCache.layer_states`) and nothing is copied.
 """
@@ -169,11 +170,18 @@ def write_kv_layer(
     v_new: torch.Tensor,
     page_tables: torch.Tensor,  # [B, P] int32
     positions: torch.Tensor,  # [B, T] absolute token positions
-) -> None:
+    *,
+    q: torch.Tensor | None = None,  # [B, T, H, hd]
+    cos: torch.Tensor | None = None,  # [B, T, hd/2] f32
+    sin: torch.Tensor | None = None,
+) -> torch.Tensor | None:
     """Write the new K/V rows into the pool at their (page, offset) slots, in
     place, in one K4 launch; q8 pools quantize each row per block in the
-    same pass (the JAX function returns new pools; this one mutates)."""
-    kv_write(k_pool, v_pool, k_new, v_new, page_tables, positions)
+    same pass (the JAX function returns new pools; this one mutates). With
+    cos/sin the same launch first rotates q and k (the JAX package's
+    `apply_rope` on both before its write) and returns the rotated q; else q
+    comes back as it was given."""
+    return kv_write(k_pool, v_pool, k_new, v_new, page_tables, positions, q=q, cos=cos, sin=sin)
 
 
 def gather_pool(pool, page_tables: torch.Tensor, dtype) -> torch.Tensor:

@@ -10,9 +10,13 @@ Conventions, as in the JAX package:
 
 Difference from the JAX package: caches are written in place, by the K4
 kernel (`ops/kv_write.py`), since torch tensors are mutable and the write
-then costs only the T new rows; the dense cache is a pool of B pages of S
-slots to it, and to K2, which takes its T = 1 attention (the JAX package's
-dense decode runs the masked dense path there).
+then costs only the T new rows; the same launch applies RoPE to q and k
+(the JAX package's two `apply_rope` calls before its write, which XLA fuses
+with it), so a layer with a cache runs no separate RoPE. The dense cache is
+a pool of B pages of S slots to K4, and to K2, which takes its T = 1
+attention (the JAX package's dense decode runs the masked dense path
+there). Only the path without a cache (perplexity windows) calls
+`apply_rope` on its own.
 """
 
 from __future__ import annotations
@@ -168,6 +172,7 @@ def self_attention_block(
     attn_window: int | None = None,
 ) -> tuple[torch.Tensor, KVLayerCache | None]:
     """QKV projections, RoPE, cache update, attention, output projection.
+    With a cache, RoPE and the cache update are one K4 launch.
 
     attn_window: upper bound on the live context (bucketed by the caller);
     attention then reads only that prefix of the cache (a view here).
@@ -188,19 +193,21 @@ def self_attention_block(
     k = k.reshape(B, T, cfg.n_kv_heads, hd)
     v = v.reshape(B, T, cfg.n_kv_heads, hd)
 
-    if cos is not None:
+    if cache is None and cos is not None:  # nothing to write: RoPE on its own
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
     if isinstance(cache, PagedLayerCache):
-        out = _paged_attention(q, k, v, cache, cfg, positions, sliding_window, attn_window)
+        out = _paged_attention(q, k, v, cache, cfg, positions, sliding_window, attn_window,
+                               cos, sin)
         out = out.reshape(B, T, cfg.n_heads * hd)
         return linear(out, params["wo"], params.get("wo.bias")), cache
 
     if cache is not None:
-        # K4 on the dense cache: B pages of S slots, row b on page b
-        kv_write(dense_pool_view(cache.k), dense_pool_view(cache.v), k, v,
-                 dense_page_table(B, k.device), positions)
+        # K4 on the dense cache (B pages of S slots, row b on page b): RoPE
+        # on q and k and the write, one launch
+        q = kv_write(dense_pool_view(cache.k), dense_pool_view(cache.v), k, v,
+                     dense_page_table(B, k.device), positions, q=q, cos=cos, sin=sin)
         k_att, v_att = cache.k, cache.v
         if attn_window is not None and attn_window < k_att.shape[2]:
             k_att = k_att[:, :, :attn_window]
@@ -241,13 +248,15 @@ def self_attention_block(
 
 
 def _paged_attention(q, k, v, cache: PagedLayerCache, cfg: ModelConfig, positions,
-                     sliding_window, attn_window) -> torch.Tensor:
-    """The paged branch (`jlama_tpu/nn/layers.py:258-393`): write the new
-    rows into the pool (K4), then T == 1 takes K2 over the live pages, T > 1
-    takes K3 over the gathered live window, and what neither kernel is built
-    for takes the dense masked path. q [B, T, H, hd] -> [B, T, H, hd]."""
+                     sliding_window, attn_window, cos, sin) -> torch.Tensor:
+    """The paged branch (`jlama_tpu/nn/layers.py:255-393`): rotate q and k
+    and write the new rows into the pool (one K4 launch), then T == 1 takes
+    K2 over the live pages, T > 1 takes K3 over the gathered live window,
+    and what neither kernel is built for takes the dense masked path. q, k
+    before RoPE; q [B, T, H, hd] -> [B, T, H, hd]."""
     B, T, H, hd = q.shape
-    write_kv_layer(cache.k_pool, cache.v_pool, k, v, cache.page_tables, positions)
+    q = write_kv_layer(cache.k_pool, cache.v_pool, k, v, cache.page_tables, positions, q=q,
+                       cos=cos, sin=sin)
     ps = page_size_of(cache.k_pool)
     page_tables = cache.page_tables
     if attn_window is not None:

@@ -477,6 +477,81 @@ def test_kv_write_kernel_dense_engine_view(cuda):
     assert torch.equal(cache, ref)
 
 
+# K4 with RoPE fused, at the main path's shapes (32 query heads, 8 KV heads):
+# label -> (B, T, hd, dense). "decode": 16 ragged slots, the empty ones on the
+# scratch page; "chunk": 4 rows of a 256-token prefill chunk, one running past
+# its page table; "dense": the Engine's cache, one row of 2,048 slots
+K4_ROPE_CASES = {"decode": (16, 1, 64, False), "chunk": (4, 256, 64, False),
+                 "dense T1": (1, 1, 64, True), "dense T512": (1, 512, 64, True),
+                 "hd128": (16, 1, 128, False), "hd256": (16, 1, 256, False)}
+K4_DECODE_LENGTHS = [1, 2048, 1500, 1024, 777, 64, 65, 300, 2000, 129, 1, 513, 1800, 256, 999,
+                     1234]
+
+
+@pytest.mark.parametrize("case,kind", [(c, k) for c, (_, _, _, dense) in K4_ROPE_CASES.items()
+                                       for k in (("f32", "bf16") if dense
+                                                 else ("f32", "bf16", "q8"))])
+@pytest.mark.parametrize("act", [torch.bfloat16, torch.float32])
+def test_kv_write_rope_kernel_matches_plain(cuda, case, kind, act):
+    """q, k, v as the split views of one fused QKV output: one launch per
+    call; q_rot and float pools equal to the plain version (`apply_rope`,
+    then the plain write) bit for bit, q8 payloads within 1 code and scales
+    within 1 ulp; a repeat equal bit for bit."""
+    from jlama_tpu_torch.nn.qarray import QArray
+    from jlama_tpu_torch.ops.kv_write import (
+        dense_page_table, dense_pool_view, kv_write, kv_write_plain)
+
+    B, T, hd, dense = K4_ROPE_CASES[case]
+    H, n_kv, ps = 32, 8, 64
+    g = torch.Generator(device=cuda).manual_seed(B * T + hd)
+    if dense:
+        pools = [dense_pool_view(c) for c in _pools(cuda, kind, (B, n_kv, 2048, hd), g)]
+        pt = dense_page_table(B, cuda)
+        pos = ((700 if T == 1 else 0) + torch.arange(T, device=cuda))[None, :].expand(B, T)
+    else:
+        P = 32
+        pools = _pools(cuda, kind, (n_kv, 16 * P + 1, ps, hd), g)
+        if T == 1:
+            pt = _k2_page_tables(cuda, K4_DECODE_LENGTHS, P, ps, 16 * P + 1)
+            pos = (torch.tensor(K4_DECODE_LENGTHS, device=cuda) - 1)[:, None]
+        else:
+            pt = (torch.randperm(16 * P, device=cuda)[: B * P] + 1).to(torch.int32)
+            pt = pt.reshape(B, P)
+            start = torch.tensor([0, 300, 1500, P * ps - T + 40], device=cuda)
+            pos = start[:, None] + torch.arange(T, device=cuda)[None, :]
+    qkv = torch.randn((B, T, (H + 2 * n_kv) * hd), generator=g, device=cuda).to(act)
+    q, k, v = qkv.split((H * hd, n_kv * hd, n_kv * hd), dim=-1)
+    q, k, v = q.reshape(B, T, H, hd), k.reshape(B, T, n_kv, hd), v.reshape(B, T, n_kv, hd)
+    inv = 1.0 / (500000.0 ** (torch.arange(0, hd, 2, device=cuda, dtype=torch.float32) / hd))
+    ang = pos[..., None].float() * inv
+    cos, sin = torch.cos(ang), torch.sin(ang)
+
+    def clone(p):
+        return QArray(p.data.clone(), p.scales.clone(), "q8") if isinstance(p, QArray) \
+            else p.clone()
+
+    mine, again, plain = ([clone(p) for p in pools] for _ in range(3))
+    before = kv_write.launches
+    got = kv_write(*mine, k, v, pt, pos, q=q, cos=cos, sin=sin)
+    assert kv_write.launches == before + 1
+    rep = kv_write(*again, k, v, pt, pos, q=q, cos=cos, sin=sin)
+    ref = kv_write_plain(*plain, k, v, pt, pos, q=q, cos=cos, sin=sin)
+    torch.cuda.synchronize()
+    assert got.shape == (B, T, H, hd) and got.dtype == act and got.is_contiguous()
+    assert torch.equal(got, ref) and torch.equal(rep, got)
+    live = slice(None) if dense or T > 1 else slice(1, None)  # page 0: racing pad writes
+    for a, b, c in zip(mine, plain, again):
+        if kind == "q8":
+            dd = (a.data[:, live].int() - b.data[:, live].int()).abs().max().item()
+            du = (a.scales[:, live].view(torch.int32).long()
+                  - b.scales[:, live].view(torch.int32).long()).abs().max().item()
+            assert dd <= 1 and du <= 1
+            assert torch.equal(a.data[:, live], c.data[:, live])
+            assert torch.equal(a.scales[:, live], c.scales[:, live])
+        else:
+            assert torch.equal(a[:, live], b[:, live]) and torch.equal(a[:, live], c[:, live])
+
+
 @pytest.mark.parametrize("kv_dtype", [torch.float32, "q8"])
 def test_paged_forward_on_card_matches_cpu_logits(cuda, kv_dtype):
     from jlama_tpu_torch.config import from_hf_config

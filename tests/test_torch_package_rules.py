@@ -180,8 +180,19 @@ def test_wrappers_reject_other_devices():
         paged_decode(torch.ones((1, 4, 64), device="meta"), pool, pool, pt,
                      torch.ones(1, dtype=torch.int32), 0.1)
     rows = torch.ones((1, 1, 2, 64), device="meta")
+    pos = torch.zeros((1, 1), dtype=torch.int64)
     with pytest.raises(ValueError, match="device"):
-        kv_write(pool, pool, rows, rows, pt, torch.zeros((1, 1), dtype=torch.int64))
+        kv_write(pool, pool, rows, rows, pt, pos)
+    # the RoPE arguments: on another device than the rows, or with them
+    q = torch.ones((1, 1, 4, 64), device="meta")
+    cs = torch.ones((1, 1, 32), device="meta")
+    with pytest.raises(ValueError, match="device"):
+        kv_write(pool, pool, rows, rows, pt, pos, q=q, cos=cs, sin=cs)
+    cpu_pool, cpu_rows = torch.ones((2, 4, 8, 64)), torch.ones((1, 1, 2, 64))
+    cpu_q, cpu_cs = torch.ones((1, 1, 4, 64)), torch.ones((1, 1, 32))
+    for bad in (dict(q=q, cos=cpu_cs, sin=cpu_cs), dict(q=cpu_q, cos=cs, sin=cs)):
+        with pytest.raises(ValueError, match="device"):
+            kv_write(cpu_pool, cpu_pool, cpu_rows, cpu_rows, pt, pos, **bad)
 
 
 def test_cpu_serving_goes_through_plain_versions(monkeypatch):
