@@ -56,7 +56,9 @@ Phases, each fatal on failure (exit code 1, no result line):
               against 1,979 TOP/s int8, and each case's share of it), with K1
               and torch.matmul on a bf16 weight beside it, and at M = 512
               torch._int_mm on the int8 codes (no group scales); the summed
-              decode steps at M = 1 and 16, the summed 512-token q4s prefill
+              decode steps at M = 1 and 16, and the step's 65 matmuls on
+              distinct weights (K5, and K1 beside it) queued back to back
+              and as one replayed CUDA graph, the summed 512-token q4s prefill
               and the host time of one wrapper call at M = 1, 16 and 512; K1,
               K3 and K5 are also held at phase 8's
               shapes: one 1024-token window with f32 activations through the
@@ -64,8 +66,14 @@ Phases, each fatal on failure (exit code 1, no result line):
   4. engine - Llama-3.2-1B at full width (16 layers, random JQ4 weights from
               a seed) through Engine.generate_tokens: a 512-token prompt with
               128 new tokens, a resume of that session, and five
-              time-to-first-token runs; the kernels' launch counters must
-              match the path's expected counts (K2 takes each decode step's
+              time-to-first-token runs, every decode step after its key's
+              first use one replay of a captured CUDA graph (runtime/
+              graphs.py; the number of graphs, the capture seconds and the
+              graph pool's memory printed); then the same requests through
+              an Engine with decode_graphs=False (the eager yardstick),
+              whose greedy ids must be identical; in both the kernels'
+              launch counters must match the path's expected counts (a
+              replay counts its kernels; K2 takes each decode step's
               attention on the dense cache), and nn.layers.apply_rope must
               not run on the card (K4 rotates q and k on every cached path,
               here and in phases 5-7); then the prefill logits of a
@@ -77,7 +85,7 @@ Phases, each fatal on failure (exit code 1, no result line):
   5. profile - torch.profiler's device time by kernel and kernel group,
               device operations (per token too) and the device's busy share
               for a 512-token prefill and for 32 decode steps of the Engine
-              path; the decode
+              path, with graphs and eager; the decode
               window must run none of the library kernels the dense
               attention ran before K2 took it (DENSE_ATTN_NAMES);
   6. serving - Llama-3.2-1B through BatchScheduler with the CLI's serving
@@ -86,14 +94,19 @@ Phases, each fatal on failure (exit code 1, no result line):
               seed (16 at once through start()/submit(), 8 more while the
               batch runs; 8 seeded with temperature 0.8, top_p 0.95, top_k
               40; a session resumed by a second request; a frequency penalty;
-              stop ids), then 4 requests on a q8 pool. Every request must end
-              with its count and finish reason, and K1-K4's launch counts must
-              equal what the scheduler's counts of prefill calls and decode
-              steps imply; then the paged forward's logits (a 24-token prefill
-              and 8 decode steps, bf16 and q8 pools) are held against the plain
-              f32 path on the CPU (relative L2 < 5e-2); prints total tok/s,
-              TTFT and inter-token p50/p95, and the device's busy share over
-              16 decode steps at 16 slots;
+              stop ids), then 4 requests on a q8 pool. warmup() captures the
+              greedy and the plain sampled decode graph of every window; every
+              decode step after its key's first use must be a replay. Every
+              request must end with its count and finish reason, and K1-K4's
+              launch counts must equal what the scheduler's counts of prefill
+              calls and decode steps imply; then the paged forward's logits
+              (a 24-token prefill and 8 decode steps, bf16 and q8 pools) are
+              held against the plain f32 path on the CPU (relative L2 <
+              5e-2), and 16 greedy requests driven inline must give the same
+              ids through the graphs and through a scheduler with
+              decode_graphs=False; prints total tok/s, TTFT and inter-token
+              p50/p95, and the device's busy share over 16 decode steps at 16
+              slots, with graphs and eager;
   7. q4s serving - the same model and serving settings through
               BatchScheduler(weight_format="q4s"): its construction's time
               (fuse and the q4s conversion on the card),
@@ -101,8 +114,8 @@ Phases, each fatal on failure (exit code 1, no result line):
               seeded at temperature 0.8), K5's launches equal to the formula of
               phase 6's K1 and K1 at 0, the paged logits against the same q4s
               weights through K5's plain version in f32 on the CPU (relative
-              L2 < 5e-2), and its serving numbers and busy share beside phase
-              6's;
+              L2 < 5e-2), the graphs against the eager yardstick as in phase
+              6, and its serving numbers and busy share beside phase 6's;
   8. perplexity - eval.ppl.score_tokens on the card over 2,048 token ids from
               a seed (windows of 1024, stride 512) with the q4 weights and
               their q4s conversion: both perplexities (random weights: only
@@ -470,6 +483,7 @@ def check_k5(torch, timer, details):
           f"K1 {pre_sum['k1_ms']:.4f} ms, torch.matmul bf16 {pre_sum['yardstick_ms']:.4f} ms, "
           f"torch._int_mm on the int8 codes {pre_sum['int_mm_ms']:.4f} ms, bound "
           f"{pre_sum['bound_ms']:.4f} ms", flush=True)
+    graph_steps = _decode_step_graphs(torch, timer, c1, layer_shapes, steps)
     print(f"K5 host time of one wrapper call (w13): {host_us[512]:.1f} us at M=512 (the "
           f"pre-pass, the scratch, three tensor maps made per call), {host_us[16]:.1f} us at "
           f"M=16 (the pre-pass and the decode kernel), {host_us[1]:.1f} us at M=1 (one launch)",
@@ -479,11 +493,62 @@ def check_k5(torch, timer, details):
                 bound_ms_m16=steps[16]["bound_ms"],
                 **{f"{key}_prefill512": v for key, v in pre_sum.items()},
                 host_us_m512=host_us[512], host_us_m16=host_us[16], host_us_m1=host_us[1],
+                decode_step_graphs=graph_steps,
                 work=f"one decode step, M=1: {L} x (wqkv, wo, w13, w2) + lm_head = "
                      f"{4 * L + 1} launches; yardstick: torch.matmul on bf16 weights; "
                      "k1_ms: K1 on the same JQ4 weights; *_prefill512: one 512-token "
                      f"prefill, {L} x (wqkv, wo, w13, w2) at M=512; int_mm: torch._int_mm "
                      "on the int8 codes, without the group scales")
+
+
+def _decode_step_graphs(torch, timer, c1, layer_shapes, summed) -> dict:
+    """K5's decode route without launch gaps (and K1's beside it): the
+    matmuls of one decode step, 16 layers x (wqkv, wo, w13, w2) on distinct
+    weights + the f32-out lm_head, at M = 1 and 16, timed after one L2 flush
+    as 65 wrapper calls queued back to back and as one replay of their
+    captured CUDA graph; beside the sum of the 65 launches timed one by one
+    after a flush each (`summed`)."""
+    from jlama_tpu_torch.nn.qarray import QArray
+    from jlama_tpu_torch.ops.q4_matmul import q4_matmul
+    from jlama_tpu_torch.ops.w8a8 import q4s_matmul, to_q4s
+    from jlama_tpu_torch.utils.cuda_timer import SLEEP_CYCLES
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+
+    def q4(n, k):
+        return QArray(torch.randint(0, 256, (n, k // 2), generator=g, device="cuda",
+                                    dtype=torch.uint8),
+                      (torch.rand((n, k // 32), generator=g, device="cuda") + 0.5) * 0.0043)
+
+    mats = [(q4(n, k), torch.bfloat16) for _ in range(c1.n_layers)
+            for n, k in layer_shapes.values()]
+    mats.append((q4(c1.vocab_size, c1.embedding_length), torch.float32))
+    out = {}
+    for route, fn in (("k5", q4s_matmul), ("k1", q4_matmul)):
+        ws = [(to_q4s(w) if route == "k5" else w, dt) for w, dt in mats]
+        for m in (1, 16):
+            xs = {k: torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+                  for k in {w.shape[1] for w, _ in ws}}
+
+            def step():
+                for w, dt in ws:
+                    fn(xs[w.shape[1]], w, dt)
+
+            # the 65 calls' host time, ten times over, has to fit in the sleep
+            eager_ms = timer(step, sleep_cycles=4 * SLEEP_CYCLES)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                step()
+            graph_ms = timer(graph.replay)
+            key = "ms" if route == "k5" else "k1_ms"
+            out[f"{route}_m{m}"] = dict(summed_ms=summed[m][key], back_to_back_ms=eager_ms,
+                                        graph_ms=graph_ms, launches=len(ws))
+            print(f"{route.upper()} decode step matmuls at M={m} ({len(ws)} launches, distinct "
+                  f"weights): summed one by one {summed[m][key]:.4f} ms, back to back "
+                  f"{eager_ms:.4f} ms, one CUDA graph replay {graph_ms:.4f} ms", flush=True)
+            del graph, xs
+        del ws
+    return out
 
 
 def check_k3(torch, timer, details):
@@ -913,6 +978,31 @@ def check_k4(torch, timer, details):
                      "apply_rope x2 and K4 without RoPE")
 
 
+def _graph_check(label, graphs, before: dict, n_steps: int) -> dict:
+    """The decode graphs of one phase (`runtime/graphs.py`): every decode
+    step after a key's first use is one replay, and each new key's first use
+    its only eager step. Returns the phase's counts, capture seconds and
+    the pool's memory (torch.cuda.memory_reserved before and after each
+    capture, summed)."""
+    now = graphs.stats()
+    d = {k: now[k] - before[k] for k in now}
+    out = dict(graphs=now["graphs"], new_graphs=d["graphs"], new_keys=d["keys"],
+               eager_steps=d["eager_steps"], replays=d["replays"], decode_steps=n_steps,
+               capture_s=d["capture_s"], capture_s_total=now["capture_s"],
+               pool_mb=now["pool_bytes"] / 2**20, new_pool_mb=d["pool_bytes"] / 2**20)
+    print(f"{label}: decode graphs {now['graphs']} ({d['graphs']} captured in this phase, "
+          f"{d['capture_s']:.3f} s; {now['capture_s']:.3f} s in all), pool "
+          f"{now['pool_bytes'] / 2**20:.1f} MB "
+          f"(+{d['pool_bytes'] / 2**20:.1f}); {n_steps} decode steps = {d['replays']} replays + "
+          f"{d['eager_steps']} first uses of {d['keys']} new keys", flush=True)
+    if not graphs.capture or now["graphs"] == 0:
+        fail(f"{label}: no decode graph was captured")
+    if d["eager_steps"] != d["keys"] or d["replays"] != n_steps - d["eager_steps"]:
+        fail(f"{label}: {d['eager_steps']} eager steps for {d['keys']} new keys, "
+             f"{d['replays']} replays for {n_steps} decode steps")
+    return out
+
+
 def main_path(torch, card_note):
     from jlama_tpu_torch.models.base import forward_logits, params_to
     from jlama_tpu_torch.models.init import llama_1b_config, random_q4_params
@@ -928,35 +1018,12 @@ def main_path(torch, card_note):
     torch.cuda.synchronize()
     print(f"main path: Llama-3.2-1B shapes, {cfg.n_layers} layers, random JQ4 weights "
           f"(seed 0), set-up {time.perf_counter() - t0:.2f} s", flush=True)
+    # the eager yardstick: the same weights, every decode step issued from Python
+    eager = Engine(eng.params, cfg, device="cuda", max_seq_len=2048, fuse=False,
+                   decode_graphs=False)
     rng = torch.Generator().manual_seed(0)
     prompt = torch.randint(0, cfg.vocab_size, (512,), generator=rng).tolist()
     more = torch.randint(0, cfg.vocab_size, (64,), generator=rng).tolist()
-    # a warm-up at the timed shapes (prefill bucket 512, decode window 1024),
-    # so that the TTFT holds no first-use cost of the allocator or cuBLAS
-    eng.generate_tokens(prompt, max_new_tokens=2, stop_ids=set(), session_id="warm")
-    eng.drop_session("warm")
-    torch.cuda.synchronize()
-
-    for k in (q4_matmul, flash_prefill, paged_decode, kv_write):
-        k.launches = 0
-    _unfused_rope_calls(reset=True)
-    ttfts, firsts = [], []
-    for i in range(N_TTFT):  # each a new session: prefill + first token
-        t1 = time.perf_counter()
-        firsts.append(eng.generate_tokens(prompt, max_new_tokens=1, stop_ids=set(),
-                                          session_id=f"ttft{i}"))
-        torch.cuda.synchronize()
-        ttfts.append((time.perf_counter() - t1) * 1000)
-        eng.drop_session(f"ttft{i}")
-    resp = eng.generate_tokens(prompt, max_new_tokens=128, stop_ids=set(), session_id="main")
-    resumed = eng.generate_tokens(more, max_new_tokens=32, stop_ids=set(), session_id="main")
-    torch.cuda.synchronize()
-    launches = {"q4_matmul": q4_matmul.launches, "flash_prefill": flash_prefill.launches,
-                "kv_write": kv_write.launches, "paged_decode": paged_decode.launches}
-    if _unfused_rope_calls():
-        fail(f"engine path: apply_rope ran {_unfused_rope_calls()} times on the card apart "
-             "from K4 (a cached path rotates q and k in K4 only)")
-
     n_prefill, n_decode = N_TTFT + 2, N_TTFT + 128 + 32
     per_layer_k1 = 4
     expect = {"q4_matmul": n_prefill * per_layer_k1 * cfg.n_layers
@@ -964,23 +1031,65 @@ def main_path(torch, card_note):
               "flash_prefill": n_prefill * cfg.n_layers,
               "kv_write": (n_prefill + n_decode) * cfg.n_layers,
               "paged_decode": n_decode * cfg.n_layers}  # K2 on the dense cache
-    print(f"engine path launches {launches}, expected {expect} "
-          f"({per_layer_k1 * cfg.n_layers + 1} K1, {cfg.n_layers} K2 and {cfg.n_layers} K4 per "
-          f"decode step, {cfg.n_layers} K3 and {cfg.n_layers} K4 per prefill)", flush=True)
-    if launches != expect or min(launches.values()) == 0:
-        fail(f"launch counts {launches} != expected {expect}")
-    for r, n in [(f, 1) for f in firsts] + [(resp, 128), (resumed, 32)]:
-        if len(r.token_ids) != n or not all(0 <= t < cfg.vocab_size for t in r.token_ids):
-            fail(f"bad token ids: {r.token_ids[:8]}... ({len(r.token_ids)} of {n})")
-    if len({f.token_ids[0] for f in firsts}) != 1 or firsts[0].token_ids[0] != resp.token_ids[0]:
-        fail("greedy first tokens of the same prompt differ between runs")
-    if eng.sessions["main"].position != 512 + 128 + 64 + 32 - 1:
-        fail(f"session position {eng.sessions['main'].position}")
-    ttft_ms = statistics.median(ttfts)
-    decode_tps = 128 / (resp.generate_time_ms / 1000)
-    print(f"TTFT (512-token prompt, first token) median {ttft_ms:.2f} ms of {N_TTFT} runs "
-          f"(min {min(ttfts):.2f}, max {max(ttfts):.2f}); decode {decode_tps:.1f} tok/s "
-          f"(128 tokens, batch 1) on {card_note}", flush=True)
+
+    def drive(e, label):
+        # a warm-up at the timed shapes (prefill bucket 512, decode window
+        # 1024), so that the TTFT holds no first-use cost of the allocator or
+        # cuBLAS, nor a graph's capture
+        e.generate_tokens(prompt, max_new_tokens=2, stop_ids=set(), session_id="warm")
+        e.drop_session("warm")
+        torch.cuda.synchronize()
+        for k in (q4_matmul, flash_prefill, paged_decode, kv_write):
+            k.launches = 0
+        _unfused_rope_calls(reset=True)
+        graphs0 = e.graphs.stats()
+        ttfts, firsts = [], []
+        for i in range(N_TTFT):  # each a new session: prefill + first token
+            t1 = time.perf_counter()
+            firsts.append(e.generate_tokens(prompt, max_new_tokens=1, stop_ids=set(),
+                                            session_id=f"ttft{i}"))
+            torch.cuda.synchronize()
+            ttfts.append((time.perf_counter() - t1) * 1000)
+            e.drop_session(f"ttft{i}")
+        resp = e.generate_tokens(prompt, max_new_tokens=128, stop_ids=set(), session_id="main")
+        resumed = e.generate_tokens(more, max_new_tokens=32, stop_ids=set(), session_id="main")
+        torch.cuda.synchronize()
+        launches = {"q4_matmul": q4_matmul.launches, "flash_prefill": flash_prefill.launches,
+                    "kv_write": kv_write.launches, "paged_decode": paged_decode.launches}
+        if _unfused_rope_calls():
+            fail(f"engine path: apply_rope ran {_unfused_rope_calls()} times on the card apart "
+                 "from K4 (a cached path rotates q and k in K4 only)")
+        print(f"engine path ({label}) launches {launches}, expected {expect} "
+              f"({per_layer_k1 * cfg.n_layers + 1} K1, {cfg.n_layers} K2 and {cfg.n_layers} K4 "
+              f"per decode step, {cfg.n_layers} K3 and {cfg.n_layers} K4 per prefill)", flush=True)
+        if launches != expect or min(launches.values()) == 0:
+            fail(f"launch counts ({label}) {launches} != expected {expect}")
+        for r, n in [(f, 1) for f in firsts] + [(resp, 128), (resumed, 32)]:
+            if len(r.token_ids) != n or not all(0 <= t < cfg.vocab_size for t in r.token_ids):
+                fail(f"bad token ids ({label}): {r.token_ids[:8]}... ({len(r.token_ids)} of {n})")
+        if len({f.token_ids[0] for f in firsts}) != 1 \
+                or firsts[0].token_ids[0] != resp.token_ids[0]:
+            fail(f"greedy first tokens of the same prompt differ between runs ({label})")
+        if e.sessions["main"].position != 512 + 128 + 64 + 32 - 1:
+            fail(f"session position ({label}) {e.sessions['main'].position}")
+        ttft_ms = statistics.median(ttfts)
+        decode_tps = 128 / (resp.generate_time_ms / 1000)
+        print(f"TTFT ({label}; 512-token prompt, first token) median {ttft_ms:.2f} ms of "
+              f"{N_TTFT} runs (min {min(ttfts):.2f}, max {max(ttfts):.2f}); decode "
+              f"{decode_tps:.1f} tok/s (128 tokens, batch 1) on {card_note}", flush=True)
+        ids = [f.token_ids for f in firsts] + [resp.token_ids, resumed.token_ids]
+        return dict(ttft_ms=ttft_ms, ttft_ms_runs=ttfts, decode_tok_s=decode_tps,
+                    decode_ms_per_token=resp.generate_time_ms / 128,
+                    prefill_ms_512=resp.prompt_time_ms), launches, ids, graphs0
+
+    e2e, launches, ids, graphs0 = drive(eng, "graphs")
+    e2e["graphs"] = _graph_check("engine path", eng.graphs, graphs0, n_decode)
+    e2e["eager"], _, eager_ids, _ = drive(eager, "eager")
+    if eager_ids != ids:
+        fail("engine path: the graphs' greedy ids differ from the eager run's")
+    print(f"engine path: greedy ids of the graphs equal the eager run's ({len(ids)} requests, "
+          f"{sum(map(len, ids))} tokens); eager decode {e2e['eager']['decode_tok_s']:.1f} tok/s, "
+          f"TTFT {e2e['eager']['ttft_ms']:.2f} ms", flush=True)
 
     # the prefill logits of a short prompt against the plain path on the CPU
     toks = torch.tensor([prompt[:24]])
@@ -996,12 +1105,10 @@ def main_path(torch, card_note):
           f" (limit {LOGITS_REL_L2}), finite {finite}", flush=True)
     if not finite or not rel < LOGITS_REL_L2 or tuple(gpu.shape) != (1, 24, cfg.vocab_size):
         fail(f"logits check: rel L2 {rel}, finite {finite}, shape {tuple(gpu.shape)}")
-    dec_rel = _dense_decode_logits_check(torch, eng.params, cfg, prompt[:24])
-    e2e = dict(ttft_ms=ttft_ms, ttft_ms_runs=ttfts, decode_tok_s=decode_tps, logits_rel_l2=rel,
-               decode_logits_rel_l2=dec_rel,
-               decode_ms_per_token=resp.generate_time_ms / 128,
-               prefill_ms_512=resp.prompt_time_ms)
-    return launches, e2e, (eng, prompt)
+    e2e.update(logits_rel_l2=rel,
+               decode_logits_rel_l2=_dense_decode_logits_check(torch, eng.params, cfg,
+                                                               prompt[:24]))
+    return launches, e2e, (eng, eager, prompt)
 
 
 def _dense_decode_logits_check(torch, params, cfg, ids) -> float:
@@ -1044,21 +1151,28 @@ def _dense_decode_logits_check(torch, params, cfg, ids) -> float:
     return rel
 
 
-def profile_path(torch, eng, prompt) -> dict:
+def profile_path(torch, eng, prompt, run) -> dict:
     """Device time by kernel and the device's busy share over two windows of
     the main path, with torch.profiler (whose own host cost lowers the busy
-    share it reports, so the share is a lower bound)."""
+    share it reports, so the share is a lower bound). run: "graphs" or
+    "eager", the engine's decode steps."""
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
     _unfused_rope_calls(reset=True)
+    # the profiled session takes the main session's cache slot, whose decode
+    # graph the main path captured: the windows hold no capture
+    eng.drop_session("main")
     for label, ids, n in (("prefill 511 + first token", prompt, 1),
                           ("decode 32 tokens", [], 32)):
+        graphs0 = eng.graphs.stats()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             eng.generate_tokens(ids, max_new_tokens=n, stop_ids=set(), session_id="prof")
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        if run == "graphs":
+            _graph_check(f"profile {label}", eng.graphs, graphs0, n)
         kernels = []
         for e in prof.key_averages():
             if not str(e.device_type).endswith("CUDA"):
@@ -1085,8 +1199,9 @@ def profile_path(torch, eng, prompt) -> dict:
         out[label] = dict(wall_ms=wall_ms, device_ms=dev_ms, busy_share=dev_ms / wall_ms,
                           device_ops=n_ops, device_ops_per_token=n_ops / n, by_group_ms=groups,
                           top=[dict(ms=ms, count=c, kernel=key[:90]) for ms, c, key in kernels[:12]])
-        print(f"profile {label}: wall {wall_ms:.2f} ms (profiler on), device {dev_ms:.2f} ms, "
-              f"busy share {dev_ms / wall_ms:.3f}, {n_ops} device ops ({n_ops / n:.1f} per "
+        print(f"profile ({run}) {label}: wall {wall_ms:.2f} ms (profiler on), device "
+              f"{dev_ms:.2f} ms, busy share {dev_ms / wall_ms:.3f}, {n_ops} device ops "
+              f"({n_ops / n:.1f} per "
               f"token); by group "
               + ", ".join(f"{g} {v:.2f} ms" for g, v in groups.items()), flush=True)
         for ms, c, key in kernels[:12]:
@@ -1203,8 +1318,10 @@ def serving_path(torch, card_note):
     pool_gb = 2 * sched.kv.state.k_pool.numel() * 2 / 1e9
     sched.warmup()
     torch.cuda.synchronize()
+    warm = sched.graphs.stats()
     print(f"serving: Llama-3.2-1B, {SERVE}, bf16 pool {pool_gb:.3f} GB; set-up and warm-up "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+          f"{time.perf_counter() - t0:.2f} s; warm-up captured {warm['graphs']} decode graphs "
+          f"in {warm['capture_s']:.3f} s, pool {warm['pool_bytes'] / 2**20:.1f} MB", flush=True)
 
     g = torch.Generator().manual_seed(7)
 
@@ -1229,6 +1346,7 @@ def serving_path(torch, card_note):
     follow = GenRequest(prompt_ids=ids(100), max_new_tokens=64, session_id="chat")
 
     _reset_counts(sched)
+    graphs0 = sched.graphs.stats()
     t_start = time.perf_counter()
     sched.start()
     for r in reqs[:16]:
@@ -1249,6 +1367,7 @@ def serving_path(torch, card_note):
     sched.stop()
     torch.cuda.synchronize()
     counts = _check_counts(sched, cfg, "serving path")
+    graphs = _graph_check("serving path", sched.graphs, graphs0, counts["decode_steps"])
     _check_finish(everything, cfg, "serving")
     if reqs[10].finish.name != "STOP_TOKEN":
         fail(f"serving: the stop-id request ended {reqs[10].finish}")
@@ -1265,16 +1384,21 @@ def serving_path(torch, card_note):
                ttft_ms_p50=_pct(ttft, 50), ttft_ms_p95=_pct(ttft, 95),
                itl_ms_p50=_pct(itl, 50), itl_ms_p95=_pct(itl, 95),
                finish={f: sum(r.finish_reason.name == f for r in resps)
-                       for f in ("MAX_TOKENS", "STOP_TOKEN")}, launches=counts)
+                       for f in ("MAX_TOKENS", "STOP_TOKEN")}, launches=counts,
+               graphs=dict(graphs, warmup=warm))
     print(f"serving: {len(resps)} requests, {n_gen} tokens in {wall:.2f} s = "
           f"{n_gen / wall:.1f} tok/s; TTFT p50 {e2e['ttft_ms_p50']:.1f} ms, p95 "
           f"{e2e['ttft_ms_p95']:.1f} ms; inter-token p50 {e2e['itl_ms_p50']:.2f} ms, p95 "
           f"{e2e['itl_ms_p95']:.2f} ms; finishes {e2e['finish']} on {card_note}", flush=True)
 
-    e2e["profile"] = _serving_profile(torch, sched, cfg, ids)
+    e2e["profile"] = _serving_profile(torch, sched, cfg, ids, "graphs")
     e2e["logits_rel_l2"] = {"bf16": _paged_logits_check(torch, sched, cfg, torch.bfloat16, ids)}
     params = sched.params
-    del sched
+    eager = BatchScheduler(params, cfg, kv_dtype=torch.bfloat16, device="cuda", fuse=False,
+                           decode_graphs=False, **SERVE)
+    e2e["eager_ids"] = _eager_ids_check(sched, eager, ids, "serving")
+    e2e["profile_eager"] = _serving_profile(torch, eager, cfg, ids, "eager")
+    del sched, eager
     torch.cuda.empty_cache()
 
     # a short run on a q8 pool
@@ -1283,6 +1407,7 @@ def serving_path(torch, card_note):
                          **({"temperature": 0.8, "seed": 3} if i == 0 else {}))
               for i in range(4)]
     _reset_counts(sq)
+    graphs0 = sq.graphs.stats()
     sq.start()
     for r in q8reqs:
         sq.submit(r)
@@ -1290,6 +1415,8 @@ def serving_path(torch, card_note):
     sq.stop()
     torch.cuda.synchronize()
     e2e["q8_launches"] = _check_counts(sq, cfg, "q8 serving path")
+    e2e["q8_graphs"] = _graph_check("q8 serving path", sq.graphs, graphs0,
+                                    e2e["q8_launches"]["decode_steps"])
     _check_finish(q8reqs, cfg, "q8 serving")
     e2e["logits_rel_l2"]["q8"] = _paged_logits_check(torch, sq, cfg, "q8", ids)
     del sq
@@ -1318,9 +1445,12 @@ def q4s_serving_path(torch, card_note, q4_serving):
     t0 = time.perf_counter()
     sched.warmup()
     torch.cuda.synchronize()
+    warm = sched.graphs.stats()
     print(f"q4s serving: Llama-3.2-1B, {SERVE}; BatchScheduler(weight_format='q4s') "
           f"construction (fuse + to_q4s on the card + pool) {conv_s:.3f} s, {len(q4s)} q4s "
-          f"weights {q4s_gb:.3f} GB; warm-up {time.perf_counter() - t0:.2f} s", flush=True)
+          f"weights {q4s_gb:.3f} GB; warm-up {time.perf_counter() - t0:.2f} s, "
+          f"{warm['graphs']} decode graphs captured in {warm['capture_s']:.3f} s, pool "
+          f"{warm['pool_bytes'] / 2**20:.1f} MB", flush=True)
 
     g = torch.Generator().manual_seed(8)
 
@@ -1337,6 +1467,7 @@ def q4s_serving_path(torch, card_note, q4_serving):
             kw.update(temperature=0.8, top_p=0.95, top_k=40, seed=200 + i)
         reqs.append(GenRequest(**kw))
     _reset_counts(sched)
+    graphs0 = sched.graphs.stats()
     t_start = time.perf_counter()
     sched.start()
     for r in reqs[:8]:
@@ -1353,6 +1484,7 @@ def q4s_serving_path(torch, card_note, q4_serving):
     sched.stop()
     torch.cuda.synchronize()
     counts = _check_counts(sched, cfg, "q4s serving path", matmul="w8a8_matmul")
+    graphs = _graph_check("q4s serving path", sched.graphs, graphs0, counts["decode_steps"])
     _check_finish(reqs, cfg, "q4s serving")
     resps = [r.to_response() for r in reqs]
     n_gen = sum(r.generated_tokens for r in resps)
@@ -1363,9 +1495,15 @@ def q4s_serving_path(torch, card_note, q4_serving):
                itl_ms_p50=_pct(itl, 50), itl_ms_p95=_pct(itl, 95),
                finish={f: sum(r.finish_reason.name == f for r in resps)
                        for f in ("MAX_TOKENS", "STOP_TOKEN")}, launches=counts,
-               construction_s=conv_s, q4s_weights_gb=q4s_gb)
-    e2e["profile"] = _serving_profile(torch, sched, cfg, ids)
+               construction_s=conv_s, q4s_weights_gb=q4s_gb, graphs=dict(graphs, warmup=warm))
+    e2e["profile"] = _serving_profile(torch, sched, cfg, ids, "graphs")
     e2e["logits_rel_l2"] = _paged_logits_check(torch, sched, cfg, torch.bfloat16, ids)
+    # the eager yardstick on the same q4s weights (already converted: no format)
+    eager = BatchScheduler(sched.params, cfg, kv_dtype=torch.bfloat16, device="cuda",
+                           fuse=False, decode_graphs=False, **SERVE)
+    e2e["eager_ids"] = _eager_ids_check(sched, eager, ids, "q4s serving")
+    e2e["profile_eager"] = _serving_profile(torch, eager, cfg, ids, "eager")
+    del eager
     q4 = q4_serving
     print(f"q4s serving: {len(resps)} requests, {n_gen} tokens in {wall:.2f} s = "
           f"{n_gen / wall:.1f} tok/s (phase 6, q4, 24 requests: {q4['tok_s']:.1f}); TTFT p50 "
@@ -1373,7 +1511,9 @@ def q4s_serving_path(torch, card_note, q4_serving):
           f"{e2e['ttft_ms_p95']:.1f} ms (q4 {q4['ttft_ms_p95']:.1f}); inter-token p50 "
           f"{e2e['itl_ms_p50']:.2f} ms (q4 {q4['itl_ms_p50']:.2f}), p95 {e2e['itl_ms_p95']:.2f} ms "
           f"(q4 {q4['itl_ms_p95']:.2f}); busy share over 16 decode steps "
-          f"{e2e['profile']['busy_share']:.3f} (q4 {q4['profile']['busy_share']:.3f}); finishes "
+          f"{e2e['profile']['busy_share']:.3f} (q4 {q4['profile']['busy_share']:.3f}; eager "
+          f"{e2e['profile_eager']['busy_share']:.3f}, q4 "
+          f"{q4['profile_eager']['busy_share']:.3f}); finishes "
           f"{e2e['finish']} on {card_note}", flush=True)
     del sched
     torch.cuda.empty_cache()
@@ -1421,10 +1561,37 @@ def ppl_path(torch) -> dict:
     return out
 
 
-def _serving_profile(torch, sched, cfg, ids) -> dict:
+def _eager_ids_check(sched, eager, ids, label) -> dict:
+    """16 greedy requests (prompts of 32-400 tokens, 48 new each), driven
+    inline by step() through the scheduler's decode graphs and through the
+    eager yardstick: the ids must be identical."""
+    from jlama_tpu_torch.runtime.scheduler import GenRequest, RequestState
+
+    prompts = [ids(32 + 23 * i) for i in range(16)]
+    got = {}
+    for run, s in (("graphs", sched), ("eager", eager)):
+        reqs = [GenRequest(prompt_ids=p, max_new_tokens=48) for p in prompts]
+        graphs0, n0 = s.graphs.stats(), s.n_decode_steps
+        for r in reqs:
+            s.submit(r)
+        while not all(r.state == RequestState.DONE for r in reqs):
+            s.step()
+        if run == "graphs":
+            _graph_check(f"{label} greedy check", s.graphs, graphs0, s.n_decode_steps - n0)
+        got[run] = [r.out_ids for r in reqs]
+    same = got["graphs"] == got["eager"]
+    print(f"{label}: greedy ids of 16 requests x 48 tokens through the decode graphs "
+          f"{'equal' if same else 'DIFFER FROM'} the eager run's", flush=True)
+    if not same or any(len(x) != 48 for x in got["graphs"]):
+        fail(f"{label}: the graphs' greedy ids differ from the eager run's")
+    return dict(requests=16, tokens=16 * 48, equal=same)
+
+
+def _serving_profile(torch, sched, cfg, ids, run) -> dict:
     """The device's busy share over 16 decode steps at 16 slots (chained
     windows of 4), with torch.profiler (whose own host cost lowers the busy
-    share it reports: a lower bound)."""
+    share it reports: a lower bound). run: "graphs" or "eager", the
+    scheduler's decode steps."""
     from torch.profiler import ProfilerActivity, profile
 
     from jlama_tpu_torch.runtime.scheduler import GenRequest, RequestState
@@ -1436,6 +1603,7 @@ def _serving_profile(torch, sched, cfg, ids) -> dict:
         sched.step()
     torch.cuda.synchronize()
     _unfused_rope_calls(reset=True)
+    graphs0 = sched.graphs.stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         n0 = sched.n_decode_steps
@@ -1444,6 +1612,8 @@ def _serving_profile(torch, sched, cfg, ids) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         n_steps = sched.n_decode_steps - n0
+    if run == "graphs":
+        _graph_check("serving profile", sched.graphs, graphs0, n_steps)
     while not all(r.state == RequestState.DONE for r in reqs):
         sched.step()
     groups = {"q4_matmul": 0.0, "w8a8_matmul": 0.0, "paged_decode": 0.0, "kv_write": 0.0,
@@ -1470,7 +1640,7 @@ def _serving_profile(torch, sched, cfg, ids) -> dict:
     if _unfused_rope_calls():
         fail(f"serving profile: apply_rope ran {_unfused_rope_calls()} times on the card apart "
              "from K4")
-    print(f"profile serving decode, {n_steps} steps at 16 slots: wall {wall_ms:.2f} ms "
+    print(f"profile ({run}) serving decode, {n_steps} steps at 16 slots: wall {wall_ms:.2f} ms "
           f"(profiler on), device {dev_ms:.2f} ms, busy share {dev_ms / wall_ms:.3f}, "
           f"{n_ops} device ops ({n_ops / n_steps:.1f} per step, {n_ops / n_steps / 16:.1f} per "
           f"token); by group "
@@ -1687,12 +1857,13 @@ def main() -> None:
     del timer
     # 4. and 5. the Engine path and where its time goes
     _count_unfused_rope()
-    engine_launches, e2e, (eng, prompt) = main_path(torch, smi)
+    engine_launches, e2e, (eng, eager, prompt) = main_path(torch, smi)
     out["engine"] = e2e
-    out["profile"] = profile_path(torch, eng, prompt)
+    out["profile"] = profile_path(torch, eng, prompt, "graphs")
+    out["profile_eager"] = profile_path(torch, eager, prompt, "eager")
     kern["q4_matmul"]["profile_decode32_ms"] = \
         out["profile"]["decode 32 tokens"]["by_group_ms"]["q4_matmul"]
-    del eng
+    del eng, eager
     torch.cuda.empty_cache()
     print(f"card {smi}: engine " + json.dumps(e2e), flush=True)
     # 6. serving

@@ -43,10 +43,6 @@ class KVCache(NamedTuple):
     def max_len(self) -> int:
         return self.layers[0].k.shape[2]
 
-    def to(self, device) -> "KVCache":
-        return KVCache([L.KVLayerCache(c.k.to(device), c.v.to(device))
-                        for c in self.layers])
-
 
 def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor, dtype) -> torch.Tensor:
     emb = params["embed"]

@@ -9,12 +9,14 @@ package: a Python temperature of 0 returns the argmax without a draw, and a
 Python top_k <= 0 (or >= V) or top_p >= 1 skips that mask's sort.
 
 The draw is the Gumbel-max trick. Its uniforms come either from a
-`torch.Generator` (the single-stream `Engine`), or, when `seeds` and `steps`
-are given, from a counter-based hash of (seed, step, vocab index) computed on
-the device: each row then draws from its own stream, the counterpart of the
-JAX scheduler's `fold_in(PRNGKey(seed), step)`, so a seeded request samples
-the same tokens whatever else shares its batch. Neither can reproduce JAX's
-threefry bits: seeded draws match the JAX package in distribution only.
+`torch.Generator`, or, when `seeds` and `steps` are given (the `Engine` and
+the scheduler), from a counter-based hash of (seed, step, vocab index)
+computed on the device: each row then draws from its own stream, the
+counterpart of the JAX scheduler's `fold_in(PRNGKey(seed), step)`, so a
+seeded request samples the same tokens whatever else shares its batch, and
+the draw holds no state that a captured decode graph would freeze. Neither
+can reproduce JAX's threefry bits: seeded draws match the JAX package in
+distribution only.
 """
 
 from __future__ import annotations
@@ -71,10 +73,11 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-@functools.lru_cache(maxsize=4)
+@functools.lru_cache(maxsize=None)
 def _index_hash(n: int, device: torch.device) -> torch.Tensor:
     """The vocabulary's half of the hash, [n] int64, made once per size
-    (callers only read it)."""
+    (callers only read it; never dropped, since a captured decode graph
+    reads it by address)."""
     return _mix32(torch.arange(n, dtype=torch.int64, device=device) ^ 0x9E3779B9)
 
 

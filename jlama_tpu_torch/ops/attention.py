@@ -330,13 +330,18 @@ def _plan(B, H, n_kv, hd, P, ps, q_code, pool_code, device_index) -> tuple[int, 
 
 
 # per device: the merge's tickets, zero between calls (each kernel resets the
-# ones it took); grown, never shrunk. Calls on one stream at a time.
+# ones it took); grown, never shrunk. Calls on one stream at a time. A grown
+# buffer's predecessor stays alive in _RETIRED: a captured decode graph
+# still launches on it.
 _TICKETS: dict[torch.device, torch.Tensor] = {}
+_RETIRED: list[torch.Tensor] = []
 
 
 def _tickets(device: torch.device, n: int) -> torch.Tensor:
     t = _TICKETS.get(device)
     if t is None or t.numel() < n:
+        if t is not None:
+            _RETIRED.append(t)
         t = torch.zeros(max(n, 2 * (0 if t is None else t.numel())), dtype=torch.int32,
                         device=device)
         _TICKETS[device] = t

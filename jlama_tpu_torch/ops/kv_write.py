@@ -111,10 +111,11 @@ def dense_pool_view(cache: torch.Tensor) -> torch.Tensor:
     return cache.permute(1, 0, 2, 3)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def dense_page_table(batch: int, device: torch.device) -> torch.Tensor:
     """[[0], [1], ..., [batch-1]] int32 on `device`, made once per shape (a
-    decode step then launches nothing to build it; callers only read it)."""
+    decode step then launches nothing to build it; callers only read it;
+    never dropped, since a captured decode graph reads it by address)."""
     return torch.arange(batch, dtype=torch.int32, device=device)[:, None]
 
 

@@ -3,9 +3,18 @@
 
 - prompt prefill in length buckets, all but the last prompt token;
 - the last prompt token and every generated token through the chunked decode
-  loop (`runtime/device_loop.py`), sampling on the device;
-- per-session dense KV caches with position resume and LRU offload of idle
-  caches to host memory;
+  loop (`runtime/device_loop.py`), sampling on the device; on the card each
+  decode step is a captured CUDA graph (`runtime/graphs.py`), one per
+  (cache slot, window, greedy, no top-k, no top-p), replayed `chunk` times
+  before the chunk's one copy to the host;
+- per-session dense KV caches in at most `max_device_sessions` device cache
+  slots, made on first need and kept for the engine's life (a graph reads
+  its slot by address): a new session takes a free slot, zeroed; an idle
+  one is offloaded to host memory (least recently used first) and its slot
+  freed, and resumes into a free slot by a copy;
+- seeded draws from the counter-based stream `nn/sampling.py::counter_uniform`
+  keyed by (seed, tokens generated in this call), so the ids do not depend
+  on the chunk size;
 - Response carries the same fields and finish reasons as the JAX package.
 
 Embeddings, classification, meshes and the multi-host step channel come in
@@ -25,8 +34,11 @@ import torch
 
 from ..config import ModelConfig
 from ..device import resolve_device
-from ..models.base import KVCache, forward_hidden, fuse_params, params_to, rope_inv_freq
-from .device_loop import decode_loop, pad_stop_ids
+from ..models.base import KVCache, forward_hidden, fuse_params, lm_logits, params_to, rope_inv_freq
+from ..nn.layers import KVLayerCache
+from ..nn.sampling import sample_token
+from .device_loop import decode_loop
+from .graphs import DecodeInputs, StepGraphs
 
 
 class FinishReason(str, Enum):
@@ -55,11 +67,15 @@ class Session:
     """Cache invariant: positions [0, position) are written; `pending` is the
     last sampled token (to occupy slot `position`) not yet forwarded."""
 
-    cache: KVCache
+    slot: int | None  # the device cache slot; None while offloaded
     position: int = 0
     pending: int | None = None
     last_used: float = 0.0
-    on_host: bool = False  # cache tensors offloaded to host RAM (LRU evicted)
+    host: torch.Tensor | None = None  # the slot's content while offloaded (LRU evicted)
+
+    @property
+    def on_host(self) -> bool:
+        return self.slot is None
 
 
 def _bucket(n: int, buckets=(16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)) -> int:
@@ -88,9 +104,12 @@ class Engine:
         compute_dtype=torch.bfloat16,
         max_device_sessions: int = 8,
         fuse: bool = True,
+        decode_graphs: bool = True,
     ):
         """device: CUDA unless named; raises without CUDA and without it.
-        The params are moved there (a no-op for params already on it)."""
+        The params are moved there (a no-op for params already on it).
+        decode_graphs=False runs every decode step eagerly on the card too
+        (the yardstick the graphs are held against)."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -104,6 +123,13 @@ class Engine:
         self.inv_freq = rope_inv_freq(cfg, self.device)
         self.sessions: dict[str, Session] = {}
         self.max_device_sessions = max_device_sessions
+        # device cache slots, each one tensor [L, 2 (k, v), 1, n_kv, S, hd]
+        # seen as a KVCache of views; made on first need, never freed
+        self._slot_bufs: list[torch.Tensor] = []
+        self._slot_caches: list[KVCache] = []
+        self._free_slots: list[int] = []
+        self._in = DecodeInputs(1, self.device, history=self.max_seq_len)
+        self.graphs = StepGraphs(self.device, decode_graphs)
 
     # ------------------------------------------------------------------
     # sessions
@@ -111,33 +137,64 @@ class Engine:
 
     def _evict_lru_to_host(self) -> None:
         """Offload the least-recently-used on-device session caches to host
-        RAM so that a chat server cannot fill device memory one session at a
-        time."""
+        RAM, freeing their slots, so that a chat server cannot fill device
+        memory one session at a time."""
         on_dev = [(s.last_used, sid) for sid, s in self.sessions.items() if not s.on_host]
         if len(on_dev) < self.max_device_sessions:
             return
         on_dev.sort()
         for _, sid in on_dev[: len(on_dev) - self.max_device_sessions + 1]:
             sess = self.sessions[sid]
-            sess.cache = sess.cache.to("cpu")
-            sess.on_host = True
+            sess.host = self._slot_bufs[sess.slot].to("cpu", copy=True)
+            self._free_slots.append(sess.slot)
+            sess.slot = None
+
+    def _take_slot(self) -> int:
+        """A free device cache slot (after offloading, if the device holds
+        max_device_sessions sessions), made if none is free."""
+        self._evict_lru_to_host()
+        if self._free_slots:
+            return self._free_slots.pop()
+        cfg = self.cfg
+        buf = torch.zeros((cfg.n_layers, 2, 1, cfg.n_kv_heads, self.max_seq_len, cfg.head_size),
+                          dtype=self.kv_dtype, device=self.device)
+        self._slot_bufs.append(buf)
+        self._slot_caches.append(KVCache([KVLayerCache(b[0], b[1]) for b in buf]))
+        return len(self._slot_bufs) - 1
 
     def get_session(self, session_id: str | None) -> tuple[str, Session]:
         sid = session_id or str(uuid.uuid4())
         if sid not in self.sessions:
-            self._evict_lru_to_host()
-            cache = KVCache.init(self.cfg, 1, self.max_seq_len, self.kv_dtype, self.device)
-            self.sessions[sid] = Session(cache=cache)
+            slot = self._take_slot()
+            self._slot_bufs[slot].zero_()  # KVCache.init's zeros
+            self.sessions[sid] = Session(slot=slot)
         sess = self.sessions[sid]
         if sess.on_host:
-            self._evict_lru_to_host()
-            sess.cache = sess.cache.to(self.device)
-            sess.on_host = False
+            slot = self._take_slot()
+            self._slot_bufs[slot].copy_(sess.host)
+            sess.slot, sess.host = slot, None
         sess.last_used = time.monotonic()
         return sid, sess
 
     def drop_session(self, session_id: str) -> None:
-        self.sessions.pop(session_id, None)
+        sess = self.sessions.pop(session_id, None)
+        if sess is not None and not sess.on_host:
+            self._free_slots.append(sess.slot)
+
+    def _decode_step(self, cache: KVCache, win: int, greedy: bool, no_top_k: bool,
+                     no_top_p: bool) -> torch.Tensor:
+        """One decode step on the static inputs: the sampled ids [1]."""
+        s = self._in
+        hidden, _ = forward_hidden(
+            self.params, self.cfg, s.tokens, s.positions, cache, dtype=self.compute_dtype,
+            attn_window=win, inv_freq=self.inv_freq,
+        )
+        logits = lm_logits(self.params, self.cfg, hidden[:, -1:, :])[:, 0]
+        nxt = sample_token(logits, None, 0.0 if greedy else s.temps,
+                           top_k=0 if no_top_k else s.top_ks,
+                           top_p=1.0 if no_top_p else s.top_ps, seeds=s.seeds, steps=s.steps)
+        s.advance(nxt)
+        return nxt
 
     # ------------------------------------------------------------------
     # token-level generation
@@ -187,7 +244,7 @@ class Engine:
             win = min(_bucket(start_pos + bucket), self.max_seq_len)
             with torch.inference_mode():
                 forward_hidden(
-                    self.params, cfg, toks.to(dev), pos.to(dev), sess.cache,
+                    self.params, cfg, toks.to(dev), pos.to(dev), self._slot_caches[sess.slot],
                     dtype=self.compute_dtype, attn_window=win, inv_freq=self.inv_freq,
                 )
         if dev.type == "cuda":
@@ -195,10 +252,6 @@ class Engine:
         prompt_time = (time.perf_counter() - t0) * 1000
 
         t1 = time.perf_counter()
-        generator = None
-        if temperature != 0.0:
-            generator = torch.Generator(device=dev)
-            generator.manual_seed(seed)
         cur = int(prompt_ids[-1])
         cur_pos = start_pos + n_prompt - 1
         out_ids: list[int] = []
@@ -208,7 +261,14 @@ class Engine:
         chunk_max = int(os.environ.get("JLAMA_DEVICE_CHUNK", "32"))
         if on_token is not None:
             chunk_max = min(chunk_max, 8)
-        stop_list = pad_stop_ids(stop)
+        # the static inputs, once a call: every step advances them in place
+        self._in.load(tokens=[[cur]], positions=[[cur_pos]], steps=[0], seeds=[seed],
+                      temps=[temperature], top_ks=[top_k], top_ps=[top_p])
+        cache = self._slot_caches[sess.slot]
+        # static variants, as sample_token's fast paths for Python numbers
+        greedy = temperature == 0.0
+        no_top_k = top_k <= 0 or top_k >= cfg.vocab_size
+        no_top_p = top_p >= 1.0
         while len(out_ids) < max_new_tokens:
             chunk = min(chunk_max, max_new_tokens - len(out_ids),
                         self.max_seq_len - 1 - cur_pos)
@@ -217,11 +277,9 @@ class Engine:
             win = min(_bucket(cur_pos + chunk + 1), self.max_seq_len)
             with torch.inference_mode():
                 rows, nval = decode_loop(
-                    self.params, cfg, sess.cache,
-                    torch.tensor([[cur]], dtype=torch.int64, device=dev),
-                    torch.tensor([[cur_pos]], dtype=torch.int64, device=dev),
-                    generator, temperature, top_k, top_p, stop_list, chunk, win,
-                    self.compute_dtype, self.inv_freq,
+                    self.graphs, (sess.slot, win, greedy, no_top_k, no_top_p),
+                    lambda: self._decode_step(cache, win, greedy, no_top_k, no_top_p),
+                    self._in, len(out_ids), chunk, stop,
                 )
             toks_out = rows[0]
             out_ids.extend(toks_out)

@@ -6,14 +6,19 @@ they finish:
 
 - decode: one forward over all n_slots rows per step (empty slots run a
   dummy sequence against the scratch page and are ignored on the host); the
-  attention of every layer is one K2 launch over the live pages;
+  attention of every layer is one K2 launch over the live pages; on the card
+  a step is a captured CUDA graph (`runtime/graphs.py`), one per (window,
+  all greedy, all top_k 0, all top_p 1, penalties), the JAX jit's static
+  arguments plus the greedy fast path, all reading one set of static
+  inputs; `warmup` captures the greedy and the plain sampled graph of every
+  window;
 - prefill: chunks of at most `prefill_chunk` tokens, batched across every
   request still prefilling, interleaved with the decode steps; each chunk
   writes its KV rows into the request's pages (K4) and attends over the
   gathered live window (K3);
 - chained decode windows: when the batch is steady, up to `decode_lag` steps
-  are issued back to back, each sampled token fed to the next step as a
-  device tensor, and their tokens come back through non-blocking copies into
+  are issued back to back, each sampled token fed to the next step in
+  place, and their tokens come back through non-blocking copies into
   pinned host memory, waited on by an event when the window is drained, one
   window late; the host's bookkeeping then overlaps the device's work;
 - per-row sampling parameters, per-row seeded streams, presence/frequency
@@ -53,6 +58,7 @@ from ..nn.sampling import sample_token
 from ..ops.w8a8 import prepare_params_for_w8a8
 from ..utils.metrics import GLOBAL_METRICS
 from .engine import FinishReason, Response, _bucket
+from .graphs import DecodeInputs, StepGraphs
 
 
 class RequestState(str, Enum):
@@ -138,9 +144,12 @@ class BatchScheduler:
         weight_format: str | None = None,
         step_channel=None,
         device=None,
+        decode_graphs: bool = True,
     ):
         """kv_dtype: a torch float dtype or "q8". device: CUDA unless named;
         raises without CUDA and without it. The params are moved there.
+        decode_graphs=False runs every decode step eagerly on the card too
+        (the yardstick the graphs are held against).
 
         weight_format: None keeps the weights as they are. "q4s" re-quantizes
         the 2-D q4 weights to the W4A8 format after fusing (q4s rows are never
@@ -187,7 +196,11 @@ class BatchScheduler:
         # while a chained window may still write through old page tables
         self._undrained: tuple | None = None
         self._release_q: list[str] = []
+        # the static variants of the chain's steps (set by each host-fed window)
         self._chain_tail: dict | None = None
+        # one set of static step inputs, read by every decode graph
+        self._in = DecodeInputs(n_slots, self.device, pages=self.kv.max_pages_per_seq)
+        self.graphs = StepGraphs(self.device, decode_graphs)
         self.degraded: str | None = None
         self._rng = np.random.default_rng(seed)
         # per-slot generated-token counts for presence/frequency penalties,
@@ -270,29 +283,32 @@ class BatchScheduler:
         with torch.inference_mode():
             self.counts[slot].zero_()
 
-    def _decode_step(self, tokens, positions, steps, ct: dict, win: int) -> torch.Tensor:
-        """One decode step over all slots: forward, penalties, sampling."""
+    def _decode_step(self, ct: dict, win: int) -> torch.Tensor:
+        """One decode step over all slots on the static inputs: forward,
+        penalties, sampling. Returns the sampled ids [B]."""
+        s = self._in
         hidden, _ = forward_hidden(
-            self.params, self.cfg, tokens, positions, (self._layers, ct["pts"]),
+            self.params, self.cfg, s.tokens, s.positions, (self._layers, s.page_tables),
             dtype=self.compute_dtype, attn_window=win, inv_freq=self.inv_freq,
         )
         logits = lm_logits(self.params, self.cfg, hidden[:, -1:, :])[:, 0]
         if ct["use_pen"]:
             # OpenAI presence/frequency penalties over generated tokens
             cf = self.counts.to(torch.float32)
-            logits = logits - ct["freq"][:, None] * cf
-            logits = logits - ct["pres"][:, None] * (cf > 0)
+            logits = logits - s.freq[:, None] * cf
+            logits = logits - s.pres[:, None] * (cf > 0)
         # per-row streams keyed by (seed, step): a seeded request samples the
         # same tokens whatever its batch; all-greedy, top_k 0 and top_p 1
         # batches skip the draw and the sorts
         toks = sample_token(
-            logits, None, 0.0 if ct["all_greedy"] else ct["temps"],
-            top_k=0 if ct["all_k0"] else ct["top_ks"],
-            top_p=1.0 if ct["all_p1"] else ct["top_ps"],
-            seeds=ct["seeds"], steps=steps,
+            logits, None, 0.0 if ct["all_greedy"] else s.temps,
+            top_k=0 if ct["all_k0"] else s.top_ks,
+            top_p=1.0 if ct["all_p1"] else s.top_ps,
+            seeds=s.seeds, steps=s.steps,
         )
         if ct["use_pen"]:
             self.counts[self._slot_idx, toks] += 1
+        s.advance(toks)
         return toks
 
     def _run_decode_window(
@@ -301,43 +317,31 @@ class BatchScheduler:
         depth: int,
     ) -> list:
         """Issue `depth` chained decode steps from host inputs."""
-        with torch.inference_mode():
-            self._chain_tail = {
-                "tokens": self._dev(tokens),
-                "positions": self._dev(positions),
-                "steps": self._dev(steps),
-                "seeds": self._dev(seeds),
-                "temps": self._dev(temps, torch.float32),
-                "top_ps": self._dev(top_ps, torch.float32),
-                "top_ks": self._dev(top_ks),
-                "pres": self._dev(pres, torch.float32),
-                "freq": self._dev(freq, torch.float32),
-                "pts": self._dev(pts, torch.int32),
-                "all_p1": all_p1, "all_k0": all_k0, "use_pen": use_pen,
-                "all_greedy": not bool(np.any(np.asarray(temps) != 0.0)),
-            }
+        self._in.load(tokens=tokens, positions=positions, steps=steps, seeds=seeds,
+                      temps=temps, top_ps=top_ps, top_ks=top_ks, pres=pres, freq=freq,
+                      page_tables=pts)
+        self._chain_tail = {
+            "all_p1": all_p1, "all_k0": all_k0, "use_pen": use_pen,
+            "all_greedy": not bool(np.any(np.asarray(temps) != 0.0)),
+        }
         return self._chain_steps(win, depth)
 
     def _chain_steps(self, win: int, depth: int, pts=None) -> list:
-        """Advance the device-side decode chain `depth` steps from
-        self._chain_tail (sampled tokens feed back device to device; the tail
-        is updated so a later window continues without a host round trip).
-        `pts` replaces the tail's page tables (a chained window may span
-        pages allocated after the tail was built)."""
+        """Advance the device-side decode chain `depth` steps from the static
+        inputs (each step feeds its tokens to the next in place, so a later
+        window continues without a host round trip). `pts` replaces the page
+        tables (a chained window may span pages allocated after they were
+        loaded)."""
         ct = self._chain_tail
+        key = (win, ct["all_greedy"], ct["all_k0"], ct["all_p1"], ct["use_pen"])
         with torch.inference_mode():
             if pts is not None:
-                ct["pts"] = self._dev(pts, torch.int32)
-            tokens_d, positions_d, steps_d = ct["tokens"], ct["positions"], ct["steps"]
+                self._in.load(page_tables=pts)
             toks_windows = []
             for _ in range(depth):
-                toks = self._decode_step(tokens_d, positions_d, steps_d, ct, win)
+                toks = self.graphs.run(key, lambda: self._decode_step(ct, win))
                 self.n_decode_steps += 1
                 toks_windows.append(self._to_host(toks))
-                tokens_d = toks[:, None]
-                positions_d = positions_d + 1
-                steps_d = steps_d + 1
-            ct["tokens"], ct["positions"], ct["steps"] = tokens_d, positions_d, steps_d
         return toks_windows
 
     # ------------------------------------------------------------------
@@ -363,8 +367,10 @@ class BatchScheduler:
         """Run every (window, prefill-rows, chunk) shape that serving traffic
         up to `max_context` tokens will hit once, so that first requests do
         not pay for first-use costs (kernel builds, allocator growth, cuBLAS
-        handles). Dummy inputs run against the scratch page (zero page
-        tables), so no sequence state is touched."""
+        handles). Every decode window runs twice for the greedy and for the
+        sampled step without top-k, top-p or penalties, so that on the card
+        both graphs are captured. Dummy inputs run against the scratch page
+        (zero page tables), so no sequence state is touched."""
         wins = self._window_buckets(max_context or self.max_seq_len)
         decode_windows = decode_windows if decode_windows is not None else wins
         prefill_windows = prefill_windows if prefill_windows is not None else wins
@@ -377,13 +383,14 @@ class BatchScheduler:
         zeros = lambda *s: np.zeros(s, np.int32)  # noqa: E731
         dec_pt = self.kv.page_table(["__empty__"] * B)
         for win in decode_windows:
-            window = self._run_decode_window(
-                zeros(B, 1), zeros(B, 1), dec_pt,
-                zeros(B), zeros(B), np.zeros(B, np.float32),
-                np.ones(B, np.float32), zeros(B), np.zeros(B, np.float32),
-                np.zeros(B, np.float32), True, True, False, win, 1,
-            )
-            [self._fetch(t) for t in window]
+            for temp in (0.0, 1.0):
+                window = self._run_decode_window(
+                    zeros(B, 1), zeros(B, 1), dec_pt,
+                    zeros(B), zeros(B), np.full(B, temp, np.float32),
+                    np.ones(B, np.float32), zeros(B), np.zeros(B, np.float32),
+                    np.zeros(B, np.float32), True, True, False, win, 2,
+                )
+                [self._fetch(t) for t in window]
         chunk = self.prefill_chunk
         for rows in prefill_rows:
             pf_pt = self.kv.page_table(["__empty__"] * rows)
