@@ -130,7 +130,29 @@ Phases, each fatal on failure (exit code 1, no result line):
               (M = 1, 256 x 512). Every kernel against its plain version
               (limits beside the constants), its time, the plain version's time (once
               per function and shape), the bytes it reads and its bound; one
-              line per (variant, shape, M), every wrapper launched.
+              line per (variant, shape, M), every wrapper launched;
+ 10. mixtral - Mixtral-8x7B at full width (32 layers, 8 experts of FFN
+              14336, top-2, head size 128; random JQ4 weights from seed 0,
+              29.2 GB), after the earlier phases' memory is freed: K6, the
+              grouped expert q4 matmul, against its plain version on layer 0's
+              w1 (N 14336, K 4096) and w2 (N 4096, K 14336) at R = 2, 32 and
+              1024 selections, each with ragged routing, an empty expert and
+              every row on one expert, and a bit-equal repeat; the ragged
+              cases timed (median of 10 after an L2 flush) beside the bound,
+              the plain version, the JAX package's two formulations in
+              PyTorch (per-selection K1 with the ids read to the host; a bf16
+              dequantization of the touched experts and one torch.matmul
+              each) and the host time of one call; the dense and the paged
+              logits of the first 2 layers against the plain path in f32 on
+              the CPU (rel L2 < 5e-2); an Engine (a 512-token prompt, 3
+              first-token runs, 64 greedy tokens) on decode graphs and the
+              eager yardstick, identical ids, launch counts as expected,
+              every decode step after a key's first use a replay, device ms
+              by kernel and the busy share over 16 profiled tokens; a
+              16-slot BatchScheduler (8 seeded greedy requests, prompts
+              32-512, 32-64 new tokens): tok/s, TTFT and inter-token p50/p95,
+              launches a step, ids equal to an eager scheduler's, its busy
+              share over 16 steps; the phase's peak memory.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. --out also writes the per-shape details and
 the profiles as JSON.
@@ -177,9 +199,11 @@ LOGITS_REL_L2 = 5e-2
 BENCH_MAIN = (8192, 2048, 1)  # the kernels line's shape: 1B's w13-sized GEMV at M = 1
 N_TTFT = 5  # time-to-first-token runs; the median is reported
 # K1's device kernels in a profile: the GEMV, the mma route, the wgmma route
-K1_NAMES = re.compile(r"q4_(gemv|mma|wgmma)_kernel")
+K1_NAMES = re.compile(r"(?<!moe_)q4_(gemv|mma|wgmma)_kernel")
 # K5's: the decode kernel, the pre-pass of both routes, the wgmma route
 K5_NAMES = re.compile(r"w8a8_(decode|quantize|wgmma)_kernel")
+# K6's: the grouping pre-pass and the grouped matmul
+K6_NAMES = re.compile(r"moe_(group|q4_mma)_kernel")
 # what the Engine's dense T = 1 attention ran before K2 took it: cuBLAS's
 # batched GEMV and f32 GEMM, and PyTorch's softmax
 DENSE_ATTN_NAMES = re.compile(r"softmax|cublasGemv|gemmSN|xmma_gemm_f32")
@@ -1392,7 +1416,8 @@ def serving_path(torch, card_note):
           f"{e2e['itl_ms_p95']:.2f} ms; finishes {e2e['finish']} on {card_note}", flush=True)
 
     e2e["profile"] = _serving_profile(torch, sched, cfg, ids, "graphs")
-    e2e["logits_rel_l2"] = {"bf16": _paged_logits_check(torch, sched, cfg, torch.bfloat16, ids)}
+    e2e["logits_rel_l2"] = {"bf16": _paged_logits_check(torch, sched.params, cfg, torch.bfloat16,
+                                                        ids)}
     params = sched.params
     eager = BatchScheduler(params, cfg, kv_dtype=torch.bfloat16, device="cuda", fuse=False,
                            decode_graphs=False, **SERVE)
@@ -1418,7 +1443,7 @@ def serving_path(torch, card_note):
     e2e["q8_graphs"] = _graph_check("q8 serving path", sq.graphs, graphs0,
                                     e2e["q8_launches"]["decode_steps"])
     _check_finish(q8reqs, cfg, "q8 serving")
-    e2e["logits_rel_l2"]["q8"] = _paged_logits_check(torch, sq, cfg, "q8", ids)
+    e2e["logits_rel_l2"]["q8"] = _paged_logits_check(torch, sq.params, cfg, "q8", ids)
     del sq
     return counts, e2e
 
@@ -1497,7 +1522,7 @@ def q4s_serving_path(torch, card_note, q4_serving):
                        for f in ("MAX_TOKENS", "STOP_TOKEN")}, launches=counts,
                construction_s=conv_s, q4s_weights_gb=q4s_gb, graphs=dict(graphs, warmup=warm))
     e2e["profile"] = _serving_profile(torch, sched, cfg, ids, "graphs")
-    e2e["logits_rel_l2"] = _paged_logits_check(torch, sched, cfg, torch.bfloat16, ids)
+    e2e["logits_rel_l2"] = _paged_logits_check(torch, sched.params, cfg, torch.bfloat16, ids)
     # the eager yardstick on the same q4s weights (already converted: no format)
     eager = BatchScheduler(sched.params, cfg, kv_dtype=torch.bfloat16, device="cuda",
                            fuse=False, decode_graphs=False, **SERVE)
@@ -1616,8 +1641,8 @@ def _serving_profile(torch, sched, cfg, ids, run) -> dict:
         _graph_check("serving profile", sched.graphs, graphs0, n_steps)
     while not all(r.state == RequestState.DONE for r in reqs):
         sched.step()
-    groups = {"q4_matmul": 0.0, "w8a8_matmul": 0.0, "paged_decode": 0.0, "kv_write": 0.0,
-              "other": 0.0}
+    groups = {"q4_matmul": 0.0, "w8a8_matmul": 0.0, "moe_q4_matmul": 0.0, "paged_decode": 0.0,
+              "kv_write": 0.0, "other": 0.0}
     kernels = []
     for e in prof.key_averages():
         if str(e.device_type).endswith("CUDA"):
@@ -1629,6 +1654,7 @@ def _serving_profile(torch, sched, cfg, ids, run) -> dict:
     k5 = {}  # K5's device kernels by name: the decode kernel, the pre-pass, the wgmma kernel
     for ms, c, key in kernels:
         grp = ("q4_matmul" if K1_NAMES.search(key) else "w8a8_matmul" if K5_NAMES.search(key)
+               else "moe_q4_matmul" if K6_NAMES.search(key)
                else "paged_decode" if "paged_decode" in key
                else "kv_write" if "kv_write" in key else "other")
         groups[grp] += ms
@@ -1656,7 +1682,7 @@ def _serving_profile(torch, sched, cfg, ids, run) -> dict:
                 top=[dict(ms=ms, count=c, kernel=key[:90]) for ms, c, key in kernels[:12]])
 
 
-def _paged_logits_check(torch, sched, cfg, kv_dtype, ids) -> float:
+def _paged_logits_check(torch, params, cfg, kv_dtype, ids) -> float:
     """The paged forward's logits on the card (bf16 activations, K1-K5)
     against the same weights and the same pool kind on the CPU (plain
     versions, f32 activations): q4 and q8 weights dequantized once to f32,
@@ -1686,7 +1712,7 @@ def _paged_logits_check(torch, sched, cfg, kv_dtype, ids) -> float:
                 outs.append(lg)
         return torch.cat(outs, dim=1).float().cpu()
 
-    gpu = run(sched.params, "cuda", torch.bfloat16)
+    gpu = run(params, "cuda", torch.bfloat16)
 
     def deq(v):
         if isinstance(v, list):
@@ -1697,7 +1723,7 @@ def _paged_logits_check(torch, sched, cfg, kv_dtype, ids) -> float:
             return v.to("cpu") if v.fmt == "q4s" else v.dequantize(torch.float32).cpu()
         return v.float().cpu()
 
-    ref = run(deq(sched.params), "cpu", torch.float32)
+    ref = run(deq(params), "cpu", torch.float32)
     finite = bool(torch.isfinite(gpu).all())
     rel = ((gpu - ref).norm() / ref.norm()).item()
     print(f"paged logits [1, 32, {cfg.vocab_size}] ({kv_dtype} pool; 24-token prefill + 8 "
@@ -1802,6 +1828,391 @@ def design_benches(torch) -> dict:
     return dict(rows=rows, kernels=kernels, seconds=secs, launches=launches)
 
 
+# Phase 10: Mixtral-8x7B at full width. K6 (the grouped expert q4 matmul)
+# against its plain version: max |kernel - plain| <= MOE_TOL * max|plain| (the
+# same exact products, f32 sums in another order), plus one bf16 ulp of the
+# value (2^-7 of it) for a bf16 output
+MOE_TOL = 1e-4
+MOE_SERVE = dict(n_slots=16, n_pages=256, page_size=64, prefill_chunk=256, decode_lag=4,
+                 max_seq_len=1024)  # 16 slots of 1,024 tokens: 2.1 GB of bf16 pool
+MOE_NEW = 64  # new tokens of the Engine's request
+MOE_TTFT = 3  # time-to-first-token runs; the median is reported
+
+
+def _moe_ids(torch, t, k, case, g):
+    """Top-k expert ids [t, k] int32 on the card: each token k distinct
+    experts of 8 ("ragged"), none of them expert 3 ("empty"), or all on
+    expert 5 ("one")."""
+    if case == "one":
+        return torch.full((t, k), 5, dtype=torch.int32, device="cuda")
+    choices = torch.tensor([0, 1, 2, 4, 5, 6, 7] if case == "empty" else list(range(8)),
+                           device="cuda")
+    pick = torch.rand((t, len(choices)), generator=g, device="cuda").argsort(dim=1)[:, :k]
+    return choices[pick].to(torch.int32)
+
+
+def check_k6(torch, timer, params, cfg, details) -> dict:
+    """K6 on layer 0's expert stacks: w1 (w3 has its shape; N 14336, K 4096,
+    one x row a token, bf16 out) and w2 (N 4096, K 14336, one x row a
+    selection, f32 out), at R = 2 (the Engine's decode), 32 (16 slots) and
+    1024 (a 512-token prefill) selections, each with ragged routing, an
+    empty expert and all rows on one expert, and a bit-equal repeat; the
+    ragged cases timed beside the plain version, the JAX package's two
+    formulations in PyTorch and the bound."""
+    from jlama_tpu_torch.ops.moe_q4 import moe_q4_matmul, moe_q4_matmul_plain
+    from jlama_tpu_torch.ops.q4_matmul import q4_matmul
+    from jlama_tpu_torch.utils.cuda_timer import bound
+
+    layer = params["layers"][0]
+    K = cfg.n_experts_per_token
+    g = torch.Generator(device="cuda").manual_seed(2)
+    worst = 0.0
+    timed = {}
+    for proj, out_dtype in (("w1", torch.bfloat16), ("w2", torch.float32)):
+        w = layer["experts." + proj]
+        n, k = w.shape[1], w.shape[2]
+        for r in (2, 32, 1024):
+            for case in ("ragged", "empty", "one"):
+                e = _moe_ids(torch, r // K, K, case, g)
+                if proj == "w2":  # one x row a selection
+                    e = e.reshape(-1)
+                x = torch.randn((e.shape[0], k), generator=g, device="cuda").to(torch.bfloat16)
+                got = moe_q4_matmul(x, w, e, out_dtype)
+                ref = moe_q4_matmul_plain(x, w, e, torch.float32)
+                torch.cuda.synchronize()
+                d = (got.float() - ref).abs().reshape(r, n)
+                lim = MOE_TOL * ref.abs().max().item()
+                if out_dtype == torch.bfloat16:
+                    lim = lim + 2.0 ** -7 * ref.abs().reshape(r, n)
+                err = d.max().item()
+                if not bool((d <= lim).all()):
+                    fail(f"K6 {proj} R={r} {case}: max_abs_err {err} (max|ref| "
+                         f"{ref.abs().max().item()})")
+                if not torch.equal(moe_q4_matmul(x, w, e, out_dtype), got):
+                    fail(f"K6 {proj} R={r} {case}: a second call gave other bits")
+                worst = max(worst, err)
+                del ref, d, lim
+                row = dict(kernel="moe_q4_matmul", shape=proj, R=r, N=n, K=k, case=case,
+                           max_abs_err=err, repeat_bit_equal=True)
+                details.append(row)
+                if case != "ragged":
+                    print(f"K6 {proj} R={r:4d} {case:6s}: err {err:.3g}, repeat bit-equal",
+                          flush=True)
+                    continue
+                per = r // e.shape[0]  # selections a row of x
+
+                def k1_per_selection():  # the ids read to the host, one K1 launch each
+                    y = torch.empty((r, n), dtype=out_dtype, device="cuda")
+                    for i, ex in enumerate(e.reshape(-1).tolist()):
+                        y[i] = q4_matmul(x[i // per:i // per + 1], w[ex], out_dtype)[0]
+                    return y
+
+                def dequant_matmul():  # the touched experts to bf16, one matmul each
+                    ef = e.reshape(-1)
+                    xr = x.repeat_interleave(per, dim=0) if per > 1 else x
+                    y = torch.empty((r, n), dtype=out_dtype, device="cuda")
+                    for ex in torch.unique(ef).tolist():
+                        idx = (ef == ex).nonzero()[:, 0]
+                        y[idx] = torch.matmul(xr[idx], w[ex].dequantize(torch.bfloat16).t()) \
+                            .to(out_dtype)
+                    return y
+
+                ms = timer(lambda: moe_q4_matmul(x, w, e, out_dtype))
+                plain_ms = timer(lambda: moe_q4_matmul_plain(x, w, e, out_dtype))
+                k1_ms = timer(k1_per_selection)
+                deq_ms = timer(dequant_matmul)
+                host_us = _host_us(torch, lambda: moe_q4_matmul(x, w, e, out_dtype), n=50)
+                touched = int(torch.unique(e).numel())
+                nbytes = touched * n * k * 5 // 8 + x.numel() * 2 + e.numel() * 4 \
+                    + r * n * (4 if out_dtype == torch.float32 else 2)
+                b_ms, b_by = bound(nbytes, 2.0 * r * n * k)
+                row.update(ms=ms, plain_ms=plain_ms, yardstick_k1_ms=k1_ms,
+                           yardstick_dequant_matmul_ms=deq_ms, host_us=host_us,
+                           experts_touched=touched, bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
+                timed[(proj, r)] = row
+                print(f"K6 {proj} R={r:4d} {case:6s}: {ms:.4f} ms (bound {b_ms:.4f} by {b_by}, "
+                      f"{touched} experts touched; plain {plain_ms:.4f}; yardsticks: K1 per "
+                      f"selection {k1_ms:.4f}, bf16 dequant + matmul {deq_ms:.4f}); host "
+                      f"{host_us:.1f} us a call (grouping included); err {err:.3g}, repeat "
+                      "bit-equal", flush=True)
+    keys = ("ms", "plain_ms", "yardstick_k1_ms", "yardstick_dequant_matmul_ms", "bound_ms")
+
+    def step(r):  # a layer's gate, up and down projections, times the layers
+        return {key: cfg.n_layers * (2 * timed[("w1", r)][key] + timed[("w2", r)][key])
+                for key in keys}
+
+    s2, s32, s1024 = step(2), step(32), step(1024)
+    for label, s in (("an Engine decode step (R = 2)", s2), ("a 16-slot step (R = 32)", s32),
+                     ("a 512-token prefill (R = 1024)", s1024)):
+        print(f"K6 summed over {label}, {3 * cfg.n_layers} launches: {s['ms']:.3f} ms, bound "
+              f"{s['bound_ms']:.3f}; yardsticks K1 per selection {s['yardstick_k1_ms']:.3f}, "
+              f"bf16 dequant + matmul {s['yardstick_dequant_matmul_ms']:.3f}; plain "
+              f"{s['plain_ms']:.3f}", flush=True)
+    return dict(s2, max_abs_err=worst, bound_by="bytes", library_ms=None,
+                **{f"{key}_r32": v for key, v in s32.items()},
+                **{f"{key}_r1024": v for key, v in s1024.items()},
+                bound_by_r1024=timed[("w1", 1024)]["bound_by"],
+                host_us_r2=timed[("w1", 2)]["host_us"], host_us_r32=timed[("w1", 32)]["host_us"],
+                host_us_r1024=timed[("w1", 1024)]["host_us"],
+                work="one Engine decode step of Mixtral-8x7B, R = 2: "
+                f"{cfg.n_layers} x (w1, w3, w2) = {3 * cfg.n_layers} launches; *_r32: the 16-slot "
+                "step; *_r1024: a 512-token prefill; library_ms: no one PyTorch call computes "
+                "it; yardstick_*: the JAX package's two formulations in PyTorch (per-selection "
+                "K1 with the ids read to the host; a bf16 dequantization of the touched experts "
+                "and one torch.matmul each)")
+
+
+def _moe_kernel_counts() -> dict:
+    from jlama_tpu_torch.ops.moe_q4 import moe_groups, moe_q4_matmul
+
+    fns = dict(_kernel_fns(), moe_q4_matmul=moe_q4_matmul, moe_groups=moe_groups)
+    return {k: fn.launches for k, fn in fns.items()}
+
+
+def _moe_reset_counts():
+    from jlama_tpu_torch.ops.moe_q4 import moe_groups, moe_q4_matmul
+
+    for fn in (*_kernel_fns().values(), moe_q4_matmul, moe_groups):
+        fn.launches = 0
+    _unfused_rope_calls(reset=True)
+
+
+def _moe_expected(cfg, n_prefill, n_decode) -> dict:
+    """A Mixtral forward's launches: per layer K1 for wqkv and wo, K6's
+    grouping and its three matmuls, K4, and K3 (prefill) or K2 (decode); a
+    decode step's lm_head on K1. The router is a float matmul."""
+    L, n = cfg.n_layers, n_prefill + n_decode
+    return {"q4_matmul": n_prefill * 2 * L + n_decode * (2 * L + 1), "paged_decode": n_decode * L,
+            "flash_prefill": n_prefill * L, "kv_write": n * L, "w8a8_matmul": 0,
+            "moe_q4_matmul": n * 3 * L, "moe_groups": n * L}
+
+
+def _moe_profile(torch, eng, prompt, run) -> dict:
+    """Device ms by kernel and the busy share over 16 `Engine` decode tokens
+    (the main request's key: its cache slot, window 1,024), torch.profiler on."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng.drop_session("main")
+    eng.generate_tokens(prompt, max_new_tokens=1, stop_ids=set(), session_id="prof")
+    torch.cuda.synchronize()
+    graphs0 = eng.graphs.stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.generate_tokens([], max_new_tokens=16, stop_ids=set(), session_id="prof")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if run == "graphs":
+        _graph_check("mixtral profile", eng.graphs, graphs0, 16)
+    eng.drop_session("prof")
+    kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                      if str(e.device_type).endswith("CUDA")), reverse=True)
+    dev_ms = sum(k[0] for k in kernels)
+    if dev_ms <= 0:
+        fail("mixtral profile: the profiler saw no device time")
+    groups = {"moe_q4_matmul": 0.0, "q4_matmul": 0.0, "paged_decode": 0.0, "kv_write": 0.0,
+              "other": 0.0}
+    for ms, _, key in kernels:
+        groups["moe_q4_matmul" if K6_NAMES.search(key) else "q4_matmul" if K1_NAMES.search(key)
+               else "paged_decode" if "paged_decode" in key
+               else "kv_write" if "kv_write" in key else "other"] += ms
+    n_ops = sum(c for _, c, _ in kernels)
+    print(f"profile ({run}) Mixtral-8x7B Engine decode, 16 tokens: wall {wall_ms:.2f} ms "
+          f"(profiler on), device {dev_ms:.2f} ms, busy share {dev_ms / wall_ms:.3f}, {n_ops} "
+          f"device ops ({n_ops / 16:.1f} per token); by group "
+          + ", ".join(f"{g} {v:.2f} ms" for g, v in groups.items()), flush=True)
+    for ms, c, key in kernels[:12]:
+        print(f"  {ms:8.3f} ms {c:6d}x {key[:90]}")
+    return dict(wall_ms=wall_ms, device_ms=dev_ms, busy_share=dev_ms / wall_ms, device_ops=n_ops,
+                device_ops_per_token=n_ops / 16, by_group_ms=groups,
+                top=[dict(ms=ms, count=c, kernel=key[:90]) for ms, c, key in kernels[:12]])
+
+
+def _moe_engine(torch, params, cfg, card_note) -> tuple[dict, dict]:
+    """A 512-token prompt and 64 greedy tokens (after MOE_TTFT first-token
+    runs) through an Engine on decode graphs and through the eager yardstick
+    on the same weights: identical ids, launch counts as expected."""
+    from jlama_tpu_torch.runtime.engine import Engine
+
+    eng = Engine(params, cfg, device="cuda", max_seq_len=1024)
+    eager = Engine(eng.params, cfg, device="cuda", max_seq_len=1024, fuse=False,
+                   decode_graphs=False)
+    rng = torch.Generator().manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (512,), generator=rng).tolist()
+    expect = _moe_expected(cfg, MOE_TTFT + 1, MOE_TTFT + MOE_NEW)
+    out, ids = {}, {}
+    for run, e in (("graphs", eng), ("eager", eager)):
+        e.generate_tokens(prompt, max_new_tokens=2, stop_ids=set(), session_id="warm")
+        e.drop_session("warm")
+        torch.cuda.synchronize()
+        _moe_reset_counts()
+        graphs0 = e.graphs.stats()
+        ttfts, firsts = [], []
+        for i in range(MOE_TTFT):
+            t1 = time.perf_counter()
+            firsts.append(e.generate_tokens(prompt, max_new_tokens=1, stop_ids=set(),
+                                            session_id=f"ttft{i}").token_ids)
+            torch.cuda.synchronize()
+            ttfts.append((time.perf_counter() - t1) * 1000)
+            e.drop_session(f"ttft{i}")
+        resp = e.generate_tokens(prompt, max_new_tokens=MOE_NEW, stop_ids=set(),
+                                 session_id="main")
+        torch.cuda.synchronize()
+        got = _moe_kernel_counts()
+        print(f"mixtral engine ({run}) launches {got}, expected {expect}", flush=True)
+        if got != expect or _unfused_rope_calls():
+            fail(f"mixtral engine ({run}): launches {got} != expected {expect}, or apply_rope "
+                 f"ran {_unfused_rope_calls()} times apart from K4")
+        toks = resp.token_ids
+        if len(toks) != MOE_NEW or not all(0 <= t < cfg.vocab_size for t in toks) \
+                or any(f != [toks[0]] for f in firsts):
+            fail(f"mixtral engine ({run}): bad ids {toks[:8]}... or first tokens {firsts}")
+        ids[run] = toks
+        out[run] = dict(ttft_ms=statistics.median(ttfts), ttft_ms_runs=ttfts,
+                        decode_tok_s=MOE_NEW / (resp.generate_time_ms / 1000),
+                        decode_ms_per_token=resp.generate_time_ms / MOE_NEW,
+                        prefill_ms_511=resp.prompt_time_ms)
+        if run == "graphs":
+            out["graphs"]["graphs"] = _graph_check("mixtral engine", e.graphs, graphs0,
+                                                   MOE_TTFT + MOE_NEW)
+        print(f"mixtral engine ({run}): TTFT (512-token prompt) median "
+              f"{out[run]['ttft_ms']:.2f} ms of {MOE_TTFT}; decode {out[run]['decode_tok_s']:.1f} "
+              f"tok/s ({MOE_NEW} tokens, batch 1) on {card_note}", flush=True)
+    if ids["graphs"] != ids["eager"]:
+        fail("mixtral engine: the graphs' greedy ids differ from the eager run's")
+    print(f"mixtral engine: greedy ids of the graphs equal the eager run's ({MOE_NEW} tokens)",
+          flush=True)
+    out["graphs"]["eager"] = out.pop("eager")
+    e2e = out["graphs"]
+    e2e["profile"] = _moe_profile(torch, eng, prompt, "graphs")
+    e2e["profile_eager"] = _moe_profile(torch, eager, prompt, "eager")
+    e2e["launches"] = expect
+    return e2e, eng
+
+
+def _moe_serving(torch, params, cfg, card_note) -> dict:
+    """8 greedy requests made from a seed (prompts 32-512, 32-64 new tokens)
+    through a 16-slot BatchScheduler on decode graphs, submitted at once to
+    its serving thread; then the same 8 driven inline through it and through
+    the eager yardstick, whose ids must be identical."""
+    from jlama_tpu_torch.runtime.scheduler import BatchScheduler, GenRequest
+
+    sched = BatchScheduler(params, cfg, kv_dtype=torch.bfloat16, device="cuda", fuse=False,
+                           **MOE_SERVE)
+    g = torch.Generator().manual_seed(9)
+
+    def ids(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+
+    mix = [(ids(int(torch.randint(32, 513, (1,), generator=g))),
+            int(torch.randint(32, 65, (1,), generator=g))) for _ in range(8)]
+    reqs = [GenRequest(prompt_ids=p, max_new_tokens=n) for p, n in mix]
+    _moe_reset_counts()
+    sched.n_prefill_calls = sched.n_decode_steps = 0
+    graphs0 = sched.graphs.stats()
+    t0 = time.perf_counter()
+    sched.start()
+    for r in reqs:
+        sched.submit(r)
+    _wait(reqs, 600, "mixtral serving")
+    wall = time.perf_counter() - t0
+    sched.stop()
+    torch.cuda.synchronize()
+    n_pf, n_dec = sched.n_prefill_calls, sched.n_decode_steps
+    got, expect = _moe_kernel_counts(), _moe_expected(cfg, n_pf, n_dec)
+    print(f"mixtral serving: {n_pf} prefill calls, {n_dec} decode steps; launches {got}, "
+          f"expected {expect}; a decode step: {2 * cfg.n_layers + 1} K1, {cfg.n_layers} K2, "
+          f"{cfg.n_layers} K4, {3 * cfg.n_layers} K6 (+ {cfg.n_layers} groupings)", flush=True)
+    if got != expect or _unfused_rope_calls():
+        fail(f"mixtral serving: launches {got} != expected {expect}, or apply_rope ran "
+             f"{_unfused_rope_calls()} times apart from K4")
+    graphs = _graph_check("mixtral serving", sched.graphs, graphs0, n_dec)
+    _check_finish(reqs, cfg, "mixtral serving")
+    resps = [r.to_response() for r in reqs]
+    n_gen = sum(r.generated_tokens for r in resps)
+    ttft = [r.prompt_time_ms for r in resps]
+    itl = [r.generate_time_ms / (r.generated_tokens - 1) for r in resps if r.generated_tokens > 1]
+    e2e = dict(requests=len(resps), generated_tokens=n_gen, wall_s=wall, tok_s=n_gen / wall,
+               ttft_ms_p50=_pct(ttft, 50), ttft_ms_p95=_pct(ttft, 95),
+               itl_ms_p50=_pct(itl, 50), itl_ms_p95=_pct(itl, 95),
+               launches=dict(got, prefill_calls=n_pf, decode_steps=n_dec), graphs=graphs)
+    print(f"mixtral serving: {len(resps)} requests, {n_gen} tokens in {wall:.2f} s = "
+          f"{n_gen / wall:.1f} tok/s; TTFT p50 {e2e['ttft_ms_p50']:.1f} ms, p95 "
+          f"{e2e['ttft_ms_p95']:.1f} ms; inter-token p50 {e2e['itl_ms_p50']:.2f} ms, p95 "
+          f"{e2e['itl_ms_p95']:.2f} ms on {card_note}", flush=True)
+    # the same requests inline, graphs against the eager yardstick
+    from jlama_tpu_torch.runtime.scheduler import RequestState
+
+    eager = BatchScheduler(params, cfg, kv_dtype=torch.bfloat16, device="cuda", fuse=False,
+                           decode_graphs=False, **MOE_SERVE)
+    out = {}
+    for run, s in (("graphs", sched), ("eager", eager)):
+        rs = [GenRequest(prompt_ids=p, max_new_tokens=n) for p, n in mix]
+        graphs0, n0 = s.graphs.stats(), s.n_decode_steps
+        for r in rs:
+            s.submit(r)
+        while not all(r.state == RequestState.DONE for r in rs):
+            s.step()
+        if run == "graphs":
+            _graph_check("mixtral serving greedy check", s.graphs, graphs0, s.n_decode_steps - n0)
+        out[run] = [r.out_ids for r in rs]
+    if out["graphs"] != out["eager"]:
+        fail("mixtral serving: the graphs' greedy ids differ from the eager run's")
+    print("mixtral serving: greedy ids of the 8 requests through the decode graphs equal the "
+          "eager run's", flush=True)
+    e2e["eager_ids"] = dict(requests=8, tokens=sum(map(len, out["graphs"])), equal=True)
+    e2e["profile"] = _serving_profile(torch, sched, cfg, ids, "graphs")
+    e2e["profile_eager"] = _serving_profile(torch, eager, cfg, ids, "eager")
+    return e2e
+
+
+def moe_path(torch, card_note) -> dict:
+    """Phase 10: Mixtral-8x7B at full width (32 layers, random JQ4 weights
+    from seed 0, about 29.2 GB): K6 against its plain version, the dense and
+    paged logits of its first 2 layers against the plain path in f32 on the
+    CPU, the Engine and the BatchScheduler on decode graphs beside their
+    eager yardsticks, and the phase's peak memory."""
+    import dataclasses
+
+    from jlama_tpu_torch.models.init import mixtral_8x7b_config, random_q4_params
+    from jlama_tpu_torch.utils.cuda_timer import Timer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = mixtral_8x7b_config()
+    t0 = time.perf_counter()
+    params = random_q4_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    gb = torch.cuda.memory_allocated() / 1e9
+    print(f"mixtral: Mixtral-8x7B shapes ({cfg.n_layers} layers, D {cfg.embedding_length}, "
+          f"{cfg.n_experts} experts of FFN {cfg.hidden_length}, top-{cfg.n_experts_per_token}, "
+          f"head size {cfg.head_size}), random JQ4 weights (seed 0): {gb:.2f} GB on the card, "
+          f"made in {time.perf_counter() - t0:.2f} s", flush=True)
+    details: list[dict] = []
+    timer = Timer()
+    k6 = check_k6(torch, timer, params, cfg, details)
+    del timer
+    torch.cuda.empty_cache()
+    # the first 2 layers at full width against the plain path in f32 on the CPU
+    g = torch.Generator().manual_seed(4)
+
+    def ids(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+
+    p2 = dict(params, layers=params["layers"][:2])
+    c2 = dataclasses.replace(cfg, n_layers=2)
+    logits = dict(dense=_dense_decode_logits_check(torch, p2, c2, ids(24)),
+                  paged=_paged_logits_check(torch, p2, c2, torch.bfloat16, ids))
+    del p2
+    engine, eng = _moe_engine(torch, params, cfg, card_note)
+    serving = _moe_serving(torch, eng.params, cfg, card_note)
+    del eng
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"mixtral: peak memory of the phase {peak:.2f} GB (weights {gb:.2f} GB) on "
+          f"{card_note}", flush=True)
+    return dict(k6=k6, k6_cases=details, logits_rel_l2=logits, engine=engine, serving=serving,
+                weights_gb=gb, peak_memory_gb=peak)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write per-shape details as JSON here")
@@ -1882,6 +2293,16 @@ def main() -> None:
     benches = design_benches(torch)
     out["design_benches"] = dict(rows=benches["rows"], seconds=benches["seconds"],
                                  launches=benches["launches"])
+    # 10. Mixtral-8x7B: MoE through K6, the Engine and the scheduler
+    torch.cuda.empty_cache()
+    moe = moe_path(torch, smi)
+    out["mixtral"] = moe
+    kern["moe_q4_matmul"] = moe["k6"]
+    print(f"card {smi}: mixtral " + json.dumps(
+        {"engine": {k: v for k, v in moe["engine"].items() if not k.startswith("profile")},
+         "serving": {k: v for k, v in moe["serving"].items() if not k.startswith("profile")},
+         "logits_rel_l2": moe["logits_rel_l2"], "peak_memory_gb": moe["peak_memory_gb"]}),
+        flush=True)
 
     routes = {
         "q4_matmul": ("jlama_tpu_torch/csrc/q4_matmul.cu", "jlama_tpu/ops/pallas_q4.py:113"),
@@ -1892,13 +2313,20 @@ def main() -> None:
         "kv_write": ("jlama_tpu_torch/csrc/kv_write.cu", "jlama_tpu/ops/pallas_kv.py:27"),
         "w8a8_matmul": ("jlama_tpu_torch/csrc/w8a8_matmul.cu",
                         "jlama_tpu/ops/pallas_w8a8.py:176"),
+        # no Pallas body: _moe_gathered's per-selection linear (and _moe_ragged's
+        # bf16 dequantization + ragged_dot, nn/layers.py:568, :671)
+        "moe_q4_matmul": ("jlama_tpu_torch/csrc/moe_q4.cu", "jlama_tpu/nn/layers.py:625"),
     }
     kernels = []
-    for k in KERNELS:
+    for k in KERNELS + ("moe_q4_matmul",):
         src, rep = routes[k]
         if k == "w8a8_matmul":  # its path: q4s serving (phase 7)
             launches = dict(launches=q4s_launches[k], launches_engine=None,
                             launches_ppl=out["perplexity"]["q4s"]["launches"][k])
+        elif k == "moe_q4_matmul":  # its path: Mixtral serving and Engine (phase 10)
+            launches = dict(launches=moe["serving"]["launches"][k],
+                            launches_engine=moe["engine"]["launches"][k],
+                            launches_grouping=moe["serving"]["launches"]["moe_groups"])
         else:
             launches = dict(launches=serving_launches.get(k),
                             launches_engine=engine_launches.get(k))

@@ -550,7 +550,10 @@ __global__ void __launch_bounds__(kThreads, TC && GM == 16 && HD == 64 ? 4 : 1)
               if (a.softcap > 0.0f) v = tanhf(v / a.softcap) * a.softcap;
               z[x] = v * kLog2e;
               ok[x] = row && j >= j_lo && j < j_hi;
-              mx = fmaxf(mx, ok[x] ? v : kNegInf);
+              // the max in z's own (log2) units: the probabilities then stay
+              // <= 1 (a max of the natural scores left exp2(0.44 max) in P,
+              // which overflowed past scores of ~285)
+              mx = fmaxf(mx, ok[x] ? z[x] : kNegInf);
             }
             mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
             mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));

@@ -4,7 +4,7 @@
 Param tree layout (leaves are tensors or QArrays):
   params = {
     "embed": [V, D],                     # token embeddings
-    "layers": [ {key: tensor} per layer ],
+    "layers": [ {key: tensor} per layer ],  # MoE: router + experts.w1/w2/w3 [E, ...]
     "final_norm.weight": [D],
     "lm_head": [V, D],                   # absent when tied
   }
@@ -68,7 +68,7 @@ def _block(x, layer_params: dict, cfg: ModelConfig, positions, cache, cos, sin,
         attn_out = L.norm(attn_out, layer_params, cfg, "post_attn_norm")
     x = x + (attn_out if rm is None else rm * attn_out)
     h = L.norm(x, layer_params, cfg, "ff_norm")
-    ff = L.mlp_block(h, layer_params, cfg)
+    ff = L.moe_block(h, layer_params, cfg) if cfg.n_experts else L.mlp_block(h, layer_params, cfg)
     if cfg.post_ff_norm:
         ff = L.norm(ff, layer_params, cfg, "post_ff_norm")
     x = x + (ff if rm is None else rm * ff)
@@ -101,9 +101,9 @@ def forward_hidden(
     `rope_inv_freq`); a caller in a decode loop passes them so the step does
     no host-to-device copy, which would synchronize the stream.
     """
-    if cfg.model_type in ("gpt2", "bert", "mixtral") or cfg.learned_pos_embeddings:
+    if cfg.model_type in ("gpt2", "bert") or cfg.learned_pos_embeddings:
         raise NotImplementedError(
-            f"{cfg.model_type}: only the Llama-family decoder is ported"
+            f"{cfg.model_type}: only the Llama-family and Mixtral decoders are ported"
         )
     x = _embed(params, cfg, tokens, dtype)
     if cfg.rope_theta:
@@ -177,10 +177,41 @@ def _fuse_layer_dict(d: dict) -> dict:
 def fuse_params(params: dict) -> dict:
     """Fuse QKV into one [qdim+2*kvdim, D] matmul and gate/up into one
     [2H, D] matmul (one-time concat, tp=1; the same rows hit the same
-    reduction, so the numbers do not change)."""
+    reduction, so the numbers do not change). MoE experts stay as they are:
+    a concat of Mixtral-8x7B's w1 and w3 would copy 18.8 GB."""
     out = dict(params)
     out["layers"] = [_fuse_layer_dict(d) for d in params["layers"]]
     return out
+
+
+def prepare_moe_ragged(params: dict) -> dict:
+    """Float MoE experts transposed once into the grouped-matmul layout
+    `experts.w*_t` [E, in, out] (`jlama_tpu/models/base.py:prepare_moe_ragged`).
+    q4 experts stay as they are: K6 reads their [E, out, in] layout, whose
+    block-32 quantization axis a transpose would move."""
+    out = dict(params)
+    layers = []
+    for d in params["layers"]:
+        if "experts.w1" in d and not isinstance(d["experts.w1"], QArray):
+            d = dict(d)
+            for k in ("experts.w1", "experts.w2", "experts.w3"):
+                d[k + "_t"] = d.pop(k).transpose(-1, -2)
+        layers.append(d)
+    out["layers"] = layers
+    return out
+
+
+def check_moe_device(params: dict, device) -> None:
+    """Raise where MoE experts that only the CPU runs would meet the card:
+    float experts have no kernel there (ROADMAP: float experts on the card)."""
+    if torch.device(device).type == "cpu":
+        return
+    for d in params["layers"]:
+        w1 = d.get("experts.w1", d.get("experts.w1_t"))
+        if w1 is not None and not isinstance(w1, QArray):
+            raise NotImplementedError(
+                "float MoE experts run on the CPU only; on the card quantize them to q4 "
+                "(ROADMAP: float experts on the card)")
 
 
 def final_hidden(params: dict, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:

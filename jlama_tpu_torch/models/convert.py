@@ -4,7 +4,8 @@
 `load_params` or `init_params`) with every leaf already turned into numpy
 (the port imports nothing of JAX), a QArray leaf given as the tuple
 `(data, scales, fmt)`. Layers may be stacked (`{key: [L, ...]}`) or a
-per-layer list of dicts. Leaves are q4, q8, q4s or float; numpy arrays of the
+per-layer list of dicts; a MoE layer's stacked expert QArrays [L, E, N, K/2]
+and its router [L, E, D] become per-layer [E, ...] leaves like any other. Leaves are q4, q8, q4s or float; numpy arrays of the
 `bfloat16` extension dtype are read through their 16-bit patterns. A q4s leaf
 `(data, (sigma, swk), "q4s")` in the JAX layout (data [ngrp, N, 128] in the
 `_group_perm` column order, sigma [ngrp, N, 8], swk [ngrp, 1, N]) is mapped

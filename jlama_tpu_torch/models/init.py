@@ -4,7 +4,10 @@
 (std 0.02, optionally JQ4-quantized), like the JAX package. `random_q4_params`
 is the fast on-device random JQ4 init for full-width runs: random packed
 nibbles and small random f32 scales drawn directly on the device from a
-seeded `torch.Generator`.
+seeded `torch.Generator`. A MoE config (`cfg.n_experts`) gets the JAX
+package's expert layout (`jlama_tpu/models/init.py:51-55`) in place of w1,
+w2, w3: a float `router` [E, D] and the expert stacks `experts.w1`,
+`experts.w3` [E, H, D] and `experts.w2` [E, D, H], q4 where the rest is.
 """
 
 from __future__ import annotations
@@ -18,12 +21,18 @@ from ..nn.qarray import QArray
 from ..quant import blockq
 
 
-def _shapes(cfg: ModelConfig) -> dict[str, tuple[int, int]]:
+def _shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """The layer's projections: [out, in], and [E, out, in] for experts."""
     D, H = cfg.embedding_length, cfg.hidden_length
     qdim = cfg.n_heads * cfg.head_size
     kvdim = cfg.n_kv_heads * cfg.head_size
-    return {"wq": (qdim, D), "wk": (kvdim, D), "wv": (kvdim, D), "wo": (D, qdim),
-            "w1": (H, D), "w2": (D, H), "w3": (H, D)}
+    out = {"wq": (qdim, D), "wk": (kvdim, D), "wv": (kvdim, D), "wo": (D, qdim)}
+    if cfg.n_experts:
+        E = cfg.n_experts
+        out.update({"experts.w1": (E, H, D), "experts.w2": (E, D, H), "experts.w3": (E, H, D)})
+    else:
+        out.update({"w1": (H, D), "w2": (D, H), "w3": (H, D)})
+    return out
 
 
 def init_params(
@@ -35,8 +44,6 @@ def init_params(
 ) -> dict:
     """Random-normal params (std 0.02) in the loader's layout."""
     device = resolve_device(device)
-    if cfg.n_experts:
-        raise NotImplementedError("MoE configs are not ported yet")
     rng = np.random.default_rng(seed)
     D, V = cfg.embedding_length, cfg.vocab_size
 
@@ -61,6 +68,9 @@ def init_params(
         layer = {k: linear_leaf(*s) for k, s in _shapes(cfg).items()}
         layer["attn_norm.weight"] = ones(D)
         layer["ff_norm.weight"] = ones(D)
+        if cfg.n_experts:
+            layer["router"] = torch.from_numpy(w(cfg.n_experts, D)).to(device=device,
+                                                                       dtype=dtype)
         if cfg.post_attn_norm:
             layer["post_attn_norm.weight"] = ones(D)
         if cfg.post_ff_norm:
@@ -86,17 +96,30 @@ def random_q4_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     Every matrix, the embedding table included (which a tied lm_head then
     reads as it is), is a q4 QArray of uniform random nibbles with f32 block
     scales uniform in [0.5, 1.5] x 0.0043, so weights have std ≈ 0.02; norms
-    are ones."""
+    are ones. A MoE router is bf16 normal with std 0.02; the expert stacks
+    are drawn one expert matrix at a time into their [E, N, K] tensors."""
     device = resolve_device(device)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     D = cfg.embedding_length
 
-    def q4(n, k):
+    def q4_matrix(n, k):
         data = torch.randint(0, 256, (n, k // 2), generator=g, device=device,
                              dtype=torch.uint8)
         scales = torch.rand((n, k // 32), generator=g, device=device) + 0.5
         return QArray(data, scales * 0.0043, "q4")
+
+    def q4(*shape):
+        *lead, n, k = shape
+        if not lead:
+            return q4_matrix(n, k)
+        data = torch.empty((*lead, n, k // 2), dtype=torch.uint8, device=device)
+        scales = torch.empty((*lead, n, k // 32), dtype=torch.float32, device=device)
+        for d, s in zip(data.reshape(-1, n, k // 2), scales.reshape(-1, n, k // 32)):
+            m = q4_matrix(n, k)
+            d.copy_(m.data)
+            s.copy_(m.scales)
+        return QArray(data, scales, "q4")
 
     def ones(n):
         return torch.ones(n, dtype=torch.float32, device=device)
@@ -106,6 +129,9 @@ def random_q4_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
         layer = {k: q4(*s) for k, s in _shapes(cfg).items()}
         layer["attn_norm.weight"] = ones(D)
         layer["ff_norm.weight"] = ones(D)
+        if cfg.n_experts:
+            layer["router"] = (torch.randn((cfg.n_experts, D), generator=g, device=device)
+                               * 0.02).to(torch.bfloat16)
         layers.append(layer)
     params = {"embed": q4(cfg.vocab_size, D), "layers": layers,
               "final_norm.weight": ones(D)}
@@ -160,6 +186,32 @@ def llama_8b_config() -> ModelConfig:
             "rope_theta": 500000.0,
             "bos_token_id": 128000,
             "eos_token_id": 128009,
+            "hidden_act": "silu",
+            "tie_word_embeddings": False,
+        }
+    )
+
+
+def mixtral_8x7b_config() -> ModelConfig:
+    """mistralai/Mixtral-8x7B-v0.1 shapes (its published config.json)."""
+    return from_hf_config(
+        {
+            "model_type": "mixtral",
+            "hidden_size": 4096,
+            "intermediate_size": 14336,
+            "num_attention_heads": 32,
+            "num_key_value_heads": 8,
+            "num_hidden_layers": 32,
+            "head_dim": 128,
+            "rms_norm_eps": 1e-5,
+            "vocab_size": 32000,
+            "max_position_embeddings": 32768,
+            "rope_theta": 1e6,
+            "num_local_experts": 8,
+            "num_experts_per_tok": 2,
+            "sliding_window": None,
+            "bos_token_id": 1,
+            "eos_token_id": 2,
             "hidden_act": "silu",
             "tie_word_embeddings": False,
         }

@@ -1,10 +1,12 @@
 """Weight loading: HF safetensors checkpoints → per-layer torch param trees
-(counterpart of `jlama_tpu/models/loader.py`, Llama-family map).
+(counterpart of `jlama_tpu/models/loader.py`, its Llama-family and Mixtral
+maps).
 
 Dtype handling as in the JAX package: F16 and BF16 widen to f32 on the host
 and then take `float_dtype`; Q4 and I8 (+ `.qb` scales) become QArrays in the
 checkpoint's layout; norms load as f32. Layers stay a per-layer list on the
-chosen device. The other architectures' maps come in a later slice.
+chosen device; a Mixtral expert projection is one [E, out, in] leaf. The
+other architectures' maps come in a later slice.
 """
 
 from __future__ import annotations
@@ -111,6 +113,34 @@ def _llama_layer_map(prefix: str = "model.layers") -> dict[str, Callable]:
     }
 
 
+def _mixtral_layer_map(n_experts: int, prefix: str = "model.layers") -> dict[str, Callable]:
+    """The Llama map with the MLP replaced by the sparse MoE block
+    (`jlama_tpu/models/loader.py:_mixtral_layer_map`): `router` from the
+    gate, and each expert projection stacked over the experts into one
+    [E, out, in] leaf, made uniform across the experts first."""
+    m = _llama_layer_map(prefix)
+    for k in ("w1", "w2", "w3"):
+        m.pop(k)
+
+    def expert_stack(wname):
+        def f(r, i):
+            items = _stack_linears([
+                r.load_linear(f"{prefix}.{i}.block_sparse_moe.experts.{e}.{wname}.weight")
+                for e in range(n_experts)
+            ])
+            kind = items[0][0]
+            return (kind, np.stack([d for _, d, _ in items]),
+                    None if kind == "f" else np.stack([s for _, _, s in items]))
+
+        return f
+
+    m["experts.w1"] = expert_stack("w1")
+    m["experts.w2"] = expert_stack("w2")
+    m["experts.w3"] = expert_stack("w3")
+    m["router"] = lambda r, i: r.load_linear(f"{prefix}.{i}.block_sparse_moe.gate.weight")
+    return m
+
+
 LLAMA_FAMILY = ("llama", "mistral", "qwen2", "granite", "gemma")
 
 TOPLEVEL_MAP = {
@@ -133,9 +163,9 @@ def load_params(
     model_dir = Path(model_dir)
     if cfg is None:
         cfg = load_config(model_dir)
-    if cfg.model_type not in LLAMA_FAMILY:
+    if cfg.model_type not in LLAMA_FAMILY + ("mixtral",):
         raise NotImplementedError(
-            f"{cfg.model_type}: only the Llama-family loader is ported"
+            f"{cfg.model_type}: only the Llama-family and Mixtral loaders are ported"
         )
     idx = SafeTensorIndex(model_dir)
     try:
@@ -154,7 +184,9 @@ def load_params(
                 params[key] = _leaf(r.load_linear(hf), device, float_dtype)
 
         layers: list[dict] = [{} for _ in range(cfg.n_layers)]
-        for key, fn in _llama_layer_map().items():
+        layer_map = (_mixtral_layer_map(cfg.n_experts) if cfg.model_type == "mixtral"
+                     else _llama_layer_map())
+        for key, fn in layer_map.items():
             optional = key.endswith("?")
             key_clean = key.replace(":np", "").rstrip("?")
             try:

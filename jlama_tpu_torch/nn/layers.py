@@ -31,6 +31,8 @@ from ..kv.paged import gather_kv_layer, page_size_of, write_kv_layer
 from ..ops.attention import HEAD_SIZES, flash_prefill, paged_decode
 from ..ops.kv_write import dense_page_table, dense_pool_view, kv_write
 from ..ops.linear import linear
+from ..ops.moe_q4 import moe_groups, moe_q4_matmul
+from .qarray import QArray
 from .rope import apply_rope
 
 
@@ -296,3 +298,79 @@ def mlp_block(x: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
     # classic 2-layer MLP with biases (gpt2/bert)
     h = activation(linear(x, params["w1"], params.get("w1.bias")), cfg.activation)
     return linear(h, params["w2"], params.get("w2.bias"))
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+
+
+def moe_block(x: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Mixture-of-experts FFN with top-k routing (`jlama_tpu/nn/layers.py:
+    moe_block`): the router in f32, `torch.topk` over the experts and a
+    softmax over the k chosen, each selection through its expert's gated MLP,
+    weighted by its f32 routing weight, the k summed in index order in f32
+    (`_moe_ragged`'s combine), then x's dtype.
+
+    q4 experts (`experts.w1`, `experts.w3` [E, H, D], `experts.w2` [E, D, H])
+    go through K6 (`ops/moe_q4.py`), grouped once for the three projections:
+    on the card with no host sync, so a decode step stays capturable. The JAX
+    package takes two routes there, which round differently (`_moe_gathered`
+    at B·T·K ≤ 8 with exact f32 dequantization, `_moe_ragged` above with the
+    weights rounded to bf16); K6 computes the first's function at every size.
+    Float experts (`experts.w*`, or `experts.w*_t` [E, in, out] after
+    `models.base.prepare_moe_ragged`) run a plain grouped matmul on the CPU
+    and raise on the card (ROADMAP: float experts on the card). Experts are
+    never sharded here (no expert parallelism: ROADMAP)."""
+    B, T, D = x.shape
+    K = cfg.n_experts_per_token
+    router = params["router"]
+    # a float router as the JAX package runs it: products of the activation
+    # dtype's values exact in f32, f32 sums
+    logits = linear(x if isinstance(router, QArray) else x.to(torch.float32), router,
+                    out_dtype=torch.float32)
+    topk_w, topk_idx = torch.topk(logits, K, dim=-1)
+    topk_w = torch.softmax(topk_w, dim=-1)
+    xf = x.reshape(B * T, D)
+    e = topk_idx.reshape(B * T, K).to(torch.int32)
+    w1 = params.get("experts.w1")
+    if isinstance(w1, QArray):
+        groups = moe_groups(e, cfg.n_experts)
+        gate = activation(moe_q4_matmul(xf, w1, e, groups=groups), cfg.activation)
+        up = moe_q4_matmul(xf, params["experts.w3"], e, groups=groups)
+        h = (gate * up).reshape(B * T * K, -1)
+        y = moe_q4_matmul(h, params["experts.w2"], e.reshape(-1), out_dtype=torch.float32,
+                          groups=groups)
+    else:
+        y = _moe_float_plain(xf, params, cfg, e)
+    y = (y.reshape(B * T, K, D) * topk_w.reshape(B * T, K, 1)).sum(dim=1)
+    return y.reshape(B, T, D).to(x.dtype)
+
+
+def _moe_float_plain(xf: torch.Tensor, params: dict, cfg: ModelConfig,
+                     e: torch.Tensor) -> torch.Tensor:
+    """Float experts, one group of selections per expert (`_moe_ragged`'s
+    grouped matmuls): weights in x's dtype, f32 sums, gate and up in x's
+    dtype, the down projection in f32. [N, K] ids -> [N·K, D] f32."""
+    if xf.device.type != "cpu":
+        raise NotImplementedError(
+            "float MoE experts run on the CPU only; on the card quantize them to q4 "
+            "(ROADMAP: float experts on the card)")
+    ragged = "experts.w1_t" in params  # [E, in, out]; else [E, out, in]
+
+    def mm(a, key, ex, out_dtype):
+        w = params[key + ("_t" if ragged else "")][ex].to(a.dtype)
+        w = w if ragged else w.t()
+        return torch.matmul(a.to(torch.float32), w.to(torch.float32)).to(out_dtype)
+
+    K = cfg.n_experts_per_token
+    ef = e.reshape(-1).long()
+    xs = xf.repeat_interleave(K, dim=0)
+    y = torch.zeros((ef.numel(), xf.shape[1]), dtype=torch.float32)
+    for ex in torch.unique(ef).tolist():
+        idx = (ef == ex).nonzero()[:, 0]
+        xi = xs[idx]
+        h = activation(mm(xi, "experts.w1", ex, xi.dtype), cfg.activation) \
+            * mm(xi, "experts.w3", ex, xi.dtype)
+        y[idx] = mm(h, "experts.w2", ex, torch.float32)
+    return y

@@ -12,7 +12,9 @@
   (sigma uint8 [..., n/32], swk float32 [..., n/256]), as in the JAX package.
 
 `scales` is float32 [..., n/32] (block-32 along the reduction axis) for q4
-and q8.
+and q8. Leading axes ride along: a MoE projection is one q4 QArray over its
+experts, data [E, N, K/2] and scales [E, N, K/32], which `dequantize`,
+`unpack` and indexing (`w[e]`, one expert's [N, K]) take as they are.
 """
 
 from __future__ import annotations

@@ -22,7 +22,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("q4_matmul", "flash_prefill", "paged_decode", "kv_write", "w8a8_matmul",
+SOURCES = ("q4_matmul", "flash_prefill", "paged_decode", "kv_write", "w8a8_matmul", "moe_q4",
            "kbench_q4", "kbench_w8a8", "probe_int4", "probe_sigma_i16")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

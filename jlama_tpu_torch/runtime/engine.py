@@ -34,7 +34,8 @@ import torch
 
 from ..config import ModelConfig
 from ..device import resolve_device
-from ..models.base import KVCache, forward_hidden, fuse_params, lm_logits, params_to, rope_inv_freq
+from ..models.base import (KVCache, check_moe_device, forward_hidden, fuse_params, lm_logits,
+                           params_to, prepare_moe_ragged, rope_inv_freq)
 from ..nn.layers import KVLayerCache
 from ..nn.sampling import sample_token
 from .device_loop import decode_loop
@@ -105,11 +106,15 @@ class Engine:
         max_device_sessions: int = 8,
         fuse: bool = True,
         decode_graphs: bool = True,
+        moe_ragged: bool = True,
     ):
         """device: CUDA unless named; raises without CUDA and without it.
         The params are moved there (a no-op for params already on it).
         decode_graphs=False runs every decode step eagerly on the card too
-        (the yardstick the graphs are held against)."""
+        (the yardstick the graphs are held against). moe_ragged: as in the
+        JAX package, float MoE experts are transposed once into the grouped
+        layout (`models.base.prepare_moe_ragged`); q4 experts are left as they
+        are, and float experts on the card raise NotImplementedError."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -119,6 +124,10 @@ class Engine:
         params = params_to(params, self.device)
         if fuse:
             params = fuse_params(params)
+        if cfg.n_experts:
+            if moe_ragged:
+                params = prepare_moe_ragged(params)
+            check_moe_device(params, self.device)
         self.params = params
         self.inv_freq = rope_inv_freq(cfg, self.device)
         self.sessions: dict[str, Session] = {}

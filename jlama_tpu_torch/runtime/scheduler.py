@@ -30,8 +30,10 @@ they finish:
   w8a8`): the 2-D q4 weights are re-quantized to q4s once, after fusing, and
   every projection and the lm_head take K5.
 
+MoE configs (Mixtral) serve with q4 experts through K6 (`ops/moe_q4.py`).
+
 Not ported yet (see ROADMAP.md): meshes (tp/dp page groups), the multi-host
-step channel, MoE, tool-call finishes, and suspending to disk.
+step channel, q4s MoE, tool-call finishes, and suspending to disk.
 """
 
 from __future__ import annotations
@@ -52,7 +54,8 @@ import torch
 from ..config import ModelConfig
 from ..device import resolve_device
 from ..kv.paged import PagedKVCache
-from ..models.base import forward_hidden, fuse_params, lm_logits, params_to, rope_inv_freq
+from ..models.base import (check_moe_device, forward_hidden, fuse_params, lm_logits, params_to,
+                           prepare_moe_ragged, rope_inv_freq)
 from ..nn.qarray import QArray
 from ..nn.sampling import sample_token
 from ..ops.w8a8 import prepare_params_for_w8a8
@@ -145,6 +148,7 @@ class BatchScheduler:
         step_channel=None,
         device=None,
         decode_graphs: bool = True,
+        moe_ragged: bool = True,
     ):
         """kv_dtype: a torch float dtype or "q8". device: CUDA unless named;
         raises without CUDA and without it. The params are moved there.
@@ -155,7 +159,12 @@ class BatchScheduler:
         the 2-D q4 weights to the W4A8 format after fusing (q4s rows are never
         concatenated), and a tied lm_head gets a q4s copy. The JAX package's
         "q4k" (its TPU kernel's own q4 layout) has no counterpart and raises:
-        K1 reads the checkpoint's JQ4 layout as it is, so None serves q4."""
+        K1 reads the checkpoint's JQ4 layout as it is, so None serves q4.
+
+        moe_ragged: as in the JAX package, float MoE experts are transposed
+        once into the grouped layout; q4 experts are left as they are (K6
+        reads them). q4s with MoE and float experts on the card raise
+        NotImplementedError."""
         if weight_format not in (None, "q4s"):
             raise ValueError(f"weight_format {weight_format!r}: expected None or 'q4s' "
                              "(q4 weights need no repack: pass None)")
@@ -163,10 +172,17 @@ class BatchScheduler:
             raise NotImplementedError("meshes (tp/dp serving) are not ported yet")
         if step_channel is not None:
             raise NotImplementedError("multi-host serving (step_channel) is not ported yet")
+        if weight_format == "q4s" and cfg.n_experts:
+            raise NotImplementedError("q4s serving of MoE experts is not ported yet "
+                                      "(ROADMAP: q4s MoE)")
         self.device = resolve_device(device)
         params = params_to(params, self.device)
         if fuse:
             params = fuse_params(params)
+        if cfg.n_experts:
+            if moe_ragged:
+                params = prepare_moe_ragged(params)
+            check_moe_device(params, self.device)
         if weight_format == "q4s":
             params = prepare_params_for_w8a8(params)
         self.params = params

@@ -199,3 +199,90 @@ def test_failed_capture_raises_and_runs_no_eager_step(model, monkeypatch):
         eng.generate_tokens(_prompt(cfg, 20, 2), max_new_tokens=8, stop_ids=set())
     st = eng.graphs.stats()
     assert (st["eager_steps"], st["replays"], st["graphs"]) == (1, 0, 0)
+
+
+@pytest.fixture(scope="module")
+def moe_model():
+    """Mixtral-8x7B's layout at a narrow width: 2 layers, hidden 1024, head
+    size 128, 8 experts of intermediate 1792, top-2; random JQ4 weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs and the kernels run only there)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from jlama_tpu_torch.models.init import mixtral_8x7b_config, random_q4_params
+
+    cfg = dataclasses.replace(mixtral_8x7b_config(), n_layers=2, embedding_length=1024,
+                              hidden_length=1792, n_heads=8, n_kv_heads=2)
+    return random_q4_params(cfg, seed=0, device="cuda"), cfg
+
+
+def test_moe_engine_replay_equals_eager(moe_model, monkeypatch):
+    """The MoE decode step (router, top-k, K6's grouping and three matmuls a
+    layer) is captured: 48 greedy tokens after a 100-token prompt, ids,
+    logits and launch counts of the graphs equal the eager run's."""
+    from jlama_tpu_torch.runtime import engine as engine_mod
+    from jlama_tpu_torch.runtime.engine import Engine
+
+    params, cfg = moe_model
+    prompt = _prompt(cfg, PROMPT_LEN, 1)
+    out = {}
+    for graphs in (True, False):
+        eng = Engine(params, cfg, device="cuda", max_seq_len=512, decode_graphs=graphs)
+        rec, ctr = _recorded(monkeypatch, engine_mod, 1, cfg.vocab_size)
+        before = _launches()
+        r = eng.generate_tokens(prompt, max_new_tokens=48, stop_ids=set())
+        torch.cuda.synchronize()
+        launches = {k: v - before[k] for k, v in _launches().items()}
+        out[graphs] = (r.token_ids, rec[:48].cpu(), launches, eng.graphs.stats(), int(ctr))
+        monkeypatch.undo()
+    (ids_g, lg_g, n_g, st_g, c_g), (ids_e, lg_e, n_e, st_e, c_e) = out[True], out[False]
+    L = cfg.n_layers
+    assert len(ids_g) == 48 and ids_g == ids_e
+    assert c_g == c_e == 48 and torch.equal(lg_g, lg_e) and torch.isfinite(lg_g).all()
+    assert n_g == n_e
+    assert n_g["moe_q4_matmul"] == (48 + 1) * 3 * L and n_g["moe_groups"] == (48 + 1) * L
+    assert n_g["q4_matmul"] == 48 * (2 * L + 1) + 2 * L  # wqkv, wo a layer; the lm_head
+    assert st_g["eager_steps"] == st_g["keys"] >= 1 and st_g["replays"] == 48 - st_g["keys"]
+
+
+def test_moe_scheduler_replay_equals_eager(moe_model, monkeypatch):
+    """16 slots, chained windows of 4, 12 greedy requests of 24 tokens after
+    prompts of 30-150 (decode R = 32 selections, prefill chunks of several
+    rows): ids, per-step logits and launch counts of the graphs equal the
+    eager run's bit for bit."""
+    from jlama_tpu_torch.runtime import scheduler as sched_mod
+    from jlama_tpu_torch.runtime.scheduler import BatchScheduler, GenRequest, RequestState
+
+    params, cfg = moe_model
+    g = torch.Generator().manual_seed(6)
+    lens = torch.randint(30, 151, (12,), generator=g).tolist()
+    prompts = [_prompt(cfg, n, 30 + i) for i, n in enumerate(lens)]
+    out = {}
+    for graphs in (True, False):
+        sched = BatchScheduler(params, cfg, device="cuda", n_slots=16, n_pages=64,
+                               page_size=64, max_seq_len=512, decode_lag=4,
+                               decode_graphs=graphs)
+        rec, ctr = _recorded(monkeypatch, sched_mod, 16, cfg.vocab_size)
+        reqs = [GenRequest(prompt_ids=p, max_new_tokens=24) for p in prompts]
+        before = _launches()
+        for r in reqs:
+            sched.submit(r)
+        for _ in range(400):
+            if all(r.state == RequestState.DONE for r in reqs):
+                break
+            sched.step()
+        torch.cuda.synchronize()
+        n = int(ctr)
+        launches = {k: v - before[k] for k, v in _launches().items()}
+        out[graphs] = ([r.out_ids for r in reqs], rec[:n].cpu(), n, launches,
+                       sched.graphs.stats(), sched.n_decode_steps, sched.n_prefill_calls)
+        monkeypatch.undo()
+        del sched
+    (ids_g, lg_g, n_g, l_g, st_g, dec_g, pf_g), (ids_e, lg_e, n_e, l_e, st_e, dec_e, _) = \
+        out[True], out[False]
+    L = cfg.n_layers
+    assert all(len(x) == 24 for x in ids_g) and ids_g == ids_e
+    assert n_g == n_e == dec_g == dec_e and torch.equal(lg_g, lg_e)
+    assert l_g == l_e and l_g["moe_q4_matmul"] == (pf_g + dec_g) * 3 * L
+    assert l_g["moe_groups"] == (pf_g + dec_g) * L
+    assert l_g["q4_matmul"] == pf_g * 2 * L + dec_g * (2 * L + 1)
+    assert st_g["eager_steps"] == st_g["keys"] >= 1 and st_g["replays"] == dec_g - st_g["keys"]

@@ -408,6 +408,36 @@ def test_paged_decode_kernel_dense_view(cuda, dtype, length, win):
         assert torch.all((got - ref).abs() <= 2.0 ** -7 * ref.abs() + 2e-5)
 
 
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("kind", ["bf16", "q8"])
+def test_paged_decode_kernel_large_scores(cuda, kind, hd):
+    """Scores of several hundred (q and k of size ~16, as a deeper layer of
+    a random-weight model gives at head size 128) on the tensor-core route
+    (bf16 q): its probabilities stay finite and meet the plain version's
+    limit (the route once took its running max in natural units and its
+    exponents in log2 units, and overflowed to NaN past scores of ~285)."""
+    from jlama_tpu_torch.ops.attention import paged_decode, paged_decode_plain
+
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    lens, P = K2_ROWS["long"]
+    B, ps, H, n_kv = len(lens), 16, 32, 8
+    n_pages = sum(-(-ln // ps) for ln in lens) + 8
+    kp, vp = _pools(cuda, kind, (n_kv, n_pages, ps, hd), g)
+    if kind == "bf16":
+        kp = kp * 16
+    else:
+        kp.scales.mul_(16)
+    pt = _k2_page_tables(cuda, lens, P, ps, n_pages)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q = (torch.randn((B, H, hd), generator=g, device=cuda) * 16).to(torch.bfloat16)
+    got = paged_decode(q, kp, vp, pt, lengths, hd ** -0.5).float()
+    ref = paged_decode_plain(q, kp, vp, pt, lengths, hd ** -0.5).float()
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.isfinite(ref).all()
+    tol = 3e-3 if kind == "q8" else 2e-5
+    assert torch.all((got - ref).abs() <= 2.0 ** -7 * ref.abs() + tol)
+
+
 @pytest.mark.parametrize("kind", ["bf16", "q8"])
 def test_paged_decode_kernel_repeat_is_bit_equal(cuda, kind):
     """Rows over several splits: the last block of a row merges the splits in
@@ -835,3 +865,123 @@ def test_probe_sigma_kernels_equal_plain(cuda, n, k, m):
         assert fn.launches == before + 1
         torch.cuda.synchronize()
         assert torch.equal(got, ref), fn.__name__
+
+
+# K6, the grouped expert q4 matmul: Mixtral's expert widths cut to narrow
+# ones (N 1000, K 2048; N 512, K 1536; the 3-block K of 96), 8 experts, at R
+# = 1, 2, 8, 9, 32, 64 and 1024 selections (the three row tiles, ragged
+# ones), ids [T, 2] (one x row a token, the gate/up call) and [R] (one a
+# selection, the down call), random top-2 routing, an expert chosen by no
+# selection, and every selection on one expert. Held to the plain version
+# (f32 dequantization, one f32 matmul per expert group): the same exact
+# products, f32 sums in another order (1e-4 of max|ref|), plus one bf16 ulp
+# of the value (2^-7 of it) for a bf16 output; a second call gives the same
+# bits.
+def _moe_case(cuda, r, n, k, ids, case, g):
+    from jlama_tpu_torch.nn.qarray import QArray
+
+    n_exp = 8
+    w = QArray(torch.randint(0, 256, (n_exp, n, k // 2), generator=g, device=cuda,
+                             dtype=torch.uint8),
+               (torch.rand((n_exp, n, k // 32), generator=g, device=cuda) + 0.5) * 0.0043)
+    t = r // 2 if ids == "tk" else r
+    if case == "one":
+        e = torch.full((t, 2) if ids == "tk" else (t,), 5, dtype=torch.int32, device=cuda)
+    else:
+        # top-2 of 8 without replacement per token; "empty": expert 3 never
+        choices = torch.tensor([0, 1, 2, 4, 5, 6, 7] if case == "empty" else list(range(8)),
+                               device=cuda)
+        pick = torch.rand((max(t, 1) if ids == "tk" else (r + 1) // 2, len(choices)),
+                          generator=g, device=cuda).argsort(dim=1)[:, :2]
+        e = choices[pick].to(torch.int32).reshape(-1)[:r]
+        if ids == "tk":
+            e = e.reshape(t, 2)
+    x = torch.randn((t, k), generator=g, device=cuda).to(torch.bfloat16)
+    return x, w, e
+
+
+@pytest.mark.parametrize("r,ids", [(1, "r"), (2, "tk"), (2, "r"), (8, "tk"), (9, "r"),
+                                   (32, "tk"), (32, "r"), (64, "tk"), (1024, "tk"),
+                                   (1024, "r")])
+@pytest.mark.parametrize("n,k", [(1000, 2048), (512, 1536), (40, 96)])
+@pytest.mark.parametrize("case", ["random", "empty", "one"])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_moe_q4_kernel_matches_plain(cuda, r, ids, n, k, case, out_dtype):
+    from jlama_tpu_torch.ops.moe_q4 import moe_groups, moe_q4_matmul, moe_q4_matmul_plain
+
+    g = torch.Generator(device=cuda).manual_seed(r * n + k)
+    x, w, e = _moe_case(cuda, r, n, k, ids, case, g)
+    before = (moe_q4_matmul.launches, moe_groups.launches)
+    got = moe_q4_matmul(x, w, e, out_dtype)
+    assert (moe_q4_matmul.launches, moe_groups.launches) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == out_dtype and got.shape == (*e.shape, n)
+    ref = moe_q4_matmul_plain(x, w, e, torch.float32)
+    torch.cuda.synchronize()
+    lim = 1e-4 * ref.abs().max().item()
+    if out_dtype == torch.bfloat16:
+        lim = lim + 2.0 ** -7 * ref.abs()
+    assert bool(((got.float() - ref).abs() <= lim).all())
+    groups = moe_groups(e, 8)
+    again = moe_q4_matmul(x, w, e, out_dtype, groups=groups)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("r", [1, 33, 300, 2048])
+def test_moe_groups_kernel_equals_plain(cuda, r):
+    from jlama_tpu_torch.ops.moe_q4 import moe_groups, moe_groups_plain
+
+    g = torch.Generator(device=cuda).manual_seed(r)
+    e = torch.randint(0, 8, (r,), generator=g, device=cuda, dtype=torch.int32)
+    e[e == 3] = 4  # an expert no selection chose
+    got = moe_groups(e, 8)
+    ref = moe_groups_plain(e.cpu(), 8)
+    assert torch.equal(got.order.cpu(), ref.order) and torch.equal(got.offsets.cpu(), ref.offsets)
+
+
+def test_moe_q4_row_does_not_depend_on_the_batch(cuda):
+    """A selection's output is the same bits alone, among 32 and among 1024
+    (other row tiles, other groupings): the serving batch does not change a
+    request's numbers."""
+    from jlama_tpu_torch.ops.moe_q4 import moe_q4_matmul
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x, w, e = _moe_case(cuda, 1024, 1000, 2048, "tk", "random", g)
+    full = moe_q4_matmul(x, w, e)
+    for t in (1, 16):
+        assert torch.equal(moe_q4_matmul(x[:t].clone(), w, e[:t].clone()), full[:t])
+
+
+def test_moe_q4_rejects_f32_x_on_the_card(cuda):
+    from jlama_tpu_torch.ops.moe_q4 import moe_q4_matmul
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x, w, e = _moe_case(cuda, 2, 64, 64, "tk", "random", g)
+    with pytest.raises(ValueError, match="bf16"):
+        moe_q4_matmul(x.float(), w, e)
+
+
+def test_moe_forward_on_card_matches_cpu_logits(cuda):
+    """A 2-layer Mixtral-shaped model at narrow width (hidden 1024, head size
+    128, 8 experts, top-2), random JQ4 weights: the prefill logits of 24
+    tokens on the card (bf16, K6 for the experts) against the plain path in
+    f32 on the CPU, relative L2 < 5e-2."""
+    import dataclasses
+
+    from jlama_tpu_torch.models.base import forward_logits, params_to
+    from jlama_tpu_torch.models.init import mixtral_8x7b_config, random_q4_params
+    from jlama_tpu_torch.ops.moe_q4 import moe_q4_matmul
+
+    cfg = dataclasses.replace(mixtral_8x7b_config(), n_layers=2, embedding_length=1024,
+                              hidden_length=1792, n_heads=8, n_kv_heads=2)
+    params = random_q4_params(cfg, seed=0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (1, 24), generator=torch.Generator().manual_seed(0))
+    pos = torch.arange(24)[None, :]
+    before = moe_q4_matmul.launches
+    gpu, _ = forward_logits(params, cfg, toks.to(cuda), pos.to(cuda), None, dtype=torch.bfloat16)
+    assert moe_q4_matmul.launches == before + 3 * cfg.n_layers
+    with torch.inference_mode():
+        ref, _ = forward_logits(params_to(params, "cpu"), cfg, toks, pos, None,
+                                dtype=torch.float32)
+    gpu = gpu.float().cpu()
+    assert torch.isfinite(gpu).all()
+    assert ((gpu - ref).norm() / ref.norm()).item() < 5e-2

@@ -59,6 +59,7 @@ def test_engine_import_path_is_clean():
         "import jlama_tpu_torch.models.init, jlama_tpu_torch.models.convert\n"
         "import jlama_tpu_torch.runtime.scheduler, jlama_tpu_torch.kv.paged\n"
         "import jlama_tpu_torch.utils.metrics, jlama_tpu_torch.ops.w8a8\n"
+        "import jlama_tpu_torch.ops.moe_q4\n"
         "import jlama_tpu_torch.eval.ppl\n"
         "import jlama_tpu_torch.scripts.kbench_q4, jlama_tpu_torch.scripts.kbench_w8a8\n"
         "import jlama_tpu_torch.scripts.probe_int4, jlama_tpu_torch.scripts.probe_sigma_i16\n"
@@ -75,7 +76,8 @@ def test_engine_import_path_is_clean():
 def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
     from jlama_tpu_torch.kv.paged import PagedKVCache
     from jlama_tpu_torch.models.convert import from_jax_kv_state, from_jax_params
-    from jlama_tpu_torch.models.init import init_params, llama_1b_config, random_q4_params
+    from jlama_tpu_torch.models.init import (init_params, llama_1b_config, mixtral_8x7b_config,
+                                             random_q4_params)
     from jlama_tpu_torch.models.loader import load_params
     from jlama_tpu_torch.runtime.engine import Engine
     from jlama_tpu_torch.runtime.scheduler import BatchScheduler
@@ -88,6 +90,8 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
         init_params(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         random_q4_params(llama_1b_config())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        random_q4_params(mixtral_8x7b_config())
     with pytest.raises(RuntimeError, match="CUDA"):
         load_params(ROOT / "no_such_model")
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -166,11 +170,18 @@ def test_wrappers_reject_other_devices():
     from jlama_tpu_torch.nn.qarray import quantize_q4
     from jlama_tpu_torch.ops.attention import flash_prefill, paged_decode
     from jlama_tpu_torch.ops.kv_write import kv_write
+    from jlama_tpu_torch.ops.moe_q4 import moe_groups, moe_q4_matmul
     from jlama_tpu_torch.ops.q4_matmul import q4_matmul
 
     w = quantize_q4(np.ones((8, 32), np.float32)).to("meta")
     with pytest.raises(ValueError, match="device"):
         q4_matmul(torch.ones((1, 32), device="meta"), w)
+    we = quantize_q4(np.ones((4, 8, 32), np.float32)).to("meta")
+    ids = torch.zeros((1, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        moe_q4_matmul(torch.ones((1, 32), device="meta"), we, ids)
+    with pytest.raises(ValueError, match="device"):
+        moe_groups(ids, 4)
     q = torch.ones((1, 2, 4, 64), device="meta")
     with pytest.raises(ValueError, match="device"):
         flash_prefill(q, q, q, torch.zeros(1, dtype=torch.int32), 0.1)
