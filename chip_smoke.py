@@ -28,6 +28,10 @@ Phases, each fatal on failure (exit code 1, no result line):
               K3 flash prefill (Llama-3.2-1B's heads at T = 512 and 200,
               4 x 256-token serving chunks with a different pos0 per row,
               head size 128, softcap + window, and an f32 1024-token window;
+              at head size 256 with Gemma-2-2B's 8 heads on 4 KV heads: T =
+              512 at pos0 0, 4 x 256-token chunks, a 4,608-token prompt under
+              the softcap of 50 and the window of 4,096, and an f32 1024-token
+              window with the softcap;
               its bf16 route also against its rounding model, P rounded to
               bf16 per key tile, and bit-equal on a second call; SDPA with the
               boolean mask and, where pos0 = 0 and T = S, is_causal; the host
@@ -36,8 +40,11 @@ Phases, each fatal on failure (exit code 1, no result line):
               on one KV head; head size 128 with softcap and window; the
               Engine's dense cache, one 2,048-slot row with 640 live keys cut
               to a 1,024-slot window, with SDPA on its live prefix as the
-              library call; each bit-equal on a repeat, with the host time of
-              one wrapper call), K4 KV write with RoPE on q and k fused
+              library call; at head size 256 with Gemma-2-2B's 8 heads on 4
+              KV heads: the 16 slots on bf16, q8 and f32 pools, the softcap
+              of 50 with the window of 4,096 over 16 rows of up to 4,608
+              keys, and the dense row; each bit-equal on a repeat, with the
+              host time of one wrapper call), K4 KV write with RoPE on q and k fused
               (q, k, v the split views of one QKV output: the 16-slot
               decode, a 256-token prefill chunk of 4 rows, bf16 and q8
               pools, the Engine's dense cache at T = 1 and 512, head size
@@ -153,6 +160,26 @@ Phases, each fatal on failure (exit code 1, no result line):
               32-512, 32-64 new tokens): tok/s, TTFT and inter-token p50/p95,
               launches a step, ids equal to an eager scheduler's, its busy
               share over 16 steps; the phase's peak memory.
+ 11. gemma2 - Gemma-2-2B at full width (26 layers, D 2304, 8 heads on 4 KV
+              heads of 256, FFN 9216, vocabulary 256,000 tied; a window of
+              4,096 on the even layers, softcaps 50 and 30; random JQ4
+              weights from seed 0), after phase 10's memory is freed: an
+              Engine (a 512-token prompt, 3 first-token runs, 64 greedy
+              tokens, then a 4,608-token prompt and 32 greedy tokens, whose
+              window cuts keys in K3 and K2) on decode graphs and the eager
+              yardstick, identical ids, launch counts as expected (26 K2 and
+              105 K1 a decode step, 26 K3 a prefill, 26 K4 a forward), every
+              decode step after a key's first use a replay, device ms by
+              kernel and the busy share over 16 profiled tokens with none of
+              DENSE_ATTN_NAMES; a 16-slot BatchScheduler (pages of 64,
+              max_seq_len 8192; 8 seeded greedy requests, one of 4,200
+              prompt tokens, chunked, crossing the window): tok/s, TTFT and
+              inter-token p50/p95, launches from its counts, ids equal to an
+              eager scheduler's, its busy share over 16 steps; the dense and
+              paged (bf16 pool) logits against the plain path in f32 on the
+              CPU (all 26 layers where the host holds their f32 weights three
+              times over, else the first 2), rel L2 < 5e-2; the phase's peak
+              memory.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. --out also writes the per-shape details and
 the profiles as JSON.
@@ -186,7 +213,7 @@ K3_MODEL_TOL = 4e-3
 # another order; q8 values rounded to bf16 in both); bf16 q and out: each
 # element within one bf16 ulp of the plain output (2^-7 of its size, the
 # rounding of two f32 results that agree to ~1e-6) plus the f32 limit
-K2_TOL = {"bf16": 2e-5, "q8": 3e-3}
+K2_TOL = {"bf16": 2e-5, "q8": 3e-3, "f32": 2e-5}
 K2_BF16_OUT_REL, K2_BF16_OUT_ABS = 2.0 ** -7, 2e-5
 LOGITS_REL_L2 = 5e-2
 # phase 9 (design benches), each kernel against its plain version on the same
@@ -249,12 +276,11 @@ def _host_us(torch, fn, n=200) -> float:
 
 def check_k1(torch, timer, details):
     from jlama_tpu_torch.utils.cuda_timer import bound
-    from jlama_tpu_torch.models.init import llama_1b_config, llama_8b_config
+    from jlama_tpu_torch.models.init import gemma2_2b_config, llama_1b_config, llama_8b_config
     from jlama_tpu_torch.nn.qarray import QArray
-    from jlama_tpu_torch.ops.q4_matmul import (q4_matmul, q4_matmul_plain, q4_matmul_tiled_plain,
-                                               takes_gemv)
+    from jlama_tpu_torch.ops.q4_matmul import q4_matmul, q4_matmul_plain, q4_matmul_tiled_plain
 
-    c1, c8 = llama_1b_config(), llama_8b_config()
+    c1, c8, cg = llama_1b_config(), llama_8b_config(), gemma2_2b_config()
     D, Hf, V = c1.embedding_length, c1.hidden_length, c1.vocab_size
     qkv = (c1.n_heads + 2 * c1.n_kv_heads) * c1.head_size
     layer_shapes = {"wqkv": (qkv, D), "wo": (D, D), "w13": (2 * Hf, D), "w2": (D, Hf)}
@@ -272,6 +298,16 @@ def check_k1(torch, timer, details):
                "8b_w2": (D8, c8.hidden_length)}
     cases += [(name, n, k, m, bf16, bf16) for name, (n, k) in shapes8.items() for m in (1, 512)]
     cases += [("8b_w2", D8, c8.hidden_length, 16, bf16, bf16), ("8b_lm_head", V, D8, 1, bf16, f32)]
+    # Gemma-2-2B's (phase 11): K 2304 (9216 for w2), wo's K 2048 (8 heads x
+    # 256), its 256,000-row lm_head; the decode step, the 16-slot serving
+    # step and the 512-token prefill
+    Dg, Ag = cg.embedding_length, cg.n_heads * cg.head_size
+    shapes_g = {"g2_wqkv": ((cg.n_heads + 2 * cg.n_kv_heads) * cg.head_size, Dg),
+                "g2_wo": (Dg, Ag), "g2_w13": (2 * cg.hidden_length, Dg),
+                "g2_w2": (Dg, cg.hidden_length)}
+    cases += [(name, n, k, m, bf16, bf16) for name, (n, k) in shapes_g.items()
+              for m in (1, 16, 512)]
+    cases += [("g2_lm_head", cg.vocab_size, Dg, m, bf16, f32) for m in (1, 16)]
     cases += [("uneven_n", 1000, 2048, m, bf16, bf16) for m in (1, 37)]
     cases += _ppl_window_cases(c1)
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -295,10 +331,9 @@ def check_k1(torch, timer, details):
         del ref
         worst = max(worst, err)
         model_err = None
-        gemv = takes_gemv(m, x_dtype)
-        if gemv and not torch.equal(q4_matmul(x, w, out_dtype), got):
-            fail(f"K1 {name} M={m} N={n} K={k}: a second call of the GEMV gave other bits")
-        if m > 16:  # the wgmma route: its rounding model, and the same bits twice
+        if not torch.equal(q4_matmul(x, w, out_dtype), got):  # every route: no atomics
+            fail(f"K1 {name} M={m} N={n} K={k}: a second call gave other bits")
+        if m > 16:  # the wgmma route: its rounding model
             model = q4_matmul_tiled_plain(x, w.data, w.scales, torch.float32)
             d = (got.float() - model).abs()
             lim = K1_MODEL_TOL * model.abs().max().item()
@@ -308,8 +343,6 @@ def check_k1(torch, timer, details):
             if not bool((d <= lim).all()):
                 fail(f"K1 {name} M={m} N={n} K={k}: {model_err} from the rounding model "
                      f"(max|model| {model.abs().max().item()})")
-            if not torch.equal(q4_matmul(x, w, out_dtype), got):
-                fail(f"K1 {name} M={m} N={n} K={k}: a second call gave other bits")
             worst_model = max(worst_model, model_err)
             del model, d, lim
         del got
@@ -324,8 +357,8 @@ def check_k1(torch, timer, details):
             + m * n * (4 if out_dtype == torch.float32 else 2)
         b_ms, b_by = bound(nbytes, 2.0 * m * n * k)
         row = dict(kernel="q4_matmul", shape=name, M=m, N=n, K=k, x_dtype=str(x_dtype),
-                   max_abs_err=err, rel_l2=rel, model_err=model_err, repeat_bit_equal=gemv
-                   or m > 16 or None, ms=ms, plain_ms=plain_ms,
+                   max_abs_err=err, rel_l2=rel, model_err=model_err, repeat_bit_equal=True,
+                   ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         details.append(row)
         per_shape.setdefault((name, m), row)  # the bf16-x row where f32 x runs the same shape
@@ -352,6 +385,13 @@ def check_k1(torch, timer, details):
     print(f"K1 one Llama-3.1-8B decode step (M=1, {len(step8)} launches): K1 {ms8:.4f} ms, less "
           f"the empty launches {ms8 - len(step8) * empty_ms:.4f} ms; torch.matmul bf16 "
           f"{lib8:.4f} ms, bound {bound8:.4f} ms", flush=True)
+    # Gemma-2-2B's single-stream step: 26 layers x (wqkv, wo, w13, w2) + its lm_head
+    stepg = [per_shape[(s, 1)] for s in shapes_g for _ in range(cg.n_layers)] \
+        + [per_shape[("g2_lm_head", 1)]]
+    msg, libg, boundg = (sum(r[key] for r in stepg) for key in ("ms", "library_ms", "bound_ms"))
+    print(f"K1 one Gemma-2-2B decode step (M=1, {len(stepg)} launches): K1 {msg:.4f} ms, less "
+          f"the empty launches {msg - len(stepg) * empty_ms:.4f} ms; torch.matmul bf16 "
+          f"{libg:.4f} ms, bound {boundg:.4f} ms", flush=True)
     # the serving path's decode step runs the same launches at M = n_slots = 16
     step16 = [per_shape[(s, 16)] for s in layer_shapes for _ in range(L)] + [per_shape[("lm_head", 16)]]
     ms16 = sum(r["ms"] for r in step16)
@@ -372,6 +412,7 @@ def check_k1(torch, timer, details):
           f"{host_us[1]:.1f} us at M=1 (the plan from a cache)", flush=True)
     return dict(summed, max_abs_err=worst, bound_by="bytes", empty_launch_ms=empty_ms,
                 ms_less_empty=step_less_empty, ms_8b=ms8, library_ms_8b=lib8, bound_ms_8b=bound8,
+                ms_gemma2=msg, library_ms_gemma2=libg, bound_ms_gemma2=boundg,
                 ms_m16=ms16, bound_ms_m16=bound16,
                 library_ms_m16=lib16, max_err_from_model=worst_model,
                 ms_prefill512=pre_ms, library_ms_prefill512=pre_lib,
@@ -380,6 +421,7 @@ def check_k1(torch, timer, details):
                 work="one decode step, M=1: "
                 f"{L} x (wqkv, wo, w13, w2) + lm_head = {len(step)} launches; "
                 f"*_8b: Llama-3.1-8B's, {c8.n_layers} x 4 + lm_head; "
+                f"*_gemma2: Gemma-2-2B's, {cg.n_layers} x 4 + lm_head; "
                 f"*_prefill512: one 512-token prefill, {L} x (wqkv, wo, w13, w2) at M=512")
 
 
@@ -582,8 +624,8 @@ def check_k3(torch, timer, details):
     from jlama_tpu_torch.ops.attention import (KEY_TILE, flash_prefill, flash_prefill_plain,
                                                flash_prefill_tiled_plain)
 
-    H, n_kv = 32, 8
     bf16, f32 = torch.bfloat16, torch.float32
+    # Llama-3.2-1B's heads (32 on 8 KV heads); at hd 256 Gemma-2-2B's (8 on 4)
     cases = [  # (B, T, S, pos0 (one for all rows, or one per row), hd, softcap, window, dtype)
         (1, 512, 512, 0, 64, None, None, bf16),  # the main path's 512-token prefill
         (1, 512, 1024, 512, 64, None, None, bf16),
@@ -595,11 +637,19 @@ def check_k3(torch, timer, details):
         (4, 256, 1024, (0, 256, 512, 768), 64, None, None, bf16),  # serving chunks, 4 rows
         (2, 256, 1024, (128, 640), 128, None, None, bf16),
         (1, PPL_SEQ, PPL_SEQ, 0, 64, None, None, f32),  # a score_tokens window (phase 8)
+        # Gemma-2-2B (phase 11): a 512-token prefill, 4 serving chunks, a
+        # 4,608-token prompt under the softcap and the even layers' window,
+        # and an f32 1024-token window
+        (1, 512, 512, 0, 256, None, None, bf16),
+        (4, 256, 1024, (0, 256, 512, 768), 256, None, None, bf16),
+        (1, 4608, 4608, 0, 256, 50.0, 4096, bf16),
+        (1, PPL_SEQ, PPL_SEQ, 0, 256, 50.0, None, f32),
     ]
     g = torch.Generator(device="cuda").manual_seed(2)
     worst = worst_model = 0.0
-    main = host_us = None
+    main = host_us = gemma = None
     for B, T, S, p0, hd, cap, win, dtype in cases:
+        H, n_kv = (8, 4) if hd == 256 else (32, 8)
         q = torch.randn((B, H, T, hd), generator=g, device="cuda").to(dtype)
         k = torch.randn((B, n_kv, S, hd), generator=g, device="cuda").to(dtype)
         v = torch.randn((B, n_kv, S, hd), generator=g, device="cuda").to(dtype)
@@ -659,6 +709,9 @@ def check_k3(torch, timer, details):
             main = row
             host_us = _host_us(torch, run)
             row["host_us"] = host_us
+        if hd == 256 and gemma is None:
+            gemma = row
+            row["host_us"] = _host_us(torch, run)
         details.append(row)
         print(f"K3 B={B} T={T:4d} S={S:5d} pos0={p0} hd={hd:3d} cap={cap} win={win} "
               f"{_dt(dtype)}: {ms:.4f} ms (plain {plain_ms:.4f}, sdpa masked {sdpa_mask_ms}, "
@@ -671,25 +724,38 @@ def check_k3(torch, timer, details):
           f"{main['sdpa_mask_ms'] * L:.4f}, sdpa is_causal {main['sdpa_causal_ms'] * L:.4f}, "
           f"bound {summed['bound_ms']:.4f}; host time of one wrapper call {host_us:.1f} us "
           "(three tensor maps made in it)", flush=True)
+    LG = 26  # Gemma-2-2B's layers
+    g2 = {f"gemma2_{key}": gemma[key] * LG for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    print(f"K3 one Gemma-2-2B 512-token prefill ({LG} launches at B=1, H=8, n_kv=4, T=S=512, "
+          f"hd=256): K3 {g2['gemma2_ms']:.4f} ms, plain {g2['gemma2_plain_ms']:.4f}, SDPA "
+          f"{g2['gemma2_library_ms']:.4f}, bound {g2['gemma2_bound_ms']:.4f}; host time of one "
+          f"wrapper call {gemma['host_us']:.1f} us", flush=True)
     return dict(summed, bound_by=main["bound_by"], max_abs_err=worst,
                 max_err_from_model=worst_model, host_us=host_us,
                 sdpa_mask_ms=main["sdpa_mask_ms"] * L, sdpa_causal_ms=main["sdpa_causal_ms"] * L,
+                **g2, gemma2_bound_by=gemma["bound_by"], gemma2_host_us=gemma["host_us"],
                 work=f"one 512-token prefill of the main path: {L} launches at B=1, H=32, "
                      "n_kv=8, T=S=512, pos0=0, hd=64; library_ms: the faster of SDPA with the "
-                     "boolean mask and SDPA is_causal=True")
+                     f"boolean mask and SDPA is_causal=True; gemma2_*: one Gemma-2-2B 512-token "
+                     f"prefill, {LG} launches at B=1, H=8, n_kv=4, T=S=512, hd=256 (phase 11 "
+                     "adds the softcap of 50, which SDPA cannot take)")
 
 
 # 16 rows of ragged live lengths for the paged kernels: 208 pages of 64 in
 # all; the rows of length 1 are empty decode slots on the scratch page
 K2_LENGTHS = [1, 2048, 1500, 1024, 777, 64, 65, 300, 2000, 129, 1, 513, 1800, 256, 999, 1234]
 N_PAGES, PAGE, P_MAX = 512, 64, 32
+# Gemma 2's window case: 16 rows up to 4,608 keys (479 pages of 64), most
+# past its 4,096-key window
+K2_LONG = [1, 4608, 4100, 3000, 4097, 64, 65, 300, 4500, 129, 1, 2049, 1800, 256, 999, 4200]
+N_PAGES_LONG, P_LONG = 1024, 72
 
 
-def _page_tables(torch, lengths, g):
-    """[B, P_MAX] int32: distinct random pages (1 .. N_PAGES-1) per row for
+def _page_tables(torch, lengths, g, p_max=P_MAX, n_pages=N_PAGES):
+    """[B, p_max] int32: distinct random pages (1 .. n_pages-1) per row for
     its live length; rows of length 1 stay on the scratch page 0."""
-    pt = torch.zeros((len(lengths), P_MAX), dtype=torch.int32)
-    perm = (torch.randperm(N_PAGES - 1, generator=g) + 1).to(torch.int32)
+    pt = torch.zeros((len(lengths), p_max), dtype=torch.int32)
+    perm = (torch.randperm(n_pages - 1, generator=g) + 1).to(torch.int32)
     nxt = 0
     for b, ln in enumerate(lengths):
         if ln == 1:
@@ -700,23 +766,23 @@ def _page_tables(torch, lengths, g):
     return pt.cuda()
 
 
-def _pools(torch, kind, n_kv, hd, g):
+def _pools(torch, kind, n_kv, hd, g, n_pages=N_PAGES):
     from jlama_tpu_torch.nn.qarray import QArray
     from jlama_tpu_torch.quant.blockq import q8_quantize
 
     pools = []
     for _ in range(2):
-        x = torch.randn((n_kv, N_PAGES, PAGE, hd), generator=g, device="cuda")
+        x = torch.randn((n_kv, n_pages, PAGE, hd), generator=g, device="cuda")
         if kind == "q8":
             d, sc = q8_quantize(x)
             pools.append(QArray(d, sc, "q8"))
         else:
-            pools.append(x.to(torch.bfloat16))
+            pools.append(x if kind == "f32" else x.to(torch.bfloat16))
     return pools
 
 
 def _kv_bytes_per_key(kind, hd):
-    return hd * 1 + hd // 32 * 4 if kind == "q8" else hd * 2
+    return hd * 1 + hd // 32 * 4 if kind == "q8" else hd * (4 if kind == "f32" else 2)
 
 
 # the Engine's dense decode through K2: one row of a 2,048-slot bf16 cache
@@ -737,17 +803,28 @@ def check_k2(torch, timer, details):
         ("mqa g=32", 32, 1, 64, "bf16", None, None),
         ("hd128 cap+win", 32, 8, 128, "bf16", 30.0, 256),
         ("dense engine", 32, 8, 64, "bf16", None, None),
+        # Gemma-2-2B's heads (phase 11): 16 slots on bf16, q8 and f32 pools,
+        # its softcap and window over rows up to 4,608 keys, its dense row
+        ("g2 serving", 8, 4, 256, "bf16", None, None),
+        ("g2 serving", 8, 4, 256, "q8", None, None),
+        ("g2 serving", 8, 4, 256, "f32", 50.0, None),
+        ("g2 cap+win4096", 8, 4, 256, "bf16", 50.0, 4096),
+        ("g2 dense engine", 8, 4, 256, "bf16", None, None),
     ]
     g = torch.Generator(device="cuda").manual_seed(4)
     gc = torch.Generator().manual_seed(4)
-    worst, main, dense = 0.0, None, None
+    worst, main, dense, gemma, gemma_dense = 0.0, None, None, None, None
     for label, H, n_kv, hd, kind, cap, win in cases:
-        if label == "dense engine":  # [1, n_kv, S, hd] cut to the window: one page
+        if label.endswith("dense engine"):  # [1, n_kv, S, hd] cut to the window: one page
             lens = [DENSE_LIVE]
             kc, vc = (torch.randn((1, n_kv, DENSE_S, hd), generator=g, device="cuda")
                       .to(torch.bfloat16) for _ in range(2))
             kp, vp = dense_pool_view(kc[:, :, :DENSE_WIN]), dense_pool_view(vc[:, :, :DENSE_WIN])
             pt = dense_page_table(1, torch.device("cuda"))
+        elif win == 4096:
+            lens = K2_LONG
+            kp, vp = _pools(torch, kind, n_kv, hd, g, N_PAGES_LONG)
+            pt = _page_tables(torch, K2_LONG, gc, P_LONG, N_PAGES_LONG)
         else:
             lens = K2_LENGTHS
             kp, vp = _pools(torch, kind, n_kv, hd, g)
@@ -784,17 +861,21 @@ def check_k2(torch, timer, details):
         host_us = _host_us(torch, lambda: call(q16))
         # the live keys of each row, and the yardsticks: for the paged cases
         # the gather of the row's pages (dequantized for q8) followed by SDPA
-        # (two calls, so no "library" time); for the dense row one SDPA call
+        # (two calls, so no "library" time; under a window its mask, with no
+        # softcap, which SDPA does not take); for the dense row one SDPA call
         # on its live prefix
         live = [ln - (max(0, ln - win) if win else 0) for ln in lens]
         yard_ms = lib_ms = None
-        if label == "dense engine":
+        n_keys = pt.shape[1] * PAGE
+        if label.endswith("dense engine"):
             lib_ms = timer(lambda: F.scaled_dot_product_attention(
                 q16[:, :, None], kc[:, :, :DENSE_LIVE], vc[:, :, :DENSE_LIVE], scale=scale,
                 enable_gqa=True))
-        elif cap is None:
-            kpos = torch.arange(P_MAX * PAGE, device="cuda")[None, :]
+        elif cap is None or win is not None:
+            kpos = torch.arange(n_keys, device="cuda")[None, :]
             mask = kpos < lengths[:, None].long()
+            if win is not None:
+                mask &= kpos >= lengths[:, None].long() - win
 
             def gather(pool):
                 if kind == "q8":
@@ -802,8 +883,8 @@ def check_k2(torch, timer, details):
                     x = (d.float().reshape(*d.shape[:-1], -1, 32) * sc[..., None]).reshape(
                         d.shape).to(torch.bfloat16)
                 else:
-                    x = pool[:, pt.long()]
-                return x.permute(1, 0, 2, 3, 4).reshape(B, n_kv, P_MAX * PAGE, hd)
+                    x = pool[:, pt.long()].to(torch.bfloat16)
+                return x.permute(1, 0, 2, 3, 4).reshape(B, n_kv, n_keys, hd)
 
             yard_ms = timer(lambda: F.scaled_dot_product_attention(
                 q16[:, :, None], gather(kp), gather(vp), attn_mask=mask[:, None, None, :],
@@ -821,23 +902,34 @@ def check_k2(torch, timer, details):
         main = main or row
         if label == "dense engine":
             dense = row
+        elif label == "g2 dense engine":
+            gemma_dense = row
+        elif hd == 256:
+            gemma = gemma or row
         print(f"K2 {label:13s} {kind:4s} hd={hd:3d} B={B} H={H} n_kv={n_kv} cap={cap} win={win}:"
               f" {ms:.4f} ms (plain {plain_ms:.4f}, yardstick gather+sdpa {yard_ms}, sdpa "
               f"{lib_ms}, bound {b_ms:.4f} by {b_by}, {b_ms / ms:.3f} of it) err {err:.3g} "
               f"(bf16 out {err16:.3g}, {ulps16:.3g} of its limit), bit-equal repeat, host "
               f"{host_us:.1f} us a call", flush=True)
         del kp, vp
-    L = 16
+    L, LG = 16, 26  # Llama-3.2-1B's layers, Gemma-2-2B's
     return dict(ms=main["ms"] * L, plain_ms=main["plain_ms"] * L, library_ms=None,
                 yardstick_ms=main["yardstick_ms"] * L, bound_ms=main["bound_ms"] * L,
                 bound_by=main["bound_by"], max_abs_err=worst, host_us=main["host_us"],
                 engine_step_ms=dense["ms"] * L, engine_step_library_ms=dense["library_ms"] * L,
                 engine_step_bound_ms=dense["bound_ms"] * L,
+                gemma2_ms=gemma["ms"] * LG, gemma2_plain_ms=gemma["plain_ms"] * LG,
+                gemma2_yardstick_ms=gemma["yardstick_ms"] * LG,
+                gemma2_bound_ms=gemma["bound_ms"] * LG, gemma2_host_us=gemma["host_us"],
+                gemma2_engine_step_ms=gemma_dense["ms"] * LG,
+                gemma2_engine_step_library_ms=gemma_dense["library_ms"] * LG,
+                gemma2_engine_step_bound_ms=gemma_dense["bound_ms"] * LG,
                 work=f"one 16-slot decode step: {L} launches at B=16, H=32, n_kv=8, hd=64, "
                      "bf16 pool, ragged lengths 1-2048 (K2_LENGTHS); engine_step: one "
                      f"single-stream decode step, {L} launches on the dense cache (1 row, "
                      f"{DENSE_LIVE} live keys, window {DENSE_WIN}), library: SDPA on the live "
-                     "prefix")
+                     f"prefix; gemma2_*: the same two at Gemma-2-2B's shapes, {LG} launches at "
+                     "H=8, n_kv=4, hd=256 (phase 11 adds the softcap of 50)")
 
 
 def _q8_close(torch, a, b) -> tuple[int, int]:
@@ -861,13 +953,12 @@ def check_k4(torch, timer, details):
     from jlama_tpu_torch.ops.kv_write import (
         _slots, dense_page_table, dense_pool_view, kv_write, kv_write_plain)
 
-    H, n_kv = 32, 8
     g = torch.Generator(device="cuda").manual_seed(5)
     gc = torch.Generator().manual_seed(5)
     empty_ms = timer(lambda: torch.cuda._sleep(1))
     worst = 0.0
     main = None
-    cases = [  # (label, B, T, hd, pool kind, RoPE)
+    cases = [  # (label, B, T, hd, pool kind, RoPE); 32 query heads on 8 KV heads
         ("decode", 16, 1, 64, "bf16", True), ("decode", 16, 1, 64, "q8", True),
         ("prefill chunk", 4, 256, 64, "bf16", True), ("prefill chunk", 4, 256, 64, "q8", True),
         ("engine dense", 1, 1, 64, "bf16", True), ("engine dense", 1, 512, 64, "bf16", True),
@@ -875,8 +966,14 @@ def check_k4(torch, timer, details):
         ("decode", 16, 1, 64, "bf16", False), ("decode", 16, 1, 64, "q8", False),
         ("prefill chunk", 4, 256, 64, "bf16", False), ("prefill chunk", 4, 256, 64, "q8", False),
         ("engine dense", 1, 1, 64, "bf16", False), ("engine dense", 1, 512, 64, "bf16", False)]
+    cases = [(*c, 32, 8) for c in cases]
+    # Gemma-2-2B's 8 query heads on 4 KV heads at hd 256 (phase 11): the
+    # serving step and chunk on its bf16 pool, the Engine's decode and prefill
+    cases += [(label, B, T, 256, "bf16", True, 8, 4) for label, B, T in (
+        ("decode", 16, 1), ("prefill chunk", 4, 256), ("engine dense", 1, 1),
+        ("engine dense", 1, 512))]
     print(f"K4: an empty launch after the flush {empty_ms:.4f} ms", flush=True)
-    for label, B, T, hd, kind, rope in cases:
+    for label, B, T, hd, kind, rope, H, n_kv in cases:
         if label == "engine dense":
             S = 2048
             caches = [torch.randn((B, n_kv, S, hd), generator=g, device="cuda").to(torch.bfloat16)
@@ -985,8 +1082,8 @@ def check_k4(torch, timer, details):
                    host_us=host_us)
         details.append(row)
         main = main or row
-        print(f"K4 {label:13s} {kind:4s} {'rope' if rope else 'kv  '} hd={hd:3d} B={B:2d} "
-              f"T={T:3d}: {ms:.4f} ms (plain {plain_ms:.4f}, unfused apply_rope x2 + K4 "
+        print(f"K4 {label:13s} {kind:4s} {'rope' if rope else 'kv  '} hd={hd:3d} H={H}/{n_kv} "
+              f"B={B:2d} T={T:3d}: {ms:.4f} ms (plain {plain_ms:.4f}, unfused apply_rope x2 + K4 "
               f"{unfused_ms}, yardstick apply_rope x2 + index_put_ x2 {yard_ms}, index_put_ x2 "
               f"{lib_ms}, empty launch {empty_ms:.4f}, bound {b_ms:.5f} by {b_by}) err "
               f"{err:.3g}, bit-equal repeat, host {host_us:.1f} us a call", flush=True)
@@ -1962,14 +2059,15 @@ def check_k6(torch, timer, params, cfg, details) -> dict:
                 "and one torch.matmul each)")
 
 
-def _moe_kernel_counts() -> dict:
+def _all_counts() -> dict:
+    """Every main-path kernel's launches, K6's two included."""
     from jlama_tpu_torch.ops.moe_q4 import moe_groups, moe_q4_matmul
 
     fns = dict(_kernel_fns(), moe_q4_matmul=moe_q4_matmul, moe_groups=moe_groups)
     return {k: fn.launches for k, fn in fns.items()}
 
 
-def _moe_reset_counts():
+def _reset_all_counts():
     from jlama_tpu_torch.ops.moe_q4 import moe_groups, moe_q4_matmul
 
     for fn in (*_kernel_fns().values(), moe_q4_matmul, moe_groups):
@@ -1977,19 +2075,24 @@ def _moe_reset_counts():
     _unfused_rope_calls(reset=True)
 
 
-def _moe_expected(cfg, n_prefill, n_decode) -> dict:
-    """A Mixtral forward's launches: per layer K1 for wqkv and wo, K6's
-    grouping and its three matmuls, K4, and K3 (prefill) or K2 (decode); a
-    decode step's lm_head on K1. The router is a float matmul."""
+def _expected(cfg, n_prefill, n_decode) -> dict:
+    """A forward's launches (phases 10 and 11): per layer K1 for wqkv and wo,
+    and for w13 and w2 where the FFN is dense, or else K6's grouping and its
+    three matmuls (the router is a float matmul); K4; K3 (prefill) or K2
+    (decode); a decode step's lm_head on K1."""
     L, n = cfg.n_layers, n_prefill + n_decode
-    return {"q4_matmul": n_prefill * 2 * L + n_decode * (2 * L + 1), "paged_decode": n_decode * L,
-            "flash_prefill": n_prefill * L, "kv_write": n * L, "w8a8_matmul": 0,
-            "moe_q4_matmul": n * 3 * L, "moe_groups": n * L}
+    k1 = 2 if cfg.n_experts else 4
+    moe = L if cfg.n_experts else 0
+    return {"q4_matmul": n_prefill * k1 * L + n_decode * (k1 * L + 1),
+            "paged_decode": n_decode * L, "flash_prefill": n_prefill * L, "kv_write": n * L,
+            "w8a8_matmul": 0, "moe_q4_matmul": n * 3 * moe, "moe_groups": n * moe}
 
 
-def _moe_profile(torch, eng, prompt, run) -> dict:
+def _engine_profile(torch, eng, prompt, run, model, dense_check) -> dict:
     """Device ms by kernel and the busy share over 16 `Engine` decode tokens
-    (the main request's key: its cache slot, window 1,024), torch.profiler on."""
+    (the main request's key: its cache slot, window 1,024), torch.profiler on.
+    dense_check: fail if the dense attention's library kernels ran
+    (DENSE_ATTN_NAMES; Mixtral's router runs a softmax of its own)."""
     from torch.profiler import ProfilerActivity, profile
 
     eng.drop_session("main")
@@ -2002,7 +2105,7 @@ def _moe_profile(torch, eng, prompt, run) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     if run == "graphs":
-        _graph_check("mixtral profile", eng.graphs, graphs0, 16)
+        _graph_check(f"{model} profile", eng.graphs, graphs0, 16)
     eng.drop_session("prof")
     kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
                       if str(e.device_type).endswith("CUDA")), reverse=True)
@@ -2016,7 +2119,10 @@ def _moe_profile(torch, eng, prompt, run) -> dict:
                else "paged_decode" if "paged_decode" in key
                else "kv_write" if "kv_write" in key else "other"] += ms
     n_ops = sum(c for _, c, _ in kernels)
-    print(f"profile ({run}) Mixtral-8x7B Engine decode, 16 tokens: wall {wall_ms:.2f} ms "
+    dense_attn = [key for _, _, key in kernels if DENSE_ATTN_NAMES.search(key)]
+    if dense_check and dense_attn:
+        fail(f"{model} profile ({run}): the dense attention's library kernels ran: {dense_attn}")
+    print(f"profile ({run}) {model} Engine decode, 16 tokens: wall {wall_ms:.2f} ms "
           f"(profiler on), device {dev_ms:.2f} ms, busy share {dev_ms / wall_ms:.3f}, {n_ops} "
           f"device ops ({n_ops / 16:.1f} per token); by group "
           + ", ".join(f"{g} {v:.2f} ms" for g, v in groups.items()), flush=True)
@@ -2027,106 +2133,113 @@ def _moe_profile(torch, eng, prompt, run) -> dict:
                 top=[dict(ms=ms, count=c, kernel=key[:90]) for ms, c, key in kernels[:12]])
 
 
-def _moe_engine(torch, params, cfg, card_note) -> tuple[dict, dict]:
-    """A 512-token prompt and 64 greedy tokens (after MOE_TTFT first-token
-    runs) through an Engine on decode graphs and through the eager yardstick
-    on the same weights: identical ids, launch counts as expected."""
+def _model_engine(torch, params, cfg, card_note, label, model, max_seq_len, prompts, n_ttft,
+                  dense_check) -> tuple[dict, object]:
+    """prompts: [(session, ids, new tokens)], greedy, after n_ttft first-token
+    runs of the first prompt, through an Engine on decode graphs and through
+    the eager yardstick on the same weights: identical ids, launch counts as
+    expected, every decode step after a key's first use a replay; then the
+    profiles of 16 decode tokens (`_engine_profile`)."""
     from jlama_tpu_torch.runtime.engine import Engine
 
-    eng = Engine(params, cfg, device="cuda", max_seq_len=1024)
-    eager = Engine(eng.params, cfg, device="cuda", max_seq_len=1024, fuse=False,
+    eng = Engine(params, cfg, device="cuda", max_seq_len=max_seq_len)
+    eager = Engine(eng.params, cfg, device="cuda", max_seq_len=max_seq_len, fuse=False,
                    decode_graphs=False)
-    rng = torch.Generator().manual_seed(3)
-    prompt = torch.randint(0, cfg.vocab_size, (512,), generator=rng).tolist()
-    expect = _moe_expected(cfg, MOE_TTFT + 1, MOE_TTFT + MOE_NEW)
+    first = prompts[0][1]
+    n_decode = n_ttft + sum(n for _, _, n in prompts)
+    expect = _expected(cfg, n_ttft + len(prompts), n_decode)
     out, ids = {}, {}
     for run, e in (("graphs", eng), ("eager", eager)):
-        e.generate_tokens(prompt, max_new_tokens=2, stop_ids=set(), session_id="warm")
+        e.generate_tokens(first, max_new_tokens=2, stop_ids=set(), session_id="warm")
         e.drop_session("warm")
         torch.cuda.synchronize()
-        _moe_reset_counts()
+        _reset_all_counts()
         graphs0 = e.graphs.stats()
         ttfts, firsts = [], []
-        for i in range(MOE_TTFT):
+        for i in range(n_ttft):
             t1 = time.perf_counter()
-            firsts.append(e.generate_tokens(prompt, max_new_tokens=1, stop_ids=set(),
+            firsts.append(e.generate_tokens(first, max_new_tokens=1, stop_ids=set(),
                                             session_id=f"ttft{i}").token_ids)
             torch.cuda.synchronize()
             ttfts.append((time.perf_counter() - t1) * 1000)
             e.drop_session(f"ttft{i}")
-        resp = e.generate_tokens(prompt, max_new_tokens=MOE_NEW, stop_ids=set(),
-                                 session_id="main")
+        resps = [e.generate_tokens(p, max_new_tokens=n, stop_ids=set(), session_id=sid)
+                 for sid, p, n in prompts]
         torch.cuda.synchronize()
-        got = _moe_kernel_counts()
-        print(f"mixtral engine ({run}) launches {got}, expected {expect}", flush=True)
+        for sid, _, _ in prompts[1:]:
+            e.drop_session(sid)
+        got = _all_counts()
+        print(f"{label} engine ({run}) launches {got}, expected {expect}", flush=True)
         if got != expect or _unfused_rope_calls():
-            fail(f"mixtral engine ({run}): launches {got} != expected {expect}, or apply_rope "
+            fail(f"{label} engine ({run}): launches {got} != expected {expect}, or apply_rope "
                  f"ran {_unfused_rope_calls()} times apart from K4")
-        toks = resp.token_ids
-        if len(toks) != MOE_NEW or not all(0 <= t < cfg.vocab_size for t in toks) \
-                or any(f != [toks[0]] for f in firsts):
-            fail(f"mixtral engine ({run}): bad ids {toks[:8]}... or first tokens {firsts}")
+        toks = firsts + [r.token_ids for r in resps]
+        if [len(t) for t in toks] != [1] * n_ttft + [n for _, _, n in prompts] \
+                or not all(0 <= t < cfg.vocab_size for x in toks for t in x) \
+                or any(f != resps[0].token_ids[:1] for f in firsts):
+            fail(f"{label} engine ({run}): bad ids {resps[0].token_ids[:8]}... or first tokens "
+                 f"{firsts}")
         ids[run] = toks
-        out[run] = dict(ttft_ms=statistics.median(ttfts), ttft_ms_runs=ttfts,
-                        decode_tok_s=MOE_NEW / (resp.generate_time_ms / 1000),
-                        decode_ms_per_token=resp.generate_time_ms / MOE_NEW,
-                        prefill_ms_511=resp.prompt_time_ms)
+        o = dict(ttft_ms=statistics.median(ttfts), ttft_ms_runs=ttfts,
+                 decode_tok_s=prompts[0][2] / (resps[0].generate_time_ms / 1000),
+                 decode_ms_per_token=resps[0].generate_time_ms / prompts[0][2])
+        for (_, p, n), r in zip(prompts, resps):
+            o[f"prefill_ms_{len(p) - 1}"] = r.prompt_time_ms
+            if p is not first:
+                o[f"decode_tok_s_{len(p)}"] = n / (r.generate_time_ms / 1000)
+        out[run] = o
         if run == "graphs":
-            out["graphs"]["graphs"] = _graph_check("mixtral engine", e.graphs, graphs0,
-                                                   MOE_TTFT + MOE_NEW)
-        print(f"mixtral engine ({run}): TTFT (512-token prompt) median "
-              f"{out[run]['ttft_ms']:.2f} ms of {MOE_TTFT}; decode {out[run]['decode_tok_s']:.1f} "
-              f"tok/s ({MOE_NEW} tokens, batch 1) on {card_note}", flush=True)
+            o["graphs"] = _graph_check(f"{label} engine", e.graphs, graphs0, n_decode)
+        print(f"{label} engine ({run}): TTFT ({len(first)}-token prompt) median "
+              f"{o['ttft_ms']:.2f} ms of {n_ttft}; decode {o['decode_tok_s']:.1f} tok/s "
+              f"({prompts[0][2]} tokens, batch 1)"
+              + "".join(f"; {len(p)}-token prompt: prefill {o[f'prefill_ms_{len(p) - 1}']:.1f} "
+                        f"ms, decode {o[f'decode_tok_s_{len(p)}']:.1f} tok/s"
+                        for _, p, _ in prompts[1:]) + f" on {card_note}", flush=True)
     if ids["graphs"] != ids["eager"]:
-        fail("mixtral engine: the graphs' greedy ids differ from the eager run's")
-    print(f"mixtral engine: greedy ids of the graphs equal the eager run's ({MOE_NEW} tokens)",
-          flush=True)
+        fail(f"{label} engine: the graphs' greedy ids differ from the eager run's")
+    print(f"{label} engine: greedy ids of the graphs equal the eager run's "
+          f"({sum(map(len, ids['graphs']))} tokens)", flush=True)
     out["graphs"]["eager"] = out.pop("eager")
     e2e = out["graphs"]
-    e2e["profile"] = _moe_profile(torch, eng, prompt, "graphs")
-    e2e["profile_eager"] = _moe_profile(torch, eager, prompt, "eager")
+    e2e["profile"] = _engine_profile(torch, eng, first, "graphs", model, dense_check)
+    e2e["profile_eager"] = _engine_profile(torch, eager, first, "eager", model, dense_check)
     e2e["launches"] = expect
     return e2e, eng
 
 
-def _moe_serving(torch, params, cfg, card_note) -> dict:
-    """8 greedy requests made from a seed (prompts 32-512, 32-64 new tokens)
-    through a 16-slot BatchScheduler on decode graphs, submitted at once to
-    its serving thread; then the same 8 driven inline through it and through
-    the eager yardstick, whose ids must be identical."""
-    from jlama_tpu_torch.runtime.scheduler import BatchScheduler, GenRequest
+def _model_serving(torch, params, cfg, card_note, label, serve, mix, ids) -> dict:
+    """Greedy requests mix [(prompt ids, new tokens)] through a BatchScheduler
+    on decode graphs, submitted at once to its serving thread (launch counts
+    from its own counts of prefill calls and decode steps); then the same
+    requests inline through it and through the eager yardstick, whose ids
+    must be identical; then both profiles (`_serving_profile`, its prompts
+    from ids)."""
+    from jlama_tpu_torch.runtime.scheduler import BatchScheduler, GenRequest, RequestState
 
     sched = BatchScheduler(params, cfg, kv_dtype=torch.bfloat16, device="cuda", fuse=False,
-                           **MOE_SERVE)
-    g = torch.Generator().manual_seed(9)
-
-    def ids(n):
-        return torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
-
-    mix = [(ids(int(torch.randint(32, 513, (1,), generator=g))),
-            int(torch.randint(32, 65, (1,), generator=g))) for _ in range(8)]
+                           **serve)
     reqs = [GenRequest(prompt_ids=p, max_new_tokens=n) for p, n in mix]
-    _moe_reset_counts()
+    _reset_all_counts()
     sched.n_prefill_calls = sched.n_decode_steps = 0
     graphs0 = sched.graphs.stats()
     t0 = time.perf_counter()
     sched.start()
     for r in reqs:
         sched.submit(r)
-    _wait(reqs, 600, "mixtral serving")
+    _wait(reqs, 600, f"{label} serving")
     wall = time.perf_counter() - t0
     sched.stop()
     torch.cuda.synchronize()
     n_pf, n_dec = sched.n_prefill_calls, sched.n_decode_steps
-    got, expect = _moe_kernel_counts(), _moe_expected(cfg, n_pf, n_dec)
-    print(f"mixtral serving: {n_pf} prefill calls, {n_dec} decode steps; launches {got}, "
-          f"expected {expect}; a decode step: {2 * cfg.n_layers + 1} K1, {cfg.n_layers} K2, "
-          f"{cfg.n_layers} K4, {3 * cfg.n_layers} K6 (+ {cfg.n_layers} groupings)", flush=True)
+    got, expect = _all_counts(), _expected(cfg, n_pf, n_dec)
+    print(f"{label} serving: {n_pf} prefill calls, {n_dec} decode steps; launches {got}, "
+          f"expected {expect}", flush=True)
     if got != expect or _unfused_rope_calls():
-        fail(f"mixtral serving: launches {got} != expected {expect}, or apply_rope ran "
+        fail(f"{label} serving: launches {got} != expected {expect}, or apply_rope ran "
              f"{_unfused_rope_calls()} times apart from K4")
-    graphs = _graph_check("mixtral serving", sched.graphs, graphs0, n_dec)
-    _check_finish(reqs, cfg, "mixtral serving")
+    graphs = _graph_check(f"{label} serving", sched.graphs, graphs0, n_dec)
+    _check_finish(reqs, cfg, f"{label} serving")
     resps = [r.to_response() for r in reqs]
     n_gen = sum(r.generated_tokens for r in resps)
     ttft = [r.prompt_time_ms for r in resps]
@@ -2135,15 +2248,12 @@ def _moe_serving(torch, params, cfg, card_note) -> dict:
                ttft_ms_p50=_pct(ttft, 50), ttft_ms_p95=_pct(ttft, 95),
                itl_ms_p50=_pct(itl, 50), itl_ms_p95=_pct(itl, 95),
                launches=dict(got, prefill_calls=n_pf, decode_steps=n_dec), graphs=graphs)
-    print(f"mixtral serving: {len(resps)} requests, {n_gen} tokens in {wall:.2f} s = "
+    print(f"{label} serving: {len(resps)} requests, {n_gen} tokens in {wall:.2f} s = "
           f"{n_gen / wall:.1f} tok/s; TTFT p50 {e2e['ttft_ms_p50']:.1f} ms, p95 "
           f"{e2e['ttft_ms_p95']:.1f} ms; inter-token p50 {e2e['itl_ms_p50']:.2f} ms, p95 "
           f"{e2e['itl_ms_p95']:.2f} ms on {card_note}", flush=True)
-    # the same requests inline, graphs against the eager yardstick
-    from jlama_tpu_torch.runtime.scheduler import RequestState
-
     eager = BatchScheduler(params, cfg, kv_dtype=torch.bfloat16, device="cuda", fuse=False,
-                           decode_graphs=False, **MOE_SERVE)
+                           decode_graphs=False, **serve)
     out = {}
     for run, s in (("graphs", sched), ("eager", eager)):
         rs = [GenRequest(prompt_ids=p, max_new_tokens=n) for p, n in mix]
@@ -2153,13 +2263,14 @@ def _moe_serving(torch, params, cfg, card_note) -> dict:
         while not all(r.state == RequestState.DONE for r in rs):
             s.step()
         if run == "graphs":
-            _graph_check("mixtral serving greedy check", s.graphs, graphs0, s.n_decode_steps - n0)
+            _graph_check(f"{label} serving greedy check", s.graphs, graphs0,
+                         s.n_decode_steps - n0)
         out[run] = [r.out_ids for r in rs]
     if out["graphs"] != out["eager"]:
-        fail("mixtral serving: the graphs' greedy ids differ from the eager run's")
-    print("mixtral serving: greedy ids of the 8 requests through the decode graphs equal the "
-          "eager run's", flush=True)
-    e2e["eager_ids"] = dict(requests=8, tokens=sum(map(len, out["graphs"])), equal=True)
+        fail(f"{label} serving: the graphs' greedy ids differ from the eager run's")
+    print(f"{label} serving: greedy ids of the {len(mix)} requests through the decode graphs "
+          "equal the eager run's", flush=True)
+    e2e["eager_ids"] = dict(requests=len(mix), tokens=sum(map(len, out["graphs"])), equal=True)
     e2e["profile"] = _serving_profile(torch, sched, cfg, ids, "graphs")
     e2e["profile_eager"] = _serving_profile(torch, eager, cfg, ids, "eager")
     return e2e
@@ -2203,14 +2314,110 @@ def moe_path(torch, card_note) -> dict:
     logits = dict(dense=_dense_decode_logits_check(torch, p2, c2, ids(24)),
                   paged=_paged_logits_check(torch, p2, c2, torch.bfloat16, ids))
     del p2
-    engine, eng = _moe_engine(torch, params, cfg, card_note)
-    serving = _moe_serving(torch, eng.params, cfg, card_note)
+    rng = torch.Generator().manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (512,), generator=rng).tolist()
+    engine, eng = _model_engine(torch, params, cfg, card_note, "mixtral", "Mixtral-8x7B", 1024,
+                                [("main", prompt, MOE_NEW)], MOE_TTFT, dense_check=False)
+    # 8 greedy requests from a seed: prompts of 32-512 tokens, 32-64 new ones
+    gs = torch.Generator().manual_seed(9)
+
+    def sids(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gs).tolist()
+
+    mix = [(sids(int(torch.randint(32, 513, (1,), generator=gs))),
+            int(torch.randint(32, 65, (1,), generator=gs))) for _ in range(8)]
+    serving = _model_serving(torch, eng.params, cfg, card_note, "mixtral", MOE_SERVE, mix, sids)
     del eng
     peak = torch.cuda.max_memory_allocated() / 1e9
     print(f"mixtral: peak memory of the phase {peak:.2f} GB (weights {gb:.2f} GB) on "
           f"{card_note}", flush=True)
     return dict(k6=k6, k6_cases=details, logits_rel_l2=logits, engine=engine, serving=serving,
                 weights_gb=gb, peak_memory_gb=peak)
+
+
+G2_SERVE = dict(n_slots=16, n_pages=512, page_size=64, prefill_chunk=256, decode_lag=4,
+                max_seq_len=8192)  # 16 slots, 3.5 GB of bf16 pool
+G2_NEW, G2_LONG, G2_LONG_NEW, G2_TTFT = 64, 4608, 32, 3
+
+
+def _host_free_gb() -> float:
+    import os
+
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE") / 1e9
+
+
+def gemma2_path(torch, card_note) -> dict:
+    """Phase 11: Gemma-2-2B at full width (26 layers, random JQ4 weights from
+    seed 0): the Engine and the BatchScheduler on decode graphs beside their
+    eager yardsticks, the dense and paged logits against the plain path in
+    f32 on the CPU (all 26 layers where the host holds the f32 weights three
+    times over, else the first 2), and the phase's peak memory."""
+    import dataclasses
+
+    from jlama_tpu_torch.models.init import gemma2_2b_config, random_q4_params
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = gemma2_2b_config()
+    t0 = time.perf_counter()
+    params = random_q4_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    gb = torch.cuda.memory_allocated() / 1e9
+    n_weights = sum(v.data.numel() * 2 if hasattr(v, "fmt") else v.numel()
+                    for d in params["layers"] for v in d.values()) \
+        + params["embed"].data.numel() * 2
+    print(f"gemma2: Gemma-2-2B shapes ({cfg.n_layers} layers, D {cfg.embedding_length}, FFN "
+          f"{cfg.hidden_length}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_size}, "
+          f"window {cfg.sliding_window} on the even layers, softcaps "
+          f"{cfg.attn_logit_softcap}/{cfg.final_logit_softcap}, vocabulary {cfg.vocab_size}, "
+          f"tied), {n_weights / 1e9:.3f} B weights, random JQ4 (seed 0): {gb:.2f} GB on the "
+          f"card, made in {time.perf_counter() - t0:.2f} s", flush=True)
+    rng = torch.Generator().manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab_size, (512,), generator=rng).tolist()
+    long = torch.randint(0, cfg.vocab_size, (G2_LONG,), generator=rng).tolist()
+    # the 4,608-token prompt's window of 4,096 keys cuts keys in K3 and in K2
+    engine, eng = _model_engine(torch, params, cfg, card_note, "gemma2", "Gemma-2-2B",
+                                G2_SERVE["max_seq_len"],
+                                [("main", prompt, G2_NEW), ("long", long, G2_LONG_NEW)], G2_TTFT,
+                                dense_check=True)
+    # 8 greedy requests from a seed: 7 prompts of 32-512 tokens with 32-64
+    # new ones, and one of 4,200 tokens with 48, whose 256-token prefill
+    # chunks and decode cross the even layers' window
+    gs = torch.Generator().manual_seed(11)
+
+    def sids(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gs).tolist()
+
+    mix = [(sids(int(torch.randint(32, 513, (1,), generator=gs))),
+            int(torch.randint(32, 65, (1,), generator=gs))) for _ in range(7)]
+    mix.insert(3, (sids(4200), 48))
+    serving = _model_serving(torch, eng.params, cfg, card_note, "gemma2", G2_SERVE, mix, sids)
+    del eng
+    torch.cuda.empty_cache()
+    g = torch.Generator().manual_seed(6)
+
+    def ids(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+
+    free_gb, f32_gb = _host_free_gb(), n_weights * 4 / 1e9
+    if free_gb > 3 * f32_gb:
+        depth, p_l, c_l = f"all {cfg.n_layers} layers", params, cfg
+    else:
+        depth = "the first 2 layers (one sliding, one global), the final norm, softcap and lm_head"
+        p_l = dict(params, layers=params["layers"][:2])
+        c_l = dataclasses.replace(cfg, n_layers=2)
+    print(f"gemma2 logits: {depth} against f32 on the CPU (host {free_gb:.1f} GB free, the f32 "
+          f"weights {f32_gb:.1f} GB)", flush=True)
+    t1 = time.perf_counter()
+    logits = dict(depth=depth,
+                  dense=_dense_decode_logits_check(torch, p_l, c_l, ids(24)),
+                  paged=_paged_logits_check(torch, p_l, c_l, torch.bfloat16, ids),
+                  seconds=time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"gemma2: peak memory of the phase {peak:.2f} GB (weights {gb:.2f} GB) on "
+          f"{card_note}", flush=True)
+    return dict(logits_rel_l2=logits, engine=engine, serving=serving, weights_gb=gb,
+                n_weights=n_weights, peak_memory_gb=peak)
 
 
 def main() -> None:
@@ -2303,6 +2510,15 @@ def main() -> None:
          "serving": {k: v for k, v in moe["serving"].items() if not k.startswith("profile")},
          "logits_rel_l2": moe["logits_rel_l2"], "peak_memory_gb": moe["peak_memory_gb"]}),
         flush=True)
+    # 11. Gemma-2-2B: head size 256 through K2 and K3, the Engine and the scheduler
+    torch.cuda.empty_cache()
+    g2 = gemma2_path(torch, smi)
+    out["gemma2"] = g2
+    print(f"card {smi}: gemma2 " + json.dumps(
+        {"engine": {k: v for k, v in g2["engine"].items() if not k.startswith("profile")},
+         "serving": {k: v for k, v in g2["serving"].items() if not k.startswith("profile")},
+         "logits_rel_l2": g2["logits_rel_l2"], "peak_memory_gb": g2["peak_memory_gb"]}),
+        flush=True)
 
     routes = {
         "q4_matmul": ("jlama_tpu_torch/csrc/q4_matmul.cu", "jlama_tpu/ops/pallas_q4.py:113"),
@@ -2327,9 +2543,11 @@ def main() -> None:
             launches = dict(launches=moe["serving"]["launches"][k],
                             launches_engine=moe["engine"]["launches"][k],
                             launches_grouping=moe["serving"]["launches"]["moe_groups"])
-        else:
+        else:  # phase 6 / phase 4, and Gemma 2's serving / Engine (phase 11)
             launches = dict(launches=serving_launches.get(k),
-                            launches_engine=engine_launches.get(k))
+                            launches_engine=engine_launches.get(k),
+                            launches_gemma2=g2["serving"]["launches"][k],
+                            launches_gemma2_engine=g2["engine"]["launches"][k])
         row = dict(name=k, route="cuda", source=src, replaces=rep, **launches)
         row.update(kern[k])
         kernels.append(row)

@@ -18,13 +18,14 @@
 //   (query tile of BQ = 64 or 128 rows, head, batch row): one consumer
 //   warpgroup per 64 query rows and a producer warp. The producer's lane 0
 //   loads the Q tile once and walks the key tiles (BS = 8192 / hd keys: 128
-//   at hd 64, 64 at hd 128, so one K or V tile is 16 KB), each K and V tile
+//   at hd 64, 64 at hd 128, 32 at hd 256, so one K or V tile is 16 KB), each K and V tile
 //   by TMA into a ring of kStages shared-memory stages under full / empty
 //   mbarriers, in the 128-byte swizzle. The maps are 4-D over the strided
 //   [B, heads, rows, hd] views and cut hd into boxes of 64 columns (one
 //   128-byte swizzle row), so rows past T or S are zero-filled by the
 //   hardware and never read the next head. Each consumer warpgroup, per tile:
-//     S = Q . K^T   wgmma m64nBSk16, both operands K-major in shared memory;
+//     S = Q . K^T   wgmma m64nBSk16, both operands K-major in shared memory
+//                   (m64n32k16 at hd 256);
 //     softmax       on the accumulator registers, in straight passes: the
 //                   softcap (if any, in the log2 domain); the mask only on
 //                   the tiles that need it (the causal diagonal, the ragged S
@@ -35,7 +36,9 @@
 //                   row has seen no live key (its exponents are then taken
 //                   against 0, not against its max of -1e30), so a tile
 //                   wholly masked for a row adds nothing;
-//     O += P . V    wgmma m64nHDk16 with A = P from registers: the f32 S
+//     O += P . V    wgmma m64nHDk16 (m64n256k16 at hd 256, the largest N,
+//                   its V descriptor spanning four 64-column boxes) with
+//                   A = P from registers: the f32 S
 //                   accumulator packed pairwise to bf16x2 is the A fragment
 //                   of m64k16 as it stands; B = V as stored ([keys x hd],
 //                   hd contiguous) through the transposed-B (MN-major)
@@ -66,8 +69,11 @@
 //
 // q, k, v and out take arbitrary batch/head/row strides with a unit stride on
 // the last (head) dimension (the bf16 route: 16-byte aligned bases and
-// strides, for TMA); hd is 64 or 128; T and S need not be multiples of the
-// tiles (the ragged edge is masked).
+// strides, for TMA); hd is 64, 128 or 256; T and S need not be multiples of
+// the tiles (the ragged edge is masked). At hd 256 a consumer thread holds
+// 128 f32 of O, so the query tile is 64 rows and a block asks for no second
+// one on its SM; the f32 route's shared memory (99 KB) is set by the same
+// attribute as at 64 and 128.
 
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder comes through the runtime
 #include <cuda_bf16.h>
@@ -274,7 +280,8 @@ struct Wg {
   static constexpr int kConsumers = BQ / 64;         // warpgroups, 64 query rows each
   static constexpr int kThreads = 128 * kConsumers + 32;  // + the producer warp
   static constexpr int kProducerWarp = 4 * kConsumers;
-  static constexpr int kMinBlocks = BQ == 64 ? 2 : 1;
+  // at hd 256 a consumer thread holds 128 f32 of O: no register cap for two blocks
+  static constexpr int kMinBlocks = BQ == 64 && HD < 256 ? 2 : 1;
   // Q, the K ring, the V ring, then the q / full / empty barriers, plus slack
   // to align the tiles to 1024
   static constexpr int kSmem = kQBytes + 2 * kStages * kTileBytes + (1 + 2 * kStages) * 8 + 1024;
@@ -375,6 +382,19 @@ __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// d[64 x 32] (+)= A[64 x 16] . B[32 x 16]^T, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, A and B K-major in shared memory
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
   asm volatile(
@@ -454,6 +474,44 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
         "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 256] (+)= A[64 x 16] . B[16 x 256], A from registers (four bf16x2 a thread), B
+// MN-major in shared memory (the transposed-B form): hd 256's P . V, the largest N wgmma takes
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, "
+      "%69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, "
+      "%102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
@@ -766,15 +824,18 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, c
   return cudaGetLastError();
 }
 
-// 128 query rows a block where that still gives every SM a block, else 64.
+// 128 query rows a block where that still gives every SM a block, else 64;
+// at hd 256 always 64: with 128 rows (288 threads, at most 224 registers
+// each) the 128 f32 of O a thread spilled (248 bytes, ptxas on sm_90a)
 template <int HD>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, const int* pos0,
                         int B, int H, int n_kv, int Tq, int S, const long long* st, float scale,
                         float softcap, int window, int causal, cudaStream_t stream) {
-  const long long blocks128 = static_cast<long long>((Tq + 127) / 128) * H * B;
-  if (blocks128 >= sm_count())
-    return launch_wgmma<HD, 128>(q, k, v, o, pos0, B, H, n_kv, Tq, S, st, scale, softcap, window,
-                                 causal, stream);
+  if constexpr (HD < 256) {
+    if (static_cast<long long>((Tq + 127) / 128) * H * B >= sm_count())
+      return launch_wgmma<HD, 128>(q, k, v, o, pos0, B, H, n_kv, Tq, S, st, scale, softcap,
+                                   window, causal, stream);
+  }
   return launch_wgmma<HD, 64>(q, k, v, o, pos0, B, H, n_kv, Tq, S, st, scale, softcap, window,
                               causal, stream);
 }
@@ -801,9 +862,13 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v, void* 
     return static_cast<int>(launch_bf16<64>(q, k, v, o, p0, B, H, n_kv, Tq, S, st, scale, softcap, window, causal, s));
   if (dtype == kBF16 && hd == 128)
     return static_cast<int>(launch_bf16<128>(q, k, v, o, p0, B, H, n_kv, Tq, S, st, scale, softcap, window, causal, s));
+  if (dtype == kBF16 && hd == 256)
+    return static_cast<int>(launch_bf16<256>(q, k, v, o, p0, B, H, n_kv, Tq, S, st, scale, softcap, window, causal, s));
   if (dtype == kF32 && hd == 64)
     return launch_f32<64>(q, k, v, o, p0, B, H, n_kv, Tq, S, st, scale, softcap, window, causal, s);
   if (dtype == kF32 && hd == 128)
     return launch_f32<128>(q, k, v, o, p0, B, H, n_kv, Tq, S, st, scale, softcap, window, causal, s);
+  if (dtype == kF32 && hd == 256)
+    return launch_f32<256>(q, k, v, o, p0, B, H, n_kv, Tq, S, st, scale, softcap, window, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -59,8 +59,13 @@
 // q takes any (b, h) strides; the pools any (h, page, slot) strides that
 // are multiples of 16 bytes, with a unit stride along hd, so a layer's slice
 // of the stacked pool and the dense cache's (window-cut) view are read in
-// place. hd is 64 or 128; g is any divisor of H; q8 blocks are multiples of
-// 16 dividing hd.
+// place. hd is 64, 128 or 256; g is any divisor of H; q8 blocks are
+// multiples of 16 dividing hd.
+// At hd 256 (Gemma, Gemma 2) the tensor-core route keeps q in shared memory
+// as bf16 and loads its A fragments by ldmatrix at each k-step (in registers
+// they would take 64 more a thread beside the 128 of the output fragments),
+// and an f32 pool's 64 KB tiles leave room for one stage only: its copies
+// then wait for the tile before it has been read.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -124,12 +129,19 @@ struct Cfg {
   static constexpr int kSMax = KIND == kPoolQ8 ? HD / 16 : 0;  // scales of a key
   static constexpr int kScaleBytes = kTK * kSMax * 4;
   static constexpr int kStageBytes = 2 * kTileBytes + 2 * kScaleBytes;
-  static constexpr int kStages = 2;  // more blocks an SM beat a deeper ring (k2_ablate)
+  // more blocks an SM beat a deeper ring (k2_ablate); an f32 pool at hd 256
+  // (64 KB a tile) fits one stage
+  static constexpr int kStages = 4 * kTileBytes <= 160 * 1024 ? 2 : 1;
   static constexpr int kRing = kStages * kStageBytes;
   static constexpr int kQHalf = HD / 2 + 4;  // half a q row, off the other half's banks
   static constexpr int kQRow = 2 * kQHalf;
   static constexpr int kQPT = (GM * HD + kThreads - 1) / kThreads;  // q values a thread stages
-  static constexpr int kQFloats = TC ? 0 : GM * kQRow;  // the tensor-core route keeps q in registers
+  // the tensor-core route keeps q's A fragments in registers, at hd 256 in
+  // shared memory as bf16 rows of kQSRow bytes (16 bytes of padding put the
+  // 8 rows an ldmatrix phase reads on 8 different bank groups)
+  static constexpr bool kQS = TC && HD == 256;
+  static constexpr int kQSRow = HD * 2 + 16;
+  static constexpr int kQFloats = TC ? (kQS ? GM * kQSRow / 4 : 0) : GM * kQRow;
   static constexpr int kMT = GM / 16;                   // tensor-core route: 16-row tiles of q
   static constexpr int kBTile = kTK * HD * 2;           // a K or V tile in bf16
   // tensor-core route, q8 pool: the tile's K and V converted to bf16 for ldmatrix
@@ -313,10 +325,12 @@ __global__ void __launch_bounds__(kThreads, TC && GM == 16 && HD == 64 ? 4 : 1)
   const long long q_base = b * a.q_b + static_cast<long long>(h0) * a.q_h;
   // CUDA-core route: q values to stage as f32; tensor-core route: q's A
   // fragments (rows g and g + 8 of each 16-row tile, dims 2t, 2t + 1 and
-  // + 8 of each 16-dim step; rows past G are zeros)
+  // + 8 of each 16-dim step; rows past G are zeros), at hd 256 staged in
+  // shared memory below instead
+  constexpr bool QR = TC && !C::kQS;  // q's A fragments in registers
   float qv[TC ? 1 : C::kQPT];
-  uint32_t qa[TC ? MT : 1][TC ? HD / 16 : 1][4];
-  if constexpr (TC) {
+  uint32_t qa[QR ? MT : 1][QR ? HD / 16 : 1][4];
+  if constexpr (QR) {
     const unsigned short* qh = static_cast<const unsigned short*>(a.q);
     const int g8 = lane >> 2, t4 = lane & 3;
 #pragma unroll
@@ -331,7 +345,7 @@ __global__ void __launch_bounds__(kThreads, TC && GM == 16 && HD == 64 ? 4 : 1)
                                       (static_cast<uint32_t>(qh[qi + 1]) << 16)
                                 : 0u;
         }
-  } else {
+  } else if constexpr (!TC) {
 #pragma unroll
     for (int i = 0; i < C::kQPT; ++i) {
       const int e = tid + i * kThreads;
@@ -434,6 +448,14 @@ __global__ void __launch_bounds__(kThreads, TC && GM == 16 && HD == 64 ? 4 : 1)
       }
     }
   }
+  if constexpr (C::kQS) {  // q as bf16 rows of kQSRow bytes; rows past G zeros
+    const unsigned short* qh = static_cast<const unsigned short*>(a.q);
+    unsigned short* qs16 = reinterpret_cast<unsigned short*>(q_s);
+    for (int e = tid; e < GM * HD; e += kThreads) {
+      const int r = e / HD, d = e % HD;
+      qs16[r * (C::kQSRow / 2) + d] = r < G ? qh[q_base + r * a.q_h + d] : 0;
+    }
+  }
   float* pw = pw_all + warp * GM * kKW;  // this warp's scores, then probabilities
   float* m_w = st_all + warp * 3 * GM;   // this warp's running max, sum, rescale
   float* l_w = m_w + GM;
@@ -472,9 +494,16 @@ __global__ void __launch_bounds__(kThreads, TC && GM == 16 && HD == 64 ? 4 : 1)
   }
 
   for (int it = 0; it < n_t; ++it) {
-    cp_wait<C::kStages - 2>();
+    if constexpr (C::kStages == 1) {  // the one stage, once its last tile is read
+      __syncthreads();
+      issue(it);
+      cp_commit();
+      cp_wait<0>();
+    } else {
+      cp_wait<C::kStages - 2>();
+    }
     __syncthreads();  // tile it has landed; the stage refilled below is free
-    {
+    if constexpr (C::kStages > 1) {
       const int nx = it + C::kStages - 1;
       if (nx < n_t) issue(nx);
       cp_commit();
@@ -529,8 +558,19 @@ __global__ void __launch_bounds__(kThreads, TC && GM == 16 && HD == 64 ? 4 : 1)
                                     ((lane >> 3) & 1)) * 16), kf);
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt) {
-            mma_bf16(sf[mt][0], qa[mt][ks], kf[0], kf[1]);
-            mma_bf16(sf[mt][1], qa[mt][ks], kf[2], kf[3]);
+            if constexpr (C::kQS) {
+              // rows 16 mt + (lane & 15), dims 16 ks + 8 (lane >> 4) ..: the
+              // A fragment's four 8 x 8 matrices
+              uint32_t af[4];
+              ldsm_x4(smem_u32(reinterpret_cast<const unsigned char*>(q_s) +
+                               (16 * mt + (lane & 15)) * C::kQSRow + (2 * ks + (lane >> 4)) * 16),
+                      af);
+              mma_bf16(sf[mt][0], af, kf[0], kf[1]);
+              mma_bf16(sf[mt][1], af, kf[2], kf[3]);
+            } else {
+              mma_bf16(sf[mt][0], qa[mt][ks], kf[0], kf[1]);
+              mma_bf16(sf[mt][1], qa[mt][ks], kf[2], kf[3]);
+            }
           }
         }
         // the online softmax of the lane's rows over the warp's keys (a quad)
@@ -895,10 +935,11 @@ bool tensor_cores(int q_type, int pool_kind) {
 }
 
 // query rows a block: the tensor cores 16 (32 at hd 64 past 16 rows); the
-// CUDA cores 4, 8, or 32 at hd 64 and 16 at hd 128 (P.V's registers)
+// CUDA cores 4, 8, or 32 at hd 64, 16 at hd 128 and 8 at hd 256 (P.V's
+// registers)
 int rows_per_block(int g, int hd, bool tc) {
   if (tc) return g <= 16 || hd != 64 ? 16 : kMaxG;
-  return g <= 4 ? 4 : g <= 8 ? 8 : hd == 64 ? kMaxG : 16;
+  return g <= 4 ? 4 : g <= 8 || hd == 256 ? 8 : hd == 64 ? kMaxG : 16;
 }
 
 template <int KIND, int HD, int GM, bool TC>
@@ -930,18 +971,21 @@ int dispatch_g(const Args& a, int B, bool tc, cudaStream_t s) {
   }
   if (gm == 4) return launch<KIND, HD, 4, false>(a, B, s);
   if (gm == 8) return launch<KIND, HD, 8, false>(a, B, s);
-  return launch<KIND, HD, HD == 64 ? kMaxG : 16, false>(a, B, s);
+  if constexpr (HD == 256) return static_cast<int>(cudaErrorInvalidValue);
+  else return launch<KIND, HD, HD == 64 ? kMaxG : 16, false>(a, B, s);
 }
 
 template <int KIND>
 int dispatch_hd(const Args& a, int B, int hd, bool tc, cudaStream_t s) {
   if (hd == 64) return dispatch_g<KIND, 64>(a, B, tc, s);
   if (hd == 128) return dispatch_g<KIND, 128>(a, B, tc, s);
+  if (hd == 256) return dispatch_g<KIND, 256>(a, B, tc, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 bool shapes_ok(int B, int H, int n_kv, int hd, int P, int ps) {
-  return B > 0 && n_kv > 0 && H % n_kv == 0 && P > 0 && ps > 0 && (hd == 64 || hd == 128);
+  return B > 0 && n_kv > 0 && H % n_kv == 0 && P > 0 && ps > 0 &&
+         (hd == 64 || hd == 128 || hd == 256);
 }
 
 }  // namespace

@@ -35,6 +35,19 @@ def _shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     return out
 
 
+def _norms_and_biases(cfg: ModelConfig, device) -> dict:
+    """A layer's norm weights (ones, f32: the pre-norms, and Gemma 2's
+    post-norms) and, where the config has them, zero q/k/v biases."""
+    D = cfg.embedding_length
+    names = ["attn_norm", "ff_norm"] + ["post_attn_norm"] * cfg.post_attn_norm \
+        + ["post_ff_norm"] * cfg.post_ff_norm
+    out = {f"{n}.weight": torch.ones(D, dtype=torch.float32, device=device) for n in names}
+    if cfg.attn_qkv_bias:
+        for k in ("wq", "wk", "wv"):
+            out[k + ".bias"] = torch.zeros(_shapes(cfg)[k][0], device=device)
+    return out
+
+
 def init_params(
     cfg: ModelConfig,
     seed: int = 0,
@@ -60,30 +73,19 @@ def init_params(
                           torch.from_numpy(scales).to(device), "q4")
         return torch.from_numpy(a).to(device=device, dtype=dtype)
 
-    def ones(n):
-        return torch.ones(n, dtype=torch.float32, device=device)
-
     layers = []
     for _ in range(cfg.n_layers):
         layer = {k: linear_leaf(*s) for k, s in _shapes(cfg).items()}
-        layer["attn_norm.weight"] = ones(D)
-        layer["ff_norm.weight"] = ones(D)
         if cfg.n_experts:
             layer["router"] = torch.from_numpy(w(cfg.n_experts, D)).to(device=device,
                                                                        dtype=dtype)
-        if cfg.post_attn_norm:
-            layer["post_attn_norm.weight"] = ones(D)
-        if cfg.post_ff_norm:
-            layer["post_ff_norm.weight"] = ones(D)
-        if cfg.attn_qkv_bias:
-            for k in ("wq", "wk", "wv"):
-                layer[k + ".bias"] = torch.zeros(_shapes(cfg)[k][0], device=device)
+        layer.update(_norms_and_biases(cfg, device))
         layers.append(layer)
 
     params: dict = {
         "embed": torch.from_numpy(w(V, D)).to(device=device, dtype=dtype),
         "layers": layers,
-        "final_norm.weight": ones(D),
+        "final_norm.weight": torch.ones(D, dtype=torch.float32, device=device),
     }
     if not cfg.tie_word_embeddings:
         params["lm_head"] = torch.from_numpy(w(V, D)).to(device=device, dtype=dtype)
@@ -96,8 +98,10 @@ def random_q4_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     Every matrix, the embedding table included (which a tied lm_head then
     reads as it is), is a q4 QArray of uniform random nibbles with f32 block
     scales uniform in [0.5, 1.5] x 0.0043, so weights have std ≈ 0.02; norms
-    are ones. A MoE router is bf16 normal with std 0.02; the expert stacks
-    are drawn one expert matrix at a time into their [E, N, K] tensors."""
+    are ones (Gemma 2's post-norms too), q/k/v biases zeros where the config
+    has them, as `init_params` makes them. A MoE router is bf16 normal with
+    std 0.02; the expert stacks are drawn one expert matrix at a time into
+    their [E, N, K] tensors."""
     device = resolve_device(device)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
@@ -121,20 +125,16 @@ def random_q4_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
             s.copy_(m.scales)
         return QArray(data, scales, "q4")
 
-    def ones(n):
-        return torch.ones(n, dtype=torch.float32, device=device)
-
     layers = []
     for _ in range(cfg.n_layers):
         layer = {k: q4(*s) for k, s in _shapes(cfg).items()}
-        layer["attn_norm.weight"] = ones(D)
-        layer["ff_norm.weight"] = ones(D)
         if cfg.n_experts:
             layer["router"] = (torch.randn((cfg.n_experts, D), generator=g, device=device)
                                * 0.02).to(torch.bfloat16)
+        layer.update(_norms_and_biases(cfg, device))
         layers.append(layer)
     params = {"embed": q4(cfg.vocab_size, D), "layers": layers,
-              "final_norm.weight": ones(D)}
+              "final_norm.weight": torch.ones(D, dtype=torch.float32, device=device)}
     if not cfg.tie_word_embeddings:
         params["lm_head"] = q4(cfg.vocab_size, D)
     return params
@@ -214,5 +214,33 @@ def mixtral_8x7b_config() -> ModelConfig:
             "eos_token_id": 2,
             "hidden_act": "silu",
             "tie_word_embeddings": False,
+        }
+    )
+
+
+def gemma2_2b_config() -> ModelConfig:
+    """google/gemma-2-2b shapes (its published config.json): head size 256,
+    a 4096-key window on the even layers, attention and final softcaps."""
+    return from_hf_config(
+        {
+            "model_type": "gemma2",
+            "hidden_size": 2304,
+            "intermediate_size": 9216,
+            "num_attention_heads": 8,
+            "num_key_value_heads": 4,
+            "num_hidden_layers": 26,
+            "head_dim": 256,
+            "rms_norm_eps": 1e-6,
+            "vocab_size": 256000,
+            "max_position_embeddings": 8192,
+            "rope_theta": 10000.0,
+            "sliding_window": 4096,
+            "query_pre_attn_scalar": 256,
+            "attn_logit_softcapping": 50.0,
+            "final_logit_softcapping": 30.0,
+            "bos_token_id": 2,
+            "eos_token_id": 1,
+            "hidden_activation": "gelu_pytorch_tanh",
+            "tie_word_embeddings": True,
         }
     )

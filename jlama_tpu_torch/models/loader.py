@@ -1,6 +1,6 @@
 """Weight loading: HF safetensors checkpoints → per-layer torch param trees
-(counterpart of `jlama_tpu/models/loader.py`, its Llama-family and Mixtral
-maps).
+(counterpart of `jlama_tpu/models/loader.py`, its Llama-family, Gemma 2 and
+Mixtral maps).
 
 Dtype handling as in the JAX package: F16 and BF16 widen to f32 on the host
 and then take `float_dtype`; Q4 and I8 (+ `.qb` scales) become QArrays in the
@@ -113,6 +113,22 @@ def _llama_layer_map(prefix: str = "model.layers") -> dict[str, Callable]:
     }
 
 
+def _gemma2_layer_map(prefix: str = "model.layers") -> dict[str, Callable]:
+    """The Llama map with Gemma 2's four norms
+    (`jlama_tpu/models/loader.py:_gemma2_layer_map`): HF's
+    `post_attention_layernorm` is the norm after attention, not the FFN's
+    pre-norm, which is `pre_feedforward_layernorm`."""
+    m = _llama_layer_map(prefix)
+
+    def vec(name):
+        return lambda r, i: r.load_float(f"{prefix}.{i}.{name}")
+
+    m["post_attn_norm.weight:np"] = vec("post_attention_layernorm.weight")
+    m["ff_norm.weight:np"] = vec("pre_feedforward_layernorm.weight")
+    m["post_ff_norm.weight:np"] = vec("post_feedforward_layernorm.weight")
+    return m
+
+
 def _mixtral_layer_map(n_experts: int, prefix: str = "model.layers") -> dict[str, Callable]:
     """The Llama map with the MLP replaced by the sparse MoE block
     (`jlama_tpu/models/loader.py:_mixtral_layer_map`): `router` from the
@@ -141,7 +157,7 @@ def _mixtral_layer_map(n_experts: int, prefix: str = "model.layers") -> dict[str
     return m
 
 
-LLAMA_FAMILY = ("llama", "mistral", "qwen2", "granite", "gemma")
+LLAMA_FAMILY = ("llama", "mistral", "qwen2", "granite", "gemma", "gemma2")
 
 TOPLEVEL_MAP = {
     # our key -> hf name ("?" suffix = optional)
@@ -185,6 +201,7 @@ def load_params(
 
         layers: list[dict] = [{} for _ in range(cfg.n_layers)]
         layer_map = (_mixtral_layer_map(cfg.n_experts) if cfg.model_type == "mixtral"
+                     else _gemma2_layer_map() if cfg.model_type == "gemma2"
                      else _llama_layer_map())
         for key, fn in layer_map.items():
             optional = key.endswith("?")

@@ -32,8 +32,8 @@ _paged_decode_kernel` (launched by `_paged_decode_jit`), and the library
 `paged_attention` branch of the JAX package's layers, with the hand-written
 CUDA kernel in `csrc/paged_decode.cu`: T = 1 GQA attention that reads K/V
 through the page tables, q8 pools dequantized in the kernel, online softmax
-in f32. Any head count takes it, at head size 64 or 128 (the JAX gate on head
-and head-count multiples is a Mosaic limit). The `Engine`'s dense cache is a
+in f32. Any head count takes it, at head size 64, 128 or 256 (the JAX gate
+on head and head-count multiples is a Mosaic limit). The `Engine`'s dense cache is a
 pool to it too (`ops/kv_write.py::dense_pool_view`): B pages of S slots.
 
 What bounds K2 on the H100: the live KV bytes. The kernel splits each row's
@@ -86,10 +86,10 @@ _PD_SIGNATURES = {
     "paged_decode_plan": [_I] * 9 + [ctypes.POINTER(ctypes.c_int64)],
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_SIZES = (64, 128)
+HEAD_SIZES = (64, 128, 256)
 # keys per tile of the bf16 route (csrc/flash_prefill.cu: 8192 / hd, one 16
 # KB K or V tile): the tile against whose running max P is rounded
-KEY_TILE = {64: 128, 128: 64}
+KEY_TILE = {64: 128, 128: 64, 256: 32}
 
 
 def flash_prefill_plain(q, k, v, pos0, scale, softcap=None, causal=True, window=None):

@@ -59,15 +59,15 @@ from ..utils.cuda_timer import Timer, bound
 from ._common import SLEEP_CYCLES, build_cut_copies
 
 # the cuts act on the tensor-core route, which the cases' bf16 q take
-_NO_QK = [("            mma_bf16(sf[mt][0], qa[mt][ks], kf[0], kf[1]);\n"
-           "            mma_bf16(sf[mt][1], qa[mt][ks], kf[2], kf[3]);\n", "")]
+_NO_QK = [("              mma_bf16(sf[mt][0], qa[mt][ks], kf[0], kf[1]);\n"
+           "              mma_bf16(sf[mt][1], qa[mt][ks], kf[2], kf[3]);\n", "")]
 _NO_PV = [("            mma_bf16(o[mt][2 * nd2], ph[mt], vf[0], vf[1]);\n"
            "            mma_bf16(o[mt][2 * nd2], pl[mt], vf[0], vf[1]);\n"
            "            mma_bf16(o[mt][2 * nd2 + 1], ph[mt], vf[2], vf[3]);\n"
            "            mma_bf16(o[mt][2 * nd2 + 1], pl[mt], vf[2], vf[3]);\n", "")]
 _NO_EXP = [("const float pv = ok[x] ? exp2f(z[x] - m_new) : 0.0f;",
             "const float pv = ok[x] ? (z[x] - m_new) : 0.0f;")]
-_STAGES = "  static constexpr int kStages = 2;"
+_STAGES = "  static constexpr int kStages = 4 * kTileBytes <= 160 * 1024 ? 2 : 1;"
 # the trace: thread 0 of block n stamps TRACE[4 + 16 n + i] (`k2_trace`);
 # clock64 cycles unless named: 0 start (globaltimer ns), 1 start, 2 its row's
 # length read and its split live, 3 q staged (the main loop starts), 4-7 the
@@ -146,8 +146,8 @@ ABLATIONS = {
                      "  return;\n")],
     "launch_only": [("  if (split < s_first || split > s_last) return;",
                      "  if (split >= 0) return;")],
-    "stages_3": [(_STAGES, _STAGES.replace("2;", "3;"))],
-    "stages_4": [(_STAGES, _STAGES.replace("2;", "4;"))],
+    "stages_3": [(_STAGES, _STAGES.replace("? 2 :", "? 3 :"))],
+    "stages_4": [(_STAGES, _STAGES.replace("? 2 :", "? 4 :"))],
     "trace": _TRACE,
 }
 COMPUTES = ("route", "stages_3", "stages_4", "trace")

@@ -176,8 +176,11 @@ def test_q8_quantize_on_card_equals_cpu(cuda):
 
 # pos0 an int: the same for every row; a tuple: one per row. S = 700 and 333
 # are not multiples of the bf16 route's key tile (128 at hd 64, 64 at hd
-# 128). H 32 / n_kv 8 are Llama-3.2-1B's heads: T = S = 512 is its prefill
-# (query tiles of 64), B = 4 x T = 256 a serving chunk (tiles of 128).
+# 128, 32 at hd 256). H 32 / n_kv 8 are Llama-3.2-1B's heads: T = S = 512 is
+# its prefill (query tiles of 64), B = 4 x T = 256 a serving chunk (tiles of
+# 128). H 8 / n_kv 4 at hd 256 are Gemma-2-2B's: keys past one 32-key tile
+# and queries past one 64-row tile, its softcap of 50 with a window, its
+# 512-token prefill and 1,100-2,304-token ones (tiles of 64 rows at hd 256).
 @pytest.mark.parametrize("B,T,S,pos0,hd,cap,win,H,n_kv", [
     (1, 64, 64, 0, 64, None, None, 8, 2), (2, 40, 100, 60, 128, None, None, 8, 2),
     (1, 33, 77, 20, 64, 30.0, 16, 8, 2), (1, 128, 512, 384, 128, None, None, 8, 2),
@@ -187,6 +190,11 @@ def test_q8_quantize_on_card_equals_cpu(cuda):
     (1, 512, 512, 0, 64, None, None, 32, 8),
     (4, 256, 1024, (0, 256, 512, 768), 64, None, None, 32, 8),
     (4, 256, 768, (0, 100, 300, 512), 128, None, None, 32, 8),
+    (1, 100, 150, 40, 256, None, None, 8, 4),
+    (2, 130, 300, (10, 170), 256, 50.0, 64, 8, 4),
+    (1, 512, 512, 0, 256, 50.0, None, 8, 4),
+    (2, 1100, 1300, (0, 200), 256, 50.0, 300, 8, 4),
+    (1, 2304, 2304, 0, 256, None, None, 8, 4),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_prefill_kernel_matches_plain(cuda, B, T, S, pos0, hd, cap, win, H, n_kv, dtype):
@@ -215,7 +223,7 @@ def test_flash_prefill_kernel_matches_plain(cuda, B, T, S, pos0, hd, cap, win, H
         assert torch.equal(flash_prefill(q, k, v, p0, hd ** -0.5, softcap=cap, window=win), got)
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_prefill_kernel_not_causal(cuda, hd, dtype):
     """causal=False (every key < S for every row), with a ragged S and a
@@ -309,11 +317,12 @@ def _layer(pool, l):
 K2_ROWS = {"short": ([1, 37, 96, 50, 17], 6), "long": ([0, 2000, 1037, 16, 1], 125)}
 
 
-def _k2_page_tables(cuda, lengths, P, ps, n_pages):
+def _k2_page_tables(cuda, lengths, P, ps, n_pages, g=None):
     """[B, P] int32 of distinct random pages (1 .. n_pages-1) over each row's
-    live keys; empty decode slots (length 0 or 1) on the scratch page 0."""
+    live keys, from the generator g (the global one where none is given);
+    empty decode slots (length 0 or 1) on the scratch page 0."""
     pt = torch.zeros((len(lengths), P), dtype=torch.int32, device=cuda)
-    perm = (torch.randperm(n_pages - 1, device=cuda) + 1).to(torch.int32)
+    perm = (torch.randperm(n_pages - 1, device=cuda, generator=g) + 1).to(torch.int32)
     nxt = 0
     for b, ln in enumerate(lengths):
         n = -(-ln // ps) if ln > 1 else 0
@@ -323,7 +332,8 @@ def _k2_page_tables(cuda, lengths, P, ps, n_pages):
 
 
 @pytest.mark.parametrize("hd,cap,win", [(64, None, None), (128, 30.0, 20), (64, None, 9),
-                                        (64, None, 700)])
+                                        (64, None, 700), (256, None, None), (256, 50.0, 9),
+                                        (256, 50.0, 700)])
 @pytest.mark.parametrize("kind", ["f32", "bf16", "q8"])
 # groups of 4, 32 (MQA), 24 (a partial row group) and 1
 @pytest.mark.parametrize("H,n_kv", [(8, 2), (32, 1), (48, 2), (8, 8)])
@@ -341,7 +351,9 @@ def test_paged_decode_kernel_matches_plain(cuda, q_dtype, rows, kind, hd, cap, w
     # stacked [L=2, ...] pools, read through layer 1's strided view
     kp, vp = (_layer(p, 1) for p in _pools(cuda, kind, (2, n_kv, n_pages, ps, hd), g))
     lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
-    pt = _k2_page_tables(cuda, lens, P, ps, n_pages)
+    # hd 256's page tables from g: the global generator's draws, which later
+    # tests take, stay those of the cases at hd 64 and 128
+    pt = _k2_page_tables(cuda, lens, P, ps, n_pages, g if hd == 256 else None)
     q = torch.randn((B, H, hd), generator=g, device=cuda).to(q_dtype)
     before = paged_decode.launches
     got = paged_decode(q, kp, vp, pt, lengths, hd ** -0.5, cap, win).float()
@@ -436,6 +448,69 @@ def test_paged_decode_kernel_large_scores(cuda, kind, hd):
     assert torch.isfinite(got).all() and torch.isfinite(ref).all()
     tol = 3e-3 if kind == "q8" else 2e-5
     assert torch.all((got - ref).abs() <= 2.0 ** -7 * ref.abs() + tol)
+
+
+def _k2_large_scores_f64(cuda, kind, hd, seed):
+    """The inputs of `test_paged_decode_kernel_large_scores` (q and K of size
+    ~16: scores of several hundred to ~1,000) with the page layout drawn from
+    its own generator seeded `seed`: the kernel's and the plain version's
+    outputs, the f64 reference, and the f32 rounding each may carry from its
+    scores. That term is the output's sensitivity to its scores, sum_i p_i
+    |v_i - o| (d o / d s_i = p_i (v_i - o)), times 4 units of f32 rounding at
+    the row's largest |score|: near nothing where one key dominates, and up
+    to ~1e-4 where two near-tied keys cancel."""
+    from jlama_tpu_torch.ops.attention import _gather_pages, paged_decode, paged_decode_plain
+
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    lens, P = K2_ROWS["long"]
+    B, ps, H, n_kv = len(lens), 16, 32, 8
+    n_pages = sum(-(-ln // ps) for ln in lens) + 8
+    kp, vp = _pools(cuda, kind, (n_kv, n_pages, ps, hd), g)
+    if kind == "bf16":
+        kp = kp * 16
+    else:
+        kp.scales.mul_(16)
+    layout = torch.Generator(device=cuda).manual_seed(seed)
+    pt = _k2_page_tables(cuda, lens, P, ps, n_pages, layout)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q = (torch.randn((B, H, hd), generator=g, device=cuda) * 16).to(torch.bfloat16)
+    got = paged_decode(q, kp, vp, pt, lengths, hd ** -0.5).double()
+    ref = paged_decode_plain(q, kp, vp, pt, lengths, hd ** -0.5).double()
+    k, v = (_gather_pages(p, pt).double() for p in (kp, vp))
+    s = torch.einsum("bkgd,bksd->bkgs", q.reshape(B, n_kv, H // n_kv, hd).double(), k)
+    live = (torch.arange(k.shape[2], device=cuda)[None, :] < lengths[:, None])[:, None, None]
+    s = torch.where(live, s * hd ** -0.5, torch.tensor(-torch.inf, device=cuda,
+                                                      dtype=torch.float64))
+    p = torch.nan_to_num(torch.softmax(s, dim=-1))  # a row with no live key: zeros
+    exact = torch.einsum("bkgs,bksd->bkgd", p, v)
+    sens = torch.stack([  # one row at a time: [n_kv, G, S, hd] in f64
+        torch.einsum("kgs,kgsd->kgd", p[b], (v[b][:, None] - exact[b][:, :, None]).abs())
+        for b in range(B)])
+    smax = s.masked_fill(~live, 0).abs().amax(dim=-1, keepdim=True)
+    rounding = (4 * 2.0 ** -24 * smax * sens).reshape(B, H, hd)
+    torch.cuda.synchronize()
+    return got, ref, exact.reshape(B, H, hd), rounding, smax.max().item()
+
+
+@pytest.mark.parametrize("seed", range(24))
+@pytest.mark.parametrize("hd", [128, 256])
+@pytest.mark.parametrize("kind", ["bf16", "q8"])
+def test_paged_decode_kernel_large_scores_f64(cuda, kind, hd, seed):
+    """The large-score case over 24 page layouts at head sizes 128 and 256
+    (Gemma's; Gemma 1 puts no softcap on its scores), against an f64
+    reference: the probabilities stay finite, and the kernel and the plain
+    version each lie within 2^-7 |exact| + the f32 limit (the limit of
+    `test_paged_decode_kernel_large_scores`) plus the f32 rounding their
+    scores carry (`_k2_large_scores_f64`). Without that last term the plain
+    f32 version itself misses the limit on some layouts where near-tied keys
+    cancel, as the kernel does (ROADMAP section 3)."""
+    got, ref, exact, rounding, smax = _k2_large_scores_f64(cuda, kind, hd, seed)
+    assert torch.isfinite(got).all() and torch.isfinite(ref).all()
+    assert 300 < smax < 1500, smax  # the regime the route once overflowed in
+    tol = 3e-3 if kind == "q8" else 2e-5
+    lim = 2.0 ** -7 * exact.abs() + tol + rounding
+    for out in (got, ref):
+        assert torch.all((out - exact).abs() <= lim), ((out - exact).abs() - lim).max().item()
 
 
 @pytest.mark.parametrize("kind", ["bf16", "q8"])
@@ -985,3 +1060,38 @@ def test_moe_forward_on_card_matches_cpu_logits(cuda):
     gpu = gpu.float().cpu()
     assert torch.isfinite(gpu).all()
     assert ((gpu - ref).norm() / ref.norm()).item() < 5e-2
+
+
+def test_gemma2_forward_on_card_matches_cpu_logits(cuda):
+    """A 2-layer Gemma-2-shaped model at narrow width (hidden 512, head size
+    256, 8 query heads on 4 KV heads, window 16 on layer 0, both softcaps),
+    random JQ4 weights: 40 prompt tokens and 4 decode steps through the
+    dense cache (K3 and K2 at hd 256, the window cutting both) on the card
+    in bf16 against the plain path in f32 on the CPU, relative L2 < 5e-2."""
+    import dataclasses
+
+    from jlama_tpu_torch.models.base import KVCache, forward_logits, params_to
+    from jlama_tpu_torch.models.init import gemma2_2b_config, random_q4_params
+    from jlama_tpu_torch.ops.attention import flash_prefill, paged_decode
+
+    cfg = dataclasses.replace(gemma2_2b_config(), n_layers=2, embedding_length=512,
+                              hidden_length=1024, vocab_size=4096, sliding_window=16)
+    params = random_q4_params(cfg, seed=0, device=cuda)
+    cpu = params_to(params, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (1, 44), generator=torch.Generator().manual_seed(0))
+    caches = {d: KVCache.init(cfg, 1, 64, dt, device=d)
+              for d, dt in ((cuda, torch.bfloat16), ("cpu", torch.float32))}
+    steps = [(0, 40)] + [(t, t + 1) for t in range(40, 44)]
+    before = (flash_prefill.launches, paged_decode.launches)
+    for a, b in steps:
+        pos = torch.arange(a, b)[None, :]
+        gpu, _ = forward_logits(params, cfg, toks[:, a:b].to(cuda), pos.to(cuda), caches[cuda],
+                                dtype=torch.bfloat16)
+        with torch.inference_mode():
+            ref, _ = forward_logits(cpu, cfg, toks[:, a:b], pos, caches["cpu"],
+                                    dtype=torch.float32)
+        gpu = gpu.float().cpu()
+        assert torch.isfinite(gpu).all()
+        assert ((gpu - ref).norm() / ref.norm()).item() < 5e-2, (a, b)
+    assert (flash_prefill.launches - before[0], paged_decode.launches - before[1]) == \
+        (cfg.n_layers, 4 * cfg.n_layers)

@@ -1,5 +1,6 @@
 """K3's plain version against JAX flash_prefill (interpret mode), in f32 at
-2e-5 — the cases of tests/test_pallas_attention.py at head sizes 64 and 128 —
+2e-5 — the cases of tests/test_pallas_attention.py at head sizes 64, 128 and
+256 (Gemma 2's, with its softcap of 50) —
 and the bf16 route's rounding model, flash_prefill_tiled_plain (P rounded to
 bf16 per key tile, as the TPU kernel rounds it), against the JAX kernel on
 bf16 inputs with its key and query blocks at the route's key tile."""
@@ -24,7 +25,7 @@ def _inputs(seed, B, H, n_kv, T, S, hd):
     return q, k, v
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("T,S,pos0_v", [(8, 16, 0), (8, 32, 10), (16, 16, 0)])
 def test_flash_prefill_plain_matches_jax(T, S, pos0_v, hd):
     B, H, n_kv = 2, 4, 2
@@ -38,15 +39,15 @@ def test_flash_prefill_plain_matches_jax(T, S, pos0_v, hd):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("hd", [64, 128])
-def test_flash_prefill_plain_softcap_and_window(hd):
+@pytest.mark.parametrize("hd,cap", [(64, 30.0), (128, 30.0), (256, 50.0)])
+def test_flash_prefill_plain_softcap_and_window(hd, cap):
     B, H, n_kv, T, S = 1, 2, 1, 8, 24
     q, k, v = _inputs(hd, B, H, n_kv, T, S, hd)
     pos0 = np.asarray([12], np.int32)
     ref = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos0), 0.125,
-                 softcap=30.0, window=9, block_t=8, block_s=8, interpret=True)
+                 softcap=cap, window=9, block_t=8, block_s=8, interpret=True)
     got = flash_prefill_plain(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
-                              torch.from_numpy(pos0), 0.125, softcap=30.0, window=9)
+                              torch.from_numpy(pos0), 0.125, softcap=cap, window=9)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
 
 
@@ -62,13 +63,15 @@ def test_flash_prefill_cpu_wrapper_counts_nothing():
 
 
 # (B, H, n_kv, T, S, pos0 per row, hd, softcap, window); S a multiple of the
-# key tile (128 at hd 64, 64 at hd 128), so that the JAX kernel's key blocks
-# are the route's tiles
+# key tile (128 at hd 64, 64 at hd 128, 32 at hd 256), so that the JAX
+# kernel's key blocks are the route's tiles
 TILED_CASES = [
     (1, 4, 2, 128, 256, (128,), 64, None, None),
     (2, 4, 2, 64, 256, (0, 150), 64, None, None),
     (2, 4, 1, 64, 192, (40, 128), 128, None, None),
     (1, 2, 1, 64, 256, (100,), 128, 30.0, 70),
+    (2, 4, 2, 64, 160, (30, 96), 256, None, None),
+    (1, 4, 2, 96, 224, (128,), 256, 50.0, 40),
 ]
 
 

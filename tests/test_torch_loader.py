@@ -64,6 +64,8 @@ def test_load_params_matches_jax(ckpts, kind):
     {},
     {"model_type": "gemma", "hidden_size": 3072},
     {"model_type": "qwen2", "rope_scaling": {"type": "linear", "factor": 2.0}},
+    {"model_type": "gemma2", "head_dim": 256, "query_pre_attn_scalar": 256,
+     "attn_logit_softcapping": 50.0, "final_logit_softcapping": 30.0, "sliding_window": 4096},
 ])
 def test_config_matches_jax(overrides):
     from jlama_tpu.config import from_hf_config as jcfg
@@ -76,3 +78,9 @@ def test_config_matches_jax(overrides):
 
     assert dataclasses.asdict(j1()) == dataclasses.asdict(t1())
     assert dataclasses.asdict(j8()) == dataclasses.asdict(t8())
+    # the port's Gemma-2-2B config (phase 11 of chip_smoke.py), parsed by both
+    from jlama_tpu_torch.models.init import gemma2_2b_config
+
+    g2 = gemma2_2b_config()
+    assert dataclasses.asdict(jcfg(g2.raw)) == dataclasses.asdict(g2)
+    assert (g2.head_size, g2.sliding_window, g2.attn_logit_softcap) == (256, 4096, 50.0)

@@ -131,10 +131,16 @@ def test_kv_write_plain_dense_view_matches_kv_write_dense1():
         np.testing.assert_array_equal(v.numpy(), np.asarray(ref))
 
 
+# quantized: False an f32 pool, True a q8 pool, "bf16" a bf16 pool (whose
+# probabilities the JAX kernel rounds to bf16 before P.V, as it does for q8:
+# the q8 tolerance)
 @pytest.mark.parametrize("quantized,hd,softcap,window", [
     (False, 64, None, None), (True, 64, None, None),  # tests/test_pallas_attention.py:77-105
     (False, 64, 30.0, None), (False, 64, None, 7), (True, 64, 20.0, 5),
     (False, 128, None, None), (True, 128, None, None),
+    # Gemma 2's head size and softcap
+    (False, 256, None, None), (True, 256, None, None), ("bf16", 256, None, None),
+    (False, 256, 50.0, 7), (True, 256, 50.0, 5), ("bf16", 256, 50.0, 7),
 ])
 def test_paged_decode_plain_matches_jax_kernel(quantized, hd, softcap, window):
     from jlama_tpu.ops.pallas_attention import paged_decode
@@ -143,12 +149,13 @@ def test_paged_decode_plain_matches_jax_kernel(quantized, hd, softcap, window):
     B, H, n_kv, ps, n_pages = 3, 4, 2, 8, 9
     shape = (n_kv, n_pages, ps, hd)
     q = rng.standard_normal((B, H, hd)).astype(np.float32)
-    if quantized:
+    if quantized is True:
         jk, jv = _q8_pool_np(rng, shape), _q8_pool_np(rng, shape)
         jargs = ((jk.data, jk.scales), (jv.data, jv.scales))
     else:
-        jk = jnp.asarray(rng.standard_normal(shape).astype(np.float32))
-        jv = jnp.asarray(rng.standard_normal(shape).astype(np.float32))
+        dt = jnp.bfloat16 if quantized == "bf16" else jnp.float32
+        jk = jnp.asarray(rng.standard_normal(shape).astype(np.float32), dt)
+        jv = jnp.asarray(rng.standard_normal(shape).astype(np.float32), dt)
         jargs = (jk, jv)
     # the third row is an empty decode slot: length 1 on the scratch page
     pt = np.array([[1, 2, 3], [4, 5, 0], [0, 0, 0]], np.int32)
@@ -156,11 +163,15 @@ def test_paged_decode_plain_matches_jax_kernel(quantized, hd, softcap, window):
     scale = hd ** -0.5
     ref = paged_decode(jnp.asarray(q), *jargs, jnp.asarray(pt), jnp.asarray(lengths), scale,
                        softcap=softcap, window=window, interpret=True)
-    pk, pv = from_jax_kv_state(jax_tree_to_numpy((jk, jv)), device="cpu")
+    if quantized == "bf16":
+        pk, pv = (torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+                  for x in (jk, jv))
+    else:
+        pk, pv = from_jax_kv_state(jax_tree_to_numpy((jk, jv)), device="cpu")
     got = paged_decode_plain(torch.from_numpy(q), pk, pv, torch.from_numpy(pt),
                              torch.from_numpy(lengths), scale, softcap, window)
     tol = 3e-3 if quantized else 2e-5
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=tol, atol=tol)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref, np.float32), rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("softcap,window", [(None, None), (30.0, None), (None, 7), (20.0, 5)])
