@@ -141,25 +141,37 @@ Phases, each fatal on failure (exit code 1, no result line):
  10. mixtral - Mixtral-8x7B at full width (32 layers, 8 experts of FFN
               14336, top-2, head size 128; random JQ4 weights from seed 0,
               29.2 GB), after the earlier phases' memory is freed: K6, the
-              grouped expert q4 matmul, against its plain version on layer 0's
-              w1 (N 14336, K 4096) and w2 (N 4096, K 14336) at R = 2, 32 and
-              1024 selections, each with ragged routing, an empty expert and
-              every row on one expert, and a bit-equal repeat; the ragged
-              cases timed (median of 10 after an L2 flush) beside the bound,
-              the plain version, the JAX package's two formulations in
-              PyTorch (per-selection K1 with the ids read to the host; a bf16
-              dequantization of the touched experts and one torch.matmul
-              each) and the host time of one call; the dense and the paged
-              logits of the first 2 layers against the plain path in f32 on
-              the CPU (rel L2 < 5e-2); an Engine (a 512-token prompt, 3
-              first-token runs, 64 greedy tokens) on decode graphs and the
-              eager yardstick, identical ids, launch counts as expected,
-              every decode step after a key's first use a replay, device ms
-              by kernel and the busy share over 16 profiled tokens; a
-              16-slot BatchScheduler (8 seeded greedy requests, prompts
-              32-512, 32-64 new tokens): tok/s, TTFT and inter-token p50/p95,
-              launches a step, ids equal to an eager scheduler's, its busy
-              share over 16 steps; the phase's peak memory.
+              grouped expert q4 matmul, on layer 0's stacks: gate and up in
+              one call (w1 and w3, N 14336, K 4096) and w2 (N 4096, K 14336)
+              at R = 2 and 32 selections (its decode route, held to the
+              plain version) and 1024 (its prefill route, held to its
+              rounding model, the distance from the plain version printed),
+              each with ragged routing, an empty expert and every row on one
+              expert, and a bit-equal repeat; the ragged cases, and R = 32
+              with every token on the same 2 experts (as the serving steps
+              route), timed (median of 10 after an L2 flush) beside the
+              bound, the plain version, the grid kernel (moe_q4_mma_kernel),
+              the JAX package's two formulations in PyTorch (per-selection K1
+              with the ids read to the host; a bf16 dequantization of the
+              touched experts and one torch.matmul each), two single-stack
+              calls (gate and up), and the host time of one call; both
+              routes at R = 32, 64, 128 and 256 (the threshold's evidence);
+              the sums over a decode step and a prefill; the dense
+              and the paged logits of the first 2 layers against the plain
+              path in f32 on the CPU (rel L2 < 5e-2); an Engine (a 512-token
+              prompt, 3 first-token runs, 64 greedy tokens) on decode graphs
+              and the eager yardstick, identical ids, launch counts as
+              expected (1 grouping and 2 K6 launches a MoE layer, and a
+              gather before each where R takes the prefill route), every
+              decode step after a key's first use a replay, device ms by
+              kernel and the busy share over 16 profiled tokens (K6's decode
+              route only), one profiled first token (K6's prefill route twice
+              a layer, never the grid kernel); a 16-slot BatchScheduler (8
+              seeded greedy requests, prompts 32-512, 32-64 new tokens):
+              tok/s, TTFT and inter-token p50/p95, launches a step, ids equal
+              to an eager scheduler's, the experts (and rows each) a layer of
+              an eager decode step touches, its busy share over 16 steps;
+              the phase's peak memory.
  11. gemma2 - Gemma-2-2B at full width (26 layers, D 2304, 8 heads on 4 KV
               heads of 256, FFN 9216, vocabulary 256,000 tied; a window of
               4,096 on the even layers, softcaps 50 and 30; random JQ4
@@ -188,6 +200,7 @@ the profiles as JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import re
@@ -229,8 +242,11 @@ N_TTFT = 5  # time-to-first-token runs; the median is reported
 K1_NAMES = re.compile(r"(?<!moe_)q4_(gemv|mma|wgmma)_kernel")
 # K5's: the decode kernel, the pre-pass of both routes, the wgmma route
 K5_NAMES = re.compile(r"w8a8_(decode|quantize|wgmma)_kernel")
-# K6's: the grouping pre-pass and the grouped matmul
-K6_NAMES = re.compile(r"moe_(group|q4_mma)_kernel")
+# K6's: the grouping pre-pass, the decode route, the prefill route (its x
+# gather and its matmul), and the grid kernel, which no model path launches
+# (K6_OFF_PATH)
+K6_NAMES = re.compile(r"moe_(group|q4_decode|gather|q4_wgmma|q4_mma)_kernel")
+K6_OFF_PATH = re.compile(r"moe_q4_mma_kernel")
 # what the Engine's dense T = 1 attention ran before K2 took it: cuBLAS's
 # batched GEMV and f32 GEMM, and PyTorch's softmax
 DENSE_ATTN_NAMES = re.compile(r"softmax|cublasGemv|gemmSN|xmma_gemm_f32")
@@ -1709,6 +1725,18 @@ def _eager_ids_check(sched, eager, ids, label) -> dict:
     return dict(requests=16, tokens=16 * 48, equal=same)
 
 
+def _k6_kernels(kernels) -> dict:
+    """K6's device kernels in a profile's (ms, count, key) rows, by name."""
+    k6 = {}
+    for ms, c, key in kernels:
+        m = K6_NAMES.search(key)
+        if m:
+            k = k6.setdefault(m.group(0), dict(ms=0.0, count=0))
+            k["ms"] += ms
+            k["count"] += c
+    return k6
+
+
 def _serving_profile(torch, sched, cfg, ids, run) -> dict:
     """The device's busy share over 16 decode steps at 16 slots (chained
     windows of 4), with torch.profiler (whose own host cost lowers the busy
@@ -1775,7 +1803,7 @@ def _serving_profile(torch, sched, cfg, ids, run) -> dict:
                                            for k, v in k5.items()), flush=True)
     return dict(steps=n_steps, wall_ms=wall_ms, device_ms=dev_ms, busy_share=dev_ms / wall_ms,
                 device_ops=n_ops, device_ops_per_step=n_ops / n_steps, by_group_ms=groups,
-                k5_kernels=k5,
+                k5_kernels=k5, k6_kernels=_k6_kernels(kernels),
                 top=[dict(ms=ms, count=c, kernel=key[:90]) for ms, c, key in kernels[:12]])
 
 
@@ -1926,10 +1954,14 @@ def design_benches(torch) -> dict:
 
 
 # Phase 10: Mixtral-8x7B at full width. K6 (the grouped expert q4 matmul)
-# against its plain version: max |kernel - plain| <= MOE_TOL * max|plain| (the
-# same exact products, f32 sums in another order), plus one bf16 ulp of the
-# value (2^-7 of it) for a bf16 output
+# against its route's plain model: the decode route against the plain version
+# (MOE_TOL), the prefill route against its rounding model,
+# moe_q4_matmul_tiled_plain (MOE_MODEL_TOL): max |kernel - model| <= TOL *
+# max|model| (the same exact products, f32 sums in another order), plus one
+# bf16 ulp of the value (2^-7 of it) for a bf16 output
 MOE_TOL = 1e-4
+MOE_MODEL_TOL = 1e-4
+MOE_SWEEP = (32, 64, 128, 256)  # both routes timed here: the threshold's evidence
 MOE_SERVE = dict(n_slots=16, n_pages=256, page_size=64, prefill_chunk=256, decode_lag=4,
                  max_seq_len=1024)  # 16 slots of 1,024 tokens: 2.1 GB of bf16 pool
 MOE_NEW = 64  # new tokens of the Engine's request
@@ -1938,10 +1970,13 @@ MOE_TTFT = 3  # time-to-first-token runs; the median is reported
 
 def _moe_ids(torch, t, k, case, g):
     """Top-k expert ids [t, k] int32 on the card: each token k distinct
-    experts of 8 ("ragged"), none of them expert 3 ("empty"), or all on
-    expert 5 ("one")."""
+    experts of 8 ("ragged"), none of them expert 3 ("empty"), all on expert
+    5 ("one"), or every token on experts 2 and 5 ("two", top-2: how the
+    serving steps with random weights route)."""
     if case == "one":
         return torch.full((t, k), 5, dtype=torch.int32, device="cuda")
+    if case == "two":
+        return torch.tensor([[2, 5]] * t, dtype=torch.int32, device="cuda")
     choices = torch.tensor([0, 1, 2, 4, 5, 6, 7] if case == "empty" else list(range(8)),
                            device="cuda")
     pick = torch.rand((t, len(choices)), generator=g, device="cuda").argsort(dim=1)[:, :k]
@@ -1949,143 +1984,263 @@ def _moe_ids(torch, t, k, case, g):
 
 
 def check_k6(torch, timer, params, cfg, details) -> dict:
-    """K6 on layer 0's expert stacks: w1 (w3 has its shape; N 14336, K 4096,
-    one x row a token, bf16 out) and w2 (N 4096, K 14336, one x row a
-    selection, f32 out), at R = 2 (the Engine's decode), 32 (16 slots) and
-    1024 (a 512-token prefill) selections, each with ragged routing, an
-    empty expert and all rows on one expert, and a bit-equal repeat; the
-    ragged cases timed beside the plain version, the JAX package's two
-    formulations in PyTorch and the bound."""
-    from jlama_tpu_torch.ops.moe_q4 import moe_q4_matmul, moe_q4_matmul_plain
+    """K6 on layer 0's expert stacks: gate and up in one call ("w13": w1 and
+    w3, N 14336, K 4096, one x row a token, bf16 out) and w2 (N 4096, K
+    14336, one x row a selection, f32 out), at R = 2 (the Engine's decode),
+    32 (16 slots) and 1024 (a 512-token prefill) selections, each with
+    ragged routing, an empty expert and all rows on one expert (and at R =
+    32 every token on the same 2 experts), held to its route's plain model,
+    the prefill route's distance from the exact plain version printed, and a
+    bit-equal repeat; the ragged and 2-expert cases timed beside the bound,
+    the plain version, the grid kernel, the JAX package's two formulations
+    in PyTorch and (w13) two single-stack calls; then both routes at
+    MOE_SWEEP (the threshold's evidence)."""
+    from jlama_tpu_torch.ops.moe_q4 import (decode_max_r, moe_groups, moe_q4_compare,
+                                            moe_q4_gate_up, moe_q4_matmul, moe_q4_matmul_plain,
+                                            moe_q4_matmul_tiled_plain, takes_decode)
     from jlama_tpu_torch.ops.q4_matmul import q4_matmul
     from jlama_tpu_torch.utils.cuda_timer import bound
 
     layer = params["layers"][0]
     K = cfg.n_experts_per_token
+    stacks = {"w13": (layer["experts.w1"], layer["experts.w3"]), "w2": (layer["experts.w2"],)}
+    out_dt = {"w13": torch.bfloat16, "w2": torch.float32}
     g = torch.Generator(device="cuda").manual_seed(2)
+    g_two = torch.Generator(device="cuda").manual_seed(3)  # the other cases' draws stay as they were
+    thr = decode_max_r()
+    print(f"K6 routes: decode up to R = {thr} selections, prefill above", flush=True)
+    if not (takes_decode(2) and takes_decode(32) and not takes_decode(1024)):
+        fail(f"K6: the threshold {thr} does not put R = 2 and 32 on the decode route and "
+             "R = 1024 on the prefill route")
+
+    def inputs(proj, r, case):
+        e = _moe_ids(torch, r // K, K, case, g)
+        if proj == "w2":  # one x row a selection
+            e = e.reshape(-1)
+        x = torch.randn((e.shape[0], stacks[proj][0].shape[2]),
+                        generator=g_two if case == "two" else g, device="cuda").to(torch.bfloat16)
+        return x, e
+
+    def run(proj, x, e, variant=None):
+        """The main path's call (variant None), or moe_q4_compare's; a tuple
+        of outputs, one a stack."""
+        ws, dt = stacks[proj], out_dt[proj]
+        if variant is not None:
+            y = moe_q4_compare(x, ws[0], e, dt, variant=variant,
+                               w_up=ws[1] if len(ws) > 1 else None)
+            return y if isinstance(y, tuple) else (y,)
+        if len(ws) > 1:
+            return moe_q4_gate_up(x, ws[0], ws[1], e, dt)
+        return (moe_q4_matmul(x, ws[0], e, dt),)
+
+    def held(proj, r, case, x, e, outs, route):
+        """max |y - model| over the stacks (failing past the limit), max|model|,
+        and (prefill) the distance from the exact plain version."""
+        model, tol = ((moe_q4_matmul_plain, MOE_TOL) if route == "decode"
+                      else (moe_q4_matmul_tiled_plain, MOE_MODEL_TOL))
+        err, top, exact_err = 0.0, 0.0, None
+        for w, y in zip(stacks[proj], outs):
+            ref = model(x, w, e, torch.float32)
+            torch.cuda.synchronize()
+            d = (y.float() - ref).abs()
+            lim = tol * ref.abs().max().item()
+            if y.dtype == torch.bfloat16:
+                lim = lim + 2.0 ** -7 * ref.abs()
+            if not bool((d <= lim).all()):
+                fail(f"K6 {proj} R={r} {case} ({route}): max_abs_err {d.max().item()} "
+                     f"(max|model| {ref.abs().max().item()})")
+            err, top = max(err, d.max().item()), max(top, ref.abs().max().item())
+            if route == "prefill":
+                exact = moe_q4_matmul_plain(x, w, e, torch.float32)
+                exact_err = max(exact_err or 0.0, (y.float() - exact).abs().max().item())
+                del exact
+            del ref, d, lim
+        return err, top, exact_err
+
+    def nbytes_ops(proj, r, x, e):
+        ws = stacks[proj]
+        n, k = ws[0].shape[1], ws[0].shape[2]
+        touched = int(torch.unique(e).numel())
+        ybytes = 4 if out_dt[proj] == torch.float32 else 2
+        nb = len(ws) * (touched * n * k * 5 // 8 + r * n * ybytes) + x.numel() * 2 \
+            + e.numel() * 4
+        return nb, 2.0 * r * n * k * len(ws), touched
+
     worst = 0.0
     timed = {}
-    for proj, out_dtype in (("w1", torch.bfloat16), ("w2", torch.float32)):
-        w = layer["experts." + proj]
-        n, k = w.shape[1], w.shape[2]
+    for proj in ("w13", "w2"):
+        ws = stacks[proj]
+        n, k = ws[0].shape[1], ws[0].shape[2]
         for r in (2, 32, 1024):
-            for case in ("ragged", "empty", "one"):
-                e = _moe_ids(torch, r // K, K, case, g)
-                if proj == "w2":  # one x row a selection
-                    e = e.reshape(-1)
-                x = torch.randn((e.shape[0], k), generator=g, device="cuda").to(torch.bfloat16)
-                got = moe_q4_matmul(x, w, e, out_dtype)
-                ref = moe_q4_matmul_plain(x, w, e, torch.float32)
-                torch.cuda.synchronize()
-                d = (got.float() - ref).abs().reshape(r, n)
-                lim = MOE_TOL * ref.abs().max().item()
-                if out_dtype == torch.bfloat16:
-                    lim = lim + 2.0 ** -7 * ref.abs().reshape(r, n)
-                err = d.max().item()
-                if not bool((d <= lim).all()):
-                    fail(f"K6 {proj} R={r} {case}: max_abs_err {err} (max|ref| "
-                         f"{ref.abs().max().item()})")
-                if not torch.equal(moe_q4_matmul(x, w, e, out_dtype), got):
+            route = "decode" if takes_decode(r) else "prefill"
+            for case in ("ragged", "empty", "one") + (("two",) if r == 32 else ()):
+                x, e = inputs(proj, r, case)
+                outs = run(proj, x, e)
+                err, top, exact_err = held(proj, r, case, x, e, outs, route)
+                if not all(torch.equal(a, b) for a, b in zip(run(proj, x, e), outs)):
                     fail(f"K6 {proj} R={r} {case}: a second call gave other bits")
                 worst = max(worst, err)
-                del ref, d, lim
                 row = dict(kernel="moe_q4_matmul", shape=proj, R=r, N=n, K=k, case=case,
-                           max_abs_err=err, repeat_bit_equal=True)
+                           route=route, max_abs_err=err, max_abs_model=top,
+                           max_abs_err_from_exact=exact_err, repeat_bit_equal=True)
                 details.append(row)
-                if case != "ragged":
-                    print(f"K6 {proj} R={r:4d} {case:6s}: err {err:.3g}, repeat bit-equal",
-                          flush=True)
+                exact_note = "" if exact_err is None else \
+                    f", {exact_err:.3g} from the exact plain version"
+                if case not in ("ragged", "two"):
+                    print(f"K6 {proj} R={r:4d} {case:6s} ({route}): err {err:.3g} of "
+                          f"max|model| {top:.3g}{exact_note}, repeat bit-equal", flush=True)
                     continue
                 per = r // e.shape[0]  # selections a row of x
+                dt = out_dt[proj]
 
                 def k1_per_selection():  # the ids read to the host, one K1 launch each
-                    y = torch.empty((r, n), dtype=out_dtype, device="cuda")
-                    for i, ex in enumerate(e.reshape(-1).tolist()):
-                        y[i] = q4_matmul(x[i // per:i // per + 1], w[ex], out_dtype)[0]
-                    return y
+                    for w in ws:
+                        y = torch.empty((r, n), dtype=dt, device="cuda")
+                        for i, ex in enumerate(e.reshape(-1).tolist()):
+                            y[i] = q4_matmul(x[i // per:i // per + 1], w[ex], dt)[0]
 
                 def dequant_matmul():  # the touched experts to bf16, one matmul each
                     ef = e.reshape(-1)
                     xr = x.repeat_interleave(per, dim=0) if per > 1 else x
-                    y = torch.empty((r, n), dtype=out_dtype, device="cuda")
-                    for ex in torch.unique(ef).tolist():
-                        idx = (ef == ex).nonzero()[:, 0]
-                        y[idx] = torch.matmul(xr[idx], w[ex].dequantize(torch.bfloat16).t()) \
-                            .to(out_dtype)
-                    return y
+                    for w in ws:
+                        y = torch.empty((r, n), dtype=dt, device="cuda")
+                        for ex in torch.unique(ef).tolist():
+                            idx = (ef == ex).nonzero()[:, 0]
+                            y[idx] = torch.matmul(xr[idx], w[ex].dequantize(torch.bfloat16).t()) \
+                                .to(dt)
 
-                ms = timer(lambda: moe_q4_matmul(x, w, e, out_dtype))
-                plain_ms = timer(lambda: moe_q4_matmul_plain(x, w, e, out_dtype))
+                ms = timer(lambda: run(proj, x, e))
+                grid_ms = timer(lambda: run(proj, x, e, "grid"))
+                plain_ms = timer(lambda: [moe_q4_matmul_plain(x, w, e, dt) for w in ws])
                 k1_ms = timer(k1_per_selection)
                 deq_ms = timer(dequant_matmul)
-                host_us = _host_us(torch, lambda: moe_q4_matmul(x, w, e, out_dtype), n=50)
-                touched = int(torch.unique(e).numel())
-                nbytes = touched * n * k * 5 // 8 + x.numel() * 2 + e.numel() * 4 \
-                    + r * n * (4 if out_dtype == torch.float32 else 2)
-                b_ms, b_by = bound(nbytes, 2.0 * r * n * k)
-                row.update(ms=ms, plain_ms=plain_ms, yardstick_k1_ms=k1_ms,
+                host_us = _host_us(torch, lambda: run(proj, x, e), n=50)
+                nb, ops, touched = nbytes_ops(proj, r, x, e)
+                b_ms, b_by = bound(nb, ops)
+                # the route's work items: a tile of a few rows costs a whole tile
+                tiles = int(moe_groups(e, cfg.n_experts).counts[int(route == "decode")])
+                row.update(ms=ms, grid_ms=grid_ms, plain_ms=plain_ms, yardstick_k1_ms=k1_ms,
                            yardstick_dequant_matmul_ms=deq_ms, host_us=host_us,
-                           experts_touched=touched, bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
-                timed[(proj, r)] = row
-                print(f"K6 {proj} R={r:4d} {case:6s}: {ms:.4f} ms (bound {b_ms:.4f} by {b_by}, "
-                      f"{touched} experts touched; plain {plain_ms:.4f}; yardsticks: K1 per "
-                      f"selection {k1_ms:.4f}, bf16 dequant + matmul {deq_ms:.4f}); host "
-                      f"{host_us:.1f} us a call (grouping included); err {err:.3g}, repeat "
-                      "bit-equal", flush=True)
-    keys = ("ms", "plain_ms", "yardstick_k1_ms", "yardstick_dequant_matmul_ms", "bound_ms")
+                           experts_touched=touched, row_tiles=tiles, bytes=nb, bound_ms=b_ms,
+                           bound_by=b_by)
+                extra = ""
+                if proj == "w13":
+                    row["two_single_calls_ms"] = timer(
+                        lambda: [moe_q4_matmul(x, w, e, dt) for w in ws])
+                    extra += f"; two single-stack calls {row['two_single_calls_ms']:.4f}"
+                timed[(proj, r if case == "ragged" else f"{r}_{case}")] = row
+                print(f"K6 {proj} R={r:4d} {case:6s} ({route}): {ms:.4f} ms (bound {b_ms:.4f} "
+                      f"by {b_by}, {touched} experts touched in {tiles} row tiles; the grid "
+                      f"kernel {grid_ms:.4f}; "
+                      f"plain {plain_ms:.4f}; yardsticks: K1 per selection {k1_ms:.4f}, bf16 "
+                      f"dequant + matmul {deq_ms:.4f}{extra}); host {host_us:.1f} us a call "
+                      f"(grouping included); err {err:.3g} of max|model| {top:.3g}{exact_note}, "
+                      "repeat bit-equal", flush=True)
+    # both routes over the threshold's range, held to their models
+    sweep = []
+    for r in MOE_SWEEP:
+        for proj in ("w13", "w2"):
+            x, e = inputs(proj, r, "ragged")
+            row = dict(shape=proj, R=r)
+            for route in ("decode", "prefill"):
+                held(proj, r, "ragged", x, e, run(proj, x, e, route), route)
+                row[f"{route}_ms"] = timer(lambda: run(proj, x, e, route))
+            sweep.append(row)
+            print(f"K6 route sweep {proj} R={r:4d}: decode {row['decode_ms']:.4f} ms, prefill "
+                  f"{row['prefill_ms']:.4f} ms (the main path takes "
+                  f"{'decode' if takes_decode(r) else 'prefill'})", flush=True)
+    keys = ("ms", "grid_ms", "plain_ms", "yardstick_k1_ms", "yardstick_dequant_matmul_ms",
+            "bound_ms")
 
-    def step(r):  # a layer's gate, up and down projections, times the layers
-        return {key: cfg.n_layers * (2 * timed[("w1", r)][key] + timed[("w2", r)][key])
+    def step(r):  # a layer's gate+up call and down call, times the layers
+        return {key: cfg.n_layers * (timed[("w13", r)][key] + timed[("w2", r)][key])
                 for key in keys}
 
-    s2, s32, s1024 = step(2), step(32), step(1024)
+    s2, s32, s32two, s1024 = step(2), step(32), step("32_two"), step(1024)
     for label, s in (("an Engine decode step (R = 2)", s2), ("a 16-slot step (R = 32)", s32),
+                     ("a 16-slot step on 2 experts (R = 32)", s32two),
                      ("a 512-token prefill (R = 1024)", s1024)):
-        print(f"K6 summed over {label}, {3 * cfg.n_layers} launches: {s['ms']:.3f} ms, bound "
+        print(f"K6 summed over {label}, {2 * cfg.n_layers} launches: {s['ms']:.3f} ms (the grid "
+              f"kernel, {3 * cfg.n_layers} launches: {s['grid_ms']:.3f}), bound "
               f"{s['bound_ms']:.3f}; yardsticks K1 per selection {s['yardstick_k1_ms']:.3f}, "
               f"bf16 dequant + matmul {s['yardstick_dequant_matmul_ms']:.3f}; plain "
               f"{s['plain_ms']:.3f}", flush=True)
-    return dict(s2, max_abs_err=worst, bound_by="bytes", library_ms=None,
+    return dict(s2, max_abs_err=worst, bound_by="bytes", library_ms=None, decode_max_r=thr,
                 **{f"{key}_r32": v for key, v in s32.items()},
+                **{f"{key}_r32_two": v for key, v in s32two.items()},
                 **{f"{key}_r1024": v for key, v in s1024.items()},
-                bound_by_r1024=timed[("w1", 1024)]["bound_by"],
-                host_us_r2=timed[("w1", 2)]["host_us"], host_us_r32=timed[("w1", 32)]["host_us"],
-                host_us_r1024=timed[("w1", 1024)]["host_us"],
+                bound_by_r1024=timed[("w13", 1024)]["bound_by"],
+                cases={f"{p}_r{r}": {key: timed[(p, r)].get(key) for key in
+                                     (*keys, "host_us", "two_single_calls_ms",
+                                      "experts_touched", "row_tiles")}
+                       for (p, r) in timed},
+                route_sweep=sweep,
                 work="one Engine decode step of Mixtral-8x7B, R = 2: "
-                f"{cfg.n_layers} x (w1, w3, w2) = {3 * cfg.n_layers} launches; *_r32: the 16-slot "
-                "step; *_r1024: a 512-token prefill; library_ms: no one PyTorch call computes "
-                "it; yardstick_*: the JAX package's two formulations in PyTorch (per-selection "
-                "K1 with the ids read to the host; a bf16 dequantization of the touched experts "
-                "and one torch.matmul each)")
+                f"{cfg.n_layers} x (w1 and w3 in one launch, w2) = {2 * cfg.n_layers} launches "
+                "(decode route); *_r32: the 16-slot step (decode route); *_r32_two: the same "
+                "with every token on 2 experts, as served; *_r1024: a 512-token "
+                "prefill (prefill route); grid_ms: the grid kernel on the same inputs (3 "
+                "launches a layer); library_ms: no one PyTorch call computes it; yardstick_*: "
+                "the JAX package's two formulations in PyTorch (per-selection K1 with the ids "
+                "read to the host; a bf16 dequantization of the touched experts and one "
+                "torch.matmul each)")
+
+
+def _k6_fns() -> dict:
+    from jlama_tpu_torch.ops.moe_q4 import moe_gather, moe_groups, moe_q4_matmul
+
+    return dict(moe_q4_matmul=moe_q4_matmul, moe_groups=moe_groups, moe_gather=moe_gather)
 
 
 def _all_counts() -> dict:
-    """Every main-path kernel's launches, K6's two included."""
-    from jlama_tpu_torch.ops.moe_q4 import moe_groups, moe_q4_matmul
-
-    fns = dict(_kernel_fns(), moe_q4_matmul=moe_q4_matmul, moe_groups=moe_groups)
-    return {k: fn.launches for k, fn in fns.items()}
+    """Every main-path kernel's launches, K6's three included."""
+    return {k: fn.launches for k, fn in dict(_kernel_fns(), **_k6_fns()).items()}
 
 
 def _reset_all_counts():
-    from jlama_tpu_torch.ops.moe_q4 import moe_groups, moe_q4_matmul
-
-    for fn in (*_kernel_fns().values(), moe_q4_matmul, moe_groups):
+    for fn in (*_kernel_fns().values(), *_k6_fns().values()):
         fn.launches = 0
     _unfused_rope_calls(reset=True)
 
 
-def _expected(cfg, n_prefill, n_decode) -> dict:
+@contextlib.contextmanager
+def _counting_prefill_groupings(rec):
+    """Within the block, rec[0] counts the MoE layers' groupings of more
+    selections than K6's decode route takes (`decode_max_r()`); such a layer
+    gathers x before each of its two matmul launches. It sees the groupings
+    that Python calls, every prefill's among them; a graph replay calls
+    none, and the decode steps here (R = slots x top-k <= 32) gather
+    nothing."""
+    from jlama_tpu_torch.nn import layers
+    from jlama_tpu_torch.ops.moe_q4 import decode_max_r
+
+    inner = layers.moe_groups
+
+    def groups(e, n):
+        rec[0] += e.numel() > decode_max_r()
+        return inner(e, n)
+
+    layers.moe_groups = groups
+    try:
+        yield
+    finally:
+        layers.moe_groups = inner
+
+
+def _expected(cfg, n_prefill, n_decode, n_gather_layers=0) -> dict:
     """A forward's launches (phases 10 and 11): per layer K1 for wqkv and wo,
     and for w13 and w2 where the FFN is dense, or else K6's grouping and its
-    three matmuls (the router is a float matmul); K4; K3 (prefill) or K2
-    (decode); a decode step's lm_head on K1."""
+    two matmul launches (gate and up in one, down; the router is a float
+    matmul); K4; K3 (prefill) or K2 (decode); a decode step's lm_head on K1.
+    n_gather_layers: MoE layers whose R took K6's prefill route, each with a
+    gather before each matmul launch (`_counting_prefill_groupings`)."""
     L, n = cfg.n_layers, n_prefill + n_decode
     k1 = 2 if cfg.n_experts else 4
     moe = L if cfg.n_experts else 0
     return {"q4_matmul": n_prefill * k1 * L + n_decode * (k1 * L + 1),
             "paged_decode": n_decode * L, "flash_prefill": n_prefill * L, "kv_write": n * L,
-            "w8a8_matmul": 0, "moe_q4_matmul": n * 3 * moe, "moe_groups": n * moe}
+            "w8a8_matmul": 0, "moe_q4_matmul": n * 2 * moe, "moe_groups": n * moe,
+            "moe_gather": 2 * n_gather_layers}
 
 
 def _engine_profile(torch, eng, prompt, run, model, dense_check) -> dict:
@@ -2130,6 +2285,7 @@ def _engine_profile(torch, eng, prompt, run, model, dense_check) -> dict:
         print(f"  {ms:8.3f} ms {c:6d}x {key[:90]}")
     return dict(wall_ms=wall_ms, device_ms=dev_ms, busy_share=dev_ms / wall_ms, device_ops=n_ops,
                 device_ops_per_token=n_ops / 16, by_group_ms=groups,
+                k6_kernels=_k6_kernels(kernels),
                 top=[dict(ms=ms, count=c, kernel=key[:90]) for ms, c, key in kernels[:12]])
 
 
@@ -2147,7 +2303,6 @@ def _model_engine(torch, params, cfg, card_note, label, model, max_seq_len, prom
                    decode_graphs=False)
     first = prompts[0][1]
     n_decode = n_ttft + sum(n for _, _, n in prompts)
-    expect = _expected(cfg, n_ttft + len(prompts), n_decode)
     out, ids = {}, {}
     for run, e in (("graphs", eng), ("eager", eager)):
         e.generate_tokens(first, max_new_tokens=2, stop_ids=set(), session_id="warm")
@@ -2155,20 +2310,22 @@ def _model_engine(torch, params, cfg, card_note, label, model, max_seq_len, prom
         torch.cuda.synchronize()
         _reset_all_counts()
         graphs0 = e.graphs.stats()
-        ttfts, firsts = [], []
-        for i in range(n_ttft):
-            t1 = time.perf_counter()
-            firsts.append(e.generate_tokens(first, max_new_tokens=1, stop_ids=set(),
-                                            session_id=f"ttft{i}").token_ids)
+        ttfts, firsts, n_gather = [], [], [0]
+        with _counting_prefill_groupings(n_gather):
+            for i in range(n_ttft):
+                t1 = time.perf_counter()
+                firsts.append(e.generate_tokens(first, max_new_tokens=1, stop_ids=set(),
+                                                session_id=f"ttft{i}").token_ids)
+                torch.cuda.synchronize()
+                ttfts.append((time.perf_counter() - t1) * 1000)
+                e.drop_session(f"ttft{i}")
+            resps = [e.generate_tokens(p, max_new_tokens=n, stop_ids=set(), session_id=sid)
+                     for sid, p, n in prompts]
             torch.cuda.synchronize()
-            ttfts.append((time.perf_counter() - t1) * 1000)
-            e.drop_session(f"ttft{i}")
-        resps = [e.generate_tokens(p, max_new_tokens=n, stop_ids=set(), session_id=sid)
-                 for sid, p, n in prompts]
-        torch.cuda.synchronize()
         for sid, _, _ in prompts[1:]:
             e.drop_session(sid)
         got = _all_counts()
+        expect = _expected(cfg, n_ttft + len(prompts), n_decode, n_gather[0])
         print(f"{label} engine ({run}) launches {got}, expected {expect}", flush=True)
         if got != expect or _unfused_rope_calls():
             fail(f"{label} engine ({run}): launches {got} != expected {expect}, or apply_rope "
@@ -2208,13 +2365,70 @@ def _model_engine(torch, params, cfg, card_note, label, model, max_seq_len, prom
     return e2e, eng
 
 
-def _model_serving(torch, params, cfg, card_note, label, serve, mix, ids) -> dict:
+@contextlib.contextmanager
+def _recording_routing(sched, rec):
+    """Within the block, every eager decode step of the scheduler appends the
+    expert ids [slots, k] of each MoE layer to rec (clones on the card; no
+    host sync, never inside a capture); rec None: nothing."""
+    if rec is None:
+        yield
+        return
+    from jlama_tpu_torch.nn import layers
+
+    inner, step, on = layers.moe_groups, sched._decode_step, [False]
+
+    def groups(e, n):
+        if on[0]:
+            rec.append(e.detach().clone())
+        return inner(e, n)
+
+    def decode_step(ct, win):
+        on[0] = True
+        try:
+            return step(ct, win)
+        finally:
+            on[0] = False
+
+    layers.moe_groups, sched._decode_step = groups, decode_step
+    try:
+        yield
+    finally:
+        layers.moe_groups = inner
+        del sched._decode_step
+
+
+def _routing_stats(torch, rec, cfg, label) -> dict:
+    """How many experts, and how many rows each, one layer of a decode step
+    touches, over the recorded steps and layers."""
+    if not rec:
+        fail(f"{label} serving: no decode step's expert ids were recorded")
+    touched, rows = [], []
+    for e in rec:
+        c = torch.bincount(e.reshape(-1).long().cpu(), minlength=cfg.n_experts)
+        touched.append(int((c > 0).sum()))
+        rows += c[c > 0].tolist()
+    hist = {t: touched.count(t) for t in sorted(set(touched))}
+    out = dict(layer_steps=len(rec), selections=int(rec[0].numel()),
+               experts_touched_mean=statistics.mean(touched), experts_touched_hist=hist,
+               rows_per_expert_mean=statistics.mean(rows), rows_per_expert_max=max(rows),
+               rows_per_expert_hist={r: rows.count(r) for r in sorted(set(rows))})
+    print(f"{label} serving: an eager decode step's layer (R = {out['selections']} "
+          f"selections) touches {out['experts_touched_mean']:.2f} of {cfg.n_experts} experts on "
+          f"average (layer-steps by experts touched {hist}), {out['rows_per_expert_mean']:.2f} "
+          f"rows a touched expert (max {out['rows_per_expert_max']}; by rows "
+          f"{out['rows_per_expert_hist']}), over {len(rec)} layer-steps", flush=True)
+    return out
+
+
+def _model_serving(torch, params, cfg, card_note, label, serve, mix, ids,
+                   routing=False) -> dict:
     """Greedy requests mix [(prompt ids, new tokens)] through a BatchScheduler
     on decode graphs, submitted at once to its serving thread (launch counts
     from its own counts of prefill calls and decode steps); then the same
     requests inline through it and through the eager yardstick, whose ids
-    must be identical; then both profiles (`_serving_profile`, its prompts
-    from ids)."""
+    must be identical (with routing, the eager decode steps' expert ids
+    recorded: `_routing_stats`); then both profiles (`_serving_profile`, its
+    prompts from ids)."""
     from jlama_tpu_torch.runtime.scheduler import BatchScheduler, GenRequest, RequestState
 
     sched = BatchScheduler(params, cfg, kv_dtype=torch.bfloat16, device="cuda", fuse=False,
@@ -2223,16 +2437,18 @@ def _model_serving(torch, params, cfg, card_note, label, serve, mix, ids) -> dic
     _reset_all_counts()
     sched.n_prefill_calls = sched.n_decode_steps = 0
     graphs0 = sched.graphs.stats()
-    t0 = time.perf_counter()
-    sched.start()
-    for r in reqs:
-        sched.submit(r)
-    _wait(reqs, 600, f"{label} serving")
-    wall = time.perf_counter() - t0
-    sched.stop()
-    torch.cuda.synchronize()
+    n_gather = [0]
+    with _counting_prefill_groupings(n_gather):
+        t0 = time.perf_counter()
+        sched.start()
+        for r in reqs:
+            sched.submit(r)
+        _wait(reqs, 600, f"{label} serving")
+        wall = time.perf_counter() - t0
+        sched.stop()
+        torch.cuda.synchronize()
     n_pf, n_dec = sched.n_prefill_calls, sched.n_decode_steps
-    got, expect = _all_counts(), _expected(cfg, n_pf, n_dec)
+    got, expect = _all_counts(), _expected(cfg, n_pf, n_dec, n_gather[0])
     print(f"{label} serving: {n_pf} prefill calls, {n_dec} decode steps; launches {got}, "
           f"expected {expect}", flush=True)
     if got != expect or _unfused_rope_calls():
@@ -2254,14 +2470,15 @@ def _model_serving(torch, params, cfg, card_note, label, serve, mix, ids) -> dic
           f"{e2e['itl_ms_p95']:.2f} ms on {card_note}", flush=True)
     eager = BatchScheduler(params, cfg, kv_dtype=torch.bfloat16, device="cuda", fuse=False,
                            decode_graphs=False, **serve)
-    out = {}
+    out, rec = {}, []
     for run, s in (("graphs", sched), ("eager", eager)):
         rs = [GenRequest(prompt_ids=p, max_new_tokens=n) for p, n in mix]
         graphs0, n0 = s.graphs.stats(), s.n_decode_steps
         for r in rs:
             s.submit(r)
-        while not all(r.state == RequestState.DONE for r in rs):
-            s.step()
+        with _recording_routing(s, rec if routing and run == "eager" else None):
+            while not all(r.state == RequestState.DONE for r in rs):
+                s.step()
         if run == "graphs":
             _graph_check(f"{label} serving greedy check", s.graphs, graphs0,
                          s.n_decode_steps - n0)
@@ -2271,9 +2488,39 @@ def _model_serving(torch, params, cfg, card_note, label, serve, mix, ids) -> dic
     print(f"{label} serving: greedy ids of the {len(mix)} requests through the decode graphs "
           "equal the eager run's", flush=True)
     e2e["eager_ids"] = dict(requests=len(mix), tokens=sum(map(len, out["graphs"])), equal=True)
+    if routing:
+        e2e["routing"] = _routing_stats(torch, rec, cfg, label)
     e2e["profile"] = _serving_profile(torch, sched, cfg, ids, "graphs")
     e2e["profile_eager"] = _serving_profile(torch, eager, cfg, ids, "eager")
     return e2e
+
+
+def _moe_prefill_profile(torch, eng, prompt, cfg) -> dict:
+    """One first token of the Engine's prompt (its bucketed prefill and first
+    decode step) with torch.profiler on: K6's prefill route (its x gather and
+    its matmul) must run once for gate+up and once for down in each layer,
+    and the grid kernel never; K6's share of the device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.generate_tokens(prompt, max_new_tokens=1, stop_ids=set(), session_id="pfprof")
+        torch.cuda.synchronize()
+    eng.drop_session("pfprof")
+    kernels = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    dev_ms = sum(k[0] for k in kernels)
+    k6 = _k6_kernels(kernels)
+    if any(k6.get(n, {}).get("count") != 2 * cfg.n_layers
+           for n in ("moe_gather_kernel", "moe_q4_wgmma_kernel")) \
+            or any(K6_OFF_PATH.search(n) for n in k6):
+        fail(f"mixtral prefill profile: K6 kernels {k6}, expected the prefill route "
+             f"{2 * cfg.n_layers} times and not the grid kernel")
+    k6_ms = sum(v["ms"] for v in k6.values())
+    print(f"profile mixtral prefill ({len(prompt)}-token prompt, first token): device "
+          f"{dev_ms:.2f} ms, K6 {k6_ms:.2f} ms (" + ", ".join(
+              f"{k} {v['ms']:.2f} ms {v['count']}x" for k, v in sorted(k6.items())) + ")",
+          flush=True)
+    return dict(device_ms=dev_ms, k6_ms=k6_ms, k6_kernels=k6)
 
 
 def moe_path(torch, card_note) -> dict:
@@ -2318,6 +2565,7 @@ def moe_path(torch, card_note) -> dict:
     prompt = torch.randint(0, cfg.vocab_size, (512,), generator=rng).tolist()
     engine, eng = _model_engine(torch, params, cfg, card_note, "mixtral", "Mixtral-8x7B", 1024,
                                 [("main", prompt, MOE_NEW)], MOE_TTFT, dense_check=False)
+    engine["prefill_profile"] = _moe_prefill_profile(torch, eng, prompt, cfg)
     # 8 greedy requests from a seed: prompts of 32-512 tokens, 32-64 new ones
     gs = torch.Generator().manual_seed(9)
 
@@ -2326,8 +2574,21 @@ def moe_path(torch, card_note) -> dict:
 
     mix = [(sids(int(torch.randint(32, 513, (1,), generator=gs))),
             int(torch.randint(32, 65, (1,), generator=gs))) for _ in range(8)]
-    serving = _model_serving(torch, eng.params, cfg, card_note, "mixtral", MOE_SERVE, mix, sids)
+    serving = _model_serving(torch, eng.params, cfg, card_note, "mixtral", MOE_SERVE, mix, sids,
+                             routing=True)
     del eng
+    # K6's prefill route (its gather counted) in the prefills of both paths
+    if engine["launches"]["moe_gather"] == 0 or serving["launches"]["moe_gather"] == 0:
+        fail("mixtral: no prefill took K6's prefill route (moe_gather launched no time)")
+    # K6's decode route in every decode step, none of the comparison kernels
+    for where, prof in (("Engine decode", engine["profile"]),
+                        ("Engine decode, eager", engine["profile_eager"]),
+                        ("serving decode", serving["profile"]),
+                        ("serving decode, eager", serving["profile_eager"])):
+        names = set(prof["k6_kernels"])
+        if names != {"moe_group_kernel", "moe_q4_decode_kernel"}:
+            fail(f"mixtral {where} profile: K6 kernels {sorted(names)}, expected the grouping "
+                 "and the decode route only")
     peak = torch.cuda.max_memory_allocated() / 1e9
     print(f"mixtral: peak memory of the phase {peak:.2f} GB (weights {gb:.2f} GB) on "
           f"{card_note}", flush=True)
@@ -2542,7 +2803,8 @@ def main() -> None:
         elif k == "moe_q4_matmul":  # its path: Mixtral serving and Engine (phase 10)
             launches = dict(launches=moe["serving"]["launches"][k],
                             launches_engine=moe["engine"]["launches"][k],
-                            launches_grouping=moe["serving"]["launches"]["moe_groups"])
+                            launches_grouping=moe["serving"]["launches"]["moe_groups"],
+                            launches_gather=moe["serving"]["launches"]["moe_gather"])
         else:  # phase 6 / phase 4, and Gemma 2's serving / Engine (phase 11)
             launches = dict(launches=serving_launches.get(k),
                             launches_engine=engine_launches.get(k),

@@ -31,7 +31,7 @@ from ..kv.paged import gather_kv_layer, page_size_of, write_kv_layer
 from ..ops.attention import HEAD_SIZES, flash_prefill, paged_decode
 from ..ops.kv_write import dense_page_table, dense_pool_view, kv_write
 from ..ops.linear import linear
-from ..ops.moe_q4 import moe_groups, moe_q4_matmul
+from ..ops.moe_q4 import moe_groups, moe_q4_gate_up, moe_q4_matmul
 from .qarray import QArray
 from .rope import apply_rope
 
@@ -313,12 +313,15 @@ def moe_block(x: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
     (`_moe_ragged`'s combine), then x's dtype.
 
     q4 experts (`experts.w1`, `experts.w3` [E, H, D], `experts.w2` [E, D, H])
-    go through K6 (`ops/moe_q4.py`), grouped once for the three projections:
-    on the card with no host sync, so a decode step stays capturable. The JAX
-    package takes two routes there, which round differently (`_moe_gathered`
-    at B·T·K ≤ 8 with exact f32 dequantization, `_moe_ragged` above with the
-    weights rounded to bf16); K6 computes the first's function at every size.
-    Float experts (`experts.w*`, or `experts.w*_t` [E, in, out] after
+    go through K6 (`ops/moe_q4.py`), grouped once for the three projections,
+    gate and up in one launch: on the card with no host sync, so a decode
+    step stays capturable. The JAX package takes two routes there, which
+    round differently (`_moe_gathered` at B·T·K ≤ 8 with exact f32
+    dequantization, `_moe_ragged` above with the weights rounded to bf16);
+    on the card K6's decode route computes the first's function and its
+    prefill route the second's (past `ops.moe_q4.decode_max_r()`
+    selections), and on the CPU its plain version computes the first's at
+    every size. Float experts (`experts.w*`, or `experts.w*_t` [E, in, out] after
     `models.base.prepare_moe_ragged`) run a plain grouped matmul on the CPU
     and raise on the card (ROADMAP: float experts on the card). Experts are
     never sharded here (no expert parallelism: ROADMAP)."""
@@ -336,9 +339,8 @@ def moe_block(x: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
     w1 = params.get("experts.w1")
     if isinstance(w1, QArray):
         groups = moe_groups(e, cfg.n_experts)
-        gate = activation(moe_q4_matmul(xf, w1, e, groups=groups), cfg.activation)
-        up = moe_q4_matmul(xf, params["experts.w3"], e, groups=groups)
-        h = (gate * up).reshape(B * T * K, -1)
+        gate, up = moe_q4_gate_up(xf, w1, params["experts.w3"], e, groups=groups)
+        h = (activation(gate, cfg.activation) * up).reshape(B * T * K, -1)
         y = moe_q4_matmul(h, params["experts.w2"], e.reshape(-1), out_dtype=torch.float32,
                           groups=groups)
     else:

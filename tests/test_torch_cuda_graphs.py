@@ -216,9 +216,10 @@ def moe_model():
 
 
 def test_moe_engine_replay_equals_eager(moe_model, monkeypatch):
-    """The MoE decode step (router, top-k, K6's grouping and three matmuls a
-    layer) is captured: 48 greedy tokens after a 100-token prompt, ids,
-    logits and launch counts of the graphs equal the eager run's."""
+    """The MoE decode step (router, top-k, K6's grouping and two matmul
+    launches a layer: gate and up in one, down) is captured: 48 greedy
+    tokens after a 100-token prompt, ids, logits and launch counts of the
+    graphs equal the eager run's."""
     from jlama_tpu_torch.runtime import engine as engine_mod
     from jlama_tpu_torch.runtime.engine import Engine
 
@@ -239,7 +240,8 @@ def test_moe_engine_replay_equals_eager(moe_model, monkeypatch):
     assert len(ids_g) == 48 and ids_g == ids_e
     assert c_g == c_e == 48 and torch.equal(lg_g, lg_e) and torch.isfinite(lg_g).all()
     assert n_g == n_e
-    assert n_g["moe_q4_matmul"] == (48 + 1) * 3 * L and n_g["moe_groups"] == (48 + 1) * L
+    assert n_g["moe_q4_matmul"] == (48 + 1) * 2 * L and n_g["moe_groups"] == (48 + 1) * L
+    assert n_g["moe_gather"] == 2 * L  # the prefill (R = 200) only: decode steps take no gather
     assert n_g["q4_matmul"] == 48 * (2 * L + 1) + 2 * L  # wqkv, wo a layer; the lm_head
     assert st_g["eager_steps"] == st_g["keys"] >= 1 and st_g["replays"] == 48 - st_g["keys"]
 
@@ -282,7 +284,10 @@ def test_moe_scheduler_replay_equals_eager(moe_model, monkeypatch):
     L = cfg.n_layers
     assert all(len(x) == 24 for x in ids_g) and ids_g == ids_e
     assert n_g == n_e == dec_g == dec_e and torch.equal(lg_g, lg_e)
-    assert l_g == l_e and l_g["moe_q4_matmul"] == (pf_g + dec_g) * 3 * L
+    assert l_g == l_e and l_g["moe_q4_matmul"] == (pf_g + dec_g) * 2 * L
     assert l_g["moe_groups"] == (pf_g + dec_g) * L
+    # a gather before each matmul of a prefill chunk past the decode route's
+    # threshold (R = 32 decode steps take none)
+    assert 0 < l_g["moe_gather"] <= pf_g * 2 * L and l_g["moe_gather"] % (2 * L) == 0
     assert l_g["q4_matmul"] == pf_g * 2 * L + dec_g * (2 * L + 1)
     assert st_g["eager_steps"] == st_g["keys"] >= 1 and st_g["replays"] == dec_g - st_g["keys"]

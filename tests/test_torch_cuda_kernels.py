@@ -420,40 +420,13 @@ def test_paged_decode_kernel_dense_view(cuda, dtype, length, win):
         assert torch.all((got - ref).abs() <= 2.0 ** -7 * ref.abs() + 2e-5)
 
 
-@pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("kind", ["bf16", "q8"])
-def test_paged_decode_kernel_large_scores(cuda, kind, hd):
-    """Scores of several hundred (q and k of size ~16, as a deeper layer of
-    a random-weight model gives at head size 128) on the tensor-core route
-    (bf16 q): its probabilities stay finite and meet the plain version's
-    limit (the route once took its running max in natural units and its
-    exponents in log2 units, and overflowed to NaN past scores of ~285)."""
-    from jlama_tpu_torch.ops.attention import paged_decode, paged_decode_plain
-
-    g = torch.Generator(device=cuda).manual_seed(hd)
-    lens, P = K2_ROWS["long"]
-    B, ps, H, n_kv = len(lens), 16, 32, 8
-    n_pages = sum(-(-ln // ps) for ln in lens) + 8
-    kp, vp = _pools(cuda, kind, (n_kv, n_pages, ps, hd), g)
-    if kind == "bf16":
-        kp = kp * 16
-    else:
-        kp.scales.mul_(16)
-    pt = _k2_page_tables(cuda, lens, P, ps, n_pages)
-    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
-    q = (torch.randn((B, H, hd), generator=g, device=cuda) * 16).to(torch.bfloat16)
-    got = paged_decode(q, kp, vp, pt, lengths, hd ** -0.5).float()
-    ref = paged_decode_plain(q, kp, vp, pt, lengths, hd ** -0.5).float()
-    torch.cuda.synchronize()
-    assert torch.isfinite(got).all() and torch.isfinite(ref).all()
-    tol = 3e-3 if kind == "q8" else 2e-5
-    assert torch.all((got - ref).abs() <= 2.0 ** -7 * ref.abs() + tol)
-
-
 def _k2_large_scores_f64(cuda, kind, hd, seed):
-    """The inputs of `test_paged_decode_kernel_large_scores` (q and K of size
-    ~16: scores of several hundred to ~1,000) with the page layout drawn from
-    its own generator seeded `seed`: the kernel's and the plain version's
+    """Large scores on the tensor-core route (bf16 q): q and K of size ~16,
+    as a deeper layer of a random-weight model gives at head size 128, so
+    scores of several hundred to ~1,000 (the route once took its running max
+    in natural units and its exponents in log2 units, and overflowed to NaN
+    past scores of ~285), with the page layout drawn from its own generator
+    seeded `seed`: the kernel's and the plain version's
     outputs, the f64 reference, and the f32 rounding each may carry from its
     scores. That term is the output's sensitivity to its scores, sum_i p_i
     |v_i - o| (d o / d s_i = p_i (v_i - o)), times 4 units of f32 rounding at
@@ -493,17 +466,17 @@ def _k2_large_scores_f64(cuda, kind, hd, seed):
 
 
 @pytest.mark.parametrize("seed", range(24))
-@pytest.mark.parametrize("hd", [128, 256])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("kind", ["bf16", "q8"])
 def test_paged_decode_kernel_large_scores_f64(cuda, kind, hd, seed):
-    """The large-score case over 24 page layouts at head sizes 128 and 256
-    (Gemma's; Gemma 1 puts no softcap on its scores), against an f64
+    """The large-score case over 24 page layouts at head sizes 64, 128 and
+    256 (Gemma's; Gemma 1 puts no softcap on its scores), against an f64
     reference: the probabilities stay finite, and the kernel and the plain
-    version each lie within 2^-7 |exact| + the f32 limit (the limit of
-    `test_paged_decode_kernel_large_scores`) plus the f32 rounding their
-    scores carry (`_k2_large_scores_f64`). Without that last term the plain
-    f32 version itself misses the limit on some layouts where near-tied keys
-    cancel, as the kernel does (ROADMAP section 3)."""
+    version each lie within 2^-7 |exact| + the f32 limit (2e-5; 3e-3 on a q8
+    pool) plus the f32 rounding their scores carry (`_k2_large_scores_f64`).
+    Without that last term the plain f32 version itself misses the limit on
+    some layouts where near-tied keys cancel, as the kernel does (ROADMAP
+    section 3)."""
     got, ref, exact, rounding, smax = _k2_large_scores_f64(cuda, kind, hd, seed)
     assert torch.isfinite(got).all() and torch.isfinite(ref).all()
     assert 300 < smax < 1500, smax  # the regime the route once overflowed in
@@ -944,14 +917,17 @@ def test_probe_sigma_kernels_equal_plain(cuda, n, k, m):
 
 # K6, the grouped expert q4 matmul: Mixtral's expert widths cut to narrow
 # ones (N 1000, K 2048; N 512, K 1536; the 3-block K of 96), 8 experts, at R
-# = 1, 2, 8, 9, 32, 64 and 1024 selections (the three row tiles, ragged
-# ones), ids [T, 2] (one x row a token, the gate/up call) and [R] (one a
-# selection, the down call), random top-2 routing, an expert chosen by no
-# selection, and every selection on one expert. Held to the plain version
-# (f32 dequantization, one f32 matmul per expert group): the same exact
-# products, f32 sums in another order (1e-4 of max|ref|), plus one bf16 ulp
-# of the value (2^-7 of it) for a bf16 output; a second call gives the same
-# bits.
+# = 1, 2, 8, 9, 16, 32, 33, 64, 512, 1024 and 2048 selections (both routes,
+# the decode route's 8-, 16- and 32-column chunks, ragged ones, row tiles
+# that end inside the next expert's rows), ids [T, 2] (one x row a token,
+# the gate/up call) and [R] (one a selection, the down call), random top-2
+# routing, an expert chosen by no selection, and every selection on one
+# expert. Each R is held to its route's plain model: the decode route to
+# the plain version (f32 dequantization, one f32 matmul per expert group),
+# the prefill route to its rounding model (x and the weights rounded to
+# bf16, `_moe_ragged`'s function): the same exact products, f32 sums in
+# another order (1e-4 of max|ref|), plus one bf16 ulp of the value (2^-7 of
+# it) for a bf16 output; a second call gives the same bits.
 def _moe_case(cuda, r, n, k, ids, case, g):
     from jlama_tpu_torch.nn.qarray import QArray
 
@@ -975,34 +951,141 @@ def _moe_case(cuda, r, n, k, ids, case, g):
     return x, w, e
 
 
+def _moe_model(r):
+    """The plain model of the route that R selections take on the card."""
+    from jlama_tpu_torch.ops import moe_q4
+
+    return moe_q4.moe_q4_matmul_plain if moe_q4.takes_decode(r) \
+        else moe_q4.moe_q4_matmul_tiled_plain
+
+
+def _moe_within(got, ref, out_dtype):
+    lim = 1e-4 * ref.abs().max().item()
+    if out_dtype == torch.bfloat16:
+        lim = lim + 2.0 ** -7 * ref.abs()
+    return bool(((got.float() - ref).abs() <= lim).all())
+
+
 @pytest.mark.parametrize("r,ids", [(1, "r"), (2, "tk"), (2, "r"), (8, "tk"), (9, "r"),
-                                   (32, "tk"), (32, "r"), (64, "tk"), (1024, "tk"),
-                                   (1024, "r")])
+                                   (16, "tk"), (32, "tk"), (32, "r"), (33, "r"), (64, "tk"),
+                                   (512, "tk"), (1024, "tk"), (1024, "r"), (2048, "r")])
 @pytest.mark.parametrize("n,k", [(1000, 2048), (512, 1536), (40, 96)])
 @pytest.mark.parametrize("case", ["random", "empty", "one"])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_moe_q4_kernel_matches_plain(cuda, r, ids, n, k, case, out_dtype):
-    from jlama_tpu_torch.ops.moe_q4 import moe_groups, moe_q4_matmul, moe_q4_matmul_plain
+    from jlama_tpu_torch.ops.moe_q4 import (moe_gather, moe_groups, moe_q4_matmul,
+                                            moe_q4_matmul_plain, takes_decode)
 
     g = torch.Generator(device=cuda).manual_seed(r * n + k)
     x, w, e = _moe_case(cuda, r, n, k, ids, case, g)
-    before = (moe_q4_matmul.launches, moe_groups.launches)
+    before = (moe_q4_matmul.launches, moe_groups.launches, moe_gather.launches)
     got = moe_q4_matmul(x, w, e, out_dtype)
-    assert (moe_q4_matmul.launches, moe_groups.launches) == (before[0] + 1, before[1] + 1)
+    # the prefill route gathers x first, a launch of its own
+    assert (moe_q4_matmul.launches, moe_groups.launches, moe_gather.launches) == \
+        (before[0] + 1, before[1] + 1, before[2] + (not takes_decode(r)))
     assert got.dtype == out_dtype and got.shape == (*e.shape, n)
-    ref = moe_q4_matmul_plain(x, w, e, torch.float32)
+    ref = _moe_model(r)(x, w, e, torch.float32)
     torch.cuda.synchronize()
-    lim = 1e-4 * ref.abs().max().item()
-    if out_dtype == torch.bfloat16:
-        lim = lim + 2.0 ** -7 * ref.abs()
-    assert bool(((got.float() - ref).abs() <= lim).all())
+    assert _moe_within(got, ref, out_dtype)
+    if not takes_decode(r):  # the prefill route's distance from the exact plain version
+        exact = moe_q4_matmul_plain(x, w, e, torch.float32)
+        print(f"K6 prefill R={r} {n}x{k} {case}: max |kernel - exact| "
+              f"{(got.float() - exact).abs().max().item():.3g} (max|exact| "
+              f"{exact.abs().max().item():.3g})")
     groups = moe_groups(e, 8)
     again = moe_q4_matmul(x, w, e, out_dtype, groups=groups)
     assert torch.equal(again, got)
 
 
-@pytest.mark.parametrize("r", [1, 33, 300, 2048])
+@pytest.mark.parametrize("r,ids", [(2, "tk"), (32, "tk"), (1024, "tk")])
+@pytest.mark.parametrize("n,k", [(1000, 2048), (40, 96)])
+@pytest.mark.parametrize("case", ["random", "one"])
+def test_moe_q4_gate_up_matches_two_plain_calls(cuda, r, ids, n, k, case):
+    """Gate and up in one launch (two weight stacks, one grouping) against
+    the route's plain model of each stack, and each output equal bit for bit
+    to that stack's own single-stack call."""
+    from jlama_tpu_torch.nn.qarray import QArray
+    from jlama_tpu_torch.ops.moe_q4 import moe_groups, moe_q4_gate_up, moe_q4_matmul
+
+    g = torch.Generator(device=cuda).manual_seed(r + n + k)
+    x, w1, e = _moe_case(cuda, r, n, k, ids, case, g)
+    w3 = QArray(torch.randint(0, 256, w1.data.shape, generator=g, device=cuda,
+                              dtype=torch.uint8), w1.scales.flip(1).contiguous())
+    groups = moe_groups(e, 8)
+    before = moe_q4_matmul.launches
+    gate, up = moe_q4_gate_up(x, w1, w3, e, groups=groups)
+    assert moe_q4_matmul.launches == before + 1
+    torch.cuda.synchronize()
+    for w, y in ((w1, gate), (w3, up)):
+        assert y.dtype == torch.bfloat16 and y.shape == (*e.shape, n)
+        assert _moe_within(y, _moe_model(r)(x, w, e, torch.float32), torch.bfloat16)
+        assert torch.equal(y, moe_q4_matmul(x, w, e, groups=groups))
+
+
+@pytest.mark.parametrize("variant", ["grid", "decode", "prefill"])
+@pytest.mark.parametrize("r", [2, 32, 300])
+def test_moe_q4_compare_variants_match_their_models(cuda, variant, r):
+    """The comparison entry's kernels at any R: the grid kernel and the
+    decode route against the plain version, the prefill route against its
+    rounding model."""
+    from jlama_tpu_torch.ops.moe_q4 import (moe_q4_compare, moe_q4_matmul_plain,
+                                            moe_q4_matmul_tiled_plain)
+
+    g = torch.Generator(device=cuda).manual_seed(r)
+    x, w, e = _moe_case(cuda, r, 1000, 2048, "r", "random", g)
+    before = moe_q4_compare.launches
+    got = moe_q4_compare(x, w, e, torch.float32, variant=variant)
+    assert moe_q4_compare.launches == before + 1
+    model = moe_q4_matmul_tiled_plain if variant == "prefill" else moe_q4_matmul_plain
+    ref = model(x, w, e, torch.float32)
+    torch.cuda.synchronize()
+    assert _moe_within(got, ref, torch.float32)
+
+
+@pytest.mark.parametrize("r", [300, 600])
+@pytest.mark.parametrize("per", [1, 2])
+def test_moe_gather_skips_selections_outside_the_experts(cuda, per, r):
+    """Selections whose id lies outside [0, E) are in no group: the prefill
+    route's gathered copy holds x[order // per] in its first offsets[E] rows,
+    and the y rows of the grouped selections are the bits of the same
+    selections without the others."""
+    from jlama_tpu_torch.ops.moe_q4 import moe_gather, moe_groups, moe_q4_matmul, takes_decode
+
+    g = torch.Generator(device=cuda).manual_seed(per * r)
+    x, w, e = _moe_case(cuda, r, 1000, 2048, "tk" if per == 2 else "r", "random", g)
+    bad = e.clone()
+    bad.view(-1)[::7] = 8  # past the last expert
+    groups = moe_groups(bad, 8)
+    n_ok = int(groups.offsets[-1])
+    assert n_ok == r - len(range(0, r, 7)) and not takes_decode(n_ok)
+    xg = moe_gather(x, groups, per)
+    assert torch.equal(xg[:n_ok], x[groups.order[:n_ok].long() // per])
+    y = moe_q4_matmul(x, w, bad, torch.float32, groups=groups).reshape(r, -1)
+    ok = (bad.reshape(-1) < 8).nonzero()[:, 0]
+    xr = x.repeat_interleave(per, dim=0) if per > 1 else x
+    alone = moe_q4_matmul(xr[ok].contiguous(), w, bad.reshape(-1)[ok].contiguous(),
+                          torch.float32)
+    assert torch.equal(y[ok], alone)
+
+
+def test_moe_q4_threshold_and_tile_rows(cuda):
+    """The C source owns the threshold and the routes' tile rows: the
+    16-slot decode step (R = 32) takes the decode route, a 512-token prefill
+    (R = 1024) the prefill route, and the Python mirrors of the tile rows
+    agree."""
+    from jlama_tpu_torch.ops import _build, moe_q4
+
+    lib = _build.load("moe_q4", moe_q4._SIGNATURES)
+    assert lib.moe_q4_tile_rows() == moe_q4.TILE_ROWS
+    assert lib.moe_q4_decode_tile_rows() == moe_q4.DECODE_TILE_ROWS
+    assert moe_q4.takes_decode(2) and moe_q4.takes_decode(32)
+    assert not moe_q4.takes_decode(1024)
+
+
+@pytest.mark.parametrize("r", [0, 1, 33, 300, 2048])
 def test_moe_groups_kernel_equals_plain(cuda, r):
+    """order, offsets, both routes' tile lists and their counts, entries
+    past the counts -1, equal to the plain grouping's."""
     from jlama_tpu_torch.ops.moe_q4 import moe_groups, moe_groups_plain
 
     g = torch.Generator(device=cuda).manual_seed(r)
@@ -1010,19 +1093,24 @@ def test_moe_groups_kernel_equals_plain(cuda, r):
     e[e == 3] = 4  # an expert no selection chose
     got = moe_groups(e, 8)
     ref = moe_groups_plain(e.cpu(), 8)
-    assert torch.equal(got.order.cpu(), ref.order) and torch.equal(got.offsets.cpu(), ref.offsets)
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b)
 
 
-def test_moe_q4_row_does_not_depend_on_the_batch(cuda):
-    """A selection's output is the same bits alone, among 32 and among 1024
-    (other row tiles, other groupings): the serving batch does not change a
-    request's numbers."""
-    from jlama_tpu_torch.ops.moe_q4 import moe_q4_matmul
+@pytest.mark.parametrize("route,r,subsets", [("decode", 32, (1, 16)), ("prefill", 1024, (512,))])
+def test_moe_q4_row_does_not_depend_on_the_batch(cuda, route, r, subsets):
+    """Within a route, a selection's output is the same bits alone or among
+    more (other groupings, other row tiles or chunks): the serving batch does
+    not change a request's numbers. Across the two routes the rounding
+    differs (the decode route exact f32 dequantization, the prefill route bf16
+    weights), as K1's routes and the JAX package's two MoE routes differ."""
+    from jlama_tpu_torch.ops.moe_q4 import moe_q4_matmul, takes_decode
 
     g = torch.Generator(device=cuda).manual_seed(7)
-    x, w, e = _moe_case(cuda, 1024, 1000, 2048, "tk", "random", g)
+    x, w, e = _moe_case(cuda, r, 1000, 2048, "r", "random", g)
+    assert all(takes_decode(t) == (route == "decode") for t in (r, *subsets))
     full = moe_q4_matmul(x, w, e)
-    for t in (1, 16):
+    for t in subsets:
         assert torch.equal(moe_q4_matmul(x[:t].clone(), w, e[:t].clone()), full[:t])
 
 
@@ -1053,7 +1141,7 @@ def test_moe_forward_on_card_matches_cpu_logits(cuda):
     pos = torch.arange(24)[None, :]
     before = moe_q4_matmul.launches
     gpu, _ = forward_logits(params, cfg, toks.to(cuda), pos.to(cuda), None, dtype=torch.bfloat16)
-    assert moe_q4_matmul.launches == before + 3 * cfg.n_layers
+    assert moe_q4_matmul.launches == before + 2 * cfg.n_layers  # gate+up, down
     with torch.inference_mode():
         ref, _ = forward_logits(params_to(params, "cpu"), cfg, toks, pos, None,
                                 dtype=torch.float32)

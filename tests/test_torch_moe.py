@@ -22,8 +22,10 @@ from tests.helpers import save_torch_model
 from tests.test_torch_bridge import assert_trees_equal, port_tree
 
 from jlama_tpu_torch.nn.qarray import QArray, quantize_q4
-from jlama_tpu_torch.ops.moe_q4 import (moe_groups, moe_groups_plain, moe_q4_matmul,
-                                        moe_q4_matmul_plain, row_tile)
+from jlama_tpu_torch.ops.moe_q4 import (DECODE_TILE_ROWS, TILE_ROWS, max_tiles, moe_gather,
+                                        moe_groups, moe_groups_plain, moe_q4_gate_up,
+                                        moe_q4_matmul, moe_q4_matmul_plain,
+                                        moe_q4_matmul_tiled_plain, row_tile)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -100,6 +102,112 @@ def test_moe_groups_are_a_stable_sort_by_expert(r, case):
     np.testing.assert_array_equal(g.offsets.numpy(),
                                   np.concatenate([[0], np.cumsum(np.bincount(e_np, minlength=4))]))
     assert moe_groups_plain(torch.from_numpy(e_np), 4).order.equal(g.order)
+
+
+@pytest.mark.parametrize("case", ["random", "empty", "one"])
+@pytest.mark.parametrize("r", [0, 1, 9, 64, 300, 1000])
+def test_moe_groups_work_lists_match_an_enumeration(r, case):
+    """Both routes' row tiles (the prefill route's of at most TILE_ROWS rows,
+    the decode route's of at most DECODE_TILE_ROWS) against a direct
+    enumeration of the sorted selections: every selection lies in exactly one
+    tile, of its own expert; at most ceil(R / rows) + E tiles; an untouched
+    expert has none; entries past the count hold -1; R = 0 gives none."""
+    rng = np.random.default_rng(r + 7)
+    e_np = _ids(r, 4, case, rng)
+    g = moe_groups(torch.from_numpy(e_np), 4)
+    order = g.order.numpy()
+    for lst, count, rows in ((g.tiles, g.counts[0], TILE_ROWS),
+                             (g.dtiles, g.counts[1], DECODE_TILE_ROWS)):
+        want = []
+        for x in range(4):
+            pos = [i for i in range(r) if e_np[order[i]] == x]
+            want += [(x, pos[f], min(rows, len(pos) - f)) for f in range(0, len(pos), rows)]
+        t = lst.numpy()
+        assert t.shape == (max_tiles(r, 4, rows), 3) and int(count) == len(want)
+        assert len(want) <= -(-r // rows) + 4
+        assert [tuple(row) for row in t[:len(want)]] == want
+        assert (t[len(want):] == -1).all()
+        seen = np.zeros(r, np.int64)
+        for x, first, n in want:
+            assert 0 < n <= rows and (e_np[order[first:first + n]] == x).all()
+            seen[first:first + n] += 1
+        assert (seen == 1).all()
+        assert {x for x, _, _ in want} == set(e_np.tolist())
+
+
+@pytest.mark.parametrize("case", ["random", "empty", "one"])
+@pytest.mark.parametrize("r", [9, 64, 300])
+@pytest.mark.parametrize("proj", ["w1", "w2"])
+def test_moe_q4_tiled_plain_matches_jax_ragged_dot(proj, r, case):
+    """The prefill route's rounding model against the JAX package's
+    `_moe_ragged` grouped matmul on the CPU: the same q4 expert stack
+    `dequantize(jnp.bfloat16)`, x in bf16 repeated by the top-k and sorted
+    by expert, and `jax.lax.ragged_dot(..., preferred_element_type=f32)`
+    over the group sizes, unsorted. w1-shaped: one x row a token, top-2
+    (ceil(R / 2) tokens); w2-shaped: one x row a selection. Within 1e-5 of
+    max|ref|: only the order of the f32 sums differs."""
+    import jax
+    from jlama_tpu.nn.qarray import QArray as JQArray
+
+    rng = np.random.default_rng(r + (0 if proj == "w1" else 1000))
+    n_exp, (n, k) = 4, ((40, 96) if proj == "w1" else (64, 128))
+    w = _expert_weights(n_exp, n, k, rng)
+    if proj == "w1":
+        t = -(-r // 2)
+        e_np = _ids(2 * t, n_exp, case, rng).reshape(t, 2)
+    else:
+        t = r
+        e_np = _ids(r, n_exp, case, rng)
+    x_np = rng.standard_normal((t, k)).astype(np.float32)
+    got = moe_q4_matmul_tiled_plain(torch.from_numpy(x_np), w, torch.from_numpy(e_np),
+                                    torch.float32).reshape(-1, n).numpy()
+    flat = e_np.reshape(-1)
+    per = flat.size // t
+    order = np.argsort(flat, kind="stable")
+    xs = jnp.repeat(jnp.asarray(x_np, jnp.bfloat16), per, axis=0)[order]
+    wj = JQArray(jnp.asarray(w.data.numpy()), jnp.asarray(w.scales.numpy()), "q4")
+    w_t = jnp.swapaxes(wj.dequantize(jnp.bfloat16), -1, -2)
+    gs = jnp.asarray(np.bincount(flat, minlength=n_exp), jnp.int32)
+    ys = jax.lax.ragged_dot(xs, w_t, gs, preferred_element_type=jnp.float32)
+    ref = np.asarray(ys)[np.argsort(order)]
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("case", ["random", "empty", "one"])
+@pytest.mark.parametrize("per", [1, 2])
+def test_moe_gather_matches_jax_repeat_then_order(per, case):
+    """The prefill route's gathered copy of x on the CPU against the JAX
+    package's `jnp.repeat(xf, k, axis=0)[order]` (`_moe_ragged`): per 2 is
+    gate and up's input (one x row a token, top-2), per 1 down's (one row a
+    selection). Bit for bit, with no launch counted."""
+    rng = np.random.default_rng(per * 10 + len(case))
+    t = 37
+    e_np = _ids(t * per, 4, case, rng)
+    x_np = rng.standard_normal((t, 96)).astype(np.float32)
+    x = torch.from_numpy(x_np).to(torch.bfloat16)
+    before = moe_gather.launches
+    got = moe_gather(x, moe_groups(torch.from_numpy(e_np), 4), per)
+    assert moe_gather.launches == before
+    order = np.argsort(e_np, kind="stable")
+    ref = jnp.repeat(jnp.asarray(x_np, jnp.bfloat16), per, axis=0)[order]
+    assert got.dtype == torch.bfloat16 and got.shape == (t * per, 96)
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_moe_q4_gate_up_on_cpu_is_two_plain_calls(out_dtype):
+    """Gate and up in one call: on the CPU two `moe_q4_matmul_plain` calls,
+    bit for bit, with no launch counted."""
+    rng = np.random.default_rng(5)
+    w1, w3 = _expert_weights(4, 40, 96, rng), _expert_weights(4, 40, 96, rng)
+    e = torch.from_numpy(rng.integers(0, 4, (7, 2)).astype(np.int32))
+    x = torch.from_numpy(rng.standard_normal((7, 96)).astype(np.float32)).to(out_dtype)
+    before = moe_q4_matmul.launches
+    gate, up = moe_q4_gate_up(x, w1, w3, e)
+    assert moe_q4_matmul.launches == before
+    assert torch.equal(gate, moe_q4_matmul_plain(x, w1, e, out_dtype))
+    assert torch.equal(up, moe_q4_matmul_plain(x, w3, e, out_dtype))
+    assert gate.shape == (7, 2, 40) and gate.dtype == out_dtype
 
 
 def test_row_tile_holds_every_decode_expert_in_one_tile():
@@ -298,9 +406,9 @@ def test_moe_raises_where_it_is_not_ported(tiny):
 
 
 def test_cpu_moe_goes_through_plain_versions(tiny, monkeypatch):
-    """A device="cpu" MoE generation reaches K6's wrapper three times a
-    layer a forward (gate, up, down), which runs the plain version and counts
-    no launch."""
+    """A device="cpu" MoE generation reaches K6's plain version three times a
+    layer a forward (gate and up through `moe_q4_gate_up`, down through
+    `moe_q4_matmul`) and counts no launch."""
     from jlama_tpu_torch.ops import moe_q4
     from jlama_tpu_torch.runtime.engine import Engine
 

@@ -170,7 +170,7 @@ def test_wrappers_reject_other_devices():
     from jlama_tpu_torch.nn.qarray import quantize_q4
     from jlama_tpu_torch.ops.attention import flash_prefill, paged_decode
     from jlama_tpu_torch.ops.kv_write import kv_write
-    from jlama_tpu_torch.ops.moe_q4 import moe_groups, moe_q4_matmul
+    from jlama_tpu_torch.ops.moe_q4 import MoEGroups, moe_gather, moe_groups, moe_q4_matmul
     from jlama_tpu_torch.ops.q4_matmul import q4_matmul
 
     w = quantize_q4(np.ones((8, 32), np.float32)).to("meta")
@@ -182,6 +182,9 @@ def test_wrappers_reject_other_devices():
         moe_q4_matmul(torch.ones((1, 32), device="meta"), we, ids)
     with pytest.raises(ValueError, match="device"):
         moe_groups(ids, 4)
+    meta_groups = MoEGroups(*(torch.zeros(2, dtype=torch.int32, device="meta"),) * 5)
+    with pytest.raises(ValueError, match="device"):
+        moe_gather(torch.ones((1, 32), device="meta"), meta_groups, 2)
     q = torch.ones((1, 2, 4, 64), device="meta")
     with pytest.raises(ValueError, match="device"):
         flash_prefill(q, q, q, torch.zeros(1, dtype=torch.int32), 0.1)
@@ -286,14 +289,14 @@ def test_cpu_q4s_serving_goes_through_plain_versions(monkeypatch):
 
 def test_bench_mains_need_cuda_or_explicit_cpu(monkeypatch):
     """Each card bench's main() raises without a GPU unless --device cpu is
-    given (k1_ablate, k3_ablate and k5_ablate run on the card only), and its wrappers
-    raise on a device that is neither."""
-    from jlama_tpu_torch.scripts import (k1_ablate, k3_ablate, k5_ablate, kbench_q4,
+    given (k1_ablate, k3_ablate, k5_ablate and k6_ablate run on the card only), and its
+    wrappers raise on a device that is neither."""
+    from jlama_tpu_torch.scripts import (k1_ablate, k3_ablate, k5_ablate, k6_ablate, kbench_q4,
                                          kbench_w8a8, probe_int4, probe_sigma_i16)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for mod in (kbench_q4, kbench_w8a8, probe_int4, probe_sigma_i16, k1_ablate, k3_ablate,
-                k5_ablate):
+                k5_ablate, k6_ablate):
         with pytest.raises(RuntimeError, match="CUDA"):
             mod.main([])
     meta = {dt: torch.empty((8, 256), dtype=dt, device="meta")
@@ -314,7 +317,8 @@ def test_bench_mains_need_cuda_or_explicit_cpu(monkeypatch):
                                                  ("k5_ablate", "w8a8_matmul", "ABLATIONS"),
                                                  ("k5_ablate", "w8a8_matmul",
                                                   "DECODE_ABLATIONS"),
-                                                 ("k2_ablate", "paged_decode", "ABLATIONS")])
+                                                 ("k2_ablate", "paged_decode", "ABLATIONS"),
+                                                 ("k6_ablate", "moe_q4", "DECODE_ABLATIONS")])
 def test_ablation_cuts_apply_to_the_source(script, source, table):
     """Every cut of an ablation script finds its text in the kernel source
     exactly once (on the card the script raises when one does not)."""
