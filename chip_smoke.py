@@ -192,6 +192,24 @@ Phases, each fatal on failure (exit code 1, no result line):
               CPU (all 26 layers where the host holds their f32 weights three
               times over, else the first 2), rel L2 < 5e-2; the phase's peak
               memory.
+ 12. serving front - Llama-3.2-1B (random JQ4 weights from seed 0) behind the
+              port's OpenAIServer on 127.0.0.1 (the scheduler of phase 6's
+              settings, warmed up), with a byte-level BPE tokenizer made here
+              in Llama 3's layout (every id below 128,000 text, the specials
+              above; Llama 3's Split pattern through the translated Unicode
+              classes) and a chat template with for, if, set, a namespace
+              and loop.last: 8 requests through http.client, 6 at once
+              (chat, a stream, /v1/completions, tools, a stream with tools, a
+              seeded sampled stream) beside a session's two turns, and GET
+              /v1/models, /healthz, /metrics, /cluster/topology. Every greedy
+              answer (text, finish, usage, tool calls) must equal
+              BatchScheduler.generate on the same prompt ids, K1-K4's
+              launches the scheduler's counts, every decode step after a
+              key's first use a replay; then Engine.generate on a
+              PromptContext with a tool, its launches as expected. Prints the
+              HTTP TTFT (request to first content event) p50/p95 of the
+              streams, tokens/s, the host us of encode for a 512-token prompt
+              and of a render.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. --out also writes the per-shape details and
 the profiles as JSON.
@@ -2681,6 +2699,363 @@ def gemma2_path(torch, card_note) -> dict:
                 n_weights=n_weights, peak_memory_gb=peak)
 
 
+# --------------------------------------------------------------------------
+# phase 12: the serving front on the card (tokenizer, chat template, HTTP)
+
+# Llama 3's vocabulary layout: ids below 128,000 are text, 128,000-128,255
+# its special tokens (llama_1b_config: bos 128000, eos 128001/128008/128009)
+FRONT_TEXT_IDS, FRONT_SPECIALS = 128000, 256
+FRONT_NAMED = {0: "<|begin_of_text|>", 1: "<|end_of_text|>", 6: "<|start_header_id|>",
+               7: "<|end_header_id|>", 8: "<|eom_id|>", 9: "<|eot_id|>"}  # after the text ids
+# tests/test_tokenizer_llama3.py's Split pattern (Llama 3's)
+FRONT_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}"
+               r"| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+# the third symbol of the triple merges: lower-case letters, space, digits
+FRONT_TRIPLES = "abcdefghijklmnopqrstuvwxyz 0123456789.,?"
+FRONT_TEMPLATE = (
+    "{{ bos_token }}{% set ns = namespace(system=false) %}"
+    "{% for m in messages %}{% if m.role == 'system' %}{% set ns.system = true %}{% endif %}"
+    "<|start_header_id|>{{ m.role }}<|end_header_id|>\n\n{{ m.content | trim }}<|eot_id|>"
+    "{% if loop.last and tools %}<|start_header_id|>tools<|end_header_id|>\n\n"
+    "{{ tools | tojson }}<|eot_id|>{% endif %}{% endfor %}"
+    "{% if not ns.system %}<|start_header_id|>note<|end_header_id|>\n\nno system prompt"
+    "<|eot_id|>{% endif %}"
+    "{% if add_generation_prompt %}<|start_header_id|>assistant<|end_header_id|>\n\n{% endif %}"
+)
+FRONT_TOOL = {"type": "function", "function": {
+    "name": "get_weather", "description": "The weather in a city",
+    "parameters": {"type": "object", "properties": {"city": {"type": "string"}},
+                   "required": ["city"]}}}
+FRONT_WORDS = ("the", "quick", "brown", "fox", "jumps", "over", "lazy", "dog", "weather",
+               "in", "paris", "is", "sunny", "today", "what", "about", "tomorrow", "tell",
+               "me", "a", "story", "of", "42", "cats", "and", "3.5", "birds", "very", "good")
+
+
+def front_tokenizer_json(n_text: int = FRONT_TEXT_IDS, n_special: int = FRONT_SPECIALS,
+                         triples: str = FRONT_TRIPLES) -> dict:
+    """A byte-level BPE tokenizer.json with Llama 3's layout, made here (the
+    card has no `tokenizers`): ids 0-255 the byte symbols, then every pair of
+    them as a merge, then triples (a pair and one of `triples`) up to
+    `n_text`; the specials after them. A random model draws ids from the
+    whole vocabulary, so every id decodes to text."""
+    from jlama_tpu_torch.tokenizers.bpe import bytes_to_unicode
+
+    b2u = bytes_to_unicode()
+    syms = [b2u[b] for b in range(256)]
+    vocab = {s: i for i, s in enumerate(syms)}
+    merges = []
+    for a in syms:
+        for b in syms:
+            if len(vocab) >= n_text:
+                break
+            merges.append(f"{a} {b}")
+            vocab[a + b] = len(vocab)
+    ends = [b2u[b] for b in triples.encode()]
+    for a in syms:
+        for b in syms:
+            for c in ends:
+                if len(vocab) >= n_text:
+                    break
+                merges.append(f"{a + b} {c}")
+                vocab[a + b + c] = len(vocab)
+    added = [{"id": n_text + i,
+              "content": FRONT_NAMED.get(i, f"<|reserved_special_token_{i}|>"),
+              "single_word": False, "lstrip": False, "rstrip": False, "normalized": False,
+              "special": True} for i in range(n_special)]
+    return {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": FRONT_SPLIT}, "behavior": "Isolated",
+             "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+             "use_regex": False}]},
+        "post_processor": None,
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                    "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": False, "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": merges},
+    }
+
+
+FRONT_TOKENIZER_CONFIG = {"chat_template": FRONT_TEMPLATE, "bos_token": "<|begin_of_text|>",
+                          "eos_token": "<|eot_id|>", "add_bos_token": False}
+
+
+def _front_text(rng, n_words: int) -> str:
+    return " ".join(FRONT_WORDS[int(i)] for i in rng.integers(0, len(FRONT_WORDS), n_words))
+
+
+def _http(port, method, path, body=None, headers=None, stream=False):
+    """One request on its own connection: (status, parsed body or SSE events,
+    seconds to the first content event (streams; to the finish for an empty
+    answer) or to the body, seconds in all)."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        data = None if body is None else json.dumps(body).encode()
+        conn.request(method, path, body=data,
+                     headers={"Content-Type": "application/json", **(headers or {})})
+        r = conn.getresponse()
+        if not stream:
+            out = r.read()
+            t = time.perf_counter() - t0
+            return r.status, json.loads(out), t, t
+        events, first = [], None
+        for line in r:  # chunked: http.client decodes it line by line
+            line = line.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            if line == "data: [DONE]":
+                events.append("[DONE]")
+                continue
+            ev = json.loads(line[6:])
+            # the first content (or, for an answer with none, its end)
+            if first is None and (ev["choices"][0]["delta"].get("content")
+                                  or ev["choices"][0]["finish_reason"]):
+                first = time.perf_counter() - t0
+            events.append(ev)
+        return r.status, events, first, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def _front_answer(res, stream):
+    """(content text, tool calls, finish reason, usage) of a chat answer."""
+    status, body = res[0], res[1]
+    if status != 200:
+        fail(f"serving front: HTTP {status}: {body}")
+    if not stream:
+        ch = body["choices"][0]
+        msg = ch.get("message") or {"content": ch.get("text")}
+        return msg.get("content") or "", msg.get("tool_calls") or [], ch["finish_reason"], \
+            body["usage"]
+    if body[-1] != "[DONE]" or body[0]["choices"][0]["delta"].get("role") != "assistant":
+        fail(f"serving front: stream framing {body[:1]} ... {body[-2:]}")
+    text = "".join(e["choices"][0]["delta"].get("content", "") for e in body[:-1])
+    calls = [c for e in body[:-1] for c in e["choices"][0]["delta"].get("tool_calls", [])]
+    return text, calls, body[-2]["choices"][0]["finish_reason"], None
+
+
+def serving_front_path(torch, card_note) -> dict:
+    """Phase 12: Llama-3.2-1B behind the port's OpenAIServer on a local
+    socket, with a tokenizer and chat template made here."""
+    import asyncio
+    import threading
+
+    import numpy as np
+
+    from jlama_tpu_torch.models.init import llama_1b_config, random_q4_params
+    from jlama_tpu_torch.ops.attention import flash_prefill, paged_decode
+    from jlama_tpu_torch.ops.kv_write import kv_write
+    from jlama_tpu_torch.ops.q4_matmul import q4_matmul
+    from jlama_tpu_torch.prompt import PromptBuilder, extract_tool_calls, render_chat_template
+    from jlama_tpu_torch.runtime.engine import Engine
+    from jlama_tpu_torch.runtime.scheduler import BatchScheduler
+    from jlama_tpu_torch.server import OpenAIServer
+    from jlama_tpu_torch.server.openai_api import _openai_tools_to_internal
+    from jlama_tpu_torch.tokenizers import Tokenizer, parse_tokenizer_json
+
+    cfg = llama_1b_config()
+    t0 = time.perf_counter()
+    tok = Tokenizer(parse_tokenizer_json(front_tokenizer_json(), FRONT_TOKENIZER_CONFIG))
+    tok_s = time.perf_counter() - t0
+    if len(tok.spec.vocab) != cfg.vocab_size or tok.bos_id != cfg.bos_token_id \
+            or tok.eos_id not in cfg.eos_token_ids:
+        fail(f"serving front: tokenizer of {len(tok.spec.vocab)} ids, bos {tok.bos_id}, eos "
+             f"{tok.eos_id}; the config has {cfg.vocab_size}, {cfg.bos_token_id}, "
+             f"{cfg.eos_token_ids}")
+    rng = np.random.default_rng(12)
+    # host costs: encode of a 512-token prompt, the template's render
+    words = _front_text(rng, 2000).split()
+    n = min(2000, 2000 * 512 // len(tok.encode(" ".join(words))) + 8)
+    while len(tok.encode(" ".join(words[:n]))) > 512:
+        n -= 1
+    text512 = " ".join(words[:n])
+    ids512 = tok.encode(text512)
+    if tok.decode(ids512) != text512:
+        fail("serving front: decode(encode(text)) != text")
+    enc_us = _host_us(torch, lambda: tok.encode(text512), n=50)
+    msgs = [{"role": "system", "content": "Be brief."},
+            {"role": "user", "content": _front_text(rng, 40)}]
+    render_us = _host_us(torch, lambda: render_chat_template(
+        FRONT_TEMPLATE, msgs, tools=[FRONT_TOOL], bos_token="<|begin_of_text|>"), n=200)
+    print(f"serving front: tokenizer of {len(tok.spec.vocab)} ids ({len(tok.spec.merges)} "
+          f"merges) built in {tok_s:.2f} s; encode of a {len(ids512)}-token prompt "
+          f"{enc_us:.1f} us, render of the chat template (2 messages, a tool) {render_us:.1f} us "
+          f"(host, median) on {card_note}", flush=True)
+
+    params = random_q4_params(cfg, seed=0, device="cuda")
+    sched = BatchScheduler(params, cfg, tok, kv_dtype=torch.bfloat16, device="cuda", **SERVE)
+    sched.warmup()
+    del params
+    srv = OpenAIServer(sched, tok, model_name="llama-3.2-1b-random")
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+    port = asyncio.run_coroutine_threadsafe(srv.start("127.0.0.1", 0), loop).result(60)
+
+    chunk = SERVE["prefill_chunk"]
+
+    def fits(n_prefill):
+        # a prompt's last prefill chunk alone at <= 16 rows takes K1's M <= 16
+        # route, batched with another its M > 16 route, which round
+        # differently; the answers are held to BatchScheduler.generate alone,
+        # so every chunk keeps more than 16 rows
+        return n_prefill % chunk == 0 or n_prefill % chunk > 16
+
+    def chat(content, n_words, resumed=False, **kw):
+        while True:  # the session's second turn prefills its pending token too
+            body = {"messages": [{"role": "system", "content": "Answer in one line."},
+                                 {"role": "user",
+                                  "content": content + " " + _front_text(rng, n_words)}],
+                    "temperature": 0, **kw}
+            if fits(len(srv._encode(srv._render_prompt(body)[0])) - (not resumed)):
+                return body
+            n_words += 1
+
+    def completion(n_words):
+        while True:
+            body = {"prompt": _front_text(rng, n_words), "max_tokens": 48, "temperature": 0}
+            if fits(len(srv._encode(body["prompt"])) - 1):
+                return body
+            n_words += 1
+
+    # (name, path, body, headers, stream, greedy): the first six at once, the
+    # session's two turns one after the other beside them
+    reqs = [
+        ("chat", "/v1/chat/completions", chat("hello", 60, max_tokens=48), None, False, True),
+        ("chat stream", "/v1/chat/completions", chat("story", 200, max_tokens=64, stream=True),
+         None, True, True),
+        ("completion", "/v1/completions", completion(120), None, False, True),
+        ("tools", "/v1/chat/completions", chat("weather", 50, max_tokens=32, tools=[FRONT_TOOL]),
+         None, False, True),
+        ("tools stream", "/v1/chat/completions",
+         chat("weather", 80, max_tokens=32, tools=[FRONT_TOOL], stream=True), None, True, True),
+        ("sampled", "/v1/chat/completions",
+         chat("sample", 50, max_tokens=32, temperature=0.8, seed=5, stream=True), None, True,
+         False),
+        ("session 1", "/v1/chat/completions", chat("first turn", 70, max_tokens=24),
+         {"X-Jlama-Session": "front"}, False, True),
+        ("session 2", "/v1/chat/completions",
+         chat("second turn", 20, resumed=True, max_tokens=24, stream=True),
+         {"X-Jlama-Session": "front"}, True, True),
+    ]
+    results: dict = {}
+
+    def send(i):
+        name, path, body, headers, stream, _ = reqs[i]
+        results[name] = _http(port, "POST", path, body, headers, stream)
+
+    def session_pair():
+        send(6)
+        send(7)
+
+    _reset_counts(sched)
+    graphs0 = sched.graphs.stats()
+    t_start = time.perf_counter()
+    threads = [threading.Thread(target=send, args=(i,)) for i in range(6)]
+    threads.append(threading.Thread(target=session_pair))
+    for t in threads:
+        t.start()
+    side = {p: _http(port, "GET", p) for p in ("/v1/models", "/healthz", "/metrics",
+                                                "/cluster/topology")}
+    for t in threads:
+        t.join(300)
+        if t.is_alive():
+            fail("serving front: a request did not finish in 300 s")
+    wall = time.perf_counter() - t_start
+    metrics = _http(port, "GET", "/metrics")[1]
+    asyncio.run_coroutine_threadsafe(srv.close(), loop).result(60)
+    loop.call_soon_threadsafe(loop.stop)
+    thread.join(10)
+    sched.stop()
+    torch.cuda.synchronize()
+    counts = _check_counts(sched, cfg, "serving front")
+    graphs = _graph_check("serving front", sched.graphs, graphs0, counts["decode_steps"])
+    topo = side["/cluster/topology"][1]
+    for p, res in side.items():
+        if res[0] != 200:
+            fail(f"serving front: GET {p} answered {res[0]}")
+    if side["/v1/models"][1]["data"][0]["id"] != "llama-3.2-1b-random" \
+            or side["/healthz"][1] != {"status": "ok"} \
+            or topo["devices"][0] != {"id": 0, "platform": "gpu", "process_index": 0,
+                                      "device_kind": torch.cuda.get_device_name(0)} \
+            or topo["n_slots"] != SERVE["n_slots"] or metrics["requests"] < len(reqs):
+        fail(f"serving front: models/healthz/topology/metrics {side} {metrics}")
+
+    # every greedy answer against BatchScheduler.generate on the same prompt ids
+    n_tokens, ttft, checked = 0, [], []
+    for name, path, body, headers, stream, greedy in reqs:
+        text, calls, finish, usage = _front_answer(results[name], stream)
+        if stream:
+            ttft.append(results[name][2])
+        if path == "/v1/completions":
+            ids, tools = srv._encode(body["prompt"]), []
+        else:
+            prompt, tools = srv._render_prompt(body)
+            ids = srv._encode(prompt)
+        sid = "front-check" if headers else None
+        ref = sched.generate(ids, max_new_tokens=body["max_tokens"], session_id=sid,
+                             tools=tools or None, temperature=body["temperature"],
+                             seed=body.get("seed"))
+        n_tokens += ref.generated_tokens
+        want_finish = {"TOOL_CALL": "tool_calls", "STOP_TOKEN": "stop"}.get(
+            ref.finish_reason.name, "length")
+        got_calls = [(c["function"]["name"], json.loads(c["function"]["arguments"]))
+                     for c in calls]
+        want_calls = [(c.name, c.parameters) for c in ref.tool_calls]
+        same = (text == ("" if ref.tool_calls else ref.response_text) and finish == want_finish
+                and got_calls == want_calls
+                and (usage is None or usage["completion_tokens"] == ref.generated_tokens))
+        checked.append(dict(request=name, greedy=greedy, prompt_tokens=len(ids),
+                            completion_tokens=ref.generated_tokens, finish=finish, same=same))
+        if greedy and not same:
+            fail(f"serving front: {name}: the HTTP answer ({finish}, {text[:60]!r}, {got_calls})"
+                 f" differs from BatchScheduler.generate on its {len(ids)} prompt ids "
+                 f"({want_finish}, {ref.response_text[:60]!r}, {want_calls})")
+    print(f"serving front: {len(reqs)} requests ({sum(c['greedy'] for c in checked)} greedy, "
+          f"each equal to BatchScheduler.generate on its prompt ids; "
+          f"{sum(c['same'] for c in checked)} of {len(checked)} equal in all), "
+          f"{n_tokens} tokens in {wall:.2f} s = {n_tokens / wall:.1f} tok/s; HTTP TTFT "
+          f"(request to first content event, {len(ttft)} streams) p50 "
+          f"{_pct(ttft, 50) * 1000:.1f} ms, p95 {_pct(ttft, 95) * 1000:.1f} ms on {card_note}",
+          flush=True)
+
+    # Engine.generate on a PromptContext with tools, on the same weights
+    eng = Engine(sched.params, cfg, tok, device="cuda", max_seq_len=2048, fuse=False)
+    tools = _openai_tools_to_internal([FRONT_TOOL])
+    ctx = PromptBuilder(tok.spec).add_user(_front_text(rng, 60)).add_tools(*tools).build()
+    for fn in (q4_matmul, flash_prefill, paged_decode, kv_write):
+        fn.launches = 0
+    resp = eng.generate(ctx, max_new_tokens=40)
+    torch.cuda.synchronize()
+    steps = 40 if resp.finish_reason.name != "STOP_TOKEN" else \
+        min(40, -(-resp.generated_tokens // 32) * 32)
+    L = cfg.n_layers
+    got = {"q4_matmul": q4_matmul.launches, "flash_prefill": flash_prefill.launches,
+           "paged_decode": paged_decode.launches, "kv_write": kv_write.launches}
+    expect = {"q4_matmul": 4 * L + steps * (4 * L + 1), "flash_prefill": L,
+              "paged_decode": steps * L, "kv_write": (1 + steps) * L}
+    calls = extract_tool_calls(resp.response_text, tools)
+    print(f"serving front: Engine.generate(PromptContext with a tool): {resp.generated_tokens} "
+          f"tokens, {resp.finish_reason.name}, launches {got} (expected {expect})", flush=True)
+    if got != expect or bool(calls) != (resp.finish_reason.name == "TOOL_CALL"):
+        fail(f"serving front: the Engine's launches {got} != {expect}, or its tool calls "
+             f"{calls} against finish {resp.finish_reason.name}")
+    del eng, sched
+    torch.cuda.empty_cache()
+    return dict(requests=checked, wall_s=wall, tokens=n_tokens, tok_s=n_tokens / wall,
+                ttft_ms_p50=_pct(ttft, 50) * 1000, ttft_ms_p95=_pct(ttft, 95) * 1000,
+                ttft_ms=[x * 1000 for x in ttft], encode_us_512=enc_us,
+                encode_tokens=len(ids512), render_us=render_us, tokenizer_s=tok_s,
+                launches=counts, graphs=graphs, engine_launches=got, metrics=metrics)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write per-shape details as JSON here")
@@ -2779,6 +3154,12 @@ def main() -> None:
         {"engine": {k: v for k, v in g2["engine"].items() if not k.startswith("profile")},
          "serving": {k: v for k, v in g2["serving"].items() if not k.startswith("profile")},
          "logits_rel_l2": g2["logits_rel_l2"], "peak_memory_gb": g2["peak_memory_gb"]}),
+        flush=True)
+    # 12. the serving front: tokenizer, chat template and HTTP server over the scheduler
+    torch.cuda.empty_cache()
+    out["serving_front"] = serving_front_path(torch, smi)
+    print(f"card {smi}: serving front " + json.dumps(
+        {k: v for k, v in out["serving_front"].items() if k not in ("requests", "metrics")}),
         flush=True)
 
     routes = {

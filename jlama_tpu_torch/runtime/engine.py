@@ -38,6 +38,8 @@ from ..models.base import (KVCache, check_moe_device, forward_hidden, fuse_param
                            params_to, prepare_moe_ragged, rope_inv_freq)
 from ..nn.layers import KVLayerCache
 from ..nn.sampling import sample_token
+from ..prompt import PromptContext, extract_tool_calls
+from ..utils.metrics import GLOBAL_METRICS
 from .device_loop import decode_loop
 from .graphs import DecodeInputs, StepGraphs
 
@@ -341,7 +343,7 @@ class Engine:
 
     def generate(
         self,
-        prompt: str,
+        prompt,
         session_id: str | None = None,
         temperature: float = 0.0,
         max_new_tokens: int = 256,
@@ -350,13 +352,15 @@ class Engine:
         seed: int = 0,
         on_token: Callable[[str, float], None] | None = None,
     ) -> Response:
-        """Generate from a string. on_token streams decoded TEXT fragments
-        (UTF-8 safe: partial codepoints are buffered until complete).
+        """Generate from a string or a PromptContext; with tools attached, a
+        tool-shaped output becomes `tool_calls` and finishes TOOL_CALL.
 
-        Chat templates and tool-call extraction come with the CLI slice."""
+        on_token streams decoded TEXT fragments (UTF-8 safe: partial
+        codepoints are buffered until complete)."""
         if self.tokenizer is None:
             raise ValueError("generate() needs a tokenizer; use generate_tokens()")
-        ids = self.encode_prompt(str(prompt))
+        ctx = prompt if isinstance(prompt, PromptContext) else PromptContext.of(str(prompt))
+        ids = self.encode_prompt(ctx.prompt)
         stream_buf: list[int] = []
 
         def tok_cb(tok: int, ms: float) -> None:
@@ -366,7 +370,7 @@ class Engine:
                 on_token(text, ms)
                 stream_buf.clear()
 
-        return self.generate_tokens(
+        resp = self.generate_tokens(
             ids,
             max_new_tokens=max_new_tokens,
             temperature=temperature,
@@ -376,6 +380,13 @@ class Engine:
             seed=seed,
             on_token=tok_cb if on_token else None,
         )
+        if ctx.has_tools:
+            calls = extract_tool_calls(resp.response_text, ctx.tools)
+            if calls:
+                resp.tool_calls = calls
+                resp.finish_reason = FinishReason.TOOL_CALL
+        GLOBAL_METRICS.record(resp)
+        return resp
 
     def builder(self) -> "GenerateBuilder":
         return GenerateBuilder(self)

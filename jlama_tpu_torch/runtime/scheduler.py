@@ -32,8 +32,11 @@ they finish:
 
 MoE configs (Mixtral) serve with q4 experts through K6 (`ops/moe_q4.py`).
 
+Tool calls: a request with `tools` whose finished text holds a tool-shaped
+JSON finishes TOOL_CALL with `tool_calls` set, as in the JAX package.
+
 Not ported yet (see ROADMAP.md): meshes (tp/dp page groups), the multi-host
-step channel, q4s MoE, tool-call finishes, and suspending to disk.
+step channel, q4s MoE, and suspending to disk.
 """
 
 from __future__ import annotations
@@ -59,6 +62,7 @@ from ..models.base import (check_moe_device, forward_hidden, fuse_params, lm_log
 from ..nn.qarray import QArray
 from ..nn.sampling import sample_token
 from ..ops.w8a8 import prepare_params_for_w8a8
+from ..prompt import extract_tool_calls
 from ..utils.metrics import GLOBAL_METRICS
 from .engine import FinishReason, Response, _bucket
 from .graphs import DecodeInputs, StepGraphs
@@ -85,6 +89,7 @@ class GenRequest:
     frequency_penalty: float = 0.0
     on_token: Callable[[int], None] | None = None
     session_id: str | None = None  # KV affinity across requests
+    tools: list | None = None  # Tool schemas: finished output is scanned for calls
     id: str = field(default_factory=lambda: str(uuid.uuid4()))
 
     # filled by the scheduler
@@ -101,6 +106,7 @@ class GenRequest:
     _pf_ids: list[int] = field(default_factory=list)
     _pf_done: int = 0
     text_override: str | None = None  # set when a stop string truncates output
+    tool_calls: list = field(default_factory=list)
     error: str | None = None
     done_event: threading.Event = field(default_factory=threading.Event)
 
@@ -122,6 +128,7 @@ class GenRequest:
             prompt_time_ms=(self.t_first - self.t_start) * 1000,
             generate_time_ms=(self.t_done - self.t_first) * 1000,
             token_ids=list(self.out_ids),
+            tool_calls=list(self.tool_calls),
             error=self.error,
         )
 
@@ -598,6 +605,16 @@ class BatchScheduler:
 
     def _finish(self, req: GenRequest, reason: FinishReason) -> None:
         req.finish = reason
+        if req.tools and self.tokenizer is not None and reason in (FinishReason.STOP_TOKEN,
+                                                                    FinishReason.MAX_TOKENS):
+            # here, so that the Response's finish reason is final
+            stops = req.stop_ids or set(self.cfg.eos_token_ids)
+            text = (req.text_override if req.text_override is not None
+                    else self.tokenizer.decode([t for t in req.out_ids if t not in stops]))
+            calls = extract_tool_calls(text, req.tools)
+            if calls:
+                req.tool_calls = calls
+                req.finish = FinishReason.TOOL_CALL
         req.state = RequestState.DONE
         req.t_done = time.perf_counter()
         GLOBAL_METRICS.record(req.to_response())

@@ -5,17 +5,19 @@ package): greedy lowest-rank merges, byte-fallback encoding, GPT-2
 byte↔codepoint remap, streaming-safe UTF-8 decode, driven by the
 pre-tokenizer/normalizer/decoder configs found in HF tokenizer.json files.
 
-It imports `regex` at module top, so nothing on the import path of `Engine`
-or `load_params` imports this package; only text-level generation does.
+The JAX package matches tokenizer.json's patterns with the `regex` module;
+this one sends every pattern through `_pattern.compile_pattern`, which
+translates it for the standard library's `re` with `regex`'s own Unicode
+classes (`_uniclass.py`), so the ids are the same without `regex`.
 """
 
 from __future__ import annotations
 
 import functools
+import re
 import unicodedata
 
-import regex as re
-
+from ._pattern import compile_pattern
 from .model import TokenizerSpec
 
 # ---------------------------------------------------------------------------
@@ -78,7 +80,7 @@ def apply_normalizer(cfg: dict | None, text: str) -> str:
         if "String" in pat:
             return text.replace(pat["String"], cfg.get("content", ""))
         if "Regex" in pat:
-            return re.sub(pat["Regex"], cfg.get("content", ""), text)
+            return compile_pattern(pat["Regex"]).sub(cfg.get("content", ""), text)
         return text
     if t == "Prepend":
         pre = cfg.get("prepend", "")
@@ -170,22 +172,22 @@ def pre_tokenize(cfg: dict | None, text: str, *, is_first: bool = True) -> list[
         if cfg.get("add_prefix_space", True) and is_first and text and not text[0].isspace():
             text = " " + text
         if cfg.get("use_regex", True):
-            words = re.findall(GPT2_SPLIT_PATTERN, text)
+            words = compile_pattern(GPT2_SPLIT_PATTERN).findall(text)
         else:
             words = [text] if text else []
         b2u = bytes_to_unicode()
         return ["".join(b2u[b] for b in w.encode("utf-8")) for w in words]
     if t == "Split":
         pat = cfg.get("pattern", {})
-        rx = pat.get("Regex") or re.escape(pat.get("String", ""))
+        rx = compile_pattern(pat.get("Regex") or re.escape(pat.get("String", "")))
         behavior = cfg.get("behavior", "Removed")
         if cfg.get("invert"):
-            return re.findall(rx, text)
+            return rx.findall(text)
         if behavior == "Removed":
-            return [p for p in re.split(rx, text) if p]
+            return [p for p in rx.split(text) if p]
         if behavior == "Isolated":
             out, last = [], 0
-            for m in re.finditer(rx, text):
+            for m in rx.finditer(text):
                 if m.start() > last:
                     out.append(text[last : m.start()])
                 out.append(m.group())
@@ -195,7 +197,7 @@ def pre_tokenize(cfg: dict | None, text: str, *, is_first: bool = True) -> list[
             return out
         if behavior in ("MergedWithPrevious", "MergedWithNext"):
             out, last = [], 0
-            for m in re.finditer(rx, text):
+            for m in rx.finditer(text):
                 if behavior == "MergedWithPrevious":
                     out.append(text[last : m.end()])
                     last = m.end()
@@ -214,27 +216,27 @@ def pre_tokenize(cfg: dict | None, text: str, *, is_first: bool = True) -> list[
         if scheme in ("always", "first") and is_first and not s.startswith(rep):
             s = rep + s
         # split so each piece starts at a word boundary (split on rep, keep it)
-        pieces = re.split(f"(?={re.escape(rep)})", s)
+        pieces = compile_pattern(f"(?={re.escape(rep)})").split(s)
         return [p for p in pieces if p]
     if t == "Whitespace":
-        return re.findall(r"\w+|[^\w\s]+", text)
+        return compile_pattern(r"\w+|[^\w\s]+").findall(text)
     if t == "WhitespaceSplit":
         return text.split()
     if t == "Digits":
         if cfg.get("individual_digits", False):
-            return [p for p in re.split(r"(\p{N})", text) if p]
-        return [p for p in re.split(r"(\p{N}+)", text) if p]
+            return [p for p in compile_pattern(r"(\p{N})").split(text) if p]
+        return [p for p in compile_pattern(r"(\p{N}+)").split(text) if p]
     if t == "Punctuation":
-        return [p for p in re.split(r"(\p{P})", text) if p]
+        return [p for p in compile_pattern(r"(\p{P})").split(text) if p]
     if t == "BertPreTokenizer":
-        return re.findall(r"\S+|\s", text) and _bert_pre_tokenize(text)
+        return compile_pattern(r"\S+|\s").findall(text) and _bert_pre_tokenize(text)
     return [text]
 
 
 def _bert_pre_tokenize(text: str) -> list[str]:
     out = []
     for w in text.split():
-        out.extend(p for p in re.split(r"(\p{P})", w) if p)
+        out.extend(p for p in compile_pattern(r"(\p{P})").split(w) if p)
     return out
 
 
@@ -272,7 +274,7 @@ class BPETokenizer:
         self._added_rx = None
         if spec.added_tokens:
             pats = sorted((t.content for t in spec.added_tokens), key=len, reverse=True)
-            self._added_rx = re.compile("(" + "|".join(re.escape(p) for p in pats) + ")")
+            self._added_rx = compile_pattern("(" + "|".join(re.escape(p) for p in pats) + ")")
         self._byte_level = self._uses_byte_level(spec.pre_tokenizer) or self._uses_byte_level(
             spec.decoder
         )
@@ -404,7 +406,7 @@ class BPETokenizer:
             if "String" in pat:
                 return text.replace(pat["String"], cfg.get("content", ""))
             if "Regex" in pat:
-                return re.sub(pat["Regex"], cfg.get("content", ""), text)
+                return compile_pattern(pat["Regex"]).sub(cfg.get("content", ""), text)
             return text
         if t == "Metaspace":
             rep = cfg.get("replacement", "▁")

@@ -195,3 +195,43 @@ def test_sampling_masks_and_distribution():
         p = torch.softmax(kept, -1).numpy()
         freq = np.bincount(td, minlength=16) / n
         assert np.abs(freq - p).max() < 0.04
+
+
+class _ToolTokenizer:
+    """Characters as ids under the tiny vocabulary; any output decodes as a
+    tool-shaped JSON."""
+
+    class spec:
+        add_bos_token = False
+
+    bos_id, eos_id = 1, 2
+
+    def encode(self, text, add_special=True):
+        return [3 + ord(c) % 200 for c in text]
+
+    def decode(self, ids, skip_special=True):
+        return '{"name": "get_weather", "parameters": {"city": "Paris"}}' if list(ids) else ""
+
+
+def test_generate_prompt_context_tool_call(engines):
+    """Engine.generate takes a PromptContext: with tools attached, a
+    tool-shaped answer finishes TOOL_CALL with its calls, in both packages;
+    without tools the same answer is text."""
+    from jlama_tpu import prompt as jp
+    from jlama_tpu_torch import prompt as tp
+
+    got = {}
+    for name, eng, mod in (("jax", engines[0], jp), ("torch", engines[1], tp)):
+        old, eng.tokenizer = eng.tokenizer, _ToolTokenizer()
+        try:
+            tool = mod.Tool.from_function(mod.Function(name="get_weather"))
+            resp = eng.generate(mod.PromptContext("Weather in Paris?", [tool]),
+                                max_new_tokens=3)
+            plain = eng.generate("Weather in Paris?", max_new_tokens=3)
+        finally:
+            eng.tokenizer = old
+        assert plain.finish_reason.name != "TOOL_CALL" and not plain.tool_calls
+        got[name] = (resp.finish_reason.name, [(c.name, c.parameters) for c in resp.tool_calls],
+                     resp.token_ids)
+    assert got["torch"] == got["jax"]
+    assert got["torch"][:2] == ("TOOL_CALL", [("get_weather", {"city": "Paris"})])

@@ -1,7 +1,7 @@
 """Rules of the port package: no JAX and nothing of jlama_tpu, no optional
-text-processing or HTTP packages on the Engine/load_params and serving import
-paths, CUDA by default with no quiet CPU fall-back, and plain versions on the
-CPU."""
+text-processing or HTTP packages anywhere in it (the tokenizer, the chat
+templates and the HTTP server run on the standard library), CUDA by default
+with no quiet CPU fall-back, and plain versions on the CPU."""
 
 import ast
 import shutil
@@ -15,7 +15,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "jlama_tpu_torch"
-OPTIONAL = ("regex", "jinja2", "ml_dtypes", "safetensors", "transformers", "tokenizers")
+OPTIONAL = ("regex", "jinja2", "ml_dtypes", "safetensors", "transformers", "tokenizers",
+            "aiohttp")
+# the one exception: the generator of tokenizers/_uniclass.py reads `regex`'s
+# tables, and nothing imports it
+GENERATOR = PKG / "scripts" / "gen_uniclass.py"
 
 
 def _imports(path: Path, top_level_only: bool = False):
@@ -44,10 +48,49 @@ def test_port_imports_no_jax_and_nothing_of_jlama_tpu():
 
 
 def test_optional_packages_only_in_tokenizers():
+    """No file of the port imports an optional package, at its top or inside
+    a function, but the table generator, which nothing imports."""
     for f in _port_files():
-        for mod in _imports(f, top_level_only=True):
+        for mod in _imports(f):
             if mod.split(".")[0] in OPTIONAL:
-                assert f == PKG / "tokenizers" / "bpe.py" and mod == "regex", (f, mod)
+                assert f == GENERATOR and mod == "regex", (f, mod)
+            assert "gen_uniclass" not in mod, (f, mod)
+        tree = ast.parse(f.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom) and node.level:
+                assert "gen_uniclass" not in (node.module or "") and \
+                    all(a.name != "gen_uniclass" for a in node.names), f
+
+
+def test_text_and_http_front_import_and_run_without_optional_packages(tmp_path):
+    """With regex, jinja2 and aiohttp blocked, the tokenizer, the chat
+    templates and the server import, and a prompt renders and encodes (a
+    tokenizer.json in chip_smoke.py's Llama-3 layout, its Split pattern
+    through the translated classes)."""
+    code = (
+        "import sys\n"
+        "sys.modules['regex'] = sys.modules['jinja2'] = sys.modules['aiohttp'] = None\n"
+        "import jlama_tpu_torch.tokenizers, jlama_tpu_torch.prompt\n"
+        "import jlama_tpu_torch.server.openai_api\n"
+        "import chip_smoke as cs\n"
+        "from jlama_tpu_torch.tokenizers import Tokenizer, parse_tokenizer_json\n"
+        "from jlama_tpu_torch.prompt import PromptBuilder\n"
+        "tok = Tokenizer(parse_tokenizer_json(cs.front_tokenizer_json(2048, 16),\n"
+        "                                     cs.FRONT_TOKENIZER_CONFIG))\n"
+        "ctx = PromptBuilder(tok.spec).add_system('Be brief.').add_user(\n"
+        "    'x² ½ café 你好 १२३ it\\'s 12345!').build()\n"
+        "ids = tok.encode(ctx.prompt)\n"
+        "assert ids[0] == tok.bos_id == 2048 and tok.decode(ids) == tok.decode(\n"
+        "    tok.encode(tok.decode(ids)))\n"
+        "assert tok.decode(ids, skip_special=False) == ctx.prompt, ctx.prompt\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('regex', 'jinja2', 'aiohttp',\n"
+        "       'jax', 'jlama_tpu') and sys.modules[m] is not None]\n"
+        "print(bad, len(ids))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("[] "), out.stdout
 
 
 def test_engine_import_path_is_clean():
