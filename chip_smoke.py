@@ -69,7 +69,16 @@ Phases, each fatal on failure (exit code 1, no result line):
               and the host time of one wrapper call at M = 1, 16 and 512; K1,
               K3 and K5 are also held at phase 8's
               shapes: one 1024-token window with f32 activations through the
-              unfused projections and the f32-out lm_head;
+              unfused projections and the f32-out lm_head; and at phase 13's
+              shapes: K1 at GPT-2's five (wqkv N 2,304, wo, w1, w2 K 3,072,
+              the f32-out 50,257-row lm_head) at M = 1, 16 and 512 and
+              BERT-base's four at M = 8,192, K5 at GPT-2's at M = 16 and 256
+              and its lm_head at M = 1 and 16, K3 and K2 at 12 query heads on
+              12 KV heads of 64 (a head group of 1: prefills, serving chunks,
+              16 slots of up to 1,024 keys on bf16 and q8 pools, the Engine's
+              dense row), K4 without RoPE at those heads (paged bf16 and q8,
+              a chunk, the dense cache), each timed beside its bound, its plain
+              version and the library call where one exists;
   4. engine - Llama-3.2-1B at full width (16 layers, random JQ4 weights from
               a seed) through Engine.generate_tokens: a 512-token prompt with
               128 new tokens, a resume of that session, and five
@@ -206,10 +215,42 @@ Phases, each fatal on failure (exit code 1, no result line):
               BatchScheduler.generate on the same prompt ids, K1-K4's
               launches the scheduler's counts, every decode step after a
               key's first use a replay; then Engine.generate on a
-              PromptContext with a tool, its launches as expected. Prints the
+              PromptContext with a tool, its launches as expected. Beside the
+              burst, an embed_engine that shares the scheduler's weights (as
+              the JAX CLI's serve attaches it) answers 4 /v1/embeddings
+              requests (a string and a list of 4, AVG and MODEL pooling), each
+              equal to Engine.embed_batch on the same ids; its forwards' K1
+              and K3 launches are counted beside the scheduler's. Prints the
               HTTP TTFT (request to first content event) p50/p95 of the
               streams, tokens/s, the host us of encode for a 512-token prompt
               and of a render.
+ 13. gpt2 and bert - GPT-2 at full width (12 layers, n_embd 768, 12 heads on
+              12 KV heads of 64, 1,024 learned positions, LayerNorms, biases
+              on every projection, the tied 50,257-row lm_head; random JQ4
+              weights from seed 0): an Engine (a 512-token prompt, 3
+              first-token runs, 128 greedy tokens, then a 900-token prompt
+              generating to position 1,023) on decode graphs and the eager
+              yardstick, identical ids, launch counts as expected (49 K1, 12
+              K2 and 12 K4 a decode step, 12 K3 a prefill; K4 without RoPE),
+              every decode step after a key's first use a replay, device ms
+              by kernel and the busy share over 16 profiled tokens; a 16-slot
+              BatchScheduler with q4 and with q4s weights (pages of 64,
+              max_seq_len 1,024; 8 seeded greedy requests, prompts of 32-900
+              tokens): tok/s, TTFT and inter-token p50/p95, launches from its
+              counts (K5 in place of K1 for q4s), ids equal to an eager
+              scheduler's; the dense, paged and q4s paged logits against the
+              plain path in f32 on the CPU (rel L2 < 5e-2). Then BERT-base
+              at full width (12 layers, hidden 768, 12 heads of 64, 512
+              positions, a 2-label classifier; random JQ4 from seed 0):
+              Engine.embed_batch of 64 seeded sequences of 8-512 tokens under
+              each pooling (sequences/s, tokens/s, 4 K1 launches a layer a
+              forward and nothing else: the encoder is not causal and takes
+              the dense masked attention), one 8-token sequence (K1's M <= 16
+              route), device ms by kernel group, the pooled vectors of 6
+              sequences and classify on 3 texts through a WordPiece tokenizer
+              made here (bert_tokenizer_json) against the plain path in f32 on
+              the CPU (rel L2 < 5e-2; probabilities within 2e-2); each model's
+              peak memory.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. --out also writes the per-shape details and
 the profiles as JSON.
@@ -256,6 +297,7 @@ LOGITS_REL_L2 = 5e-2
 # exact integer sum, at most one float operation) equal
 BENCH_MAIN = (8192, 2048, 1)  # the kernels line's shape: 1B's w13-sized GEMV at M = 1
 N_TTFT = 5  # time-to-first-token runs; the median is reported
+BERT_K1_M = 8192  # K1's M in a BERT-base forward of 32 rows x 256 tokens (phase 13)
 # K1's device kernels in a profile: the GEMV, the mma route, the wgmma route
 K1_NAMES = re.compile(r"(?<!moe_)q4_(gemv|mma|wgmma)_kernel")
 # K5's: the decode kernel, the pre-pass of both routes, the wgmma route
@@ -310,11 +352,12 @@ def _host_us(torch, fn, n=200) -> float:
 
 def check_k1(torch, timer, details):
     from jlama_tpu_torch.utils.cuda_timer import bound
-    from jlama_tpu_torch.models.init import gemma2_2b_config, llama_1b_config, llama_8b_config
+    from jlama_tpu_torch.models.init import (gemma2_2b_config, gpt2_config, llama_1b_config,
+                                             llama_8b_config)
     from jlama_tpu_torch.nn.qarray import QArray
     from jlama_tpu_torch.ops.q4_matmul import q4_matmul, q4_matmul_plain, q4_matmul_tiled_plain
 
-    c1, c8, cg = llama_1b_config(), llama_8b_config(), gemma2_2b_config()
+    c1, c8, cg, c2 = llama_1b_config(), llama_8b_config(), gemma2_2b_config(), gpt2_config()
     D, Hf, V = c1.embedding_length, c1.hidden_length, c1.vocab_size
     qkv = (c1.n_heads + 2 * c1.n_kv_heads) * c1.head_size
     layer_shapes = {"wqkv": (qkv, D), "wo": (D, D), "w13": (2 * Hf, D), "w2": (D, Hf)}
@@ -342,6 +385,17 @@ def check_k1(torch, timer, details):
     cases += [(name, n, k, m, bf16, bf16) for name, (n, k) in shapes_g.items()
               for m in (1, 16, 512)]
     cases += [("g2_lm_head", cg.vocab_size, Dg, m, bf16, f32) for m in (1, 16)]
+    # GPT-2's (phase 13): wqkv N 2304, wo 768, w1 3072 and w2 K 3072, at K 768
+    # but w2's, and its tied 50,257-row lm_head (f32 out: y's rows no 16-byte
+    # multiple); M = 1, 16 and 512. BERT-base's four are the same shapes, at M
+    # = 16 (one short sequence) and 8,192 (a 32-row batch of 256-token rows)
+    D2 = c2.embedding_length
+    shapes_2 = {"gpt2_wqkv": (3 * D2, D2), "gpt2_wo": (D2, D2),
+                "gpt2_w1": (c2.hidden_length, D2), "gpt2_w2": (D2, c2.hidden_length)}
+    cases += [(name, n, k, m, bf16, bf16) for name, (n, k) in shapes_2.items()
+              for m in (1, 16, 512)]
+    cases += [("gpt2_lm_head", c2.vocab_size, D2, m, bf16, f32) for m in (1, 16, 512)]
+    cases += [(name, n, k, BERT_K1_M, bf16, bf16) for name, (n, k) in shapes_2.items()]
     cases += [("uneven_n", 1000, 2048, m, bf16, bf16) for m in (1, 37)]
     cases += _ppl_window_cases(c1)
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -441,6 +495,20 @@ def check_k1(torch, timer, details):
                                   for key in ("ms", "library_ms", "bound_ms"))
     print(f"K1 one 512-token prefill ({len(pre)} launches at M=512): K1 {pre_ms:.4f} ms, "
           f"torch.matmul bf16 {pre_lib:.4f} ms, bound {pre_bound:.4f} ms", flush=True)
+    # GPT-2's single-stream step (12 x 4 + its lm_head), its 512-token prefill
+    # (12 x 4 at M = 512), and BERT-base's forward of a 32-row batch of
+    # 256-token rows (12 x 4 at M = 8,192)
+    step2 = [per_shape[(s_, 1)] for s_ in shapes_2 for _ in range(c2.n_layers)] \
+        + [per_shape[("gpt2_lm_head", 1)]]
+    pre2 = [per_shape[(s_, 512)] for s_ in shapes_2 for _ in range(c2.n_layers)]
+    bert2 = [per_shape[(s_, BERT_K1_M)] for s_ in shapes_2 for _ in range(c2.n_layers)]
+    gpt2 = {}
+    for tag, rows in (("gpt2", step2), ("gpt2_prefill512", pre2), ("bert_m8192", bert2)):
+        for key in ("ms", "library_ms", "bound_ms"):
+            gpt2[f"{key}_{tag}"] = sum(r[key] for r in rows)
+        print(f"K1 {tag} ({len(rows)} launches): K1 {gpt2[f'ms_{tag}']:.4f} ms, torch.matmul "
+              f"bf16 {gpt2[f'library_ms_{tag}']:.4f} ms, bound {gpt2[f'bound_ms_{tag}']:.4f} ms",
+              flush=True)
     print(f"K1 host time of one wrapper call (w13): {host_us[512]:.1f} us at M=512 (wgmma "
           f"route, x's tensor map made per call), {host_us[16]:.1f} us at M=16, "
           f"{host_us[1]:.1f} us at M=1 (the plan from a cache)", flush=True)
@@ -451,12 +519,15 @@ def check_k1(torch, timer, details):
                 library_ms_m16=lib16, max_err_from_model=worst_model,
                 ms_prefill512=pre_ms, library_ms_prefill512=pre_lib,
                 bound_ms_prefill512=pre_bound, host_us_m512=host_us[512],
-                host_us_m16=host_us[16], host_us_m1=host_us[1],
+                host_us_m16=host_us[16], host_us_m1=host_us[1], **gpt2,
                 work="one decode step, M=1: "
                 f"{L} x (wqkv, wo, w13, w2) + lm_head = {len(step)} launches; "
                 f"*_8b: Llama-3.1-8B's, {c8.n_layers} x 4 + lm_head; "
                 f"*_gemma2: Gemma-2-2B's, {cg.n_layers} x 4 + lm_head; "
-                f"*_prefill512: one 512-token prefill, {L} x (wqkv, wo, w13, w2) at M=512")
+                f"*_prefill512: one 512-token prefill, {L} x (wqkv, wo, w13, w2) at M=512; "
+                f"*_gpt2: GPT-2's decode step, {c2.n_layers} x (wqkv, wo, w1, w2) + its "
+                f"50,257-row lm_head; *_gpt2_prefill512: its 512-token prefill; *_bert_m8192: "
+                f"BERT-base's forward of 32 rows x 256 tokens, {c2.n_layers} x 4 at M=8192")
 
 
 def _lossless_k5_case(torch, QArray, w, m, x_dtype, g):
@@ -477,7 +548,7 @@ def _lossless_k5_case(torch, QArray, w, m, x_dtype, g):
 
 def check_k5(torch, timer, details):
     from jlama_tpu_torch.utils.cuda_timer import bound, INT8_OPS_PER_S
-    from jlama_tpu_torch.models.init import llama_1b_config, llama_8b_config
+    from jlama_tpu_torch.models.init import gpt2_config, llama_1b_config, llama_8b_config
     from jlama_tpu_torch.nn.qarray import QArray
     from jlama_tpu_torch.ops.q4_matmul import q4_matmul
     from jlama_tpu_torch.ops.w8a8 import (BITS_PER_WEIGHT, decode_max_m, int8_operands,
@@ -503,6 +574,14 @@ def check_k5(torch, timer, details):
     # padded stride: an odd N in bf16, and GPT-2's tied lm_head (vocabulary
     # 50,257, K 768) in a perplexity window
     cases += [("odd_n", 1001, 2048, 37, bf16, bf16), ("gpt2_lm_head", 50257, 768, PPL_SEQ, f32, f32)]
+    # GPT-2's q4s serving (phase 13): its four layer shapes at the 16-slot
+    # decode step and a 256-token chunk, its lm_head's decode steps
+    c2 = gpt2_config()
+    D2, H2 = c2.embedding_length, c2.hidden_length
+    cases += [(name, n, k, m, bf16, bf16) for name, (n, k) in (
+        ("gpt2_wqkv", (3 * D2, D2)), ("gpt2_wo", (D2, D2)), ("gpt2_w1", (H2, D2)),
+        ("gpt2_w2", (D2, H2))) for m in (16, 256)]
+    cases += [("gpt2_lm_head", c2.vocab_size, D2, m, bf16, f32) for m in (1, 16)]
     g = torch.Generator(device="cuda").manual_seed(11)
     max_decode_m = decode_max_m()
     worst = 0.0
@@ -679,11 +758,16 @@ def check_k3(torch, timer, details):
         (1, 4608, 4608, 0, 256, 50.0, 4096, bf16),
         (1, PPL_SEQ, PPL_SEQ, 0, 256, 50.0, None, f32),
     ]
+    cases = [(*c, (8, 4) if c[4] == 256 else (32, 8)) for c in cases]
+    # GPT-2's 12 heads on 12 KV heads of 64 (phase 13): a 512-token prefill, 4
+    # serving chunks, and the Engine's 1,024-token bucket of a 900-token prompt
+    cases += [(1, 512, 512, 0, 64, None, None, bf16, (12, 12)),
+              (4, 256, 1024, (0, 256, 512, 768), 64, None, None, bf16, (12, 12)),
+              (1, 1024, 1024, 0, 64, None, None, bf16, (12, 12))]
     g = torch.Generator(device="cuda").manual_seed(2)
     worst = worst_model = 0.0
-    main = host_us = gemma = None
-    for B, T, S, p0, hd, cap, win, dtype in cases:
-        H, n_kv = (8, 4) if hd == 256 else (32, 8)
+    main = host_us = gemma = gpt2 = None
+    for B, T, S, p0, hd, cap, win, dtype, (H, n_kv) in cases:
         q = torch.randn((B, H, T, hd), generator=g, device="cuda").to(dtype)
         k = torch.randn((B, n_kv, S, hd), generator=g, device="cuda").to(dtype)
         v = torch.randn((B, n_kv, S, hd), generator=g, device="cuda").to(dtype)
@@ -746,6 +830,8 @@ def check_k3(torch, timer, details):
         if hd == 256 and gemma is None:
             gemma = row
             row["host_us"] = _host_us(torch, run)
+        if H == 12 and gpt2 is None:
+            gpt2 = row
         details.append(row)
         print(f"K3 B={B} T={T:4d} S={S:5d} pos0={p0} hd={hd:3d} cap={cap} win={win} "
               f"{_dt(dtype)}: {ms:.4f} ms (plain {plain_ms:.4f}, sdpa masked {sdpa_mask_ms}, "
@@ -764,15 +850,21 @@ def check_k3(torch, timer, details):
           f"hd=256): K3 {g2['gemma2_ms']:.4f} ms, plain {g2['gemma2_plain_ms']:.4f}, SDPA "
           f"{g2['gemma2_library_ms']:.4f}, bound {g2['gemma2_bound_ms']:.4f}; host time of one "
           f"wrapper call {gemma['host_us']:.1f} us", flush=True)
+    L2 = 12  # GPT-2's layers
+    gp = {f"gpt2_{key}": gpt2[key] * L2 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    print(f"K3 one GPT-2 512-token prefill ({L2} launches at B=1, H=12, n_kv=12, T=S=512, "
+          f"hd=64): K3 {gp['gpt2_ms']:.4f} ms, plain {gp['gpt2_plain_ms']:.4f}, SDPA "
+          f"{gp['gpt2_library_ms']:.4f}, bound {gp['gpt2_bound_ms']:.4f}", flush=True)
     return dict(summed, bound_by=main["bound_by"], max_abs_err=worst,
                 max_err_from_model=worst_model, host_us=host_us,
                 sdpa_mask_ms=main["sdpa_mask_ms"] * L, sdpa_causal_ms=main["sdpa_causal_ms"] * L,
-                **g2, gemma2_bound_by=gemma["bound_by"], gemma2_host_us=gemma["host_us"],
+                **g2, gemma2_bound_by=gemma["bound_by"], gemma2_host_us=gemma["host_us"], **gp,
                 work=f"one 512-token prefill of the main path: {L} launches at B=1, H=32, "
                      "n_kv=8, T=S=512, pos0=0, hd=64; library_ms: the faster of SDPA with the "
                      f"boolean mask and SDPA is_causal=True; gemma2_*: one Gemma-2-2B 512-token "
                      f"prefill, {LG} launches at B=1, H=8, n_kv=4, T=S=512, hd=256 (phase 11 "
-                     "adds the softcap of 50, which SDPA cannot take)")
+                     "adds the softcap of 50, which SDPA cannot take); gpt2_*: one GPT-2 "
+                     f"512-token prefill, {L2} launches at B=1, H=12, n_kv=12, T=S=512, hd=64")
 
 
 # 16 rows of ragged live lengths for the paged kernels: 208 pages of 64 in
@@ -783,6 +875,9 @@ N_PAGES, PAGE, P_MAX = 512, 64, 32
 # past its 4,096-key window
 K2_LONG = [1, 4608, 4100, 3000, 4097, 64, 65, 300, 4500, 129, 1, 2049, 1800, 256, 999, 4200]
 N_PAGES_LONG, P_LONG = 1024, 72
+# GPT-2's serving case (phase 13): 16 rows within its 1,024 positions
+K2_GPT2 = [1, 1024, 700, 33, 1, 512, 65, 900, 128, 1000, 2, 64, 300, 1023, 77, 640]
+P_GPT2 = 16
 
 
 def _page_tables(torch, lengths, g, p_max=P_MAX, n_pages=N_PAGES):
@@ -844,10 +939,16 @@ def check_k2(torch, timer, details):
         ("g2 serving", 8, 4, 256, "f32", 50.0, None),
         ("g2 cap+win4096", 8, 4, 256, "bf16", 50.0, 4096),
         ("g2 dense engine", 8, 4, 256, "bf16", None, None),
+        # GPT-2's 12 heads on 12 KV heads (phase 13): 16 slots of up to 1,024
+        # keys on bf16 and q8 pools, and its dense row
+        ("gpt2 serving", 12, 12, 64, "bf16", None, None),
+        ("gpt2 serving", 12, 12, 64, "q8", None, None),
+        ("gpt2 dense engine", 12, 12, 64, "bf16", None, None),
     ]
     g = torch.Generator(device="cuda").manual_seed(4)
     gc = torch.Generator().manual_seed(4)
     worst, main, dense, gemma, gemma_dense = 0.0, None, None, None, None
+    gpt2 = gpt2_dense = None
     for label, H, n_kv, hd, kind, cap, win in cases:
         if label.endswith("dense engine"):  # [1, n_kv, S, hd] cut to the window: one page
             lens = [DENSE_LIVE]
@@ -859,6 +960,10 @@ def check_k2(torch, timer, details):
             lens = K2_LONG
             kp, vp = _pools(torch, kind, n_kv, hd, g, N_PAGES_LONG)
             pt = _page_tables(torch, K2_LONG, gc, P_LONG, N_PAGES_LONG)
+        elif label.startswith("gpt2"):
+            lens = K2_GPT2
+            kp, vp = _pools(torch, kind, n_kv, hd, g)
+            pt = _page_tables(torch, K2_GPT2, gc, P_GPT2)
         else:
             lens = K2_LENGTHS
             kp, vp = _pools(torch, kind, n_kv, hd, g)
@@ -938,6 +1043,10 @@ def check_k2(torch, timer, details):
             dense = row
         elif label == "g2 dense engine":
             gemma_dense = row
+        elif label == "gpt2 dense engine":
+            gpt2_dense = row
+        elif label.startswith("gpt2"):
+            gpt2 = gpt2 or row
         elif hd == 256:
             gemma = gemma or row
         print(f"K2 {label:13s} {kind:4s} hd={hd:3d} B={B} H={H} n_kv={n_kv} cap={cap} win={win}:"
@@ -946,7 +1055,7 @@ def check_k2(torch, timer, details):
               f"(bf16 out {err16:.3g}, {ulps16:.3g} of its limit), bit-equal repeat, host "
               f"{host_us:.1f} us a call", flush=True)
         del kp, vp
-    L, LG = 16, 26  # Llama-3.2-1B's layers, Gemma-2-2B's
+    L, LG, L2 = 16, 26, 12  # Llama-3.2-1B's layers, Gemma-2-2B's, GPT-2's
     return dict(ms=main["ms"] * L, plain_ms=main["plain_ms"] * L, library_ms=None,
                 yardstick_ms=main["yardstick_ms"] * L, bound_ms=main["bound_ms"] * L,
                 bound_by=main["bound_by"], max_abs_err=worst, host_us=main["host_us"],
@@ -958,12 +1067,19 @@ def check_k2(torch, timer, details):
                 gemma2_engine_step_ms=gemma_dense["ms"] * LG,
                 gemma2_engine_step_library_ms=gemma_dense["library_ms"] * LG,
                 gemma2_engine_step_bound_ms=gemma_dense["bound_ms"] * LG,
+                gpt2_ms=gpt2["ms"] * L2, gpt2_plain_ms=gpt2["plain_ms"] * L2,
+                gpt2_yardstick_ms=gpt2["yardstick_ms"] * L2, gpt2_bound_ms=gpt2["bound_ms"] * L2,
+                gpt2_engine_step_ms=gpt2_dense["ms"] * L2,
+                gpt2_engine_step_library_ms=gpt2_dense["library_ms"] * L2,
+                gpt2_engine_step_bound_ms=gpt2_dense["bound_ms"] * L2,
                 work=f"one 16-slot decode step: {L} launches at B=16, H=32, n_kv=8, hd=64, "
                      "bf16 pool, ragged lengths 1-2048 (K2_LENGTHS); engine_step: one "
                      f"single-stream decode step, {L} launches on the dense cache (1 row, "
                      f"{DENSE_LIVE} live keys, window {DENSE_WIN}), library: SDPA on the live "
                      f"prefix; gemma2_*: the same two at Gemma-2-2B's shapes, {LG} launches at "
-                     "H=8, n_kv=4, hd=256 (phase 11 adds the softcap of 50)")
+                     "H=8, n_kv=4, hd=256 (phase 11 adds the softcap of 50); gpt2_*: the same "
+                     f"two at GPT-2's, {L2} launches at H=12, n_kv=12, hd=64, rows of up to "
+                     "1,024 keys (K2_GPT2)")
 
 
 def _q8_close(torch, a, b) -> tuple[int, int]:
@@ -1006,10 +1122,16 @@ def check_k4(torch, timer, details):
     cases += [(label, B, T, 256, "bf16", True, 8, 4) for label, B, T in (
         ("decode", 16, 1), ("prefill chunk", 4, 256), ("engine dense", 1, 1),
         ("engine dense", 1, 512))]
+    # GPT-2's 12 query heads on 12 KV heads (phase 13), without RoPE: the
+    # serving step on bf16 and q8 pools, a chunk, the Engine's 1,024-slot cache
+    cases += [(label, B, T, 64, kind, False, 12, 12) for label, B, T, kind in (
+        ("decode", 16, 1, "bf16"), ("decode", 16, 1, "q8"), ("prefill chunk", 4, 256, "bf16"),
+        ("engine dense", 1, 1, "bf16"), ("engine dense", 1, 512, "bf16"))]
     print(f"K4: an empty launch after the flush {empty_ms:.4f} ms", flush=True)
+    gpt2 = None
     for label, B, T, hd, kind, rope, H, n_kv in cases:
         if label == "engine dense":
-            S = 2048
+            S = 1024 if H == 12 else 2048  # GPT-2's context, else a 2,048-slot cache
             caches = [torch.randn((B, n_kv, S, hd), generator=g, device="cuda").to(torch.bfloat16)
                       for _ in range(2)]
             pools = [dense_pool_view(c) for c in caches]
@@ -1116,21 +1238,27 @@ def check_k4(torch, timer, details):
                    host_us=host_us)
         details.append(row)
         main = main or row
+        if H == 12 and gpt2 is None:
+            gpt2 = row
         print(f"K4 {label:13s} {kind:4s} {'rope' if rope else 'kv  '} hd={hd:3d} H={H}/{n_kv} "
               f"B={B:2d} T={T:3d}: {ms:.4f} ms (plain {plain_ms:.4f}, unfused apply_rope x2 + K4 "
               f"{unfused_ms}, yardstick apply_rope x2 + index_put_ x2 {yard_ms}, index_put_ x2 "
               f"{lib_ms}, empty launch {empty_ms:.4f}, bound {b_ms:.5f} by {b_by}) err "
               f"{err:.3g}, bit-equal repeat, host {host_us:.1f} us a call", flush=True)
-    L = 16
+    L, L2 = 16, 12
     return dict(ms=main["ms"] * L, plain_ms=main["plain_ms"] * L, library_ms=None,
                 yardstick_ms=main["yardstick_ms"] * L, unfused_ms=main["unfused_ms"] * L,
                 empty_launch_ms=empty_ms, bound_ms=main["bound_ms"] * L, bound_by=main["bound_by"],
                 max_abs_err=worst, host_us=main["host_us"],
+                gpt2_ms=gpt2["ms"] * L2, gpt2_plain_ms=gpt2["plain_ms"] * L2,
+                gpt2_library_ms=gpt2["library_ms"] * L2, gpt2_bound_ms=gpt2["bound_ms"] * L2,
                 work=f"one 16-slot decode step: {L} launches at B=16, T=1, H=32, n_kv=8, hd=64, "
                      "bf16 pool, RoPE on q and k fused; library: none (no one PyTorch call "
                      "rotates and writes a paged pool); yardstick: the parent tree's chain as "
                      "PyTorch calls, apply_rope x2 and one index_put_ per pool; unfused: "
-                     "apply_rope x2 and K4 without RoPE")
+                     "apply_rope x2 and K4 without RoPE; gpt2_*: GPT-2's 16-slot decode step, "
+                     f"{L2} launches at H=12, n_kv=12, hd=64, bf16 pool, no RoPE; library: "
+                     "index_put_ x2")
 
 
 def _graph_check(label, graphs, before: dict, n_steps: int) -> dict:
@@ -1266,13 +1394,25 @@ def main_path(torch, card_note):
     return launches, e2e, (eng, eager, prompt)
 
 
+def _deq_cpu(torch, v):
+    """A param tree on the CPU in f32, q4 leaves dequantized (q4s as they are)."""
+    from jlama_tpu_torch.nn.qarray import QArray
+
+    if isinstance(v, list):
+        return [_deq_cpu(torch, x) for x in v]
+    if isinstance(v, dict):
+        return {k: _deq_cpu(torch, x) for k, x in v.items()}
+    if isinstance(v, QArray):
+        return v.to("cpu") if v.fmt == "q4s" else v.dequantize(torch.float32).cpu()
+    return v.float().cpu()
+
+
 def _dense_decode_logits_check(torch, params, cfg, ids) -> float:
     """The `Engine`'s dense decode on the card (a bf16 cache, bf16
     activations; K2 takes each step's attention) against the same weights on
     the CPU (dequantized once to f32, an f32 cache, the plain versions): a
     16-token prefill and 8 decode steps, relative L2 of the logits."""
     from jlama_tpu_torch.models.base import KVCache, forward_logits
-    from jlama_tpu_torch.nn.qarray import QArray
 
     toks = torch.tensor([ids])
     pos = torch.arange(len(ids))[None, :]
@@ -1287,15 +1427,8 @@ def _dense_decode_logits_check(torch, params, cfg, ids) -> float:
                                            pos[:, t:t + 1].to(device), cache, dtype=dtype)[0])
         return torch.cat(outs, dim=1).float().cpu()
 
-    def deq(v):
-        if isinstance(v, list):
-            return [deq(x) for x in v]
-        if isinstance(v, dict):
-            return {k: deq(x) for k, x in v.items()}
-        return v.dequantize(torch.float32).cpu() if isinstance(v, QArray) else v.float().cpu()
-
     gpu = run(params, "cuda", torch.bfloat16)
-    ref = run(deq(params), "cpu", torch.float32)
+    ref = run(_deq_cpu(torch, params), "cpu", torch.float32)
     finite = bool(torch.isfinite(gpu).all())
     rel = ((gpu - ref).norm() / ref.norm()).item()
     print(f"dense decode logits [1, {len(ids)}, {cfg.vocab_size}] (16-token prefill + "
@@ -1411,24 +1544,30 @@ def _reset_counts(sched):
     sched.n_prefill_calls = sched.n_decode_steps = 0
 
 
-def _check_counts(sched, cfg, label, matmul="q4_matmul") -> dict:
+def _check_counts(sched, cfg, label, matmul="q4_matmul", n_embed=0) -> dict:
     """The kernels' launches against the scheduler's own counts: a prefill
     call (T > 1) launches 4 matmuls (K1, or K5 for q4s weights), one K3 and
     one K4 per layer; a decode step 4 matmuls, one K2 and one K4 per layer,
-    and the lm_head's matmul. The other matmul kernel launches no time."""
+    and the lm_head's matmul. The other matmul kernel launches no time.
+    n_embed: forwards of the scheduler's embed_engine in the window, each 4
+    matmuls and one K3 a layer, and no cache: RoPE on q and k apart from K4
+    (2 apply_rope calls a layer)."""
     got = {k: fn.launches for k, fn in _kernel_fns().items()}
     L, n_pf, n_dec = cfg.n_layers, sched.n_prefill_calls, sched.n_decode_steps
     other = "w8a8_matmul" if matmul == "q4_matmul" else "q4_matmul"
-    expect = {matmul: n_pf * 4 * L + n_dec * (4 * L + 1), other: 0, "paged_decode": n_dec * L,
-              "flash_prefill": n_pf * L, "kv_write": (n_pf + n_dec) * L}
-    rope = _unfused_rope_calls()
-    print(f"{label}: {n_pf} prefill calls, {n_dec} decode steps; launches {got}, "
-          f"expected {expect}; apply_rope apart from K4 {rope} times (expected 0)", flush=True)
+    expect = {matmul: (n_pf + n_embed) * 4 * L + n_dec * (4 * L + 1), other: 0,
+              "paged_decode": n_dec * L, "flash_prefill": (n_pf + n_embed) * L,
+              "kv_write": (n_pf + n_dec) * L}
+    rope, rope_expect = _unfused_rope_calls(), 2 * L * n_embed
+    print(f"{label}: {n_pf} prefill calls, {n_dec} decode steps, {n_embed} embedding forwards; "
+          f"launches {got}, expected {expect}; apply_rope apart from K4 {rope} times (expected "
+          f"{rope_expect})", flush=True)
     if got != expect or min(v for k, v in got.items() if k != other) == 0:
         fail(f"{label}: launch counts {got} != expected {expect}")
-    if rope:
-        fail(f"{label}: apply_rope ran {rope} times on the card apart from K4")
-    return dict(got, prefill_calls=n_pf, decode_steps=n_dec)
+    if rope != rope_expect:
+        fail(f"{label}: apply_rope ran {rope} times on the card apart from K4 ({rope_expect} "
+             "expected)")
+    return dict(got, prefill_calls=n_pf, decode_steps=n_dec, embed_forwards=n_embed)
 
 
 def _check_finish(reqs, cfg, label):
@@ -1833,7 +1972,6 @@ def _paged_logits_check(torch, params, cfg, kv_dtype, ids) -> float:
     included); a 24-token prefill and 8 decode steps."""
     from jlama_tpu_torch.kv.paged import PagedKVCache
     from jlama_tpu_torch.models.base import forward_logits
-    from jlama_tpu_torch.nn.qarray import QArray
 
     toks = torch.tensor([ids(32)])
     pos = torch.arange(32)[None, :]
@@ -1856,17 +1994,7 @@ def _paged_logits_check(torch, params, cfg, kv_dtype, ids) -> float:
         return torch.cat(outs, dim=1).float().cpu()
 
     gpu = run(params, "cuda", torch.bfloat16)
-
-    def deq(v):
-        if isinstance(v, list):
-            return [deq(x) for x in v]
-        if isinstance(v, dict):
-            return {k: deq(x) for k, x in v.items()}
-        if isinstance(v, QArray):
-            return v.to("cpu") if v.fmt == "q4s" else v.dequantize(torch.float32).cpu()
-        return v.float().cpu()
-
-    ref = run(deq(params), "cpu", torch.float32)
+    ref = run(_deq_cpu(torch, params), "cpu", torch.float32)
     finite = bool(torch.isfinite(gpu).all())
     rel = ((gpu - ref).norm() / ref.norm()).item()
     print(f"paged logits [1, 32, {cfg.vocab_size}] ({kv_dtype} pool; 24-token prefill + 8 "
@@ -2245,20 +2373,23 @@ def _counting_prefill_groupings(rec):
         layers.moe_groups = inner
 
 
-def _expected(cfg, n_prefill, n_decode, n_gather_layers=0) -> dict:
+def _expected(cfg, n_prefill, n_decode, n_gather_layers=0, matmul="q4_matmul") -> dict:
     """A forward's launches (phases 10 and 11): per layer K1 for wqkv and wo,
     and for w13 and w2 where the FFN is dense, or else K6's grouping and its
     two matmul launches (gate and up in one, down; the router is a float
     matmul); K4; K3 (prefill) or K2 (decode); a decode step's lm_head on K1.
     n_gather_layers: MoE layers whose R took K6's prefill route, each with a
-    gather before each matmul launch (`_counting_prefill_groupings`)."""
+    gather before each matmul launch (`_counting_prefill_groupings`). matmul:
+    the kernel of the dense projections, K1 ("q4_matmul") or, for q4s
+    weights, K5 ("w8a8_matmul"); the other launches no time."""
     L, n = cfg.n_layers, n_prefill + n_decode
     k1 = 2 if cfg.n_experts else 4
     moe = L if cfg.n_experts else 0
-    return {"q4_matmul": n_prefill * k1 * L + n_decode * (k1 * L + 1),
-            "paged_decode": n_decode * L, "flash_prefill": n_prefill * L, "kv_write": n * L,
-            "w8a8_matmul": 0, "moe_q4_matmul": n * 2 * moe, "moe_groups": n * moe,
-            "moe_gather": 2 * n_gather_layers}
+    out = {"q4_matmul": 0, "paged_decode": n_decode * L, "flash_prefill": n_prefill * L,
+           "kv_write": n * L, "w8a8_matmul": 0, "moe_q4_matmul": n * 2 * moe,
+           "moe_groups": n * moe, "moe_gather": 2 * n_gather_layers}
+    out[matmul] = n_prefill * k1 * L + n_decode * (k1 * L + 1)
+    return out
 
 
 def _engine_profile(torch, eng, prompt, run, model, dense_check) -> dict:
@@ -2439,14 +2570,14 @@ def _routing_stats(torch, rec, cfg, label) -> dict:
 
 
 def _model_serving(torch, params, cfg, card_note, label, serve, mix, ids,
-                   routing=False) -> dict:
+                   routing=False, matmul="q4_matmul") -> dict:
     """Greedy requests mix [(prompt ids, new tokens)] through a BatchScheduler
     on decode graphs, submitted at once to its serving thread (launch counts
     from its own counts of prefill calls and decode steps); then the same
     requests inline through it and through the eager yardstick, whose ids
     must be identical (with routing, the eager decode steps' expert ids
     recorded: `_routing_stats`); then both profiles (`_serving_profile`, its
-    prompts from ids)."""
+    prompts from ids). matmul: the projections' kernel (`_expected`)."""
     from jlama_tpu_torch.runtime.scheduler import BatchScheduler, GenRequest, RequestState
 
     sched = BatchScheduler(params, cfg, kv_dtype=torch.bfloat16, device="cuda", fuse=False,
@@ -2466,7 +2597,7 @@ def _model_serving(torch, params, cfg, card_note, label, serve, mix, ids,
         sched.stop()
         torch.cuda.synchronize()
     n_pf, n_dec = sched.n_prefill_calls, sched.n_decode_steps
-    got, expect = _all_counts(), _expected(cfg, n_pf, n_dec, n_gather[0])
+    got, expect = _all_counts(), _expected(cfg, n_pf, n_dec, n_gather[0], matmul)
     print(f"{label} serving: {n_pf} prefill calls, {n_dec} decode steps; launches {got}, "
           f"expected {expect}", flush=True)
     if got != expect or _unfused_rope_calls():
@@ -2893,6 +3024,22 @@ def serving_front_path(torch, card_note) -> dict:
     sched = BatchScheduler(params, cfg, tok, kv_dtype=torch.bfloat16, device="cuda", **SERVE)
     sched.warmup()
     del params
+    # /v1/embeddings: an Engine over the scheduler's fused tree, as the JAX
+    # CLI's serve attaches it; its forwards are counted (each one K1 and K3
+    # launches beside the scheduler's)
+    emb = Engine(sched.params, cfg, tok, device="cuda", max_seq_len=2048, fuse=False,
+                 moe_ragged=False)
+    if any(emb.params["layers"][i][k] is not v for i, d in enumerate(sched.params["layers"])
+           for k, v in d.items()):
+        fail("serving front: the embedding Engine copied a layer weight of the scheduler's")
+    n_embed, embed_hidden = [0], emb.run_embed_hidden
+
+    def counted_hidden(*a, **kw):
+        n_embed[0] += 1
+        return embed_hidden(*a, **kw)
+
+    emb.run_embed_hidden = counted_hidden
+    sched.embed_engine = emb
     srv = OpenAIServer(sched, tok, model_name="llama-3.2-1b-random")
     loop = asyncio.new_event_loop()
     thread = threading.Thread(target=loop.run_forever, daemon=True)
@@ -2945,7 +3092,12 @@ def serving_front_path(torch, card_note) -> dict:
          chat("second turn", 20, resumed=True, max_tokens=24, stream=True),
          {"X-Jlama-Session": "front"}, True, True),
     ]
+    # /v1/embeddings beside them: a string and a list of 4, each under AVG
+    # (the default) and MODEL, one after the other
+    emb_inputs = [_front_text(rng, 30), [_front_text(rng, n) for n in (5, 20, 60, 120)]]
+    emb_reqs = [(inp, pooling) for pooling in (None, "MODEL") for inp in emb_inputs]
     results: dict = {}
+    emb_results: list = []
 
     def send(i):
         name, path, body, headers, stream, _ = reqs[i]
@@ -2955,11 +3107,17 @@ def serving_front_path(torch, card_note) -> dict:
         send(6)
         send(7)
 
+    def embeddings():
+        for inp, pooling in emb_reqs:
+            body = {"input": inp, **({"pooling": pooling} if pooling else {})}
+            emb_results.append(_http(port, "POST", "/v1/embeddings", body))
+
     _reset_counts(sched)
     graphs0 = sched.graphs.stats()
     t_start = time.perf_counter()
     threads = [threading.Thread(target=send, args=(i,)) for i in range(6)]
     threads.append(threading.Thread(target=session_pair))
+    threads.append(threading.Thread(target=embeddings))
     for t in threads:
         t.start()
     side = {p: _http(port, "GET", p) for p in ("/v1/models", "/healthz", "/metrics",
@@ -2975,8 +3133,30 @@ def serving_front_path(torch, card_note) -> dict:
     thread.join(10)
     sched.stop()
     torch.cuda.synchronize()
-    counts = _check_counts(sched, cfg, "serving front")
+    counts = _check_counts(sched, cfg, "serving front", n_embed=n_embed[0])
     graphs = _graph_check("serving front", sched.graphs, graphs0, counts["decode_steps"])
+    # each /v1/embeddings answer: the vectors of Engine.embed_batch on the same ids
+    emb_checked = []
+    for (inp, pooling), res in zip(emb_reqs, emb_results, strict=True):
+        texts = [inp] if isinstance(inp, str) else inp
+        if res[0] != 200 or res[1]["object"] != "list" or len(res[1]["data"]) != len(texts):
+            fail(f"serving front: /v1/embeddings answered {res[0]}: {str(res[1])[:200]}")
+        ids = [tok.encode(t) for t in texts]
+        want = emb.embed_batch(ids, pooling=pooling or "AVG")
+        got = [np.asarray(d["embedding"], np.float32) for d in res[1]["data"]]
+        if [d["index"] for d in res[1]["data"]] != list(range(len(texts))) \
+                or not all(np.array_equal(a, b) for a, b in zip(got, want)) \
+                or not all(np.isfinite(a).all() and a.shape == (cfg.embedding_length,)
+                           for a in got):
+            fail(f"serving front: /v1/embeddings ({len(texts)} inputs, {pooling or 'AVG'}) "
+                 "differs from Engine.embed_batch on the same ids")
+        emb_checked.append(dict(inputs=len(texts), pooling=pooling or "AVG",
+                                tokens=sum(map(len, ids)), seconds=res[2]))
+    print(f"serving front: {len(emb_reqs)} /v1/embeddings requests ({counts['embed_forwards']} "
+          "forwards of "
+          f"the embedding Engine beside the scheduler), vectors equal to Engine.embed_batch on "
+          "the same ids; seconds each " + ", ".join(f"{e['seconds']:.3f}" for e in emb_checked),
+          flush=True)
     topo = side["/cluster/topology"][1]
     for p, res in side.items():
         if res[0] != 200:
@@ -3047,13 +3227,284 @@ def serving_front_path(torch, card_note) -> dict:
     if got != expect or bool(calls) != (resp.finish_reason.name == "TOOL_CALL"):
         fail(f"serving front: the Engine's launches {got} != {expect}, or its tool calls "
              f"{calls} against finish {resp.finish_reason.name}")
-    del eng, sched
+    del eng, emb, sched
     torch.cuda.empty_cache()
-    return dict(requests=checked, wall_s=wall, tokens=n_tokens, tok_s=n_tokens / wall,
+    return dict(requests=checked, embeddings=emb_checked, wall_s=wall, tokens=n_tokens,
+                tok_s=n_tokens / wall,
                 ttft_ms_p50=_pct(ttft, 50) * 1000, ttft_ms_p95=_pct(ttft, 95) * 1000,
                 ttft_ms=[x * 1000 for x in ttft], encode_us_512=enc_us,
                 encode_tokens=len(ids512), render_us=render_us, tokenizer_s=tok_s,
                 launches=counts, graphs=graphs, engine_launches=got, metrics=metrics)
+
+
+# --------------------------------------------------------------------------
+# phase 13: GPT-2 and BERT-base (learned positions, LayerNorms, the post-norm
+# encoder, embeddings, classification, WordPiece)
+
+GPT2_SERVE = dict(n_slots=16, n_pages=512, page_size=64, prefill_chunk=256, decode_lag=4,
+                  max_seq_len=1024)
+# the Engine's prompts: 512 tokens with 128 new, and 900 with 124 new, which
+# runs to the last position of GPT-2's 1,024
+GPT2_NEW, GPT2_LONG, GPT2_TTFT = 128, 900, 3
+BERT_SEQS, BERT_POOLINGS = 64, ("AVG", "MAX", "SUM", "CLS", "MODEL")
+# bert-base-uncased's special ids
+BERT_SPECIAL = {0: "[PAD]", 100: "[UNK]", 101: "[CLS]", 102: "[SEP]", 103: "[MASK]"}
+
+
+def bert_tokenizer_json(vocab_size: int = 30522) -> dict:
+    """A WordPiece tokenizer.json in bert-base-uncased's layout, made here (the
+    card has no `tokenizers`): its special ids, [unusedN] up to 999, then
+    characters, their `##` continuations, FRONT_WORDS and syllable words
+    with `##` suffixes up to `vocab_size`; BertNormalizer (lower case),
+    BertPreTokenizer, [CLS] ... [SEP]."""
+    vocab = {}
+    for i in range(1000):
+        vocab[BERT_SPECIAL.get(i, f"[unused{i}]")] = i
+    chars = "abcdefghijklmnopqrstuvwxyz0123456789.,!?'-:;()"
+    words = list(chars) + ["##" + c for c in chars] + list(FRONT_WORDS)
+    cons, vows = "bcdfghjklmnprstvwz", "aeiou"
+    syll = [c + v for c in cons for v in vows] + [c + v + d for c in cons for v in vows
+                                                 for d in "nrst"]
+    words += syll + ["##" + x for x in syll]
+    words += [a + b for a in syll for b in syll]
+    for w in words:
+        if len(vocab) >= vocab_size:
+            break
+        vocab.setdefault(w, len(vocab))
+    added = [{"id": i, "content": t, "single_word": False, "lstrip": False, "rstrip": False,
+              "normalized": False, "special": True} for i, t in BERT_SPECIAL.items()]
+    return {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": {"type": "BertNormalizer", "clean_text": True,
+                       "handle_chinese_chars": True, "strip_accents": None, "lowercase": True},
+        "pre_tokenizer": {"type": "BertPreTokenizer"},
+        "post_processor": {"type": "TemplateProcessing",
+                           "single": [{"SpecialToken": {"id": "[CLS]", "type_id": 0}},
+                                      {"Sequence": {"id": "A", "type_id": 0}},
+                                      {"SpecialToken": {"id": "[SEP]", "type_id": 0}}],
+                           "pair": [], "special_tokens": {}},
+        "decoder": {"type": "WordPiece", "prefix": "##", "cleanup": True},
+        "model": {"type": "WordPiece", "unk_token": "[UNK]", "continuing_subword_prefix": "##",
+                  "max_input_chars_per_word": 100, "vocab": vocab},
+    }
+
+
+def _fresh_memory(torch) -> int:
+    """Collect what earlier phases left unreachable, empty the cache, reset
+    the peak; the bytes still allocated."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def gpt2_path(torch, card_note) -> dict:
+    """Phase 13a: GPT-2 at full width (12 layers, n_embd 768, 12 heads on 12 KV
+    heads of 64, learned positions, LayerNorms, biases on every projection,
+    its tied 50,257-row lm_head; random JQ4 weights from seed 0): the Engine
+    and the BatchScheduler (q4 and q4s) on decode graphs beside their eager
+    yardsticks, and the dense, paged and q4s paged logits against the plain
+    path in f32 on the CPU."""
+    from jlama_tpu_torch.models.base import fuse_params
+    from jlama_tpu_torch.models.init import gpt2_config, random_q4_params
+    from jlama_tpu_torch.ops.w8a8 import prepare_params_for_w8a8
+
+    held = _fresh_memory(torch)
+    cfg = gpt2_config()
+    t0 = time.perf_counter()
+    params = random_q4_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    gb = (torch.cuda.memory_allocated() - held) / 1e9
+    print(f"gpt2: GPT-2 shapes ({cfg.n_layers} layers, D {cfg.embedding_length}, FFN "
+          f"{cfg.hidden_length}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_size}, "
+          f"{cfg.context_length} learned positions, vocabulary {cfg.vocab_size}, tied), random "
+          f"JQ4 (seed 0): {gb:.3f} GB on the card, made in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    rng = torch.Generator().manual_seed(13)
+    prompt = torch.randint(0, cfg.vocab_size, (512,), generator=rng).tolist()
+    long = torch.randint(0, cfg.vocab_size, (GPT2_LONG,), generator=rng).tolist()
+    engine, eng = _model_engine(torch, params, cfg, card_note, "gpt2", "GPT-2",
+                                GPT2_SERVE["max_seq_len"],
+                                [("main", prompt, GPT2_NEW),
+                                 ("long", long, cfg.context_length - GPT2_LONG)],
+                                GPT2_TTFT, dense_check=True)
+    print(f"gpt2 engine: the {GPT2_LONG}-token request generated "
+          f"{cfg.context_length - GPT2_LONG} tokens, to position {cfg.context_length - 1}",
+          flush=True)
+    # 8 greedy requests from a seed: prompts of 32-900 tokens, 32-64 new
+    gs = torch.Generator().manual_seed(14)
+
+    def sids(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gs).tolist()
+
+    mix = [(sids(int(torch.randint(32, 901, (1,), generator=gs))),
+            int(torch.randint(32, 65, (1,), generator=gs))) for _ in range(8)]
+    serving = _model_serving(torch, eng.params, cfg, card_note, "gpt2", GPT2_SERVE, mix, sids)
+    q4s = _model_serving(torch, eng.params, cfg, card_note, "gpt2 q4s",
+                         dict(GPT2_SERVE, weight_format="q4s"), mix, sids, matmul="w8a8_matmul")
+    del eng
+    torch.cuda.empty_cache()
+    g = torch.Generator().manual_seed(15)
+
+    def ids(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+
+    t1 = time.perf_counter()
+    logits = dict(dense=_dense_decode_logits_check(torch, params, cfg, ids(24)),
+                  paged=_paged_logits_check(torch, params, cfg, torch.bfloat16, ids),
+                  paged_q4s=_paged_logits_check(
+                      torch, prepare_params_for_w8a8(fuse_params(params)), cfg, torch.bfloat16,
+                      ids),
+                  seconds=time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"gpt2: peak memory of the phase {peak:.2f} GB ({held / 1e9:.3f} GB held before it; "
+          f"weights {gb:.3f} GB) on {card_note}", flush=True)
+    return dict(logits_rel_l2=logits, engine=engine, serving=serving, q4s_serving=q4s,
+                weights_gb=gb, held_before_gb=held / 1e9, peak_memory_gb=peak)
+
+
+def _bert_profile(torch, eng, seqs) -> dict:
+    """Device ms by kernel group and the busy share of one embed_batch (AVG)
+    over the sequences, torch.profiler on: K1, the dense attention (its
+    einsums, mask and softmax), the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.embed_batch(seqs, pooling="AVG")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                      for e in prof.key_averages() if str(e.device_type).endswith("CUDA")),
+                     reverse=True)
+    dev_ms = sum(k[0] for k in kernels)
+    if dev_ms <= 0:
+        fail("bert profile: the profiler saw no device time")
+    attn = re.compile(r"softmax|gemm|bmm|cutlass|where|masked|xmma|sm90", re.I)
+    groups = {"q4_matmul": 0.0, "attention": 0.0, "other": 0.0}
+    for ms, _, key in kernels:
+        groups["q4_matmul" if K1_NAMES.search(key) else
+               "attention" if attn.search(key) else "other"] += ms
+    n_ops = sum(c for _, c, _ in kernels)
+    print(f"profile bert embed_batch ({len(seqs)} sequences, AVG): wall {wall_ms:.2f} ms "
+          f"(profiler on), device {dev_ms:.2f} ms, busy share {dev_ms / wall_ms:.3f}, {n_ops} "
+          "device ops; by group " + ", ".join(f"{k} {v:.2f} ms" for k, v in groups.items()),
+          flush=True)
+    for ms, c, key in kernels[:12]:
+        print(f"  {ms:8.3f} ms {c:6d}x {key[:90]}")
+    return dict(wall_ms=wall_ms, device_ms=dev_ms, busy_share=dev_ms / wall_ms,
+                device_ops=n_ops, by_group_ms=groups,
+                top=[dict(ms=ms, count=c, kernel=key[:90]) for ms, c, key in kernels[:12]])
+
+
+def bert_path(torch, card_note) -> dict:
+    """Phase 13b: BERT-base at full width (12 layers, hidden 768, 12 heads of
+    64, intermediate 3,072, 512 positions, 2 token types, a 2-label
+    classifier; random JQ4 weights from seed 0) through Engine.embed_batch
+    under each pooling, one short sequence (K1's M <= 16 route), classify on
+    texts through a WordPiece tokenizer made here, against the plain path in
+    f32 on the CPU."""
+    import numpy as np
+
+    from jlama_tpu_torch.models.init import bert_base_config, random_q4_params
+    from jlama_tpu_torch.runtime.engine import Engine
+    from jlama_tpu_torch.tokenizers import Tokenizer, parse_tokenizer_json
+
+    held = _fresh_memory(torch)
+    cfg = bert_base_config()
+    t0 = time.perf_counter()
+    params = random_q4_params(cfg, seed=0, device="cuda")
+    tok = Tokenizer(parse_tokenizer_json(bert_tokenizer_json(cfg.vocab_size)))
+    torch.cuda.synchronize()
+    gb = (torch.cuda.memory_allocated() - held) / 1e9
+    if len(tok.spec.vocab) != cfg.vocab_size:
+        fail(f"bert: tokenizer of {len(tok.spec.vocab)} ids for {cfg.vocab_size}")
+    eng = Engine(params, cfg, tok, device="cuda")
+    L = cfg.n_layers
+    print(f"bert: BERT-base shapes ({L} layers, D {cfg.embedding_length}, FFN "
+          f"{cfg.hidden_length}, {cfg.n_heads} heads of {cfg.head_size}, {cfg.context_length} "
+          f"positions, {cfg.type_vocab_size} token types, vocabulary {cfg.vocab_size}, labels "
+          f"{cfg.classification_labels}), random JQ4 (seed 0): {gb:.3f} GB on the card, made in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    rng = np.random.default_rng(16)
+    lens = rng.integers(8, cfg.context_length + 1, BERT_SEQS)
+    lens[:2] = (8, cfg.context_length)
+    seqs = [[101] + rng.integers(1000, cfg.vocab_size, n - 2).tolist() + [102] for n in lens]
+    n_tok = int(lens.sum())
+    n_fwd = -(-BERT_SEQS // 32)
+    eng.embed_batch(seqs, pooling="AVG")  # warm-up: the allocator, cuBLAS
+    torch.cuda.synchronize()
+    runs, vecs = {}, {}
+    for pooling in BERT_POOLINGS:
+        _reset_all_counts()
+        t1 = time.perf_counter()
+        vecs[pooling] = eng.embed_batch(seqs, pooling=pooling)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        got = _all_counts()
+        expect = dict({k: 0 for k in got}, q4_matmul=4 * L * n_fwd)
+        v = np.stack(vecs[pooling])
+        if got != expect or v.shape != (BERT_SEQS, cfg.embedding_length) \
+                or not np.isfinite(v).all() or (pooling in ("AVG", "MAX", "SUM") and not
+                                                np.allclose(np.linalg.norm(v, axis=1), 1, atol=1e-4)):
+            fail(f"bert embed_batch ({pooling}): launches {got} (expected {expect}), vectors "
+                 f"{v.shape}, finite {np.isfinite(v).all()}")
+        runs[pooling] = dict(seconds=wall, seq_s=BERT_SEQS / wall, tok_s=n_tok / wall)
+        print(f"bert embed_batch {pooling}: {BERT_SEQS} sequences ({n_tok} tokens, lengths "
+              f"{lens.min()}-{lens.max()}, {n_fwd} forwards of 32 rows) in {wall * 1e3:.1f} ms = "
+              f"{BERT_SEQS / wall:.1f} seq/s, {n_tok / wall:.0f} tok/s; launches {got} on "
+              f"{card_note}", flush=True)
+    # one short sequence: a 16-token bucket, M = 16 (K1's mma route)
+    _reset_all_counts()
+    short = eng.embed_tokens(seqs[0], pooling="CLS")
+    torch.cuda.synchronize()
+    got = _all_counts()
+    if got != dict({k: 0 for k in got}, q4_matmul=4 * L) or not np.isfinite(short).all():
+        fail(f"bert embed_tokens (8 tokens): launches {got}, expected {4 * L} K1")
+    prof = _bert_profile(torch, eng, seqs)
+    # against the plain path in f32 on the CPU: 6 sequences (8 to 512 tokens)
+    # under each pooling (one forward, pooled 5 ways), and classify on texts
+    sub = [seqs[0], seqs[1]] + [s for s in seqs[2:] if 30 < len(s) < 500][:4]
+    cpu = Engine(_deq_cpu(torch, params), cfg, tok, device="cpu", compute_dtype=torch.float32,
+                 kv_dtype=torch.float32)
+    memo, run_hidden = {}, cpu.run_embed_hidden
+
+    def hidden_once(toks, pos, tt, lens_=None):
+        key = (np.asarray(toks).tobytes(), np.asarray(lens_).tobytes())
+        if key not in memo:
+            memo[key] = run_hidden(toks, pos, tt, lens_)
+        return memo[key]
+
+    cpu.run_embed_hidden = hidden_once
+    t2 = time.perf_counter()
+    worst = {}
+    for pooling in BERT_POOLINGS:
+        gv, rv = eng.embed_batch(sub, pooling=pooling), cpu.embed_batch(sub, pooling=pooling)
+        worst[pooling] = max(float(np.linalg.norm(a - b) / np.linalg.norm(b))
+                             for a, b in zip(gv, rv))
+    texts = [" ".join(FRONT_WORDS[int(i)] for i in rng.integers(0, len(FRONT_WORDS), n))
+             for n in (4, 16, 60)]
+    probs = [(eng.classify(t), cpu.classify(t)) for t in texts]
+    p_err = max(abs(a[k] - b[k]) for a, b in probs for k in a)
+    cpu_s = time.perf_counter() - t2
+    print(f"bert vs plain f32 on the CPU ({len(sub)} sequences of {[len(x) for x in sub]} "
+          f"tokens): pooled rel L2 {worst} (limit {LOGITS_REL_L2}); classify of {len(texts)} "
+          f"texts ({[len(tok.encode(t)) for t in texts]} tokens): probabilities within {p_err:.3g}"
+          f" (limit 2e-2); {probs[0][0]}; {cpu_s:.1f} s", flush=True)
+    if not all(w < LOGITS_REL_L2 for w in worst.values()) or not p_err < 2e-2 \
+            or not all(set(a) == {"LABEL_0", "LABEL_1"} for a, _ in probs):
+        fail(f"bert: pooled rel L2 {worst}, classify within {p_err}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"bert: peak memory of the phase {peak:.2f} GB ({held / 1e9:.3f} GB held before it; "
+          f"weights {gb:.3f} GB) on {card_note}", flush=True)
+    del eng, cpu
+    torch.cuda.empty_cache()
+    return dict(embed_batch=runs, sequences=BERT_SEQS, tokens=n_tok, forwards=n_fwd,
+                launches=dict(q4_matmul=4 * L * n_fwd), pooled_rel_l2=worst,
+                classify_max_abs_err=p_err, profile=prof, weights_gb=gb,
+                held_before_gb=held / 1e9, peak_memory_gb=peak)
 
 
 def main() -> None:
@@ -3162,6 +3613,23 @@ def main() -> None:
         {k: v for k, v in out["serving_front"].items() if k not in ("requests", "metrics")}),
         flush=True)
 
+    # 13. GPT-2 and BERT-base: learned positions, LayerNorms, the post-norm encoder,
+    # embeddings and classification
+    torch.cuda.empty_cache()
+    gpt2 = gpt2_path(torch, smi)
+    out["gpt2"] = gpt2
+    print(f"card {smi}: gpt2 " + json.dumps(
+        {"engine": {k: v for k, v in gpt2["engine"].items() if not k.startswith("profile")},
+         "serving": {k: v for k, v in gpt2["serving"].items() if not k.startswith("profile")},
+         "q4s_serving": {k: v for k, v in gpt2["q4s_serving"].items()
+                         if not k.startswith("profile")},
+         "logits_rel_l2": gpt2["logits_rel_l2"], "peak_memory_gb": gpt2["peak_memory_gb"]}),
+        flush=True)
+    bert = bert_path(torch, smi)
+    out["bert"] = bert
+    print(f"card {smi}: bert " + json.dumps({k: v for k, v in bert.items() if k != "profile"}),
+          flush=True)
+
     routes = {
         "q4_matmul": ("jlama_tpu_torch/csrc/q4_matmul.cu", "jlama_tpu/ops/pallas_q4.py:113"),
         "paged_decode": ("jlama_tpu_torch/csrc/paged_decode.cu",
@@ -3178,19 +3646,23 @@ def main() -> None:
     kernels = []
     for k in KERNELS + ("moe_q4_matmul",):
         src, rep = routes[k]
-        if k == "w8a8_matmul":  # its path: q4s serving (phase 7)
+        if k == "w8a8_matmul":  # its path: q4s serving (phase 7), and GPT-2's (phase 13)
             launches = dict(launches=q4s_launches[k], launches_engine=None,
-                            launches_ppl=out["perplexity"]["q4s"]["launches"][k])
+                            launches_ppl=out["perplexity"]["q4s"]["launches"][k],
+                            launches_gpt2_q4s=gpt2["q4s_serving"]["launches"][k])
         elif k == "moe_q4_matmul":  # its path: Mixtral serving and Engine (phase 10)
             launches = dict(launches=moe["serving"]["launches"][k],
                             launches_engine=moe["engine"]["launches"][k],
                             launches_grouping=moe["serving"]["launches"]["moe_groups"],
                             launches_gather=moe["serving"]["launches"]["moe_gather"])
-        else:  # phase 6 / phase 4, and Gemma 2's serving / Engine (phase 11)
+        else:  # phase 6 / phase 4, Gemma 2's serving / Engine (phase 11), GPT-2's and BERT's
             launches = dict(launches=serving_launches.get(k),
                             launches_engine=engine_launches.get(k),
                             launches_gemma2=g2["serving"]["launches"][k],
-                            launches_gemma2_engine=g2["engine"]["launches"][k])
+                            launches_gemma2_engine=g2["engine"]["launches"][k],
+                            launches_gpt2=gpt2["serving"]["launches"][k],
+                            launches_gpt2_engine=gpt2["engine"]["launches"][k],
+                            launches_bert=bert["launches"].get(k, 0))
         row = dict(name=k, route="cuda", source=src, replaces=rep, **launches)
         row.update(kern[k])
         kernels.append(row)

@@ -4,9 +4,13 @@
 Param tree layout (leaves are tensors or QArrays):
   params = {
     "embed": [V, D],                     # token embeddings
+    "wpe": [P, D],                       # learned positions (gpt2/bert)
+    "token_type_embed": [2, D],          # bert
+    "embed_norm.weight/.bias": [D],      # bert's embedding LayerNorm
     "layers": [ {key: tensor} per layer ],  # MoE: router + experts.w1/w2/w3 [E, ...]
-    "final_norm.weight": [D],
+    "final_norm.weight" (+ ".bias"): [D],  # absent for bert
     "lm_head": [V, D],                   # absent when tied
+    "pooler.weight/.bias", "classifier.weight/.bias"  # bert's heads
   }
 """
 
@@ -44,7 +48,13 @@ class KVCache(NamedTuple):
         return self.layers[0].k.shape[2]
 
 
-def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor, dtype) -> torch.Tensor:
+def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor, positions: torch.Tensor,
+           token_types: torch.Tensor | None, dtype) -> torch.Tensor:
+    """Token rows, plus learned positions and token types where the model has
+    them, then BERT's embedding LayerNorm (`jlama_tpu/models/base.py:_embed`).
+    Positions past the table read its last row, as JAX's gather clamps an
+    out-of-range index: a chunked prefill's pads reach such positions when
+    the page size does not divide the context."""
     emb = params["embed"]
     if isinstance(emb, QArray):
         # gather the rows FIRST, then dequantize only those
@@ -53,16 +63,34 @@ def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor, dtype) -> torch
         x = emb[tokens].to(torch.float32)
     if cfg.embedding_scale is not None:
         x = x * cfg.embedding_scale
-    return x.to(dtype)
+    if cfg.learned_pos_embeddings:
+        wpe = params["wpe"]
+        x = x + wpe[positions.clamp(0, wpe.shape[0] - 1)].to(torch.float32)
+    if cfg.type_vocab_size and "token_type_embed" in params:
+        tt = params["token_type_embed"]
+        x = x + (tt[0] if token_types is None else tt[token_types]).to(torch.float32)
+    x = x.to(dtype)
+    if "embed_norm.weight" in params:  # bert
+        x = L.layer_norm(x, params["embed_norm.weight"], params["embed_norm.bias"], cfg.norm_eps)
+    return x
 
 
 def _block(x, layer_params: dict, cfg: ModelConfig, positions, cache, cos, sin,
-           sliding_window, attn_window=None):
-    """One pre-norm transformer block."""
+           sliding_window, attn_window=None, seq_lengths=None):
+    """One transformer block: pre-norm, or BERT's post-norm encoder block."""
+    if cfg.model_type == "bert":  # attention, add, norm; MLP, add, norm
+        attn_out, cache = L.self_attention_block(
+            x, layer_params, cfg, positions, cache, cos, sin, sliding_window, attn_window,
+            seq_lengths,
+        )
+        x = L.norm(x + attn_out, layer_params, cfg, "attn_norm")
+        x = L.norm(x + L.mlp_block(x, layer_params, cfg), layer_params, cfg, "ff_norm")
+        return x, cache
     rm = cfg.residual_multiplier  # granite; None: 1 (no multiply launched)
     h = L.norm(x, layer_params, cfg, "attn_norm")
     attn_out, cache = L.self_attention_block(
         h, layer_params, cfg, positions, cache, cos, sin, sliding_window, attn_window,
+        seq_lengths,
     )
     if cfg.post_attn_norm:
         attn_out = L.norm(attn_out, layer_params, cfg, "post_attn_norm")
@@ -75,7 +103,11 @@ def _block(x, layer_params: dict, cfg: ModelConfig, positions, cache, cos, sin,
     return x, cache
 
 
-def rope_inv_freq(cfg: ModelConfig, device) -> torch.Tensor:
+def rope_inv_freq(cfg: ModelConfig, device) -> torch.Tensor | None:
+    """The RoPE inverse frequencies on `device`; None for a model without
+    RoPE (learned positions: `rope_theta` 0)."""
+    if not cfg.rope_theta:
+        return None
     return torch.from_numpy(rope_frequencies(cfg)).to(device)
 
 
@@ -88,6 +120,8 @@ def forward_hidden(
     dtype=torch.bfloat16,
     attn_window: int | None = None,
     inv_freq: torch.Tensor | None = None,
+    token_types: torch.Tensor | None = None,
+    seq_lengths: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, KVCache | tuple[list, torch.Tensor] | None]:
     """Run embedding + all transformer layers. Returns (hidden [B,T,D], cache).
 
@@ -100,12 +134,12 @@ def forward_hidden(
     inv_freq: the RoPE inverse frequencies on the tokens' device (see
     `rope_inv_freq`); a caller in a decode loop passes them so the step does
     no host-to-device copy, which would synchronize the stream.
+
+    token_types: BERT's segment ids [B, T] (None: all 0). seq_lengths: [B]
+    valid tokens per right-padded row; the dense attention path masks the
+    keys past them (a batch of embeddings).
     """
-    if cfg.model_type in ("gpt2", "bert") or cfg.learned_pos_embeddings:
-        raise NotImplementedError(
-            f"{cfg.model_type}: only the Llama-family and Mixtral decoders are ported"
-        )
-    x = _embed(params, cfg, tokens, dtype)
+    x = _embed(params, cfg, tokens, positions, token_types, dtype)
     if cfg.rope_theta:
         if inv_freq is None:
             inv_freq = rope_inv_freq(cfg, tokens.device)
@@ -126,7 +160,7 @@ def forward_hidden(
         else:
             states, page_tables = kv_cache
             cache_l = L.PagedLayerCache(states[l].k_pool, states[l].v_pool, page_tables)
-        x, _ = _block(x, layer, cfg, positions, cache_l, cos, sin, sw, attn_window)
+        x, _ = _block(x, layer, cfg, positions, cache_l, cos, sin, sw, attn_window, seq_lengths)
     return x, kv_cache
 
 

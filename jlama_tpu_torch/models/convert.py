@@ -3,7 +3,9 @@
 `from_jax_params(tree)` takes the tree of `jlama_tpu` (from its
 `load_params` or `init_params`) with every leaf already turned into numpy
 (the port imports nothing of JAX), a QArray leaf given as the tuple
-`(data, scales, fmt)`. Layers may be stacked (`{key: [L, ...]}`) or a
+`(data, scales, fmt)`. Every top-level leaf comes across as it is (GPT-2's
+`wpe` and final-norm bias, BERT's token types, embedding norm, pooler and
+classifier too). Layers may be stacked (`{key: [L, ...]}`) or a
 per-layer list of dicts; a MoE layer's stacked expert QArrays [L, E, N, K/2]
 and its router [L, E, D] become per-layer [E, ...] leaves like any other. Leaves are q4, q8, q4s or float; numpy arrays of the
 `bfloat16` extension dtype are read through their 16-bit patterns. A q4s leaf

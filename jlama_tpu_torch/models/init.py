@@ -8,9 +8,18 @@ seeded `torch.Generator`. A MoE config (`cfg.n_experts`) gets the JAX
 package's expert layout (`jlama_tpu/models/init.py:51-55`) in place of w1,
 w2, w3: a float `router` [E, D] and the expert stacks `experts.w1`,
 `experts.w3` [E, H, D] and `experts.w2` [E, D, H], q4 where the rest is.
+
+GPT-2 and BERT (learned positions) get the loader's layout for them: a
+two-layer MLP (w1, w2, no w3), LayerNorms with biases, biases on every
+projection, `wpe`, and for BERT the token types, the embedding norm, no
+final norm, the pooler and, with labels, the classifier. Their norm
+weights, biases and position rows are drawn away from the ones and zeros a
+fresh model starts with, so that a bias or a norm in the wrong slot shows.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -30,21 +39,71 @@ def _shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     if cfg.n_experts:
         E = cfg.n_experts
         out.update({"experts.w1": (E, H, D), "experts.w2": (E, D, H), "experts.w3": (E, H, D)})
+    elif cfg.mlp_bias:  # gpt2/bert: the two-layer MLP
+        out.update({"w1": (H, D), "w2": (D, H)})
     else:
         out.update({"w1": (H, D), "w2": (D, H), "w3": (H, D)})
     return out
 
 
-def _norms_and_biases(cfg: ModelConfig, device) -> dict:
-    """A layer's norm weights (ones, f32: the pre-norms, and Gemma 2's
-    post-norms) and, where the config has them, zero q/k/v biases."""
+def _bias_shapes(cfg: ModelConfig) -> dict[str, int]:
+    """The layer's projection biases: q/k/v (qwen2, gpt2, bert), and wo, w1,
+    w2 where the config has them (gpt2, bert)."""
+    shapes = _shapes(cfg)
+    names = ["wq", "wk", "wv"] * cfg.attn_qkv_bias + ["wo"] * cfg.attn_out_bias \
+        + ["w1", "w2"] * cfg.mlp_bias
+    return {f"{k}.bias": shapes[k][0] for k in names}
+
+
+def _norms_and_biases(cfg: ModelConfig, device, draw=None) -> dict:
+    """A layer's norm weights (the pre-norms, and Gemma 2's post-norms; with
+    LayerNorm their biases too) and its projection biases, f32. draw(n, base)
+    gives n values around base; None gives base itself (ones and zeros)."""
     D = cfg.embedding_length
     names = ["attn_norm", "ff_norm"] + ["post_attn_norm"] * cfg.post_attn_norm \
         + ["post_ff_norm"] * cfg.post_ff_norm
-    out = {f"{n}.weight": torch.ones(D, dtype=torch.float32, device=device) for n in names}
-    if cfg.attn_qkv_bias:
-        for k in ("wq", "wk", "wv"):
-            out[k + ".bias"] = torch.zeros(_shapes(cfg)[k][0], device=device)
+
+    def vec(n, base):
+        if draw is None:
+            return torch.full((n,), float(base), dtype=torch.float32, device=device)
+        return draw(n, base)
+
+    out = {f"{n}.weight": vec(D, 1.0) for n in names}
+    if cfg.norm_type == "layernorm":
+        out.update({f"{n}.bias": vec(D, 0.0) for n in names})
+    out.update({k: vec(n, 0.0) for k, n in _bias_shapes(cfg).items()})
+    return out
+
+
+def _top_level(cfg: ModelConfig, device, draw=None) -> dict:
+    """The top-level leaves besides the embedding and the lm_head: the final
+    norm (none for BERT), and for learned positions `wpe`, BERT's token types,
+    embedding norm, pooler ([D, D] f32: a plain product, as in the JAX
+    package) and, with labels, its classifier."""
+    D = cfg.embedding_length
+
+    def vec(*shape, base):
+        if draw is None:
+            return torch.full(shape, float(base), dtype=torch.float32, device=device)
+        return draw(math.prod(shape), base).reshape(shape)
+
+    out = {}
+    if cfg.model_type != "bert":
+        out["final_norm.weight"] = vec(D, base=1.0)
+        if cfg.norm_type == "layernorm":
+            out["final_norm.bias"] = vec(D, base=0.0)
+    if cfg.learned_pos_embeddings:
+        out["wpe"] = vec(cfg.context_length, D, base=0.0)
+    if cfg.model_type == "bert":
+        out["token_type_embed"] = vec(cfg.type_vocab_size, D, base=0.0)
+        out["embed_norm.weight"] = vec(D, base=1.0)
+        out["embed_norm.bias"] = vec(D, base=0.0)
+        out["pooler.weight"] = vec(D, D, base=0.0) * 0.2  # std 0.02, as the matrices
+        out["pooler.bias"] = vec(D, base=0.0)
+        if cfg.classification_labels:
+            n = len(cfg.classification_labels)
+            out["classifier.weight"] = vec(n, D, base=0.0) * 0.2
+            out["classifier.bias"] = vec(n, base=0.0)
     return out
 
 
@@ -73,21 +132,26 @@ def init_params(
                           torch.from_numpy(scales).to(device), "q4")
         return torch.from_numpy(a).to(device=device, dtype=dtype)
 
+    def draw(n, base):  # learned-position models: around base, std 0.1
+        a = rng.standard_normal(n, dtype=np.float32) * np.float32(0.1) + np.float32(base)
+        return torch.from_numpy(a).to(device)
+
+    away = draw if cfg.learned_pos_embeddings else None
     layers = []
     for _ in range(cfg.n_layers):
         layer = {k: linear_leaf(*s) for k, s in _shapes(cfg).items()}
         if cfg.n_experts:
             layer["router"] = torch.from_numpy(w(cfg.n_experts, D)).to(device=device,
                                                                        dtype=dtype)
-        layer.update(_norms_and_biases(cfg, device))
+        layer.update(_norms_and_biases(cfg, device, away))
         layers.append(layer)
 
     params: dict = {
         "embed": torch.from_numpy(w(V, D)).to(device=device, dtype=dtype),
         "layers": layers,
-        "final_norm.weight": torch.ones(D, dtype=torch.float32, device=device),
     }
-    if not cfg.tie_word_embeddings:
+    params.update(_top_level(cfg, device, away))
+    if not cfg.tie_word_embeddings and cfg.model_type != "bert":  # bert has no lm_head
         params["lm_head"] = torch.from_numpy(w(V, D)).to(device=device, dtype=dtype)
     return params
 
@@ -101,7 +165,10 @@ def random_q4_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     are ones (Gemma 2's post-norms too), q/k/v biases zeros where the config
     has them, as `init_params` makes them. A MoE router is bf16 normal with
     std 0.02; the expert stacks are drawn one expert matrix at a time into
-    their [E, N, K] tensors."""
+    their [E, N, K] tensors. Learned-position models (GPT-2, BERT) draw their
+    norm weights, biases, `wpe`, token types and heads as normals of std 0.1
+    around their ones and zeros, after every matrix of their layer; the
+    draws of every other config are as they were."""
     device = resolve_device(device)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
@@ -125,17 +192,21 @@ def random_q4_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
             s.copy_(m.scales)
         return QArray(data, scales, "q4")
 
+    def draw(n, base):  # learned-position models: around base, std 0.1
+        return torch.randn((n,), generator=g, device=device) * 0.1 + base
+
+    away = draw if cfg.learned_pos_embeddings else None
     layers = []
     for _ in range(cfg.n_layers):
         layer = {k: q4(*s) for k, s in _shapes(cfg).items()}
         if cfg.n_experts:
             layer["router"] = (torch.randn((cfg.n_experts, D), generator=g, device=device)
                                * 0.02).to(torch.bfloat16)
-        layer.update(_norms_and_biases(cfg, device))
+        layer.update(_norms_and_biases(cfg, device, away))
         layers.append(layer)
-    params = {"embed": q4(cfg.vocab_size, D), "layers": layers,
-              "final_norm.weight": torch.ones(D, dtype=torch.float32, device=device)}
-    if not cfg.tie_word_embeddings:
+    params = {"embed": q4(cfg.vocab_size, D), "layers": layers}
+    params.update(_top_level(cfg, device, away))
+    if not cfg.tie_word_embeddings and cfg.model_type != "bert":  # bert has no lm_head
         params["lm_head"] = q4(cfg.vocab_size, D)
     return params
 
@@ -242,5 +313,48 @@ def gemma2_2b_config() -> ModelConfig:
             "eos_token_id": 1,
             "hidden_activation": "gelu_pytorch_tanh",
             "tie_word_embeddings": True,
+        }
+    )
+
+
+def gpt2_config() -> ModelConfig:
+    """openai-community/gpt2 shapes (its published config.json): 12 layers,
+    n_embd 768, 12 heads of 64, FFN 3072, vocabulary 50,257, 1,024 learned
+    positions, gelu_new, LayerNorm eps 1e-5, tied lm_head."""
+    return from_hf_config(
+        {
+            "model_type": "gpt2",
+            "n_embd": 768,
+            "n_head": 12,
+            "n_layer": 12,
+            "n_positions": 1024,
+            "n_inner": None,
+            "vocab_size": 50257,
+            "layer_norm_epsilon": 1e-5,
+            "activation_function": "gelu_new",
+            "bos_token_id": 50256,
+            "eos_token_id": 50256,
+        }
+    )
+
+
+def bert_base_config() -> ModelConfig:
+    """google-bert/bert-base-uncased shapes (its published config.json): 12
+    layers, hidden 768, 12 heads of 64, intermediate 3072, vocabulary 30,522,
+    512 positions, 2 token types, gelu, LayerNorm eps 1e-12; with a 2-label
+    `id2label`, as a sequence-classification fine-tune carries one."""
+    return from_hf_config(
+        {
+            "model_type": "bert",
+            "hidden_size": 768,
+            "num_attention_heads": 12,
+            "num_hidden_layers": 12,
+            "intermediate_size": 3072,
+            "vocab_size": 30522,
+            "max_position_embeddings": 512,
+            "type_vocab_size": 2,
+            "layer_norm_eps": 1e-12,
+            "hidden_act": "gelu",
+            "id2label": {"0": "LABEL_0", "1": "LABEL_1"},
         }
     )

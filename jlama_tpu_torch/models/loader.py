@@ -1,12 +1,17 @@
 """Weight loading: HF safetensors checkpoints → per-layer torch param trees
-(counterpart of `jlama_tpu/models/loader.py`, its Llama-family, Gemma 2 and
-Mixtral maps).
+(counterpart of `jlama_tpu/models/loader.py`: its Llama-family, Gemma 2,
+Mixtral, GPT-2 and BERT maps).
 
 Dtype handling as in the JAX package: F16 and BF16 widen to f32 on the host
 and then take `float_dtype`; Q4 and I8 (+ `.qb` scales) become QArrays in the
 checkpoint's layout; norms load as f32. Layers stay a per-layer list on the
-chosen device; a Mixtral expert projection is one [E, out, in] leaf. The
-other architectures' maps come in a later slice.
+chosen device; a Mixtral expert projection is one [E, out, in] leaf.
+
+GPT-2 as in the JAX package: its Conv1D matrices ([in, out]) are transposed
+and the fused `c_attn` split three ways, bias too, and every layer matrix
+goes through `load_float` (a JQ4 checkpoint's layers come back dequantized);
+only `wte` may stay q4. Checkpoint name prefixes (`bert.`, `transformer.`)
+are probed; a BERT classifier head loads in f32.
 """
 
 from __future__ import annotations
@@ -157,14 +162,128 @@ def _mixtral_layer_map(n_experts: int, prefix: str = "model.layers") -> dict[str
     return m
 
 
+def _gpt2_layer_map(d: int) -> dict[str, Callable]:
+    """`jlama_tpu/models/loader.py:_gpt2_layer_map`: Conv1D weights [in, out]
+    transposed to [out, in], `c_attn` [D, 3D] split into q, k, v, each bias
+    sliced the same way; all through `load_float`."""
+
+    def convt(name):
+        return lambda r, i: ("f", np.ascontiguousarray(r.load_float(f"h.{i}.{name}.weight").T),
+                             None)
+
+    def qkv(which):
+        return lambda r, i: ("f", np.ascontiguousarray(
+            r.load_float(f"h.{i}.attn.c_attn.weight")[:, which * d:(which + 1) * d].T), None)
+
+    def vec(name, split=None):
+        def f(r, i):
+            b = r.load_float(f"h.{i}.{name}")
+            return b if split is None else np.ascontiguousarray(b[split * d:(split + 1) * d])
+
+        return f
+
+    return {
+        "wq": qkv(0),
+        "wk": qkv(1),
+        "wv": qkv(2),
+        "wo": convt("attn.c_proj"),
+        "w1": convt("mlp.c_fc"),
+        "w2": convt("mlp.c_proj"),
+        "wq.bias:np?": vec("attn.c_attn.bias", 0),
+        "wk.bias:np?": vec("attn.c_attn.bias", 1),
+        "wv.bias:np?": vec("attn.c_attn.bias", 2),
+        "wo.bias:np?": vec("attn.c_proj.bias"),
+        "w1.bias:np?": vec("mlp.c_fc.bias"),
+        "w2.bias:np?": vec("mlp.c_proj.bias"),
+        "attn_norm.weight:np": vec("ln_1.weight"),
+        "attn_norm.bias:np": vec("ln_1.bias"),
+        "ff_norm.weight:np": vec("ln_2.weight"),
+        "ff_norm.bias:np": vec("ln_2.bias"),
+    }
+
+
+def _bert_layer_map(prefix: str = "encoder.layer") -> dict[str, Callable]:
+    """`jlama_tpu/models/loader.py:_bert_layer_map`: the post-norm encoder's
+    attention norm is `attention.output.LayerNorm`, its FFN norm
+    `output.LayerNorm`."""
+
+    def lin(name):
+        return lambda r, i: r.load_linear(f"{prefix}.{i}.{name}.weight")
+
+    def vec(name):
+        return lambda r, i: r.load_float(f"{prefix}.{i}.{name}")
+
+    return {
+        "wq": lin("attention.self.query"),
+        "wk": lin("attention.self.key"),
+        "wv": lin("attention.self.value"),
+        "wo": lin("attention.output.dense"),
+        "w1": lin("intermediate.dense"),
+        "w2": lin("output.dense"),
+        "wq.bias:np?": vec("attention.self.query.bias"),
+        "wk.bias:np?": vec("attention.self.key.bias"),
+        "wv.bias:np?": vec("attention.self.value.bias"),
+        "wo.bias:np?": vec("attention.output.dense.bias"),
+        "w1.bias:np?": vec("intermediate.dense.bias"),
+        "w2.bias:np?": vec("output.dense.bias"),
+        "attn_norm.weight:np": vec("attention.output.LayerNorm.weight"),
+        "attn_norm.bias:np": vec("attention.output.LayerNorm.bias"),
+        "ff_norm.weight:np": vec("output.LayerNorm.weight"),
+        "ff_norm.bias:np": vec("output.LayerNorm.bias"),
+    }
+
+
 LLAMA_FAMILY = ("llama", "mistral", "qwen2", "granite", "gemma", "gemma2")
 
-TOPLEVEL_MAP = {
+TOPLEVEL_MAPS = {
     # our key -> hf name ("?" suffix = optional)
-    "embed": "model.embed_tokens.weight",
-    "final_norm.weight:np": "model.norm.weight",
-    "lm_head": "lm_head.weight?",
+    "llama": {
+        "embed": "model.embed_tokens.weight",
+        "final_norm.weight:np": "model.norm.weight",
+        "lm_head": "lm_head.weight?",
+    },
+    "gpt2": {
+        "embed": "wte.weight",
+        "wpe:np": "wpe.weight",
+        "final_norm.weight:np": "ln_f.weight",
+        "final_norm.bias:np": "ln_f.bias",
+    },
+    "bert": {
+        "embed": "embeddings.word_embeddings.weight",
+        "wpe:np": "embeddings.position_embeddings.weight",
+        "token_type_embed:np": "embeddings.token_type_embeddings.weight",
+        "embed_norm.weight:np": "embeddings.LayerNorm.weight",
+        "embed_norm.bias:np": "embeddings.LayerNorm.bias",
+        "pooler.weight": "pooler.dense.weight?",
+        "pooler.bias:np": "pooler.dense.bias?",
+    },
 }
+for _a in LLAMA_FAMILY + ("mixtral",):
+    TOPLEVEL_MAPS[_a] = TOPLEVEL_MAPS["llama"]
+# the probe of `_strip_prefix`: a tensor every checkpoint of the family has
+_PROBE = {"gpt2": "wte.weight", "bert": "embeddings.word_embeddings.weight"}
+
+
+def _strip_prefix(idx: SafeTensorIndex, cfg: ModelConfig) -> str:
+    """The checkpoint's name prefix ('bert.', 'transformer.' or none), as
+    `jlama_tpu/models/loader.py:_strip_prefix` finds it."""
+    names = set(idx.names())
+    for pref in ("bert.", "transformer.", ""):
+        if pref + _PROBE.get(cfg.model_type, "model.embed_tokens.weight") in names:
+            return pref
+    return ""
+
+
+def _layer_map(cfg: ModelConfig) -> dict[str, Callable]:
+    if cfg.model_type == "mixtral":
+        return _mixtral_layer_map(cfg.n_experts)
+    if cfg.model_type == "gemma2":
+        return _gemma2_layer_map()
+    if cfg.model_type == "gpt2":
+        return _gpt2_layer_map(cfg.embedding_length)
+    if cfg.model_type == "bert":
+        return _bert_layer_map()
+    return _llama_layer_map()
 
 
 def load_params(
@@ -179,31 +298,28 @@ def load_params(
     model_dir = Path(model_dir)
     if cfg is None:
         cfg = load_config(model_dir)
-    if cfg.model_type not in LLAMA_FAMILY + ("mixtral",):
-        raise NotImplementedError(
-            f"{cfg.model_type}: only the Llama-family and Mixtral loaders are ported"
-        )
+    if cfg.model_type not in TOPLEVEL_MAPS:
+        raise NotImplementedError(f"{cfg.model_type}: no loader map")
     idx = SafeTensorIndex(model_dir)
     try:
-        r = WeightReader(idx)
+        r = WeightReader(idx, _strip_prefix(idx, cfg))
+        bare = WeightReader(idx)  # tensors outside the prefix (a top-level lm_head)
         params: dict = {}
-        for key, hf_name in TOPLEVEL_MAP.items():
+        for key, hf_name in TOPLEVEL_MAPS[cfg.model_type].items():
             hf = hf_name.rstrip("?")
-            if not r.has(hf):
+            src = r if r.has(hf) else bare if bare.has(hf) else None
+            if src is None:
                 if hf_name.endswith("?"):
                     continue
-                raise KeyError(f"missing tensor {hf!r}")
+                raise KeyError(f"missing tensor {hf!r} (prefix {r.prefix!r})")
             if key.endswith(":np"):
-                arr = r.load_float(hf).astype(np.float32)
+                arr = src.load_float(hf).astype(np.float32)
                 params[key[: -len(":np")]] = _tensor(arr, device)
             else:
-                params[key] = _leaf(r.load_linear(hf), device, float_dtype)
+                params[key] = _leaf(src.load_linear(hf), device, float_dtype)
 
         layers: list[dict] = [{} for _ in range(cfg.n_layers)]
-        layer_map = (_mixtral_layer_map(cfg.n_experts) if cfg.model_type == "mixtral"
-                     else _gemma2_layer_map() if cfg.model_type == "gemma2"
-                     else _llama_layer_map())
-        for key, fn in layer_map.items():
+        for key, fn in _layer_map(cfg).items():
             optional = key.endswith("?")
             key_clean = key.replace(":np", "").rstrip("?")
             try:
@@ -219,6 +335,10 @@ def load_params(
                 for i, item in enumerate(_stack_linears(items)):
                     layers[i][key_clean] = _leaf(item, device, float_dtype)
         params["layers"] = layers
+        if cfg.model_type == "bert":  # the sequence-classification head, f32
+            for name in ("classifier.weight", "classifier.bias"):
+                if bare.has(name):
+                    params[name] = _tensor(bare.load_float(name).astype(np.float32), device)
     finally:
         idx.close()
     return params, cfg

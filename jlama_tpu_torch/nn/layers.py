@@ -172,12 +172,20 @@ def self_attention_block(
     sin: torch.Tensor | None,
     sliding_window: int | None,
     attn_window: int | None = None,
+    seq_lengths: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, KVLayerCache | None]:
     """QKV projections, RoPE, cache update, attention, output projection.
     With a cache, RoPE and the cache update are one K4 launch.
 
     attn_window: upper bound on the live context (bucketed by the caller);
     attention then reads only that prefix of the cache (a view here).
+
+    seq_lengths: [B] valid tokens of right-padded rows (a batch of
+    embeddings); the dense masked path masks the keys past them. A causal
+    model keeps K3 there, unlike the JAX package, which takes the dense path
+    whenever seq_lengths is given: with the pads on the right, the causal
+    mask alone keeps every valid query off the pad keys, and the dense path's
+    f32 scores of a 32-row batch at the longest bucket would not fit a card.
     """
     B, T, D = x.shape
     hd = cfg.head_size
@@ -239,7 +247,7 @@ def self_attention_block(
         ).transpose(1, 2)
     else:
         mask = attention_scores_mask(
-            positions, kv_len, cfg.causal, sliding_window
+            positions, kv_len, cfg.causal, sliding_window, seq_lengths
         )
         out = multi_head_attention(
             q, k_att, v_att, mask, scale, cfg.attn_logit_softcap

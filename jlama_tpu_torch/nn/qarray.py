@@ -57,8 +57,14 @@ class QArray:
         return fn(self.scales)
 
     def to(self, device) -> "QArray":
-        return QArray(self.data.to(device), self._map_scales(lambda s: s.to(device)),
-                      self.fmt)
+        """On `device`; itself where it is there already (as Tensor.to), so
+        that trees moved there share their leaves."""
+        data, scales = self.data.to(device), self._map_scales(lambda s: s.to(device))
+        same = scales is self.scales or (isinstance(scales, tuple) and all(
+            a is b for a, b in zip(scales, self.scales)))
+        if data is self.data and same:
+            return self
+        return QArray(data, scales, self.fmt)
 
     def unpack(self) -> torch.Tensor:
         """Quantized integer values in original element order (int8); for

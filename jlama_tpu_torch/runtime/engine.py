@@ -15,10 +15,13 @@
 - seeded draws from the counter-based stream `nn/sampling.py::counter_uniform`
   keyed by (seed, tokens generated in this call), so the ids do not depend
   on the chunk size;
-- Response carries the same fields and finish reasons as the JAX package.
+- Response carries the same fields and finish reasons as the JAX package;
+- embeddings and classification (`embed_tokens`, `embed_batch`, `embed`,
+  `classify`): a forward without a cache over rows in power-of-two row and
+  length buckets, pad keys masked through `seq_lengths`, pooled on the
+  device, so that only [R, D] comes back to the host.
 
-Embeddings, classification, meshes and the multi-host step channel come in
-later slices.
+Meshes and the multi-host step channel come in later slices.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from dataclasses import dataclass, field
 from enum import Enum
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..config import ModelConfig
@@ -37,6 +41,7 @@ from ..device import resolve_device
 from ..models.base import (KVCache, check_moe_device, forward_hidden, fuse_params, lm_logits,
                            params_to, prepare_moe_ragged, rope_inv_freq)
 from ..nn.layers import KVLayerCache
+from ..nn.qarray import QArray
 from ..nn.sampling import sample_token
 from ..prompt import PromptContext, extract_tool_calls
 from ..utils.metrics import GLOBAL_METRICS
@@ -91,6 +96,40 @@ def _bucket(n: int, buckets=(16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192))
     while b < n:
         b *= 2
     return b
+
+
+def pool_hidden(params: dict, hidden: torch.Tensor, lens: torch.Tensor,
+                pooling: str) -> torch.Tensor:
+    """[R, T, D] hidden states of right-padded rows with `lens` valid tokens
+    -> [R, D] f32, on their device (`jlama_tpu/runtime/engine.py:
+    _pooled_nocache`). CLS: the first token; MODEL: the last valid one; both
+    through BERT's pooler (dense + tanh, a plain f32 product) where the tree
+    has one. MAX, SUM and AVG (anything else) over the valid tokens, then L2
+    normalized."""
+    h = hidden.to(torch.float32)
+    R, T, _ = h.shape
+    if pooling in ("MODEL", "CLS"):
+        if pooling == "CLS":
+            v = h[:, 0]
+        else:
+            v = h[torch.arange(R, device=h.device), (lens.long() - 1).clamp(min=0)]
+        w = params.get("pooler.weight")
+        if w is not None:
+            w = w.dequantize(torch.float32) if isinstance(w, QArray) else w.to(torch.float32)
+            v = v @ w.t()
+            if "pooler.bias" in params:
+                v = v + params["pooler.bias"].to(torch.float32)
+            v = torch.tanh(v)
+        return v
+    m = (torch.arange(T, device=h.device)[None, :] < lens[:, None])[..., None]
+    if pooling == "MAX":
+        v = torch.where(m, h, torch.full_like(h, -torch.inf)).amax(dim=1)
+    elif pooling == "SUM":
+        v = (h * m).sum(dim=1)
+    else:  # AVG
+        v = (h * m).sum(dim=1) / lens[:, None].to(torch.float32).clamp(min=1.0)
+    n = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    return v / n.clamp(min=1e-12)
 
 
 class Engine:
@@ -325,6 +364,88 @@ class Engine:
             generate_time_ms=gen_time,
             token_ids=out_ids,
         )
+
+    # ------------------------------------------------------------------
+    # embeddings and classification
+    # ------------------------------------------------------------------
+
+    def _dev_in(self, x) -> torch.Tensor | None:
+        return None if x is None else torch.as_tensor(np.asarray(x)).long().to(self.device)
+
+    def run_embed_hidden(self, toks, pos, tt, lens=None) -> torch.Tensor:
+        """The forward without a cache over host arrays [R, T] (token types
+        `tt` and valid lengths `lens` [R] optional): hidden [R, T, D] on the
+        device."""
+        with torch.inference_mode():
+            hidden, _ = forward_hidden(
+                self.params, self.cfg, self._dev_in(toks), self._dev_in(pos), None,
+                dtype=self.compute_dtype, inv_freq=self.inv_freq, token_types=self._dev_in(tt),
+                seq_lengths=self._dev_in(lens),
+            )
+        return hidden
+
+    def run_embed_pooled(self, toks, pos, tt, lens, pooling: str) -> torch.Tensor:
+        """`run_embed_hidden` pooled on the device (`pool_hidden`): [R, D] f32."""
+        hidden = self.run_embed_hidden(toks, pos, tt, lens)
+        with torch.inference_mode():
+            return pool_hidden(self.params, hidden, self._dev_in(lens), pooling)
+
+    def embed_tokens(self, token_ids: list[int], pooling: str = "AVG",
+                     token_types: list[int] | None = None) -> np.ndarray:
+        return self.embed_batch([token_ids], pooling,
+                                None if token_types is None else [token_types])[0]
+
+    def embed_batch(self, token_lists: list[list[int]], pooling: str = "AVG",
+                    token_types: list[list[int]] | None = None,
+                    max_rows: int = 32) -> list[np.ndarray]:
+        """Embed many sequences in batched forwards: sorted by length, rows in
+        power-of-two row and length buckets, at most `max_rows` a forward;
+        shorter rows are padded on the right and their pad keys masked, so a
+        row's vector is the one it gets alone."""
+        out: list[np.ndarray | None] = [None] * len(token_lists)
+        order = sorted(range(len(token_lists)), key=lambda i: len(token_lists[i]))
+        for c0 in range(0, len(order), max_rows):
+            idxs = order[c0:c0 + max_rows]
+            rows = 1
+            while rows < len(idxs):
+                rows *= 2
+            T = _bucket(max(len(token_lists[i]) for i in idxs))
+            toks = np.zeros((rows, T), dtype=np.int64)
+            pos = np.broadcast_to(np.arange(T, dtype=np.int64), (rows, T)).copy()
+            lens = np.ones(rows, dtype=np.int64)
+            tt = None if token_types is None else np.zeros((rows, T), dtype=np.int64)
+            for r, i in enumerate(idxs):
+                ids = token_lists[i]
+                toks[r, :len(ids)] = ids
+                lens[r] = len(ids)
+                if tt is not None and token_types[i] is not None:
+                    tt[r, :len(token_types[i])] = token_types[i]
+            vecs = self.run_embed_pooled(toks, pos, tt, lens, pooling).cpu().numpy()
+            for r, i in enumerate(idxs):
+                out[i] = vecs[r]
+        return out  # type: ignore[return-value]
+
+    def embed(self, text: str, pooling: str = "AVG") -> np.ndarray:
+        return self.embed_tokens(self.tokenizer.encode(text), pooling=pooling)
+
+    def classify(self, text: str, pooling: str | None = None) -> dict[str, float]:
+        """embed -> the classifier head -> softmax -> {label: probability}.
+        Pooling CLS for BERT, MODEL otherwise; the head runs on the host in f32,
+        as in the JAX package."""
+        labels = self.cfg.classification_labels
+        if labels is None or "classifier.weight" not in self.params:
+            raise ValueError("model has no classification head")
+        if pooling is None:
+            pooling = "CLS" if self.cfg.model_type == "bert" else "MODEL"
+        v = self.embed_tokens(self.tokenizer.encode(text), pooling=pooling)
+        w = self.params["classifier.weight"].to(torch.float32).cpu().numpy()
+        b = self.params.get("classifier.bias")
+        b = np.zeros(w.shape[0], np.float32) if b is None else \
+            b.to(torch.float32).cpu().numpy()
+        logits = w @ v + b
+        p = np.exp(logits - logits.max())
+        p /= p.sum()
+        return {labels[i]: float(p[i]) for i in range(len(p)) if i in labels}
 
     # ------------------------------------------------------------------
     # text-level generation

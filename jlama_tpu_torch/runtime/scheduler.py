@@ -35,6 +35,12 @@ MoE configs (Mixtral) serve with q4 experts through K6 (`ops/moe_q4.py`).
 Tool calls: a request with `tools` whose finished text holds a tool-shaped
 JSON finishes TOOL_CALL with `tool_calls` set, as in the JAX package.
 
+`embed_engine`: the `Engine` that answers `/v1/embeddings` beside the
+scheduler (None: no embeddings). The JAX CLI's `serve` attaches one that
+shares the scheduler's fused tree, `Engine(sched.params, sched.cfg,
+tokenizer, device=sched.device, fuse=False, moe_ragged=False)`, so that the
+layer weights are held once.
+
 Not ported yet (see ROADMAP.md): meshes (tp/dp page groups), the multi-host
 step channel, q4s MoE, and suspending to disk.
 """
@@ -263,6 +269,7 @@ class BatchScheduler:
         # device calls issued, read against the kernels' launch counters
         self.n_prefill_calls = 0
         self.n_decode_steps = 0
+        self.embed_engine = None  # an Engine over self.params for embeddings
 
     # ------------------------------------------------------------------
     # device calls

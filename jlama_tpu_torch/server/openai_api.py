@@ -5,8 +5,9 @@ of aiohttp):
 - POST /chat/completions and /v1/chat/completions: messages -> chat template
   -> generate; SSE streaming and non-streaming; tool definitions and
   tool_call responses; the `X-Jlama-Session` header for KV session affinity;
-- POST /v1/completions; POST /v1/embeddings (501: no embedding engine until
-  the BERT slice); GET /v1/models, /metrics, /healthz (503 when the
+- POST /v1/completions; POST /v1/embeddings (through the scheduler's
+  `embed_engine`, one `Engine.embed_batch` of every input; 501 without
+  one); GET /v1/models, /metrics, /healthz (503 when the
   scheduler is degraded), /cluster/topology (the torch devices), and the
   static pages /, /ui and /admin/topology.
 
@@ -352,10 +353,24 @@ class OpenAIServer:
         )
 
     async def embeddings(self, request):
-        _json_body(request)
-        # as the JAX server answers without an embedding engine; the port's
-        # engine for embeddings comes with the BERT slice
-        raise HTTPError(501, json.dumps({"error": "no embedding engine attached"}), TEXT_TYPE)
+        body = _json_body(request)
+        inputs = body.get("input", [])
+        if isinstance(inputs, str):
+            inputs = [inputs]
+        engine = getattr(self.sched, "embed_engine", None)
+        if engine is None:
+            raise HTTPError(501, json.dumps({"error": "no embedding engine attached"}),
+                            TEXT_TYPE)
+        pooling = body.get("pooling", "AVG")
+
+        def run():  # off the event loop: a 32-row batch must not stall other connections
+            token_lists = [engine.tokenizer.encode(t) for t in inputs]
+            return engine.embed_batch(token_lists, pooling=pooling)
+
+        vecs = await asyncio.get_running_loop().run_in_executor(None, run)
+        data = [{"object": "embedding", "index": i, "embedding": v.tolist()}
+                for i, v in enumerate(vecs)]
+        return json_response({"object": "list", "data": data, "model": self.model_name})
 
     async def models(self, request):
         return json_response(

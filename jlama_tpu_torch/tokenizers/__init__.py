@@ -1,12 +1,11 @@
-"""Tokenizers: tokenizer.json-driven BPE (copies of `jlama_tpu.tokenizers`).
-
-WordPiece (BERT) comes with the BERT slice of the port.
-"""
+"""Tokenizers: tokenizer.json-driven BPE and WordPiece (copies of
+`jlama_tpu.tokenizers`)."""
 
 from pathlib import Path
 
 from .model import TokenizerSpec, load_tokenizer_spec, parse_tokenizer_json
 from .bpe import BPETokenizer
+from .wordpiece import WordPieceTokenizer
 
 
 class Tokenizer:
@@ -15,10 +14,9 @@ class Tokenizer:
     def __init__(self, spec: TokenizerSpec):
         self.spec = spec
         if spec.model_type == "WordPiece":
-            raise NotImplementedError(
-                "WordPiece tokenizers are not ported yet (BERT slice)"
-            )
-        self._impl = BPETokenizer(spec)
+            self._impl = WordPieceTokenizer(spec)
+        else:
+            self._impl = BPETokenizer(spec)
 
     def encode(self, text: str, add_special: bool = True) -> list[int]:
         return self._impl.encode(text, add_special=add_special)
@@ -45,6 +43,7 @@ __all__ = [
     "Tokenizer",
     "TokenizerSpec",
     "BPETokenizer",
+    "WordPieceTokenizer",
     "load_tokenizer",
     "load_tokenizer_spec",
     "parse_tokenizer_json",

@@ -93,3 +93,36 @@ def test_from_jax_params_bf16_leaves():
     assert pp["embed"].dtype == torch.bfloat16
     assert pp["layers"][1]["w2"].dtype == torch.bfloat16
     assert_trees_equal(jp, pp)
+
+
+@pytest.mark.parametrize("arch", ["gpt2", "bert"])
+def test_from_jax_params_gpt2_bert_tree(arch):
+    """GPT-2's and BERT's JAX trees (stacked layers with every projection
+    bias and the LayerNorm biases; wpe, the final norm's bias, BERT's token
+    types, embedding norm, pooler and f32 classifier; a q4 embedding) come
+    across leaf for leaf."""
+    from jlama_tpu.nn.qarray import quantize_q4
+
+    rng = np.random.default_rng(7)
+    L, D, H, V, P = 2, 64, 128, 96, 32
+
+    def f(*shape):
+        return jnp.asarray(rng.standard_normal(shape, dtype=np.float32))
+
+    layers = {k: f(L, *s) for k, s in {"wq": (D, D), "wk": (D, D), "wv": (D, D),
+                                       "wo": (D, D), "w1": (H, D), "w2": (D, H)}.items()}
+    layers.update({f"{k}.bias": f(L, n) for k, n in
+                   {"wq": D, "wk": D, "wv": D, "wo": D, "w1": H, "w2": D}.items()})
+    layers.update({f"{n}.{p}": f(L, D) for n in ("attn_norm", "ff_norm")
+                   for p in ("weight", "bias")})
+    top = {"embed": quantize_q4(np.asarray(f(V, D))), "wpe": f(P, D), "layers": layers}
+    if arch == "gpt2":
+        top.update({"final_norm.weight": f(D), "final_norm.bias": f(D)})
+    else:
+        top.update({"token_type_embed": f(2, D), "embed_norm.weight": f(D),
+                    "embed_norm.bias": f(D), "pooler.weight": f(D, D), "pooler.bias": f(D),
+                    "classifier.weight": f(3, D), "classifier.bias": f(3)})
+    pp = port_tree(top)
+    assert_trees_equal(top, pp)
+    assert isinstance(pp["embed"], QArray) and pp["embed"].fmt == "q4"
+    assert len(pp["layers"]) == L and pp["layers"][1]["w2.bias"].shape == (D,)

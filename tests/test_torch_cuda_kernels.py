@@ -1183,3 +1183,238 @@ def test_gemma2_forward_on_card_matches_cpu_logits(cuda):
         assert ((gpu - ref).norm() / ref.norm()).item() < 5e-2, (a, b)
     assert (flash_prefill.launches - before[0], paged_decode.launches - before[1]) == \
         (cfg.n_layers, 4 * cfg.n_layers)
+
+
+# ---------------------------------------------------------------------------
+# GPT-2 and BERT shapes: K1 at GPT-2's five projections, K2, K3 and K4 at 12
+# query heads on 12 KV heads of 64 (a head group of 1), K4 without RoPE, and
+# narrow GPT-2 and BERT models end to end against the CPU
+# ---------------------------------------------------------------------------
+
+# GPT-2's (N, K, out dtype): wqkv, wo, w1, w2 (bf16 out), the tied lm_head
+# (f32 out, 50,257 rows: y's row is no 16-byte multiple)
+GPT2_K1 = [(2304, 768, torch.bfloat16), (768, 768, torch.bfloat16), (3072, 768, torch.bfloat16),
+           (768, 3072, torch.bfloat16), (50257, 768, torch.float32)]
+
+
+@pytest.mark.parametrize("n,k,out_dtype", GPT2_K1)
+@pytest.mark.parametrize("m", [1, 16, 512])
+def test_q4_matmul_gpt2_shapes(cuda, m, n, k, out_dtype):
+    """bf16 x at M = 1 (GEMV), 16 (mma) and 512 (wgmma): against the plain
+    version (M <= 16: 1e-4 of max|ref|, plus one bf16 ulp for a bf16 output),
+    M = 512 also against its rounding model as above; a repeat bit-equal."""
+    from jlama_tpu_torch.nn.qarray import QArray
+    from jlama_tpu_torch.ops.q4_matmul import q4_matmul, q4_matmul_plain, q4_matmul_tiled_plain
+
+    g = torch.Generator(device=cuda).manual_seed(m * n + k)
+    w = QArray(torch.randint(0, 256, (n, k // 2), generator=g, device=cuda, dtype=torch.uint8),
+               (torch.rand((n, k // 32), generator=g, device=cuda) + 0.5) * 0.0043)
+    x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    before = q4_matmul.launches
+    got = q4_matmul(x, w, out_dtype)
+    assert q4_matmul.launches == before + 1 and got.shape == (m, n) and got.dtype == out_dtype
+    ref = q4_matmul_tiled_plain(x, w.data, w.scales, torch.float32) if m > 16 else \
+        q4_matmul_plain(x, w.data, w.scales, torch.float32)
+    torch.cuda.synchronize()
+    lim = 1e-4 * ref.abs().max().item()
+    if out_dtype == torch.bfloat16:
+        lim = lim + 2.0 ** -7 * ref.abs()
+    assert bool(((got.float() - ref).abs() <= lim).all())
+    if m > 16:
+        plain = q4_matmul_plain(x, w.data, w.scales, torch.float32)
+        assert (got.float() - plain).abs().max().item() <= 2e-2 * plain.abs().max().item()
+    assert torch.equal(q4_matmul(x, w, out_dtype), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,pos0", [(1, 512, 512, 0), (4, 256, 1024, (0, 256, 512, 768)),
+                                        (1, 64, 1024, 960)])
+def test_flash_prefill_gpt2_heads(cuda, B, T, S, pos0, dtype):
+    """GPT-2's 12 heads on 12 KV heads of 64: a 512-token prefill, 4 serving
+    chunks and the Engine's last bucket of a 1,024-token context: the plain
+    version's limits, the rounding model's 4e-3 and a bit-equal repeat."""
+    from jlama_tpu_torch.ops.attention import (flash_prefill, flash_prefill_plain,
+                                               flash_prefill_tiled_plain)
+
+    H = n_kv = 12
+    hd = 64
+    g = torch.Generator(device=cuda).manual_seed(T * S + 12)
+    q = torch.randn((B, H, T, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, n_kv, S, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, n_kv, S, hd), generator=g, device=cuda).to(dtype)
+    p0 = torch.tensor(pos0 if isinstance(pos0, tuple) else (pos0,) * B, dtype=torch.int32,
+                      device=cuda)
+    got = flash_prefill(q, k, v, p0, hd ** -0.5)
+    ref = flash_prefill_plain(q, k, v, p0, hd ** -0.5)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+    if dtype == torch.bfloat16:
+        model = flash_prefill_tiled_plain(q, k, v, p0, hd ** -0.5)
+        assert (got.float() - model.float()).abs().max().item() <= 4e-3
+    assert torch.equal(flash_prefill(q, k, v, p0, hd ** -0.5), got)
+
+
+# an f32 pool takes f32 q (the CUDA-core route)
+@pytest.mark.parametrize("q_dtype,kind", [(torch.float32, "f32"), (torch.float32, "bf16"),
+                                          (torch.float32, "q8"), (torch.bfloat16, "bf16"),
+                                          (torch.bfloat16, "q8")])
+def test_paged_decode_gpt2_heads(cuda, q_dtype, kind):
+    """GPT-2's 12 heads on 12 KV heads of 64: 16 ragged slots up to 1,024
+    keys on pages of 64 (the empty ones on the scratch page), and the
+    Engine's dense row cut to its window; the plain version's limits and a
+    bit-equal repeat."""
+    from jlama_tpu_torch.ops.attention import paged_decode, paged_decode_plain
+    from jlama_tpu_torch.ops.kv_write import dense_page_table, dense_pool_view
+
+    H = n_kv = 12
+    hd, ps = 64, 64
+    g = torch.Generator(device=cuda).manual_seed(12)
+    lens = [1, 1024, 700, 33, 1, 512, 65, 900, 128, 1000, 2, 64, 300, 1023, 77, 640]
+    P = 16
+    n_pages = sum(-(-ln // ps) for ln in lens) + 4
+    kp, vp = _pools(cuda, kind, (n_kv, n_pages, ps, hd), g)
+    pt = _k2_page_tables(cuda, lens, P, ps, n_pages, g)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q = torch.randn((len(lens), H, hd), generator=g, device=cuda).to(q_dtype)
+    tol = 3e-3 if kind == "q8" else 2e-5
+    cases = [(q, kp, vp, pt, lengths)]
+    if kind != "q8":
+        k, v = (torch.randn((1, n_kv, 1024, hd), generator=g, device=cuda).to(kp.dtype)
+                for _ in range(2))
+        cases.append((q[:1], dense_pool_view(k[:, :, :1024]), dense_pool_view(v[:, :, :1024]),
+                      dense_page_table(1, cuda), torch.tensor([1000], device=cuda)))
+    for args in cases:
+        got = paged_decode(*args, hd ** -0.5).float()
+        ref = paged_decode_plain(*args, hd ** -0.5).float()
+        torch.cuda.synchronize()
+        if q_dtype == torch.float32:
+            assert (got - ref).abs().max().item() <= tol
+        else:
+            assert torch.all((got - ref).abs() <= 2.0 ** -7 * ref.abs() + tol)
+        assert torch.equal(paged_decode(*args, hd ** -0.5).float(), got)
+
+
+# the Engine's dense cache is a float tensor: no q8 there
+@pytest.mark.parametrize("dense,kind", [(False, "f32"), (False, "bf16"), (False, "q8"),
+                                        (True, "f32"), (True, "bf16")])
+@pytest.mark.parametrize("T", [1, 256])
+def test_kv_write_without_rope_gpt2_heads(cuda, T, kind, dense):
+    """K4 without cos/sin (GPT-2, BERT: learned positions) at 12 heads on 12
+    KV heads of 64, k and v the split views of one fused QKV output, on the
+    paged pool (16 decode slots, or 4 rows of a 256-token chunk, one past its
+    table) and on the Engine's dense cache: q comes back as it was given, the
+    pools equal the plain write (q8 within 1 code and 1 ulp), a repeat
+    bit-equal."""
+    from jlama_tpu_torch.nn.qarray import QArray
+    from jlama_tpu_torch.ops.kv_write import (dense_page_table, dense_pool_view, kv_write,
+                                              kv_write_plain)
+
+    H = n_kv = 12
+    hd, ps = 64, 64
+    B = 1 if dense else (16 if T == 1 else 4)
+    g = torch.Generator(device=cuda).manual_seed(T + 12)
+    if dense:
+        pools = [dense_pool_view(c) for c in _pools(cuda, kind, (B, n_kv, 1024, hd), g)]
+        pt = dense_page_table(B, cuda)
+        pos = ((700 if T == 1 else 0) + torch.arange(T, device=cuda))[None, :]
+    else:
+        P = 16
+        pools = _pools(cuda, kind, (n_kv, 16 * P + 1, ps, hd), g)
+        if T == 1:
+            lens = [1, 1024, 700, 33, 1, 512, 65, 900, 128, 1000, 2, 64, 300, 1023, 77, 640]
+            pt = _k2_page_tables(cuda, lens, P, ps, 16 * P + 1, g)
+            pos = (torch.tensor(lens, device=cuda) - 1)[:, None]
+        else:
+            pt = (torch.randperm(16 * P, device=cuda, generator=g)[: B * P] + 1)
+            pt = pt.to(torch.int32).reshape(B, P)
+            start = torch.tensor([0, 300, 700, P * ps - T + 40], device=cuda)
+            pos = start[:, None] + torch.arange(T, device=cuda)[None, :]
+    act = torch.bfloat16
+    qkv = torch.randn((B, T, 3 * H * hd), generator=g, device=cuda).to(act)
+    q, k, v = (t.reshape(B, T, H, hd) for t in qkv.split((H * hd,) * 3, dim=-1))
+
+    def clone(p):
+        return QArray(p.data.clone(), p.scales.clone(), "q8") if isinstance(p, QArray) \
+            else p.clone()
+
+    mine, again, plain = ([clone(p) for p in pools] for _ in range(3))
+    before = kv_write.launches
+    got = kv_write(*mine, k, v, pt, pos, q=q)
+    assert kv_write.launches == before + 1 and got is q
+    kv_write(*again, k, v, pt, pos, q=q)
+    kv_write_plain(*plain, k, v, pt, pos, q=q)
+    torch.cuda.synchronize()
+    live = slice(None) if dense or T > 1 else slice(1, None)  # page 0: racing pad writes
+    for a, b, c in zip(mine, plain, again):
+        if kind == "q8":
+            dd = (a.data[:, live].int() - b.data[:, live].int()).abs().max().item()
+            du = (a.scales[:, live].view(torch.int32).long()
+                  - b.scales[:, live].view(torch.int32).long()).abs().max().item()
+            assert dd <= 1 and du <= 1
+            assert torch.equal(a.data[:, live], c.data[:, live])
+        else:
+            assert torch.equal(a[:, live], b[:, live]) and torch.equal(a[:, live], c[:, live])
+
+
+# narrow GPT-2 and BERT (hidden 256, 4 heads of 64), written out as
+# test_engine_on_card_matches_cpu_logits writes its Llama
+GPT2_NARROW = {"model_type": "gpt2", "n_embd": 256, "n_head": 4, "n_layer": 2,
+               "n_positions": 256, "vocab_size": 512, "layer_norm_epsilon": 1e-5,
+               "activation_function": "gelu_new", "bos_token_id": 0, "eos_token_id": 0}
+BERT_NARROW = {"model_type": "bert", "hidden_size": 256, "num_attention_heads": 4,
+               "num_hidden_layers": 2, "intermediate_size": 1024, "vocab_size": 512,
+               "max_position_embeddings": 256, "type_vocab_size": 2, "layer_norm_eps": 1e-12,
+               "hidden_act": "gelu", "id2label": {"0": "a", "1": "b"}}
+
+
+def test_gpt2_on_card_matches_cpu(cuda):
+    """A narrow q4 GPT-2: the prefill logits on the card (bf16) against f32 on
+    the CPU (rel L2 < 5e-2), and an Engine's greedy ids on decode graphs equal
+    to the eager yardstick's over a generation that runs to the last position
+    of the 256-row position table."""
+    from jlama_tpu_torch.config import from_hf_config
+    from jlama_tpu_torch.models.base import forward_logits, params_to
+    from jlama_tpu_torch.models.init import init_params
+    from jlama_tpu_torch.runtime.engine import Engine
+
+    cfg = from_hf_config(GPT2_NARROW)
+    params = init_params(cfg, seed=0, quantize="q4", dtype=torch.float32, device="cpu")
+    toks = torch.tensor([[1, 5, 9, 42, 7, 13, 99, 100] * 5])
+    pos = torch.arange(toks.shape[1])[None, :]
+    ref, _ = forward_logits(params, cfg, toks, pos, None, dtype=torch.float32)
+    got, _ = forward_logits(params_to(params, cuda), cfg, toks.to(cuda), pos.to(cuda), None,
+                            dtype=torch.bfloat16)
+    rel = ((got.float().cpu() - ref).norm() / ref.norm()).item()
+    assert rel < 5e-2, rel
+    eng = Engine(params, cfg, device="cuda")
+    eager = Engine(eng.params, cfg, device="cuda", fuse=False, decode_graphs=False)
+    prompt = [(i * 7) % 500 + 1 for i in range(200)]
+    ids = [e.generate_tokens(prompt, max_new_tokens=64, stop_ids=set()).token_ids
+           for e in (eng, eager)]
+    assert ids[0] == ids[1] and len(ids[0]) == 56
+    assert eng.graphs.stats()["replays"] > 0
+
+
+def test_bert_on_card_matches_cpu(cuda):
+    """A narrow q4 BERT: embed_batch under each pooling and classify on the
+    card (bf16) against f32 on the CPU (rel L2 < 5e-2 a vector, probabilities
+    within 2e-2); K1 launches 4 a layer a forward."""
+    import numpy as np
+
+    from jlama_tpu_torch.config import from_hf_config
+    from jlama_tpu_torch.models.init import init_params
+    from jlama_tpu_torch.ops.q4_matmul import q4_matmul
+    from jlama_tpu_torch.runtime.engine import Engine
+
+    cfg = from_hf_config(BERT_NARROW)
+    params = init_params(cfg, seed=0, quantize="q4", dtype=torch.float32, device="cpu")
+    eng = Engine(params, cfg, device="cuda")
+    cpu = Engine(params, cfg, device="cpu", compute_dtype=torch.float32)
+    lists = [[(i * 13 + j) % 500 + 1 for i in range(n)] for j, n in enumerate((5, 17, 100, 200))]
+    for pooling in ("AVG", "MAX", "SUM", "CLS", "MODEL"):
+        before = q4_matmul.launches
+        got = eng.embed_batch(lists, pooling=pooling)
+        assert q4_matmul.launches == before + 4 * cfg.n_layers
+        for g_, r in zip(got, cpu.embed_batch(lists, pooling=pooling)):
+            assert np.linalg.norm(g_ - r) / np.linalg.norm(r) < 5e-2

@@ -63,14 +63,16 @@ def test_optional_packages_only_in_tokenizers():
 
 
 def test_text_and_http_front_import_and_run_without_optional_packages(tmp_path):
-    """With regex, jinja2 and aiohttp blocked, the tokenizer, the chat
-    templates and the server import, and a prompt renders and encodes (a
+    """With regex, jinja2 and aiohttp blocked, the tokenizer (WordPiece too),
+    the chat templates and the server import, a prompt renders and encodes (a
     tokenizer.json in chip_smoke.py's Llama-3 layout, its Split pattern
-    through the translated classes)."""
+    through the translated classes), and a WordPiece text encodes and
+    decodes."""
     code = (
         "import sys\n"
         "sys.modules['regex'] = sys.modules['jinja2'] = sys.modules['aiohttp'] = None\n"
         "import jlama_tpu_torch.tokenizers, jlama_tpu_torch.prompt\n"
+        "import jlama_tpu_torch.tokenizers.wordpiece\n"
         "import jlama_tpu_torch.server.openai_api\n"
         "import chip_smoke as cs\n"
         "from jlama_tpu_torch.tokenizers import Tokenizer, parse_tokenizer_json\n"
@@ -83,6 +85,11 @@ def test_text_and_http_front_import_and_run_without_optional_packages(tmp_path):
         "assert ids[0] == tok.bos_id == 2048 and tok.decode(ids) == tok.decode(\n"
         "    tok.encode(tok.decode(ids)))\n"
         "assert tok.decode(ids, skip_special=False) == ctx.prompt, ctx.prompt\n"
+        "wp = Tokenizer(parse_tokenizer_json({'model': {'type': 'WordPiece', 'vocab': {\n"
+        "    '[UNK]': 0, 'hello': 1, 'wor': 2, '##ld': 3, ',': 4}, 'unk_token': '[UNK]'},\n"
+        "    'normalizer': {'type': 'BertNormalizer', 'lowercase': True}}))\n"
+        "assert wp.encode('Hello, world zz') == [1, 4, 2, 3, 0], wp.encode('Hello, world zz')\n"
+        "assert wp.decode([1, 4, 2, 3]) == 'hello, world'\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('regex', 'jinja2', 'aiohttp',\n"
         "       'jax', 'jlama_tpu') and sys.modules[m] is not None]\n"
         "print(bad, len(ids))\n"
@@ -119,7 +126,8 @@ def test_engine_import_path_is_clean():
 def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
     from jlama_tpu_torch.kv.paged import PagedKVCache
     from jlama_tpu_torch.models.convert import from_jax_kv_state, from_jax_params
-    from jlama_tpu_torch.models.init import (init_params, llama_1b_config, mixtral_8x7b_config,
+    from jlama_tpu_torch.models.init import (bert_base_config, gpt2_config, init_params,
+                                             llama_1b_config, mixtral_8x7b_config,
                                              random_q4_params)
     from jlama_tpu_torch.models.loader import load_params
     from jlama_tpu_torch.runtime.engine import Engine
@@ -135,6 +143,9 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
         random_q4_params(llama_1b_config())
     with pytest.raises(RuntimeError, match="CUDA"):
         random_q4_params(mixtral_8x7b_config())
+    for c in (gpt2_config(), bert_base_config()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            random_q4_params(c)
     with pytest.raises(RuntimeError, match="CUDA"):
         load_params(ROOT / "no_such_model")
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -143,6 +154,14 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         Engine(params, cfg)
     assert Engine(params, cfg, device="cpu").device.type == "cpu"
+    # the embedding entry points run on the Engine's device: CUDA unless named
+    bert = from_hf_config(dict(BERT_TINY, id2label={0: "a", 1: "b"}))
+    bert_params = init_params(bert, device="cpu", dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(bert_params, bert)
+    eng = Engine(bert_params, bert, device="cpu", compute_dtype=torch.float32)
+    vec = eng.embed_batch([[1, 2, 3]], pooling="CLS")[0]
+    assert vec.shape == (bert.embedding_length,) and isinstance(vec, np.ndarray)
     with pytest.raises(RuntimeError, match="CUDA"):
         BatchScheduler(params, cfg, n_slots=2, n_pages=8, page_size=8, max_seq_len=32)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -250,6 +269,52 @@ def test_wrappers_reject_other_devices():
     for bad in (dict(q=q, cos=cpu_cs, sin=cpu_cs), dict(q=cpu_q, cos=cs, sin=cs)):
         with pytest.raises(ValueError, match="device"):
             kv_write(cpu_pool, cpu_pool, cpu_rows, cpu_rows, pt, pos, **bad)
+
+
+BERT_TINY = dict(model_type="bert", hidden_size=128, num_attention_heads=2, num_hidden_layers=2,
+                 intermediate_size=256, vocab_size=96, max_position_embeddings=64)
+
+
+def test_cpu_embeddings_go_through_plain_versions(monkeypatch):
+    """A device="cpu" Engine.embed_batch over a q4 BERT at head size 64 sends
+    its 4 projections a layer to K1's wrapper (its plain version, no launch)
+    and takes the dense masked attention (BERT is not causal): no K2, K3 or
+    K4; a causal Llama's embed_batch takes K3's plain version."""
+    from jlama_tpu_torch.config import from_hf_config
+    from jlama_tpu_torch.models.init import init_params
+    from jlama_tpu_torch.ops import attention, kv_write as kvw, q4_matmul
+    from jlama_tpu_torch.runtime.engine import Engine
+    from tests.helpers import TINY_LLAMA_CONFIG
+
+    calls = {"q4": 0, "flash": 0, "paged": 0, "kv": 0}
+
+    def counting(key, fn):
+        def wrapped(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(q4_matmul, "q4_matmul_plain", counting("q4", q4_matmul.q4_matmul_plain))
+    monkeypatch.setattr(attention, "flash_prefill_plain",
+                        counting("flash", attention.flash_prefill_plain))
+    monkeypatch.setattr(attention, "paged_decode_plain",
+                        counting("paged", attention.paged_decode_plain))
+    monkeypatch.setattr(kvw, "kv_write_plain", counting("kv", kvw.kv_write_plain))
+    fns = (q4_matmul.q4_matmul, attention.flash_prefill, attention.paged_decode, kvw.kv_write)
+    launches = [f.launches for f in fns]
+    cfg = from_hf_config(BERT_TINY)
+    params = init_params(cfg, seed=0, quantize="q4", device="cpu", dtype=torch.float32)
+    eng = Engine(params, cfg, device="cpu", compute_dtype=torch.float32)
+    vecs = eng.embed_batch([[1, 2, 3], list(range(1, 40))], pooling="AVG")
+    assert len(vecs) == 2
+    assert calls == {"q4": 4 * cfg.n_layers, "flash": 0, "paged": 0, "kv": 0}
+    llama = from_hf_config(dict(TINY_LLAMA_CONFIG, hidden_size=128, num_attention_heads=2,
+                                num_key_value_heads=1))
+    eng = Engine(init_params(llama, seed=0, quantize="q4", device="cpu", dtype=torch.float32),
+                 llama, device="cpu", compute_dtype=torch.float32)
+    eng.embed_batch([[1, 2, 3], list(range(1, 40))], pooling="MODEL")
+    assert calls["flash"] == llama.n_layers and calls["paged"] == calls["kv"] == 0
+    assert [f.launches for f in fns] == launches
 
 
 def test_cpu_serving_goes_through_plain_versions(monkeypatch):

@@ -339,6 +339,53 @@ def test_embeddings_not_implemented(servers):
         {"error": "no embedding engine attached"}
 
 
+@pytest.fixture
+def embed_engines(servers):
+    """Each scheduler's embed_engine for one test, as the JAX CLI's serve
+    attaches it (an Engine over the scheduler's fused tree, fuse=False);
+    detached after, so that the 501 case still holds."""
+    from jlama_tpu.runtime.engine import Engine as JEngine
+    from jlama_tpu_torch.runtime.engine import Engine
+
+    _, jsched, jtok = servers["jax"]
+    _, sched, tok = servers["torch"]
+    jsched.embed_engine = JEngine(jsched.params, jsched.cfg, jtok, max_seq_len=96,
+                                  kv_dtype=jnp.float32, compute_dtype=jnp.float32, fuse=False,
+                                  moe_ragged=False)
+    sched.embed_engine = Engine(sched.params, sched.cfg, tok, device=sched.device,
+                                max_seq_len=96, kv_dtype=torch.float32,
+                                compute_dtype=torch.float32, fuse=False, moe_ragged=False)
+    try:
+        yield sched.embed_engine
+    finally:
+        jsched.embed_engine = sched.embed_engine = None
+
+
+@pytest.mark.parametrize("pooling", [None, "AVG", "MAX", "SUM", "MODEL"])
+def test_embeddings(servers, embed_engines, pooling):
+    """/v1/embeddings with a string and with a list of inputs, under each
+    pooling (None: the default, AVG): the same JSON as the JAX server's,
+    vectors within 1e-4, and equal to the port's embed_batch on the same ids."""
+    import numpy as np
+
+    for inputs in ("hello there", ["hello", "a longer input for the batch", "x", "hi hi"]):
+        body = {"input": inputs, "model": "tiny-test"}
+        if pooling is not None:
+            body["pooling"] = pooling
+        res = both(servers, "POST", "/v1/embeddings", body)
+        assert res["jax"][0] == res["torch"][0] == 200
+        j, t = (json.loads(res[k][2]) for k in ("jax", "torch"))
+        jvecs = [d.pop("embedding") for d in j["data"]]
+        tvecs = [d.pop("embedding") for d in t["data"]]
+        assert j == t and t["object"] == "list" and t["model"] == "tiny-test"
+        texts = [inputs] if isinstance(inputs, str) else inputs
+        assert [d["index"] for d in t["data"]] == list(range(len(texts)))
+        np.testing.assert_allclose(tvecs, jvecs, rtol=1e-4, atol=1e-4)
+        want = embed_engines.embed_batch([embed_engines.tokenizer.encode(x) for x in texts],
+                                         pooling=pooling or "AVG")
+        np.testing.assert_array_equal(np.asarray(tvecs, np.float32), np.stack(want))
+
+
 def test_errors(servers):
     for path in ("/v1/chat/completions", "/v1/completions"):
         res = both(servers, "POST", path, raw=b"{not json")

@@ -55,6 +55,21 @@ def test_classes_match_regex_on_every_code_point(name):
         assert got == want, pat
 
 
+@pytest.mark.parametrize("name", sorted(_uniclass.CLASSES))
+def test_bert_pre_tokenize_matches_jax_on_every_code_point(name):
+    """WordPiece's pre-tokenizer (whitespace split, then each punctuation
+    character its own piece) on the code points of each class and of its
+    complement, each between two letters, equals jlama_tpu's, which runs
+    `regex`."""
+    from jlama_tpu.tokenizers.bpe import _bert_pre_tokenize as jax_bert_pre_tokenize
+    from jlama_tpu_torch.tokenizers.bpe import _bert_pre_tokenize
+
+    cls = {"L": r"\p{L}", "N": r"\p{N}", "P": r"\p{P}"}.get(name, "\\" + name)
+    for pat in (cls, f"[^{cls}]"):
+        text = "a" + "a".join(regex.findall(pat, EVERY)) + "a"
+        assert _bert_pre_tokenize(text) == jax_bert_pre_tokenize(text), pat
+
+
 def test_generated_table_is_current():
     """The committed table is what the generator writes with this `regex`."""
     from pathlib import Path
