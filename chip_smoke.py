@@ -251,6 +251,42 @@ Phases, each fatal on failure (exit code 1, no result line):
               made here (bert_tokenizer_json) against the plain path in f32 on
               the CPU (rel L2 < 5e-2; probabilities within 2e-2); each model's
               peak memory.
+ 14. bf16 mixtral - Mixtral-8x7B at full width but 8 of its 32 layers (a
+              bf16 model of all 32 is 93 GB), every weight bf16 (random,
+              seed 0; about 23 GB), after phase 10's memory is freed: the
+              experts through the card's grouped product (ops/moe_float.py:
+              K6's grouping and gather, torch._grouped_mm for gate, up and
+              down, the scatter back). A MoE block at 1, 16 and 512 tokens
+              with torch.cuda's sync debug mode at "error" (no host sync);
+              the float route at R = 2, 32 and 1,024 selections against
+              _moe_float_plain (rel L2 < 2^-7, a bit-equal repeat) and timed
+              beside its bound and the plain version; the dense logits of 2
+              layers against the plain path in f32 on the CPU (rel L2 <
+              5e-2); an Engine (a 512-token prompt, 64 greedy tokens) and a
+              16-slot BatchScheduler (8 greedy requests) on decode graphs and
+              eagerly: identical ids, launch counts (1 grouping, 1 gather, 3
+              grouped products a layer; no K1, K5 or K6 matmul), every decode
+              step after a key's first use a replay, the busy share.
+ 15. cli - python -m jlama_tpu_torch.cli on the card, each command a
+              subprocess with a temporary JLAMA_MODEL_HOME: a bf16
+              Llama-3.2-1B in HF names written from seed 0 with the port's
+              writer (phase 12's tokenizer and template); quantize (timed;
+              layer 0, the embedding and the final norm byte-equal to
+              q4_quantize_np of the same values), quantize --quantize-to i8
+              (its output loads as q8), list, complete (the text equal to an
+              in-process Engine's), chat with two piped turns, serve (4 chat
+              requests, one a stream, each greedy answer equal to an
+              in-process BatchScheduler's on the same prompt ids; one
+              /v1/embeddings request; stopped by its PID), serve --pallas
+              w8a8 (one answer equal to an in-process q4s scheduler's),
+              download of the JQ4 directory from a fake hub on 127.0.0.1
+              (files byte-equal), rm and version. Any non-zero exit fails.
+Phase 10 also serves its 8 requests through a q4s BatchScheduler (K5 for
+wqkv, wo and the lm_head, K6 for the experts; ids equal to an eager q4s
+scheduler's; the paged logits of 2 layers against the plain path) and runs
+score_tokens over 2,048 ids with f32 activations (K6's prefill route, x cast
+to bf16 by its wrapper), beside the same windows with the experts through
+K6's plain version (f32 x) and with bf16 activations.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. --out also writes the per-shape details and
 the profiles as JSON.
@@ -2333,13 +2369,17 @@ def check_k6(torch, timer, params, cfg, details) -> dict:
 
 
 def _k6_fns() -> dict:
+    """K6's counters, and the float experts' grouped product's (phase 14)."""
+    from jlama_tpu_torch.ops.moe_float import grouped_mm
     from jlama_tpu_torch.ops.moe_q4 import moe_gather, moe_groups, moe_q4_matmul
 
-    return dict(moe_q4_matmul=moe_q4_matmul, moe_groups=moe_groups, moe_gather=moe_gather)
+    return dict(moe_q4_matmul=moe_q4_matmul, moe_groups=moe_groups, moe_gather=moe_gather,
+                grouped_mm=grouped_mm)
 
 
 def _all_counts() -> dict:
-    """Every main-path kernel's launches, K6's three included."""
+    """Every main-path kernel's launches, K6's three and the grouped product's
+    included."""
     return {k: fn.launches for k, fn in dict(_kernel_fns(), **_k6_fns()).items()}
 
 
@@ -2373,21 +2413,27 @@ def _counting_prefill_groupings(rec):
         layers.moe_groups = inner
 
 
-def _expected(cfg, n_prefill, n_decode, n_gather_layers=0, matmul="q4_matmul") -> dict:
-    """A forward's launches (phases 10 and 11): per layer K1 for wqkv and wo,
-    and for w13 and w2 where the FFN is dense, or else K6's grouping and its
-    two matmul launches (gate and up in one, down; the router is a float
+def _expected(cfg, n_prefill, n_decode, n_gather_layers=0, matmul="q4_matmul",
+              weights="q4") -> dict:
+    """A forward's launches (phases 10, 11 and 14): per layer K1 for wqkv and
+    wo, and for w13 and w2 where the FFN is dense, or else K6's grouping and
+    its two matmul launches (gate and up in one, down; the router is a float
     matmul); K4; K3 (prefill) or K2 (decode); a decode step's lm_head on K1.
     n_gather_layers: MoE layers whose R took K6's prefill route, each with a
     gather before each matmul launch (`_counting_prefill_groupings`). matmul:
     the kernel of the dense projections, K1 ("q4_matmul") or, for q4s
-    weights, K5 ("w8a8_matmul"); the other launches no time."""
+    weights, K5 ("w8a8_matmul"); the other launches no time. weights "bf16":
+    float weights, so no K1 or K5 (the projections are bf16 matmuls), and a
+    MoE layer is 1 grouping, 1 gather and 3 grouped products
+    (`ops/moe_float.py`)."""
     L, n = cfg.n_layers, n_prefill + n_decode
     k1 = 2 if cfg.n_experts else 4
     moe = L if cfg.n_experts else 0
     out = {"q4_matmul": 0, "paged_decode": n_decode * L, "flash_prefill": n_prefill * L,
            "kv_write": n * L, "w8a8_matmul": 0, "moe_q4_matmul": n * 2 * moe,
-           "moe_groups": n * moe, "moe_gather": 2 * n_gather_layers}
+           "moe_groups": n * moe, "moe_gather": 2 * n_gather_layers, "grouped_mm": 0}
+    if weights == "bf16":
+        return dict(out, moe_q4_matmul=0, moe_gather=n * moe, grouped_mm=3 * n * moe)
     out[matmul] = n_prefill * k1 * L + n_decode * (k1 * L + 1)
     return out
 
@@ -2439,12 +2485,12 @@ def _engine_profile(torch, eng, prompt, run, model, dense_check) -> dict:
 
 
 def _model_engine(torch, params, cfg, card_note, label, model, max_seq_len, prompts, n_ttft,
-                  dense_check) -> tuple[dict, object]:
+                  dense_check, weights="q4") -> tuple[dict, object]:
     """prompts: [(session, ids, new tokens)], greedy, after n_ttft first-token
     runs of the first prompt, through an Engine on decode graphs and through
     the eager yardstick on the same weights: identical ids, launch counts as
-    expected, every decode step after a key's first use a replay; then the
-    profiles of 16 decode tokens (`_engine_profile`)."""
+    expected (`_expected`'s weights), every decode step after a key's first
+    use a replay; then the profiles of 16 decode tokens (`_engine_profile`)."""
     from jlama_tpu_torch.runtime.engine import Engine
 
     eng = Engine(params, cfg, device="cuda", max_seq_len=max_seq_len)
@@ -2474,7 +2520,7 @@ def _model_engine(torch, params, cfg, card_note, label, model, max_seq_len, prom
         for sid, _, _ in prompts[1:]:
             e.drop_session(sid)
         got = _all_counts()
-        expect = _expected(cfg, n_ttft + len(prompts), n_decode, n_gather[0])
+        expect = _expected(cfg, n_ttft + len(prompts), n_decode, n_gather[0], weights=weights)
         print(f"{label} engine ({run}) launches {got}, expected {expect}", flush=True)
         if got != expect or _unfused_rope_calls():
             fail(f"{label} engine ({run}): launches {got} != expected {expect}, or apply_rope "
@@ -2570,18 +2616,21 @@ def _routing_stats(torch, rec, cfg, label) -> dict:
 
 
 def _model_serving(torch, params, cfg, card_note, label, serve, mix, ids,
-                   routing=False, matmul="q4_matmul") -> dict:
+                   routing=False, matmul="q4_matmul", weight_format=None,
+                   weights="q4") -> dict:
     """Greedy requests mix [(prompt ids, new tokens)] through a BatchScheduler
     on decode graphs, submitted at once to its serving thread (launch counts
     from its own counts of prefill calls and decode steps); then the same
-    requests inline through it and through the eager yardstick, whose ids
-    must be identical (with routing, the eager decode steps' expert ids
-    recorded: `_routing_stats`); then both profiles (`_serving_profile`, its
-    prompts from ids). matmul: the projections' kernel (`_expected`)."""
+    requests inline through it and through the eager yardstick on its
+    weights, whose ids must be identical (with routing, the eager decode
+    steps' expert ids recorded: `_routing_stats`); then both profiles
+    (`_serving_profile`, its prompts from ids). matmul: the projections'
+    kernel, weights: their kind (`_expected`); weight_format: the
+    scheduler's ("q4s": K5 for the 2-D weights)."""
     from jlama_tpu_torch.runtime.scheduler import BatchScheduler, GenRequest, RequestState
 
     sched = BatchScheduler(params, cfg, kv_dtype=torch.bfloat16, device="cuda", fuse=False,
-                           **serve)
+                           weight_format=weight_format, **serve)
     reqs = [GenRequest(prompt_ids=p, max_new_tokens=n) for p, n in mix]
     _reset_all_counts()
     sched.n_prefill_calls = sched.n_decode_steps = 0
@@ -2597,7 +2646,7 @@ def _model_serving(torch, params, cfg, card_note, label, serve, mix, ids,
         sched.stop()
         torch.cuda.synchronize()
     n_pf, n_dec = sched.n_prefill_calls, sched.n_decode_steps
-    got, expect = _all_counts(), _expected(cfg, n_pf, n_dec, n_gather[0], matmul)
+    got, expect = _all_counts(), _expected(cfg, n_pf, n_dec, n_gather[0], matmul, weights)
     print(f"{label} serving: {n_pf} prefill calls, {n_dec} decode steps; launches {got}, "
           f"expected {expect}", flush=True)
     if got != expect or _unfused_rope_calls():
@@ -2617,8 +2666,8 @@ def _model_serving(torch, params, cfg, card_note, label, serve, mix, ids,
           f"{n_gen / wall:.1f} tok/s; TTFT p50 {e2e['ttft_ms_p50']:.1f} ms, p95 "
           f"{e2e['ttft_ms_p95']:.1f} ms; inter-token p50 {e2e['itl_ms_p50']:.2f} ms, p95 "
           f"{e2e['itl_ms_p95']:.2f} ms on {card_note}", flush=True)
-    eager = BatchScheduler(params, cfg, kv_dtype=torch.bfloat16, device="cuda", fuse=False,
-                           decode_graphs=False, **serve)
+    eager = BatchScheduler(sched.params, cfg, kv_dtype=torch.bfloat16, device="cuda",
+                           fuse=False, decode_graphs=False, **serve)
     out, rec = {}, []
     for run, s in (("graphs", sched), ("eager", eager)):
         rs = [GenRequest(prompt_ids=p, max_new_tokens=n) for p, n in mix]
@@ -2677,10 +2726,14 @@ def moe_path(torch, card_note) -> dict:
     from seed 0, about 29.2 GB): K6 against its plain version, the dense and
     paged logits of its first 2 layers against the plain path in f32 on the
     CPU, the Engine and the BatchScheduler on decode graphs beside their
-    eager yardsticks, and the phase's peak memory."""
+    eager yardsticks, the same requests through a q4s scheduler (K5 for the
+    2-D weights; its paged logits of 2 layers against the plain path),
+    `score_tokens` with f32 activations (K6's cast; `_moe_ppl`), and the
+    phase's peak memory."""
     import dataclasses
 
     from jlama_tpu_torch.models.init import mixtral_8x7b_config, random_q4_params
+    from jlama_tpu_torch.ops.w8a8 import prepare_params_for_w8a8
     from jlama_tpu_torch.utils.cuda_timer import Timer
 
     torch.cuda.empty_cache()
@@ -2725,7 +2778,23 @@ def moe_path(torch, card_note) -> dict:
             int(torch.randint(32, 65, (1,), generator=gs))) for _ in range(8)]
     serving = _model_serving(torch, eng.params, cfg, card_note, "mixtral", MOE_SERVE, mix, sids,
                              routing=True)
+    fused = eng.params
     del eng
+    # q4s serving on the same weights: the 2-D ones (wqkv, wo, the lm_head) take
+    # K5 in K1's place, the expert stacks stay q4 for K6 (a random router is
+    # bf16, as `random_q4_params` draws it, so it stays a float matmul)
+    q4s = _model_serving(torch, fused, cfg, card_note, "mixtral q4s", MOE_SERVE, mix, sids,
+                         matmul="w8a8_matmul", weight_format="q4s")
+    print(f"mixtral q4s serving: {q4s['tok_s']:.1f} tok/s (q4 {serving['tok_s']:.1f}), busy "
+          f"share over 16 steps {q4s['profile']['busy_share']:.3f} (q4 "
+          f"{serving['profile']['busy_share']:.3f}), device ms per 16 steps "
+          f"{q4s['profile']['device_ms']:.2f} (q4 {serving['profile']['device_ms']:.2f}) on "
+          f"{card_note}", flush=True)
+    p2s = prepare_params_for_w8a8(dict(fused, layers=fused["layers"][:2]))
+    q4s["logits_rel_l2"] = _paged_logits_check(torch, p2s, c2, torch.bfloat16, ids)
+    del p2s
+    ppl = _moe_ppl(torch, fused, cfg, card_note)
+    del fused
     # K6's prefill route (its gather counted) in the prefills of both paths
     if engine["launches"]["moe_gather"] == 0 or serving["launches"]["moe_gather"] == 0:
         fail("mixtral: no prefill took K6's prefill route (moe_gather launched no time)")
@@ -2742,7 +2811,65 @@ def moe_path(torch, card_note) -> dict:
     print(f"mixtral: peak memory of the phase {peak:.2f} GB (weights {gb:.2f} GB) on "
           f"{card_note}", flush=True)
     return dict(k6=k6, k6_cases=details, logits_rel_l2=logits, engine=engine, serving=serving,
-                weights_gb=gb, peak_memory_gb=peak)
+                q4s_serving=q4s, perplexity=ppl, weights_gb=gb, peak_memory_gb=peak)
+
+
+def _moe_ppl(torch, params, cfg, card_note) -> dict:
+    """`score_tokens` on the card over PPL_TOKENS seeded ids (windows of
+    PPL_SEQ, stride PPL_STRIDE) with f32 activations, which K6's wrapper
+    casts to bf16 on its prefill route (R = 2 x 1,024 selections a window):
+    its launches as expected; beside it the same windows with the experts
+    through K6's plain version on the card (f32 x, exact dequantization: the
+    plain f32 path of the experts, so the delta is the cast and the prefill
+    route's bf16 weights) and with bf16 activations."""
+    from jlama_tpu_torch.eval.ppl import score_tokens
+    from jlama_tpu_torch.nn import layers
+    from jlama_tpu_torch.ops import moe_q4
+
+    ids = torch.randint(0, cfg.vocab_size, (PPL_TOKENS,),
+                        generator=torch.Generator().manual_seed(9)).numpy()
+    n_win, L = 1 + (PPL_TOKENS - PPL_SEQ) // PPL_STRIDE, cfg.n_layers
+
+    def gate_up_plain(x, w1, w3, e, out_dtype=None, groups=None):
+        return (moe_q4.moe_q4_matmul_plain(x, w1, e, out_dtype),
+                moe_q4.moe_q4_matmul_plain(x, w3, e, out_dtype))
+
+    def down_plain(x, w, e, out_dtype=None, groups=None):
+        return moe_q4.moe_q4_matmul_plain(x, w, e, out_dtype)
+
+    out = {}
+    for run, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16),
+                       ("f32 plain experts", torch.float32)):
+        plain = run.endswith("plain experts")
+        if plain:
+            layers.moe_q4_gate_up, layers.moe_q4_matmul = gate_up_plain, down_plain
+        _reset_all_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            ppl = score_tokens(params, cfg, ids, seq_len=PPL_SEQ, stride=PPL_STRIDE, dtype=dtype,
+                               device="cuda")
+        finally:
+            layers.moe_q4_gate_up, layers.moe_q4_matmul = \
+                moe_q4.moe_q4_gate_up, moe_q4.moe_q4_matmul
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {k: v for k, v in _all_counts().items() if k.startswith("moe_")}
+        k6 = 0 if plain else n_win * 2 * L
+        expect = dict(moe_q4_matmul=k6, moe_groups=n_win * L, moe_gather=k6)
+        how = ", the experts through K6's plain version" if plain else ""
+        print(f"mixtral perplexity ({_dt(dtype)} activations{how}): {ppl:.6g} over {PPL_TOKENS} random ids ({n_win} windows of {PPL_SEQ}, stride "
+              f"{PPL_STRIDE}) in {secs:.2f} s; K6 launches {got}, expected {expect}", flush=True)
+        if not math.isfinite(ppl) or got != expect:
+            fail(f"mixtral perplexity ({run}): {ppl}, K6 launches {got} != {expect}")
+        out[run] = dict(ppl=ppl, seconds=secs, launches=got)
+    f32, plain_ppl, bf16 = out["f32"]["ppl"], out["f32 plain experts"]["ppl"], out["bf16"]["ppl"]
+    out["cast_delta"] = (f32 - plain_ppl) / plain_ppl
+    out["bf16_delta"] = (bf16 - f32) / f32
+    print(f"mixtral perplexity: K6 with its cast of x against the plain f32 experts, relative "
+          f"delta {out['cast_delta']:.3g}; bf16 activations against f32 {out['bf16_delta']:.3g} "
+          f"(random weights: the levels mean nothing) on {card_note}", flush=True)
+    return out
 
 
 G2_SERVE = dict(n_slots=16, n_pages=512, page_size=64, prefill_chunk=256, decode_lag=4,
@@ -3342,8 +3469,8 @@ def gpt2_path(torch, card_note) -> dict:
     mix = [(sids(int(torch.randint(32, 901, (1,), generator=gs))),
             int(torch.randint(32, 65, (1,), generator=gs))) for _ in range(8)]
     serving = _model_serving(torch, eng.params, cfg, card_note, "gpt2", GPT2_SERVE, mix, sids)
-    q4s = _model_serving(torch, eng.params, cfg, card_note, "gpt2 q4s",
-                         dict(GPT2_SERVE, weight_format="q4s"), mix, sids, matmul="w8a8_matmul")
+    q4s = _model_serving(torch, eng.params, cfg, card_note, "gpt2 q4s", GPT2_SERVE, mix, sids,
+                         matmul="w8a8_matmul", weight_format="q4s")
     del eng
     torch.cuda.empty_cache()
     g = torch.Generator().manual_seed(15)
@@ -3507,6 +3634,442 @@ def bert_path(torch, card_note) -> dict:
                 held_before_gb=held / 1e9, peak_memory_gb=peak)
 
 
+# --------------------------------------------------------------------------
+# Phase 14: float (bf16) experts
+# --------------------------------------------------------------------------
+
+# 8 of Mixtral-8x7B's 32 layers: in bf16 the full depth is 93 GB, which no
+# one card holds; 8 layers are about 23 GB (2.82 GB of experts a layer, 0.52
+# GB of embedding and lm_head)
+FLOAT_MOE_LAYERS = 8
+# the float route's rows against `_moe_float_plain` on the card: relative L2
+# within a bf16 step (the down projection rounded to bf16, and gate or up
+# values whose f32 sums round to the neighbouring bf16 value)
+FLOAT_MOE_REL_L2 = 2.0 ** -7
+
+
+def float_moe_path(torch, card_note) -> dict:
+    """Phase 14: Mixtral-8x7B at full width, FLOAT_MOE_LAYERS layers, every
+    weight bf16 (random, seed 0: `random_float_params`): the experts through
+    the card's grouped product (`ops/moe_float.py`), after phase 10's memory
+    is freed. A MoE block at 1, 16 and 512 tokens makes no host sync; the
+    float route at R = 2, 32 and 1,024 selections against
+    `_moe_float_plain` (rel L2, a bit-equal repeat) and timed beside its
+    bound and the plain version; the dense logits of 2 layers against the
+    plain path in f32 on the CPU; an Engine (a 512-token prompt, 64 greedy
+    tokens) and a 16-slot BatchScheduler (8 greedy requests) on decode
+    graphs beside their eager yardsticks, identical ids, launch counts as
+    expected (`_expected`, weights "bf16"), every decode step after a key's
+    first use a replay; the phase's peak memory."""
+    import dataclasses
+
+    from jlama_tpu_torch.models.init import mixtral_8x7b_config, random_float_params
+    from jlama_tpu_torch.nn import layers as L
+    from jlama_tpu_torch.ops.moe_float import grouped_mm, moe_float_experts, stack_in_out
+    from jlama_tpu_torch.utils.cuda_timer import Timer, bound
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(mixtral_8x7b_config(), n_layers=FLOAT_MOE_LAYERS)
+    t0 = time.perf_counter()
+    params = random_float_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    gb = torch.cuda.memory_allocated() / 1e9
+    E, D, H = cfg.n_experts, cfg.embedding_length, cfg.hidden_length
+    print(f"bf16 mixtral: Mixtral-8x7B shapes, {cfg.n_layers} of its 32 layers, every weight "
+          f"bf16 (random, seed 0): {gb:.2f} GB on the card, made in "
+          f"{time.perf_counter() - t0:.2f} s; experts through torch._grouped_mm "
+          f"(torch {torch.__version__})", flush=True)
+    layer = params["layers"][0]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    act = lambda v: L.activation(v, cfg.activation)  # noqa: E731
+    # no host sync: a decode step's MoE block (1 and 16 tokens) and a prefill's
+    for t in (1, 16, 512):
+        x = torch.randn((1, t, D), generator=g, device="cuda").to(torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y = L.moe_block(x, layer, cfg)
+        except RuntimeError as e:
+            fail(f"bf16 mixtral: the float route made a host sync at {t} tokens: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if not bool(torch.isfinite(y).all()):
+            fail(f"bf16 mixtral: moe_block at {t} tokens is not finite")
+    print("bf16 mixtral: moe_block at 1, 16 and 512 tokens made no host sync "
+          "(torch.cuda.set_sync_debug_mode('error'))", flush=True)
+    # the float route against its plain version, timed
+    timer = Timer()
+    w = [stack_in_out(layer[f"experts.{n}"], False) for n in ("w1", "w3", "w2")]
+    route = {}
+    for r in (2, 32, 1024):
+        t = r // 2
+        x = torch.randn((t, D), generator=g, device="cuda").to(torch.bfloat16)
+        e = torch.rand((t, E), generator=g, device="cuda").argsort(dim=1)[:, :2].to(torch.int32)
+        touched = int(torch.unique(e).numel())
+        before = (grouped_mm.launches, _all_counts()["moe_groups"])
+        y = moe_float_experts(x, *w, e, E, act)
+        if (grouped_mm.launches, _all_counts()["moe_groups"]) != (before[0] + 3, before[1] + 1):
+            fail(f"bf16 mixtral: the float route at R = {r} made "
+                 f"{grouped_mm.launches - before[0]} grouped products")
+        again = moe_float_experts(x, *w, e, E, act)
+        plain = L._moe_float_plain(x, layer, cfg, e)
+        torch.cuda.synchronize()
+        rel = ((y - plain).norm() / plain.norm()).item()
+        err = (y - plain).abs().max().item()
+        if not torch.equal(y, again) or not rel < FLOAT_MOE_REL_L2:
+            fail(f"bf16 mixtral: the float route at R = {r}: rel L2 {rel:.3g} against the plain "
+                 f"version (limit {FLOAT_MOE_REL_L2:.3g}), repeat equal {torch.equal(y, again)}")
+        ms = timer(lambda: moe_float_experts(x, *w, e, E, act))
+        plain_ms = timer(lambda: L._moe_float_plain(x, layer, cfg, e), reps=3)
+        b, by = bound(touched * 3 * D * H * 2 + t * D * 2 + r * D * 4, 3 * 2 * r * D * H)
+        route[r] = dict(R=r, experts=touched, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                        rel_l2=rel, max_abs_err=err)
+        print(f"bf16 mixtral float route (grouping, gather, 3 grouped products, scatter) at R = "
+              f"{r} ({touched} experts): {ms:.4f} ms, bound {b:.4f} ({by}), plain "
+              f"{plain_ms:.3f} ms; rel L2 {rel:.3g} against the plain version (limit "
+              f"{FLOAT_MOE_REL_L2:.3g}), max abs {err:.3g}, bit-equal repeat on {card_note}",
+              flush=True)
+    del timer
+    torch.cuda.empty_cache()
+    gl = torch.Generator().manual_seed(4)
+
+    def ids(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gl).tolist()
+
+    p2 = dict(params, layers=params["layers"][:2])
+    logits = _dense_decode_logits_check(torch, p2, dataclasses.replace(cfg, n_layers=2), ids(24))
+    del p2
+    rng = torch.Generator().manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (512,), generator=rng).tolist()
+    engine, eng = _model_engine(torch, params, cfg, card_note, "bf16 mixtral",
+                                "Mixtral-8x7B bf16", 1024, [("main", prompt, MOE_NEW)], 1,
+                                dense_check=False, weights="bf16")
+    gs = torch.Generator().manual_seed(9)
+
+    def sids(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gs).tolist()
+
+    mix = [(sids(int(torch.randint(32, 513, (1,), generator=gs))),
+            int(torch.randint(32, 65, (1,), generator=gs))) for _ in range(8)]
+    serving = _model_serving(torch, eng.params, cfg, card_note, "bf16 mixtral", MOE_SERVE, mix,
+                             sids, weights="bf16")
+    del eng, params
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"bf16 mixtral: peak memory of the phase {peak:.2f} GB (weights {gb:.2f} GB) on "
+          f"{card_note}", flush=True)
+    return dict(layers=cfg.n_layers, float_route=route, logits_rel_l2=logits, engine=engine,
+                serving=serving, weights_gb=gb, peak_memory_gb=peak)
+
+
+# --------------------------------------------------------------------------
+# Phase 15: the command line
+# --------------------------------------------------------------------------
+
+CLI_NEW = 24  # greedy tokens of each CLI request
+CLI_TEXTS = ("the quick brown fox jumps over the lazy dog and tells me a story of cats",
+             "what about the weather in paris today and tomorrow, is it very good",
+             "tell me a story of 42 cats and 3.5 birds over the lazy dog today",
+             "the weather is sunny in paris, tell me about the quick brown fox")
+
+
+def _write_hf_llama(torch, out: Path, hf_config: dict, seed: int) -> float:
+    """A float bf16 checkpoint in HF names (model.safetensors, config.json)
+    at a Llama config's full width, drawn on the card from the seed (normal,
+    std 0.02; norms around 1), written through the port's SafeTensorWriter
+    from uint16 views. Returns the seconds."""
+    import numpy as np
+
+    from jlama_tpu_torch.st import SafeTensorWriter
+
+    t0 = time.perf_counter()
+    c = hf_config
+    d, f, hd = c["hidden_size"], c["intermediate_size"], c["head_dim"]
+    q, kv = c["num_attention_heads"] * hd, c["num_key_value_heads"] * hd
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = SafeTensorWriter(metadata={"format": "pt"})
+
+    def add(name, *shape, norm=False):
+        x = torch.randn(shape, generator=g, device="cuda") * (0.1 if norm else 0.02) \
+            + (1.0 if norm else 0.0)
+        raw = x.to(torch.bfloat16).view(torch.int16).cpu().numpy().view(np.uint16)
+        w.add_raw(name, "BF16", shape, raw)
+
+    add("model.embed_tokens.weight", c["vocab_size"], d)
+    for i in range(c["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        for n, shape in (("self_attn.q_proj", (q, d)), ("self_attn.k_proj", (kv, d)),
+                         ("self_attn.v_proj", (kv, d)), ("self_attn.o_proj", (d, q)),
+                         ("mlp.gate_proj", (f, d)), ("mlp.up_proj", (f, d)),
+                         ("mlp.down_proj", (d, f))):
+            add(p + n + ".weight", *shape)
+        add(p + "input_layernorm.weight", d, norm=True)
+        add(p + "post_attention_layernorm.weight", d, norm=True)
+    add("model.norm.weight", d, norm=True)
+    out.mkdir(parents=True, exist_ok=True)
+    w.write(out / "model.safetensors")
+    (out / "config.json").write_text(json.dumps(dict(c, torch_dtype="bfloat16")))
+    return time.perf_counter() - t0
+
+
+def _cli(args, env, label, timeout=600, stdin=None):
+    """One `python -m jlama_tpu_torch.cli` run; fails the phase on a non-zero
+    exit. Returns (stdout, stderr, seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "jlama_tpu_torch.cli", *args], env=env,
+                       cwd=str(Path(__file__).resolve().parent), input=stdin,
+                       capture_output=True, text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"cli {label}: exit {r.returncode}: {r.stderr[-1500:]}")
+    print(f"cli {label}: exit 0 in {secs:.1f} s", flush=True)
+    return r.stdout, r.stderr, secs
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def _cli_server(args, env, label):
+    """`serve` in a subprocess on a free local port until /healthz answers;
+    stopped by its own PID (SIGINT, then SIGKILL after 30 s) on leaving."""
+    import signal
+
+    port = _free_port()
+    proc = subprocess.Popen([sys.executable, "-m", "jlama_tpu_torch.cli", "serve", *args,
+                             "--host", "127.0.0.1", "--port", str(port)], env=env,
+                            cwd=str(Path(__file__).resolve().parent),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    t0 = time.perf_counter()
+    try:
+        while True:
+            if proc.poll() is not None:
+                fail(f"cli {label}: the server exited {proc.returncode}: "
+                     f"{proc.stdout.read()[-1500:]}")
+            try:
+                if _http(port, "GET", "/healthz")[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.perf_counter() - t0 > 300:
+                fail(f"cli {label}: /healthz did not answer in 300 s")
+            time.sleep(0.25)
+        print(f"cli {label}: /healthz answered {time.perf_counter() - t0:.1f} s after the "
+              f"start (pid {proc.pid})", flush=True)
+        yield port
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.wait(30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        proc.stdout.close()
+
+
+def _fake_hub(root: Path):
+    """The Hub's two routes on 127.0.0.1 over the model directories under
+    root (a repo "acme/<dir>"): the file list and ranged file reads. Returns
+    the server (stop with .shutdown())."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def _send(self, code, data=b""):
+            self.send_response(code)
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def do_GET(self):
+            parts = self.path.split("?")[0].strip("/").split("/")
+            if parts[:2] == ["api", "models"]:  # api/models/acme/<dir>/tree/<branch>
+                d = root / parts[3]
+                body = [{"type": "file", "path": p.name} for p in sorted(d.iterdir())]
+                return self._send(200, json.dumps(body).encode())
+            if len(parts) == 5 and parts[2] == "resolve":  # acme/<dir>/resolve/<b>/<file>
+                f = root / parts[1] / parts[4]
+                if not f.is_file():
+                    return self._send(404)
+                data = f.read_bytes()
+                rng = self.headers.get("Range")
+                if rng:
+                    lo, hi = rng.split("=")[1].split("-")
+                    data = data[int(lo): int(hi) + 1 if hi else len(data)]
+                    return self._send(206, data)
+                return self._send(200, data)
+            self._send(404)
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv
+
+
+def cli_path(torch, card_note) -> dict:
+    """Phase 15: `python -m jlama_tpu_torch.cli` on the card, every command a
+    subprocess with a temporary JLAMA_MODEL_HOME: a float bf16 Llama-3.2-1B
+    written here from seed 0 (HF names, the port's writer, phase 12's
+    tokenizer and chat template); `quantize` (timed; layer 0, the embedding
+    and the norms byte-equal to `q4_quantize_np` of the same values and to
+    the source) and `quantize --quantize-to i8` (its output loads); `list`;
+    `complete` (the text equal to an in-process `Engine` on the JQ4 directory);
+    `chat` with two piped turns; `serve` (4 chat requests, one a stream, one
+    at a time, each greedy answer equal to an in-process `BatchScheduler`'s
+    on the same prompt ids; one /v1/embeddings request); `serve --pallas
+    w8a8` (one answer equal to an in-process q4s scheduler's); `download`
+    of the JQ4 directory from a fake hub on 127.0.0.1 (files byte-equal);
+    `rm`; `version`. A command that exits non-zero fails the phase."""
+    import filecmp
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from jlama_tpu_torch.models.init import llama_1b_hf_config
+    from jlama_tpu_torch.models.loader import load_params
+    from jlama_tpu_torch.quant.blockq import q4_quantize_np
+    from jlama_tpu_torch.runtime.engine import Engine
+    from jlama_tpu_torch.runtime.scheduler import BatchScheduler
+    from jlama_tpu_torch.server.openai_api import OpenAIServer
+    from jlama_tpu_torch.st import SafeTensorIndex, bf16_to_f32
+    from jlama_tpu_torch.tokenizers import load_tokenizer
+
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="jlama_cli_") as tmp:
+        home = Path(tmp) / "home"
+        src = home / "llama1b"
+        out["write_s"] = _write_hf_llama(torch, src, llama_1b_hf_config(), seed=0)
+        (src / "tokenizer.json").write_text(json.dumps(front_tokenizer_json()))
+        (src / "tokenizer_config.json").write_text(json.dumps(FRONT_TOKENIZER_CONFIG))
+        torch.cuda.empty_cache()
+        src_gb = (src / "model.safetensors").stat().st_size / 1e9
+        print(f"cli: a bf16 Llama-3.2-1B in HF names ({src_gb:.2f} GB) written in "
+              f"{out['write_s']:.1f} s", flush=True)
+        env = dict(os.environ, JLAMA_MODEL_HOME=str(home), PYTHONPATH=str(
+            Path(__file__).resolve().parent))
+        # quantize, timed, and its bytes against the NumPy quantizer
+        _, _, out["quantize_s"] = _cli(["quantize", "llama1b"], env, "quantize")
+        jq4 = home / "llama1b-JQ4"
+        a, b = SafeTensorIndex(src), SafeTensorIndex(jq4)
+        names = [n for n in a.names() if n.startswith("model.layers.0.")
+                 or n in ("model.embed_tokens.weight", "model.norm.weight")]
+        for n in names:
+            x = bf16_to_f32(np.asarray(a.load(n)))
+            if len(x.shape) == 2:
+                packed, scales = q4_quantize_np(x)
+                data, sc, dt = b.load_quantized(n)
+                ok = dt == "Q4" and np.array_equal(data, packed) and \
+                    np.array_equal(sc.view(np.uint32), scales.view(np.uint32))
+            else:
+                ok = b.info(n).dtype == "BF16" and np.array_equal(b.load(n), a.load(n))
+            if not ok:
+                fail(f"cli quantize: {n} differs from q4_quantize_np of the same values")
+        a.close()
+        b.close()
+        out["quantize_checked"] = len(names)
+        print(f"cli quantize: {src_gb:.2f} GB bf16 -> "
+              f"{(jq4 / 'model.safetensors').stat().st_size / 1e9:.2f} GB JQ4 in "
+              f"{out['quantize_s']:.1f} s (host reads and writes; the card quantizes); "
+              f"{len(names)} tensors of layer 0, the embedding and the final norm byte-equal "
+              "to q4_quantize_np of the same values", flush=True)
+        _, _, out["quantize_i8_s"] = _cli(["quantize", "llama1b", "--quantize-to", "i8"], env,
+                                          "quantize --quantize-to i8")
+        p8, c8 = load_params(home / "llama1b-JI8", device="cuda")
+        fmts = {getattr(p8["layers"][0][k], "fmt", None) for k in ("wq", "w1", "w2")}
+        if fmts != {"q8"} or c8.n_layers != llama_1b_hf_config()["num_hidden_layers"]:
+            fail(f"cli quantize i8: the output loads as {fmts}")
+        del p8
+        shutil.rmtree(home / "llama1b-JI8")
+        stdout, _, _ = _cli(["list"], env, "list")
+        if stdout.split() != ["llama1b", "llama1b-JQ4"]:
+            fail(f"cli list: {stdout!r}")
+        # complete against an in-process Engine on the same directory
+        params, cfg = load_params(jq4, device="cuda")
+        tok = load_tokenizer(jq4)
+        eng = Engine(params, cfg, tok, device="cuda", max_seq_len=4096)
+        prompt = CLI_TEXTS[0]
+        want = prompt + eng.generate_tokens(tok.encode(prompt),
+                                            max_new_tokens=CLI_NEW).response_text
+        del eng
+        stdout, stderr, out["complete_s"] = _cli(
+            ["complete", "llama1b-JQ4", prompt, "--max-tokens", str(CLI_NEW)], env, "complete")
+        if stdout != want + "\n":
+            fail(f"cli complete: {stdout!r} differs from the in-process Engine's {want!r}")
+        print(f"cli complete: the text equals the in-process Engine's ({stderr.strip()})",
+              flush=True)
+        stdout, _, out["chat_s"] = _cli(["chat", "llama1b-JQ4", "--max-tokens", "16"], env,
+                                        "chat", stdin=CLI_TEXTS[1] + "\n" + CLI_TEXTS[2] + "\n")
+        if not stdout.startswith("Chatting") or \
+                len(re.findall(r"\[\d+ tokens, \d+ ms/token\]", stdout)) != 2:
+            fail(f"cli chat: {stdout[-500:]!r}")
+        # serve: each greedy answer against an in-process scheduler's
+        checked = []
+        for fmt in (None, "q4s"):
+            sched = BatchScheduler(params, cfg, tok, n_slots=16, n_pages=512, page_size=64,
+                                   max_seq_len=4096, device="cuda", weight_format=fmt)
+            srv = OpenAIServer(sched, tok)
+            args = ["llama1b-JQ4"] + (["--pallas", "w8a8"] if fmt else [])
+            label = "serve" + (" --pallas w8a8" if fmt else "")
+            with _cli_server(args, env, label) as port:
+                for i, text in enumerate(CLI_TEXTS if fmt is None else CLI_TEXTS[:1]):
+                    stream = fmt is None and i == 1
+                    body = {"messages": [{"role": "user", "content": text}],
+                            "max_tokens": CLI_NEW, "temperature": 0.0, "stream": stream}
+                    got, _, _, _ = _front_answer(_http(port, "POST", "/v1/chat/completions",
+                                                       body, stream=stream), stream)
+                    ids = srv._encode(srv._render_prompt(body)[0])
+                    ref = sched.generate(ids, max_new_tokens=CLI_NEW)
+                    if got != ref.response_text:
+                        fail(f"cli {label}: answer {got!r} differs from BatchScheduler"
+                             f"(weight_format={fmt}).generate's {ref.response_text!r}")
+                    checked.append(dict(server=label, stream=stream, prompt_tokens=len(ids),
+                                        tokens=ref.generated_tokens))
+                if fmt is None:
+                    st, emb, _, _ = _http(port, "POST", "/v1/embeddings",
+                                          {"input": CLI_TEXTS[3], "model": "llama1b-JQ4"})
+                    vec = emb["data"][0]["embedding"] if st == 200 else []
+                    if st != 200 or len(vec) != cfg.embedding_length or not all(
+                            math.isfinite(v) for v in vec):
+                        fail(f"cli serve: /v1/embeddings answered {st}, {len(vec)} values")
+            del srv, sched
+            torch.cuda.empty_cache()
+        out["serve_checked"] = checked
+        print(f"cli serve: {len(checked)} greedy answers (one a stream; one through "
+              "--pallas w8a8) equal the in-process schedulers'; /v1/embeddings answered; the "
+              "servers stopped by their PIDs", flush=True)
+        del params
+        # download from a fake hub, then rm and version
+        hub = _fake_hub(home)
+        try:
+            denv = dict(env, HF_ENDPOINT=f"http://127.0.0.1:{hub.server_address[1]}")
+            _cli(["download", "acme/llama1b-JQ4"], denv, "download")
+        finally:
+            hub.shutdown()
+        got = home / "acme_llama1b-JQ4"
+        for f in ("config.json", "tokenizer.json", "tokenizer_config.json", "model.safetensors"):
+            if not filecmp.cmp(got / f, jq4 / f, shallow=False):
+                fail(f"cli download: {f} differs from the served file")
+        _cli(["rm", "acme/llama1b-JQ4"], env, "rm")
+        if got.exists():
+            fail("cli rm: the model directory is still there")
+        stdout, _, _ = _cli(["version"], env, "version")
+        if not stdout.startswith("jlama-tpu "):
+            fail(f"cli version: {stdout!r}")
+        print(f"cli: download (files byte-equal), rm and version ran on {card_note}",
+              flush=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write per-shape details as JSON here")
@@ -3629,6 +4192,19 @@ def main() -> None:
     out["bert"] = bert
     print(f"card {smi}: bert " + json.dumps({k: v for k, v in bert.items() if k != "profile"}),
           flush=True)
+    # 14. float (bf16) experts: Mixtral-8x7B's width, 8 layers, the grouped product
+    torch.cuda.empty_cache()
+    fmoe = float_moe_path(torch, smi)
+    out["bf16_mixtral"] = fmoe
+    print(f"card {smi}: bf16 mixtral " + json.dumps(
+        {"engine": {k: v for k, v in fmoe["engine"].items() if not k.startswith("profile")},
+         "serving": {k: v for k, v in fmoe["serving"].items() if not k.startswith("profile")},
+         "float_route": fmoe["float_route"], "logits_rel_l2": fmoe["logits_rel_l2"],
+         "peak_memory_gb": fmoe["peak_memory_gb"]}), flush=True)
+    # 15. the command line: quantize, list, complete, chat, serve, download, rm, version
+    torch.cuda.empty_cache()
+    out["cli"] = cli_path(torch, smi)
+    print(f"card {smi}: cli " + json.dumps(out["cli"]), flush=True)
 
     routes = {
         "q4_matmul": ("jlama_tpu_torch/csrc/q4_matmul.cu", "jlama_tpu/ops/pallas_q4.py:113"),

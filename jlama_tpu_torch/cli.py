@@ -1,0 +1,405 @@
+"""jlama-tpu's command line on the port: chat, complete, serve, download,
+quantize, list, rm, version.
+
+    python -m jlama_tpu_torch.cli <command> [options]
+
+The counterpart of `jlama_tpu/cli.py`, with its parser's options and
+defaults, its prompt building and its printed lines. `JLAMA_MODEL_HOME`
+selects the model directory root (the JAX package's, so both list the same
+models). One option is the port's own: `--device` (chat, complete, serve,
+quantize), the counterpart of `JAX_PLATFORMS`: CUDA by default, and without
+a card and without `--device cpu` a command exits with `resolve_device`'s
+message.
+
+The port's differences, each an exit with a message rather than a quiet
+fall-back:
+
+- `--pallas`: auto and on run q4 weights through K1 (the checkpoint's JQ4
+  layout; the JAX package's TPU layout "q4k" has no counterpart), w8a8
+  serves q4s (`weight_format="q4s"`, K5); off exits, since the port has no
+  dequantizing path on the card;
+- `serve`'s parallel options (`--mesh`, `--coordinator`, `--num-processes`,
+  `--process-id`, `--step-port`, `--no-pp-pipeline`) are parsed and exit:
+  they come with the parallel modes (ROADMAP module 10);
+- `--layer-mode` is accepted and changes nothing: the port's layers are
+  always separate tensors.
+
+`build_server(args)` builds the serving stack without blocking (`cmd_serve`
+runs it).
+"""
+
+from __future__ import annotations
+
+import argparse
+import shutil
+import sys
+import uuid
+from pathlib import Path
+
+
+def _resolve_model(name: str, args=None) -> Path:
+    from .hub import default_model_home, model_dir_name
+
+    p = Path(name)
+    if p.exists():
+        return p
+    home = default_model_home()
+    for cand in (home / name, home / model_dir_name(name)):
+        if cand.exists():
+            return cand
+    if args is not None and getattr(args, "auto_download", False):
+        from .hub import maybe_download_model
+
+        print(f"downloading {name} from the Hub ...")
+        try:
+            return maybe_download_model(
+                name, branch=getattr(args, "branch", "main"),
+                token=getattr(args, "auth_token", None),
+            )
+        except FileNotFoundError:
+            pass  # not a repo id: fall through to the clean error
+    raise SystemExit(f"model not found: {name} (looked in {home})")
+
+
+def _device(args):
+    """The command's device: `--device`, else CUDA; exits with
+    `resolve_device`'s message where there is none."""
+    from .device import resolve_device
+
+    try:
+        return resolve_device(getattr(args, "device", None))
+    except RuntimeError as e:
+        raise SystemExit(f"{e} (the command line takes --device cpu)") from None
+
+
+def _check_pallas(args) -> None:
+    if getattr(args, "pallas", "auto") == "off":
+        raise SystemExit(
+            "--pallas off: the port has no dequantizing path on the card; q4 weights run "
+            "through its q4 kernel (auto or on), q4s through its w8a8 kernel (w8a8)")
+
+
+def _load(args):
+    """(params, cfg, tokenizer, model_dir, device) for a model command."""
+    import torch
+
+    from .models.loader import load_params
+    from .tokenizers import load_tokenizer
+
+    _check_pallas(args)
+    device = _device(args)
+    model_dir = _resolve_model(args.model, args)
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[args.working_dtype]
+    params, cfg = load_params(model_dir, device=device, float_dtype=dtype)
+    tokenizer = load_tokenizer(model_dir)
+    return params, cfg, tokenizer, model_dir, device
+
+
+def _engine(args):
+    from .runtime.engine import Engine
+
+    params, cfg, tokenizer, _, device = _load(args)
+    return Engine(params, cfg, tokenizer, device=device, max_seq_len=args.context), tokenizer
+
+
+def cmd_chat(args) -> None:
+    from .prompt import PromptBuilder
+
+    eng, tokenizer = _engine(args)
+    session = str(uuid.uuid4())
+    print("Chatting (ctrl-d to exit)")
+    first = True
+    while True:
+        try:
+            user = input("> ")
+        except EOFError:
+            break
+        if not user.strip():
+            continue
+        b = PromptBuilder(tokenizer.spec)
+        if first and args.system:
+            b.add_system(args.system)
+        b.add_user(user)
+        prompt = b.build().prompt
+        ids = tokenizer.encode(prompt)
+
+        def stream(tok, ms):
+            print(tokenizer.decode([tok]), end="", flush=True)
+
+        resp = eng.generate_tokens(
+            ids,
+            max_new_tokens=args.max_tokens,
+            temperature=args.temperature,
+            top_p=args.top_p,
+            session_id=session,
+            on_token=stream,
+        )
+        print(
+            f"\n[{resp.generated_tokens} tokens, "
+            f"{resp.generate_time_ms / max(resp.generated_tokens, 1):.0f} ms/token]"
+        )
+        first = False
+
+
+def cmd_complete(args) -> None:
+    eng, tokenizer = _engine(args)
+    ids = tokenizer.encode(args.prompt)
+    resp = eng.generate_tokens(
+        ids,
+        max_new_tokens=args.max_tokens,
+        temperature=args.temperature,
+        top_p=args.top_p,
+    )
+    print(args.prompt + resp.response_text)
+    print(
+        f"\n[prompt {resp.prompt_tokens} tok {resp.prompt_time_ms:.0f} ms; "
+        f"generated {resp.generated_tokens} tok "
+        f"{resp.generate_time_ms:.0f} ms]",
+        file=sys.stderr,
+    )
+
+
+_PARALLEL_OPTS = ("mesh", "coordinator", "num_processes", "process_id", "step_port",
+                  "no_pp_pipeline")
+
+
+def build_server(args):
+    """The serving stack of `serve` without starting it: the scheduler over
+    the fused tree (q4s with `--pallas w8a8`), its `embed_engine` sharing
+    that tree, pre-warmed to `--prewarm` tokens, behind an `OpenAIServer`.
+    Returns (server, model_dir)."""
+    import torch
+
+    from .runtime.engine import Engine
+    from .runtime.scheduler import BatchScheduler
+    from .server.openai_api import OpenAIServer
+
+    given = [o for o in _PARALLEL_OPTS
+             if getattr(args, o, None) is not None and getattr(args, o) is not False]
+    if given:
+        flags = ", ".join("--" + o.replace("_", "-") for o in given)
+        raise SystemExit(f"{flags}: meshes and multi-process serving are not ported yet "
+                         "(ROADMAP module 10); the port serves on one device")
+    params, cfg, tokenizer, model_dir, device = _load(args)
+    kv_dtype = {"bf16": torch.bfloat16, "f32": torch.float32, "q8": "q8"}[args.kv_dtype]
+    sched = BatchScheduler(
+        params,
+        cfg,
+        tokenizer,
+        n_slots=args.batch_slots,
+        n_pages=args.kv_pages,
+        page_size=args.page_size,
+        max_seq_len=args.context,
+        kv_dtype=kv_dtype,
+        weight_format="q4s" if args.pallas == "w8a8" else None,
+        device=device,
+    )
+    if args.itl_budget_ms:
+        sched.itl_budget_ms = args.itl_budget_ms
+    if args.prefill_fair_rows:
+        sched.prefill_fair_rows = args.prefill_fair_rows
+    # one copy of the layer weights stays live: the scheduler's fused tree,
+    # which the embeddings Engine shares (fuse=False: already fused)
+    del params
+    sched.embed_engine = Engine(
+        sched.params, sched.cfg, tokenizer, device=sched.device, max_seq_len=args.context,
+        fuse=False, moe_ragged=False,
+    )
+    if args.prewarm:
+        import time as _time
+
+        t0 = _time.perf_counter()
+        print(f"pre-warming serving shapes to {args.prewarm} tokens ...")
+        sched.warmup(max_context=args.prewarm)
+        print(f"pre-warm done in {_time.perf_counter() - t0:.1f}s")
+    return OpenAIServer(sched, tokenizer, model_name=model_dir.name), model_dir
+
+
+def cmd_serve(args) -> None:
+    server, model_dir = build_server(args)
+    print(f"Serving {model_dir.name} on http://{args.host}:{args.port}")
+    server.run(host=args.host, port=args.port)
+
+
+def cmd_download(args) -> None:
+    from .hub import download_model
+
+    def progress(name, done, total):
+        # files download in parallel threads: only completion lines print
+        if total > 0 and done >= total:
+            print(f"{name}: done ({total // (1 << 20)} MiB)", flush=True)
+
+    out = download_model(
+        args.model, branch=args.branch, token=args.auth_token, progress=progress
+    )
+    print(f"\nDownloaded to {out}")
+
+
+def cmd_quantize(args) -> None:
+    from .quant.quantizer import quantize_model
+
+    device = _device(args)
+    model_dir = _resolve_model(args.model)
+
+    def progress(name, i, n):
+        print(f"\r[{i}/{n}] {name[:60]:60s}", end="", flush=True)
+
+    out = quantize_model(
+        model_dir,
+        out_dir=args.output,
+        quantize_to=args.quantize_to,
+        skip_prefixes=tuple(args.skip_prefix or ()),
+        drop_prefixes=tuple(args.drop_prefix or ()),
+        progress=progress,
+        device=device,
+    )
+    print(f"\nQuantized model written to {out}")
+
+
+def cmd_list(args) -> None:
+    from .hub import default_model_home, list_models
+
+    for name in list_models():
+        print(name)
+    if not list_models():
+        print(f"(no models in {default_model_home()})", file=sys.stderr)
+
+
+def cmd_rm(args) -> None:
+    from .hub import default_model_home, model_dir_name
+
+    home = default_model_home()
+    for cand in (home / args.model, home / model_dir_name(args.model)):
+        if cand.exists():
+            shutil.rmtree(cand)
+            print(f"Removed {cand}")
+            return
+    raise SystemExit(f"model not found: {args.model}")
+
+
+def cmd_version(args) -> None:
+    from . import __version__
+
+    print(f"jlama-tpu {__version__}")
+
+
+def _add_device_opt(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default=None,
+                   help="cuda (the default) or cpu: the plain PyTorch versions of the "
+                        "kernels, for small models")
+
+
+def _add_model_opts(p: argparse.ArgumentParser) -> None:
+    p.add_argument("model", help="model directory or HF id (under model home)")
+    p.add_argument("--working-dtype", choices=["bf16", "f32"], default="bf16")
+    p.add_argument("--context", type=int, default=4096)
+    p.add_argument("--pallas", choices=["auto", "on", "off", "w8a8"],
+                   default="auto",
+                   help="auto and on: q4 weights through the q4 kernel (K1); w8a8: "
+                        "serve the q4s W4A8 format through the w8a8 kernel (K5); off "
+                        "exits (no dequantizing path on the card)")
+    p.add_argument("--layer-mode", choices=["scan", "unrolled"], default="scan",
+                   help="accepted for the JAX package's command line; the port's layers "
+                        "are always separate tensors")
+    p.add_argument("--auto-download", action="store_true",
+                   help="fetch the model from the HF Hub when the name is a "
+                        "repo id not present locally (parallel ranged download)")
+    p.add_argument("--branch", default="main")
+    p.add_argument("--auth-token", default=None)
+    _add_device_opt(p)
+
+
+def _add_gen_opts(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--temperature", type=float, default=0.0)
+    p.add_argument("--top-p", type=float, default=1.0)
+    p.add_argument("--max-tokens", type=int, default=512)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="jlama-tpu")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("chat", help="interactive chat with KV session reuse")
+    _add_model_opts(p)
+    _add_gen_opts(p)
+    p.add_argument("--system", default=None)
+    p.set_defaults(fn=cmd_chat)
+
+    p = sub.add_parser("complete", help="one-shot text completion")
+    _add_model_opts(p)
+    _add_gen_opts(p)
+    p.add_argument("prompt")
+    p.set_defaults(fn=cmd_complete)
+
+    p = sub.add_parser("serve", help="OpenAI-compatible REST API server")
+    _add_model_opts(p)
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8080)
+    p.add_argument("--batch-slots", type=int, default=16)
+    p.add_argument("--kv-pages", type=int, default=512)
+    p.add_argument("--page-size", type=int, default=64)
+    p.add_argument(
+        "--kv-dtype",
+        choices=["bf16", "f32", "q8"],
+        default="bf16",
+        help="KV cache storage dtype; q8 halves the memory per cached token "
+        "(block-32 int8, dequantized in attention)",
+    )
+    module10 = "; not ported yet (ROADMAP module 10): giving it exits"
+    p.add_argument("--mesh", default=None, metavar="DP,PP,TP",
+                   help="shard the model over a device mesh, e.g. 1,1,4" + module10)
+    p.add_argument("--coordinator", default=None,
+                   help="coordinator address (multi-host)" + module10)
+    p.add_argument("--num-processes", type=int, default=None, help=module10[2:])
+    p.add_argument("--process-id", type=int, default=None, help=module10[2:])
+    p.add_argument("--step-port", type=int, default=None,
+                   help="TCP port for the multi-host step-broadcast channel" + module10)
+    p.add_argument("--no-pp-pipeline", action="store_true",
+                   help="with pp>1: storage-shard layers only" + module10)
+    p.add_argument("--prewarm", type=int, default=0, metavar="TOKENS",
+                   help="run every serving shape up to this many context tokens once "
+                        "before accepting requests (on the card: capture the decode graphs)")
+    p.add_argument("--itl-budget-ms", type=float, default=0.0,
+                   help="inter-token latency budget: caps the chained decode window "
+                        "depth so token delivery intervals stay under this many ms "
+                        "(0 = throughput-first)")
+    p.add_argument("--prefill-fair-rows", type=int, default=0,
+                   help="cap how many requests each batched prefill call "
+                        "advances (FIFO), bounding TTFT at high concurrency for "
+                        "some prefill-throughput cost (0 = unlimited batching)")
+    p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("download", help="download a model from HuggingFace")
+    p.add_argument("model")
+    p.add_argument("--branch", default="main")
+    p.add_argument("--auth-token", default=None)
+    p.set_defaults(fn=cmd_download)
+
+    p = sub.add_parser("quantize", help="offline quantization to JQ4/I8")
+    p.add_argument("model")
+    p.add_argument("--output", default=None)
+    p.add_argument("--quantize-to", choices=["q4", "i8"], default="q4")
+    p.add_argument("--skip-prefix", action="append")
+    p.add_argument("--drop-prefix", action="append")
+    _add_device_opt(p)
+    p.set_defaults(fn=cmd_quantize)
+
+    p = sub.add_parser("list", help="list downloaded models")
+    p.set_defaults(fn=cmd_list)
+
+    p = sub.add_parser("rm", help="remove a downloaded model")
+    p.add_argument("model")
+    p.set_defaults(fn=cmd_rm)
+
+    p = sub.add_parser("version", help="print version")
+    p.set_defaults(fn=cmd_version)
+    return ap
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -264,5 +264,12 @@ def from_hf_config(cfg: dict[str, Any]) -> ModelConfig:
 
 
 def load_config(model_dir: str | Path) -> ModelConfig:
+    """The config.json of a model directory, or of a model URL (`http(s)://`)."""
+    s = str(model_dir)
+    if s.startswith("http://") or s.startswith("https://"):
+        import urllib.request
+
+        with urllib.request.urlopen(s.rstrip("/") + "/config.json", timeout=60) as r:
+            return from_hf_config(json.loads(r.read()))
     p = Path(model_dir) / "config.json"
     return from_hf_config(json.loads(p.read_text()))

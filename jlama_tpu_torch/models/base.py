@@ -236,16 +236,19 @@ def prepare_moe_ragged(params: dict) -> dict:
 
 
 def check_moe_device(params: dict, device) -> None:
-    """Raise where MoE experts that only the CPU runs would meet the card:
-    float experts have no kernel there (ROADMAP: float experts on the card)."""
+    """Raise where float MoE experts cannot take the card's grouped product
+    (`ops/moe_float.py`): its rows are 16-byte multiples, so each stack's in
+    and out sizes must be multiples of 8. Every layout is taken: q4 experts
+    (K6), float `experts.w*` [E, out, in] and `experts.w*_t` [E, in, out]."""
     if torch.device(device).type == "cpu":
         return
     for d in params["layers"]:
-        w1 = d.get("experts.w1", d.get("experts.w1_t"))
-        if w1 is not None and not isinstance(w1, QArray):
-            raise NotImplementedError(
-                "float MoE experts run on the CPU only; on the card quantize them to q4 "
-                "(ROADMAP: float experts on the card)")
+        for k in ("experts.w1", "experts.w2", "experts.w3"):
+            w = d.get(k, d.get(k + "_t"))
+            if w is not None and not isinstance(w, QArray) and (w.shape[-1] % 8 or
+                                                                w.shape[-2] % 8):
+                raise ValueError(f"float MoE experts {k} {tuple(w.shape)}: the card's "
+                                 "grouped product needs both sizes a multiple of 8")
 
 
 def final_hidden(params: dict, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:

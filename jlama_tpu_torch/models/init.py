@@ -211,34 +211,58 @@ def random_q4_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     return params
 
 
+def random_float_params(cfg: ModelConfig, seed: int = 0, device=None,
+                        dtype=torch.bfloat16) -> dict:
+    """`random_q4_params`'s weights dequantized to `dtype`, leaf by leaf (each
+    q4 leaf freed once converted): a float model at a config's full width
+    (for a MoE config, float experts), drawn on the device from the seed.
+    Norms and the router stay as `random_q4_params` makes them (f32 and
+    bf16), as the loader gives a bf16 checkpoint's."""
+    params = random_q4_params(cfg, seed, device)
+
+    def deq(tree):
+        for k, v in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
+            if isinstance(v, (dict, list)):
+                deq(v)
+            elif isinstance(v, QArray):
+                tree[k] = v.dequantize(dtype)
+                del v
+
+    deq(params)
+    return params
+
+
 def llama_1b_config() -> ModelConfig:
     """Llama-3.2-1B-Instruct shapes."""
-    return from_hf_config(
-        {
-            "model_type": "llama",
-            "hidden_size": 2048,
-            "intermediate_size": 8192,
-            "num_attention_heads": 32,
-            "num_key_value_heads": 8,
-            "num_hidden_layers": 16,
-            "head_dim": 64,
-            "rms_norm_eps": 1e-5,
-            "vocab_size": 128256,
-            "max_position_embeddings": 131072,
-            "rope_theta": 500000.0,
-            "rope_scaling": {
-                "rope_type": "llama3",
-                "factor": 32.0,
-                "low_freq_factor": 1.0,
-                "high_freq_factor": 4.0,
-                "original_max_position_embeddings": 8192,
-            },
-            "bos_token_id": 128000,
-            "eos_token_id": [128001, 128008, 128009],
-            "hidden_act": "silu",
-            "tie_word_embeddings": True,
-        }
-    )
+    return from_hf_config(llama_1b_hf_config())
+
+
+def llama_1b_hf_config() -> dict:
+    """Llama-3.2-1B-Instruct's config.json (`meta-llama/Llama-3.2-1B-Instruct`)."""
+    return {
+        "model_type": "llama",
+        "hidden_size": 2048,
+        "intermediate_size": 8192,
+        "num_attention_heads": 32,
+        "num_key_value_heads": 8,
+        "num_hidden_layers": 16,
+        "head_dim": 64,
+        "rms_norm_eps": 1e-5,
+        "vocab_size": 128256,
+        "max_position_embeddings": 131072,
+        "rope_theta": 500000.0,
+        "rope_scaling": {
+            "rope_type": "llama3",
+            "factor": 32.0,
+            "low_freq_factor": 1.0,
+            "high_freq_factor": 4.0,
+            "original_max_position_embeddings": 8192,
+        },
+        "bos_token_id": 128000,
+        "eos_token_id": [128001, 128008, 128009],
+        "hidden_act": "silu",
+        "tie_word_embeddings": True,
+    }
 
 
 def llama_8b_config() -> ModelConfig:

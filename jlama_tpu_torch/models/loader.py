@@ -26,7 +26,7 @@ from ..config import ModelConfig, load_config
 from ..device import resolve_device
 from ..nn.qarray import QArray
 from ..quant import blockq
-from ..st import SafeTensorIndex, bf16_to_f32
+from ..st import SafeTensorIndex, bf16_to_f32, is_url, open_weights
 
 
 def _to_np_float(arr: np.ndarray, st_dtype: str) -> np.ndarray:
@@ -292,15 +292,19 @@ def load_params(
     device=None,
     float_dtype=torch.bfloat16,
 ) -> tuple[dict, ModelConfig]:
-    """Load a local model directory into (params, cfg) on `device` (CUDA
-    unless the caller names one; raises without CUDA and without a device)."""
+    """Load a model directory, or a model URL (`http(s)://`, its tensors
+    fetched by ranged requests), into (params, cfg) on `device` (CUDA unless
+    the caller names one; raises without CUDA and without a device). The
+    JAX loader's partial loads (`layer_range`, `include_embeddings`,
+    `include_head`) come with the parallel modes (ROADMAP module 10)."""
     device = resolve_device(device)
-    model_dir = Path(model_dir)
+    if not is_url(model_dir):
+        model_dir = Path(model_dir)
     if cfg is None:
         cfg = load_config(model_dir)
     if cfg.model_type not in TOPLEVEL_MAPS:
         raise NotImplementedError(f"{cfg.model_type}: no loader map")
-    idx = SafeTensorIndex(model_dir)
+    idx = open_weights(model_dir)
     try:
         r = WeightReader(idx, _strip_prefix(idx, cfg))
         bare = WeightReader(idx)  # tensors outside the prefix (a top-level lm_head)

@@ -31,6 +31,7 @@ from ..kv.paged import gather_kv_layer, page_size_of, write_kv_layer
 from ..ops.attention import HEAD_SIZES, flash_prefill, paged_decode
 from ..ops.kv_write import dense_page_table, dense_pool_view, kv_write
 from ..ops.linear import linear
+from ..ops.moe_float import moe_float_experts, stack_in_out
 from ..ops.moe_q4 import moe_groups, moe_q4_gate_up, moe_q4_matmul
 from .qarray import QArray
 from .rope import apply_rope
@@ -329,10 +330,12 @@ def moe_block(x: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
     on the card K6's decode route computes the first's function and its
     prefill route the second's (past `ops.moe_q4.decode_max_r()`
     selections), and on the CPU its plain version computes the first's at
-    every size. Float experts (`experts.w*`, or `experts.w*_t` [E, in, out] after
-    `models.base.prepare_moe_ragged`) run a plain grouped matmul on the CPU
-    and raise on the card (ROADMAP: float experts on the card). Experts are
-    never sharded here (no expert parallelism: ROADMAP)."""
+    every size (f32 x is cast to bf16 on the card, ROADMAP §3). Float experts
+    (`experts.w*` [E, out, in], or `experts.w*_t` [E, in, out] after
+    `models.base.prepare_moe_ragged`) take `_moe_ragged`'s grouped products:
+    on the card `ops/moe_float.py` (K6's grouping and gather, the card's
+    grouped product, no host sync), on the CPU `_moe_float_plain`. Experts
+    are never sharded here (no expert parallelism: ROADMAP)."""
     B, T, D = x.shape
     K = cfg.n_experts_per_token
     router = params["router"]
@@ -351,8 +354,14 @@ def moe_block(x: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
         h = (activation(gate, cfg.activation) * up).reshape(B * T * K, -1)
         y = moe_q4_matmul(h, params["experts.w2"], e.reshape(-1), out_dtype=torch.float32,
                           groups=groups)
-    else:
+    elif xf.device.type == "cpu":
         y = _moe_float_plain(xf, params, cfg, e)
+    else:
+        t = "experts.w1_t" in params
+        w = [stack_in_out(params[f"experts.{k}" + ("_t" if t else "")], t)
+             for k in ("w1", "w3", "w2")]
+        y = moe_float_experts(xf, *w, e, cfg.n_experts,
+                              lambda g: activation(g, cfg.activation))
     y = (y.reshape(B * T, K, D) * topk_w.reshape(B * T, K, 1)).sum(dim=1)
     return y.reshape(B, T, D).to(x.dtype)
 
@@ -361,11 +370,9 @@ def _moe_float_plain(xf: torch.Tensor, params: dict, cfg: ModelConfig,
                      e: torch.Tensor) -> torch.Tensor:
     """Float experts, one group of selections per expert (`_moe_ragged`'s
     grouped matmuls): weights in x's dtype, f32 sums, gate and up in x's
-    dtype, the down projection in f32. [N, K] ids -> [N·K, D] f32."""
-    if xf.device.type != "cpu":
-        raise NotImplementedError(
-            "float MoE experts run on the CPU only; on the card quantize them to q4 "
-            "(ROADMAP: float experts on the card)")
+    dtype, the down projection in f32. [N, K] ids -> [N·K, D] f32. The CPU's
+    path, and the card tests' reference for `ops/moe_float.py` (on any
+    device; the grouping is read back to the host)."""
     ragged = "experts.w1_t" in params  # [E, in, out]; else [E, out, in]
 
     def mm(a, key, ex, out_dtype):
@@ -376,7 +383,7 @@ def _moe_float_plain(xf: torch.Tensor, params: dict, cfg: ModelConfig,
     K = cfg.n_experts_per_token
     ef = e.reshape(-1).long()
     xs = xf.repeat_interleave(K, dim=0)
-    y = torch.zeros((ef.numel(), xf.shape[1]), dtype=torch.float32)
+    y = torch.zeros((ef.numel(), xf.shape[1]), dtype=torch.float32, device=xf.device)
     for ex in torch.unique(ef).tolist():
         idx = (ef == ex).nonzero()[:, 0]
         xi = xs[idx]

@@ -14,8 +14,11 @@ y[r] = x[row of r] · deq(W[e[r]])ᵀ for R selections r (a selection is one
 - e: int expert ids on x's device, [T, k] (x [T, K], one row a token: each
   row goes through each of its k experts, y [T, k, N]) or [R] (x [R, K], one
   row a selection, y [R, N]);
-- x: bf16 on the card (f32 x there raises: no path runs it), any float dtype
-  on the CPU; y in `out_dtype` (x's by default).
+- x: bf16 on the card, where f32 x is cast to bf16 first on both routes, as
+  K1's wrapper does past M = 16 (a perplexity window runs f32 activations;
+  the JAX package keeps x in f32 on both of its formulations, so the port's
+  rows round x once more); any float dtype on the CPU; y in `out_dtype` (x's
+  by default: f32 for f32 x, on either device).
 
 `moe_groups` groups the ids once a MoE layer (one launch of
 `moe_group_kernel`): the order by expert, the offsets, and the two routes'
@@ -297,6 +300,8 @@ def _launch(x, w, e, out_dtype, groups, w_up=None, route=None):
     """One call of the C entry `moe_q4_matmul` (uncounted: its caller counts
     it), after the prefill route's `moe_gather`: y for w, and for w_up when
     given. route None: by R."""
+    if x.dtype == torch.float32:  # the kernels take bf16 x (module docstring)
+        x = x.to(torch.bfloat16)
     per, r, n_exp, n, k, out_shape = _check_card(x, w, e, out_dtype)
     if w_up is not None:
         if tuple(w_up.shape) != tuple(w.shape):

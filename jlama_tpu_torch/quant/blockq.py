@@ -2,7 +2,10 @@
 
 A copy of `jlama_tpu/quant/blockq.py`. The numpy functions are the
 bit-exact checkpoint path and are copied as they are; the jnp functions of
-the original become torch functions here.
+the original become torch functions here, and `q4_quantize` and
+`q8_quantize_checkpoint` are the numpy quantizers' torch counterparts, on
+any device and equal to them byte for byte (the quantizer runs them on the
+card).
 
 - Q4: blocks of 32 elements along the last axis. The block scale is
   ``signed_extreme / -8``. Each element quantizes to
@@ -138,6 +141,49 @@ def q4_dequantize(packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     shape = vals.shape
     vb = vals.reshape(*shape[:-1], -1, BLOCK_SIZE).to(torch.float32)
     return (vb * scales[..., None].to(torch.float32)).reshape(shape)
+
+
+def _blocks(x: torch.Tensor) -> torch.Tensor:
+    _check_last_dim(x.shape[-1])
+    return x.reshape(-1, BLOCK_SIZE).to(torch.float32)
+
+
+def q4_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """`q4_quantize_np` on x's device: (packed uint8 [..., n/2], scales f32
+    [..., n/32]), the same bytes. Each step rounds as NumPy's does: the
+    scale's 1/scale is a true division by a tensor (a division by a Python
+    scalar would multiply by its reciprocal on the card), the product and
+    the + 8.5 are two roundings (two kernels, no fused multiply-add), and
+    `argmax` takes the first of tied magnitudes, as `np.argmax` does."""
+    shape = x.shape
+    xb = _blocks(x)
+    extreme = xb.gather(1, xb.abs().argmax(dim=1, keepdim=True))[:, 0]
+    scale = extreme / torch.full_like(extreme, -8.0)
+    nonzero = scale != 0
+    iscale = torch.where(nonzero, torch.ones_like(scale) / scale, torch.zeros_like(scale))
+    scaled = xb * iscale[:, None]
+    scaled = scaled + 8.5
+    q = torch.clamp(torch.trunc(scaled), max=15.0).to(torch.uint8)
+    packed = q[:, :HALF_BLOCK] | (q[:, HALF_BLOCK:] << 4)
+    return (packed.reshape(*shape[:-1], shape[-1] // 2),
+            scale.reshape(*shape[:-1], shape[-1] // BLOCK_SIZE))
+
+
+def q8_quantize_checkpoint(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """`q8_quantize_np` on x's device (the checkpoint's I8 tensors): the
+    same bytes, scale = 1 / (127 / amax) as NumPy computes it (the
+    activation quantizer `q8_quantize` takes amax / 127)."""
+    shape = x.shape
+    xb = _blocks(x)
+    amax = xb.abs().amax(dim=1)
+    pos = amax > 0
+    zero = torch.zeros_like(amax)
+    iscale = torch.where(pos, torch.full_like(amax, 127.0) / amax, zero)
+    scale = torch.where(pos, torch.ones_like(amax) / iscale, zero)
+    q = xb * iscale[:, None]
+    q = torch.floor(q + 0.5)
+    q = torch.clamp(q, -127, 127).to(torch.int8)
+    return q.reshape(shape), scale.reshape(*shape[:-1], shape[-1] // BLOCK_SIZE)
 
 
 def q8_quantize(

@@ -155,7 +155,8 @@ class Engine:
         (the yardstick the graphs are held against). moe_ragged: as in the
         JAX package, float MoE experts are transposed once into the grouped
         layout (`models.base.prepare_moe_ragged`); q4 experts are left as they
-        are, and float experts on the card raise NotImplementedError."""
+        are (K6), and float experts take the card's grouped product
+        (`ops/moe_float.py`)."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tokenizer = tokenizer

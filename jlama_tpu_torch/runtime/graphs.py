@@ -42,12 +42,13 @@ def kernel_wrappers() -> tuple:
     """The kernel wrappers whose `launches` counters a replay advances."""
     from ..ops.attention import flash_prefill, paged_decode
     from ..ops.kv_write import kv_write
+    from ..ops.moe_float import grouped_mm
     from ..ops.moe_q4 import moe_gather, moe_groups, moe_q4_matmul
     from ..ops.q4_matmul import q4_matmul
     from ..ops.w8a8 import q4s_matmul
 
     return (q4_matmul, q4s_matmul, flash_prefill, paged_decode, kv_write, moe_q4_matmul,
-            moe_groups, moe_gather)
+            moe_groups, moe_gather, grouped_mm)
 
 
 class DecodeInputs:

@@ -30,7 +30,9 @@ they finish:
   w8a8`): the 2-D q4 weights are re-quantized to q4s once, after fusing, and
   every projection and the lm_head take K5.
 
-MoE configs (Mixtral) serve with q4 experts through K6 (`ops/moe_q4.py`).
+MoE configs (Mixtral) serve with q4 experts through K6 (`ops/moe_q4.py`),
+with q4s attention, router and lm_head under `weight_format="q4s"`, and with
+float experts through the card's grouped product (`ops/moe_float.py`).
 
 Tool calls: a request with `tools` whose finished text holds a tool-shaped
 JSON finishes TOOL_CALL with `tool_calls` set, as in the JAX package.
@@ -42,7 +44,7 @@ tokenizer, device=sched.device, fuse=False, moe_ragged=False)`, so that the
 layer weights are held once.
 
 Not ported yet (see ROADMAP.md): meshes (tp/dp page groups), the multi-host
-step channel, q4s MoE, and suspending to disk.
+step channel, and suspending to disk.
 """
 
 from __future__ import annotations
@@ -176,8 +178,12 @@ class BatchScheduler:
 
         moe_ragged: as in the JAX package, float MoE experts are transposed
         once into the grouped layout; q4 experts are left as they are (K6
-        reads them). q4s with MoE and float experts on the card raise
-        NotImplementedError."""
+        reads them). q4s with MoE converts as the JAX package does: its
+        `prepare_params_for_w8a8` takes 2-D leaves and the stacked [L, N, K]
+        ones, so the attention weights, a q4 router [E, D] (K a multiple of
+        256) and the lm_head go to q4s and K5, and the expert stacks
+        [L, E, N, K] stay q4 for K6; the port's layers are not stacked, and
+        its 2-D rule gives the same tree."""
         if weight_format not in (None, "q4s"):
             raise ValueError(f"weight_format {weight_format!r}: expected None or 'q4s' "
                              "(q4 weights need no repack: pass None)")
@@ -185,9 +191,6 @@ class BatchScheduler:
             raise NotImplementedError("meshes (tp/dp serving) are not ported yet")
         if step_channel is not None:
             raise NotImplementedError("multi-host serving (step_channel) is not ported yet")
-        if weight_format == "q4s" and cfg.n_experts:
-            raise NotImplementedError("q4s serving of MoE experts is not ported yet "
-                                      "(ROADMAP: q4s MoE)")
         self.device = resolve_device(device)
         params = params_to(params, self.device)
         if fuse:

@@ -4,7 +4,8 @@ A copy of `jlama_tpu/st/format.py` (header = u64 LE length + JSON; dtype
 names incl. the non-standard "Q4" extension with a half-size payload).
 Difference: BF16 payloads are read as `uint16`, since the port has no
 `ml_dtypes`; `bf16_to_f32` widens them exactly, and torch views them as
-`torch.bfloat16`.
+`torch.bfloat16`. So `NUMPY_TO_ST` has no BF16 entry: a bf16 tensor is
+written through `SafeTensorWriter.add_raw` from its uint16 view.
 """
 
 from __future__ import annotations
@@ -34,6 +35,17 @@ DTYPES: dict[str, tuple[np.dtype, float]] = {
     "U64": (np.dtype(np.uint64), 8),
     # Jlama extension: 4-bit block-quantized, payload uint8 n/2
     "Q4": (np.dtype(np.uint8), 0.5),
+}
+
+
+NUMPY_TO_ST = {
+    np.dtype(np.float32): "F32",
+    np.dtype(np.float16): "F16",
+    np.dtype(np.int8): "I8",
+    np.dtype(np.uint8): "U8",
+    np.dtype(np.int32): "I32",
+    np.dtype(np.int64): "I64",
+    np.dtype(np.bool_): "BOOL",
 }
 
 
@@ -74,3 +86,22 @@ def parse_header(buf: bytes) -> tuple[dict[str, TensorInfo], dict, int]:
             data_offsets=tuple(info["data_offsets"]),
         )
     return tensors, meta, 8 + hlen
+
+
+def serialize_header(
+    tensors: dict[str, TensorInfo], metadata: dict | None = None
+) -> bytes:
+    header: dict = {}
+    if metadata:
+        header["__metadata__"] = metadata
+    for name, ti in tensors.items():
+        header[name] = {
+            "dtype": ti.dtype,
+            "shape": list(ti.shape),
+            "data_offsets": list(ti.data_offsets),
+        }
+    raw = json.dumps(header).encode("utf-8")
+    # pad to 8-byte alignment with spaces, like the canonical writers
+    pad = (-(len(raw) + 8)) % 8
+    raw += b" " * pad
+    return struct.pack("<Q", len(raw)) + raw

@@ -71,10 +71,12 @@ class SafeTensorIndex:
         self.dir = Path(model_dir)
         self._files: dict[str, SafeTensorFile] = {}
         self.weight_map: dict[str, str] = {}
+        self.metadata: dict = {}
 
         index = self.dir / "model.safetensors.index.json"
         if index.exists():
             idx = json.loads(index.read_text())
+            self.metadata = idx.get("metadata", {})
             self.weight_map = dict(idx["weight_map"])
         else:
             candidates = sorted(self.dir.glob("*.safetensors"))

@@ -131,6 +131,16 @@ def parse_tokenizer_json(data: dict, config: dict | None = None) -> TokenizerSpe
 
 
 def load_tokenizer_spec(model_dir: str | Path) -> TokenizerSpec:
+    """tokenizer.json (and tokenizer_config.json where present) of a model
+    directory or of a model URL (`http(s)://`)."""
+    from ..st.http_loader import fetch_json, is_url
+
+    if is_url(model_dir):
+        base = str(model_dir).rstrip("/")
+        data = fetch_json(base + "/tokenizer.json")
+        if data is None:
+            raise FileNotFoundError(f"no tokenizer.json at {base}")
+        return parse_tokenizer_json(data, fetch_json(base + "/tokenizer_config.json"))
     model_dir = Path(model_dir)
     data = json.loads((model_dir / "tokenizer.json").read_text(encoding="utf-8"))
     config = None

@@ -1114,13 +1114,122 @@ def test_moe_q4_row_does_not_depend_on_the_batch(cuda, route, r, subsets):
         assert torch.equal(moe_q4_matmul(x[:t].clone(), w, e[:t].clone()), full[:t])
 
 
-def test_moe_q4_rejects_f32_x_on_the_card(cuda):
+@pytest.mark.parametrize("r", [2, 32, 1024])
+@pytest.mark.parametrize("out_dtype", [None, torch.bfloat16])
+def test_moe_q4_f32_x_equals_its_bf16_cast(cuda, r, out_dtype):
+    """f32 x (a perplexity window's activations) is cast to bf16 by the
+    wrapper on both routes: the same bits as the call on x.to(bf16), gate and
+    up too; the output stays f32 by default (x's dtype)."""
+    from jlama_tpu_torch.nn.qarray import QArray
+    from jlama_tpu_torch.ops.moe_q4 import (moe_gather, moe_groups, moe_q4_gate_up,
+                                            moe_q4_matmul, takes_decode)
+
+    g = torch.Generator(device=cuda).manual_seed(r + 5)
+    x, w, e = _moe_case(cuda, r, 1000, 2048, "tk", "random", g)
+    w3 = QArray(torch.randint(0, 256, w.data.shape, generator=g, device=cuda,
+                              dtype=torch.uint8), w.scales.flip(1).contiguous())
+    xf = torch.randn(x.shape, generator=g, device=cuda)
+    groups = moe_groups(e, 8)
+    before = (moe_q4_matmul.launches, moe_gather.launches)
+    y32 = moe_q4_matmul(xf, w, e, out_dtype, groups=groups)
+    assert (moe_q4_matmul.launches, moe_gather.launches) == \
+        (before[0] + 1, before[1] + (not takes_decode(r)))
+    assert y32.dtype == (out_dtype or torch.float32)
+    yb = moe_q4_matmul(xf.to(torch.bfloat16), w, e, out_dtype or torch.float32, groups=groups)
+    assert torch.equal(y32, yb)
+    gate, up = moe_q4_gate_up(xf, w, w3, e, out_dtype, groups=groups)
+    gb, ub = moe_q4_gate_up(xf.to(torch.bfloat16), w, w3, e, out_dtype or torch.float32,
+                            groups=groups)
+    assert torch.equal(gate, gb) and torch.equal(up, ub) and torch.equal(gate, y32)
+
+
+# The float (bf16) experts' route on the card (`ops/moe_float.py`: K6's
+# grouping and gather, the card's `torch._grouped_mm` for gate, up and down,
+# the scatter back) against `nn.layers._moe_float_plain` on the same card
+# tensors (gate and up rounded to bf16 alike, the down projection kept in
+# f32 there and rounded to bf16 by the grouped product here): each
+# selection's row within one bf16 rounding of y (2^-8 |y|) plus 2^-8 of the
+# down product's absolute sums sum_j |h_j w2_ij| (a gate or up value whose
+# f32 sums, added in another order, round to the neighbouring bf16 value);
+# a second call gives the same bits. R = 2, 32 and 1,024 selections at
+# Mixtral's expert layout cut narrow (D 1024, FFN 1792, 8 experts, top-2),
+# random routing, an expert chosen by no token, every token on one expert.
+@pytest.mark.parametrize("t", [1, 16, 512])
+@pytest.mark.parametrize("case", ["random", "empty", "one"])
+@pytest.mark.parametrize("layout", ["out_in", "in_out"])
+def test_moe_float_route_matches_plain(cuda, t, case, layout):
+    import dataclasses
+
+    from jlama_tpu_torch.models.init import mixtral_8x7b_config
+    from jlama_tpu_torch.nn import layers as L
+    from jlama_tpu_torch.ops.moe_float import grouped_mm, moe_float_experts, stack_in_out
+    from jlama_tpu_torch.ops.moe_q4 import moe_gather, moe_groups
+
+    cfg = dataclasses.replace(mixtral_8x7b_config(), embedding_length=1024, hidden_length=1792)
+    n_exp, d, h = 8, 1024, 1792
+    g = torch.Generator(device=cuda).manual_seed(t * 3 + len(case) + len(layout))
+    ws = {n: (torch.randn(shape, generator=g, device=cuda) * 0.02).to(torch.bfloat16)
+          for n, shape in (("w1", (n_exp, h, d)), ("w3", (n_exp, h, d)), ("w2", (n_exp, d, h)))}
+    transposed = layout == "in_out"
+    params = {f"experts.{n}" + ("_t" if transposed else ""):
+              (w.transpose(-1, -2).contiguous() if transposed else w) for n, w in ws.items()}
+    stacks = [stack_in_out(params[f"experts.{n}" + ("_t" if transposed else "")], transposed)
+              for n in ("w1", "w3", "w2")]
+    x = torch.randn((t, d), generator=g, device=cuda).to(torch.bfloat16)
+    if case == "one":
+        e = torch.tensor([[5, 2]], device=cuda).repeat(t, 1)
+        e[:, 1] = 5
+    else:
+        choices = torch.tensor([0, 1, 2, 4, 5, 6, 7] if case == "empty" else list(range(8)),
+                               device=cuda)
+        pick = torch.rand((t, len(choices)), generator=g, device=cuda).argsort(dim=1)[:, :2]
+        e = choices[pick]
+    e = e.to(torch.int32)
+    before = (grouped_mm.launches, moe_groups.launches, moe_gather.launches)
+    y = moe_float_experts(x, *stacks, e, n_exp, lambda v: L.activation(v, "silu"))
+    assert (grouped_mm.launches, moe_groups.launches, moe_gather.launches) == \
+        (before[0] + 3, before[1] + 1, before[2] + 1)
+    assert y.shape == (2 * t, d) and y.dtype == torch.float32
+    again = moe_float_experts(x, *stacks, e, n_exp, lambda v: L.activation(v, "silu"))
+    plain = L._moe_float_plain(x, params, cfg, e)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again)
+    ef = e.reshape(-1).long()
+    xs = x.float().repeat_interleave(2, dim=0)
+    hf = L.activation(torch.einsum("rd,rhd->rh", xs, ws["w1"].float()[ef]), "silu") \
+        * torch.einsum("rd,rhd->rh", xs, ws["w3"].float()[ef])
+    absd = torch.einsum("rh,rdh->rd", hf.abs(), ws["w2"].float()[ef].abs())
+    assert bool(((y - plain).abs() <= 2.0 ** -8 * (plain.abs() + absd)).all())
+
+
+def test_moe_block_float_experts_on_the_card(cuda):
+    """`moe_block` with bf16 experts on the card goes through the float
+    route (3 grouped products, 1 grouping, 1 gather; no K6 matmul) and
+    agrees with the same block through `_moe_float_plain` on the CPU in f32
+    within rel L2 5e-2; f32 x is cast to bf16 for the experts, so its output
+    rounded to bf16 is the bf16 call's."""
+    import dataclasses
+
+    from jlama_tpu_torch.models.init import mixtral_8x7b_config
+    from jlama_tpu_torch.nn import layers as L
+    from jlama_tpu_torch.ops.moe_float import grouped_mm
     from jlama_tpu_torch.ops.moe_q4 import moe_q4_matmul
 
-    g = torch.Generator(device=cuda).manual_seed(1)
-    x, w, e = _moe_case(cuda, 2, 64, 64, "tk", "random", g)
-    with pytest.raises(ValueError, match="bf16"):
-        moe_q4_matmul(x.float(), w, e)
+    cfg = dataclasses.replace(mixtral_8x7b_config(), embedding_length=1024, hidden_length=1792)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    layer = {"router": (torch.randn((8, 1024), generator=g, device=cuda) * 0.02).to(torch.bfloat16)}
+    for n, shape in (("w1", (8, 1792, 1024)), ("w3", (8, 1792, 1024)), ("w2", (8, 1024, 1792))):
+        layer[f"experts.{n}"] = (torch.randn(shape, generator=g, device=cuda) * 0.02).to(
+            torch.bfloat16)
+    x = torch.randn((2, 40, 1024), generator=g, device=cuda).to(torch.bfloat16)
+    before = (grouped_mm.launches, moe_q4_matmul.launches)
+    y = L.moe_block(x, layer, cfg)
+    assert (grouped_mm.launches, moe_q4_matmul.launches) == (before[0] + 3, before[1])
+    assert y.dtype == torch.bfloat16 and y.shape == x.shape
+    assert torch.equal(L.moe_block(x.float(), layer, cfg).to(torch.bfloat16), y)
+    ref = L.moe_block(x.float().cpu(), {k: v.float().cpu() for k, v in layer.items()}, cfg)
+    rel = ((y.float().cpu() - ref).norm() / ref.norm()).item()
+    assert torch.isfinite(y).all() and rel < 5e-2, rel
 
 
 def test_moe_forward_on_card_matches_cpu_logits(cuda):

@@ -1,7 +1,10 @@
 """Mixtral MoE in the port against jlama_tpu and transformers, on the CPU
 (the plain version of K6, `ops/moe_q4.py`), at the tiny config of
 tests/test_archs.py::test_mixtral (hidden 64, intermediate 128, 4 experts,
-top-2, 2 layers).
+top-2, 2 layers); the float experts' card route (`ops/moe_float.py`) as its
+plain model against `_moe_ragged`; q4s MoE serving against jlama_tpu's q4s
+scheduler at hidden 256 / intermediate 512 (every K a multiple of 256);
+`score_tokens` on the tiny Mixtral against `jlama_tpu/eval/ppl.py`.
 
 Tolerances. The JAX package takes two routes for q4 experts:
 `_moe_gathered` at B·T·K ≤ 8 (exact f32 dequantization, as the port at every
@@ -391,18 +394,195 @@ def test_scheduler_greedy_ids_match_jax(tiny, n_slots):
     assert all(len(r.out_ids) == 6 for r in treqs)
 
 
-def test_moe_raises_where_it_is_not_ported(tiny):
+# ---------------------------------------------------------------------------
+# The MoE remainders: float experts on the card, q4s MoE, f32 perplexity
+# ---------------------------------------------------------------------------
+
+
+def test_check_moe_device_accepts_every_layout(tiny):
+    """q4 experts (K6), float `experts.w*` [E, out, in] and `experts.w*_t`
+    [E, in, out] all pass on the card; only a size the grouped product
+    cannot take (not a multiple of 8) raises."""
     from jlama_tpu_torch.models.base import check_moe_device, prepare_moe_ragged
-    from jlama_tpu_torch.runtime.scheduler import BatchScheduler
 
     fp = port_tree(tiny["jp"])
-    for params in (fp, prepare_moe_ragged(fp)):
-        with pytest.raises(NotImplementedError, match="float experts on the card"):
-            check_moe_device(params, "cuda")
-    check_moe_device(port_tree(tiny["jq"]), "cuda")  # q4 experts: K6 takes them
-    with pytest.raises(NotImplementedError, match="q4s MoE"):
-        BatchScheduler(port_tree(tiny["jq"]), tiny["cfg"], n_slots=2, n_pages=8, page_size=8,
-                       max_seq_len=32, device="cpu", weight_format="q4s")
+    for params in (fp, prepare_moe_ragged(fp), port_tree(tiny["jq"])):
+        check_moe_device(params, "cuda")
+        check_moe_device(params, "cpu")
+    bad = dict(fp, layers=[dict(fp["layers"][0],
+                                **{"experts.w2": torch.zeros(4, 64, 124)})])
+    with pytest.raises(ValueError, match="multiple of 8"):
+        check_moe_device(bad, "cuda")
+    check_moe_device(bad, "cpu")
+
+
+@pytest.mark.parametrize("case", ["random", "empty", "one"])
+@pytest.mark.parametrize("t", [1, 5, 40])
+@pytest.mark.parametrize("layout", ["out_in", "in_out"])
+def test_moe_float_grouped_model_matches_jax_ragged(t, case, layout):
+    """The card's float route (`ops/moe_float.py`: K6's grouping and gather,
+    three grouped products, the scatter back) as its plain model on the CPU,
+    against `jlama_tpu`'s `_moe_ragged` on the same bf16 x and bf16 experts:
+    gate and up rounded to bf16 alike; the down projection differs by its
+    rounding to bf16 (the card's grouped product returns bf16, the JAX
+    package keeps f32). So each selection's row agrees with the port's
+    `_moe_float_plain` (the same roundings but that one) within one bf16
+    rounding, 2^-8 relative: a misplaced row, group or scatter fails here.
+    Against JAX, whose SiLU rounds inside too (XLA's bf16 elementwise ops)
+    and whose output is rounded to bf16 after the weighted sum, the
+    combined output agrees within 2^-6 of the down product's absolute sums
+    Σ_j |h_j w2_ij| (its roundings of h, amplified by cancellation in the
+    sum; 2^-7.9 of them at most measured), plus 2^-8 |y| and 1e-6 max|y|."""
+    import ml_dtypes
+    from jlama_tpu.config import from_hf_config as jcfg_of
+    from jlama_tpu.nn import layers as JL
+    from jlama_tpu_torch.config import from_hf_config
+    from jlama_tpu_torch.nn import layers as L
+    from jlama_tpu_torch.ops.moe_float import grouped_mm, moe_float_experts, stack_in_out
+
+    rng = np.random.default_rng(t * 7 + len(case))
+    n_exp, d, h, k = 4, 64, 96, 2
+    cfgd = dict(TINY_MIXTRAL, hidden_size=d, intermediate_size=h)
+    cfg, jcfg = from_hf_config(cfgd), jcfg_of(cfgd)
+    bf = ml_dtypes.bfloat16
+    ws = {n: (rng.standard_normal(shape) * 0.1).astype(bf).astype(np.float32)
+          for n, shape in (("w1", (n_exp, h, d)), ("w3", (n_exp, h, d)), ("w2", (n_exp, d, h)))}
+    x = rng.standard_normal((1, t, d)).astype(bf).astype(np.float32)
+    ids = _ids(t * k, n_exp, case, rng)
+    if case == "random":  # top-k picks k distinct experts a token
+        ids = np.stack([rng.permutation(n_exp)[:k] for _ in range(t)]).reshape(-1)
+    e = ids.reshape(t, k).astype(np.int32)
+    w_topk = np.full((1, t, k), 1.0 / k, np.float32)
+
+    jparams = {f"experts.{n}_t": jnp.asarray(np.swapaxes(v, -1, -2), jnp.bfloat16)
+               for n, v in ws.items()}
+    ref = np.asarray(JL._moe_ragged(jnp.asarray(x, jnp.bfloat16), jparams, jcfg,
+                                    jnp.asarray(w_topk), jnp.asarray(e[None])),
+                     np.float32)
+
+    tparams = {f"experts.{n}": torch.from_numpy(v).to(torch.bfloat16) for n, v in ws.items()}
+    transposed = layout == "in_out"
+    if transposed:
+        tparams = {k2 + "_t": v.transpose(-1, -2).contiguous() for k2, v in tparams.items()}
+    w = [stack_in_out(tparams[f"experts.{n}" + ("_t" if transposed else "")], transposed)
+         for n in ("w1", "w3", "w2")]
+    xf = torch.from_numpy(x[0]).to(torch.bfloat16)
+    before = grouped_mm.launches
+    y = moe_float_experts(xf, *w, torch.from_numpy(e), n_exp,
+                          lambda g: L.activation(g, "silu"))
+    assert grouped_mm.launches == before  # the CPU runs the plain version
+    assert y.shape == (t * k, d) and y.dtype == torch.float32
+    plain = L._moe_float_plain(xf, tparams, cfg, torch.from_numpy(e)).numpy()
+    assert (np.abs(y.numpy() - plain) <= 2.0 ** -8 * np.abs(plain) + 1e-30).all()
+    wk = torch.from_numpy(w_topk[0])[..., None]
+    got = (y.reshape(t, k, d) * wk).sum(1).numpy()
+    # the down product's absolute sums, per selection: its terms |h_j w2_ij|
+    # in f32 from the plain path's h
+    xs = torch.from_numpy(x[0]).repeat_interleave(k, dim=0)
+    ef = torch.from_numpy(e.reshape(-1)).long()
+    w1f, w3f, w2f = (torch.from_numpy(ws[n]) for n in ("w1", "w3", "w2"))
+    hf = L.activation(torch.einsum("rd,rhd->rh", xs, w1f[ef]), "silu") \
+        * torch.einsum("rd,rhd->rh", xs, w3f[ef])
+    absd = torch.einsum("rh,rdh->rd", hf.abs(), w2f[ef].abs())
+    terms = (absd.reshape(t, k, d) * wk).sum(1).numpy()
+    lim = 2.0 ** -6 * terms + 2.0 ** -8 * np.abs(ref[0]) + 1e-6 * np.abs(ref).max()
+    assert (np.abs(got - ref[0]) <= lim).all(), np.abs(got - ref[0]).max()
+
+
+Q4S_MIXTRAL = dict(TINY_MIXTRAL, hidden_size=256, intermediate_size=512, vocab_size=512,
+                   max_position_embeddings=64, bos_token_id=1, eos_token_id=2,
+                   tie_word_embeddings=True)
+Q4S_CONCURRENT = [[1, 5, 9], [1, 7, 30, 12], [1, 2], [1, 44, 17, 80, 3]]
+Q4S_SERVE = dict(n_slots=4, n_pages=32, page_size=8, max_seq_len=48)
+
+
+@pytest.fixture(scope="module")
+def q4s_mixtral():
+    """A tiny Mixtral whose every K is a multiple of 256 (hidden 256,
+    intermediate 512), all of it q4 (the router [E, D] too, as the JAX
+    quantizer leaves a checkpoint's), with a q4 embedding and tied weights,
+    and the JAX q4s scheduler's greedy ids on it (the w8a8 kernel in
+    interpret mode, `JLAMA_Q4S_KERNEL=1`)."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from jlama_tpu.config import from_hf_config
+    from jlama_tpu.models.init import init_params
+    from jlama_tpu.nn.qarray import quantize_q4 as jquantize
+    from jlama_tpu.runtime.scheduler import BatchScheduler as JSched
+    from jlama_tpu.runtime.scheduler import GenRequest as JReq
+
+    cfg = from_hf_config(Q4S_MIXTRAL)
+    params = init_params(cfg, seed=0, dtype=jnp.float32)
+    layers = {k: jquantize(np.asarray(v, np.float32))
+              if k in ("wq", "wk", "wv", "wo", "router", "experts.w1", "experts.w2",
+                       "experts.w3") else v
+              for k, v in params["layers"].items()}
+    params = dict(params, layers=layers, embed=jquantize(np.asarray(params["embed"])))
+    kw = dict(Q4S_SERVE, kv_dtype=jnp.float32, compute_dtype=jnp.float32, weight_format="q4s")
+    with pytest.MonkeyPatch.context() as mp, pltpu.force_tpu_interpret_mode():
+        mp.setenv("JLAMA_Q4S_KERNEL", "1")  # the w8a8 kernel, not the f32 dequant
+        js = JSched(params, cfg, **kw)
+        assert js.params["layers"]["router"].fmt == "q4s"
+        assert js.params["layers"]["experts.w1"].fmt == "q4"
+        reqs = [JReq(prompt_ids=p, max_new_tokens=5) for p in Q4S_CONCURRENT]
+        for r in reqs:
+            js.submit(r)
+        while any(r.state.value != "DONE" for r in reqs):
+            js.step()
+    return params, [r.out_ids for r in reqs]
+
+
+def _q4s_port_sched(params):
+    from jlama_tpu_torch.config import from_hf_config
+    from jlama_tpu_torch.runtime.scheduler import BatchScheduler
+
+    return BatchScheduler(port_tree(params), from_hf_config(Q4S_MIXTRAL), device="cpu",
+                          kv_dtype=torch.float32, compute_dtype=torch.float32,
+                          weight_format="q4s", **Q4S_SERVE)
+
+
+def test_q4s_moe_converts_the_2d_weights_and_keeps_q4_experts(q4s_mixtral):
+    """As the JAX package's `prepare_params_for_w8a8`: wqkv, wo, the router
+    and the tied lm_head go to q4s (K5), the expert stacks stay q4 (K6), the
+    embedding stays q4."""
+    sched = _q4s_port_sched(q4s_mixtral[0])
+    layer = sched.params["layers"][0]
+    assert {layer[k].fmt for k in ("wqkv", "wo", "router")} == {"q4s"}
+    assert {layer[f"experts.{k}"].fmt for k in ("w1", "w2", "w3")} == {"q4"}
+    assert sched.params["lm_head"].fmt == "q4s" and sched.params["embed"].fmt == "q4"
+
+
+def test_q4s_moe_scheduler_greedy_ids_match_jax(q4s_mixtral):
+    from jlama_tpu_torch.runtime.scheduler import GenRequest, RequestState
+
+    params, want = q4s_mixtral
+    sched = _q4s_port_sched(params)
+    reqs = [GenRequest(prompt_ids=p, max_new_tokens=5) for p in Q4S_CONCURRENT]
+    for r in reqs:
+        sched.submit(r)
+    for _ in range(400):
+        if all(r.state == RequestState.DONE for r in reqs):
+            break
+        sched.step()
+    assert [r.out_ids for r in reqs] == want
+    assert all(len(r.out_ids) == 5 for r in reqs)
+
+
+@pytest.mark.parametrize("experts,tol", [("float", 1e-5), ("q4", 2e-3)])
+def test_mixtral_score_tokens_matches_jax(tiny, experts, tol):
+    """`eval.ppl.score_tokens` on the tiny Mixtral against
+    `jlama_tpu/eval/ppl.py` (f32, windows of 32, stride 16): float experts
+    run f32 in both packages (1e-5 relative); with q4 experts the JAX
+    windows take `_moe_ragged`'s bf16 weights and the port's CPU path exact
+    dequantization (2e-3)."""
+    from jlama_tpu.eval.ppl import score_tokens as jscore
+    from jlama_tpu_torch.eval.ppl import score_tokens
+
+    jp = tiny["jp"] if experts == "float" else tiny["jq"]
+    ids = np.random.default_rng(3).integers(0, 256, 80).astype(np.int32)
+    ref = jscore(jp, tiny["jcfg"], ids, seq_len=32, stride=16)
+    got = score_tokens(port_tree(jp), tiny["cfg"], ids, seq_len=32, stride=16, device="cpu")
+    assert abs(got - ref) / ref < tol, (got, ref)
 
 
 def test_cpu_moe_goes_through_plain_versions(tiny, monkeypatch):

@@ -16,7 +16,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "jlama_tpu_torch"
 OPTIONAL = ("regex", "jinja2", "ml_dtypes", "safetensors", "transformers", "tokenizers",
-            "aiohttp")
+            "aiohttp", "huggingface_hub", "requests")
 # the one exception: the generator of tokenizers/_uniclass.py reads `regex`'s
 # tables, and nothing imports it
 GENERATOR = PKG / "scripts" / "gen_uniclass.py"
@@ -101,16 +101,19 @@ def test_text_and_http_front_import_and_run_without_optional_packages(tmp_path):
 
 
 def test_engine_import_path_is_clean():
-    """The Engine, serving (scheduler, paged KV, metrics, q4s), perplexity and
-    card-bench paths pull in none of jax, jlama_tpu, the optional packages or aiohttp."""
+    """The Engine, serving (scheduler, paged KV, metrics, q4s), perplexity,
+    card-bench, command-line, quantizer, hub and HTTP-loader paths pull in
+    none of jax, jlama_tpu, the optional packages or aiohttp."""
     code = (
         "import sys\n"
         "import jlama_tpu_torch.runtime.engine, jlama_tpu_torch.models.loader\n"
         "import jlama_tpu_torch.models.init, jlama_tpu_torch.models.convert\n"
         "import jlama_tpu_torch.runtime.scheduler, jlama_tpu_torch.kv.paged\n"
         "import jlama_tpu_torch.utils.metrics, jlama_tpu_torch.ops.w8a8\n"
-        "import jlama_tpu_torch.ops.moe_q4\n"
+        "import jlama_tpu_torch.ops.moe_q4, jlama_tpu_torch.ops.moe_float\n"
         "import jlama_tpu_torch.eval.ppl\n"
+        "import jlama_tpu_torch.cli, jlama_tpu_torch.hub, jlama_tpu_torch.quant.quantizer\n"
+        "import jlama_tpu_torch.st.http_loader, jlama_tpu_torch.st.splitter\n"
         "import jlama_tpu_torch.scripts.kbench_q4, jlama_tpu_torch.scripts.kbench_w8a8\n"
         "import jlama_tpu_torch.scripts.probe_int4, jlama_tpu_torch.scripts.probe_sigma_i16\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -121,6 +124,47 @@ def test_engine_import_path_is_clean():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True)
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_cli_help_imports_no_jax_and_needs_cuda_or_device_cpu():
+    """`python -m jlama_tpu_torch.cli --help` runs with jax, jlama_tpu and the
+    optional packages blocked and lists the eight commands; without CUDA and
+    without `--device cpu` a model command exits with `resolve_device`'s
+    message (before it looks for the model)."""
+    blocked = OPTIONAL + ("jax", "jaxlib", "jlama_tpu")
+    code = (
+        "import contextlib, io, runpy, sys\n"
+        f"for m in {blocked!r}:\n"
+        "    sys.modules[m] = None\n"
+        "out = io.StringIO()\n"
+        "sys.argv = ['jlama_tpu_torch.cli', '--help']\n"
+        "try:\n"
+        "    with contextlib.redirect_stdout(out):\n"
+        "        runpy.run_module('jlama_tpu_torch.cli', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "print(out.getvalue())\n"
+        "import torch\n"
+        "torch.cuda.is_available = lambda: False\n"
+        "from jlama_tpu_torch.cli import main\n"
+        "for argv in (['complete', 'nowhere', 'hi'], ['chat', 'nowhere'],\n"
+        "             ['serve', 'nowhere'], ['quantize', 'nowhere']):\n"
+        "    try:\n"
+        "        main(argv)\n"
+        "    except SystemExit as e:\n"
+        "        print('EXIT', argv[0], e.code)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    for cmd in ("chat", "complete", "serve", "download", "quantize", "list", "rm",
+                "version"):
+        assert cmd in out.stdout.split("EXIT")[0]
+    exits = [line for line in out.stdout.splitlines() if line.startswith("EXIT")]
+    assert len(exits) == 4, out.stdout
+    for line in exits:
+        assert "no CUDA device is available; pass device='cpu'" in line \
+            and "--device cpu" in line, line
 
 
 def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
