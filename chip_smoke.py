@@ -97,11 +97,27 @@ Phases, each fatal on failure (exit code 1, no result line):
               plain path on the CPU (relative L2 error < 5e-2, bf16
               activations on the card against f32 on the CPU), and so are
               the logits of a 16-token prefill and 8 decode steps through
-              the dense cache (bf16 on the card, K2 for each step);
+              the dense cache (bf16 on the card, K2 for each step). Prefills
+              are graphs too: the warm-up runs the timed request twice, so
+              that every TTFT run's prefill is one replay (a fresh key's
+              first use is eager). The stop-id exit: a greedy request whose
+              continuation reaches a stop id in the first six steps of its
+              32-step chunk, three times, ids equal to the run without stop
+              ids up to the stop, steps run past it within the exit's bound
+              (device_loop.steps_after_stop_bound()), and the decode time
+              saved against all 32 steps. The debug hook: a short request
+              whose graphs were captured runs eagerly with
+              utils.debug.enable(sink) (no replay, 3 x n_layers sink calls a
+              forward), then replays again after disable(), with equal ids.
+              The prefill graphs by bucket (16 ... 8,192, the limit
+              PREFILL_GRAPH_MAX lifted): eager and replayed prefill times, the
+              capture's seconds and the pool bytes it added, beside the
+              decode graphs' pool;
   5. profile - torch.profiler's device time by kernel and kernel group,
               device operations (per token too) and the device's busy share
-              for a 512-token prefill and for 32 decode steps of the Engine
-              path, with graphs and eager; the decode
+              for a 512-token prefill (one replay on graphs, printed beside
+              the parent tree's eager prefill: PARENT_PREFILL) and for 32
+              decode steps of the Engine path, with graphs and eager; the decode
               window must run none of the library kernels the dense
               attention ran before K2 took it (DENSE_ATTN_NAMES);
   6. serving - Llama-3.2-1B through BatchScheduler with the CLI's serving
@@ -122,7 +138,14 @@ Phases, each fatal on failure (exit code 1, no result line):
               ids through the graphs and through a scheduler with
               decode_graphs=False; prints total tok/s, TTFT and inter-token
               p50/p95, and the device's busy share over 16 decode steps at 16
-              slots, with graphs and eager;
+              slots, with graphs and eager. warmup() captures every decode
+              variant (greedy and sampled, top-k, top-p, penalties) of every
+              window and every (rows, chunk, window) prefill key: after it
+              the traffic makes no new key, and every prefill call is a
+              replay. A session suspended to a temporary directory
+              (suspend_session(to_dir=)) and resumed continues with the
+              greedy ids of a session that never suspended, on the bf16 pool
+              and on the q8 pool (file size, suspend and resume times);
   7. q4s serving - the same model and serving settings through
               BatchScheduler(weight_format="q4s"): its construction's time
               (fuse and the q4s conversion on the card),
@@ -228,7 +251,9 @@ Phases, each fatal on failure (exit code 1, no result line):
               12 KV heads of 64, 1,024 learned positions, LayerNorms, biases
               on every projection, the tied 50,257-row lm_head; random JQ4
               weights from seed 0): an Engine (a 512-token prompt, 3
-              first-token runs, 128 greedy tokens, then a 900-token prompt
+              first-token runs, each prefill a graph replay and the TTFT
+              printed beside the parent tree's eager-prefill TTFT
+              (PARENT_GPT2_TTFT_MS), 128 greedy tokens, then a 900-token prompt
               generating to position 1,023) on decode graphs and the eager
               yardstick, identical ids, launch counts as expected (49 K1, 12
               K2 and 12 K4 a decode step, 12 K3 a prefill; K4 without RoPE),
@@ -333,6 +358,12 @@ LOGITS_REL_L2 = 5e-2
 # exact integer sum, at most one float operation) equal
 BENCH_MAIN = (8192, 2048, 1)  # the kernels line's shape: 1B's w13-sized GEMV at M = 1
 N_TTFT = 5  # time-to-first-token runs; the median is reported
+# the parent tree's profile of a 511-token 1B prefill and its first token, with
+# the prefill eager (its graphs run's numbers, one H100 80GB HBM3 at 700 W),
+# printed beside this run's (phase 5)
+PARENT_PREFILL = dict(device_ops=937, device_ms=6.77, wall_ms=27.80, busy_share=0.244)
+# GPT-2's TTFT of a 512-token prompt on the parent tree (eager prefill), phase 13
+PARENT_GPT2_TTFT_MS = 19.0
 BERT_K1_M = 8192  # K1's M in a BERT-base forward of 32 rows x 256 tokens (phase 13)
 # K1's device kernels in a profile: the GEMV, the mma route, the wgmma route
 K1_NAMES = re.compile(r"(?<!moe_)q4_(gemv|mma|wgmma)_kernel")
@@ -1322,6 +1353,162 @@ def _graph_check(label, graphs, before: dict, n_steps: int) -> dict:
     return out
 
 
+def _prefill_check(label, graphs, before: dict, n_calls: int) -> dict:
+    """The prefill graphs of a window after their keys were warmed
+    (`runtime/graphs.py`): every one of the window's n_calls prefill calls is
+    a replay of a graph captured before it, and no key is new."""
+    now = graphs.stats()
+    d = {k: now[k] - before[k] for k in now}
+    print(f"{label}: {n_calls} prefill calls = {d['replays']} replays of {now['graphs']} prefill "
+          f"graphs ({d['eager_steps']} eager, {d['keys']} new keys); prefill graphs' pool "
+          f"{now['pool_bytes'] / 2**20:.1f} MB, captures {now['capture_s']:.3f} s", flush=True)
+    if not graphs.capture or d["replays"] != n_calls or d["eager_steps"] or d["keys"]:
+        fail(f"{label}: {d['replays']} prefill replays, {d['eager_steps']} eager prefills, "
+             f"{d['keys']} new keys for {n_calls} prefill calls after warm-up")
+    return dict(prefill_calls=n_calls, replays=d["replays"], prefill_graphs=now["graphs"],
+                prefill_pool_mb=now["pool_bytes"] / 2**20, prefill_capture_s=now["capture_s"])
+
+
+def _prefill_graph_table(torch, params, cfg, decode_pool_bytes) -> list:
+    """The Engine's prefill buckets 16 ... 8,192 of Llama-3.2-1B as graphs:
+    for each, a prompt of bucket + 1 tokens in three fresh sessions on one
+    cache slot (the key's eager first use, its capture and replay, a replay),
+    with the prefill's time in each (`Response.prompt_time_ms`, which waits
+    for the device), the capture's seconds and the bytes it added to the
+    graph pool, beside the decode graphs' pool (the limit PREFILL_GRAPH_MAX
+    is read against). Every bucket is captured here, the limit lifted."""
+    from jlama_tpu_torch.runtime import engine as engine_mod
+    from jlama_tpu_torch.runtime.engine import Engine
+
+    limit, engine_mod.PREFILL_GRAPH_MAX = engine_mod.PREFILL_GRAPH_MAX, 1 << 30
+    rows = []
+    try:
+        eng = Engine(params, cfg, device="cuda", max_seq_len=8192 + 16, fuse=False)
+        rng = torch.Generator().manual_seed(21)
+        b = 16
+        while b <= 8192:
+            prompt = torch.randint(0, cfg.vocab_size, (b + 1,), generator=rng).tolist()
+            st0 = eng.prefill_graphs.stats()
+            ms = []
+            for sid in ("a", "b", "c"):
+                ms.append(eng.generate_tokens(prompt, max_new_tokens=1, stop_ids=set(),
+                                              session_id=sid).prompt_time_ms)
+                eng.drop_session(sid)
+            st = eng.prefill_graphs.stats()
+            rows.append(dict(bucket=b, eager_ms=ms[0], capture_and_replay_ms=ms[1],
+                             replay_ms=ms[2], capture_s=st["capture_s"] - st0["capture_s"],
+                             pool_added_mb=(st["pool_bytes"] - st0["pool_bytes"]) / 2**20,
+                             pool_mb=st["pool_bytes"] / 2**20))
+            b *= 2
+        del eng
+        torch.cuda.empty_cache()
+    finally:
+        engine_mod.PREFILL_GRAPH_MAX = limit
+    print(f"engine prefill graphs by bucket (Llama-3.2-1B; decode graphs' pool "
+          f"{decode_pool_bytes / 2**20:.1f} MB; PREFILL_GRAPH_MAX {limit}):", flush=True)
+    for r in rows:
+        print(f"  bucket {r['bucket']:5d}: prefill eager {r['eager_ms']:8.3f} ms, replay "
+              f"{r['replay_ms']:8.3f} ms; capture {r['capture_s']:.3f} s, +{r['pool_added_mb']:.1f} "
+              f"MB (pool {r['pool_mb']:.1f} MB)", flush=True)
+    return rows
+
+
+def _stop_exit_check(torch, eng, prompt, card_note) -> dict:
+    """A greedy request whose continuation reaches a stop id within the first
+    six steps of the Engine's 32-step chunk, three times: its ids must equal a run
+    without stop ids up to the stop, and the steps run past the stop stay
+    within the exit's bound (`device_loop.steps_after_stop_bound()`); the
+    wall time saved is the decode time of the run without stop ids (all 32
+    steps, what a chunk without the exit ran) less the stopped run's."""
+    from jlama_tpu_torch.runtime.device_loop import EXIT_EVERY, steps_after_stop_bound
+
+    free, stopped, steps = [], [], []
+    for i in range(3):
+        r = eng.generate_tokens(prompt, max_new_tokens=32, stop_ids=set(), session_id="stop")
+        eng.drop_session("stop")
+        free.append(r)
+    ids = free[0].token_ids
+    # the stop id: the last token among the first six that no earlier one
+    # repeats (the first token at least, when the continuation repeats it)
+    k = max(i for i in range(6) if ids[i] not in ids[:i])
+    if any(r.token_ids != ids for r in free):
+        fail(f"stop exit: the runs without stop ids differ: {[r.token_ids for r in free]}")
+    for i in range(3):
+        st0 = eng.graphs.stats()
+        r = eng.generate_tokens(prompt, max_new_tokens=32, stop_ids={ids[k]}, session_id="stop")
+        torch.cuda.synchronize()
+        st = eng.graphs.stats()
+        steps.append(st["eager_steps"] + st["replays"] - st0["eager_steps"] - st0["replays"])
+        stopped.append(r)
+        if r.token_ids != ids[:k + 1] or r.finish_reason.name != "STOP_TOKEN" \
+                or eng.sessions["stop"].position != len(prompt) + k:
+            fail(f"stop exit: ids {r.token_ids} ({r.finish_reason}) != {ids[:k + 1]}, or "
+                 f"position {eng.sessions['stop'].position}")
+        eng.drop_session("stop")
+    after = [n - (k + 1) for n in steps]
+    t_free = statistics.median(r.generate_time_ms for r in free)
+    t_stop = statistics.median(r.generate_time_ms for r in stopped)
+    print(f"stop exit: a stop id at step {k + 1} of a 32-step chunk (sub-chunks of "
+          f"{EXIT_EVERY}): ids equal the run without stop ids; {steps} steps run, {after} past "
+          f"the stop (bound {steps_after_stop_bound()}); decode {t_stop:.2f} ms against "
+          f"{t_free:.2f} ms for all 32 steps: {t_free - t_stop:.2f} ms saved (medians of 3) on "
+          f"{card_note}", flush=True)
+    if max(after) > steps_after_stop_bound() or min(after) < 0:
+        fail(f"stop exit: {after} steps past the stop, bound {steps_after_stop_bound()}")
+    return dict(stop_step=k + 1, steps_run=steps, steps_after_stop=after,
+                bound=steps_after_stop_bound(), decode_ms_stopped=t_stop,
+                decode_ms_32_steps=t_free, saved_ms=t_free - t_stop)
+
+
+def _debug_hook_check(torch, eng, prompt, cfg) -> dict:
+    """The debug hook on the card (`utils/debug.py`): a short request whose
+    prefill and decode graphs were captured runs eagerly while the hook is
+    on (no replay), and its sink gets 3 x n_layers calls a forward (q, k, v
+    of each layer, no layer argument); after disable() the same request
+    replays its graphs again, with the same ids."""
+    from jlama_tpu_torch.utils import debug
+
+    def run():
+        r = eng.generate_tokens(prompt, max_new_tokens=8, stop_ids=set(), session_id="dbg")
+        eng.drop_session("dbg")
+        torch.cuda.synchronize()
+        return r.token_ids
+
+    ref = [run(), run()][1]  # first uses, then the captures
+    calls = []
+
+    def stats():
+        return [(g.stats()["replays"], g.stats()["eager_steps"])
+                for g in (eng.prefill_graphs, eng.graphs)]
+
+    s0 = stats()
+    debug.enable(lambda name, layer, arr: calls.append((name, layer, arr.shape)))
+    try:
+        hooked = run()
+    finally:
+        debug.disable()
+    s1 = stats()
+    after = run()
+    s2 = stats()
+    hooked_replays = sum(b[0] - a[0] for a, b in zip(s0, s1))
+    replays = [b[0] - a[0] for a, b in zip(s1, s2)]
+    eager_after = sum(b[1] - a[1] for a, b in zip(s1, s2))
+    want = 3 * cfg.n_layers * (1 + 8)  # the prefill and 8 decode steps
+    names = {c[0] for c in calls}
+    print(f"debug hook: {len(calls)} sink calls (expected {want}: q, k, v of "
+          f"{cfg.n_layers} layers x 9 forwards), {hooked_replays} replays while on; after "
+          f"disable() {replays[0]} prefill and {replays[1]} decode replays, {eager_after} eager; "
+          f"ids equal: {hooked == ref == after}", flush=True)
+    if len(calls) != want or names != {"query", "key", "value"} \
+            or any(c[1] is not None for c in calls) or hooked_replays \
+            or replays != [1, 8] or eager_after or not hooked == ref == after:
+        fail(f"debug hook: {len(calls)} calls, names {names}, {hooked_replays} replays while "
+             f"on, {replays} replays and {eager_after} eager steps after, ids {hooked} / "
+             f"{ref} / {after}")
+    return dict(sink_calls=len(calls), replays_while_on=hooked_replays,
+                replays_after=replays, ids_equal=True)
+
+
 def main_path(torch, card_note):
     from jlama_tpu_torch.models.base import forward_logits, params_to
     from jlama_tpu_torch.models.init import llama_1b_config, random_q4_params
@@ -1353,15 +1540,17 @@ def main_path(torch, card_note):
 
     def drive(e, label):
         # a warm-up at the timed shapes (prefill bucket 512, decode window
-        # 1024), so that the TTFT holds no first-use cost of the allocator or
-        # cuBLAS, nor a graph's capture
-        e.generate_tokens(prompt, max_new_tokens=2, stop_ids=set(), session_id="warm")
-        e.drop_session("warm")
+        # 1024), twice, so that the TTFT holds no first-use cost of the
+        # allocator or cuBLAS, nor a graph's capture (the prefill key's
+        # second use captures it)
+        for _ in range(2):
+            e.generate_tokens(prompt, max_new_tokens=2, stop_ids=set(), session_id="warm")
+            e.drop_session("warm")
         torch.cuda.synchronize()
         for k in (q4_matmul, flash_prefill, paged_decode, kv_write):
             k.launches = 0
         _unfused_rope_calls(reset=True)
-        graphs0 = e.graphs.stats()
+        graphs0, prefill0 = e.graphs.stats(), e.prefill_graphs.stats()
         ttfts, firsts = [], []
         for i in range(N_TTFT):  # each a new session: prefill + first token
             t1 = time.perf_counter()
@@ -1370,6 +1559,8 @@ def main_path(torch, card_note):
             torch.cuda.synchronize()
             ttfts.append((time.perf_counter() - t1) * 1000)
             e.drop_session(f"ttft{i}")
+        prefill = (_prefill_check(f"engine path ({label}) TTFT runs", e.prefill_graphs, prefill0,
+                                  N_TTFT) if e.prefill_graphs.capture else None)
         resp = e.generate_tokens(prompt, max_new_tokens=128, stop_ids=set(), session_id="main")
         resumed = e.generate_tokens(more, max_new_tokens=32, stop_ids=set(), session_id="main")
         torch.cuda.synchronize()
@@ -1399,7 +1590,8 @@ def main_path(torch, card_note):
         ids = [f.token_ids for f in firsts] + [resp.token_ids, resumed.token_ids]
         return dict(ttft_ms=ttft_ms, ttft_ms_runs=ttfts, decode_tok_s=decode_tps,
                     decode_ms_per_token=resp.generate_time_ms / 128,
-                    prefill_ms_512=resp.prompt_time_ms), launches, ids, graphs0
+                    prefill_ms_512=resp.prompt_time_ms, prefill_graphs=prefill), launches, ids, \
+            graphs0
 
     e2e, launches, ids, graphs0 = drive(eng, "graphs")
     e2e["graphs"] = _graph_check("engine path", eng.graphs, graphs0, n_decode)
@@ -1409,6 +1601,10 @@ def main_path(torch, card_note):
     print(f"engine path: greedy ids of the graphs equal the eager run's ({len(ids)} requests, "
           f"{sum(map(len, ids))} tokens); eager decode {e2e['eager']['decode_tok_s']:.1f} tok/s, "
           f"TTFT {e2e['eager']['ttft_ms']:.2f} ms", flush=True)
+    e2e["stop_exit"] = _stop_exit_check(torch, eng, prompt[:100], card_note)
+    e2e["debug_hook"] = _debug_hook_check(torch, eng, prompt[:100], cfg)
+    e2e["prefill_graph_table"] = _prefill_graph_table(torch, eng.params, cfg,
+                                                      eng.graphs.stats()["pool_bytes"])
 
     # the prefill logits of a short prompt against the plain path on the CPU
     toks = torch.tensor([prompt[:24]])
@@ -1489,7 +1685,7 @@ def profile_path(torch, eng, prompt, run) -> dict:
     eng.drop_session("main")
     for label, ids, n in (("prefill 511 + first token", prompt, 1),
                           ("decode 32 tokens", [], 32)):
-        graphs0 = eng.graphs.stats()
+        graphs0, prefill0 = eng.graphs.stats(), eng.prefill_graphs.stats()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             eng.generate_tokens(ids, max_new_tokens=n, stop_ids=set(), session_id="prof")
@@ -1497,6 +1693,7 @@ def profile_path(torch, eng, prompt, run) -> dict:
             wall_ms = (time.perf_counter() - t0) * 1e3
         if run == "graphs":
             _graph_check(f"profile {label}", eng.graphs, graphs0, n)
+            _prefill_check(f"profile {label}", eng.prefill_graphs, prefill0, int(bool(ids)))
         kernels = []
         for e in prof.key_averages():
             if not str(e.device_type).endswith("CUDA"):
@@ -1530,6 +1727,12 @@ def profile_path(torch, eng, prompt, run) -> dict:
               + ", ".join(f"{g} {v:.2f} ms" for g, v in groups.items()), flush=True)
         for ms, c, key in kernels[:12]:
             print(f"  {ms:8.3f} ms {c:6d}x {key[:90]}")
+        if ids:
+            print(f"profile ({run}) {label}: {n_ops} device ops, device {dev_ms:.2f} ms, wall "
+                  f"{wall_ms:.2f} ms, busy share {dev_ms / wall_ms:.3f}, beside the eager "
+                  f"prefill's of the parent tree (graphs run, one NVIDIA H100 80GB HBM3 at 700 "
+                  f"W): {PARENT_PREFILL['device_ops']} ops, {PARENT_PREFILL['device_ms']} ms, "
+                  f"{PARENT_PREFILL['wall_ms']} ms, {PARENT_PREFILL['busy_share']}", flush=True)
     return out
 
 
@@ -1636,6 +1839,44 @@ def _pct(xs, p):
     return statistics.quantiles(xs, n=100, method="inclusive")[p - 1] if len(xs) > 1 else xs[0]
 
 
+def _disk_suspend_check(torch, sched, ids, label, card_note) -> dict:
+    """A session suspended to a file (`suspend_session(sid, to_dir=...)`, a
+    temporary directory) and resumed, inline: its continued greedy ids must
+    equal those of a session on the same prompts that never suspended. The
+    file's size and the suspend's (gather, copy, write) and the resume's
+    (read, copy, scatter) times."""
+    import tempfile
+
+    first, second = ids(300), ids(40)
+    for sid in ("disk", "kept"):
+        sched.generate(first, max_new_tokens=16, session_id=sid, stop_ids={-1})
+    n_pages = len(sched.kv.alloc.pages_for("disk"))
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        suspended = sched.suspend_session("disk", to_dir=d)
+        t_suspend = (time.perf_counter() - t0) * 1e3
+        size = (Path(d) / "disk.kv.npz").stat().st_size
+        t1 = time.perf_counter()
+        resumed = sched.resume_session("disk")
+        torch.cuda.synchronize()
+        t_resume = (time.perf_counter() - t1) * 1e3
+        left = (Path(d) / "disk.kv.npz").exists()
+    got = sched.generate(second, max_new_tokens=32, session_id="disk", stop_ids={-1}).token_ids
+    want = sched.generate(second, max_new_tokens=32, session_id="kept", stop_ids={-1}).token_ids
+    for sid in ("disk", "kept"):
+        sched.drop_session(sid)
+    print(f"{label}: disk suspend of a {n_pages}-page session ({len(first)} + 16 tokens): file "
+          f"{size / 2**20:.2f} MB, suspend {t_suspend:.2f} ms, resume {t_resume:.2f} ms; the "
+          f"continued greedy ids equal a session that never suspended: {got == want} "
+          f"({len(got)} tokens) on {card_note}", flush=True)
+    if not (suspended and resumed and left) or got != want or len(got) != 32:
+        fail(f"{label}: disk suspend {suspended}, resume {resumed}, file left {left}; ids "
+             f"{got[:8]}... != {want[:8]}...")
+    return dict(pages=n_pages, file_mb=size / 2**20, suspend_ms=t_suspend, resume_ms=t_resume,
+                ids_equal=True)
+
+
 def serving_path(torch, card_note):
     from jlama_tpu_torch.models.init import llama_1b_config, random_q4_params
     from jlama_tpu_torch.runtime.scheduler import BatchScheduler, GenRequest
@@ -1648,10 +1889,12 @@ def serving_path(torch, card_note):
     pool_gb = 2 * sched.kv.state.k_pool.numel() * 2 / 1e9
     sched.warmup()
     torch.cuda.synchronize()
-    warm = sched.graphs.stats()
+    warm, warm_pf = sched.graphs.stats(), sched.prefill_graphs.stats()
     print(f"serving: Llama-3.2-1B, {SERVE}, bf16 pool {pool_gb:.3f} GB; set-up and warm-up "
           f"{time.perf_counter() - t0:.2f} s; warm-up captured {warm['graphs']} decode graphs "
-          f"in {warm['capture_s']:.3f} s, pool {warm['pool_bytes'] / 2**20:.1f} MB", flush=True)
+          f"in {warm['capture_s']:.3f} s (pool {warm['pool_bytes'] / 2**20:.1f} MB) and "
+          f"{warm_pf['graphs']} prefill graphs in {warm_pf['capture_s']:.3f} s (+"
+          f"{warm_pf['pool_bytes'] / 2**20:.1f} MB)", flush=True)
 
     g = torch.Generator().manual_seed(7)
 
@@ -1676,7 +1919,7 @@ def serving_path(torch, card_note):
     follow = GenRequest(prompt_ids=ids(100), max_new_tokens=64, session_id="chat")
 
     _reset_counts(sched)
-    graphs0 = sched.graphs.stats()
+    graphs0, prefill0 = sched.graphs.stats(), sched.prefill_graphs.stats()
     t_start = time.perf_counter()
     sched.start()
     for r in reqs[:16]:
@@ -1698,6 +1941,12 @@ def serving_path(torch, card_note):
     torch.cuda.synchronize()
     counts = _check_counts(sched, cfg, "serving path")
     graphs = _graph_check("serving path", sched.graphs, graphs0, counts["decode_steps"])
+    if graphs["new_keys"]:
+        fail(f"serving path: {graphs['new_keys']} decode graph keys made after warm-up")
+    graphs["prefill"] = _prefill_check("serving path", sched.prefill_graphs, prefill0,
+                                       counts["prefill_calls"])
+    graphs["prefill_warmup"] = dict(graphs=warm_pf["graphs"], capture_s=warm_pf["capture_s"],
+                                    pool_mb=warm_pf["pool_bytes"] / 2**20)
     _check_finish(everything, cfg, "serving")
     if reqs[10].finish.name != "STOP_TOKEN":
         fail(f"serving: the stop-id request ended {reqs[10].finish}")
@@ -1729,6 +1978,8 @@ def serving_path(torch, card_note):
                            decode_graphs=False, **SERVE)
     e2e["eager_ids"] = _eager_ids_check(sched, eager, ids, "serving")
     e2e["profile_eager"] = _serving_profile(torch, eager, cfg, ids, "eager")
+    e2e["disk_suspend"] = {"bf16": _disk_suspend_check(torch, sched, ids, "serving (bf16 pool)",
+                                                       card_note)}
     del sched, eager
     torch.cuda.empty_cache()
 
@@ -1750,6 +2001,8 @@ def serving_path(torch, card_note):
                                     e2e["q8_launches"]["decode_steps"])
     _check_finish(q8reqs, cfg, "q8 serving")
     e2e["logits_rel_l2"]["q8"] = _paged_logits_check(torch, sq.params, cfg, "q8", ids)
+    e2e["disk_suspend"]["q8"] = _disk_suspend_check(torch, sq, ids, "serving (q8 pool)",
+                                                    card_note)
     del sq
     return counts, e2e
 
@@ -2390,27 +2643,31 @@ def _reset_all_counts():
 
 
 @contextlib.contextmanager
-def _counting_prefill_groupings(rec):
-    """Within the block, rec[0] counts the MoE layers' groupings of more
-    selections than K6's decode route takes (`decode_max_r()`); such a layer
-    gathers x before each of its two matmul launches. It sees the groupings
-    that Python calls, every prefill's among them; a graph replay calls
-    none, and the decode steps here (R = slots x top-k <= 32) gather
-    nothing."""
-    from jlama_tpu_torch.nn import layers
+def _counting_prefill_groupings(rec, owner):
+    """Within the block, rec[0] counts the MoE layers whose grouping takes
+    more selections than K6's decode route (`decode_max_r()`); such a layer
+    gathers x before each of its two matmul launches. It reads the shape of
+    each prefill call at the owner's entry (`Engine._prefill`,
+    `BatchScheduler._call_prefill`), which a graph replay passes through too
+    (R = rows x T x top-k); the decode steps here (R = slots x top-k <= 32)
+    gather nothing."""
     from jlama_tpu_torch.ops.moe_q4 import decode_max_r
 
-    inner = layers.moe_groups
+    moe_layers = owner.cfg.n_layers if owner.cfg.n_experts else 0
+    name = "_prefill" if hasattr(owner, "_prefill") else "_call_prefill"
+    inner = getattr(owner, name)
 
-    def groups(e, n):
-        rec[0] += e.numel() > decode_max_r()
-        return inner(e, n)
+    def call(*a):
+        toks = next(x for x in a if hasattr(x, "shape"))
+        r = toks.shape[0] * toks.shape[1] * owner.cfg.n_experts_per_token
+        rec[0] += moe_layers * (r > decode_max_r())
+        return inner(*a)
 
-    layers.moe_groups = groups
+    setattr(owner, name, call)
     try:
         yield
     finally:
-        layers.moe_groups = inner
+        delattr(owner, name)
 
 
 def _expected(cfg, n_prefill, n_decode, n_gather_layers=0, matmul="q4_matmul",
@@ -2500,13 +2757,15 @@ def _model_engine(torch, params, cfg, card_note, label, model, max_seq_len, prom
     n_decode = n_ttft + sum(n for _, _, n in prompts)
     out, ids = {}, {}
     for run, e in (("graphs", eng), ("eager", eager)):
-        e.generate_tokens(first, max_new_tokens=2, stop_ids=set(), session_id="warm")
-        e.drop_session("warm")
+        for _ in range(2):  # the prefill key's first use, then its capture
+            e.generate_tokens(first, max_new_tokens=2, stop_ids=set(), session_id="warm")
+            e.drop_session("warm")
         torch.cuda.synchronize()
         _reset_all_counts()
         graphs0 = e.graphs.stats()
         ttfts, firsts, n_gather = [], [], [0]
-        with _counting_prefill_groupings(n_gather):
+        with _counting_prefill_groupings(n_gather, e):
+            prefill0 = e.prefill_graphs.stats()
             for i in range(n_ttft):
                 t1 = time.perf_counter()
                 firsts.append(e.generate_tokens(first, max_new_tokens=1, stop_ids=set(),
@@ -2514,6 +2773,9 @@ def _model_engine(torch, params, cfg, card_note, label, model, max_seq_len, prom
                 torch.cuda.synchronize()
                 ttfts.append((time.perf_counter() - t1) * 1000)
                 e.drop_session(f"ttft{i}")
+            if run == "graphs":
+                prefill = _prefill_check(f"{label} engine TTFT runs", e.prefill_graphs, prefill0,
+                                         n_ttft)
             resps = [e.generate_tokens(p, max_new_tokens=n, stop_ids=set(), session_id=sid)
                      for sid, p, n in prompts]
             torch.cuda.synchronize()
@@ -2542,6 +2804,7 @@ def _model_engine(torch, params, cfg, card_note, label, model, max_seq_len, prom
         out[run] = o
         if run == "graphs":
             o["graphs"] = _graph_check(f"{label} engine", e.graphs, graphs0, n_decode)
+            o["prefill_graphs"] = prefill
         print(f"{label} engine ({run}): TTFT ({len(first)}-token prompt) median "
               f"{o['ttft_ms']:.2f} ms of {n_ttft}; decode {o['decode_tok_s']:.1f} tok/s "
               f"({prompts[0][2]} tokens, batch 1)"
@@ -2636,7 +2899,7 @@ def _model_serving(torch, params, cfg, card_note, label, serve, mix, ids,
     sched.n_prefill_calls = sched.n_decode_steps = 0
     graphs0 = sched.graphs.stats()
     n_gather = [0]
-    with _counting_prefill_groupings(n_gather):
+    with _counting_prefill_groupings(n_gather, sched):
         t0 = time.perf_counter()
         sched.start()
         for r in reqs:
@@ -3460,6 +3723,9 @@ def gpt2_path(torch, card_note) -> dict:
     print(f"gpt2 engine: the {GPT2_LONG}-token request generated "
           f"{cfg.context_length - GPT2_LONG} tokens, to position {cfg.context_length - 1}",
           flush=True)
+    print(f"gpt2 engine: TTFT of the 512-token prompt with its prefill as a graph "
+          f"{engine['ttft_ms']:.2f} ms (eager yardstick {engine['eager']['ttft_ms']:.2f} ms; the "
+          f"parent tree's eager prefill: {PARENT_GPT2_TTFT_MS} ms) on {card_note}", flush=True)
     # 8 greedy requests from a seed: prompts of 32-900 tokens, 32-64 new
     gs = torch.Generator().manual_seed(14)
 

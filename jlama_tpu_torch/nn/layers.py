@@ -33,6 +33,7 @@ from ..ops.kv_write import dense_page_table, dense_pool_view, kv_write
 from ..ops.linear import linear
 from ..ops.moe_float import moe_float_experts, stack_in_out
 from ..ops.moe_q4 import moe_groups, moe_q4_gate_up, moe_q4_matmul
+from ..utils.debug import debug
 from .qarray import QArray
 from .rope import apply_rope
 
@@ -200,6 +201,10 @@ def self_attention_block(
         q = linear(x, params["wq"], params.get("wq.bias"))
         k = linear(x, params["wk"], params.get("wk.bias"))
         v = linear(x, params["wv"], params.get("wv.bias"))
+    # the JAX package's debug points, on every path and with no layer
+    debug("query", q)
+    debug("key", k)
+    debug("value", v)
     q = q.reshape(B, T, cfg.n_heads, hd)
     k = k.reshape(B, T, cfg.n_kv_heads, hd)
     v = v.reshape(B, T, cfg.n_kv_heads, hd)

@@ -1,12 +1,18 @@
 """Inference engine: bucketed prefill, chunked decode, sessions, streaming
 (counterpart of the generation part of `jlama_tpu/runtime/engine.py`).
 
-- prompt prefill in length buckets, all but the last prompt token;
+- prompt prefill in length buckets, all but the last prompt token; on the
+  card a prefill is a captured CUDA graph (`runtime/graphs.py`), one per
+  (cache slot, bucket, window) up to `PREFILL_GRAPH_MAX` tokens, reading its
+  tokens and positions from static inputs of its own (the JAX package's
+  jitted `_prefill`); longer buckets run eagerly;
 - the last prompt token and every generated token through the chunked decode
   loop (`runtime/device_loop.py`), sampling on the device; on the card each
-  decode step is a captured CUDA graph (`runtime/graphs.py`), one per
-  (cache slot, window, greedy, no top-k, no top-p), replayed `chunk` times
-  before the chunk's one copy to the host;
+  decode step is a captured CUDA graph, one per (cache slot, window, greedy,
+  no top-k, no top-p, stop-id width), replayed up to `chunk` times before
+  the chunk's one copy to the host; the loop stops issuing steps once the
+  row has sampled a stop id (the JAX loop's exit), within
+  `device_loop.steps_after_stop_bound()` steps on the card;
 - per-session dense KV caches in at most `max_device_sessions` device cache
   slots, made on first need and kept for the engine's life (a graph reads
   its slot by address): a new session takes a free slot, zeroed; an idle
@@ -46,7 +52,12 @@ from ..nn.sampling import sample_token
 from ..prompt import PromptContext, extract_tool_calls
 from ..utils.metrics import GLOBAL_METRICS
 from .device_loop import decode_loop
-from .graphs import DecodeInputs, StepGraphs
+from .graphs import DecodeInputs, PrefillInputs, StepGraphs
+
+# the longest prefill bucket captured as a CUDA graph; longer ones run eagerly:
+# on Llama-3.2-1B a capture past it adds 192-384 MB to the graph pool (the
+# decode graphs hold 4 MB) to save 10-16 % of the prefill's time
+PREFILL_GRAPH_MAX = 2048
 
 
 class FinishReason(str, Enum):
@@ -151,8 +162,8 @@ class Engine:
     ):
         """device: CUDA unless named; raises without CUDA and without it.
         The params are moved there (a no-op for params already on it).
-        decode_graphs=False runs every decode step eagerly on the card too
-        (the yardstick the graphs are held against). moe_ragged: as in the
+        decode_graphs=False runs every decode step and every prefill eagerly
+        on the card too (the yardstick the graphs are held against). moe_ragged: as in the
         JAX package, float MoE experts are transposed once into the grouped
         layout (`models.base.prepare_moe_ragged`); q4 experts are left as they
         are (K6), and float experts take the card's grouped product
@@ -179,8 +190,9 @@ class Engine:
         self._slot_bufs: list[torch.Tensor] = []
         self._slot_caches: list[KVCache] = []
         self._free_slots: list[int] = []
-        self._in = DecodeInputs(1, self.device, history=self.max_seq_len)
+        self._in = DecodeInputs(1, self.device, history=self.max_seq_len, stops=True)
         self.graphs = StepGraphs(self.device, decode_graphs)
+        self.prefill_graphs = StepGraphs(self.device, decode_graphs, pool_of=self.graphs)
 
     # ------------------------------------------------------------------
     # sessions
@@ -232,8 +244,29 @@ class Engine:
         if sess is not None and not sess.on_host:
             self._free_slots.append(sess.slot)
 
+    def _prefill(self, slot: int, toks: np.ndarray, pos: np.ndarray, win: int) -> None:
+        """Prefill [1, T] tokens at their positions into a cache slot: on
+        the card one graph per (slot, T, window) up to PREFILL_GRAPH_MAX
+        tokens, from that key's static inputs."""
+        cache = self._slot_caches[slot]
+
+        def run(tokens, positions):
+            forward_hidden(self.params, self.cfg, tokens, positions, cache,
+                           dtype=self.compute_dtype, attn_window=win, inv_freq=self.inv_freq)
+
+        T = toks.shape[1]
+        if T > PREFILL_GRAPH_MAX:
+            with torch.inference_mode():
+                run(torch.from_numpy(toks).to(self.device), torch.from_numpy(pos).to(self.device))
+            return
+        key = (slot, T, win)
+        inp = self.prefill_graphs.inputs(key, lambda: PrefillInputs(1, T, self.device))
+        inp.load(tokens=toks, positions=pos)
+        with torch.inference_mode():
+            self.prefill_graphs.run(key, lambda: run(inp.tokens, inp.positions))
+
     def _decode_step(self, cache: KVCache, win: int, greedy: bool, no_top_k: bool,
-                     no_top_p: bool) -> torch.Tensor:
+                     no_top_p: bool, stop_width: int) -> torch.Tensor:
         """One decode step on the static inputs: the sampled ids [1]."""
         s = self._in
         hidden, _ = forward_hidden(
@@ -244,7 +277,7 @@ class Engine:
         nxt = sample_token(logits, None, 0.0 if greedy else s.temps,
                            top_k=0 if no_top_k else s.top_ks,
                            top_p=1.0 if no_top_p else s.top_ps, seeds=s.seeds, steps=s.steps)
-        s.advance(nxt)
+        s.advance(nxt, stop_width)
         return nxt
 
     # ------------------------------------------------------------------
@@ -285,19 +318,15 @@ class Engine:
             bucket = _bucket(len(ctx))
             if start_pos + bucket > self.max_seq_len:
                 bucket = len(ctx)  # a bucketed write would not fit
-            toks = torch.zeros((1, bucket), dtype=torch.int64)
-            toks[0, : len(ctx)] = torch.tensor(ctx, dtype=torch.int64)
+            toks = np.zeros((1, bucket), dtype=np.int64)
+            toks[0, : len(ctx)] = ctx
             # pads get contiguous future positions: their K/V land at
             # not-yet-attendable slots and are overwritten by the real token
             # that later occupies each slot (the cache write precedes
             # attention within a step), so they never leak into results
-            pos = torch.arange(start_pos, start_pos + bucket, dtype=torch.int64)[None, :]
+            pos = np.arange(start_pos, start_pos + bucket, dtype=np.int64)[None, :]
             win = min(_bucket(start_pos + bucket), self.max_seq_len)
-            with torch.inference_mode():
-                forward_hidden(
-                    self.params, cfg, toks.to(dev), pos.to(dev), self._slot_caches[sess.slot],
-                    dtype=self.compute_dtype, attn_window=win, inv_freq=self.inv_freq,
-                )
+            self._prefill(sess.slot, toks, pos, win)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         prompt_time = (time.perf_counter() - t0) * 1000
@@ -315,6 +344,7 @@ class Engine:
         # the static inputs, once a call: every step advances them in place
         self._in.load(tokens=[[cur]], positions=[[cur_pos]], steps=[0], seeds=[seed],
                       temps=[temperature], top_ks=[top_k], top_ps=[top_p])
+        width = self._in.set_stops(stop)
         cache = self._slot_caches[sess.slot]
         # static variants, as sample_token's fast paths for Python numbers
         greedy = temperature == 0.0
@@ -328,8 +358,8 @@ class Engine:
             win = min(_bucket(cur_pos + chunk + 1), self.max_seq_len)
             with torch.inference_mode():
                 rows, nval = decode_loop(
-                    self.graphs, (sess.slot, win, greedy, no_top_k, no_top_p),
-                    lambda: self._decode_step(cache, win, greedy, no_top_k, no_top_p),
+                    self.graphs, (sess.slot, win, greedy, no_top_k, no_top_p, width),
+                    lambda: self._decode_step(cache, win, greedy, no_top_k, no_top_p, width),
                     self._in, len(out_ids), chunk, stop,
                 )
             toks_out = rows[0]

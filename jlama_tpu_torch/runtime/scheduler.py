@@ -10,12 +10,17 @@ they finish:
   a step is a captured CUDA graph (`runtime/graphs.py`), one per (window,
   all greedy, all top_k 0, all top_p 1, penalties), the JAX jit's static
   arguments plus the greedy fast path, all reading one set of static
-  inputs; `warmup` captures the greedy and the plain sampled graph of every
-  window;
+  inputs;
 - prefill: chunks of at most `prefill_chunk` tokens, batched across every
   request still prefilling, interleaved with the decode steps; each chunk
   writes its KV rows into the request's pages (K4) and attends over the
-  gathered live window (K3);
+  gathered live window (K3); on the card a prefill call is a captured CUDA
+  graph, one per (rows, chunk, window) (the JAX package's jitted
+  `_prefill`), each with static tokens, positions and page tables of its
+  own, sharing the decode graphs' memory pool;
+- `warmup` runs every decode variant and every prefill key that traffic up
+  to a context length can reach twice, so that on the card each is captured
+  before the first request;
 - chained decode windows: when the batch is steady, up to `decode_lag` steps
   are issued back to back, each sampled token fed to the next step in
   place, and their tokens come back through non-blocking copies into
@@ -25,7 +30,10 @@ they finish:
   penalties from per-slot token counts kept on the device;
 - sessions: pages stay with a session between requests, least recently used
   idle sessions are suspended to host RAM beyond `max_sessions` or when the
-  pool runs out, and resume into fresh pages;
+  pool runs out, and resume into fresh pages; `suspend_session(sid,
+  to_dir=...)` writes them to `{to_dir}/{sid}.kv.npz` instead, the JAX
+  scheduler's file (each pool leaf as a uint8 view), which either package
+  resumes;
 - `weight_format="q4s"`: W4A8 serving (the JAX CLI's `serve --pallas
   w8a8`): the 2-D q4 weights are re-quantized to q4s once, after fusing, and
   every projection and the lm_head take K5.
@@ -44,7 +52,7 @@ tokenizer, device=sched.device, fuse=False, moe_ragged=False)`, so that the
 layer weights are held once.
 
 Not ported yet (see ROADMAP.md): meshes (tp/dp page groups), the multi-host
-step channel, and suspending to disk.
+step channel, and with them the per-process disk suspend.
 """
 
 from __future__ import annotations
@@ -73,7 +81,13 @@ from ..ops.w8a8 import prepare_params_for_w8a8
 from ..prompt import extract_tool_calls
 from ..utils.metrics import GLOBAL_METRICS
 from .engine import FinishReason, Response, _bucket
-from .graphs import DecodeInputs, StepGraphs
+from .graphs import DecodeInputs, PrefillInputs, StepGraphs
+
+
+def _pool_leaves(k, v) -> list:
+    """The leaves of (k, v) in the JAX package's tree order: [k, v] for
+    float pools, [k.data, k.scales, v.data, v.scales] for q8 ones."""
+    return [t for p in (k, v) for t in ((p.data, p.scales) if isinstance(p, QArray) else (p,))]
 
 
 class RequestState(str, Enum):
@@ -167,8 +181,8 @@ class BatchScheduler:
     ):
         """kv_dtype: a torch float dtype or "q8". device: CUDA unless named;
         raises without CUDA and without it. The params are moved there.
-        decode_graphs=False runs every decode step eagerly on the card too
-        (the yardstick the graphs are held against).
+        decode_graphs=False runs every decode step and every prefill call
+        eagerly on the card too (the yardstick the graphs are held against).
 
         weight_format: None keeps the weights as they are. "q4s" re-quantizes
         the 2-D q4 weights to the W4A8 format after fusing (q4s rows are never
@@ -233,6 +247,7 @@ class BatchScheduler:
         # one set of static step inputs, read by every decode graph
         self._in = DecodeInputs(n_slots, self.device, pages=self.kv.max_pages_per_seq)
         self.graphs = StepGraphs(self.device, decode_graphs)
+        self.prefill_graphs = StepGraphs(self.device, decode_graphs, pool_of=self.graphs)
         self.degraded: str | None = None
         self._rng = np.random.default_rng(seed)
         # per-slot generated-token counts for presence/frequency penalties,
@@ -278,14 +293,6 @@ class BatchScheduler:
     # device calls
     # ------------------------------------------------------------------
 
-    def _dev(self, x, dtype=torch.int64) -> torch.Tensor:
-        """A host array on the device, through pinned memory, without
-        waiting for the device's queue."""
-        t = torch.from_numpy(np.ascontiguousarray(x)).to(dtype)
-        if self.device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
-
     def _to_host(self, toks: torch.Tensor) -> tuple:
         """Start copying a step's tokens to the host: (buffer, event)."""
         if self.device.type != "cuda":
@@ -304,12 +311,22 @@ class BatchScheduler:
         return host.numpy()
 
     def _call_prefill(self, toks, pos, pt, win: int) -> None:
+        """One prefill call over [rows, T] host tokens, positions and page
+        tables [rows, P]: on the card one graph per (rows, T, window), from
+        that key's static inputs."""
+        rows, T = toks.shape
+        key = (rows, T, win)
+        inp = self.prefill_graphs.inputs(
+            key, lambda: PrefillInputs(rows, T, self.device, pages=self.kv.max_pages_per_seq))
+        inp.load(tokens=toks, positions=pos, page_tables=pt)
+
+        def run():
+            forward_hidden(self.params, self.cfg, inp.tokens, inp.positions,
+                           (self._layers, inp.page_tables), dtype=self.compute_dtype,
+                           attn_window=win, inv_freq=self.inv_freq)
+
         with torch.inference_mode():
-            forward_hidden(
-                self.params, self.cfg, self._dev(toks), self._dev(pos),
-                (self._layers, self._dev(pt, torch.int32)), dtype=self.compute_dtype,
-                attn_window=win, inv_freq=self.inv_freq,
-            )
+            self.prefill_graphs.run(key, run)
         self.n_prefill_calls += 1
 
     def _counts_reset(self, slot: int) -> None:
@@ -353,9 +370,11 @@ class BatchScheduler:
         self._in.load(tokens=tokens, positions=positions, steps=steps, seeds=seeds,
                       temps=temps, top_ps=top_ps, top_ks=top_ks, pres=pres, freq=freq,
                       page_tables=pts)
+        all_greedy = not bool(np.any(np.asarray(temps) != 0.0))
+        # an all-greedy step ignores top-k and top-p: one variant for them all
         self._chain_tail = {
-            "all_p1": all_p1, "all_k0": all_k0, "use_pen": use_pen,
-            "all_greedy": not bool(np.any(np.asarray(temps) != 0.0)),
+            "all_p1": all_p1 or all_greedy, "all_k0": all_k0 or all_greedy,
+            "use_pen": use_pen, "all_greedy": all_greedy,
         }
         return self._chain_steps(win, depth)
 
@@ -393,46 +412,59 @@ class BatchScheduler:
             w = b + 1
         return wins
 
+    def _prefill_bucket(self, chunk: int) -> int:
+        """The prefill length of a call whose longest row takes `chunk` tokens."""
+        return chunk if chunk == self.prefill_chunk else _bucket(chunk)
+
     def warmup(self, max_context: int | None = None,
                prefill_rows: tuple | None = None,
                decode_windows: list | None = None,
                prefill_windows: list | None = None) -> None:
-        """Run every (window, prefill-rows, chunk) shape that serving traffic
-        up to `max_context` tokens will hit once, so that first requests do
-        not pay for first-use costs (kernel builds, allocator growth, cuBLAS
-        handles). Every decode window runs twice for the greedy and for the
-        sampled step without top-k, top-p or penalties, so that on the card
-        both graphs are captured. Dummy inputs run against the scratch page
-        (zero page tables), so no sequence state is touched."""
+        """Run every decode variant and (rows, chunk, window) prefill shape
+        that serving traffic up to `max_context` tokens will hit twice, so
+        that first requests do not pay for first-use costs (kernel builds,
+        allocator growth, cuBLAS handles) and, on the card, every graph is
+        captured. The decode variants of a window: greedy, and sampled with
+        and without top-k and top-p, each with and without penalties; the
+        prefill chunks: `prefill_chunk` and every shorter bucket. Dummy
+        inputs run against the scratch page (zero page tables), so no
+        sequence state is touched."""
         wins = self._window_buckets(max_context or self.max_seq_len)
         decode_windows = decode_windows if decode_windows is not None else wins
         prefill_windows = prefill_windows if prefill_windows is not None else wins
         B = self.n_slots
         if prefill_rows is None:
             prefill_rows, r = [], 1
-            while r <= B:
+            while True:  # the powers of two _advance_prefill rounds rows up to
                 prefill_rows.append(r)
+                if r >= B:
+                    break
                 r *= 2
         zeros = lambda *s: np.zeros(s, np.int32)  # noqa: E731
         dec_pt = self.kv.page_table(["__empty__"] * B)
+        variants = [(0.0, 0, 1.0, pen) for pen in (0.0, 0.5)] + [
+            (1.0, k, p, pen) for k in (0, 40) for p in (1.0, 0.9) for pen in (0.0, 0.5)]
         for win in decode_windows:
-            for temp in (0.0, 1.0):
+            for temp, top_k, top_p, pen in variants:
                 window = self._run_decode_window(
                     zeros(B, 1), zeros(B, 1), dec_pt,
                     zeros(B), zeros(B), np.full(B, temp, np.float32),
-                    np.ones(B, np.float32), zeros(B), np.zeros(B, np.float32),
-                    np.zeros(B, np.float32), True, True, False, win, 2,
+                    np.full(B, top_p, np.float32), np.full(B, top_k, np.int32),
+                    np.full(B, pen, np.float32), np.zeros(B, np.float32),
+                    top_p >= 1.0, top_k <= 0, pen != 0.0, win, 2,
                 )
                 [self._fetch(t) for t in window]
-        chunk = self.prefill_chunk
+        cap = self.kv.max_pages_per_seq * self.kv.page_size
+        buckets = sorted({self._prefill_bucket(c) for c in range(1, self.prefill_chunk + 1)})
         for rows in prefill_rows:
             pf_pt = self.kv.page_table(["__empty__"] * rows)
-            for win in prefill_windows:
-                if win < chunk:
-                    continue
-                toks = zeros(rows, chunk)
-                pos = np.broadcast_to(np.arange(chunk, dtype=np.int32), (rows, chunk)).copy()
-                self._call_prefill(toks, pos, pf_pt, win)
+            for bucket in buckets:
+                pos = np.broadcast_to(np.arange(bucket, dtype=np.int32), (rows, bucket)).copy()
+                for win in prefill_windows:
+                    if win < min(bucket, cap):
+                        continue
+                    for _ in range(2):
+                        self._call_prefill(zeros(rows, bucket), pos, pf_pt, win)
 
     def submit(self, req: GenRequest) -> GenRequest:
         req.t_start = time.perf_counter()
@@ -560,16 +592,16 @@ class BatchScheduler:
         ps = self.kv.page_size
         table_len = self.kv.max_pages_per_seq * ps
         chunk = min(self.prefill_chunk, max(rem for _, rem in todo))
-        bucket = chunk if chunk == self.prefill_chunk else _bucket(chunk)
+        bucket = self._prefill_bucket(chunk)
         # rows must fit pos+bucket inside their page table: pads write to
-        # contiguous future positions, and past-table positions would clamp
-        # onto the row's LAST real page (corrupting it). Rows near their
-        # table end run alone with an exact (pad-free) bucket instead.
+        # contiguous future positions, which the JAX scheduler clamps onto
+        # the row's LAST real page. Rows near their table end run alone, as
+        # there; their bucket keeps its pads (so that warm-up knows its
+        # shape), since K4 drops a write past the page table.
         fit = [rt for rt in todo if rt[0].position + bucket <= table_len]
         if not fit:
             req, rem = todo[0]
-            chunk = min(self.prefill_chunk, rem)
-            bucket = chunk  # exact length: no pads past the table
+            bucket = self._prefill_bucket(min(self.prefill_chunk, rem))
             fit = [(req, rem)]
         if self.prefill_fair_rows is not None:
             # FIFO fairness: only the oldest K requests advance this call
@@ -662,17 +694,20 @@ class BatchScheduler:
             self._suspended.pop(session_id, None)
 
     # ------------------------------------------------------------------
-    # session offload: an idle session's pages move to host RAM and its
-    # device pages are freed; a resume copies them into fresh pages
+    # session offload: an idle session's pages move to host RAM (or to a
+    # file) and its device pages are freed; a resume copies them into fresh
+    # pages
     # ------------------------------------------------------------------
 
     def suspend_session(self, session_id: str, to_dir: str | None = None) -> bool:
-        if to_dir is not None:
-            raise NotImplementedError("suspending a session to disk is not ported yet")
+        """Move an idle session's pages off the device: to host RAM, or with
+        `to_dir` to `{to_dir}/{session_id}.kv.npz` (the JAX scheduler's
+        file, which its `resume_session` reads too). False if the session is
+        unknown, active or holds no page."""
         with self._lock:
-            return self._suspend_session_locked(session_id)
+            return self._suspend_session_locked(session_id, to_dir)
 
-    def _suspend_session_locked(self, session_id: str) -> bool:
+    def _suspend_session_locked(self, session_id: str, to_dir: str | None = None) -> bool:
         if session_id not in self.session_state:
             return False
         if any(r is not None and r.session_id == session_id for r in self.slots):
@@ -681,15 +716,18 @@ class BatchScheduler:
         pages = self.kv.alloc.pages_for(session_id)
         if not pages:
             return False
-        payload = self._suspend_pages(np.asarray(pages, dtype=np.int64))
+        payload = self._suspend_pages(session_id, np.asarray(pages, dtype=np.int64), to_dir)
         self._suspended[session_id] = (payload, self.session_state[session_id])
         self.kv.alloc.release(session_id)
         self.session_state.pop(session_id)
         return True
 
-    def _suspend_pages(self, idxs_np) -> tuple:
+    def _suspend_pages(self, session_id: str, idxs_np, to_dir: str | None) -> tuple:
         """The session's pages [L, n_kv, n, ps, hd] (payload and scales for
-        q8 pools) gathered out of the pools into host RAM."""
+        q8 pools) gathered out of the pools on the device, one copy to the
+        host per leaf; kept in RAM, or written to `{to_dir}/{session_id}.kv.npz`
+        with each leaf, in `_pool_leaves` order, saved as a contiguous uint8
+        view (npz has no bf16)."""
         idxs = torch.from_numpy(idxs_np).to(self.device)
 
         def take(pool):
@@ -698,7 +736,13 @@ class BatchScheduler:
             return pool[:, :, idxs].cpu()
 
         with torch.inference_mode():
-            return ("ram", take(self.kv.state.k_pool), take(self.kv.state.v_pool))
+            k_host, v_host = take(self.kv.state.k_pool), take(self.kv.state.v_pool)
+        if to_dir is None:
+            return ("ram", k_host, v_host)
+        os.makedirs(to_dir, exist_ok=True)
+        np.savez(f"{to_dir}/{session_id}.kv.npz",
+                 *[a.contiguous().view(torch.uint8).numpy() for a in _pool_leaves(k_host, v_host)])
+        return ("disk", to_dir)
 
     def resume_session(self, session_id: str) -> bool:
         with self._lock:
@@ -708,8 +752,8 @@ class BatchScheduler:
         if session_id not in self._suspended:
             return False
         payload, state = self._suspended[session_id]
-        host_k = payload[1]
-        n_pages = (host_k.data if isinstance(host_k, QArray) else host_k).shape[2]
+        host = self._payload_leaves(session_id, payload)
+        n_pages = host[0].shape[2]
         ps = self.kv.page_size
         # allocate with eviction; a full pool must NOT raise out of the
         # scheduler loop (that would fail every in-flight request): the
@@ -723,23 +767,28 @@ class BatchScheduler:
                     self.kv.alloc.release(session_id)  # partial alloc back
                     return False
         self._suspended.pop(session_id)
-        self._restore_pages(payload, np.asarray(pages, dtype=np.int64))
+        self._restore_pages(host, np.asarray(pages, dtype=np.int64))
         self.session_state[session_id] = state
         return True
 
-    def _restore_pages(self, payload, idxs_np) -> None:
+    def _payload_leaves(self, session_id: str, payload) -> list:
+        """A suspend payload's pages as host tensors in `_pool_leaves` order:
+        a file is read whole and left where it is, as the JAX scheduler
+        leaves it, its uint8 members viewed back through the pool leaves'
+        dtypes."""
+        if payload[0] == "ram":
+            return _pool_leaves(payload[1], payload[2])
+        pools = _pool_leaves(self.kv.state.k_pool, self.kv.state.v_pool)
+        with np.load(f"{payload[1]}/{session_id}.kv.npz") as z:
+            return [torch.from_numpy(z[f]).view(p.dtype) for f, p in zip(z.files, pools)]
+
+    def _restore_pages(self, host: list, idxs_np) -> None:
+        """Scatter the pages `host` (`_pool_leaves` order) into the pool
+        pages idxs_np."""
         idxs = torch.from_numpy(idxs_np).to(self.device)
-
-        def put(pool, host):
-            if isinstance(pool, QArray):
-                put(pool.data, host.data)
-                put(pool.scales, host.scales)
-            else:
-                pool[:, :, idxs] = host.to(self.device, pool.dtype)
-
         with torch.inference_mode():
-            put(self.kv.state.k_pool, payload[1])
-            put(self.kv.state.v_pool, payload[2])
+            for pool, h in zip(_pool_leaves(self.kv.state.k_pool, self.kv.state.v_pool), host):
+                pool[:, :, idxs] = h.to(self.device, pool.dtype)
 
     def _check_stop_strings(self, r: GenRequest) -> bool:
         """True if one of the request's stop strings just completed; sets

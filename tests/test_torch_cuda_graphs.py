@@ -1,6 +1,8 @@
-"""The captured decode steps (`jlama_tpu_torch/runtime/graphs.py`) against
-the same steps run eagerly, on the card: ids and logits bit for bit, the
-kernels' launch counts per replay, a recycled cache slot, a failed capture.
+"""The captured decode steps and prefills (`jlama_tpu_torch/runtime/
+graphs.py`) against the same steps run eagerly, on the card: ids, logits and
+caches bit for bit, the kernels' launch counts per replay, a recycled cache
+slot, the warm-up's captures, a failed capture, and the decode loop's exit
+at a stop id within its bound.
 
 Marked `cuda`: each test skips where torch has no CUDA device (as on the CPU
 test runs); on a machine with an NVIDIA GPU run them with
@@ -174,9 +176,15 @@ def test_scheduler_warmup_captures_every_window(model):
     wins = sched._window_buckets(512)
     sched.warmup(prefill_rows=(1,))
     st = sched.graphs.stats()
-    # the greedy and the plain sampled step of every window: first use, capture
-    assert st["graphs"] == st["keys"] == 2 * len(wins)
-    assert st["eager_steps"] == st["replays"] == 2 * len(wins)
+    # the 10 decode variants of every window (greedy and sampled, top-k,
+    # top-p and penalties): first use, capture
+    assert st["graphs"] == st["keys"] == 10 * len(wins)
+    assert st["eager_steps"] == st["replays"] == 10 * len(wins)
+    # every prefill key at one row: chunk 256 and the shorter buckets, each
+    # in every window that holds it, once eager and once captured
+    pf = sched.prefill_graphs.stats()
+    n_pf = sum(w >= b for b in (16, 32, 64, 128, 256) for w in wins)
+    assert pf["graphs"] == pf["keys"] == pf["eager_steps"] == pf["replays"] == n_pf
 
 
 def test_failed_capture_raises_and_runs_no_eager_step(model, monkeypatch):
@@ -199,6 +207,63 @@ def test_failed_capture_raises_and_runs_no_eager_step(model, monkeypatch):
         eng.generate_tokens(_prompt(cfg, 20, 2), max_new_tokens=8, stop_ids=set())
     st = eng.graphs.stats()
     assert (st["eager_steps"], st["replays"], st["graphs"]) == (1, 0, 0)
+
+
+@pytest.mark.parametrize("n", [100, 300])
+def test_engine_prefill_replay_equals_eager(model, monkeypatch, n):
+    """An n-token prompt (buckets 128 and 512) in three fresh sessions on one
+    cache slot: the prefill key's first use runs eagerly, the second captures
+    and replays, the third replays. After each, the slot's cache and the
+    first token's logits equal an eager Engine's bit for bit."""
+    from jlama_tpu_torch.runtime import engine as engine_mod
+    from jlama_tpu_torch.runtime.engine import Engine
+
+    params, cfg = model
+    prompt = _prompt(cfg, n, 7)
+    out = {}
+    for graphs in (True, False):
+        eng = Engine(params, cfg, device="cuda", max_seq_len=512, decode_graphs=graphs)
+        rec, ctr = _recorded(monkeypatch, engine_mod, 1, cfg.vocab_size)
+        runs = []
+        for sid in ("a", "b", "c"):
+            r = eng.generate_tokens(prompt, max_new_tokens=1, stop_ids=set(), session_id=sid)
+            torch.cuda.synchronize()
+            runs.append((r.token_ids, eng._slot_bufs[eng.sessions[sid].slot].clone()))
+            eng.drop_session(sid)
+        out[graphs] = (runs, rec[:3].cpu(), int(ctr), eng.prefill_graphs.stats())
+        monkeypatch.undo()
+    (runs_g, lg_g, c_g, st_g), (runs_e, lg_e, c_e, st_e) = out[True], out[False]
+    assert c_g == c_e == 3 and torch.equal(lg_g, lg_e) and torch.isfinite(lg_g).all()
+    for (ids_g, buf_g), (ids_e, buf_e) in zip(runs_g, runs_e):
+        assert ids_g == ids_e and torch.equal(buf_g, buf_e)
+    assert (st_g["keys"], st_g["eager_steps"], st_g["graphs"], st_g["replays"]) == (1, 1, 1, 2)
+    assert st_g["pool_bytes"] > 0 and (st_e["graphs"], st_e["eager_steps"]) == (0, 3)
+
+
+def test_engine_stop_exit_within_bound(model):
+    """A greedy request whose continuation reaches a stop id in the first six
+    steps of a 32-step chunk: the ids equal a run without stop ids up to the stop,
+    and the chunk ran at most `steps_after_stop_bound()` steps past it."""
+    from jlama_tpu_torch.runtime.device_loop import steps_after_stop_bound
+    from jlama_tpu_torch.runtime.engine import Engine
+
+    params, cfg = model
+    prompt = _prompt(cfg, PROMPT_LEN, 3)
+    eng = Engine(params, cfg, device="cuda", max_seq_len=512)
+    free = eng.generate_tokens(prompt, max_new_tokens=32, stop_ids=set(), session_id="f")
+    eng.drop_session("f")
+    ids = free.token_ids
+    # the last of the first six tokens that no earlier one repeats (the first
+    # token at least: random weights may repeat one token throughout)
+    k = max(i for i in range(6) if ids[i] not in ids[:i])
+    before = eng.graphs.stats()
+    r = eng.generate_tokens(prompt, max_new_tokens=32, stop_ids={ids[k]}, session_id="s")
+    st = eng.graphs.stats()
+    steps = st["eager_steps"] + st["replays"] - before["eager_steps"] - before["replays"]
+    assert r.token_ids == ids[:k + 1] and r.finish_reason.name == "STOP_TOKEN"
+    assert int(eng._in.steps[0]) == steps
+    assert k + 1 <= steps <= k + 1 + steps_after_stop_bound() < 32
+    assert eng.sessions["s"].position == PROMPT_LEN - 1 + k + 1
 
 
 @pytest.fixture(scope="module")

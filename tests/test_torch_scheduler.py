@@ -145,8 +145,8 @@ def test_suspend_resume_in_ram(setup):
     assert s2.kv.alloc.n_free > free_mid and "off1" in s2._suspended
     payload = s2._suspended["off1"][0]
     assert payload[0] == "ram" and payload[1].shape[:3] == (2, 2, 1)  # [L, n_kv, pages, ...]
-    with pytest.raises(NotImplementedError, match="disk"):
-        s2.suspend_session("off1", to_dir="unused")
+    # already suspended: nothing to suspend again, to RAM or to disk
+    assert not s2.suspend_session("off1") and not s2.suspend_session("off1", to_dir="unused")
     assert s2.resume_session("off1")
     b = s2.generate([12, 30], max_new_tokens=4, session_id="off1")
 
