@@ -77,7 +77,14 @@ Phases, each fatal on failure (exit code 1, no result line):
               12 KV heads of 64 (a head group of 1: prefills, serving chunks,
               16 slots of up to 1,024 keys on bf16 and q8 pools, the Engine's
               dense row), K4 without RoPE at those heads (paged bf16 and q8,
-              a chunk, the dense cache), each timed beside its bound, its plain
+              a chunk, the dense cache); and at phase 16's rank-local shapes
+              (Llama-3.1-8B at tp = 2): K1 at wqkv N 3,072, w13 N 14,336, wo
+              K 2,048 and w2 K 7,168 at M = 1, 16, 512 and 1,024 (wo and w2
+              with the f32 out of the row-parallel route) and the f32-out
+              64,128-row lm_head at M = 1 and 16, K2, K3 and K4 at 16 query
+              heads on 4 KV heads of 128 (16 slots on bf16 and q8 pools, a
+              512-token prefill and 4 serving chunks, the decode step and a
+              chunk's write with RoPE), each timed beside its bound, its plain
               version and the library call where one exists;
   4. engine - Llama-3.2-1B at full width (16 layers, random JQ4 weights from
               a seed) through Engine.generate_tokens: a 512-token prompt with
@@ -306,6 +313,29 @@ Phases, each fatal on failure (exit code 1, no result line):
               w8a8 (one answer equal to an in-process q4s scheduler's),
               download of the JQ4 directory from a fake hub on 127.0.0.1
               (files byte-equal), rm and version. Any non-zero exit fails.
+ 16. tp - tensor parallelism at Llama-3.1-8B's widths (TP_SPEC: 32 layers,
+              random JQ4 weights from seed 0, each rank keeping its slice):
+              two spawned rank processes (jlama_tpu_torch/scripts/
+              tp_check.py) on cuda:0 over gloo, which takes the two ranks on
+              one GPU that NCCL refuses (NCCL, the backend for ranks on
+              separate GPUs, is not run on this machine); gloo's route for
+              CUDA tensors probed at first use per collective and dtype,
+              and each collective run by that route and staged through
+              pinned host memory, both exact (tp_check.route_check). The
+              tp forward's logits of a 512-token prefill equal on both ranks
+              and within rel L2 1e-2 (tp_check.REL_L2_LIMIT) of the same
+              weights on one rank through the single-device path; 8 requests served by rank 0's
+              BatchScheduler over the step channel, the follower replaying,
+              its sampled ids rank 0's step for step; K1-K4's launches on
+              each rank as its prefill calls and decode steps imply, at
+              rank-local shapes (wqkv, w13 rows / 2, wo, w2 inputs / 2, the
+              lm_head's vocabulary / 2, 4 of 8 KV heads); a session
+              suspended to one file per rank and resumed with the ids of one
+              that never was; the wall time per decode step at 16 slots, and
+              torch.profiler's device time of K1-K4 on rank 0 beside the
+              collectives' host time (gloo through the host, not NCCL). A
+              failed rank fails the phase; a hung one is killed at
+              TP_DEADLINE_S and fails it.
 Phase 10 also serves its 8 requests through a q4s BatchScheduler (K5 for
 wqkv, wo and the lm_head, K6 for the experts; ids equal to an eager q4s
 scheduler's; the paged logits of 2 layers against the plain path) and runs
@@ -463,6 +493,16 @@ def check_k1(torch, timer, details):
               for m in (1, 16, 512)]
     cases += [("gpt2_lm_head", c2.vocab_size, D2, m, bf16, f32) for m in (1, 16, 512)]
     cases += [(name, n, k, BERT_K1_M, bf16, bf16) for name, (n, k) in shapes_2.items()]
+    # Llama-3.1-8B's rank-local shapes at tp = 2 (phase 16): wqkv and w13
+    # rows / 2, wo and w2 inputs / 2 (bf16 x, f32 out: `_row_parallel_linear`
+    # sums the partials in f32), the vocabulary-sharded lm_head; the decode
+    # step, the 16-slot step, a 512-token prefill and 4 serving chunks
+    shapes_tp = {"tp_wqkv": (qkv8 // 2, D8, bf16), "tp_wo": (D8, D8 // 2, f32),
+                 "tp_w13": (c8.hidden_length, D8, bf16),
+                 "tp_w2": (D8, c8.hidden_length // 2, f32)}
+    cases += [(name, n, k, m, bf16, out) for name, (n, k, out) in shapes_tp.items()
+              for m in (1, 16, 512, 1024)]
+    cases += [("tp_lm_head", c8.vocab_size // 2, D8, m, bf16, f32) for m in (1, 16)]
     cases += [("uneven_n", 1000, 2048, m, bf16, bf16) for m in (1, 37)]
     cases += _ppl_window_cases(c1)
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -540,6 +580,14 @@ def check_k1(torch, timer, details):
     print(f"K1 one Llama-3.1-8B decode step (M=1, {len(step8)} launches): K1 {ms8:.4f} ms, less "
           f"the empty launches {ms8 - len(step8) * empty_ms:.4f} ms; torch.matmul bf16 "
           f"{lib8:.4f} ms, bound {bound8:.4f} ms", flush=True)
+    # one tp = 2 rank's 16-slot decode step at Llama-3.1-8B's widths (phase 16)
+    step_tp = [per_shape[(s_, 16)] for s_ in shapes_tp for _ in range(c8.n_layers)] \
+        + [per_shape[("tp_lm_head", 16)]]
+    ms_tp, lib_tp, bound_tp = (sum(r[key] for r in step_tp)
+                               for key in ("ms", "library_ms", "bound_ms"))
+    print(f"K1 one tp = 2 rank's Llama-3.1-8B decode step (M=16, {len(step_tp)} launches): K1 "
+          f"{ms_tp:.4f} ms; torch.matmul bf16 {lib_tp:.4f} ms, bound {bound_tp:.4f} ms",
+          flush=True)
     # Gemma-2-2B's single-stream step: 26 layers x (wqkv, wo, w13, w2) + its lm_head
     stepg = [per_shape[(s, 1)] for s in shapes_g for _ in range(cg.n_layers)] \
         + [per_shape[("g2_lm_head", 1)]]
@@ -582,6 +630,8 @@ def check_k1(torch, timer, details):
     return dict(summed, max_abs_err=worst, bound_by="bytes", empty_launch_ms=empty_ms,
                 ms_less_empty=step_less_empty, ms_8b=ms8, library_ms_8b=lib8, bound_ms_8b=bound8,
                 ms_gemma2=msg, library_ms_gemma2=libg, bound_ms_gemma2=boundg,
+                ms_tp_rank_m16=ms_tp, library_ms_tp_rank_m16=lib_tp,
+                bound_ms_tp_rank_m16=bound_tp,
                 ms_m16=ms16, bound_ms_m16=bound16,
                 library_ms_m16=lib16, max_err_from_model=worst_model,
                 ms_prefill512=pre_ms, library_ms_prefill512=pre_lib,
@@ -591,6 +641,8 @@ def check_k1(torch, timer, details):
                 f"{L} x (wqkv, wo, w13, w2) + lm_head = {len(step)} launches; "
                 f"*_8b: Llama-3.1-8B's, {c8.n_layers} x 4 + lm_head; "
                 f"*_gemma2: Gemma-2-2B's, {cg.n_layers} x 4 + lm_head; "
+                f"*_tp_rank_m16: one tp = 2 rank's 16-slot Llama-3.1-8B step, "
+                f"{c8.n_layers} x 4 + its half of the lm_head at rank-local shapes; "
                 f"*_prefill512: one 512-token prefill, {L} x (wqkv, wo, w13, w2) at M=512; "
                 f"*_gpt2: GPT-2's decode step, {c2.n_layers} x (wqkv, wo, w1, w2) + its "
                 f"50,257-row lm_head; *_gpt2_prefill512: its 512-token prefill; *_bert_m8192: "
@@ -831,6 +883,10 @@ def check_k3(torch, timer, details):
     cases += [(1, 512, 512, 0, 64, None, None, bf16, (12, 12)),
               (4, 256, 1024, (0, 256, 512, 768), 64, None, None, bf16, (12, 12)),
               (1, 1024, 1024, 0, 64, None, None, bf16, (12, 12))]
+    # one tp = 2 rank of Llama-3.1-8B (phase 16): 16 query heads on 4 KV heads
+    # of 128, its 512-token prefill and 4 serving chunks
+    cases += [(1, 512, 512, 0, 128, None, None, bf16, (16, 4)),
+              (4, 256, 1024, (0, 256, 512, 768), 128, None, None, bf16, (16, 4))]
     g = torch.Generator(device="cuda").manual_seed(2)
     worst = worst_model = 0.0
     main = host_us = gemma = gpt2 = None
@@ -1011,6 +1067,10 @@ def check_k2(torch, timer, details):
         ("gpt2 serving", 12, 12, 64, "bf16", None, None),
         ("gpt2 serving", 12, 12, 64, "q8", None, None),
         ("gpt2 dense engine", 12, 12, 64, "bf16", None, None),
+        # one tp = 2 rank of Llama-3.1-8B (phase 16): 16 query heads on 4 KV
+        # heads of 128, 16 slots on bf16 and q8 pools
+        ("tp rank serving", 16, 4, 128, "bf16", None, None),
+        ("tp rank serving", 16, 4, 128, "q8", None, None),
     ]
     g = torch.Generator(device="cuda").manual_seed(4)
     gc = torch.Generator().manual_seed(4)
@@ -1194,6 +1254,11 @@ def check_k4(torch, timer, details):
     cases += [(label, B, T, 64, kind, False, 12, 12) for label, B, T, kind in (
         ("decode", 16, 1, "bf16"), ("decode", 16, 1, "q8"), ("prefill chunk", 4, 256, "bf16"),
         ("engine dense", 1, 1, "bf16"), ("engine dense", 1, 512, "bf16"))]
+    # one tp = 2 rank of Llama-3.1-8B (phase 16): 16 query heads on 4 KV heads
+    # of 128 with RoPE, the 16-slot step and a chunk on bf16 and q8 pools
+    cases += [(label, B, T, 128, kind, True, 16, 4) for label, B, T, kind in (
+        ("decode", 16, 1, "bf16"), ("decode", 16, 1, "q8"), ("prefill chunk", 4, 256, "bf16"),
+        ("prefill chunk", 4, 256, "q8"))]
     print(f"K4: an empty launch after the flush {empty_ms:.4f} ms", flush=True)
     gpt2 = None
     for label, B, T, hd, kind, rope, H, n_kv in cases:
@@ -4336,6 +4401,95 @@ def cli_path(torch, card_note) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 16: tensor parallelism, two ranks on the one card over gloo
+
+TP_RANKS = 2
+TP_DEADLINE_S = 480  # both rank processes, start to exit; a hung rank is killed
+TP_SPEC = dict(layers=32, device="cuda:0", backend="gloo", timeout_s=TP_DEADLINE_S, seed=0,
+               n_pages=256, prefill=512, logit_rows=64, requests=8, new_tokens=32,
+               timed_steps=16, profile=8)
+
+
+def tp_path(torch, card_note) -> dict:
+    """Phase 16: Llama-3.1-8B's widths (TP_SPEC's depth) at tp = 2, two
+    spawned rank processes on cuda:0 over gloo (NCCL refuses two ranks on
+    one GPU); jlama_tpu_torch/scripts/tp_check.py is the rank program and
+    its `check_ranks` the checks (the prefill logits against the single
+    device path, rel L2 < tp_check.REL_L2_LIMIT, 1e-2; the follower's
+    sampled ids the leader's; K1-K4 launched at rank-local shapes, which
+    check_k1..check_k4 hold against the plain versions; a per-rank disk
+    suspend). A rank that fails fails the phase; one still running at
+    TP_DEADLINE_S is killed and fails it."""
+    import pickle
+    import tempfile
+
+    from jlama_tpu_torch.scripts import tp_check
+
+    print(f"tp: {TP_RANKS} ranks, Llama-3.1-8B's widths, {TP_SPEC['layers']} of its 32 "
+          f"layers, random JQ4 weights from seed {TP_SPEC['seed']}, each rank keeping its "
+          f"slice; backend {TP_SPEC['backend']}, world size {TP_RANKS}, devices "
+          f"{[TP_SPEC['device']] * TP_RANKS}: both ranks share this one GPU, where NCCL "
+          "refuses two ranks, so gloo moves their collectives through the host; NCCL, the "
+          "backend for ranks on separate GPUs, is not run on this machine", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        procs, end = tp_check.start_ranks(
+            tp_check.rank_main, lambda r: (r, TP_RANKS, f"{d}/store", f"{d}/rank{r}.pkl", TP_SPEC),
+            TP_RANKS, TP_DEADLINE_S)
+        err = tp_check.wait_ranks(procs, end)
+        if err:
+            fail(f"tp: {err} ({TP_DEADLINE_S} s)")
+        ranks = []
+        for r in range(TP_RANKS):
+            with open(f"{d}/rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+    wall = time.perf_counter() - t0
+    bad = tp_check.check_ranks(ranks, TP_SPEC)
+    if bad:
+        fail("tp: " + "; ".join(bad))
+    lead = ranks[0]
+    prof = lead.get("profile")
+    if not prof or prof["device_ms_by_group"]["q4_matmul"] <= 0:
+        fail(f"tp: the profiler saw no K1 device time: {prof}")
+    print(f"tp: gloo's routes for CUDA tensors (probed at first use): "
+          + "; ".join(f"rank {r['rank']}: " + ", ".join(f"{k} {v}" for k, v in
+                                                          sorted(r["routes"].items()))
+                      for r in ranks)
+          + "; each collective by that route and staged through pinned host memory, "
+          "max |error| against the ranks' seeded inputs: "
+          + "; ".join(f"rank {r['rank']}: " + ", ".join(
+              f"{op} {v[0]} {v[1]:.3g} / staged {v[2]:.3g}" for op, v in
+              sorted(r["route_check"].items())) for r in ranks), flush=True)
+    print(f"tp: local shapes {lead['shapes']}; set-up {lead['setup_s']:.1f} s; the "
+          f"{TP_SPEC['prefill']}-token prefill's logits (last {TP_SPEC['logit_rows']} rows) "
+          f"rel L2 {lead['logits_rel_l2']:.3e} from the same weights on one rank through the "
+          f"single-device path (limit {tp_check.REL_L2_LIMIT}), equal on both ranks; the prefill "
+          f"{lead['prefill_ms']:.1f} ms", flush=True)
+    print(f"tp: {TP_SPEC['requests']} served requests in {lead['serve_s']:.2f} s "
+          f"({lead['n_prefill']} prefill calls, {lead['n_decode']} decode steps), the "
+          f"follower's sampled ids the leader's over {len(lead['sampled_log'])} steps; "
+          f"launches rank 0 {lead['launches_all']}, rank 1 {ranks[1]['launches_all']} "
+          f"(as their {lead['n_prefill_all']} prefill calls and {lead['n_decode_all']} decode "
+          f"steps imply); disk suspend files {lead['disk_files']}, ids equal", flush=True)
+    print(f"tp on {card_note}, gloo through the host (not NCCL): "
+          f"{lead['decode_ms_per_step']:.2f} ms wall per decode step at 16 slots "
+          f"({lead['decode_steps_timed']} steps), {lead['collectives_per_step']:.0f} "
+          f"collectives a step taking {lead['collective_ms_per_step']:.2f} ms of host time; "
+          f"profiled {prof['steps']} steps on rank 0: wall {prof['wall_ms']:.2f} ms, device "
+          "ms by group " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                      prof["device_ms_by_group"].items())
+          + f", the collectives {prof['collective_host_ms']:.2f} ms of host time "
+          f"({prof['collective_calls']} calls); phase wall {wall:.1f} s", flush=True)
+    keep = ("setup_s", "prefill_ms", "serve_s", "n_prefill", "n_decode", "launches",
+            "launches_all", "decode_ms_per_step", "decode_steps_timed",
+            "collective_ms_per_step", "collectives_per_step", "profile", "logits_rel_l2",
+            "shapes", "routes", "route_check", "disk_files")
+    return dict(spec=TP_SPEC, wall_s=wall, rank0={k: lead[k] for k in keep},
+                rank1={k: ranks[1][k] for k in ("launches_all", "routes", "shapes")})
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write per-shape details as JSON here")
@@ -4471,6 +4625,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     out["cli"] = cli_path(torch, smi)
     print(f"card {smi}: cli " + json.dumps(out["cli"]), flush=True)
+    # 16. tensor parallelism: Llama-3.1-8B's widths at tp = 2, two ranks on this card
+    torch.cuda.empty_cache()
+    tp = tp_path(torch, smi)
+    out["tp"] = tp
+    print(f"card {smi}: tp " + json.dumps({k: v for k, v in tp["rank0"].items()
+                                           if k in ("decode_ms_per_step", "prefill_ms",
+                                                    "logits_rel_l2", "launches_all")}),
+          flush=True)
 
     routes = {
         "q4_matmul": ("jlama_tpu_torch/csrc/q4_matmul.cu", "jlama_tpu/ops/pallas_q4.py:113"),
@@ -4497,8 +4659,11 @@ def main() -> None:
                             launches_engine=moe["engine"]["launches"][k],
                             launches_grouping=moe["serving"]["launches"]["moe_groups"],
                             launches_gather=moe["serving"]["launches"]["moe_gather"])
-        else:  # phase 6 / phase 4, Gemma 2's serving / Engine (phase 11), GPT-2's and BERT's
+        else:  # phase 6 / phase 4, Gemma 2's serving / Engine (phase 11), GPT-2's and
+            # BERT's (phase 13), each tp rank's (phase 16)
             launches = dict(launches=serving_launches.get(k),
+                            launches_tp_rank0=tp["rank0"]["launches_all"][k],
+                            launches_tp_rank1=tp["rank1"]["launches_all"][k],
                             launches_engine=engine_launches.get(k),
                             launches_gemma2=g2["serving"]["launches"][k],
                             launches_gemma2_engine=g2["engine"]["launches"][k],

@@ -18,9 +18,21 @@ fall-back:
   layout; the JAX package's TPU layout "q4k" has no counterpart), w8a8
   serves q4s (`weight_format="q4s"`, K5); off exits, since the port has no
   dequantizing path on the card;
-- `serve`'s parallel options (`--mesh`, `--coordinator`, `--num-processes`,
-  `--process-id`, `--step-port`, `--no-pp-pipeline`) are parsed and exit:
-  they come with the parallel modes (ROADMAP module 10);
+- `serve --mesh 1,1,T` is tensor parallelism over `torch.distributed`, one
+  process per rank: rank 0 serves HTTP, the others replay its steps
+  (`BatchScheduler.run_follower`). Every rank runs `serve` with `--mesh`,
+  `--num-processes T`, its `--process-id` and the same `--coordinator`
+  (`host:port`, a TCP store that rank 0 serves, as the JAX package's
+  coordinator; or `file:///path`, a file store); rank 0 binds the step
+  channel on `--step-port` (default: the coordinator's port + 1000, 0 with
+  a file store) and hands the port it got to the others through the store.
+  Rank 0 started alone with `--num-processes T` (no `--process-id`) starts
+  ranks 1..T-1 itself, on a file store in a temporary directory, and waits
+  for them when it exits. `--device cpu` gives gloo ranks on the CPU, else
+  rank r runs on cuda:r over NCCL. `--mesh auto` goes through the planner.
+  `--mesh` with dp > 1 or pp > 1, and `--no-pp-pipeline`, exit: those wait
+  in ROADMAP queue 1 item 3 (module 10), as do tp embeddings (a tp server
+  has no `/v1/embeddings` engine) and tp with `--pallas w8a8`;
 - `--layer-mode` is accepted and changes nothing: the port's layers are
   always separate tensors.
 
@@ -32,7 +44,9 @@ from __future__ import annotations
 
 import argparse
 import shutil
+import subprocess
 import sys
+import tempfile
 import uuid
 from pathlib import Path
 
@@ -159,27 +173,145 @@ def cmd_complete(args) -> None:
     )
 
 
-_PARALLEL_OPTS = ("mesh", "coordinator", "num_processes", "process_id", "step_port",
-                  "no_pp_pipeline")
+_PARALLEL_OPTS = ("coordinator", "num_processes", "process_id", "step_port")
+_QUEUE = "ROADMAP queue 1 item 3, module 10"
+
+
+def _serve_tp(args) -> int:
+    """The tp degree `serve` runs at (1: one device), from `--mesh`; exits
+    where the mesh or the options ask for what is not ported."""
+    if args.no_pp_pipeline:
+        raise SystemExit(f"--no-pp-pipeline: the pp pipeline is not ported yet ({_QUEUE})")
+    if args.mesh is None:
+        dp = pp = tp = 1
+    elif args.mesh == "auto":
+        from .config import load_config
+        from .parallel.mesh import plan_mesh_axes
+
+        model_dir = _resolve_model(args.model, args)
+        import torch
+
+        n = args.num_processes or (1 if args.device == "cpu"
+                                   else max(1, torch.cuda.device_count()))
+        wbytes = sum(f.stat().st_size for f in model_dir.glob("*.safetensors"))
+        dp, pp, tp = plan_mesh_axes(n, load_config(model_dir), weight_bytes=wbytes or None)
+        print(f"auto mesh over {n} devices: dp={dp} pp={pp} tp={tp}")
+    else:
+        try:
+            dp, pp, tp = (int(x) for x in args.mesh.split(","))
+        except ValueError:
+            raise SystemExit(f"--mesh {args.mesh!r}: expected DP,PP,TP or auto") from None
+    if dp != 1 or pp != 1:
+        raise SystemExit(f"--mesh dp={dp},pp={pp},tp={tp}: dp > 1 (data-parallel page "
+                         f"groups) and pp > 1 (the pp ring) are not ported yet ({_QUEUE}); "
+                         "the port serves --mesh 1,1,T")
+    given = [o for o in _PARALLEL_OPTS if getattr(args, o, None) is not None]
+    if tp == 1 and given:
+        flags = ", ".join("--" + o.replace("_", "-") for o in given)
+        raise SystemExit(f"{flags}: multi-process serving is tensor-parallel serving; give "
+                         f"--mesh 1,1,T with T > 1 ({_QUEUE})")
+    if tp > 1 and (args.num_processes or tp) != tp:
+        raise SystemExit(f"--num-processes {args.num_processes} != tp {tp}: one process a rank")
+    return tp
+
+
+def rank_argv(argv: list[str], rank: int, tp: int, coordinator: str) -> list[str]:
+    """The command line of rank `rank` as rank 0 starts it (argparse keeps
+    the last of a repeated option)."""
+    return list(argv) + ["--num-processes", str(tp), "--process-id", str(rank),
+                         "--coordinator", coordinator]
+
+
+def _tp_stack(args, tp: int):
+    """Join the tp group, read the checkpoint on the host, open the step
+    channel, and build this rank's scheduler. Returns (sched, tokenizer,
+    model_dir, channel)."""
+    import torch
+
+    from .models.loader import load_params
+    from .parallel.distributed import init_tp_group
+    from .parallel.mesh import Mesh
+    from .runtime.coordination import StepChannel, coordinator_host, default_step_port
+    from .runtime.scheduler import BatchScheduler
+    from .tokenizers import load_tokenizer
+
+    _check_pallas(args)
+    rank, coord = args.process_id, args.coordinator
+    if rank is None or coord is None:
+        raise SystemExit(f"--mesh 1,1,{tp}: every rank takes --process-id and the same "
+                         "--coordinator (host:port or file:///path); or start rank 0 alone "
+                         f"with --num-processes {tp}")
+    if not 0 <= rank < tp:
+        raise SystemExit(f"--process-id {rank}: expected 0..{tp - 1}")
+    if args.pallas == "w8a8":
+        raise SystemExit(f"--pallas w8a8 under tp: q4s under tp is not ported yet ({_QUEUE})")
+    local = coord.startswith("file://")
+    try:
+        group = init_tp_group(tp, rank, device=args.device,
+                              store_path=coord[len("file://"):] if local else None,
+                              init_method=None if local else f"tcp://{coord}")
+    except (RuntimeError, ValueError) as e:
+        raise SystemExit(f"rank {rank}: {e}") from None
+    print(f"rank {rank}/{tp}: {group.backend} on {group.device}", flush=True)
+    model_dir = _resolve_model(args.model, args)
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[args.working_dtype]
+    # every rank reads the whole checkpoint on the host and keeps its slice
+    params, cfg = load_params(model_dir, device="cpu", float_dtype=dtype)
+    tokenizer = load_tokenizer(model_dir)
+    if rank == 0:
+        port = args.step_port if args.step_port is not None else (
+            0 if local else default_step_port(coord))
+        chan = StepChannel.serve(
+            port, tp - 1, on_bound=lambda p: group.store.set("jlama_step_port", str(p)))
+    else:
+        host = "127.0.0.1" if local else coordinator_host(coord)
+        chan = StepChannel.connect(host, int(group.store.get("jlama_step_port")))
+    kv_dtype = {"bf16": torch.bfloat16, "f32": torch.float32, "q8": "q8"}[args.kv_dtype]
+    try:
+        sched = BatchScheduler(
+            params, cfg, tokenizer, n_slots=args.batch_slots, n_pages=args.kv_pages,
+            page_size=args.page_size, max_seq_len=args.context, kv_dtype=kv_dtype,
+            mesh=Mesh(1, 1, tp, group), step_channel=chan, device=group.device)
+    except (NotImplementedError, ValueError) as e:
+        chan.close()
+        raise SystemExit(f"rank {rank}: {e}") from None
+    return sched, tokenizer, model_dir, chan
 
 
 def build_server(args):
     """The serving stack of `serve` without starting it: the scheduler over
     the fused tree (q4s with `--pallas w8a8`), its `embed_engine` sharing
     that tree, pre-warmed to `--prewarm` tokens, behind an `OpenAIServer`.
-    Returns (server, model_dir)."""
+    Returns (server, model_dir). With `--mesh 1,1,T`, rank 0 gets the tp
+    scheduler's server (no embeddings engine: tp embeddings are not ported
+    yet); a rank > 0 replays rank 0's steps until it stops, and gets
+    (None, model_dir)."""
     import torch
 
     from .runtime.engine import Engine
     from .runtime.scheduler import BatchScheduler
     from .server.openai_api import OpenAIServer
 
-    given = [o for o in _PARALLEL_OPTS
-             if getattr(args, o, None) is not None and getattr(args, o) is not False]
-    if given:
-        flags = ", ".join("--" + o.replace("_", "-") for o in given)
-        raise SystemExit(f"{flags}: meshes and multi-process serving are not ported yet "
-                         "(ROADMAP module 10); the port serves on one device")
+    tp = _serve_tp(args)
+    if tp > 1:
+        from .parallel.distributed import shutdown
+
+        sched, tokenizer, model_dir, chan = _tp_stack(args, tp)
+        if args.process_id > 0:
+            print(f"follower {args.process_id} ready", flush=True)
+            try:
+                sched.run_follower()
+            except ConnectionError as e:
+                # rank 0 is gone: exit non-zero so that the set is restarted
+                raise SystemExit(f"follower {args.process_id}: {e}") from None
+            finally:
+                chan.close()
+                shutdown()
+            return None, model_dir
+        _tune(sched, args)
+        server = OpenAIServer(sched, tokenizer, model_name=model_dir.name)
+        server.step_channel = chan  # closed by cmd_serve: the followers' stop
+        return server, model_dir
     params, cfg, tokenizer, model_dir, device = _load(args)
     kv_dtype = {"bf16": torch.bfloat16, "f32": torch.float32, "q8": "q8"}[args.kv_dtype]
     sched = BatchScheduler(
@@ -194,10 +326,6 @@ def build_server(args):
         weight_format="q4s" if args.pallas == "w8a8" else None,
         device=device,
     )
-    if args.itl_budget_ms:
-        sched.itl_budget_ms = args.itl_budget_ms
-    if args.prefill_fair_rows:
-        sched.prefill_fair_rows = args.prefill_fair_rows
     # one copy of the layer weights stays live: the scheduler's fused tree,
     # which the embeddings Engine shares (fuse=False: already fused)
     del params
@@ -205,6 +333,17 @@ def build_server(args):
         sched.params, sched.cfg, tokenizer, device=sched.device, max_seq_len=args.context,
         fuse=False, moe_ragged=False,
     )
+    _tune(sched, args)
+    return OpenAIServer(sched, tokenizer, model_name=model_dir.name), model_dir
+
+
+def _tune(sched, args) -> None:
+    """The serving knobs, then the pre-warm (under tp its steps go to every
+    rank)."""
+    if args.itl_budget_ms:
+        sched.itl_budget_ms = args.itl_budget_ms
+    if args.prefill_fair_rows:
+        sched.prefill_fair_rows = args.prefill_fair_rows
     if args.prewarm:
         import time as _time
 
@@ -212,13 +351,41 @@ def build_server(args):
         print(f"pre-warming serving shapes to {args.prewarm} tokens ...")
         sched.warmup(max_context=args.prewarm)
         print(f"pre-warm done in {_time.perf_counter() - t0:.1f}s")
-    return OpenAIServer(sched, tokenizer, model_name=model_dir.name), model_dir
 
 
 def cmd_serve(args) -> None:
-    server, model_dir = build_server(args)
-    print(f"Serving {model_dir.name} on http://{args.host}:{args.port}")
-    server.run(host=args.host, port=args.port)
+    ranks, store_dir = [], None
+    if args.mesh is not None and args.process_id is None and (args.num_processes or 0) > 1:
+        # rank 0 started alone: it starts the other ranks on a file store
+        tp = _serve_tp(args)
+        coord = args.coordinator
+        if coord is None:
+            store_dir = tempfile.mkdtemp(prefix="jlama_tp_")
+            coord = "file://" + str(Path(store_dir) / "store")
+        for r in range(1, tp):
+            ranks.append(subprocess.Popen([sys.executable, "-m", "jlama_tpu_torch.cli",
+                                           *rank_argv(args.argv, r, tp, coord)]))
+            print(f"started rank {r}/{tp} (pid {ranks[-1].pid})", flush=True)
+        args.process_id, args.coordinator = 0, coord
+    try:
+        server, model_dir = build_server(args)
+        if server is None:  # a follower rank whose leader has stopped
+            return
+        print(f"Serving {model_dir.name} on http://{args.host}:{args.port}")
+        try:
+            server.run(host=args.host, port=args.port)
+        finally:
+            chan = getattr(server, "step_channel", None)
+            if chan is not None:
+                chan.close()  # publishes stop: the followers return
+    finally:
+        for p in ranks:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+        if store_dir is not None:
+            shutil.rmtree(store_dir, ignore_errors=True)
 
 
 def cmd_download(args) -> None:
@@ -345,17 +512,21 @@ def build_parser() -> argparse.ArgumentParser:
         help="KV cache storage dtype; q8 halves the memory per cached token "
         "(block-32 int8, dequantized in attention)",
     )
-    module10 = "; not ported yet (ROADMAP module 10): giving it exits"
     p.add_argument("--mesh", default=None, metavar="DP,PP,TP",
-                   help="shard the model over a device mesh, e.g. 1,1,4" + module10)
+                   help="tensor parallelism over one process a rank, 1,1,T (dp > 1 and "
+                        "pp > 1 are not ported yet and exit), or auto (the planner)")
     p.add_argument("--coordinator", default=None,
-                   help="coordinator address (multi-host)" + module10)
-    p.add_argument("--num-processes", type=int, default=None, help=module10[2:])
-    p.add_argument("--process-id", type=int, default=None, help=module10[2:])
+                   help="the ranks' rendezvous: host:port (a TCP store rank 0 serves) or "
+                        "file:///path (a file store)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="ranks in all (tp); rank 0 alone with it starts the others")
+    p.add_argument("--process-id", type=int, default=None, help="this process's rank")
     p.add_argument("--step-port", type=int, default=None,
-                   help="TCP port for the multi-host step-broadcast channel" + module10)
+                   help="rank 0's TCP port for the step channel (default: the "
+                        "coordinator's port + 1000; 0 with a file store: any free port)")
     p.add_argument("--no-pp-pipeline", action="store_true",
-                   help="with pp>1: storage-shard layers only" + module10)
+                   help="with pp>1: storage-shard layers only; not ported yet "
+                        "(ROADMAP module 10): giving it exits")
     p.add_argument("--prewarm", type=int, default=0, metavar="TOKENS",
                    help="run every serving shape up to this many context tokens once "
                         "before accepting requests (on the card: capture the decode graphs)")
@@ -397,7 +568,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
+    args.argv = argv
     args.fn(args)
 
 

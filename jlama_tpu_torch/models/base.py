@@ -25,6 +25,7 @@ from ..nn import layers as L
 from ..nn.qarray import QArray
 from ..nn.rope import rope_cos_sin, rope_frequencies
 from ..ops.linear import linear
+from ..parallel import tp_forward
 
 
 class KVCache(NamedTuple):
@@ -56,7 +57,11 @@ def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor, positions: torc
     out-of-range index: a chunked prefill's pads reach such positions when
     the page size does not divide the context."""
     emb = params["embed"]
-    if isinstance(emb, QArray):
+    ctx = tp_forward.current()
+    if ctx is not None and ctx.embed_vocab_sharded:
+        # a vocabulary-sharded table: masked local gather + all-reduce
+        x = tp_forward.sharded_vocab_gather(emb, tokens, ctx.group)
+    elif isinstance(emb, QArray):
         # gather the rows FIRST, then dequantize only those
         x = emb[tokens].dequantize(torch.float32)
     else:
@@ -164,24 +169,40 @@ def forward_hidden(
     return x, kv_cache
 
 
-def _concat_rows(ws):
+def _interleave_concat(ts, dim: int, tp: int) -> torch.Tensor:
+    """Concatenate along `dim` with the tp ranks interleaved: the result's
+    rows, viewed as tp equal blocks, give block i = [t0's block i; t1's
+    block i; ...], so that rank i's contiguous slice of a fused weight holds
+    exactly its own (q_i, k_i, v_i) or (gate_i, up_i) rows
+    (`jlama_tpu/models/base.py:_interleave_concat`). tp = 1: a plain
+    concat."""
+    if tp == 1:
+        return torch.cat(ts, dim=dim)
+    dim = dim % ts[0].ndim
+    parts = [t.reshape(*t.shape[:dim], tp, t.shape[dim] // tp, *t.shape[dim + 1:]) for t in ts]
+    cat = torch.cat(parts, dim=dim + 1)
+    return cat.reshape(*cat.shape[:dim], -1, *cat.shape[dim + 2:])
+
+
+def _concat_rows(ws, tp: int = 1):
     """Concatenate weights along the output-row axis (tensors or q4/q8
     QArrays: block scales are per row along the input axis, so a row concat
-    never crosses a block). q4s is refused: fuse first, then re-quantize
+    never crosses a block), interleaved per tp rank when tp > 1. q4s is
+    refused: fuse first, then re-quantize
     (`ops/w8a8.py::prepare_params_for_w8a8`), as the JAX scheduler does."""
     if isinstance(ws[0], QArray):
         if any(w.fmt == "q4s" for w in ws):
             raise ValueError("q4s weights are not fused: fuse the q4 weights first, "
                              "then convert them with prepare_params_for_w8a8")
         return QArray(
-            torch.cat([w.data for w in ws], dim=-2),
-            torch.cat([w.scales for w in ws], dim=-2),
+            _interleave_concat([w.data for w in ws], -2, tp),
+            _interleave_concat([w.scales for w in ws], -2, tp),
             ws[0].fmt,
         )
-    return torch.cat(ws, dim=-2)
+    return _interleave_concat(ws, -2, tp)
 
 
-def _fuse_layer_dict(d: dict) -> dict:
+def _fuse_layer_dict(d: dict, tp: int = 1) -> dict:
     out = dict(d)
     qkv = [d.get("wq"), d.get("wk"), d.get("wv")]
     fmts = {w.fmt if isinstance(w, QArray) else None for w in qkv if w is not None}
@@ -189,9 +210,9 @@ def _fuse_layer_dict(d: dict) -> dict:
     n_bias = sum(b is not None for b in biases)
     # bias presence must be uniform (all three or none)
     if all(w is not None for w in qkv) and len(fmts) == 1 and n_bias in (0, 3):
-        out["wqkv"] = _concat_rows(qkv)
+        out["wqkv"] = _concat_rows(qkv, tp)
         if n_bias == 3:
-            out["wqkv.bias"] = torch.cat(biases, dim=-1)
+            out["wqkv.bias"] = _interleave_concat(biases, -1, tp)
         for k in ("wq", "wk", "wv", "wq.bias", "wk.bias", "wv.bias"):
             out.pop(k, None)
     w1, w3 = d.get("w1"), d.get("w3")
@@ -202,19 +223,21 @@ def _fuse_layer_dict(d: dict) -> dict:
         and isinstance(w1, QArray) == isinstance(w3, QArray)
         and (not isinstance(w1, QArray) or w1.fmt == w3.fmt)
     ):
-        out["w13"] = _concat_rows([w1, w3])
+        out["w13"] = _concat_rows([w1, w3], tp)
         out.pop("w1")
         out.pop("w3")
     return out
 
 
-def fuse_params(params: dict) -> dict:
+def fuse_params(params: dict, tp: int = 1) -> dict:
     """Fuse QKV into one [qdim+2*kvdim, D] matmul and gate/up into one
-    [2H, D] matmul (one-time concat, tp=1; the same rows hit the same
-    reduction, so the numbers do not change). MoE experts stay as they are:
+    [2H, D] matmul (one-time concat; the same rows hit the same reduction,
+    so the numbers do not change). tp > 1 interleaves the rows per tp rank
+    (`_interleave_concat`), for `parallel.mesh.shard_params`; on one device
+    such a tree runs with `cfg.fused_tp = tp`. MoE experts stay as they are:
     a concat of Mixtral-8x7B's w1 and w3 would copy 18.8 GB."""
     out = dict(params)
-    out["layers"] = [_fuse_layer_dict(d) for d in params["layers"]]
+    out["layers"] = [_fuse_layer_dict(d, tp) for d in params["layers"]]
     return out
 
 
@@ -261,6 +284,11 @@ def lm_logits(params: dict, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Ten
     h = final_hidden(params, cfg, hidden)
     w = params.get("lm_head", params["embed"])
     logits = linear(h, w, out_dtype=torch.float32)
+    ctx = tp_forward.current()
+    if ctx is not None and ctx.lm_head_vocab_sharded:
+        # each rank computed its vocabulary columns: gather them in rank
+        # order (the multiplier and softcap then apply to the full logits)
+        logits = tp_forward.gather_vocab_logits(logits, ctx.group)
     if cfg.logit_multiplier is not None:
         logits = logits / cfg.logit_multiplier
     if cfg.final_logit_softcap is not None:

@@ -17,6 +17,12 @@ a pool of B pages of S slots to K4, and to K2, which takes its T = 1
 attention (the JAX package's dense decode runs the masked dense path
 there). Only the path without a cache (perplexity windows) calls
 `apply_rope` on its own.
+
+Tensor parallelism (`parallel/tp_forward.py`): inside a tp context a rank
+runs these functions on its slice of the weights with its share of the
+heads; wo and w2 (`_row_parallel_linear`) sum their partial products over
+the ranks before the bias. A fused weight interleaved per rank but run
+whole on one device splits its output with `cfg.fused_tp` (`_split_fused`).
 """
 
 from __future__ import annotations
@@ -33,9 +39,44 @@ from ..ops.kv_write import dense_page_table, dense_pool_view, kv_write
 from ..ops.linear import linear
 from ..ops.moe_float import moe_float_experts, stack_in_out
 from ..ops.moe_q4 import moe_groups, moe_q4_gate_up, moe_q4_matmul
+from ..parallel.tp_forward import current, tp_reduce
 from ..utils.debug import debug
 from .qarray import QArray
 from .rope import apply_rope
+
+
+def _split_fused(y: torch.Tensor, sizes: tuple[int, ...], fused_tp: int) -> list:
+    """Split a fused projection's output columns into its sections.
+
+    fused_tp > 1: the fused rows were interleaved per tp rank
+    (`models.base.fuse_params(params, tp)`), so the columns run [rank 0:
+    a0, b0, ...; rank 1: a1, b1, ...]; each section's rank slices are
+    regrouped into contiguous columns (views of y; a whole interleaved tree
+    then runs on one device)."""
+    if fused_tp == 1:
+        return list(y.split(sizes, dim=-1))
+    yr = y.reshape(*y.shape[:-1], fused_tp, y.shape[-1] // fused_tp)
+    out, off = [], 0
+    for s in sizes:
+        sl = s // fused_tp
+        out.append(yr[..., off:off + sl].reshape(*y.shape[:-1], s))
+        off += sl
+    return out
+
+
+def _row_parallel_linear(x: torch.Tensor, w, bias=None) -> torch.Tensor:
+    """A row-parallel (input-sharded) projection, wo or w2: in a tp context
+    each rank's partial product comes out in f32, the partials are summed
+    over the ranks (`tp_reduce`, one all-reduce) and cast to x's dtype
+    once, BEFORE the bias, so that a bf16 sum rounds once, as one device's
+    does (the JAX package's psum sums in the activation dtype); outside a tp
+    context this is `linear(x, w, bias)`."""
+    if current() is None:
+        return linear(x, w, bias)
+    y = tp_reduce(linear(x, w, out_dtype=torch.float32)).to(x.dtype)
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -196,7 +237,7 @@ def self_attention_block(
         qdim = cfg.n_heads * hd
         kvdim = cfg.n_kv_heads * hd
         qkv = linear(x, params["wqkv"], params.get("wqkv.bias"))
-        q, k, v = qkv.split((qdim, kvdim, kvdim), dim=-1)
+        q, k, v = _split_fused(qkv, (qdim, kvdim, kvdim), cfg.fused_tp)
     else:
         q = linear(x, params["wq"], params.get("wq.bias"))
         k = linear(x, params["wk"], params.get("wk.bias"))
@@ -217,7 +258,7 @@ def self_attention_block(
         out = _paged_attention(q, k, v, cache, cfg, positions, sliding_window, attn_window,
                                cos, sin)
         out = out.reshape(B, T, cfg.n_heads * hd)
-        return linear(out, params["wo"], params.get("wo.bias")), cache
+        return _row_parallel_linear(out, params["wo"], params.get("wo.bias")), cache
 
     if cache is not None:
         # K4 on the dense cache (B pages of S slots, row b on page b): RoPE
@@ -259,7 +300,7 @@ def self_attention_block(
             q, k_att, v_att, mask, scale, cfg.attn_logit_softcap
         )
     out = out.reshape(B, T, cfg.n_heads * hd)
-    out = linear(out, params["wo"], params.get("wo.bias"))
+    out = _row_parallel_linear(out, params["wo"], params.get("wo.bias"))
     return out, cache
 
 
@@ -303,15 +344,16 @@ def _paged_attention(q, k, v, cache: PagedLayerCache, cfg: ModelConfig, position
 def mlp_block(x: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
     if "w13" in params:  # fused gate+up (see models.base.fuse_params)
         h = linear(x, params["w13"])
-        g, u = h.chunk(2, dim=-1)
-        return linear(activation(g, cfg.activation) * u, params["w2"])
+        half = h.shape[-1] // 2
+        g, u = _split_fused(h, (half, half), cfg.fused_tp)
+        return _row_parallel_linear(activation(g, cfg.activation) * u, params["w2"])
     if "w3" in params:  # gated (llama family): w2(act(w1(x)) * w3(x))
         gate = activation(linear(x, params["w1"]), cfg.activation)
         up = linear(x, params["w3"])
-        return linear(gate * up, params["w2"])
+        return _row_parallel_linear(gate * up, params["w2"])
     # classic 2-layer MLP with biases (gpt2/bert)
     h = activation(linear(x, params["w1"], params.get("w1.bias")), cfg.activation)
-    return linear(h, params["w2"], params.get("w2.bias"))
+    return _row_parallel_linear(h, params["w2"], params.get("w2.bias"))
 
 
 # ---------------------------------------------------------------------------

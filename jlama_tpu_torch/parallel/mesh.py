@@ -1,0 +1,220 @@
+"""Mesh planning and the tensor-parallel shard plan (counterpart of
+`jlama_tpu/parallel/mesh.py`).
+
+A mesh has the JAX package's three axes:
+
+  dp — data parallel (batch slots and the KV page pool)
+  pp — pipeline parallel (the layers)
+  tp — tensor parallel (heads and the FFN hidden size)
+
+The torch idiom is one process per GPU, so a mesh here is its shape and, for
+tp, this rank's `TPGroup` (`parallel/tp_forward.py`); only dp = pp = 1 is
+served (ROADMAP queue 1 item 3 holds the rest).
+
+`shard_params(params, cfg, tp, rank)` is the counterpart of `param_pspecs`
+and `shard_params`: it slices a full, fused tree into rank `rank`'s tree,
+by the JAX package's rules (`_LAYER_RULES` and `fit`):
+
+- column-parallel (output rows): wqkv, w13 (interleaved by
+  `models.base.fuse_params(params, tp)`, so rank i's rows are
+  [q_i; k_i; v_i] and [gate_i; up_i]), wq, wk, wv, w1, w3, and their
+  biases;
+- row-parallel (input columns): wo and w2, a q4 or q8 weight's data
+  [N, K/2] and block scales [N, K/32] cut together at block boundaries;
+  their biases are replicated;
+- vocabulary rows: the embedding and the lm_head, where tp divides the
+  vocabulary (else replicated, as `fit` degrades a spec);
+- norms and every other leaf: replicated.
+
+Each rank holds a contiguous JQ4 slice that K1 reads as it reads a whole
+weight. The JAX package's `chunks=tp` kernel layout
+(`jlama_tpu/ops/pallas_q4.py:55-84`), which repacks its TPU layout per
+shard, has no counterpart here. Where a layer leaf does not divide, this
+raises: the JAX package's spec would degrade to replicated and its
+scheduler fall back to GSPMD, which the port does not have.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+from ..config import ModelConfig
+from ..nn.qarray import QArray
+
+
+class Mesh(NamedTuple):
+    """A mesh's shape and this rank's tp group (None at tp = 1)."""
+
+    dp: int = 1
+    pp: int = 1
+    tp: int = 1
+    group: object | None = None
+
+    @property
+    def shape(self) -> dict:
+        return {"dp": self.dp, "pp": self.pp, "tp": self.tp}
+
+
+def make_mesh(n_devices: int | None = None, dp: int = 1, pp: int = 1,
+              tp: int | None = None, group=None) -> Mesh:
+    """The mesh (dp, pp, tp) over `n_devices` (default: the group's size);
+    tp defaults to what dp and pp leave."""
+    if n_devices is None:
+        n_devices = group.size if group is not None else dp * pp * (tp or 1)
+    if tp is None:
+        tp = n_devices // (dp * pp)
+    if dp * pp * tp != n_devices:
+        raise ValueError(f"dp*pp*tp={dp * pp * tp} != device count {n_devices}")
+    if group is not None and group.size != tp:
+        raise ValueError(f"tp={tp} but the tp group has {group.size} ranks")
+    return Mesh(dp, pp, tp, group)
+
+
+def plan_mesh_axes(
+    n_devices: int,
+    cfg: ModelConfig,
+    weight_bytes: int | None = None,
+    hbm_bytes_per_device: int = 80 << 30,  # one H100
+    kv_reserve_frac: float = 0.35,
+) -> tuple[int, int, int]:
+    """Derive (dp, pp, tp) when no mesh is given (the JAX package's planner,
+    its arithmetic unchanged; the default memory is an H100's):
+
+    - tp first: the largest power of two that divides the device count,
+      both head counts and the vocabulary (the embedding and lm_head are
+      vocabulary-sharded over tp);
+    - pp only when tp alone cannot fit the weights in one device's memory
+      (less a KV reserve): the fewest stages that fit and divide the layers;
+    - dp takes the remaining devices.
+    """
+    if n_devices < 1:
+        raise ValueError("need at least one device")
+    budget = int(hbm_bytes_per_device * (1.0 - kv_reserve_frac))
+    min_shards = 1
+    if weight_bytes:
+        min_shards = max(1, -(-weight_bytes // budget))
+    tp = 1
+    while (
+        tp * 2 <= n_devices
+        and n_devices % (tp * 2) == 0
+        and cfg.n_kv_heads % (tp * 2) == 0
+        and cfg.n_heads % (tp * 2) == 0
+        and cfg.vocab_size % (tp * 2) == 0
+    ):
+        tp *= 2
+    rest = n_devices // tp
+    pp = 1
+    if tp < min_shards:
+        # memory-forced pipeline stages: the smallest divisor of the
+        # remaining devices that fits and divides the layer count
+        for cand in range(2, rest + 1):
+            if rest % cand or cfg.n_layers % cand:
+                continue
+            if tp * cand >= min_shards:
+                pp = cand
+                break
+        else:
+            if rest > 1 and cfg.n_layers % rest == 0:
+                pp = rest  # best effort: every remaining device a stage
+    dp = rest // pp
+    if weight_bytes and tp * pp < min_shards:
+        raise MemoryError(
+            f"model ({weight_bytes / 1e9:.1f} GB) does not fit on {n_devices} "
+            f"device(s) with {hbm_bytes_per_device / 1e9:.0f} GB each "
+            f"(best mesh dp={dp},pp={pp},tp={tp})"
+        )
+    return dp, pp, tp
+
+
+def plan_mesh(cfg: ModelConfig, n_devices: int, weight_bytes: int | None = None,
+              hbm_bytes_per_device: int = 80 << 30, group=None) -> Mesh:
+    dp, pp, tp = plan_mesh_axes(n_devices, cfg, weight_bytes, hbm_bytes_per_device)
+    return make_mesh(n_devices, dp=dp, pp=pp, tp=tp, group=group)
+
+
+# per-layer keys by the dimension they split on over tp (the JAX package's
+# _LAYER_RULES: P("tp", None) is the output rows, P(None, "tp") the input
+# columns, P("tp") a bias)
+COLUMN_PARALLEL = ("wqkv", "w13", "wq", "wk", "wv", "w1", "w3")
+ROW_PARALLEL = ("wo", "w2")
+SPLIT_BIASES = tuple(k + ".bias" for k in COLUMN_PARALLEL)
+
+
+def vocab_sharded(leaf, tp: int) -> bool:
+    """Whether an embedding or lm_head [V, D] is cut over tp (`fit`)."""
+    return tp > 1 and leaf.shape[0] % tp == 0
+
+
+def _block(t, dim: int, tp: int, rank: int, what: str):
+    n = t.shape[dim]
+    if n % tp:
+        raise ValueError(f"{what}: dimension {dim} of size {n} does not divide over "
+                         f"tp={tp} (the JAX package would replicate it and fall back "
+                         "to GSPMD, which the port does not have)")
+    per = n // tp
+    return t.narrow(dim, rank * per, per).contiguous()
+
+
+def _rows(w, tp, rank, what):
+    if isinstance(w, QArray):
+        if w.fmt not in ("q4", "q8"):
+            raise ValueError(f"{what}: tp shards q4, q8 and float weights, not {w.fmt}")
+        return QArray(_block(w.data, -2, tp, rank, what), _block(w.scales, -2, tp, rank, what),
+                      w.fmt)
+    return _block(w, -2, tp, rank, what)
+
+
+def _cols(w, tp, rank, what):
+    if isinstance(w, QArray):
+        if w.fmt not in ("q4", "q8"):
+            raise ValueError(f"{what}: tp shards q4, q8 and float weights, not {w.fmt}")
+        if w.scales.shape[-1] % tp:
+            # each rank's input slice must hold whole 32-element blocks
+            raise ValueError(f"{what}: {w.scales.shape[-1]} blocks of 32 inputs do not "
+                             f"divide over tp={tp}")
+        return QArray(_block(w.data, -1, tp, rank, what), _block(w.scales, -1, tp, rank, what),
+                      w.fmt)
+    return _block(w, -1, tp, rank, what)
+
+
+def shard_layer(d: dict, tp: int, rank: int, where: str = "layer") -> dict:
+    out = {}
+    for k, v in d.items():
+        what = f"{where}.{k}"
+        if k.startswith("experts.") or k == "router":
+            raise NotImplementedError(f"{what}: expert parallelism (MoE under tp) is not "
+                                      "ported yet (ROADMAP queue 1 item 3)")
+        if k in COLUMN_PARALLEL:
+            out[k] = _rows(v, tp, rank, what)
+        elif k in ROW_PARALLEL:
+            out[k] = _cols(v, tp, rank, what)
+        elif k in SPLIT_BIASES:
+            out[k] = _block(v, -1, tp, rank, what)
+        else:  # norms, row-parallel biases
+            out[k] = v
+    return out
+
+
+def shard_params(params: dict, cfg: ModelConfig, tp: int, rank: int) -> dict:
+    """Rank `rank`'s slice of a full, fused tree (see the module docstring).
+    Tensors come out contiguous (copies); replicated leaves are the input's."""
+    if not 0 <= rank < tp:
+        raise ValueError(f"rank {rank} is outside tp={tp}")
+    if tp == 1:
+        return params
+    out = {}
+    for k, v in params.items():
+        if k == "layers":
+            out[k] = [shard_layer(d, tp, rank, f"layers[{i}]") for i, d in enumerate(v)]
+        elif k in ("embed", "lm_head") and vocab_sharded(v, tp):
+            out[k] = _rows(v, tp, rank, k)
+        else:
+            out[k] = v
+    return out
+
+
+def vocab_flags(params: dict, tp: int) -> tuple[bool, bool]:
+    """(embedding sharded, lm_head sharded) for a full tree at tp (a tied
+    lm_head is the embedding), the JAX package's `specs_ok` flags."""
+    embed = vocab_sharded(params["embed"], tp)
+    return embed, vocab_sharded(params["lm_head"], tp) if "lm_head" in params else embed

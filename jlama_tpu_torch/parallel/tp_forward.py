@@ -1,0 +1,239 @@
+"""The tensor-parallel forward's collectives and its context (counterpart of
+`jlama_tpu/parallel/tp_forward.py`).
+
+The JAX package runs its tp forward inside `jax.shard_map` in one process
+over many devices. The torch idiom is one process per GPU: every rank runs
+the same layer code on its own shard (`parallel/mesh.py::shard_params`) and
+the shard_map forward's collectives become `torch.distributed` calls on the
+rank's `TPGroup`:
+
+- `tp_reduce`: the sum of a row-parallel projection's partial outputs (wo
+  and w2), one all-reduce, before the bias (`jax.lax.psum`);
+- `sharded_vocab_gather`: the embedding of a vocabulary-sharded table, a
+  masked local gather, then one all-reduce;
+- `gather_vocab_logits`: the lm_head's local logit columns, one all-gather
+  in rank order.
+
+A context variable carries the active `TPCtx` into the layer code
+(`nn.layers`, `models.base`); outside a `tp_context` it is None and every
+hook does what the single-device path did, with no extra launch and no
+extra tensor.
+"""
+
+from __future__ import annotations
+
+import contextvars
+from dataclasses import replace
+from typing import NamedTuple
+
+import torch
+
+from ..config import ModelConfig
+from ..nn.qarray import QArray
+
+
+class TPGroup:
+    """One rank's view of its tp group over `torch.distributed`: rank, size,
+    the process group, and the three collectives the forward and the
+    scheduler use (in-place sum, all-gather in rank order, broadcast).
+
+    gloo on CUDA tensors (the one-GPU card run puts two ranks on one device,
+    where NCCL refuses): PyTorch's gloo takes CUDA tensors for some
+    collectives and not for others, by version. At the first use of each
+    (collective, dtype) on a CUDA tensor under gloo, every rank tries it
+    once on a two-element tensor and the ranks agree, by a CPU all-reduce,
+    whether all of them took it; a collective that any rank refused runs
+    through pinned host memory from then on (copy out, the collective on
+    the CPU, copy back), for the gloo backend only. This is the fixed route
+    of that collective, decided once, not a retry after a failure: only an
+    error that names CUDA counts as a refusal, and any other failure of the
+    probe, like every later failure of the collective, raises. NCCL and CPU
+    tensors take every collective directly. `routes` holds each decision;
+    tests/test_torch_cuda_tp.py sets it to "host" to hold the staged route
+    against the direct one on the card.
+    """
+
+    def __init__(self, rank: int, size: int, group=None, backend: str | None = None,
+                 device: torch.device | None = None, store=None):
+        import torch.distributed as dist
+
+        self.rank = rank
+        self.size = size
+        self.group = group
+        self.backend = backend or dist.get_backend(group)
+        self.device = device
+        self.store = store  # the rendezvous store (the step channel's port goes through it)
+        self.routes: dict[tuple[str, torch.dtype], str] = {}  # -> "direct" | "host"
+
+    def _staged(self, op: str, t: torch.Tensor) -> bool:
+        if t.device.type != "cuda" or self.backend != "gloo":
+            return False
+        key = (op, t.dtype)
+        if key not in self.routes:
+            import torch.distributed as dist
+
+            probe = torch.zeros(2, dtype=t.dtype, device=t.device)
+            try:
+                self._direct(op, probe)
+                took = 1
+            except (RuntimeError, NotImplementedError) as e:
+                if "cuda" not in str(e).lower():  # not a refusal of the device: a fault
+                    raise
+                took = 0
+            agreed = torch.tensor([took], dtype=torch.int32)
+            dist.all_reduce(agreed, op=dist.ReduceOp.MIN, group=self.group)
+            self.routes[key] = "direct" if int(agreed) else "host"
+        return self.routes[key] == "host"
+
+    def _direct(self, op: str, t: torch.Tensor, dim: int = -1, src: int = 0):
+        import torch.distributed as dist
+
+        if op == "all_reduce":
+            dist.all_reduce(t, group=self.group)
+            return t
+        if op == "broadcast":
+            dist.broadcast(t, src=self._global(src), group=self.group)
+            return t
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(parts, t, group=self.group)
+        return torch.cat(parts, dim=dim)
+
+    def _global(self, rank: int) -> int:
+        import torch.distributed as dist
+
+        return rank if self.group is None else dist.get_global_rank(self.group, rank)
+
+    def _run(self, op: str, t: torch.Tensor, **kw) -> torch.Tensor:
+        t = t.contiguous()
+        if not self._staged(op, t):
+            return self._direct(op, t, **kw)
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t)
+        out = self._direct(op, host, **kw)
+        return out.to(t.device)
+
+    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum `t` over the ranks, in place (t must be contiguous)."""
+        out = self._run("all_reduce", t)
+        if out is not t:
+            t.copy_(out)
+        return t
+
+    def all_gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The ranks' `t` concatenated along `dim`, in rank order."""
+        return self._run("all_gather", t, dim=dim)
+
+    def broadcast_(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """`t` from rank `src` (group rank), in place."""
+        out = self._run("broadcast", t, src=src)
+        if out is not t:
+            t.copy_(out)
+        return t
+
+
+class TPCtx(NamedTuple):
+    """The active tp group, read by nn.layers and models.base."""
+
+    group: object  # a TPGroup, or anything with its rank, size and collectives
+    embed_vocab_sharded: bool = False
+    lm_head_vocab_sharded: bool = False
+
+
+_CTX: contextvars.ContextVar[TPCtx | None] = contextvars.ContextVar(
+    "jlama_tp_ctx", default=None
+)
+
+
+def current() -> TPCtx | None:
+    return _CTX.get()
+
+
+class tp_context:
+    """Context manager installing a TPCtx for the calls inside it."""
+
+    def __init__(self, ctx: TPCtx | None):
+        self.ctx = ctx
+
+    def __enter__(self) -> TPCtx | None:
+        self._tok = _CTX.set(self.ctx)
+        return self.ctx
+
+    def __exit__(self, *exc) -> None:
+        _CTX.reset(self._tok)
+
+
+def tp_reduce(y: torch.Tensor) -> torch.Tensor:
+    """Sum a row-parallel projection's partial outputs over the tp ranks
+    (one all-reduce, in place). The identity outside a tp context."""
+    ctx = _CTX.get()
+    if ctx is not None:
+        ctx.group.all_reduce_(y)
+    return y
+
+
+def sharded_vocab_gather(emb, tokens: torch.Tensor, group) -> torch.Tensor:
+    """Embedding rows from a vocabulary-sharded table: each rank gathers the
+    tokens it owns (zeros elsewhere), then one all-reduce assembles them.
+    Returns f32 [B, T, D]."""
+    local_v = emb.shape[0]
+    idx = tokens - group.rank * local_v
+    valid = (idx >= 0) & (idx < local_v)
+    rows = emb[idx.clamp(0, local_v - 1)]
+    x = rows.dequantize(torch.float32) if isinstance(rows, QArray) else rows.to(torch.float32)
+    x = torch.where(valid[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
+    return group.all_reduce_(x.contiguous())
+
+
+def gather_vocab_logits(logits: torch.Tensor, group) -> torch.Tensor:
+    """The vocabulary-sharded logit columns concatenated into [..., V]."""
+    return group.all_gather(logits, dim=logits.ndim - 1)
+
+
+# the architectures tp serves (the JAX package's shard table also names mixtral)
+TP_ARCHS = ("llama", "mistral", "qwen2", "granite", "gemma", "gemma2")
+
+
+def check_tp(cfg: ModelConfig, mesh, quantized: bool = False) -> None:
+    """Raise, naming the condition, where the JAX package's `can_shard_map`
+    is false and its scheduler would fall back to GSPMD (the port has no
+    GSPMD: a tp request never runs unsharded). Also raises for what the port
+    does not shard yet: dp > 1, pp > 1, MoE, GPT-2 and BERT (ROADMAP queue 1
+    item 3)."""
+    tp, dp, pp = mesh.tp, mesh.dp, mesh.pp
+    if pp != 1:
+        raise NotImplementedError(f"mesh pp={pp}: the pp ring and the pipelined scheduler "
+                                  "are not ported yet (ROADMAP queue 1 item 3)")
+    if dp != 1:
+        raise NotImplementedError(f"mesh dp={dp}: data-parallel page groups are not ported "
+                                  "yet (ROADMAP queue 1 item 3)")
+    if tp == 1:
+        return
+    if cfg.n_experts:
+        raise NotImplementedError("MoE under tp (expert parallelism) is not ported yet "
+                                  "(ROADMAP queue 1 item 3)")
+    if cfg.model_type not in TP_ARCHS:
+        raise NotImplementedError(f"tp for {cfg.model_type} is not ported yet (ROADMAP queue "
+                                  f"1 item 3): tp serves {', '.join(TP_ARCHS)}")
+    if cfg.n_heads % tp or cfg.n_kv_heads % tp:
+        raise ValueError(f"tp={tp} does not divide the heads (n_heads={cfg.n_heads}, "
+                         f"n_kv_heads={cfg.n_kv_heads})")
+    if cfg.hidden_length % tp:
+        raise ValueError(f"tp={tp} does not divide hidden_length={cfg.hidden_length}")
+    if quantized:
+        # wo's input (n_heads*hd/tp) and w2's (hidden/tp) split the packed
+        # payload and the block-32 scales: each slice must hold whole blocks
+        if ((cfg.n_heads // tp) * cfg.head_size) % 32:
+            raise ValueError(f"tp={tp}: wo's input slice {(cfg.n_heads // tp) * cfg.head_size}"
+                             " is no multiple of the q4 block (32)")
+        if (cfg.hidden_length // tp) % 32:
+            raise ValueError(f"tp={tp}: w2's input slice {cfg.hidden_length // tp} is no "
+                             "multiple of the q4 block (32)")
+
+
+def localize_cfg(cfg: ModelConfig, tp: int) -> ModelConfig:
+    """A rank's view of the config: the head counts shrink by tp, and its
+    fused rows are a plain [q; k; v] concatenation (fused_tp 1)."""
+    if tp == 1:
+        return cfg
+    return replace(cfg, n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
+                   fused_tp=1)

@@ -143,6 +143,21 @@ def pool_hidden(params: dict, hidden: torch.Tensor, lens: torch.Tensor,
     return v / n.clamp(min=1e-12)
 
 
+def _check_whole(params: dict, cfg: ModelConfig) -> None:
+    """Raise for a tree whose attention rows are a tp rank's slice of the
+    config's (`parallel.mesh.shard_params`), which this single-device path
+    would run as if whole."""
+    lay = params["layers"][0] if params.get("layers") else {}
+    hd = cfg.head_size
+    want = {"wqkv": (cfg.n_heads + 2 * cfg.n_kv_heads) * hd, "wq": cfg.n_heads * hd}
+    for k, rows in want.items():
+        if k in lay and lay[k].shape[-2] != rows:
+            raise NotImplementedError(
+                f"{k} has {lay[k].shape[-2]} rows, the config {rows}: these params hold a tp "
+                "rank's slice, and tp for the Engine (embeddings too) is not ported yet "
+                "(ROADMAP queue 1 item 3)")
+
+
 class Engine:
     """Single-model, single-stream inference engine over a param tree."""
 
@@ -167,7 +182,10 @@ class Engine:
         JAX package, float MoE experts are transposed once into the grouped
         layout (`models.base.prepare_moe_ragged`); q4 experts are left as they
         are (K6), and float experts take the card's grouped product
-        (`ops/moe_float.py`)."""
+        (`ops/moe_float.py`). tp for the Engine is not ported yet (ROADMAP
+        queue 1 item 3): it takes no mesh, and params that hold one tp
+        rank's slice (a tp scheduler's), which would run unsharded, raise."""
+        _check_whole(params, cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tokenizer = tokenizer

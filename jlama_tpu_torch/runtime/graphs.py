@@ -184,9 +184,10 @@ class StepGraphs:
     its decode graphs' pool)."""
 
     def __init__(self, device, graphs: bool = True, counters=None,
-                 pool_of: "StepGraphs | None" = None):
+                 pool_of: "StepGraphs | None" = None, eager_reason: str | None = None):
         self.device = torch.device(device)
         self.capture = graphs and self.device.type == "cuda"
+        self.eager_reason = eager_reason  # why an owner runs its steps eagerly, if it says
         self.counters = kernel_wrappers() if counters is None else tuple(counters)
         self._seen: set = set()
         self._graphs: dict = {}  # key -> (graph, outputs, counter deltas)
@@ -198,9 +199,12 @@ class StepGraphs:
         self.pool_bytes = 0  # memory_reserved added by the captures
 
     def stats(self) -> dict:
-        return dict(graphs=len(self._graphs), keys=len(self._seen),
-                    eager_steps=self.eager_steps, replays=self.replays,
-                    capture_s=self.capture_s, pool_bytes=self.pool_bytes)
+        st = dict(graphs=len(self._graphs), keys=len(self._seen),
+                  eager_steps=self.eager_steps, replays=self.replays,
+                  capture_s=self.capture_s, pool_bytes=self.pool_bytes)
+        if self.eager_reason is not None:  # an owner that never captures says why
+            st["eager_reason"] = self.eager_reason
+        return st
 
     def inputs(self, key, make):
         """The static inputs of a key, made by make() at its first use and

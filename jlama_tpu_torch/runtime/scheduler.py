@@ -51,8 +51,23 @@ shares the scheduler's fused tree, `Engine(sched.params, sched.cfg,
 tokenizer, device=sched.device, fuse=False, moe_ragged=False)`, so that the
 layer weights are held once.
 
-Not ported yet (see ROADMAP.md): meshes (tp/dp page groups), the multi-host
-step channel, and with them the per-process disk suspend.
+Tensor parallelism (`mesh` with tp > 1, dp = pp = 1): one process per rank,
+each holding its slice of the fused tree (`parallel/mesh.py::shard_params`)
+and n_kv/tp heads of the KV pool, its forward under a tp context
+(`parallel/tp_forward.py`: an all-reduce after wo and w2, the
+vocabulary-sharded embedding and lm_head). Rank 0 owns the scheduler: the
+page allocator, the sessions, the HTTP server. Before each device call it
+publishes the call's inputs on `step_channel` (`runtime/coordination.py`:
+ops prefill, decode, decode_chain, counts_reset, suspend, resume, sdrop,
+ping, stop, at the JAX leader's points), and the other ranks replay them in
+`run_follower`. A chained window (decode_chain) carries no tokens: every rank
+samples its own from the same gathered logits with the same seeds and
+counters, so all ranks feed back the same ids. A disk suspend writes one
+file per rank, `{to_dir}/{sid}.kv.p{rank}.npz` (the JAX package's
+multi-process layout). The steps run eagerly under tp (gloo's collectives
+cannot be captured in a CUDA graph; `graphs.stats()["eager_reason"]` says
+so). Not ported yet (ROADMAP queue 1 item 3): dp page groups, pp, tp for
+q4s, MoE and the embeddings `Engine`.
 """
 
 from __future__ import annotations
@@ -78,10 +93,20 @@ from ..models.base import (check_moe_device, forward_hidden, fuse_params, lm_log
 from ..nn.qarray import QArray
 from ..nn.sampling import sample_token
 from ..ops.w8a8 import prepare_params_for_w8a8
+from ..parallel.mesh import shard_params, vocab_flags
+from ..parallel.tp_forward import TPCtx, check_tp, localize_cfg, tp_context
 from ..prompt import extract_tool_calls
 from ..utils.metrics import GLOBAL_METRICS
 from .engine import FinishReason, Response, _bucket
 from .graphs import DecodeInputs, PrefillInputs, StepGraphs
+
+
+def _has_qleaves(params: dict) -> bool:
+    """Whether any weight of the tree is quantized (q4 row-parallel slices
+    must then hold whole blocks)."""
+    leaves = [v for k, v in params.items() if k != "layers"]
+    leaves += [v for d in params["layers"] for v in d.values()]
+    return any(isinstance(v, QArray) for v in leaves)
 
 
 def _pool_leaves(k, v) -> list:
@@ -176,13 +201,22 @@ class BatchScheduler:
         weight_format: str | None = None,
         step_channel=None,
         device=None,
-        decode_graphs: bool = True,
+        decode_graphs: bool | None = None,
         moe_ragged: bool = True,
     ):
         """kv_dtype: a torch float dtype or "q8". device: CUDA unless named;
         raises without CUDA and without it. The params are moved there.
         decode_graphs=False runs every decode step and every prefill call
-        eagerly on the card too (the yardstick the graphs are held against).
+        eagerly on the card too (the yardstick the graphs are held against);
+        None: graphs on one device, eager under tp (True under tp raises).
+
+        mesh: a `parallel.mesh.Mesh`; tp > 1 takes this rank's `TPGroup`
+        (`mesh.group`), and the params are the full tree, which each rank
+        fuses (interleaved per rank), slices and moves to its device (the
+        group's unless `device` is named). step_channel: rank 0's publishing
+        end or a follower's receiving end (`runtime/coordination.py`).
+        dp > 1, pp > 1, q4s and MoE under tp raise, as do heads that tp
+        does not divide: nothing runs unsharded in their place.
 
         weight_format: None keeps the weights as they are. "q4s" re-quantizes
         the 2-D q4 weights to the W4A8 format after fusing (q4s rows are never
@@ -201,14 +235,41 @@ class BatchScheduler:
         if weight_format not in (None, "q4s"):
             raise ValueError(f"weight_format {weight_format!r}: expected None or 'q4s' "
                              "(q4 weights need no repack: pass None)")
+        tp = 1
         if mesh is not None:
-            raise NotImplementedError("meshes (tp/dp serving) are not ported yet")
-        if step_channel is not None:
-            raise NotImplementedError("multi-host serving (step_channel) is not ported yet")
-        self.device = resolve_device(device)
-        params = params_to(params, self.device)
-        if fuse:
-            params = fuse_params(params)
+            check_tp(cfg, mesh, quantized=_has_qleaves(params))
+            tp = mesh.tp
+        if tp > 1:
+            if weight_format == "q4s":
+                raise NotImplementedError("weight_format='q4s' under tp is not ported yet "
+                                          "(ROADMAP queue 1 item 3): tp serves q4 and float "
+                                          "weights")
+            if decode_graphs:
+                raise ValueError("decode_graphs=True under tp: gloo's collectives cannot be "
+                                 "captured in a CUDA graph, and graphs with NCCL collectives "
+                                 "are not ported yet (ROADMAP queue 1 item 3)")
+            if mesh.group is None:
+                raise ValueError(f"mesh tp={tp} needs this rank's TPGroup (mesh.group)")
+        if step_channel is not None and tp == 1:
+            raise ValueError("a step_channel needs a mesh with tp > 1 (multi-process serving "
+                             "is tensor-parallel serving)")
+        self._chan = step_channel
+        self._is_leader = tp == 1 or mesh.group.rank == 0
+        self._tp: TPCtx | None = None
+        self.fwd_cfg = cfg  # the forward's view: a rank's heads under tp
+        if tp > 1:
+            self.device = resolve_device(device if device is not None else mesh.group.device)
+            if fuse:
+                params = fuse_params(params, tp)
+            embed_sh, lm_sh = vocab_flags(params, tp)
+            params = params_to(shard_params(params, cfg, tp, mesh.group.rank), self.device)
+            self._tp = TPCtx(mesh.group, embed_sh, lm_sh)
+            self.fwd_cfg = localize_cfg(cfg, tp)
+        else:
+            self.device = resolve_device(device)
+            params = params_to(params, self.device)
+            if fuse:
+                params = fuse_params(params)
         if cfg.n_experts:
             if moe_ragged:
                 params = prepare_moe_ragged(params)
@@ -223,7 +284,7 @@ class BatchScheduler:
         max_seq = min(max_seq_len or cfg.context_length, cfg.context_length)
         self.max_seq_len = max_seq
         self.kv = PagedKVCache(
-            cfg, n_pages=n_pages, page_size=page_size,
+            self.fwd_cfg, n_pages=n_pages, page_size=page_size,
             max_pages_per_seq=-(-max_seq // page_size), dtype=kv_dtype, device=self.device,
         )
         self._layers = self.kv.layer_states()  # per-layer views of the pools
@@ -246,8 +307,14 @@ class BatchScheduler:
         self._chain_tail: dict | None = None
         # one set of static step inputs, read by every decode graph
         self._in = DecodeInputs(n_slots, self.device, pages=self.kv.max_pages_per_seq)
-        self.graphs = StepGraphs(self.device, decode_graphs)
-        self.prefill_graphs = StepGraphs(self.device, decode_graphs, pool_of=self.graphs)
+        eager = None
+        if tp > 1:
+            eager = ("tp: gloo's collectives cannot be captured in a CUDA graph (graphs "
+                     "with NCCL collectives are not ported yet)")
+        graphs = decode_graphs if decode_graphs is not None else tp == 1
+        self.graphs = StepGraphs(self.device, graphs, eager_reason=eager)
+        self.prefill_graphs = StepGraphs(self.device, graphs, pool_of=self.graphs,
+                                         eager_reason=eager)
         self.degraded: str | None = None
         self._rng = np.random.default_rng(seed)
         # per-slot generated-token counts for presence/frequency penalties,
@@ -287,6 +354,9 @@ class BatchScheduler:
         # device calls issued, read against the kernels' launch counters
         self.n_prefill_calls = 0
         self.n_decode_steps = 0
+        # every decode step's sampled ids [B] as host arrays, when a list
+        # (the check that each rank fed back the leader's ids)
+        self.sampled_log: list | None = None
         self.embed_engine = None  # an Engine over self.params for embeddings
 
     # ------------------------------------------------------------------
@@ -314,6 +384,9 @@ class BatchScheduler:
         """One prefill call over [rows, T] host tokens, positions and page
         tables [rows, P]: on the card one graph per (rows, T, window), from
         that key's static inputs."""
+        if self._chan is not None and self._is_leader:
+            self._chan.publish({"op": "prefill", "toks": toks, "pos": pos, "pt": pt,
+                                "win": int(win)})
         rows, T = toks.shape
         key = (rows, T, win)
         inp = self.prefill_graphs.inputs(
@@ -321,15 +394,17 @@ class BatchScheduler:
         inp.load(tokens=toks, positions=pos, page_tables=pt)
 
         def run():
-            forward_hidden(self.params, self.cfg, inp.tokens, inp.positions,
+            forward_hidden(self.params, self.fwd_cfg, inp.tokens, inp.positions,
                            (self._layers, inp.page_tables), dtype=self.compute_dtype,
                            attn_window=win, inv_freq=self.inv_freq)
 
-        with torch.inference_mode():
+        with torch.inference_mode(), tp_context(self._tp):
             self.prefill_graphs.run(key, run)
         self.n_prefill_calls += 1
 
     def _counts_reset(self, slot: int) -> None:
+        if self._chan is not None and self._is_leader:
+            self._chan.publish({"op": "counts_reset", "slot": int(slot)})
         with torch.inference_mode():
             self.counts[slot].zero_()
 
@@ -338,10 +413,10 @@ class BatchScheduler:
         penalties, sampling. Returns the sampled ids [B]."""
         s = self._in
         hidden, _ = forward_hidden(
-            self.params, self.cfg, s.tokens, s.positions, (self._layers, s.page_tables),
+            self.params, self.fwd_cfg, s.tokens, s.positions, (self._layers, s.page_tables),
             dtype=self.compute_dtype, attn_window=win, inv_freq=self.inv_freq,
         )
-        logits = lm_logits(self.params, self.cfg, hidden[:, -1:, :])[:, 0]
+        logits = lm_logits(self.params, self.fwd_cfg, hidden[:, -1:, :])[:, 0]
         if ct["use_pen"]:
             # OpenAI presence/frequency penalties over generated tokens
             cf = self.counts.to(torch.float32)
@@ -366,7 +441,14 @@ class BatchScheduler:
         pres, freq, all_p1: bool, all_k0: bool, use_pen: bool, win: int,
         depth: int,
     ) -> list:
-        """Issue `depth` chained decode steps from host inputs."""
+        """Issue `depth` chained decode steps from host inputs (rank 0
+        publishes them first)."""
+        if self._chan is not None and self._is_leader:
+            self._chan.publish(
+                {"op": "decode", "tokens": tokens, "positions": positions, "pts": pts,
+                 "seeds": seeds, "steps": steps, "temps": temps, "top_ps": top_ps,
+                 "top_ks": top_ks, "pres": pres, "freq": freq, "all_p1": all_p1,
+                 "all_k0": all_k0, "use_pen": use_pen, "win": int(win), "depth": int(depth)})
         self._in.load(tokens=tokens, positions=positions, steps=steps, seeds=seeds,
                       temps=temps, top_ps=top_ps, top_ks=top_ks, pres=pres, freq=freq,
                       page_tables=pts)
@@ -378,6 +460,45 @@ class BatchScheduler:
         }
         return self._chain_steps(win, depth)
 
+    def run_follower(self) -> None:
+        """The loop of a rank > 0: replay rank 0's device calls from the step
+        channel, so that every rank issues the same collectives in the same
+        order (`jlama_tpu/runtime/scheduler.py:run_follower`). Returns when
+        rank 0 publishes "stop"; raises ConnectionError when rank 0 is gone."""
+        if self._chan is None or self._is_leader:
+            raise RuntimeError("run_follower needs a step channel on a rank > 0")
+        while True:
+            msg = self._chan.next()
+            op = msg["op"]
+            if op == "stop":
+                return
+            if op == "ping":  # rank 0's idle heartbeat
+                continue
+            if op == "prefill":
+                self._call_prefill(msg["toks"], msg["pos"], msg["pt"], msg["win"])
+            elif op == "decode":
+                self._run_decode_window(
+                    msg["tokens"], msg["positions"], msg["pts"], msg["seeds"], msg["steps"],
+                    msg["temps"], msg["top_ps"], msg["top_ks"], msg["pres"], msg["freq"],
+                    msg["all_p1"], msg["all_k0"], msg["use_pen"], msg["win"], msg["depth"])
+            elif op == "decode_chain":
+                self._chain_steps(msg["win"], msg["depth"], msg.get("pts"))
+            elif op == "counts_reset":
+                self._counts_reset(msg["slot"])
+            elif op == "suspend":
+                payload = self._suspend_pages(msg["sid"], msg["idxs"], msg["dir"])
+                self._suspended[msg["sid"]] = (payload, None)
+            elif op == "resume":
+                payload = self._suspended.pop(msg["sid"])[0]
+                self._restore_pages(self._payload_leaves(msg["sid"], payload), msg["idxs"])
+            elif op == "sdrop":
+                self._suspended.pop(msg["sid"], None)
+            elif op in ("ptick", "embed_hidden", "embed_pool"):
+                raise NotImplementedError(f"step op {op!r} is not ported yet (ROADMAP queue 1 "
+                                          "item 3: the pp pipeline, tp embeddings)")
+            else:
+                raise ValueError(f"unknown step op {op!r}")
+
     def _chain_steps(self, win: int, depth: int, pts=None) -> list:
         """Advance the device-side decode chain `depth` steps from the static
         inputs (each step feeds its tokens to the next in place, so a later
@@ -386,7 +507,7 @@ class BatchScheduler:
         loaded)."""
         ct = self._chain_tail
         key = (win, ct["all_greedy"], ct["all_k0"], ct["all_p1"], ct["use_pen"])
-        with torch.inference_mode():
+        with torch.inference_mode(), tp_context(self._tp):
             if pts is not None:
                 self._in.load(page_tables=pts)
             toks_windows = []
@@ -394,6 +515,8 @@ class BatchScheduler:
                 toks = self.graphs.run(key, lambda: self._decode_step(ct, win))
                 self.n_decode_steps += 1
                 toks_windows.append(self._to_host(toks))
+                if self.sampled_log is not None:
+                    self.sampled_log.append(toks.cpu().numpy())
         return toks_windows
 
     # ------------------------------------------------------------------
@@ -691,7 +814,9 @@ class BatchScheduler:
                 return  # active in the batch: caller retries after finish
             self.session_state.pop(session_id, None)
             self.kv.alloc.release(session_id)
-            self._suspended.pop(session_id, None)
+            if self._suspended.pop(session_id, None) is not None and self._chan is not None:
+                # free the followers' copies too
+                self._chan.publish({"op": "sdrop", "sid": session_id})
 
     # ------------------------------------------------------------------
     # session offload: an idle session's pages move to host RAM (or to a
@@ -716,7 +841,12 @@ class BatchScheduler:
         pages = self.kv.alloc.pages_for(session_id)
         if not pages:
             return False
-        payload = self._suspend_pages(session_id, np.asarray(pages, dtype=np.int64), to_dir)
+        idxs = np.asarray(pages, dtype=np.int64)
+        if self._chan is not None:
+            # the followers gather their own heads' pages
+            self._chan.publish({"op": "suspend", "sid": session_id, "idxs": idxs,
+                                "dir": to_dir})
+        payload = self._suspend_pages(session_id, idxs, to_dir)
         self._suspended[session_id] = (payload, self.session_state[session_id])
         self.kv.alloc.release(session_id)
         self.session_state.pop(session_id)
@@ -727,7 +857,10 @@ class BatchScheduler:
         q8 pools) gathered out of the pools on the device, one copy to the
         host per leaf; kept in RAM, or written to `{to_dir}/{session_id}.kv.npz`
         with each leaf, in `_pool_leaves` order, saved as a contiguous uint8
-        view (npz has no bf16)."""
+        view (npz has no bf16). Under tp each rank writes its own heads to
+        `{to_dir}/{session_id}.kv.p{rank}.npz`, each leaf with a leading axis
+        of the shards it holds (one), as a JAX process writes its addressable
+        shards ("mdisk")."""
         idxs = torch.from_numpy(idxs_np).to(self.device)
 
         def take(pool):
@@ -740,9 +873,17 @@ class BatchScheduler:
         if to_dir is None:
             return ("ram", k_host, v_host)
         os.makedirs(to_dir, exist_ok=True)
+        leaves = _pool_leaves(k_host, v_host)
+        if self._tp is not None:
+            np.savez(self._rank_file(to_dir, session_id),
+                     *[a[None].contiguous().view(torch.uint8).numpy() for a in leaves])
+            return ("mdisk", to_dir)
         np.savez(f"{to_dir}/{session_id}.kv.npz",
-                 *[a.contiguous().view(torch.uint8).numpy() for a in _pool_leaves(k_host, v_host)])
+                 *[a.contiguous().view(torch.uint8).numpy() for a in leaves])
         return ("disk", to_dir)
+
+    def _rank_file(self, to_dir: str, session_id: str) -> str:
+        return f"{to_dir}/{session_id}.kv.p{self._tp.group.rank}.npz"
 
     def resume_session(self, session_id: str) -> bool:
         with self._lock:
@@ -766,8 +907,11 @@ class BatchScheduler:
                 if not self._evict_for_pages():
                     self.kv.alloc.release(session_id)  # partial alloc back
                     return False
+        idxs = np.asarray(pages, dtype=np.int64)
+        if self._chan is not None:
+            self._chan.publish({"op": "resume", "sid": session_id, "idxs": idxs})
         self._suspended.pop(session_id)
-        self._restore_pages(host, np.asarray(pages, dtype=np.int64))
+        self._restore_pages(host, idxs)
         self.session_state[session_id] = state
         return True
 
@@ -779,6 +923,9 @@ class BatchScheduler:
         if payload[0] == "ram":
             return _pool_leaves(payload[1], payload[2])
         pools = _pool_leaves(self.kv.state.k_pool, self.kv.state.v_pool)
+        if payload[0] == "mdisk":  # this rank's file; its one shard
+            with np.load(self._rank_file(payload[1], session_id)) as z:
+                return [torch.from_numpy(z[f]).view(p.dtype)[0] for f, p in zip(z.files, pools)]
         with np.load(f"{payload[1]}/{session_id}.kv.npz") as z:
             return [torch.from_numpy(z[f]).view(p.dtype) for f, p in zip(z.files, pools)]
 
@@ -849,6 +996,10 @@ class BatchScheduler:
         for r in running:
             seq_ids[r.slot] = self._kv_key(r)
         pts = self.kv.page_table(seq_ids)
+        if self._chan is not None:
+            # no tokens: each rank feeds back the ids it sampled itself
+            self._chan.publish({"op": "decode_chain", "depth": int(depth_next),
+                                "win": int(win), "pts": pts})
         return (running, self._chain_steps(win, depth_next, pts), depth_next)
 
     def _budget_lag(self, lag: int) -> int:
@@ -1032,14 +1183,27 @@ class BatchScheduler:
         self._running = True
 
         def loop():
+            last_ping = time.monotonic()
             while self._running:
                 try:
                     n = self.step()
                 except Exception as e:  # noqa: BLE001 — surface, don't die
                     traceback.print_exc()
+                    if isinstance(e, ConnectionError) and self._chan is not None:
+                        # a follower is gone: the next collective would hang
+                        # every rank left, so stop serving (/healthz turns 503)
+                        self.degraded = str(e)
                     self._fail_active(f"{type(e).__name__}: {e}")
                     continue
                 if n == 0 and self.pending.empty():
+                    if self._chan is not None and time.monotonic() - last_ping > 5.0:
+                        # idle heartbeat: followers tell a quiet leader from a
+                        # dead one (JLAMA_STEP_TIMEOUT)
+                        last_ping = time.monotonic()
+                        try:
+                            self._chan.publish({"op": "ping"})
+                        except ConnectionError as e:
+                            self.degraded = str(e)
                     time.sleep(0.001)
 
         self._thread = threading.Thread(target=loop, daemon=True)

@@ -1,0 +1,437 @@
+"""The rank program of chip_smoke.py's tensor-parallel phase: T ranks of the
+port's tp serving path, one process each, on random JQ4 weights from a seed.
+
+    rank_main(rank, world, store_path, out_path, spec)
+
+Each rank joins the group through a FileStore at `store_path` (the backend
+and device from `spec`: two ranks on one GPU take gloo, which NCCL refuses),
+builds the tp BatchScheduler from the full random tree (each rank keeps its
+slice), and rank 0 leads it over the step channel (port 0, handed over
+through the store) while the others run `run_follower`. In order:
+
+0. on CUDA under gloo, `route_check`: each collective by the route the
+   group picked at first use and again staged through pinned host memory,
+   both exact;
+1. the logits of the last `spec["logit_rows"]` positions of a
+   `spec["prefill"]`-token prompt through the tp forward (no cache: K1 and
+   K3), all ranks in step; rank 0's logits are broadcast and every rank
+   compares its own with them;
+2. `spec["requests"]` served requests (seeded prompts and lengths, half of
+   them sampled), every rank's sampled ids logged per decode step, and the
+   kernels' launches counted from 0 over them;
+3. a decode timing run: 16 requests of 16-token prompts, the wall time per
+   decode step once every row decodes; and torch.profiler over `profile`
+   steps of it on rank 0 (device time by kernel), with the collectives'
+   host time from the group's calls;
+4. a session suspended to disk (one file per rank) and resumed, its greedy
+   ids against a session that never suspended;
+5. on rank 0, after the followers stop: the same weights on one device
+   through the single-device path, the same prompt's logits, and their
+   relative L2 distance from the tp logits (`REL_L2_LIMIT`).
+
+Each rank pickles its results to `out_path`; the caller starts the ranks
+and waits for them (`start_ranks`, `wait_ranks`) and compares them
+(`check_ranks`): chip_smoke.py phase 16, tests/test_torch_tp_check.py on
+the CPU. `routes_main` runs `route_check` alone
+(tests/test_torch_cuda_tp.py).
+"""
+
+from __future__ import annotations
+
+import math
+import multiprocessing as mp
+import pickle
+import tempfile
+import time
+from dataclasses import replace
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+
+KERNEL_GROUPS = (("q4_matmul", ("q4_gemv_kernel", "q4_mma_kernel", "q4_wgmma_kernel")),
+                 ("paged_decode", ("paged_decode",)), ("flash_prefill", ("flash_prefill",)),
+                 ("kv_write", ("kv_write",)), ("memcpy", ("Memcpy", "memcpy")))
+
+
+def start_ranks(target, args_of, world: int, deadline_s: float):
+    """One `spawn` process per rank running target(*args_of(rank)), started;
+    returns them and the monotonic time of their deadline."""
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=args_of(r), daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs, time.monotonic() + deadline_s
+
+
+def wait_ranks(procs, end: float) -> str | None:
+    """Wait for every rank until `end` and kill those still running then;
+    None when every rank exited with 0, else what went wrong."""
+    try:
+        for p in procs:
+            p.join(max(0.0, end - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        if hung:
+            return f"rank(s) {hung} still running at the deadline, killed"
+        codes = [p.exitcode for p in procs]
+        return None if codes == [0] * len(procs) else f"rank exit codes {codes}"
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+
+
+def route_check(torch, group) -> dict:
+    """Each of the group's collectives on f32 tensors of its device (the
+    dtype the tp forward's collectives carry): by the route the group
+    picked at its first use, then staged through pinned host memory
+    (`routes` set to "host" for the call, then put back), each against the
+    sum, concatenation or copy that every rank computes from the ranks'
+    seeded inputs. Returns {op: [route picked, max |error|, max |error|
+    staged]} (an error is inf where the result left the device)."""
+    xs = [torch.randn((16, 64), generator=torch.Generator().manual_seed(r))
+          for r in range(group.size)]
+    want = {"all_reduce": sum(xs[1:], xs[0]), "all_gather": torch.cat(xs, dim=-1),
+            "broadcast": xs[0]}
+    out = {}
+    for op, ref in want.items():
+        key, errs = (op, torch.float32), []
+        for staged in (False, True):
+            picked = group.routes.get(key)
+            if staged:
+                group.routes[key] = "host"
+            x = xs[group.rank].to(group.device)
+            if op == "all_gather":
+                got = group.all_gather(x, dim=-1)
+            elif op == "all_reduce":
+                got = group.all_reduce_(x)
+            else:
+                got = group.broadcast_(x, src=0)
+            if staged:
+                group.routes[key] = picked
+            errs.append((got.cpu() - ref).abs().max().item() if got.device == group.device
+                        else math.inf)
+        out[op] = [group.routes[key], *errs]
+    return out
+
+
+def routes_main(rank: int, world: int, store_path: str, out_path: str) -> None:
+    """`route_check` alone on ranks of cuda:0 over gloo; pickles its result."""
+    import torch
+
+    from ..parallel.distributed import init_tp_group, shutdown
+
+    group = init_tp_group(world, rank, device="cuda:0", backend="gloo", store_path=store_path,
+                          timeout_s=60)
+    out = route_check(torch, group)
+    shutdown()
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+
+
+def _config(spec):
+    from ..config import from_hf_config
+    from ..models.init import llama_8b_config
+
+    if spec.get("hf_config"):
+        return from_hf_config(spec["hf_config"])
+    return replace(llama_8b_config(), n_layers=spec["layers"])
+
+
+def _kernels():
+    from ..ops.attention import flash_prefill, paged_decode
+    from ..ops.kv_write import kv_write
+    from ..ops.q4_matmul import q4_matmul
+
+    return {"q4_matmul": q4_matmul, "paged_decode": paged_decode,
+            "flash_prefill": flash_prefill, "kv_write": kv_write}
+
+
+class _CollectiveClock:
+    """Host seconds spent in the group's collectives (wraps its `_run`; with
+    gloo every call returns once the sum is on the rank)."""
+
+    def __init__(self, group):
+        self.calls, self.seconds = 0, 0.0
+        inner = group._run
+
+        def timed(op, t, **kw):
+            t0 = time.perf_counter()
+            try:
+                return inner(op, t, **kw)
+            finally:
+                self.calls += 1
+                self.seconds += time.perf_counter() - t0
+
+        group._run = timed
+
+
+def _sync(torch, device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _ids(rng, n, vocab):
+    return [int(x) for x in rng.integers(1, min(vocab, 120000), n)]
+
+
+def _logits(torch, sched, ids, rows, tp):
+    """The last `rows` positions' f32 logits of one prompt, no cache."""
+    from ..models.base import forward_hidden, lm_logits
+    from ..parallel.tp_forward import tp_context
+
+    toks = torch.tensor([ids], dtype=torch.long, device=sched.device)
+    pos = torch.arange(len(ids), device=sched.device)[None]
+    with torch.inference_mode(), tp_context(tp):
+        h, _ = forward_hidden(sched.params, sched.fwd_cfg, toks, pos, None,
+                              dtype=sched.compute_dtype)
+        return lm_logits(sched.params, sched.fwd_cfg, h[:, -rows:])[0]
+
+
+def _serve(sched, reqs):
+    from ..runtime.scheduler import RequestState
+
+    for r in reqs:
+        sched.submit(r)
+    while not all(r.state == RequestState.DONE for r in reqs):
+        sched.step()
+
+
+def _lead(torch, sched, spec, rng, out, clock):
+    """Rank 0's part of steps 2-4."""
+    from ..runtime.scheduler import GenRequest, RequestState
+
+    cfg, n = sched.cfg, spec["requests"]
+    pf0, dec0 = sched.n_prefill_calls, sched.n_decode_steps
+    reqs = [GenRequest(prompt_ids=_ids(rng, int(rng.integers(32, spec["prefill"] + 1)),
+                                       cfg.vocab_size),
+                       max_new_tokens=spec["new_tokens"], stop_ids={-1},
+                       temperature=0.8 if i % 2 else 0.0, top_k=40 if i % 2 else 0,
+                       seed=100 + i)
+            for i in range(n)]
+    t0 = time.perf_counter()
+    _serve(sched, reqs)
+    out["serve_s"] = time.perf_counter() - t0
+    out["served"] = [list(r.out_ids) for r in reqs]
+    out["finish"] = [r.finish.value for r in reqs]
+    out["n_prefill"], out["n_decode"] = sched.n_prefill_calls - pf0, sched.n_decode_steps - dec0
+    out["launches"] = {k: fn.launches for k, fn in _kernels().items()}
+    # decode timing: 16 rows decoding, then a profiled window on rank 0
+    reqs = [GenRequest(prompt_ids=_ids(rng, 16, cfg.vocab_size), max_new_tokens=48,
+                       stop_ids={-1}) for _ in range(16)]
+    for r in reqs:
+        sched.submit(r)
+    while not all(r.state == RequestState.RUNNING and r.out_ids for r in reqs):
+        sched.step()
+    _sync(torch, sched.device)
+    t0, n0, c0 = time.perf_counter(), sched.n_decode_steps, (clock.calls, clock.seconds)
+    while sched.n_decode_steps - n0 < spec["timed_steps"]:
+        sched.step()
+    _sync(torch, sched.device)
+    steps = sched.n_decode_steps - n0
+    out["decode_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / steps
+    out["decode_steps_timed"] = steps
+    out["collective_ms_per_step"] = (clock.seconds - c0[1]) * 1e3 / steps
+    out["collectives_per_step"] = (clock.calls - c0[0]) / steps
+    if spec["profile"] and sched.device.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        c1 = (clock.calls, clock.seconds)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0, n0 = time.perf_counter(), sched.n_decode_steps
+            while sched.n_decode_steps - n0 < spec["profile"]:
+                sched.step()
+            _sync(torch, sched.device)
+            wall = (time.perf_counter() - t0) * 1e3
+        steps = sched.n_decode_steps - n0
+        groups = {g: 0.0 for g, _ in KERNEL_GROUPS} | {"other": 0.0}
+        for e in prof.key_averages():
+            if str(e.device_type).endswith("CUDA"):
+                g = next((g for g, names in KERNEL_GROUPS if any(s in e.key for s in names)),
+                         "other")
+                groups[g] += e.self_device_time_total / 1e3
+        out["profile"] = dict(steps=steps, wall_ms=wall, device_ms_by_group=groups,
+                              collective_host_ms=(clock.seconds - c1[1]) * 1e3,
+                              collective_calls=clock.calls - c1[0])
+    _serve(sched, reqs)
+    # a session suspended to disk, one file per rank, against one that never was
+    first, second = _ids(rng, 300, cfg.vocab_size), _ids(rng, 40, cfg.vocab_size)
+    for sid in ("disk", "kept"):
+        sched.generate(first, max_new_tokens=16, session_id=sid, stop_ids={-1})
+    with tempfile.TemporaryDirectory() as d:
+        ok = sched.suspend_session("disk", to_dir=d) and sched.resume_session("disk")
+        # this request's collectives come after every rank's resume, which
+        # read its file: the directory outlives them
+        out["disk_ids"] = sched.generate(second, max_new_tokens=32, session_id="disk",
+                                         stop_ids={-1}).token_ids
+        out["disk_files"] = sorted(p.name for p in Path(d).iterdir())
+    out["disk_ok"] = ok
+    out["kept_ids"] = sched.generate(second, max_new_tokens=32, session_id="kept",
+                                     stop_ids={-1}).token_ids
+
+
+def rank_main(rank: int, world: int, store_path: str, out_path: str, spec: dict) -> None:
+    import torch
+
+    from ..models.base import fuse_params
+    from ..models.init import random_q4_params
+    from ..parallel.distributed import init_tp_group, shutdown
+    from ..parallel.mesh import Mesh
+    from ..runtime.coordination import StepChannel
+    from ..runtime.scheduler import BatchScheduler
+
+    if spec.get("threads"):
+        torch.set_num_threads(spec["threads"])
+    group = init_tp_group(world, rank, device=spec["device"], backend=spec["backend"],
+                          store_path=store_path, timeout_s=spec["timeout_s"])
+    cfg = _config(spec)
+    out = {"rank": rank, "world": world, "backend": group.backend, "device": str(group.device),
+           "layers": cfg.n_layers}
+    t0 = time.perf_counter()
+    params = random_q4_params(cfg, seed=spec["seed"], device=group.device)
+    if rank == 0:
+        chan = StepChannel.serve(0, world - 1, host="127.0.0.1", timeout=spec["timeout_s"],
+                                 on_bound=lambda p: group.store.set("tp_check_port", str(p)))
+    else:
+        chan = StepChannel.connect("127.0.0.1", int(group.store.get("tp_check_port")),
+                                   timeout=spec["timeout_s"])
+    sched = BatchScheduler(params, cfg, n_slots=16, n_pages=spec["n_pages"], page_size=64,
+                           max_seq_len=2048, device=group.device,
+                           mesh=Mesh(1, 1, world, group), step_channel=chan)
+    del params
+    if group.device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["setup_s"] = time.perf_counter() - t0
+    lay = sched.params["layers"][0]
+    out["shapes"] = {k: tuple(v.data.shape) for k, v in lay.items() if hasattr(v, "fmt")}
+    out["shapes"]["lm_head"] = tuple(sched.params["lm_head"].data.shape)
+    out["shapes"]["pool"] = tuple(sched.kv.state.k_pool.shape)
+    # 0. both routes of every collective, where gloo carries CUDA tensors
+    out["route_check"] = (route_check(torch, group) if group.device.type == "cuda"
+                          and group.backend == "gloo" else None)
+    clock = _CollectiveClock(group)
+    rng = np.random.default_rng(spec["seed"])
+    # 1. the prefill's logits, every rank in step (no step channel)
+    ids = _ids(rng, spec["prefill"], cfg.vocab_size)
+    _sync(torch, group.device)
+    t0 = time.perf_counter()
+    logits = _logits(torch, sched, ids, spec["logit_rows"], sched._tp)
+    _sync(torch, group.device)
+    out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    lead = logits.clone()
+    group.broadcast_(lead, src=0)
+    out["logits_equal_rank0"] = bool(torch.equal(lead, logits))
+    # 2.-4.: rank 0 leads, the others replay; every rank counts its launches
+    sched.sampled_log = []
+    for fn in _kernels().values():
+        fn.launches = 0
+    pf0, dec0 = sched.n_prefill_calls, sched.n_decode_steps
+    if rank == 0:
+        _lead(torch, sched, spec, rng, out, clock)
+        chan.publish({"op": "stop"})
+    else:
+        sched.run_follower()
+    out["launches_all"] = {k: fn.launches for k, fn in _kernels().items()}
+    out["n_prefill_all"] = sched.n_prefill_calls - pf0
+    out["n_decode_all"] = sched.n_decode_steps - dec0
+    out["sampled_log"] = [np.asarray(t) for t in sched.sampled_log]
+    out["routes"] = {f"{op} {str(dt).replace('torch.', '')}": r
+                     for (op, dt), r in group.routes.items()}
+    out["graphs"] = sched.graphs.stats()
+    chan.close()
+    if rank == 0:
+        # 5. the same weights on one device, the single-device path
+        del sched
+        if group.device.type == "cuda":
+            torch.cuda.empty_cache()
+        full = fuse_params(random_q4_params(cfg, seed=spec["seed"], device=group.device))
+        one = SimpleNamespace(params=full, fwd_cfg=cfg, device=group.device,
+                              compute_dtype=torch.bfloat16)
+        ref = _logits(torch, one, ids, spec["logit_rows"], None)
+        out["logits_rel_l2"] = float(torch.linalg.vector_norm(logits - ref)
+                                     / torch.linalg.vector_norm(ref))
+        out["logits_finite"] = bool(torch.isfinite(logits).all())
+        out["logits_shape"] = tuple(logits.shape)
+    shutdown()
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+
+
+def expected_launches(n_layers: int, n_prefill: int, n_decode: int, cuda: bool) -> dict:
+    """K1-K4's launches for a rank's prefill calls and decode steps on the
+    card: 4 projections a layer a forward, the lm_head a decode step; K2 a
+    layer a decode step, K3 a layer a prefill call, K4 a layer a forward.
+    The CPU runs the plain versions and counts nothing."""
+    if not cuda:
+        return {"q4_matmul": 0, "paged_decode": 0, "flash_prefill": 0, "kv_write": 0}
+    fwd = n_prefill + n_decode
+    return {"q4_matmul": 4 * n_layers * fwd + n_decode, "paged_decode": n_layers * n_decode,
+            "flash_prefill": n_layers * n_prefill, "kv_write": n_layers * fwd}
+
+
+# the tp logits' limit, rel L2 from the single-device path: 1e-2, about 60
+# times the 1.608e-4 that the card measured at Llama-3.1-8B's widths (bf16,
+# 32 layers, tp = 2) and a fifth of the 5e-2 that PERF.md fixes for the
+# card's logits against a plain reference
+REL_L2_LIMIT = 1e-2
+
+
+def check_ranks(ranks: list[dict], spec: dict, rel_l2_limit: float = REL_L2_LIMIT) -> list[str]:
+    """What must hold of the ranks' results (rank order); the failures, as
+    sentences (empty when every check holds)."""
+    bad = []
+    cfg, world = _config(spec), len(ranks)
+    cuda = spec["device"] != "cpu"
+    lead = ranks[0]
+    qdim, kvdim = cfg.n_heads * cfg.head_size, cfg.n_kv_heads * cfg.head_size
+    D, H, V = cfg.embedding_length, cfg.hidden_length, cfg.vocab_size
+    want_shapes = {"wqkv": ((qdim + 2 * kvdim) // world, D // 2), "wo": (D, qdim // world // 2),
+                   "w13": (2 * H // world, D // 2), "w2": (D, H // world // 2),
+                   "lm_head": (V // world, D // 2),
+                   "pool": (cfg.n_layers, cfg.n_kv_heads // world, spec["n_pages"], 64,
+                            cfg.head_size)}
+    for r, res in enumerate(ranks):
+        if (res["rank"], res["world"], res["backend"]) != (r, world, spec["backend"]):
+            bad.append(f"rank {r}: rank/world/backend {res['rank']}/{res['world']}/"
+                       f"{res['backend']}")
+        if res["shapes"] != want_shapes:
+            bad.append(f"rank {r}: local shapes {res['shapes']} != {want_shapes}")
+        if not res["logits_equal_rank0"]:
+            bad.append(f"rank {r}: its prefill logits differ from rank 0's")
+        want = expected_launches(cfg.n_layers, res["n_prefill_all"], res["n_decode_all"], cuda)
+        if res["launches_all"] != want or (cuda and min(want.values()) == 0):
+            bad.append(f"rank {r}: launches {res['launches_all']} != {want}")
+        if (res["n_prefill_all"], res["n_decode_all"]) != (lead["n_prefill_all"],
+                                                          lead["n_decode_all"]):
+            bad.append(f"rank {r}: {res['n_prefill_all']} prefill calls and "
+                       f"{res['n_decode_all']} decode steps, rank 0 "
+                       f"{lead['n_prefill_all']} and {lead['n_decode_all']}")
+        log, lead_log = res["sampled_log"], lead["sampled_log"]
+        if not lead_log or len(log) != len(lead_log) or any(
+                not np.array_equal(a, b) for a, b in zip(log, lead_log)):
+            bad.append(f"rank {r}: its sampled ids are not rank 0's, step for step")
+        rc = res["route_check"]
+        if cuda and spec["backend"] == "gloo" and (not rc or any(
+                v[0] not in ("direct", "host") or v[1:] != [0.0, 0.0] for v in rc.values())):
+            bad.append(f"rank {r}: the collectives' routes {rc}")
+        g = res["graphs"]
+        if g["graphs"] or not g["eager_reason"]:
+            bad.append(f"rank {r}: graphs {g}")
+    want = expected_launches(cfg.n_layers, lead["n_prefill"], lead["n_decode"], cuda)
+    if lead["launches"] != want:
+        bad.append(f"served requests: launches {lead['launches']} != {want}")
+    if lead["finish"] != ["MAX_TOKENS"] * spec["requests"] or any(
+            len(ids) != spec["new_tokens"] for ids in lead["served"]):
+        bad.append(f"served requests: finishes {lead['finish']}")
+    if not (lead["logits_finite"] and lead["logits_shape"] == (spec["logit_rows"], V)):
+        bad.append(f"tp logits: finite {lead['logits_finite']}, shape {lead['logits_shape']}")
+    if not lead["logits_rel_l2"] < rel_l2_limit:
+        bad.append(f"tp logits: rel L2 {lead['logits_rel_l2']:.3e} from the single-device "
+                   f"path (limit {rel_l2_limit})")
+    files = [f"disk.kv.p{r}.npz" for r in range(world)]
+    if not lead["disk_ok"] or lead["disk_files"] != files or lead["disk_ids"] != lead[
+            "kept_ids"] or len(lead["disk_ids"]) != 32:
+        bad.append(f"disk suspend: ok {lead['disk_ok']}, files {lead['disk_files']}, ids "
+                   f"{lead['disk_ids'][:6]}... against {lead['kept_ids'][:6]}...")
+    return bad

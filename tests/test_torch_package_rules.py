@@ -47,6 +47,31 @@ def test_port_imports_no_jax_and_nothing_of_jlama_tpu():
             assert root != "jlama_tpu", f"{f}: imports {mod}"
 
 
+TP_MODULES = ("parallel/mesh.py", "parallel/tp_forward.py", "parallel/distributed.py",
+              "runtime/coordination.py")
+
+
+def test_tp_modules_import_no_jax_and_nothing_of_jlama_tpu():
+    """The tp serving modules are among the files the import rule reads, and
+    import with jax, jaxlib and jlama_tpu blocked (each keeps its own copy of
+    what it needs from jlama_tpu, runtime/coordination.py's too)."""
+    files = set(_port_files())
+    for rel in TP_MODULES:
+        assert PKG / rel in files, rel
+        for mod in _imports(PKG / rel):
+            assert mod.split(".")[0] not in ("jax", "jaxlib", "jlama_tpu"), (rel, mod)
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'jlama_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        + "".join(f"import jlama_tpu_torch.{rel[:-3].replace('/', '.')}\n" for rel in TP_MODULES)
+        + "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
 def test_optional_packages_only_in_tokenizers():
     """No file of the port imports an optional package, at its top or inside
     a function, but the table generator, which nothing imports."""
@@ -116,6 +141,8 @@ def test_engine_import_path_is_clean():
         "import jlama_tpu_torch.st.http_loader, jlama_tpu_torch.st.splitter\n"
         "import jlama_tpu_torch.scripts.kbench_q4, jlama_tpu_torch.scripts.kbench_w8a8\n"
         "import jlama_tpu_torch.scripts.probe_int4, jlama_tpu_torch.scripts.probe_sigma_i16\n"
+        "import jlama_tpu_torch.parallel.mesh, jlama_tpu_torch.parallel.tp_forward\n"
+        "import jlama_tpu_torch.parallel.distributed, jlama_tpu_torch.runtime.coordination\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{OPTIONAL + ('jax', 'jlama_tpu', 'aiohttp')!r}]\n"
         "bad += [m for m in sys.modules if m.startswith('jlama_tpu_torch.tokenizers')]\n"

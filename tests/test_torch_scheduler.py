@@ -385,9 +385,13 @@ def test_q8_pool_and_unported_options(setup):
     q8 = mk(setup, kv_dtype="q8")  # head size 16: one scale per head row
     r = q8.generate(PROMPT, max_new_tokens=4)
     assert r.generated_tokens == 4 and q8.kv.state.k_pool.scales.shape[-1] == 1
-    with pytest.raises(NotImplementedError, match="mesh"):
-        mk(setup, mesh=object())
-    with pytest.raises(NotImplementedError, match="step_channel"):
+    from jlama_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(NotImplementedError, match="mesh dp=2"):
+        mk(setup, mesh=Mesh(dp=2))
+    with pytest.raises(NotImplementedError, match="mesh pp=2"):
+        mk(setup, mesh=Mesh(pp=2))
+    with pytest.raises(ValueError, match="step_channel"):
         mk(setup, step_channel=object())
     too_long = mk(setup).generate(list(range(1, 70)), max_new_tokens=2)
     assert too_long.finish_reason == FinishReason.ERROR

@@ -1,0 +1,331 @@
+"""The port's tensor-parallel forward in one process (parallel/mesh.py,
+parallel/tp_forward.py and the tp hooks of nn/layers.py and
+models/base.py), held against jlama_tpu in f32.
+
+The ranks are threads here: `ThreadGroup` stands in for a `TPGroup`, each
+collective a barrier, then a sum or a concatenation in rank order. The
+multi-process path over torch.distributed is tests/test_torch_tp_serving.py.
+"""
+
+import threading
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+
+from jlama_tpu.config import from_hf_config as jax_config
+from jlama_tpu.models import base as jbase
+from jlama_tpu.models.init import init_params as jax_init
+from jlama_tpu.parallel import mesh as jmesh
+from jlama_tpu.parallel import tp_forward as jtpf
+from jlama_tpu_torch.config import from_hf_config
+from jlama_tpu_torch.models import base as tbase
+from jlama_tpu_torch.nn import layers as tlayers
+from jlama_tpu_torch.nn.qarray import QArray
+from jlama_tpu_torch.parallel import mesh as tmesh
+from jlama_tpu_torch.parallel import tp_forward as ttpf
+from tests.helpers import TINY_LLAMA_CONFIG
+from tests.test_torch_bridge import port_tree
+
+TP = 2
+TOL = 1e-4  # f32, as tests/test_multiprocess.py holds the JAX tp forward
+TOKENS = np.array([[1, 5, 9, 42, 7, 13, 2, 30], [3, 8, 21, 200, 99, 4, 17, 250]], np.int32)
+
+CONFIGS = {
+    "llama": dict(TINY_LLAMA_CONFIG),
+    "qwen2": dict(model_type="qwen2", hidden_size=64, intermediate_size=128,
+                  num_attention_heads=4, num_key_value_heads=2, num_hidden_layers=2,
+                  rms_norm_eps=1e-6, vocab_size=256, max_position_embeddings=128,
+                  rope_theta=10000.0, hidden_act="silu", tie_word_embeddings=False),
+    "gemma2": dict(model_type="gemma2", hidden_size=64, intermediate_size=128,
+                   num_attention_heads=4, num_key_value_heads=2, num_hidden_layers=2,
+                   rms_norm_eps=1e-6, vocab_size=256, max_position_embeddings=128,
+                   rope_theta=10000.0, hidden_activation="gelu_pytorch_tanh", head_dim=16,
+                   tie_word_embeddings=True, query_pre_attn_scalar=16,
+                   final_logit_softcapping=30.0, attn_logit_softcapping=50.0,
+                   sliding_window=4),
+}
+
+
+class _Shared:
+    def __init__(self, size):
+        self.size = size
+        self.barrier = threading.Barrier(size, timeout=60)
+        self.slots = [None] * size
+
+
+class ThreadGroup:
+    """A TPGroup stand-in for ranks that are threads of one process."""
+
+    def __init__(self, shared: _Shared, rank: int):
+        self.shared, self.rank, self.size = shared, rank, shared.size
+
+    def _exchange(self, t):
+        self.shared.slots[self.rank] = t.clone()
+        self.shared.barrier.wait()
+        parts = list(self.shared.slots)
+        self.shared.barrier.wait()
+        return parts
+
+    def all_reduce_(self, t):
+        parts = self._exchange(t)
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p
+        t.copy_(total)
+        return t
+
+    def all_gather(self, t, dim=-1):
+        return torch.cat(self._exchange(t), dim=dim)
+
+    def broadcast_(self, t, src=0):
+        t.copy_(self._exchange(t)[src])
+        return t
+
+
+def run_ranks(tp, fn):
+    """fn(group) on tp threads; their results in rank order."""
+    shared = _Shared(tp)
+    out, errs = [None] * tp, []
+
+    def run(rank):
+        try:
+            out[rank] = fn(ThreadGroup(shared, rank))
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errs.append(e)
+            shared.barrier.abort()
+
+    threads = [threading.Thread(target=run, args=(r,), name=f"rank{r}", daemon=True)
+               for r in range(tp)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    if errs:
+        raise errs[0]
+    return out
+
+
+def _perturb(tree, rng):
+    """Norm weights and biases off init's ones and zeros, so that a
+    misplaced norm or bias shows."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _perturb(v, rng)
+        elif "norm" in k or k.endswith(".bias"):
+            a = np.asarray(v)
+            out[k] = jnp.asarray(a + rng.uniform(-0.3, 0.3, a.shape).astype(a.dtype))
+        else:
+            out[k] = v
+    return out
+
+
+def make_model(arch, quantize=None):
+    """(jax params, jax cfg, port params, port cfg), the same weights."""
+    hf = CONFIGS[arch]
+    jcfg, tcfg = jax_config(hf), from_hf_config(hf)
+    jparams = _perturb(jax_init(jcfg, seed=3, dtype=jnp.float32, quantize=quantize),
+                       np.random.default_rng(7))
+    return jparams, jcfg, port_tree(jparams), tcfg
+
+
+def jax_single_logits(jparams, jcfg):
+    pos = np.broadcast_to(np.arange(TOKENS.shape[1], dtype=np.int32), TOKENS.shape)
+    logits, _ = jbase.forward_logits(jparams, jcfg, jnp.asarray(TOKENS), jnp.asarray(pos),
+                                     dtype=jnp.float32)
+    return np.asarray(logits)
+
+
+def jax_tp_logits(jparams, jcfg, tp=TP):
+    """jlama_tpu's shard_map tp forward on tp of the virtual CPU devices."""
+    mesh = jmesh.make_mesh(jax.devices()[:tp], dp=1, pp=1, tp=tp)
+    fused = jbase.fuse_params(jparams, tp=tp)
+    pspecs = jmesh.param_pspecs(fused, jcfg, mesh)
+    ok, embed_sh, lm_sh = jtpf.specs_ok(pspecs, tp)
+    assert ok
+    ctx = jtpf.SpmdCtx("tp", None, embed_sh, lm_sh)
+    lcfg = jtpf.localize_cfg(jcfg, tp)
+
+    def body(params, toks, pos):
+        with jtpf.spmd_context(ctx):
+            return jbase.forward_logits(params, lcfg, toks, pos, dtype=jnp.float32)[0]
+
+    f = jax.shard_map(body, mesh=mesh, in_specs=(pspecs, P(), P()), out_specs=P(),
+                      check_vma=False)
+    pos = np.broadcast_to(np.arange(TOKENS.shape[1], dtype=np.int32), TOKENS.shape)
+    return np.asarray(jax.jit(f)(jmesh.shard_params(fused, jcfg, mesh), jnp.asarray(TOKENS),
+                                 jnp.asarray(pos)))
+
+
+def port_tp_logits(tparams, tcfg, tp=TP, record=None):
+    """The port's forward on tp thread ranks: each rank's slice of the
+    interleaved fused tree, under a tp context; logits of every rank."""
+    fused = tbase.fuse_params(tparams, tp=tp)
+    embed_sh, lm_sh = tmesh.vocab_flags(fused, tp)
+    lcfg = ttpf.localize_cfg(tcfg, tp)
+    toks = torch.from_numpy(TOKENS).long()
+    pos = torch.arange(TOKENS.shape[1]).expand(TOKENS.shape)
+
+    def rank_fn(group):
+        local = tmesh.shard_params(fused, tcfg, tp, group.rank)
+        if record is not None:
+            record[group.rank] = local
+        with ttpf.tp_context(ttpf.TPCtx(group, embed_sh, lm_sh)):
+            return tbase.forward_logits(local, lcfg, toks, pos, dtype=torch.float32)[0]
+
+    return [x.numpy() for x in run_ranks(tp, rank_fn)]
+
+
+@pytest.mark.parametrize("arch,quantize", [("llama", None), ("llama", "q4"),
+                                           ("qwen2", None), ("gemma2", None)])
+def test_tp_logits_match_jax(arch, quantize):
+    """tp = 2 logits against jlama_tpu's single-device forward and its tp = 2
+    shard_map forward, within 1e-4; every rank holds the same logits."""
+    jparams, jcfg, tparams, tcfg = make_model(arch, quantize)
+    ranks = port_tp_logits(tparams, tcfg)
+    np.testing.assert_array_equal(ranks[0], ranks[1])
+    np.testing.assert_allclose(ranks[0], jax_single_logits(jparams, jcfg), atol=TOL, rtol=0)
+    np.testing.assert_allclose(ranks[0], jax_tp_logits(jparams, jcfg), atol=TOL, rtol=0)
+
+
+def test_rank_operands_are_one_tp_of_the_weights(monkeypatch):
+    """Each rank's layer operands are 1/tp of the weights (as
+    tests/test_shard_map_tp.py asserts of the JAX trace), q4 data and block
+    scales alike, and the vocabulary-sharded embedding and lm_head too."""
+    jparams, jcfg, tparams, tcfg = make_model("llama", "q4")
+    seen = [[] for _ in range(TP)]
+    real = tlayers.linear
+
+    def spy(x, w, *a, **kw):
+        rank = threading.current_thread().name
+        seen[int(rank[-1])].append(tuple(w.shape))
+        return real(x, w, *a, **kw)
+
+    monkeypatch.setattr(tlayers, "linear", spy)
+    local = [None] * TP
+    port_tp_logits(tparams, tcfg, record=local)
+    qdim = tcfg.n_heads * tcfg.head_size
+    kvdim = tcfg.n_kv_heads * tcfg.head_size
+    D, H, V = tcfg.embedding_length, tcfg.hidden_length, tcfg.vocab_size
+    for rank in range(TP):
+        lay = local[rank]["layers"][0]
+        assert lay["wqkv"].data.shape == ((qdim + 2 * kvdim) // TP, D // 2)
+        assert lay["wqkv"].scales.shape == ((qdim + 2 * kvdim) // TP, D // 32)
+        assert lay["wo"].data.shape == (D, qdim // TP // 2)
+        assert lay["wo"].scales.shape == (D, qdim // TP // 32)
+        assert lay["w13"].data.shape == (2 * H // TP, D // 2)
+        assert lay["w2"].data.shape == (D, H // TP // 2)
+        assert local[rank]["embed"].shape == (V // TP, D)
+        assert local[rank]["lm_head"].shape == (V // TP, D)
+    # the layer projections the forward ran: 4 per layer per rank, rank-local
+    assert len(seen[0]) == 4 * tcfg.n_layers
+    assert set(seen[0]) == {((qdim + 2 * kvdim) // TP, D), (D, qdim // TP), (2 * H // TP, D),
+                            (D, H // TP)}
+
+
+def test_interleaved_tree_on_one_device():
+    """A tree fused with tp = 2 runs on one device with cfg.fused_tp = 2
+    (`_split_fused` regroups the columns) and gives the tp = 1 tree's
+    logits; outside a tp context no collective is reached."""
+    from dataclasses import replace
+
+    _, _, tparams, tcfg = make_model("qwen2")
+    toks = torch.from_numpy(TOKENS).long()
+    pos = torch.arange(TOKENS.shape[1]).expand(TOKENS.shape)
+    ref, _ = tbase.forward_logits(tbase.fuse_params(tparams), tcfg, toks, pos,
+                                  dtype=torch.float32)
+    got, _ = tbase.forward_logits(tbase.fuse_params(tparams, tp=TP), replace(tcfg, fused_tp=TP),
+                                  toks, pos, dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-6, rtol=0)
+    assert ttpf.current() is None
+    y = torch.ones(3)
+    assert ttpf.tp_reduce(y) is y
+
+
+def test_plan_and_shard_refusals():
+    """Where the JAX package's spec would degrade to replicated, the port's
+    shard plan raises; an undivided vocabulary stays replicated, as there."""
+    _, _, tparams, tcfg = make_model("llama", "q4")
+    fused = tbase.fuse_params(tparams, tp=4)
+    with pytest.raises(ValueError, match="blocks of 32"):
+        tmesh.shard_params(fused, tcfg, 4, 0)  # wo's 64 inputs: 2 blocks over 4 ranks
+    with pytest.raises(ValueError, match="rank 2"):
+        tmesh.shard_params(fused, tcfg, 2, 2)
+    odd = dict(tparams, embed=tparams["embed"][:255], lm_head=tparams["lm_head"][:255])
+    local = tmesh.shard_params(tbase.fuse_params(odd, tp=TP), tcfg, TP, 1)
+    assert local["embed"] is odd["embed"] and tmesh.vocab_flags(odd, TP) == (False, False)
+    assert isinstance(local["layers"][0]["wo"], QArray)
+
+
+class _Rank0:
+    """Rank 0 of a two-rank group, for the checks made before any collective."""
+
+    rank, size, device = 0, 2, torch.device("cpu")
+
+
+REFUSALS = {
+    "dp": (dict(mesh=tmesh.Mesh(dp=2)), NotImplementedError, "dp=2"),
+    "pp": (dict(mesh=tmesh.Mesh(pp=2)), NotImplementedError, "pp=2"),
+    "q4s": (dict(mesh=tmesh.Mesh(tp=2, group=_Rank0()), weight_format="q4s"),
+            NotImplementedError, "q4s"),
+    "moe": (dict(mesh=tmesh.Mesh(tp=2, group=_Rank0()), moe=True), NotImplementedError, "MoE"),
+    "heads": (dict(mesh=tmesh.Mesh(tp=3, group=_Rank0())), ValueError, "divide the heads"),
+    "graphs": (dict(mesh=tmesh.Mesh(tp=2, group=_Rank0()), decode_graphs=True), ValueError,
+               "decode_graphs=True under tp"),
+    "no_group": (dict(mesh=tmesh.Mesh(tp=2)), ValueError, "TPGroup"),
+    "channel_without_tp": (dict(step_channel=object()), ValueError, "step_channel"),
+    "gpt2": (dict(mesh=tmesh.Mesh(tp=2, group=_Rank0()), model_type="gpt2"),
+             NotImplementedError, "tp for gpt2"),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSALS) + ["nccl_shared", "nccl_count", "nccl_cpu",
+                                                   "engine_mesh", "engine_rank_slice"])
+def test_tp_refusals(case):
+    """What tp does not serve raises with a message naming it; nothing runs
+    unsharded in its place."""
+    from dataclasses import replace
+
+    from jlama_tpu_torch.parallel import distributed
+    from jlama_tpu_torch.runtime.scheduler import BatchScheduler
+
+    if case == "nccl_shared":
+        with pytest.raises(ValueError, match="two ranks share h/cuda:0"):
+            distributed.check_nccl_devices(["h/cuda:0", "h/cuda:0"], 2)
+        return
+    if case == "nccl_count":
+        with pytest.raises(ValueError, match="2 ranks on one host but torch sees 1"):
+            distributed.check_nccl_devices(["h/cuda:0", "h/cuda:1"], 1)
+        distributed.check_nccl_devices(["a/cuda:0", "b/cuda:0"], 1)  # two hosts
+        return
+    if case == "nccl_cpu":
+        with pytest.raises(ValueError, match="NCCL needs a CUDA device"):
+            distributed.init_tp_group(2, 0, device="cpu", backend="nccl", store_path="unused")
+        return
+    _, _, tparams, tcfg = make_model("llama", "q4")
+    if case.startswith("engine"):
+        from jlama_tpu_torch.runtime.engine import Engine
+
+        if case == "engine_mesh":  # the Engine takes no mesh: tp serves through the scheduler
+            with pytest.raises(TypeError, match="mesh"):
+                Engine(tparams, tcfg, device="cpu", mesh=tmesh.Mesh(tp=2, group=_Rank0()))
+            return
+        with pytest.raises(NotImplementedError, match="tp for the Engine"):
+            # a tp rank's slice, as a tp scheduler holds it
+            Engine(tmesh.shard_params(tbase.fuse_params(tparams, tp=2), tcfg, 2, 0), tcfg,
+                   device="cpu", fuse=False)
+        return
+    kw, exc, msg = REFUSALS[case]
+    kw = dict(kw)
+    if kw.pop("moe", False):
+        tcfg = replace(tcfg, n_experts=4, n_experts_per_token=2)
+    if "model_type" in kw:
+        tcfg = replace(tcfg, model_type=kw.pop("model_type"))
+    with pytest.raises(exc, match=msg):
+        BatchScheduler(tparams, tcfg, n_slots=2, n_pages=8, page_size=8, max_seq_len=32,
+                       device="cpu", **kw)
