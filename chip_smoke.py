@@ -336,6 +336,37 @@ Phases, each fatal on failure (exit code 1, no result line):
               collectives' host time (gloo through the host, not NCCL). A
               failed rank fails the phase; a hung one is killed at
               TP_DEADLINE_S and fails it.
+ 17. dp - data-parallel page groups at Llama-3.2-1B's full width and depth
+              (DP_SPEC: 16 layers, random JQ4 weights from seed 0): dp = 2
+              x tp = 2, four spawned rank processes on cuda:0 over gloo (rank
+              r tp rank r % 2 of dp group r // 2), 16 slots and 512 pages
+              in two groups, each rank holding its group's 256 pages of 4
+              of 8 KV heads and running its 8 rows; tp_check's checks as in
+              phase 16 (the tp logits against one rank's, the ranks of a
+              group sampling the same ids, K1-K4's launches on every rank
+              at 8 rows), 16 greedy requests whose ids must equal one
+              rank's single-device BatchScheduler's on the same prompts, a
+              session suspended to disk in dp group 1 (the leader's group
+              busy) and resumed there, its files written by group 1's two
+              ranks only; the wall time per decode step, and the
+              profiler's device time of K1-K4 on rank 0 beside the
+              collectives' host time (the tp collectives and the gather of
+              the ids to the leader).
+ 18. ep - expert parallelism at Mixtral-8x7B's widths (EP_SPEC: 8 of its 32
+              layers, random JQ4 from seed 0): tp = 2, two spawned ranks on
+              cuda:0 over gloo, each holding 4 of the 8 experts of every
+              layer and half the heads, the router whole; the tp logits of
+              a 512-token prefill (K6's prefill route) equal on both ranks
+              and within rel L2 1e-2 of one rank's single-device path; 8
+              requests served over the step channel, the follower's ids
+              rank 0's; K6 on each rank's 4 local experts of layer 0
+              (tp_check.k6_check): the decode route (R = 2, 32) and the
+              prefill route (R = 1,024) against their plain models over the
+              rank's range, every foreign row exactly 0, a bit-equal
+              repeat, timed on rank 0; K6's launches (a grouping and two
+              matmuls a layer a forward, two gathers a layer on the prefill
+              route) and K1-K4's on each rank. A failed rank fails either
+              phase; a hung one is killed at its deadline and fails it.
 Phase 10 also serves its 8 requests through a q4s BatchScheduler (K5 for
 wqkv, wo and the lm_head, K6 for the experts; ids equal to an eager q4s
 scheduler's; the paged logits of 2 layers against the plain path) and runs
@@ -2900,10 +2931,10 @@ def _recording_routing(sched, rec):
 
     inner, step, on = layers.moe_groups, sched._decode_step, [False]
 
-    def groups(e, n):
+    def groups(e, n, *lo):
         if on[0]:
             rec.append(e.detach().clone())
-        return inner(e, n)
+        return inner(e, n, *lo)
 
     def decode_step(ct, win):
         on[0] = True
@@ -3158,12 +3189,12 @@ def _moe_ppl(torch, params, cfg, card_note) -> dict:
                         generator=torch.Generator().manual_seed(9)).numpy()
     n_win, L = 1 + (PPL_TOKENS - PPL_SEQ) // PPL_STRIDE, cfg.n_layers
 
-    def gate_up_plain(x, w1, w3, e, out_dtype=None, groups=None):
-        return (moe_q4.moe_q4_matmul_plain(x, w1, e, out_dtype),
-                moe_q4.moe_q4_matmul_plain(x, w3, e, out_dtype))
+    def gate_up_plain(x, w1, w3, e, out_dtype=None, groups=None, lo=None):
+        return (moe_q4.moe_q4_matmul_plain(x, w1, e, out_dtype, lo),
+                moe_q4.moe_q4_matmul_plain(x, w3, e, out_dtype, lo))
 
-    def down_plain(x, w, e, out_dtype=None, groups=None):
-        return moe_q4.moe_q4_matmul_plain(x, w, e, out_dtype)
+    def down_plain(x, w, e, out_dtype=None, groups=None, lo=None):
+        return moe_q4.moe_q4_matmul_plain(x, w, e, out_dtype, lo)
 
     out = {}
     for run, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16),
@@ -4411,6 +4442,72 @@ TP_SPEC = dict(layers=32, device="cuda:0", backend="gloo", timeout_s=TP_DEADLINE
                timed_steps=16, profile=8)
 
 
+def _run_mesh_ranks(torch, label, spec, world, deadline_s) -> tuple[list, float]:
+    """Start `world` rank processes of tp_check.rank_main on cuda:0 over gloo,
+    wait for them until `deadline_s`, and return their results (rank order)
+    and the wall seconds; a failed rank fails the phase, a hung one is
+    killed at the deadline and fails it; so does any failed check."""
+    import pickle
+    import tempfile
+
+    from jlama_tpu_torch.scripts import tp_check
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        procs, end = tp_check.start_ranks(
+            tp_check.rank_main, lambda r: (r, world, f"{d}/store", f"{d}/rank{r}.pkl", spec),
+            world, deadline_s)
+        err = tp_check.wait_ranks(procs, end)
+        if err:
+            fail(f"{label}: {err} ({deadline_s} s)")
+        ranks = []
+        for r in range(world):
+            with open(f"{d}/rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+    wall = time.perf_counter() - t0
+    bad = tp_check.check_ranks(ranks, spec)
+    if bad:
+        fail(f"{label}: " + "; ".join(bad))
+    prof = ranks[0].get("profile")
+    if not prof or prof["device_ms_by_group"]["q4_matmul"] <= 0:
+        fail(f"{label}: the profiler saw no K1 device time: {prof}")
+    return ranks, wall
+
+
+def _print_mesh_serving(label, lead, ranks, spec, card_note, wall) -> None:
+    from jlama_tpu_torch.scripts import tp_check
+
+    prof = lead["profile"]
+    print(f"{label}: local shapes {lead['shapes']}, {lead['rows']} decode rows a rank; set-up "
+          f"{lead['setup_s']:.1f} s; the {spec['prefill']}-token prefill's logits (last "
+          f"{spec['logit_rows']} rows) rel L2 {lead['logits_rel_l2']:.3e} from the same weights "
+          f"on one rank through the single-device path (limit {tp_check.REL_L2_LIMIT}), equal "
+          f"on every rank; the prefill {lead['prefill_ms']:.1f} ms", flush=True)
+    print(f"{label}: {spec['requests']} served requests in {lead['serve_s']:.2f} s "
+          f"({lead['n_prefill']} prefill calls, {lead['n_decode']} decode steps), each rank's "
+          f"sampled ids its dp group's first rank's over {len(lead['sampled_log'])} steps; "
+          "launches " + "; ".join(f"rank {r['rank']} {r['launches_all']}" for r in ranks)
+          + f" (as their {lead['n_prefill_all']} prefill calls and {lead['n_decode_all']} "
+          f"decode steps imply); disk suspend (session in dp group {lead['disk_group']}) "
+          f"files {lead['disk_files']}, ids equal", flush=True)
+    print(f"{label} on {card_note}, gloo through the host (not NCCL): "
+          f"{lead['decode_ms_per_step']:.2f} ms wall per decode step at "
+          f"{spec.get('n_slots', 16)} slots ({lead['decode_steps_timed']} steps), "
+          f"{lead['collectives_per_step']:.0f} collectives a step on rank 0 taking "
+          f"{lead['collective_ms_per_step']:.2f} ms of host time; profiled {prof['steps']} "
+          f"steps on rank 0: wall {prof['wall_ms']:.2f} ms, device ms by group "
+          + ", ".join(f"{k} {v:.2f}" for k, v in prof["device_ms_by_group"].items())
+          + f", the collectives {prof['collective_host_ms']:.2f} ms of host time "
+          f"({prof['collective_calls']} calls); phase wall {wall:.1f} s", flush=True)
+
+
+_MESH_KEEP = ("setup_s", "prefill_ms", "serve_s", "n_prefill", "n_decode", "launches",
+              "launches_all", "decode_ms_per_step", "decode_steps_timed",
+              "collective_ms_per_step", "collectives_per_step", "profile", "logits_rel_l2",
+              "shapes", "routes", "route_check", "disk_files", "rows")
+
+
 def tp_path(torch, card_note) -> dict:
     """Phase 16: Llama-3.1-8B's widths (TP_SPEC's depth) at tp = 2, two
     spawned rank processes on cuda:0 over gloo (NCCL refuses two ranks on
@@ -4421,38 +4518,14 @@ def tp_path(torch, card_note) -> dict:
     check_k1..check_k4 hold against the plain versions; a per-rank disk
     suspend). A rank that fails fails the phase; one still running at
     TP_DEADLINE_S is killed and fails it."""
-    import pickle
-    import tempfile
-
-    from jlama_tpu_torch.scripts import tp_check
-
     print(f"tp: {TP_RANKS} ranks, Llama-3.1-8B's widths, {TP_SPEC['layers']} of its 32 "
           f"layers, random JQ4 weights from seed {TP_SPEC['seed']}, each rank keeping its "
           f"slice; backend {TP_SPEC['backend']}, world size {TP_RANKS}, devices "
           f"{[TP_SPEC['device']] * TP_RANKS}: both ranks share this one GPU, where NCCL "
           "refuses two ranks, so gloo moves their collectives through the host; NCCL, the "
           "backend for ranks on separate GPUs, is not run on this machine", flush=True)
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as d:
-        procs, end = tp_check.start_ranks(
-            tp_check.rank_main, lambda r: (r, TP_RANKS, f"{d}/store", f"{d}/rank{r}.pkl", TP_SPEC),
-            TP_RANKS, TP_DEADLINE_S)
-        err = tp_check.wait_ranks(procs, end)
-        if err:
-            fail(f"tp: {err} ({TP_DEADLINE_S} s)")
-        ranks = []
-        for r in range(TP_RANKS):
-            with open(f"{d}/rank{r}.pkl", "rb") as f:
-                ranks.append(pickle.load(f))
-    wall = time.perf_counter() - t0
-    bad = tp_check.check_ranks(ranks, TP_SPEC)
-    if bad:
-        fail("tp: " + "; ".join(bad))
+    ranks, wall = _run_mesh_ranks(torch, "tp", TP_SPEC, TP_RANKS, TP_DEADLINE_S)
     lead = ranks[0]
-    prof = lead.get("profile")
-    if not prof or prof["device_ms_by_group"]["q4_matmul"] <= 0:
-        fail(f"tp: the profiler saw no K1 device time: {prof}")
     print(f"tp: gloo's routes for CUDA tensors (probed at first use): "
           + "; ".join(f"rank {r['rank']}: " + ", ".join(f"{k} {v}" for k, v in
                                                           sorted(r["routes"].items()))
@@ -4462,32 +4535,85 @@ def tp_path(torch, card_note) -> dict:
           + "; ".join(f"rank {r['rank']}: " + ", ".join(
               f"{op} {v[0]} {v[1]:.3g} / staged {v[2]:.3g}" for op, v in
               sorted(r["route_check"].items())) for r in ranks), flush=True)
-    print(f"tp: local shapes {lead['shapes']}; set-up {lead['setup_s']:.1f} s; the "
-          f"{TP_SPEC['prefill']}-token prefill's logits (last {TP_SPEC['logit_rows']} rows) "
-          f"rel L2 {lead['logits_rel_l2']:.3e} from the same weights on one rank through the "
-          f"single-device path (limit {tp_check.REL_L2_LIMIT}), equal on both ranks; the prefill "
-          f"{lead['prefill_ms']:.1f} ms", flush=True)
-    print(f"tp: {TP_SPEC['requests']} served requests in {lead['serve_s']:.2f} s "
-          f"({lead['n_prefill']} prefill calls, {lead['n_decode']} decode steps), the "
-          f"follower's sampled ids the leader's over {len(lead['sampled_log'])} steps; "
-          f"launches rank 0 {lead['launches_all']}, rank 1 {ranks[1]['launches_all']} "
-          f"(as their {lead['n_prefill_all']} prefill calls and {lead['n_decode_all']} decode "
-          f"steps imply); disk suspend files {lead['disk_files']}, ids equal", flush=True)
-    print(f"tp on {card_note}, gloo through the host (not NCCL): "
-          f"{lead['decode_ms_per_step']:.2f} ms wall per decode step at 16 slots "
-          f"({lead['decode_steps_timed']} steps), {lead['collectives_per_step']:.0f} "
-          f"collectives a step taking {lead['collective_ms_per_step']:.2f} ms of host time; "
-          f"profiled {prof['steps']} steps on rank 0: wall {prof['wall_ms']:.2f} ms, device "
-          "ms by group " + ", ".join(f"{k} {v:.2f}" for k, v in
-                                      prof["device_ms_by_group"].items())
-          + f", the collectives {prof['collective_host_ms']:.2f} ms of host time "
-          f"({prof['collective_calls']} calls); phase wall {wall:.1f} s", flush=True)
-    keep = ("setup_s", "prefill_ms", "serve_s", "n_prefill", "n_decode", "launches",
-            "launches_all", "decode_ms_per_step", "decode_steps_timed",
-            "collective_ms_per_step", "collectives_per_step", "profile", "logits_rel_l2",
-            "shapes", "routes", "route_check", "disk_files")
-    return dict(spec=TP_SPEC, wall_s=wall, rank0={k: lead[k] for k in keep},
+    _print_mesh_serving("tp", lead, ranks, TP_SPEC, card_note, wall)
+    return dict(spec=TP_SPEC, wall_s=wall, rank0={k: lead[k] for k in _MESH_KEEP},
                 rank1={k: ranks[1][k] for k in ("launches_all", "routes", "shapes")})
+
+
+# phase 17: dp page groups, dp = 2 x tp = 2 on the one card over gloo
+DP_RANKS = 4
+DP_DEADLINE_S = 420
+DP_SPEC = dict(model="llama1b", layers=16, dp=2, device="cuda:0", backend="gloo",
+               timeout_s=DP_DEADLINE_S, seed=0, n_pages=512, n_slots=16, prefill=512,
+               logit_rows=64, requests=8, new_tokens=32, timed_steps=16, profile=8, greedy=16)
+
+
+def dp_path(torch, card_note) -> dict:
+    """Phase 17: Llama-3.2-1B at full width and depth, dp = 2 x tp = 2: four
+    spawned rank processes on cuda:0 over gloo (rank r tp rank r % 2 of dp
+    group r // 2); each group owns 8 of the 16 slots and half the 512 pages,
+    each rank its group's pages of its 4 of 8 KV heads. tp_check's checks as
+    in phase 16, and: DP_SPEC["greedy"] greedy requests through the mesh
+    with the ids of one rank's single-device BatchScheduler on the same
+    prompts and weights; a session suspended to disk in dp group 1 (the
+    leader's group busy) and resumed there, its files written by group 1's
+    two ranks only; K1-K4's launches on every rank at 8 rows. A rank that
+    fails fails the phase; one still running at DP_DEADLINE_S is killed and
+    fails it."""
+    print(f"dp: {DP_RANKS} ranks, dp = {DP_SPEC['dp']} x tp = {DP_RANKS // DP_SPEC['dp']}, "
+          f"Llama-3.2-1B at full width and depth ({DP_SPEC['layers']} layers), random JQ4 "
+          f"weights from seed {DP_SPEC['seed']}; {DP_SPEC['n_slots']} slots and "
+          f"{DP_SPEC['n_pages']} pages in {DP_SPEC['dp']} groups; backend "
+          f"{DP_SPEC['backend']}, all four ranks on {DP_SPEC['device']}", flush=True)
+    ranks, wall = _run_mesh_ranks(torch, "dp", DP_SPEC, DP_RANKS, DP_DEADLINE_S)
+    lead = ranks[0]
+    _print_mesh_serving("dp", lead, ranks, DP_SPEC, card_note, wall)
+    print(f"dp: {len(lead['greedy_ids'])} greedy requests of {DP_SPEC['new_tokens']} tokens "
+          "through the mesh, ids equal to one rank's single-device BatchScheduler's on the "
+          "same prompts; session 'disk' resumed in group "
+          f"{lead['disk_group_after']} with the ids of one never suspended", flush=True)
+    return dict(spec=DP_SPEC, wall_s=wall, rank0={k: lead[k] for k in _MESH_KEEP},
+                ranks=[{k: r[k] for k in ("launches_all", "shapes", "rows", "dp_index",
+                                           "tp_rank")} for r in ranks])
+
+
+# phase 18: expert parallelism, Mixtral at tp = 2 on the one card over gloo
+EP_RANKS = 2
+EP_DEADLINE_S = 420
+EP_SPEC = dict(model="mixtral", layers=8, device="cuda:0", backend="gloo",
+               timeout_s=EP_DEADLINE_S, seed=0, n_pages=256, prefill=512, logit_rows=64,
+               requests=8, new_tokens=32, timed_steps=16, profile=8, k6=True)
+
+
+def ep_path(torch, card_note) -> dict:
+    """Phase 18: Mixtral-8x7B's widths (8 of its 32 layers: each rank still
+    draws the whole tree on the card before keeping its slice) at tp = 2
+    with expert parallelism: two spawned rank processes on cuda:0 over
+    gloo, each holding 4 of the 8 experts of every layer (the model's 4r
+    onward) and half the heads. tp_check's checks as in phase 16, and K6 on
+    each rank's local experts of layer 0 (tp_check.k6_check): the decode
+    route (R = 2, 32) and the prefill route (R = 1,024) against their plain
+    models over the rank's range, every foreign row exactly 0, a bit-equal
+    repeat, timed on rank 0; K6's launches (1 grouping and 2 matmuls a
+    layer a forward, 2 gathers a layer where a forward's selections take
+    the prefill route) on each rank."""
+    print(f"ep: {EP_RANKS} ranks, Mixtral-8x7B's widths, {EP_SPEC['layers']} of its 32 "
+          f"layers, random JQ4 weights from seed {EP_SPEC['seed']}, each rank keeping 4 of "
+          f"the 8 experts and half the heads; backend {EP_SPEC['backend']} on "
+          f"{EP_SPEC['device']}", flush=True)
+    ranks, wall = _run_mesh_ranks(torch, "ep", EP_SPEC, EP_RANKS, EP_DEADLINE_S)
+    lead = ranks[0]
+    _print_mesh_serving("ep", lead, ranks, EP_SPEC, card_note, wall)
+    for r in ranks:
+        k6 = r["k6"]
+        print(f"ep: rank {r['rank']} K6 over experts {k6['lo']}..{k6['lo'] + k6['n_local'] - 1}: "
+              + "; ".join(f"R={n} {k6[n]['route']}: {k6[n]['foreign_rows']} foreign rows 0, "
+                          f"max err {k6[n]['max_abs_err']:.3g}, repeat bit-equal"
+                          + (f", gate+up {k6[n]['gate_up_ms']:.4f} ms, w2 {k6[n]['w2_ms']:.4f} "
+                             "ms" if "gate_up_ms" in k6[n] else "")
+                          for n in (2, 32, 1024)) + f" on {card_note}", flush=True)
+    return dict(spec=EP_SPEC, wall_s=wall, rank0={k: lead[k] for k in _MESH_KEEP + ("k6",)},
+                ranks=[{k: r[k] for k in ("launches_all", "shapes", "k6")} for r in ranks])
 
 
 def main() -> None:
@@ -4634,6 +4760,27 @@ def main() -> None:
                                                     "logits_rel_l2", "launches_all")}),
           flush=True)
 
+    # 17. data parallelism: Llama-3.2-1B at dp = 2 x tp = 2, four ranks on this card
+    torch.cuda.empty_cache()
+    dpr = dp_path(torch, smi)
+    out["dp"] = dpr
+    print(f"card {smi}: dp " + json.dumps({k: v for k, v in dpr["rank0"].items()
+                                           if k in ("decode_ms_per_step", "prefill_ms",
+                                                    "logits_rel_l2", "launches_all")}),
+          flush=True)
+    # 18. expert parallelism: Mixtral-8x7B's widths at tp = 2, K6 on each rank's experts
+    torch.cuda.empty_cache()
+    ep = ep_path(torch, smi)
+    out["ep"] = ep
+    k6_ep = ep["rank0"]["k6"]
+    for n in (2, 32, 1024):  # K6 over rank 0's 4 experts, device time
+        kern["moe_q4_matmul"][f"ep_rank0_gate_up_ms_r{n}"] = k6_ep[n]["gate_up_ms"]
+        kern["moe_q4_matmul"][f"ep_rank0_w2_ms_r{n}"] = k6_ep[n]["w2_ms"]
+    print(f"card {smi}: ep " + json.dumps({k: v for k, v in ep["rank0"].items()
+                                           if k in ("decode_ms_per_step", "prefill_ms",
+                                                    "logits_rel_l2", "launches_all")}),
+          flush=True)
+
     routes = {
         "q4_matmul": ("jlama_tpu_torch/csrc/q4_matmul.cu", "jlama_tpu/ops/pallas_q4.py:113"),
         "paged_decode": ("jlama_tpu_torch/csrc/paged_decode.cu",
@@ -4654,16 +4801,28 @@ def main() -> None:
             launches = dict(launches=q4s_launches[k], launches_engine=None,
                             launches_ppl=out["perplexity"]["q4s"]["launches"][k],
                             launches_gpt2_q4s=gpt2["q4s_serving"]["launches"][k])
-        elif k == "moe_q4_matmul":  # its path: Mixtral serving and Engine (phase 10)
+        elif k == "moe_q4_matmul":  # its path: Mixtral serving and Engine (phase 10),
+            # each expert-parallel rank's (phase 18)
             launches = dict(launches=moe["serving"]["launches"][k],
                             launches_engine=moe["engine"]["launches"][k],
                             launches_grouping=moe["serving"]["launches"]["moe_groups"],
-                            launches_gather=moe["serving"]["launches"]["moe_gather"])
+                            launches_gather=moe["serving"]["launches"]["moe_gather"],
+                            **{f"launches_ep_rank{i}": r["launches_all"][k]
+                               for i, r in enumerate(ep["ranks"])},
+                            **{f"launches_grouping_ep_rank{i}": r["launches_all"]["moe_groups"]
+                               for i, r in enumerate(ep["ranks"])},
+                            **{f"launches_gather_ep_rank{i}": r["launches_all"]["moe_gather"]
+                               for i, r in enumerate(ep["ranks"])})
         else:  # phase 6 / phase 4, Gemma 2's serving / Engine (phase 11), GPT-2's and
-            # BERT's (phase 13), each tp rank's (phase 16)
+            # BERT's (phase 13), each tp rank's (phase 16), each dp x tp rank's (phase
+            # 17), each expert-parallel rank's (phase 18)
             launches = dict(launches=serving_launches.get(k),
                             launches_tp_rank0=tp["rank0"]["launches_all"][k],
                             launches_tp_rank1=tp["rank1"]["launches_all"][k],
+                            **{f"launches_dp_rank{i}": r["launches_all"][k]
+                               for i, r in enumerate(dpr["ranks"])},
+                            **{f"launches_ep_rank{i}": r["launches_all"][k]
+                               for i, r in enumerate(ep["ranks"])},
                             launches_engine=engine_launches.get(k),
                             launches_gemma2=g2["serving"]["launches"][k],
                             launches_gemma2_engine=g2["engine"]["launches"][k],

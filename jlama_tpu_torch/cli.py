@@ -18,21 +18,25 @@ fall-back:
   layout; the JAX package's TPU layout "q4k" has no counterpart), w8a8
   serves q4s (`weight_format="q4s"`, K5); off exits, since the port has no
   dequantizing path on the card;
-- `serve --mesh 1,1,T` is tensor parallelism over `torch.distributed`, one
-  process per rank: rank 0 serves HTTP, the others replay its steps
-  (`BatchScheduler.run_follower`). Every rank runs `serve` with `--mesh`,
-  `--num-processes T`, its `--process-id` and the same `--coordinator`
+- `serve --mesh D,1,T` is data and tensor parallelism over
+  `torch.distributed`, one process per rank, D · T ranks (rank r is tp rank
+  r % T of dp group r // T; D > 1 splits the slots and the KV pages into D
+  groups, T > 1 the weights, a MoE model's experts over T): rank 0 serves
+  HTTP, the others replay its steps (`BatchScheduler.run_follower`). Every
+  rank runs `serve` with `--mesh`, `--num-processes D·T`, its
+  `--process-id` and the same `--coordinator`
   (`host:port`, a TCP store that rank 0 serves, as the JAX package's
   coordinator; or `file:///path`, a file store); rank 0 binds the step
   channel on `--step-port` (default: the coordinator's port + 1000, 0 with
   a file store) and hands the port it got to the others through the store.
-  Rank 0 started alone with `--num-processes T` (no `--process-id`) starts
-  ranks 1..T-1 itself, on a file store in a temporary directory, and waits
-  for them when it exits. `--device cpu` gives gloo ranks on the CPU, else
-  rank r runs on cuda:r over NCCL. `--mesh auto` goes through the planner.
-  `--mesh` with dp > 1 or pp > 1, and `--no-pp-pipeline`, exit: those wait
-  in ROADMAP queue 1 item 3 (module 10), as do tp embeddings (a tp server
-  has no `/v1/embeddings` engine) and tp with `--pallas w8a8`;
+  Rank 0 started alone with `--num-processes D·T` (no `--process-id`)
+  starts the other ranks itself, on a file store in a temporary directory,
+  and waits for them when it exits. `--device cpu` gives gloo ranks on the
+  CPU, else rank r runs on cuda:r over NCCL. `--mesh auto` goes through the
+  planner (its dp is served). `--mesh` with pp > 1, and
+  `--no-pp-pipeline`, exit: those wait in ROADMAP queue 1 item 3 (module
+  10), as do embeddings across ranks (a mesh server has no `/v1/embeddings`
+  engine) and tp with `--pallas w8a8` (dp alone serves it);
 - `--layer-mode` is accepted and changes nothing: the port's layers are
   always separate tensors.
 
@@ -177,9 +181,9 @@ _PARALLEL_OPTS = ("coordinator", "num_processes", "process_id", "step_port")
 _QUEUE = "ROADMAP queue 1 item 3, module 10"
 
 
-def _serve_tp(args) -> int:
-    """The tp degree `serve` runs at (1: one device), from `--mesh`; exits
-    where the mesh or the options ask for what is not ported."""
+def _serve_mesh(args) -> tuple[int, int]:
+    """The (dp, tp) that `serve` runs at ((1, 1): one device), from `--mesh`;
+    exits where the mesh or the options ask for what is not ported."""
     if args.no_pp_pipeline:
         raise SystemExit(f"--no-pp-pipeline: the pp pipeline is not ported yet ({_QUEUE})")
     if args.mesh is None:
@@ -201,58 +205,63 @@ def _serve_tp(args) -> int:
             dp, pp, tp = (int(x) for x in args.mesh.split(","))
         except ValueError:
             raise SystemExit(f"--mesh {args.mesh!r}: expected DP,PP,TP or auto") from None
-    if dp != 1 or pp != 1:
-        raise SystemExit(f"--mesh dp={dp},pp={pp},tp={tp}: dp > 1 (data-parallel page "
-                         f"groups) and pp > 1 (the pp ring) are not ported yet ({_QUEUE}); "
-                         "the port serves --mesh 1,1,T")
+    if dp < 1 or tp < 1:
+        raise SystemExit(f"--mesh {args.mesh!r}: each axis must be at least 1")
+    if pp != 1:
+        raise SystemExit(f"--mesh dp={dp},pp={pp},tp={tp}: pp > 1 (the pp ring) is not "
+                         f"ported yet ({_QUEUE}); the port serves --mesh D,1,T")
+    world = dp * tp
     given = [o for o in _PARALLEL_OPTS if getattr(args, o, None) is not None]
-    if tp == 1 and given:
+    if world == 1 and given:
         flags = ", ".join("--" + o.replace("_", "-") for o in given)
-        raise SystemExit(f"{flags}: multi-process serving is tensor-parallel serving; give "
-                         f"--mesh 1,1,T with T > 1 ({_QUEUE})")
-    if tp > 1 and (args.num_processes or tp) != tp:
-        raise SystemExit(f"--num-processes {args.num_processes} != tp {tp}: one process a rank")
-    return tp
+        raise SystemExit(f"{flags}: multi-process serving is tensor- or data-parallel "
+                         f"serving; give --mesh D,1,T with D * T > 1 ({_QUEUE})")
+    if world > 1 and (args.num_processes or world) != world:
+        raise SystemExit(f"--num-processes {args.num_processes} != dp * tp = {world}: one "
+                         "process a rank")
+    return dp, tp
 
 
-def rank_argv(argv: list[str], rank: int, tp: int, coordinator: str) -> list[str]:
+def rank_argv(argv: list[str], rank: int, world: int, coordinator: str) -> list[str]:
     """The command line of rank `rank` as rank 0 starts it (argparse keeps
     the last of a repeated option)."""
-    return list(argv) + ["--num-processes", str(tp), "--process-id", str(rank),
+    return list(argv) + ["--num-processes", str(world), "--process-id", str(rank),
                          "--coordinator", coordinator]
 
 
-def _tp_stack(args, tp: int):
-    """Join the tp group, read the checkpoint on the host, open the step
-    channel, and build this rank's scheduler. Returns (sched, tokenizer,
-    model_dir, channel)."""
+def _mesh_stack(args, dp: int, tp: int):
+    """Join the dp × tp world (rank r: tp rank r % tp of dp group r // tp),
+    read the checkpoint on the host, open the step channel, and build this
+    rank's scheduler. Returns (sched, tokenizer, model_dir, channel)."""
     import torch
 
     from .models.loader import load_params
-    from .parallel.distributed import init_tp_group
-    from .parallel.mesh import Mesh
+    from .parallel.distributed import init_mesh_group
     from .runtime.coordination import StepChannel, coordinator_host, default_step_port
     from .runtime.scheduler import BatchScheduler
     from .tokenizers import load_tokenizer
 
     _check_pallas(args)
+    world = dp * tp
     rank, coord = args.process_id, args.coordinator
     if rank is None or coord is None:
-        raise SystemExit(f"--mesh 1,1,{tp}: every rank takes --process-id and the same "
+        raise SystemExit(f"--mesh {dp},1,{tp}: every rank takes --process-id and the same "
                          "--coordinator (host:port or file:///path); or start rank 0 alone "
-                         f"with --num-processes {tp}")
-    if not 0 <= rank < tp:
-        raise SystemExit(f"--process-id {rank}: expected 0..{tp - 1}")
-    if args.pallas == "w8a8":
+                         f"with --num-processes {world}")
+    if not 0 <= rank < world:
+        raise SystemExit(f"--process-id {rank}: expected 0..{world - 1}")
+    if args.pallas == "w8a8" and tp > 1:
         raise SystemExit(f"--pallas w8a8 under tp: q4s under tp is not ported yet ({_QUEUE})")
     local = coord.startswith("file://")
     try:
-        group = init_tp_group(tp, rank, device=args.device,
-                              store_path=coord[len("file://"):] if local else None,
-                              init_method=None if local else f"tcp://{coord}")
+        mesh = init_mesh_group(dp, tp, rank, device=args.device,
+                               store_path=coord[len("file://"):] if local else None,
+                               init_method=None if local else f"tcp://{coord}")
     except (RuntimeError, ValueError) as e:
         raise SystemExit(f"rank {rank}: {e}") from None
-    print(f"rank {rank}/{tp}: {group.backend} on {group.device}", flush=True)
+    group = mesh.group
+    print(f"rank {rank}/{world}: {group.backend} on {group.device} (dp group "
+          f"{mesh.dp_index}, tp rank {group.rank})", flush=True)
     model_dir = _resolve_model(args.model, args)
     dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[args.working_dtype]
     # every rank reads the whole checkpoint on the host and keeps its slice
@@ -262,7 +271,7 @@ def _tp_stack(args, tp: int):
         port = args.step_port if args.step_port is not None else (
             0 if local else default_step_port(coord))
         chan = StepChannel.serve(
-            port, tp - 1, on_bound=lambda p: group.store.set("jlama_step_port", str(p)))
+            port, world - 1, on_bound=lambda p: group.store.set("jlama_step_port", str(p)))
     else:
         host = "127.0.0.1" if local else coordinator_host(coord)
         chan = StepChannel.connect(host, int(group.store.get("jlama_step_port")))
@@ -271,7 +280,8 @@ def _tp_stack(args, tp: int):
         sched = BatchScheduler(
             params, cfg, tokenizer, n_slots=args.batch_slots, n_pages=args.kv_pages,
             page_size=args.page_size, max_seq_len=args.context, kv_dtype=kv_dtype,
-            mesh=Mesh(1, 1, tp, group), step_channel=chan, device=group.device)
+            weight_format="q4s" if args.pallas == "w8a8" else None,
+            mesh=mesh, step_channel=chan, device=group.device)
     except (NotImplementedError, ValueError) as e:
         chan.close()
         raise SystemExit(f"rank {rank}: {e}") from None
@@ -282,21 +292,21 @@ def build_server(args):
     """The serving stack of `serve` without starting it: the scheduler over
     the fused tree (q4s with `--pallas w8a8`), its `embed_engine` sharing
     that tree, pre-warmed to `--prewarm` tokens, behind an `OpenAIServer`.
-    Returns (server, model_dir). With `--mesh 1,1,T`, rank 0 gets the tp
-    scheduler's server (no embeddings engine: tp embeddings are not ported
-    yet); a rank > 0 replays rank 0's steps until it stops, and gets
-    (None, model_dir)."""
+    Returns (server, model_dir). With `--mesh D,1,T` (D · T > 1), rank 0
+    gets the mesh scheduler's server (no embeddings engine: embeddings
+    across ranks are not ported yet); a rank > 0 replays rank 0's steps
+    until it stops, and gets (None, model_dir)."""
     import torch
 
     from .runtime.engine import Engine
     from .runtime.scheduler import BatchScheduler
     from .server.openai_api import OpenAIServer
 
-    tp = _serve_tp(args)
-    if tp > 1:
+    dp, tp = _serve_mesh(args)
+    if dp * tp > 1:
         from .parallel.distributed import shutdown
 
-        sched, tokenizer, model_dir, chan = _tp_stack(args, tp)
+        sched, tokenizer, model_dir, chan = _mesh_stack(args, dp, tp)
         if args.process_id > 0:
             print(f"follower {args.process_id} ready", flush=True)
             try:
@@ -357,15 +367,16 @@ def cmd_serve(args) -> None:
     ranks, store_dir = [], None
     if args.mesh is not None and args.process_id is None and (args.num_processes or 0) > 1:
         # rank 0 started alone: it starts the other ranks on a file store
-        tp = _serve_tp(args)
+        dp, tp = _serve_mesh(args)
+        world = dp * tp
         coord = args.coordinator
         if coord is None:
             store_dir = tempfile.mkdtemp(prefix="jlama_tp_")
             coord = "file://" + str(Path(store_dir) / "store")
-        for r in range(1, tp):
+        for r in range(1, world):
             ranks.append(subprocess.Popen([sys.executable, "-m", "jlama_tpu_torch.cli",
-                                           *rank_argv(args.argv, r, tp, coord)]))
-            print(f"started rank {r}/{tp} (pid {ranks[-1].pid})", flush=True)
+                                           *rank_argv(args.argv, r, world, coord)]))
+            print(f"started rank {r}/{world} (pid {ranks[-1].pid})", flush=True)
         args.process_id, args.coordinator = 0, coord
     try:
         server, model_dir = build_server(args)
@@ -513,13 +524,13 @@ def build_parser() -> argparse.ArgumentParser:
         "(block-32 int8, dequantized in attention)",
     )
     p.add_argument("--mesh", default=None, metavar="DP,PP,TP",
-                   help="tensor parallelism over one process a rank, 1,1,T (dp > 1 and "
-                        "pp > 1 are not ported yet and exit), or auto (the planner)")
+                   help="data and tensor parallelism over one process a rank, D,1,T (pp > "
+                        "1 is not ported yet and exits), or auto (the planner)")
     p.add_argument("--coordinator", default=None,
                    help="the ranks' rendezvous: host:port (a TCP store rank 0 serves) or "
                         "file:///path (a file store)")
     p.add_argument("--num-processes", type=int, default=None,
-                   help="ranks in all (tp); rank 0 alone with it starts the others")
+                   help="ranks in all (dp * tp); rank 0 alone with it starts the others")
     p.add_argument("--process-id", type=int, default=None, help="this process's rank")
     p.add_argument("--step-port", type=int, default=None,
                    help="rank 0's TCP port for the step channel (default: the "

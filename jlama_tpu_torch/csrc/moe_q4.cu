@@ -33,7 +33,10 @@
 // shared-memory atomics, then each chunk of rows ranks itself by a scan of
 // the chunk's ids: deterministic, no host sync, so a decode step stays
 // capturable, and a replay reads the new routing. An untouched expert gets no
-// work item.
+// work item. Under expert parallelism a rank's stack holds E of the model's
+// experts from lo on: the grouping keys each id by id - lo, and a selection of
+// another rank's expert (foreign) gets no work item and sits in the order's
+// tail, past offsets[E].
 //
 // Two routes, by R (kDecodeMaxR, read by ops/moe_q4.py:decode_max_r):
 //   decode (R <= kDecodeMaxR) - moe_q4_decode_kernel: what bounds it is the
@@ -87,8 +90,9 @@
 // ceil(R / TM) blocks, most of which exit at once), stays built for comparison
 // only (its own C entry, moe_q4_mma_matmul); no route of moe_q4_matmul reaches
 // it.
-// Ids must lie in [0, E): a selection with another id is in no group, the
-// gather skips it and its y row is not written.
+// A selection whose id - lo lies outside [0, E) is in no group: the gather
+// skips it and no route writes its y row (the wrapper hands these kernels a
+// zeroed y under expert parallelism, so such rows come out 0).
 
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder comes through the runtime
 #include <cuda_bf16.h>
@@ -135,20 +139,27 @@ __host__ __device__ __forceinline__ int max_tiles(int R, int E, int rows) {
   return (R + rows - 1) / rows + E;
 }
 
-// One block. Shared memory: next[E] (the next free slot of each expert's run
-// in the order) and ids[kGroupThreads] (the current chunk's ids).
+// One block. Shared memory: next[E + 1] (the next free slot of each expert's
+// run in the order, and of the foreign tail) and ids[kGroupThreads] (the
+// current chunk's keys). lo is the model's id of the stack's first expert
+// (expert parallelism: a rank's stack holds experts lo .. lo + E - 1 and the
+// ids are the model's; 0 for a whole stack): a selection's key is its id - lo
+// where that lies in [0, E), else E, the foreign tail. A foreign selection
+// gets no tile; the order lists it after every local one (rows offsets[E] ..
+// R - 1 of the order, in selection order), so that the order stays a
+// permutation of the selections and no route reads a weight byte for it.
 __global__ void __launch_bounds__(kGroupThreads)
-moe_group_kernel(const int* __restrict__ e, int R, int E, int* __restrict__ order,
+moe_group_kernel(const int* __restrict__ e, int R, int E, int lo, int* __restrict__ order,
                  int* __restrict__ offsets, int* __restrict__ tiles, int* __restrict__ dtiles,
                  int* __restrict__ counts) {
   extern __shared__ int smem[];
   int* next = smem;
-  int* ids = smem + E;
-  for (int i = threadIdx.x; i < E; i += blockDim.x) next[i] = 0;
+  int* ids = smem + E + 1;
+  for (int i = threadIdx.x; i <= E; i += blockDim.x) next[i] = 0;
   __syncthreads();
   for (int r = threadIdx.x; r < R; r += blockDim.x) {
-    const int x = e[r];
-    if (x >= 0 && x < E) atomicAdd(&next[x], 1);
+    const int x = e[r] - lo;
+    atomicAdd(&next[(x >= 0 && x < E) ? x : E], 1);
   }
   __syncthreads();
   if (threadIdx.x == 0) {  // E is small (8 for Mixtral): serial prefix sum and lists
@@ -170,6 +181,7 @@ moe_group_kernel(const int* __restrict__ e, int R, int E, int* __restrict__ orde
       sum += c;
     }
     offsets[E] = sum;
+    next[E] = sum;  // the foreign tail follows the local rows
     counts[0] = nt;
     counts[1] = nd;
     for (int i = 3 * nt; i < 3 * max_tiles(R, E, kBM); ++i) tiles[i] = -1;
@@ -178,17 +190,21 @@ moe_group_kernel(const int* __restrict__ e, int R, int E, int* __restrict__ orde
   __syncthreads();
   for (int base = 0; base < R; base += blockDim.x) {
     const int r = base + threadIdx.x;
-    const int x = r < R ? e[r] : -1;
+    int x = -1;
+    if (r < R) {
+      x = e[r] - lo;
+      if (x < 0 || x >= E) x = E;
+    }
     ids[threadIdx.x] = x;
     __syncthreads();
-    if (x >= 0 && x < E) {
-      int rank = 0;  // earlier rows of this chunk on the same expert
+    if (x >= 0) {
+      int rank = 0;  // earlier rows of this chunk with the same key
       for (int j = 0; j < threadIdx.x; ++j) rank += ids[j] == x;
       order[next[x] + rank] = r;
     }
     __syncthreads();
     const int n = min((int)blockDim.x, R - base);
-    for (int i = threadIdx.x; i < E; i += blockDim.x) {
+    for (int i = threadIdx.x; i <= E; i += blockDim.x) {
       int c = 0;
       for (int j = 0; j < n; ++j) c += ids[j] == i;
       next[i] += c;
@@ -1108,16 +1124,18 @@ extern "C" int moe_q4_decode_tile_rows() { return kDecTileRows; }
 
 // The grouping pre-pass: order [R], offsets [E + 1], tiles [ceil(R / kBM) + E,
 // 3], dtiles [ceil(R / kDecTileRows) + E, 3], counts [2] (tiles, dtiles),
-// int32 on the device.
-extern "C" int moe_group(const void* e, int R, int E, void* order, void* offsets, void* tiles,
-                         void* dtiles, void* counts, void* stream) {
-  if (R < 0 || E <= 0) return static_cast<int>(cudaErrorInvalidValue);
+// int32 on the device; lo the model's id of the stack's first expert (0 for a
+// whole stack; see moe_group_kernel).
+extern "C" int moe_group(const void* e, int R, int E, int lo, void* order, void* offsets,
+                         void* tiles, void* dtiles, void* counts, void* stream) {
+  if (R < 0 || E <= 0 || lo < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)(E + kGroupThreads) * sizeof(int);
+  const size_t smem = (size_t)(E + 1 + kGroupThreads) * sizeof(int);
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   moe_group_kernel<<<1, kGroupThreads, smem, st>>>(
-      static_cast<const int*>(e), R, E, static_cast<int*>(order), static_cast<int*>(offsets),
-      static_cast<int*>(tiles), static_cast<int*>(dtiles), static_cast<int*>(counts));
+      static_cast<const int*>(e), R, E, lo, static_cast<int*>(order),
+      static_cast<int*>(offsets), static_cast<int*>(tiles), static_cast<int*>(dtiles),
+      static_cast<int*>(counts));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,9 +7,19 @@ pool with it and a suspended session's payload has the same shape):
   page table row: [max_pages_per_seq] int32 page ids
 
 Page 0 is reserved as a scratch page, so that unallocated table entries
-point somewhere harmless. A q8 pool is a QArray: int8 payload plus f32
-scales [..., head_size / blk] with blk = 32, or head_size where 32 does not
-divide it.
+point somewhere harmless.
+
+Data-parallel page groups (`jlama_tpu/kv/paged.py:46-99`, the JAX
+scheduler's `_localize_pt`): with `groups` = dp the allocator splits the
+page ids into dp equal ranges, one a dp group, each with its own scratch
+page (the first of its range). One device holds every range (`group`
+None); a dp rank (`group` = its dp index g) holds only its range's
+n_pages/dp pages, and `local_tables` subtracts the range's first id, g ·
+n_pages/dp, from the global ids of the tables it is handed (the group's
+scratch page becomes its local page 0).
+
+A q8 pool is a QArray: int8 payload plus f32 scales [..., head_size / blk]
+with blk = 32, or head_size where 32 does not divide it.
 
 Difference from the JAX package: the pools are updated in place (torch
 tensors are mutable), by the K4 kernel (`ops/kv_write.py`), which also
@@ -106,18 +116,27 @@ class PagedKVCache:
         dtype=torch.bfloat16,
         groups: int = 1,
         device=None,
+        group: int | None = None,
     ):
         """dtype: a torch float dtype, or "q8" for a quantized pool (int8
         payload + f32 block scales along head_size). device: CUDA unless
-        named; raises without CUDA and without it."""
+        named; raises without CUDA and without it. groups: the allocator's
+        page groups; group: this dp rank's group, whose n_pages/groups pages
+        alone the pool then holds (None: every page)."""
         device = resolve_device(device)
+        if n_pages % groups:
+            raise ValueError(f"{groups} page groups do not divide n_pages={n_pages}")
         self.cfg = cfg
         self.page_size = page_size
         self.n_pages = n_pages
         self.max_pages_per_seq = max_pages_per_seq or (
             -(-cfg.context_length // page_size)
         )
-        shape = (cfg.n_layers, cfg.n_kv_heads, n_pages, page_size, cfg.head_size)
+        per = n_pages // groups
+        # the first global page id the pool holds (a dp rank's range)
+        self.page_offset = 0 if group is None else group * per
+        pool_pages = n_pages if group is None else per
+        shape = (cfg.n_layers, cfg.n_kv_heads, pool_pages, page_size, cfg.head_size)
         if dtype == "q8":
             # block-32 scales where 32 divides head_size, else one per row
             blk = 32 if cfg.head_size % 32 == 0 else cfg.head_size
@@ -132,6 +151,10 @@ class PagedKVCache:
             self.state = PagedKVState(torch.zeros(shape, dtype=dtype, device=device),
                                       torch.zeros(shape, dtype=dtype, device=device))
         self.alloc = PageAllocator(n_pages, groups=groups)
+
+    def local_tables(self, tables: np.ndarray) -> np.ndarray:
+        """Global page ids of this pool's range as its own (pool) indices."""
+        return tables - self.page_offset if self.page_offset else tables
 
     def layer_states(self) -> list[PagedKVState]:
         """One PagedKVState per layer, each a view of the stacked pools."""

@@ -23,6 +23,8 @@ runs these functions on its slice of the weights with its share of the
 heads; wo and w2 (`_row_parallel_linear`) sum their partial products over
 the ranks before the bias. A fused weight interleaved per rank but run
 whole on one device splits its output with `cfg.fused_tp` (`_split_fused`).
+A MoE layer's experts are cut over the ranks instead (expert parallelism,
+`moe_block`), its f32 combine summed the same way.
 """
 
 from __future__ import annotations
@@ -381,8 +383,16 @@ def moe_block(x: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
     (`experts.w*` [E, out, in], or `experts.w*_t` [E, in, out] after
     `models.base.prepare_moe_ragged`) take `_moe_ragged`'s grouped products:
     on the card `ops/moe_float.py` (K6's grouping and gather, the card's
-    grouped product, no host sync), on the CPU `_moe_float_plain`. Experts
-    are never sharded here (no expert parallelism: ROADMAP)."""
+    grouped product, no host sync), on the CPU `_moe_float_plain`.
+
+    Expert parallelism (`jlama_tpu/nn/layers.py:509-560`): inside a tp
+    context whose expert stacks hold fewer than the model's E experts (each
+    rank E/tp, `parallel/mesh.py`), this rank's are lo = rank · E_local
+    onward. The router is replicated, so every rank routes over the model's
+    experts; K6 (or the float route) computes only the selections in
+    [lo, lo + E_local), the others give rows of 0 and read no weight; the
+    combine runs in f32 and `tp_reduce` sums the f32 partials over the
+    ranks before the cast to x's dtype, as the JAX package's psum does."""
     B, T, D = x.shape
     K = cfg.n_experts_per_token
     router = params["router"]
@@ -395,31 +405,39 @@ def moe_block(x: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
     xf = x.reshape(B * T, D)
     e = topk_idx.reshape(B * T, K).to(torch.int32)
     w1 = params.get("experts.w1")
+    n_local = params.get("experts.w1", params.get("experts.w1_t")).shape[0]
+    ctx = current()
+    ep = ctx is not None and n_local < cfg.n_experts
+    lo = ctx.group.rank * n_local if ep else None
     if isinstance(w1, QArray):
-        groups = moe_groups(e, cfg.n_experts)
-        gate, up = moe_q4_gate_up(xf, w1, params["experts.w3"], e, groups=groups)
+        groups = moe_groups(e, n_local, lo or 0)
+        gate, up = moe_q4_gate_up(xf, w1, params["experts.w3"], e, groups=groups, lo=lo)
         h = (activation(gate, cfg.activation) * up).reshape(B * T * K, -1)
         y = moe_q4_matmul(h, params["experts.w2"], e.reshape(-1), out_dtype=torch.float32,
-                          groups=groups)
+                          groups=groups, lo=lo)
     elif xf.device.type == "cpu":
-        y = _moe_float_plain(xf, params, cfg, e)
+        y = _moe_float_plain(xf, params, cfg, e, lo)
     else:
         t = "experts.w1_t" in params
         w = [stack_in_out(params[f"experts.{k}" + ("_t" if t else "")], t)
              for k in ("w1", "w3", "w2")]
-        y = moe_float_experts(xf, *w, e, cfg.n_experts,
-                              lambda g: activation(g, cfg.activation))
+        y = moe_float_experts(xf, *w, e, n_local,
+                              lambda g: activation(g, cfg.activation), lo)
     y = (y.reshape(B * T, K, D) * topk_w.reshape(B * T, K, 1)).sum(dim=1)
+    if ep:
+        y = tp_reduce(y.contiguous())  # the f32 partials of each rank's experts
     return y.reshape(B, T, D).to(x.dtype)
 
 
 def _moe_float_plain(xf: torch.Tensor, params: dict, cfg: ModelConfig,
-                     e: torch.Tensor) -> torch.Tensor:
+                     e: torch.Tensor, lo: int | None = None) -> torch.Tensor:
     """Float experts, one group of selections per expert (`_moe_ragged`'s
     grouped matmuls): weights in x's dtype, f32 sums, gate and up in x's
     dtype, the down projection in f32. [N, K] ids -> [N·K, D] f32. The CPU's
     path, and the card tests' reference for `ops/moe_float.py` (on any
-    device; the grouping is read back to the host)."""
+    device; the grouping is read back to the host). lo: the model's id of
+    the stacks' first expert under expert parallelism; rows of experts
+    outside the stacks stay 0."""
     ragged = "experts.w1_t" in params  # [E, in, out]; else [E, out, in]
 
     def mm(a, key, ex, out_dtype):
@@ -428,10 +446,13 @@ def _moe_float_plain(xf: torch.Tensor, params: dict, cfg: ModelConfig,
         return torch.matmul(a.to(torch.float32), w.to(torch.float32)).to(out_dtype)
 
     K = cfg.n_experts_per_token
-    ef = e.reshape(-1).long()
+    ef = e.reshape(-1).long() - (lo or 0)
+    n_local = params["experts.w1" + ("_t" if ragged else "")].shape[0]
     xs = xf.repeat_interleave(K, dim=0)
     y = torch.zeros((ef.numel(), xf.shape[1]), dtype=torch.float32, device=xf.device)
     for ex in torch.unique(ef).tolist():
+        if not 0 <= ex < n_local:  # another rank's expert: the row stays 0
+            continue
         idx = (ef == ex).nonzero()[:, 0]
         xi = xs[idx]
         h = activation(mm(xi, "experts.w1", ex, xi.dtype), cfg.activation) \

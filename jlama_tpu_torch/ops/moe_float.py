@@ -21,6 +21,12 @@ graph. `scripts/probe_grouped_mm.py` is the check that chose it on the card
 - scattered back to selection order ([R, D] f32; the caller weights and sums
   the k).
 
+Under expert parallelism (`lo`) the stacks hold E_local of the model's
+experts from `lo` on and the ids are the model's: the grouping puts the
+foreign selections in no group (`moe_groups(e, E_local, lo)`), so the grouped
+products read no weight for them, and their rows are set to exactly 0 by a
+mask on the device (no host sync).
+
 `grouped_mm` is the one library call; on a CPU tensor it runs
 `grouped_mm_plain` (per-group f32 products of the bf16 values, rounded to
 bf16), so on the CPU `moe_float_experts` is the plain model of
@@ -74,13 +80,14 @@ def stack_in_out(w: torch.Tensor, transposed: bool) -> torch.Tensor:
 
 
 def moe_float_experts(xf: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
-                      e: torch.Tensor, n_experts: int, act) -> torch.Tensor:
+                      e: torch.Tensor, n_experts: int, act, lo: int | None = None) -> torch.Tensor:
     """The experts' outputs of R = T·k selections, [R, D] f32 in selection
     order (see the module docstring). xf [T, D]; w1, w3 [E, D, H] and w2
     [E, H, D] as [E, in, out] (`stack_in_out`); e int [T, k]; act the gate's
-    activation."""
+    activation; lo the model's id of the stacks' first expert under expert
+    parallelism (None: whole stacks), foreign rows then 0."""
     per = e.shape[-1]
-    groups = moe_groups(e, n_experts)
+    groups = moe_groups(e, n_experts, lo or 0)
     ends = groups.offsets[1:]
     xs = moe_gather(xf.to(torch.bfloat16).contiguous(), groups, per)
     bf = torch.bfloat16
@@ -88,4 +95,9 @@ def moe_float_experts(xf: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: 
     up = grouped_mm(xs, w3.to(bf), ends)
     ys = grouped_mm(act(gate) * up, w2.to(bf), ends)
     y = torch.empty((ys.shape[0], ys.shape[1]), dtype=torch.float32, device=ys.device)
-    return y.index_copy_(0, groups.order.long(), ys.to(torch.float32))
+    y.index_copy_(0, groups.order.long(), ys.to(torch.float32))
+    if lo is None:
+        return y
+    el = e.reshape(-1, 1) - lo
+    return torch.where((el >= 0) & (el < n_experts), y, torch.zeros((), dtype=y.dtype,
+                                                                   device=y.device))

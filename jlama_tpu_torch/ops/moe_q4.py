@@ -41,7 +41,20 @@ route by R, with the threshold `decode_max_r()` owned by the C source:
   weight bf16((n − 8)·s) rounded to bf16, f32 products and sums.
 
 Neither reads anything back to the host, so a decode step stays capturable
-in a CUDA graph and a replay reads the new routing. Each counter counts the
+in a CUDA graph and a replay reads the new routing.
+
+Expert parallelism (`lo`): under tp a rank's stacks hold E_local of the
+model's experts, `lo` .. `lo` + E_local − 1 (`parallel/mesh.py`), and the ids
+stay the model's. `moe_groups(e, E_local, lo)` keys each id by id − lo: a
+selection of another rank's expert (foreign) lands in no tile, so no route
+reads a weight byte for it, and it sits in the order's tail, past
+offsets[E_local], so that the order stays a permutation of the selections.
+`moe_q4_matmul(..., lo=lo)` and `moe_q4_gate_up` then hand the kernels a
+zeroed output (a fill on the stream, no host sync), so foreign rows come out
+exactly 0, as in `moe_q4_matmul_plain(..., lo=lo)`. `lo=None` (the default)
+is a whole stack: every id in [0, E), the output not filled first.
+
+Each counter counts the
 launches of one kernel where it is launched: `moe_groups.launches` the
 grouping, `moe_gather.launches` the gather, `moe_q4_matmul.launches` the
 matmul launches of `moe_q4_matmul` and `moe_q4_gate_up` (one a call, on
@@ -66,7 +79,7 @@ from . import _build
 _C = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "moe_group": [_C, _I, _I, _C, _C, _C, _C, _C, _C],
+    "moe_group": [_C, _I, _I, _I, _C, _C, _C, _C, _C, _C],
     "moe_gather": [_C, _I, _C, _C, _I, _I, _I, _C, _C],
     "moe_q4_matmul": [_C, _I, _C, _C, _C, _C, _C, _C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I,
                       _C, _C],
@@ -86,7 +99,8 @@ DECODE_TILE_ROWS = 16  # rows of a decode tile (`kDecTileRows`)
 class MoEGroups(NamedTuple):
     """The selections grouped by expert, int32 on the ids' device:
 
-    - order [R]: selection indices, a stable sort by expert;
+    - order [R]: selection indices, a stable sort by expert, the foreign
+      selections (outside the stack's range, see the module docstring) last;
     - offsets [E + 1]: expert x owns order[offsets[x] : offsets[x + 1]];
     - tiles [⌈R / TILE_ROWS⌉ + E, 3]: the prefill route's row tiles (expert,
       first row in the order, rows), at most TILE_ROWS rows of one expert
@@ -118,10 +132,11 @@ def row_tile(r: int) -> int:
     return 8 if r <= 8 else 16 if r <= 16 else 32
 
 
-def moe_groups_plain(e: torch.Tensor, n_experts: int) -> MoEGroups:
-    ef = e.reshape(-1).long()
-    order = torch.sort(ef, stable=True).indices.to(torch.int32)
-    counts = torch.bincount(ef, minlength=n_experts)
+def moe_groups_plain(e: torch.Tensor, n_experts: int, lo: int = 0) -> MoEGroups:
+    ef = e.reshape(-1).long() - lo
+    key = torch.where((ef >= 0) & (ef < n_experts), ef, n_experts)  # n_experts: foreign
+    order = torch.sort(key, stable=True).indices.to(torch.int32)
+    counts = torch.bincount(key, minlength=n_experts + 1)[:n_experts]
     offsets = torch.zeros(n_experts + 1, dtype=torch.int64, device=e.device)
     offsets[1:] = torch.cumsum(counts, 0)
     lists, n = [], []
@@ -137,11 +152,14 @@ def moe_groups_plain(e: torch.Tensor, n_experts: int) -> MoEGroups:
                      torch.tensor(n, dtype=torch.int32, device=e.device))
 
 
-def moe_groups(e: torch.Tensor, n_experts: int) -> MoEGroups:
+def moe_groups(e: torch.Tensor, n_experts: int, lo: int = 0) -> MoEGroups:
     """The grouping of the expert ids e (any shape, flattened in selection
-    order): on the card one launch of `moe_group_kernel`, with no host sync."""
+    order) over a stack of `n_experts` experts, the model's `lo` onward: on
+    the card one launch of `moe_group_kernel`, with no host sync."""
+    if lo < 0:
+        raise ValueError(f"moe_groups: lo {lo} < 0")
     if e.device.type == "cpu":
-        return moe_groups_plain(e, n_experts)
+        return moe_groups_plain(e, n_experts, lo)
     if e.device.type != "cuda":
         raise ValueError(f"moe_groups: unsupported device {e.device}")
     ef = e.reshape(-1).to(torch.int32).contiguous()
@@ -153,7 +171,7 @@ def moe_groups(e: torch.Tensor, n_experts: int) -> MoEGroups:
     order, offsets, tiles, dtiles, counts = torch.split(
         buf, [r, n_experts + 1, 3 * mt, 3 * md, 2])
     lib = _build.load("moe_q4", _SIGNATURES)
-    err = lib.moe_group(ef.data_ptr(), r, n_experts, order.data_ptr(), offsets.data_ptr(),
+    err = lib.moe_group(ef.data_ptr(), r, n_experts, lo, order.data_ptr(), offsets.data_ptr(),
                         tiles.data_ptr(), dtiles.data_ptr(), counts.data_ptr(),
                         torch.cuda.current_stream(e.device).cuda_stream)
     _build.check(err, "moe_group")
@@ -201,41 +219,46 @@ def _shapes(x: torch.Tensor, w: QArray, e: torch.Tensor):
     return per, x.shape[0] * per, n_exp, n, k, out_shape
 
 
-def _grouped_plain(x, w, e, out_dtype, dequant):
+def _grouped_plain(x, w, e, out_dtype, dequant, lo=None):
     """One f32 matmul per expert group of `dequant(w[ex])` (host-side
-    grouping: ids are read back)."""
-    per, r, _, n, k, out_shape = _shapes(x, w, e)
-    ef = e.reshape(-1).long()
+    grouping: ids are read back); with `lo`, ids are the model's and rows of
+    experts outside the stack stay 0."""
+    per, r, n_exp, n, k, out_shape = _shapes(x, w, e)
+    ef = e.reshape(-1).long() - (lo or 0)
     xr = x.to(torch.float32).repeat_interleave(per, dim=0) if per > 1 else x.to(torch.float32)
     y = torch.zeros((r, n), dtype=torch.float32, device=x.device)
     for ex in torch.unique(ef).tolist():
+        if not 0 <= ex < n_exp:  # foreign (with lo): no weight read, the row stays 0
+            continue
         idx = (ef == ex).nonzero()[:, 0]
         y[idx] = torch.matmul(xr[idx], dequant(w.data[ex], w.scales[ex]).t())
     return y.to(out_dtype).reshape(out_shape)
 
 
 def moe_q4_matmul_plain(x: torch.Tensor, w: QArray, e: torch.Tensor,
-                        out_dtype=None) -> torch.Tensor:
+                        out_dtype=None, lo: int | None = None) -> torch.Tensor:
     """y[r] = x[row of r] @ deq(w[e[r]]).T in f32, cast to out_dtype: the
     weights of each chosen expert dequantized to f32 once, one f32 matmul per
     expert group (host-side grouping: ids are read back). The decode route's
-    function, and the CPU path at every R."""
-    return _grouped_plain(x, w, e, out_dtype or x.dtype, blockq.q4_dequantize)
+    function, and the CPU path at every R. lo: the model's id of the stack's
+    first expert; a selection outside the stack's range gives a row of 0."""
+    return _grouped_plain(x, w, e, out_dtype or x.dtype, blockq.q4_dequantize, lo)
 
 
 def moe_q4_matmul_tiled_plain(x: torch.Tensor, w: QArray, e: torch.Tensor,
-                              out_dtype=None) -> torch.Tensor:
+                              out_dtype=None, lo: int | None = None) -> torch.Tensor:
     """The prefill route's numerics in plain PyTorch, `_moe_ragged`'s
     function: x rounded to bf16, each weight bf16((n − 8) · s) with the
     product in f32, f32 products and sums (one f32 matmul per expert group),
-    then out_dtype. Nothing on a serving path calls it."""
+    then out_dtype; `lo` as in `moe_q4_matmul_plain`. Nothing on a serving
+    path calls it."""
     out_dtype = out_dtype or x.dtype
     xb = x.to(torch.bfloat16)
 
     def deq(data, scales):
         return blockq.q4_dequantize(data, scales).to(torch.bfloat16).to(torch.float32)
 
-    return _grouped_plain(xb, w, e, out_dtype, deq)
+    return _grouped_plain(xb, w, e, out_dtype, deq, lo)
 
 
 def _check_card(x: torch.Tensor, w: QArray, e: torch.Tensor, out_dtype):
@@ -269,8 +292,8 @@ def _check_card(x: torch.Tensor, w: QArray, e: torch.Tensor, out_dtype):
 def moe_gather(x: torch.Tensor, groups: MoEGroups, per: int) -> torch.Tensor:
     """The prefill route's copy of x [rows, K] in the grouping's order:
     row i is x[order[i] // per] (the JAX package's `jnp.repeat(xf, k)[order]`),
-    for the rows i < offsets[E] that hold a selection (a selection with an id
-    outside [0, E) has none: on the card the rows past offsets[E] are left
+    for the rows i < offsets[E] that hold a selection of the stack (the
+    foreign tail past offsets[E]: on the card those rows are left
     unwritten). On the card one launch of `moe_gather_kernel` (bf16 x), with
     offsets[E] read on the device; on the CPU plain indexing of every row."""
     r = groups.order.numel()
@@ -296,10 +319,11 @@ def moe_gather(x: torch.Tensor, groups: MoEGroups, per: int) -> torch.Tensor:
 moe_gather.launches = 0
 
 
-def _launch(x, w, e, out_dtype, groups, w_up=None, route=None):
+def _launch(x, w, e, out_dtype, groups, w_up=None, route=None, lo=None):
     """One call of the C entry `moe_q4_matmul` (uncounted: its caller counts
     it), after the prefill route's `moe_gather`: y for w, and for w_up when
-    given. route None: by R."""
+    given. route None: by R. lo: the stack's range (module docstring); the
+    outputs are then zeroed first, so that foreign rows come out 0."""
     if x.dtype == torch.float32:  # the kernels take bf16 x (module docstring)
         x = x.to(torch.bfloat16)
     per, r, n_exp, n, k, out_shape = _check_card(x, w, e, out_dtype)
@@ -308,12 +332,13 @@ def _launch(x, w, e, out_dtype, groups, w_up=None, route=None):
             raise ValueError(f"moe_q4_gate_up: the stacks' shapes differ: {tuple(w.shape)} "
                              f"and {tuple(w_up.shape)}")
         _check_card(x, w_up, e, out_dtype)
-    ys = [torch.empty((r, n), dtype=out_dtype, device=x.device)
+    alloc = torch.empty if lo is None else torch.zeros
+    ys = [alloc((r, n), dtype=out_dtype, device=x.device)
           for _ in range(1 if w_up is None else 2)]
     if r == 0:
         return [y.reshape(out_shape) for y in ys]
     if groups is None:
-        groups = moe_groups(e, n_exp)
+        groups = moe_groups(e, n_exp, lo or 0)
     if groups.order.numel() != r or groups.offsets.numel() != n_exp + 1 \
             or groups.tiles.shape[0] != max_tiles(r, n_exp) \
             or groups.dtiles.shape[0] != max_tiles(r, n_exp, DECODE_TILE_ROWS):
@@ -340,16 +365,18 @@ def _launch(x, w, e, out_dtype, groups, w_up=None, route=None):
 
 
 def moe_q4_matmul(x: torch.Tensor, w: QArray, e: torch.Tensor, out_dtype=None,
-                  groups: MoEGroups | None = None) -> torch.Tensor:
+                  groups: MoEGroups | None = None, lo: int | None = None) -> torch.Tensor:
     """y = x · deq(w[e])ᵀ per selection (see the module docstring). groups:
-    `moe_groups(e, E)` when the caller has them already (a MoE layer groups
-    once for its projections); else this call groups first."""
+    `moe_groups(e, E, lo)` when the caller has them already (a MoE layer
+    groups once for its projections); else this call groups first. lo: the
+    model's id of the stack's first expert under expert parallelism (None: a
+    whole stack)."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
-        return moe_q4_matmul_plain(x, w, e, out_dtype)
+        return moe_q4_matmul_plain(x, w, e, out_dtype, lo)
     if x.device.type != "cuda":
         raise ValueError(f"moe_q4_matmul: unsupported device {x.device}")
-    (y,) = _launch(x, w, e, out_dtype, groups)
+    (y,) = _launch(x, w, e, out_dtype, groups, lo=lo)
     moe_q4_matmul.launches += 1
     return y
 
@@ -358,36 +385,38 @@ moe_q4_matmul.launches = 0
 
 
 def moe_q4_gate_up(x: torch.Tensor, w_gate: QArray, w_up: QArray, e: torch.Tensor,
-                   out_dtype=None, groups: MoEGroups | None = None):
+                   out_dtype=None, groups: MoEGroups | None = None, lo: int | None = None):
     """(x · deq(w_gate[e])ᵀ, x · deq(w_up[e])ᵀ) per selection: the gate and
     up projections of a MoE layer (stacks of one shape) over the same x rows
     and grouping, in one K6 launch on the card (counted on
-    `moe_q4_matmul.launches`); two `moe_q4_matmul_plain` calls on the CPU."""
+    `moe_q4_matmul.launches`); two `moe_q4_matmul_plain` calls on the CPU.
+    lo as in `moe_q4_matmul`."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
-        return moe_q4_matmul_plain(x, w_gate, e, out_dtype), \
-            moe_q4_matmul_plain(x, w_up, e, out_dtype)
+        return moe_q4_matmul_plain(x, w_gate, e, out_dtype, lo), \
+            moe_q4_matmul_plain(x, w_up, e, out_dtype, lo)
     if x.device.type != "cuda":
         raise ValueError(f"moe_q4_gate_up: unsupported device {x.device}")
-    gate, up = _launch(x, w_gate, e, out_dtype, groups, w_up=w_up)
+    gate, up = _launch(x, w_gate, e, out_dtype, groups, w_up=w_up, lo=lo)
     moe_q4_matmul.launches += 1
     return gate, up
 
 
 def moe_q4_compare(x: torch.Tensor, w: QArray, e: torch.Tensor, out_dtype=None,
                    groups: MoEGroups | None = None, variant: str = "grid",
-                   w_up: QArray | None = None):
+                   w_up: QArray | None = None, lo: int | None = None):
     """The source's other kernels, for timing beside the main path (card
     only; no model path calls this): "grid" the grid kernel
     `moe_q4_mma_kernel` (one launch a weight stack); "decode" or "prefill"
     that route at any R (the prefill route's gather counted on
     `moe_gather.launches`). Returns y, or (gate, up) with w_up. Counts on
-    `moe_q4_compare.launches`, one a matmul launch."""
+    `moe_q4_compare.launches`, one a matmul launch. lo (the decode and
+    prefill variants) as in `moe_q4_matmul`."""
     out_dtype = out_dtype or x.dtype
     if x.device.type != "cuda":
         raise ValueError(f"moe_q4_compare: unsupported device {x.device}")
     if variant in _ROUTES:
-        ys = _launch(x, w, e, out_dtype, groups, w_up=w_up, route=variant)
+        ys = _launch(x, w, e, out_dtype, groups, w_up=w_up, route=variant, lo=lo)
         moe_q4_compare.launches += 1
         return ys[0] if w_up is None else tuple(ys)
     if variant != "grid":

@@ -1,12 +1,18 @@
-"""Joining a tp group over `torch.distributed` (counterpart of
+"""Joining a dp × tp mesh over `torch.distributed` (counterpart of
 `jlama_tpu/parallel/distributed.py:initialize_cluster`).
 
-One process per rank. `init_tp_group` builds the rendezvous store itself (a
+One process per rank, a world of dp × tp ranks: rank r is tp rank r % tp of
+dp group r // tp. `init_mesh_group` builds the rendezvous store itself (a
 `FileStore` at a path every rank can read, or a `TCPStore` from
 `tcp://host:port`, rank 0 its server), checks the devices against the
 backend through that store, then calls `init_process_group` with the
-backend, the store, the world size and the rank all explicit, and returns
-the rank's `TPGroup`.
+backend, the store, the world size and the rank all explicit. Where dp > 1
+it then makes each dp group's tp subgroup (`new_group`, the same backend;
+at dp = 1 the tp group is the world) and the group of the dp groups' first
+tp ranks, which carries each group's sampled ids to the leader (gloo: the
+ids go through the host), and returns the rank's `parallel.mesh.Mesh`: its
+`TPGroup`, its dp index and that group. `init_tp_group` is the dp = 1
+case.
 
 The backend follows the rank's device: NCCL on CUDA, gloo on the CPU. The
 caller may name gloo on CUDA, which is how two ranks share one GPU (NCCL
@@ -74,8 +80,26 @@ def init_tp_group(world_size: int, rank: int, *, device=None, backend: str | Non
     """Join the tp group of `world_size` ranks as `rank`; returns its
     TPGroup (its `store` is the rendezvous store, which the step channel's
     port goes through)."""
+    return init_mesh_group(1, world_size, rank, device=device, backend=backend,
+                           store_path=store_path, init_method=init_method,
+                           local_rank=local_rank, timeout_s=timeout_s).group
+
+
+def init_mesh_group(dp: int, tp: int, rank: int, *, device=None, backend: str | None = None,
+                    store_path: str | None = None, init_method: str | None = None,
+                    local_rank: int | None = None, timeout_s: float = 300.0):
+    """Join the dp × tp world as global `rank`; returns the rank's
+    `parallel.mesh.Mesh` (module docstring). Its `group.store` is the
+    rendezvous store, which the step channel's port goes through."""
     import torch.distributed as dist
 
+    from .mesh import Mesh
+
+    if dp < 1 or tp < 1:
+        raise ValueError(f"mesh dp={dp}, tp={tp}: each must be at least 1")
+    world_size = dp * tp
+    if not 0 <= rank < world_size:
+        raise ValueError(f"rank {rank} is outside the world of dp*tp={world_size} ranks")
     dev = rank_device(rank, device, local_rank)
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if backend == "nccl" and dev.type != "cuda":
@@ -90,9 +114,22 @@ def init_tp_group(world_size: int, rank: int, *, device=None, backend: str | Non
         check_nccl_devices(devices, torch.cuda.device_count())
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+    timeout = datetime.timedelta(seconds=timeout_s)
     dist.init_process_group(backend, store=store, rank=rank, world_size=world_size,
-                            timeout=datetime.timedelta(seconds=timeout_s))
-    return TPGroup(rank, world_size, None, backend, dev, store)
+                            timeout=timeout)
+    g, tp_rank = divmod(rank, tp)
+    if dp == 1:
+        return Mesh(1, 1, tp, TPGroup(rank, tp, None, backend, dev, store))
+    # every rank enters every new_group, in the same order
+    tp_pg = None
+    for d in range(dp):
+        pg = dist.new_group(list(range(d * tp, (d + 1) * tp)), timeout=timeout, backend=backend)
+        if d == g:
+            tp_pg = pg
+    rows_pg = dist.new_group([d * tp for d in range(dp)], timeout=timeout, backend="gloo")
+    rows = (TPGroup(g, dp, rows_pg, "gloo", torch.device("cpu"), store) if tp_rank == 0
+            else None)
+    return Mesh(dp, 1, tp, TPGroup(tp_rank, tp, tp_pg, backend, dev, store), g, rows)
 
 
 def shutdown() -> None:

@@ -7,9 +7,12 @@ A mesh has the JAX package's three axes:
   pp — pipeline parallel (the layers)
   tp — tensor parallel (heads and the FFN hidden size)
 
-The torch idiom is one process per GPU, so a mesh here is its shape and, for
-tp, this rank's `TPGroup` (`parallel/tp_forward.py`); only dp = pp = 1 is
-served (ROADMAP queue 1 item 3 holds the rest).
+The torch idiom is one process per GPU, so a mesh here is its shape, this
+rank's tp `TPGroup` (`parallel/tp_forward.py`), its dp index and, on the
+first tp rank of each dp group, the group that carries the dp groups'
+sampled ids to the leader (`parallel/distributed.py::init_mesh_group`). A
+world of dp × tp ranks: rank r is tp rank r % tp of dp group r // tp. pp = 1
+only (the pp ring is ROADMAP queue 1 item 3).
 
 `shard_params(params, cfg, tp, rank)` is the counterpart of `param_pspecs`
 and `shard_params`: it slices a full, fused tree into rank `rank`'s tree,
@@ -24,6 +27,10 @@ by the JAX package's rules (`_LAYER_RULES` and `fit`):
   their biases are replicated;
 - vocabulary rows: the embedding and the lm_head, where tp divides the
   vocabulary (else replicated, as `fit` degrades a spec);
+- expert stacks (`experts.w1/w2/w3`, and `experts.w*_t` after
+  `prepare_moe_ragged`): expert parallelism, axis 0 cut into rank i's E/tp
+  experts, i·E/tp onward (a q4 stack's data and scales together); the
+  router stays replicated, so every rank routes over the model's experts;
 - norms and every other leaf: replicated.
 
 Each rank holds a contiguous JQ4 slice that K1 reads as it reads a whole
@@ -43,12 +50,17 @@ from ..nn.qarray import QArray
 
 
 class Mesh(NamedTuple):
-    """A mesh's shape and this rank's tp group (None at tp = 1)."""
+    """A mesh's shape and this rank's place in it: its tp group (None where
+    tp = dp = 1), its dp index, and `rows`, the group of the dp groups' first
+    tp ranks that carries the sampled ids to the leader (None where dp = 1
+    and on the other tp ranks)."""
 
     dp: int = 1
     pp: int = 1
     tp: int = 1
     group: object | None = None
+    dp_index: int = 0
+    rows: object | None = None
 
     @property
     def shape(self) -> dict:
@@ -57,10 +69,10 @@ class Mesh(NamedTuple):
 
 def make_mesh(n_devices: int | None = None, dp: int = 1, pp: int = 1,
               tp: int | None = None, group=None) -> Mesh:
-    """The mesh (dp, pp, tp) over `n_devices` (default: the group's size);
-    tp defaults to what dp and pp leave."""
+    """The mesh (dp, pp, tp) over `n_devices` (default: dp·pp times the
+    group's size); tp defaults to what dp and pp leave."""
     if n_devices is None:
-        n_devices = group.size if group is not None else dp * pp * (tp or 1)
+        n_devices = dp * pp * (group.size if group is not None else (tp or 1))
     if tp is None:
         tp = n_devices // (dp * pp)
     if dp * pp * tp != n_devices:
@@ -138,6 +150,9 @@ def plan_mesh(cfg: ModelConfig, n_devices: int, weight_bytes: int | None = None,
 COLUMN_PARALLEL = ("wqkv", "w13", "wq", "wk", "wv", "w1", "w3")
 ROW_PARALLEL = ("wo", "w2")
 SPLIT_BIASES = tuple(k + ".bias" for k in COLUMN_PARALLEL)
+# expert stacks [E, ...], cut on axis 0 over tp (the JAX package's experts.*
+# rule, P("tp", ...)); the router [E, D] stays replicated
+EXPERT_STACKS = tuple(f"experts.{w}{t}" for w in ("w1", "w2", "w3") for t in ("", "_t"))
 
 
 def vocab_sharded(leaf, tp: int) -> bool:
@@ -177,20 +192,35 @@ def _cols(w, tp, rank, what):
     return _block(w, -1, tp, rank, what)
 
 
+def _experts(w, tp, rank, what):
+    if w.shape[0] % tp:
+        raise ValueError(f"{what}: {w.shape[0]} experts do not divide over tp={tp} (expert "
+                         "parallelism needs n_experts % tp == 0: the JAX package's "
+                         "can_shard_map is false there and the port has no GSPMD)")
+    if isinstance(w, QArray):
+        if w.fmt != "q4":
+            raise ValueError(f"{what}: expert parallelism shards q4 and float stacks, "
+                             f"not {w.fmt}")
+        return QArray(_block(w.data, 0, tp, rank, what), _block(w.scales, 0, tp, rank, what),
+                      w.fmt)
+    return _block(w, 0, tp, rank, what)
+
+
 def shard_layer(d: dict, tp: int, rank: int, where: str = "layer") -> dict:
     out = {}
     for k, v in d.items():
         what = f"{where}.{k}"
-        if k.startswith("experts.") or k == "router":
-            raise NotImplementedError(f"{what}: expert parallelism (MoE under tp) is not "
-                                      "ported yet (ROADMAP queue 1 item 3)")
-        if k in COLUMN_PARALLEL:
+        if k in EXPERT_STACKS:
+            out[k] = _experts(v, tp, rank, what)
+        elif k.startswith("experts."):
+            raise ValueError(f"{what}: no shard rule for this expert leaf")
+        elif k in COLUMN_PARALLEL:
             out[k] = _rows(v, tp, rank, what)
         elif k in ROW_PARALLEL:
             out[k] = _cols(v, tp, rank, what)
         elif k in SPLIT_BIASES:
             out[k] = _block(v, -1, tp, rank, what)
-        else:  # norms, row-parallel biases
+        else:  # norms, row-parallel biases, the router
             out[k] = v
     return out
 

@@ -189,43 +189,52 @@ def gather_vocab_logits(logits: torch.Tensor, group) -> torch.Tensor:
     return group.all_gather(logits, dim=logits.ndim - 1)
 
 
-# the architectures tp serves (the JAX package's shard table also names mixtral)
-TP_ARCHS = ("llama", "mistral", "qwen2", "granite", "gemma", "gemma2")
+# the architectures tp serves (the JAX package's shard table)
+TP_ARCHS = ("llama", "mistral", "qwen2", "granite", "gemma", "gemma2", "mixtral")
 
 
-def check_tp(cfg: ModelConfig, mesh, quantized: bool = False) -> None:
+def check_tp(cfg: ModelConfig, mesh, quantized: bool = False, n_slots: int | None = None,
+             n_pages: int | None = None) -> None:
     """Raise, naming the condition, where the JAX package's `can_shard_map`
-    is false and its scheduler would fall back to GSPMD (the port has no
-    GSPMD: a tp request never runs unsharded). Also raises for what the port
-    does not shard yet: dp > 1, pp > 1, MoE, GPT-2 and BERT (ROADMAP queue 1
-    item 3)."""
+    (`jlama_tpu/parallel/tp_forward.py:121-156`) is false and its scheduler
+    would fall back to GSPMD (the port has no GSPMD: a mesh request never
+    runs unsharded): dp must divide the slots and the pages, tp the heads
+    (and the experts of a MoE model, which expert parallelism cuts over tp).
+    Also raises for what the port does not shard yet: pp > 1, GPT-2 and
+    BERT under tp (ROADMAP queue 1 item 3). At tp = 1 the weights are whole
+    on every rank, and a dp mesh serves what one device serves."""
     tp, dp, pp = mesh.tp, mesh.dp, mesh.pp
     if pp != 1:
         raise NotImplementedError(f"mesh pp={pp}: the pp ring and the pipelined scheduler "
                                   "are not ported yet (ROADMAP queue 1 item 3)")
-    if dp != 1:
-        raise NotImplementedError(f"mesh dp={dp}: data-parallel page groups are not ported "
-                                  "yet (ROADMAP queue 1 item 3)")
+    if dp > 1:
+        if n_slots is not None and n_slots % dp:
+            raise ValueError(f"dp={dp} does not divide n_slots={n_slots} (each dp group "
+                             "owns n_slots/dp slots)")
+        if n_pages is not None and n_pages % dp:
+            raise ValueError(f"dp={dp} does not divide n_pages={n_pages} (each dp group "
+                             "owns n_pages/dp pages of the pool)")
     if tp == 1:
         return
-    if cfg.n_experts:
-        raise NotImplementedError("MoE under tp (expert parallelism) is not ported yet "
-                                  "(ROADMAP queue 1 item 3)")
     if cfg.model_type not in TP_ARCHS:
         raise NotImplementedError(f"tp for {cfg.model_type} is not ported yet (ROADMAP queue "
                                   f"1 item 3): tp serves {', '.join(TP_ARCHS)}")
     if cfg.n_heads % tp or cfg.n_kv_heads % tp:
         raise ValueError(f"tp={tp} does not divide the heads (n_heads={cfg.n_heads}, "
                          f"n_kv_heads={cfg.n_kv_heads})")
-    if cfg.hidden_length % tp:
+    if cfg.n_experts and cfg.n_experts % tp:
+        raise ValueError(f"tp={tp} does not divide n_experts={cfg.n_experts} (expert "
+                         "parallelism gives each rank n_experts/tp experts)")
+    if not cfg.n_experts and cfg.hidden_length % tp:
         raise ValueError(f"tp={tp} does not divide hidden_length={cfg.hidden_length}")
     if quantized:
         # wo's input (n_heads*hd/tp) and w2's (hidden/tp) split the packed
         # payload and the block-32 scales: each slice must hold whole blocks
+        # (a MoE layer's experts split on the expert axis, not on hidden)
         if ((cfg.n_heads // tp) * cfg.head_size) % 32:
             raise ValueError(f"tp={tp}: wo's input slice {(cfg.n_heads // tp) * cfg.head_size}"
                              " is no multiple of the q4 block (32)")
-        if (cfg.hidden_length // tp) % 32:
+        if not cfg.n_experts and (cfg.hidden_length // tp) % 32:
             raise ValueError(f"tp={tp}: w2's input slice {cfg.hidden_length // tp} is no "
                              "multiple of the q4 block (32)")
 

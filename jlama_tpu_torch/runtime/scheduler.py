@@ -51,7 +51,7 @@ shares the scheduler's fused tree, `Engine(sched.params, sched.cfg,
 tokenizer, device=sched.device, fuse=False, moe_ragged=False)`, so that the
 layer weights are held once.
 
-Tensor parallelism (`mesh` with tp > 1, dp = pp = 1): one process per rank,
+Tensor parallelism (`mesh` with tp > 1, pp = 1): one process per rank,
 each holding its slice of the fused tree (`parallel/mesh.py::shard_params`)
 and n_kv/tp heads of the KV pool, its forward under a tp context
 (`parallel/tp_forward.py`: an all-reduce after wo and w2, the
@@ -63,11 +63,29 @@ ping, stop, at the JAX leader's points), and the other ranks replay them in
 `run_follower`. A chained window (decode_chain) carries no tokens: every rank
 samples its own from the same gathered logits with the same seeds and
 counters, so all ranks feed back the same ids. A disk suspend writes one
-file per rank, `{to_dir}/{sid}.kv.p{rank}.npz` (the JAX package's
+file per rank, `{to_dir}/{sid}.kv.p{global rank}.npz` (the JAX package's
 multi-process layout). The steps run eagerly under tp (gloo's collectives
 cannot be captured in a CUDA graph; `graphs.stats()["eager_reason"]` says
-so). Not ported yet (ROADMAP queue 1 item 3): dp page groups, pp, tp for
-q4s, MoE and the embeddings `Engine`.
+so). MoE under tp is expert parallelism: each rank holds E/tp experts of
+every layer (`nn/layers.py::moe_block`).
+
+Data parallelism (`mesh` with dp > 1; `jlama_tpu/runtime/scheduler.py:
+151-184, 475-550, 780-818, 869-916, 1017-1050, 1186`): a world of dp × tp
+ranks, rank r tp rank r % tp of dp group r // tp. Group g owns the slots g ·
+n_slots/dp onward and the page range g · n_pages/dp onward
+(`kv/paged.py`: the allocator's groups; a rank's pool holds its range
+only). The leader (global rank 0) keeps the one host scheduler: a session is
+pinned to its group (admission takes a free slot of that group, a
+suspended session remembers it), eviction looks only in the group that
+needs pages, and prefill rows are laid out in dp blocks, each padded to the
+same power of two. Every rank replays the published step on its group's
+rows and page range only; the first tp rank of each group then sends its
+rows' sampled ids to the leader (`mesh.rows`, one all-gather in dp order,
+which is slot order). A suspend gathers the pages on the session's group
+only, and a disk suspend writes that group's files. At tp = 1 a rank's
+forward holds no collective, so its decode steps and prefills stay CUDA
+graphs, the id gather outside them. Not ported yet (ROADMAP queue 1 item
+3): pp, tp for q4s and the embeddings `Engine`.
 """
 
 from __future__ import annotations
@@ -213,10 +231,12 @@ class BatchScheduler:
         mesh: a `parallel.mesh.Mesh`; tp > 1 takes this rank's `TPGroup`
         (`mesh.group`), and the params are the full tree, which each rank
         fuses (interleaved per rank), slices and moves to its device (the
-        group's unless `device` is named). step_channel: rank 0's publishing
-        end or a follower's receiving end (`runtime/coordination.py`).
-        dp > 1, pp > 1, q4s and MoE under tp raise, as do heads that tp
-        does not divide: nothing runs unsharded in their place.
+        group's unless `device` is named); dp > 1 takes its dp index and, on
+        a group's first tp rank, `mesh.rows` (module docstring).
+        step_channel: rank 0's publishing end or a follower's receiving end
+        (`runtime/coordination.py`). pp > 1 and q4s under tp raise, as do
+        heads or experts that tp does not divide and slots or pages that dp
+        does not: nothing runs unsharded in their place.
 
         weight_format: None keeps the weights as they are. "q4s" re-quantizes
         the 2-D q4 weights to the W4A8 format after fusing (q4s rows are never
@@ -235,10 +255,11 @@ class BatchScheduler:
         if weight_format not in (None, "q4s"):
             raise ValueError(f"weight_format {weight_format!r}: expected None or 'q4s' "
                              "(q4 weights need no repack: pass None)")
-        tp = 1
+        tp = dp = 1
         if mesh is not None:
-            check_tp(cfg, mesh, quantized=_has_qleaves(params))
-            tp = mesh.tp
+            check_tp(cfg, mesh, quantized=_has_qleaves(params), n_slots=n_slots,
+                     n_pages=n_pages)
+            tp, dp = mesh.tp, mesh.dp
         if tp > 1:
             if weight_format == "q4s":
                 raise NotImplementedError("weight_format='q4s' under tp is not ported yet "
@@ -250,15 +271,22 @@ class BatchScheduler:
                                  "are not ported yet (ROADMAP queue 1 item 3)")
             if mesh.group is None:
                 raise ValueError(f"mesh tp={tp} needs this rank's TPGroup (mesh.group)")
-        if step_channel is not None and tp == 1:
-            raise ValueError("a step_channel needs a mesh with tp > 1 (multi-process serving "
-                             "is tensor-parallel serving)")
+        if step_channel is not None and tp * dp == 1:
+            raise ValueError("a step_channel needs a mesh of more than one rank (dp * tp > 1): "
+                             "multi-process serving is tensor- or data-parallel serving")
         self._chan = step_channel
-        self._is_leader = tp == 1 or mesh.group.rank == 0
+        tp_rank = mesh.group.rank if tp > 1 else 0
+        self._dp, self._g = dp, mesh.dp_index if mesh is not None else 0
+        self._spg = n_slots // dp  # slots of a dp group: this rank's rows
+        self._rows = mesh.rows if dp > 1 else None  # the ids' way to the leader
+        self._world, self._grank = dp * tp, self._g * tp + tp_rank  # global rank
+        self._is_leader = self._grank == 0
         self._tp: TPCtx | None = None
         self.fwd_cfg = cfg  # the forward's view: a rank's heads under tp
+        if tp * dp > 1 and device is None and mesh.group is not None:
+            device = mesh.group.device
         if tp > 1:
-            self.device = resolve_device(device if device is not None else mesh.group.device)
+            self.device = resolve_device(device)
             if fuse:
                 params = fuse_params(params, tp)
             embed_sh, lm_sh = vocab_flags(params, tp)
@@ -286,6 +314,7 @@ class BatchScheduler:
         self.kv = PagedKVCache(
             self.fwd_cfg, n_pages=n_pages, page_size=page_size,
             max_pages_per_seq=-(-max_seq // page_size), dtype=kv_dtype, device=self.device,
+            groups=dp, group=self._g if dp > 1 else None,
         )
         self._layers = self.kv.layer_states()  # per-layer views of the pools
         self.inv_freq = rope_inv_freq(cfg, self.device)
@@ -295,7 +324,9 @@ class BatchScheduler:
         # pages stay allocated under the session's kv key between requests;
         # insertion order == LRU order (entries re-inserted on use)
         self.session_state: dict[str, tuple[int, int | None]] = {}
-        self._suspended: dict[str, tuple] = {}
+        self._suspended: dict[str, tuple] = {}  # session -> (payload, state)
+        # session -> (its dp group, its page count), kept beside a suspend
+        self._suspended_at: dict[str, tuple[int, int]] = {}
         self.max_sessions = max_sessions
         self.prefill_chunk = prefill_chunk
         # double-buffered decode windows: the undrained window's host token
@@ -305,8 +336,9 @@ class BatchScheduler:
         self._release_q: list[str] = []
         # the static variants of the chain's steps (set by each host-fed window)
         self._chain_tail: dict | None = None
-        # one set of static step inputs, read by every decode graph
-        self._in = DecodeInputs(n_slots, self.device, pages=self.kv.max_pages_per_seq)
+        # one set of static step inputs, read by every decode graph (this
+        # rank's rows: its dp group's slots)
+        self._in = DecodeInputs(self._spg, self.device, pages=self.kv.max_pages_per_seq)
         eager = None
         if tp > 1:
             eager = ("tp: gloo's collectives cannot be captured in a CUDA graph (graphs "
@@ -319,9 +351,9 @@ class BatchScheduler:
         self._rng = np.random.default_rng(seed)
         # per-slot generated-token counts for presence/frequency penalties,
         # on the device, scatter-updated inside the decode step
-        self.counts = torch.zeros((n_slots, cfg.vocab_size), dtype=torch.int32,
+        self.counts = torch.zeros((self._spg, cfg.vocab_size), dtype=torch.int32,
                                   device=self.device)
-        self._slot_idx = torch.arange(n_slots, device=self.device)
+        self._slot_idx = torch.arange(self._spg, device=self.device)
         self._lock = threading.RLock()
         self._running = False
         self._thread: threading.Thread | None = None
@@ -354,8 +386,8 @@ class BatchScheduler:
         # device calls issued, read against the kernels' launch counters
         self.n_prefill_calls = 0
         self.n_decode_steps = 0
-        # every decode step's sampled ids [B] as host arrays, when a list
-        # (the check that each rank fed back the leader's ids)
+        # every decode step's sampled ids of this rank's rows as host arrays,
+        # when a list (the check that each rank fed back the leader's ids)
         self.sampled_log: list | None = None
         self.embed_engine = None  # an Engine over self.params for embeddings
 
@@ -380,13 +412,35 @@ class BatchScheduler:
             ev.synchronize()
         return host.numpy()
 
+    def _local(self, a):
+        """This rank's block of a per-row host array (its dp group's rows:
+        block g of dp equal blocks); the array itself at dp = 1."""
+        if self._dp == 1:
+            return a
+        n = len(a) // self._dp
+        return a[self._g * n:(self._g + 1) * n]
+
+    def _gather_ids(self, toks: torch.Tensor):
+        """dp: the ids of every group's rows on the leader, as a window item.
+        The first tp rank of each group sends its rows' ids over `mesh.rows`
+        (one all-gather in dp order: slot order); the other tp ranks send
+        nothing (their group's first rank holds the same ids) and get None."""
+        if self._rows is None:
+            if self._is_leader:
+                raise RuntimeError("dp > 1 needs mesh.rows on the leader (the group that "
+                                   "carries each dp group's sampled ids to it)")
+            return None
+        return self._rows.all_gather(toks.to("cpu", torch.int32), dim=0), None
+
     def _call_prefill(self, toks, pos, pt, win: int) -> None:
         """One prefill call over [rows, T] host tokens, positions and page
-        tables [rows, P]: on the card one graph per (rows, T, window), from
-        that key's static inputs."""
+        tables [rows, P] (under dp: dp blocks of rows, this rank running its
+        group's block against its page range): on the card one graph per
+        (rows, T, window), from that key's static inputs."""
         if self._chan is not None and self._is_leader:
             self._chan.publish({"op": "prefill", "toks": toks, "pos": pos, "pt": pt,
                                 "win": int(win)})
+        toks, pos, pt = self._local(toks), self._local(pos), self.kv.local_tables(self._local(pt))
         rows, T = toks.shape
         key = (rows, T, win)
         inp = self.prefill_graphs.inputs(
@@ -405,8 +459,10 @@ class BatchScheduler:
     def _counts_reset(self, slot: int) -> None:
         if self._chan is not None and self._is_leader:
             self._chan.publish({"op": "counts_reset", "slot": int(slot)})
-        with torch.inference_mode():
-            self.counts[slot].zero_()
+        row = slot - self._g * self._spg
+        if 0 <= row < self._spg:  # a slot of this rank's dp group
+            with torch.inference_mode():
+                self.counts[row].zero_()
 
     def _decode_step(self, ct: dict, win: int) -> torch.Tensor:
         """One decode step over all slots on the static inputs: forward,
@@ -449,9 +505,12 @@ class BatchScheduler:
                  "seeds": seeds, "steps": steps, "temps": temps, "top_ps": top_ps,
                  "top_ks": top_ks, "pres": pres, "freq": freq, "all_p1": all_p1,
                  "all_k0": all_k0, "use_pen": use_pen, "win": int(win), "depth": int(depth)})
-        self._in.load(tokens=tokens, positions=positions, steps=steps, seeds=seeds,
-                      temps=temps, top_ps=top_ps, top_ks=top_ks, pres=pres, freq=freq,
-                      page_tables=pts)
+        loc = self._local
+        self._in.load(tokens=loc(tokens), positions=loc(positions), steps=loc(steps),
+                      seeds=loc(seeds), temps=loc(temps), top_ps=loc(top_ps),
+                      top_ks=loc(top_ks), pres=loc(pres), freq=loc(freq),
+                      page_tables=self.kv.local_tables(loc(pts)))
+        # the variant from every row, so that all ranks run the same one
         all_greedy = not bool(np.any(np.asarray(temps) != 0.0))
         # an all-greedy step ignores top-k and top-p: one variant for them all
         self._chain_tail = {
@@ -485,12 +544,16 @@ class BatchScheduler:
                 self._chain_steps(msg["win"], msg["depth"], msg.get("pts"))
             elif op == "counts_reset":
                 self._counts_reset(msg["slot"])
-            elif op == "suspend":
-                payload = self._suspend_pages(msg["sid"], msg["idxs"], msg["dir"])
-                self._suspended[msg["sid"]] = (payload, None)
+            elif op == "suspend":  # the session's dp group's ranks hold its pages
+                group = msg.get("group", 0)
+                if group == self._g:
+                    payload = self._suspend_pages(msg["sid"], msg["idxs"], msg["dir"])
+                    self._suspended[msg["sid"]] = (payload, None)
             elif op == "resume":
-                payload = self._suspended.pop(msg["sid"])[0]
-                self._restore_pages(self._payload_leaves(msg["sid"], payload), msg["idxs"])
+                if msg.get("group", 0) == self._g:
+                    payload = self._suspended.pop(msg["sid"])[0]
+                    self._restore_pages(self._payload_leaves(msg["sid"], payload),
+                                        msg["idxs"])
             elif op == "sdrop":
                 self._suspended.pop(msg["sid"], None)
             elif op in ("ptick", "embed_hidden", "embed_pool"):
@@ -504,17 +567,19 @@ class BatchScheduler:
         inputs (each step feeds its tokens to the next in place, so a later
         window continues without a host round trip). `pts` replaces the page
         tables (a chained window may span pages allocated after they were
-        loaded)."""
+        loaded). Under dp each step's ids are gathered to the leader outside
+        the step (its graph holds no collective)."""
         ct = self._chain_tail
         key = (win, ct["all_greedy"], ct["all_k0"], ct["all_p1"], ct["use_pen"])
         with torch.inference_mode(), tp_context(self._tp):
             if pts is not None:
-                self._in.load(page_tables=pts)
+                self._in.load(page_tables=self.kv.local_tables(self._local(pts)))
             toks_windows = []
             for _ in range(depth):
                 toks = self.graphs.run(key, lambda: self._decode_step(ct, win))
                 self.n_decode_steps += 1
-                toks_windows.append(self._to_host(toks))
+                toks_windows.append(self._to_host(toks) if self._dp == 1
+                                    else self._gather_ids(toks))
                 if self.sampled_log is not None:
                     self.sampled_log.append(toks.cpu().numpy())
         return toks_windows
@@ -555,16 +620,17 @@ class BatchScheduler:
         wins = self._window_buckets(max_context or self.max_seq_len)
         decode_windows = decode_windows if decode_windows is not None else wins
         prefill_windows = prefill_windows if prefill_windows is not None else wins
-        B = self.n_slots
+        B, dp = self.n_slots, self._dp
         if prefill_rows is None:
             prefill_rows, r = [], 1
             while True:  # the powers of two _advance_prefill rounds rows up to
-                prefill_rows.append(r)
-                if r >= B:
+                prefill_rows.append(r * dp)  # dp: a block of r rows a group
+                if r >= self._spg:
                     break
                 r *= 2
         zeros = lambda *s: np.zeros(s, np.int32)  # noqa: E731
-        dec_pt = self.kv.page_table(["__empty__"] * B)
+        # dummy tables point at each row's group scratch page
+        dec_pt = self.kv.page_table(["__empty__"] * B, groups=self._slot_groups())
         variants = [(0.0, 0, 1.0, pen) for pen in (0.0, 0.5)] + [
             (1.0, k, p, pen) for k in (0, 40) for p in (1.0, 0.9) for pen in (0.0, 0.5)]
         for win in decode_windows:
@@ -580,7 +646,8 @@ class BatchScheduler:
         cap = self.kv.max_pages_per_seq * self.kv.page_size
         buckets = sorted({self._prefill_bucket(c) for c in range(1, self.prefill_chunk + 1)})
         for rows in prefill_rows:
-            pf_pt = self.kv.page_table(["__empty__"] * rows)
+            pf_pt = self.kv.page_table(["__empty__"] * rows,
+                                       groups=[i // (rows // dp) for i in range(rows)])
             for bucket in buckets:
                 pos = np.broadcast_to(np.arange(bucket, dtype=np.int32), (rows, bucket)).copy()
                 for win in prefill_windows:
@@ -625,23 +692,34 @@ class BatchScheduler:
         active = {r.session_id for r in self.slots if r is not None and r.session_id}
         return [s for s in self.session_state if s not in active]
 
-    def _evict_for_pages(self) -> bool:
+    def _evict_for_pages(self, group: int = 0) -> bool:
         """Free pages by suspending the least recently used idle session to
-        host RAM. Returns True if something was evicted."""
+        host RAM. Returns True if something was evicted. Under dp only a
+        session of the group that needs pages frees useful ones (the groups'
+        page ranges are disjoint)."""
         for sid in self._idle_sessions_lru():
+            if self._dp > 1 and self.kv.alloc.group_of.get(sid, 0) != group:
+                continue
             if self.suspend_session(sid):
                 self._evictions += 1
                 return True
         return False
 
-    def _ensure_capacity_evicting(self, key: str, upto: int) -> bool:
+    def _ensure_capacity_evicting(self, key: str, upto: int, group: int = 0) -> bool:
         while True:
             try:
-                self.kv.alloc.ensure_capacity(key, upto, self.kv.page_size)
+                self.kv.alloc.ensure_capacity(key, upto, self.kv.page_size, group=group)
                 return True
             except MemoryError:
-                if not self._evict_for_pages():
+                if not self._evict_for_pages(group):
                     return False
+
+    def _group_of_slot(self, slot: int) -> int:
+        return slot // self._spg
+
+    def _slot_groups(self) -> list[int] | None:
+        """Each slot's dp group (its page tables' scratch page); None at dp = 1."""
+        return None if self._dp == 1 else [self._group_of_slot(s) for s in range(self.n_slots)]
 
     def _admit(self) -> None:
         free = [i for i in range(self.n_slots) if self.slots[i] is None]
@@ -651,8 +729,19 @@ class BatchScheduler:
                 req = self.pending.get_nowait()
             except queue.Empty:
                 break
-            slot = free[0]
             key = self._kv_key(req)
+            # dp: a session with live or suspended pages is pinned to the
+            # group that owns its page range; the slot is chosen before any
+            # resume, so that a busy group causes no resume and re-suspend
+            want_g = None
+            if self._dp > 1:
+                want_g = self.kv.alloc.group_of.get(key)
+                if want_g is None and key in self._suspended_at:
+                    want_g = self._suspended_at[key][0]
+            slot = next((s for s in free if want_g in (None, self._group_of_slot(s))), None)
+            if slot is None:
+                deferred.append(req)  # that group's slots are busy; retried later
+                continue
             # session resume: prepend the pending (sampled but not yet
             # forwarded) token and continue from the stored position
             prompt_ids = list(req.prompt_ids)
@@ -675,7 +764,7 @@ class BatchScheduler:
                 req.state = RequestState.DONE
                 req.done_event.set()
                 continue
-            if not self._ensure_capacity_evicting(key, start_pos + n):
+            if not self._ensure_capacity_evicting(key, start_pos + n, self._group_of_slot(slot)):
                 deferred.append(req)  # retry when pages free up
                 break
             if req.seed is None:
@@ -733,27 +822,38 @@ class BatchScheduler:
         batch = []
         for req, rem in fit:
             take = min(rem, bucket)
-            if self._ensure_capacity_evicting(self._kv_key(req), req.position + take):
+            if self._ensure_capacity_evicting(self._kv_key(req), req.position + take,
+                                              self._group_of_slot(req.slot)):
                 batch.append((req, take))
             # rows without page capacity sit this call out; retried next step
         if not batch:
             return
         # the row count rides powers of two, so that the shapes a server
-        # sees stay few; pad rows run the scratch page
-        rows = 1
-        while rows < len(batch):
-            rows *= 2
+        # sees stay few; pad rows run the scratch page. dp: the rows are dp
+        # blocks of rpg rows, block g group g's requests (each rank prefills
+        # its own block), its pad rows on the group's scratch page
+        dp = self._dp
+        by_g: dict[int, list] = {}
+        for req, take in batch:
+            by_g.setdefault(self._group_of_slot(req.slot), []).append((req, take))
+        rpg = 1
+        while rpg < max(len(v) for v in by_g.values()):
+            rpg *= 2
+        rows = dp * rpg
         toks = np.zeros((rows, bucket), dtype=np.int32)
         pos = np.zeros((rows, bucket), dtype=np.int32)
         seq_ids = ["__empty__"] * rows
         win = 0
-        for i, (req, take) in enumerate(batch):
-            ids = req._pf_ids
-            toks[i, :take] = ids[req._pf_done : req._pf_done + take]
-            pos[i] = np.arange(req.position, req.position + bucket)
-            seq_ids[i] = self._kv_key(req)
-            win = max(win, _bucket(req.position + bucket))
-        pt = self.kv.page_table(seq_ids)
+        for g, items in by_g.items():
+            for j, (req, take) in enumerate(items):
+                i = g * rpg + j
+                ids = req._pf_ids
+                toks[i, :take] = ids[req._pf_done : req._pf_done + take]
+                pos[i] = np.arange(req.position, req.position + bucket)
+                seq_ids[i] = self._kv_key(req)
+                win = max(win, _bucket(req.position + bucket))
+        pt = self.kv.page_table(seq_ids, groups=[i // rpg for i in range(rows)] if dp > 1
+                                else None)
         win = min(win, table_len)
         self._call_prefill(toks, pos, pt, win)
         for req, take in batch:
@@ -814,6 +914,7 @@ class BatchScheduler:
                 return  # active in the batch: caller retries after finish
             self.session_state.pop(session_id, None)
             self.kv.alloc.release(session_id)
+            self._suspended_at.pop(session_id, None)
             if self._suspended.pop(session_id, None) is not None and self._chan is not None:
                 # free the followers' copies too
                 self._chan.publish({"op": "sdrop", "sid": session_id})
@@ -842,12 +943,17 @@ class BatchScheduler:
         if not pages:
             return False
         idxs = np.asarray(pages, dtype=np.int64)
+        # the session's dp group, kept so that its resume allocates from the
+        # same range (its rows run there)
+        group = self.kv.alloc.group_of.get(session_id, 0)
         if self._chan is not None:
-            # the followers gather their own heads' pages
+            # the followers of its group gather their own heads' pages
             self._chan.publish({"op": "suspend", "sid": session_id, "idxs": idxs,
-                                "dir": to_dir})
-        payload = self._suspend_pages(session_id, idxs, to_dir)
+                                "dir": to_dir, "group": group})
+        payload = (self._suspend_pages(session_id, idxs, to_dir) if group == self._g
+                   else ("remote",))  # another group's ranks hold the pages
         self._suspended[session_id] = (payload, self.session_state[session_id])
+        self._suspended_at[session_id] = (group, len(pages))
         self.kv.alloc.release(session_id)
         self.session_state.pop(session_id)
         return True
@@ -857,11 +963,12 @@ class BatchScheduler:
         q8 pools) gathered out of the pools on the device, one copy to the
         host per leaf; kept in RAM, or written to `{to_dir}/{session_id}.kv.npz`
         with each leaf, in `_pool_leaves` order, saved as a contiguous uint8
-        view (npz has no bf16). Under tp each rank writes its own heads to
-        `{to_dir}/{session_id}.kv.p{rank}.npz`, each leaf with a leading axis
-        of the shards it holds (one), as a JAX process writes its addressable
-        shards ("mdisk")."""
-        idxs = torch.from_numpy(idxs_np).to(self.device)
+        view (npz has no bf16). With more than one rank each rank of the
+        session's dp group writes its own heads to
+        `{to_dir}/{session_id}.kv.p{global rank}.npz`, each leaf with a
+        leading axis of the shards it holds (one), as a JAX process writes its
+        addressable shards ("mdisk"). idxs_np: global page ids."""
+        idxs = torch.from_numpy(self.kv.local_tables(idxs_np)).to(self.device)
 
         def take(pool):
             if isinstance(pool, QArray):
@@ -874,7 +981,7 @@ class BatchScheduler:
             return ("ram", k_host, v_host)
         os.makedirs(to_dir, exist_ok=True)
         leaves = _pool_leaves(k_host, v_host)
-        if self._tp is not None:
+        if self._world > 1:
             np.savez(self._rank_file(to_dir, session_id),
                      *[a[None].contiguous().view(torch.uint8).numpy() for a in leaves])
             return ("mdisk", to_dir)
@@ -883,7 +990,7 @@ class BatchScheduler:
         return ("disk", to_dir)
 
     def _rank_file(self, to_dir: str, session_id: str) -> str:
-        return f"{to_dir}/{session_id}.kv.p{self._tp.group.rank}.npz"
+        return f"{to_dir}/{session_id}.kv.p{self._grank}.npz"
 
     def resume_session(self, session_id: str) -> bool:
         with self._lock:
@@ -893,25 +1000,30 @@ class BatchScheduler:
         if session_id not in self._suspended:
             return False
         payload, state = self._suspended[session_id]
-        host = self._payload_leaves(session_id, payload)
-        n_pages = host[0].shape[2]
+        group, n_pages = self._suspended_at.get(session_id, (0, None))
+        host = None if payload[0] == "remote" else self._payload_leaves(session_id, payload)
+        if n_pages is None:  # a payload put there from outside: its pages say
+            n_pages = host[0].shape[2]
         ps = self.kv.page_size
-        # allocate with eviction; a full pool must NOT raise out of the
-        # scheduler loop (that would fail every in-flight request): the
-        # session stays suspended and its requester retries
+        # allocate with eviction, in the session's dp group; a full pool must
+        # NOT raise out of the scheduler loop (that would fail every in-flight
+        # request): the session stays suspended and its requester retries
         while True:
             try:
-                pages = self.kv.alloc.ensure_capacity(session_id, n_pages * ps, ps)
+                pages = self.kv.alloc.ensure_capacity(session_id, n_pages * ps, ps, group=group)
                 break
             except MemoryError:
-                if not self._evict_for_pages():
+                if not self._evict_for_pages(group):
                     self.kv.alloc.release(session_id)  # partial alloc back
                     return False
         idxs = np.asarray(pages, dtype=np.int64)
         if self._chan is not None:
-            self._chan.publish({"op": "resume", "sid": session_id, "idxs": idxs})
+            self._chan.publish({"op": "resume", "sid": session_id, "idxs": idxs,
+                                "group": group})
         self._suspended.pop(session_id)
-        self._restore_pages(host, idxs)
+        self._suspended_at.pop(session_id, None)
+        if host is not None:
+            self._restore_pages(host, idxs)
         self.session_state[session_id] = state
         return True
 
@@ -931,8 +1043,8 @@ class BatchScheduler:
 
     def _restore_pages(self, host: list, idxs_np) -> None:
         """Scatter the pages `host` (`_pool_leaves` order) into the pool
-        pages idxs_np."""
-        idxs = torch.from_numpy(idxs_np).to(self.device)
+        pages idxs_np (global ids)."""
+        idxs = torch.from_numpy(self.kv.local_tables(idxs_np)).to(self.device)
         with torch.inference_mode():
             for pool, h in zip(_pool_leaves(self.kv.state.k_pool, self.kv.state.v_pool), host):
                 pool[:, :, idxs] = h.to(self.device, pool.dtype)
@@ -983,7 +1095,7 @@ class BatchScheduler:
             return None
         for r in running:
             if not self._ensure_capacity_evicting(
-                self._kv_key(r), r.position + depth + depth_next
+                self._kv_key(r), r.position + depth + depth_next, self._group_of_slot(r.slot)
             ):
                 return None
         win = min(
@@ -995,7 +1107,7 @@ class BatchScheduler:
         seq_ids = ["__empty__"] * self.n_slots
         for r in running:
             seq_ids[r.slot] = self._kv_key(r)
-        pts = self.kv.page_table(seq_ids)
+        pts = self.kv.page_table(seq_ids, groups=self._slot_groups())
         if self._chan is not None:
             # no tokens: each rank feeds back the ids it sampled itself
             self._chan.publish({"op": "decode_chain", "depth": int(depth_next),
@@ -1067,7 +1179,8 @@ class BatchScheduler:
         for r in list(running):
             # make sure the page holding `position` exists before the write
             key = self._kv_key(r)
-            if not self._ensure_capacity_evicting(key, r.position + 1):
+            if not self._ensure_capacity_evicting(key, r.position + 1,
+                                                  self._group_of_slot(r.slot)):
                 # out of pages even after eviction: this row sits the step
                 # out (its slot runs the dummy sequence on the scratch page)
                 running.remove(r)
@@ -1107,11 +1220,12 @@ class BatchScheduler:
                 lag = min(lag, self.stream_lag)
             depth = max(1, min(self._budget_lag(lag), head))
             for r in running:
-                if not self._ensure_capacity_evicting(self._kv_key(r), r.position + depth):
+                if not self._ensure_capacity_evicting(self._kv_key(r), r.position + depth,
+                                                      self._group_of_slot(r.slot)):
                     depth = 1
                     break
 
-        pts = self.kv.page_table(seq_ids)
+        pts = self.kv.page_table(seq_ids, groups=self._slot_groups())
         win = min(_bucket(int(positions.max()) + depth), self.kv.max_pages_per_seq * ps)
         all_p1 = bool(np.all(top_ps >= 1.0))
         all_k0 = bool(np.all(top_ks <= 0))

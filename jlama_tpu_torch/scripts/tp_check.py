@@ -1,33 +1,46 @@
-"""The rank program of chip_smoke.py's tensor-parallel phase: T ranks of the
-port's tp serving path, one process each, on random JQ4 weights from a seed.
+"""The rank program of chip_smoke.py's mesh phases: the ranks of the port's
+tp (phase 16), dp x tp (phase 17) and expert-parallel (phase 18) serving
+paths, one process each, on random JQ4 weights from a seed.
 
     rank_main(rank, world, store_path, out_path, spec)
 
-Each rank joins the group through a FileStore at `store_path` (the backend
-and device from `spec`: two ranks on one GPU take gloo, which NCCL refuses),
-builds the tp BatchScheduler from the full random tree (each rank keeps its
-slice), and rank 0 leads it over the step channel (port 0, handed over
-through the store) while the others run `run_follower`. In order:
+`spec` names the model ("llama8b", "llama1b", "mixtral", cut to
+`spec["layers"]`, or `hf_config`), the mesh (`dp`, default 1; tp = world /
+dp; rank r is tp rank r % tp of dp group r // tp) and the work. Each rank
+joins the world through a FileStore at `store_path` (the backend and device
+from `spec`: ranks sharing one GPU take gloo, which NCCL refuses), builds the
+mesh BatchScheduler from the full random tree (each rank keeps its slice:
+its heads, its E/tp experts; its dp group's pages and rows), and rank 0
+leads it over the step channel (port 0, handed over through the store)
+while the others run `run_follower`. In order:
 
 0. on CUDA under gloo, `route_check`: each collective by the route the
    group picked at first use and again staged through pinned host memory,
    both exact;
 1. the logits of the last `spec["logit_rows"]` positions of a
    `spec["prefill"]`-token prompt through the tp forward (no cache: K1 and
-   K3), all ranks in step; rank 0's logits are broadcast and every rank
-   compares its own with them;
+   K3; K6 on each rank's experts), all ranks in step; rank 0's logits are
+   broadcast over the world and every rank compares its own with them;
+   with `spec["k6"]`, K6 on the rank's local experts of layer 0
+   (`k6_check`: the decode and the prefill route against their plain
+   models over the rank's range, foreign rows exactly 0, a bit-equal
+   repeat; timed on rank 0);
 2. `spec["requests"]` served requests (seeded prompts and lengths, half of
    them sampled), every rank's sampled ids logged per decode step, and the
    kernels' launches counted from 0 over them;
-3. a decode timing run: 16 requests of 16-token prompts, the wall time per
-   decode step once every row decodes; and torch.profiler over `profile`
+3. a decode timing run: a request a slot (16-token prompts), the wall time
+   per decode step once every row decodes; and torch.profiler over `profile`
    steps of it on rank 0 (device time by kernel), with the collectives'
    host time from the group's calls;
-4. a session suspended to disk (one file per rank) and resumed, its greedy
-   ids against a session that never suspended;
+4. a session suspended to disk (one file per rank of its dp group; under
+   dp the session sits in group 1, the leader's group full of short
+   requests when it arrives) and resumed, its greedy ids against a session
+   that never suspended; then `spec["greedy"]` greedy requests;
 5. on rank 0, after the followers stop: the same weights on one device
    through the single-device path, the same prompt's logits, and their
-   relative L2 distance from the tp logits (`REL_L2_LIMIT`).
+   relative L2 distance from the tp logits (`REL_L2_LIMIT`); and the greedy
+   requests through a single-device BatchScheduler, whose ids must equal
+   the mesh's.
 
 Each rank pickles its results to `out_path`; the caller starts the ranks
 and waits for them (`start_ranks`, `wait_ranks`) and compares them
@@ -132,28 +145,40 @@ def routes_main(rank: int, world: int, store_path: str, out_path: str) -> None:
 
 def _config(spec):
     from ..config import from_hf_config
-    from ..models.init import llama_8b_config
+    from ..models.init import llama_1b_config, llama_8b_config, mixtral_8x7b_config
 
     if spec.get("hf_config"):
         return from_hf_config(spec["hf_config"])
-    return replace(llama_8b_config(), n_layers=spec["layers"])
+    base = {"llama8b": llama_8b_config, "llama1b": llama_1b_config,
+            "mixtral": mixtral_8x7b_config}[spec.get("model", "llama8b")]()
+    return replace(base, n_layers=spec["layers"])
 
 
-def _kernels():
+def _kernels(moe: bool = False):
     from ..ops.attention import flash_prefill, paged_decode
     from ..ops.kv_write import kv_write
     from ..ops.q4_matmul import q4_matmul
 
-    return {"q4_matmul": q4_matmul, "paged_decode": paged_decode,
-            "flash_prefill": flash_prefill, "kv_write": kv_write}
+    out = {"q4_matmul": q4_matmul, "paged_decode": paged_decode,
+           "flash_prefill": flash_prefill, "kv_write": kv_write}
+    if moe:
+        from ..ops.moe_q4 import moe_gather, moe_groups, moe_q4_matmul
+
+        out.update(moe_q4_matmul=moe_q4_matmul, moe_groups=moe_groups, moe_gather=moe_gather)
+    return out
 
 
 class _CollectiveClock:
-    """Host seconds spent in the group's collectives (wraps its `_run`; with
-    gloo every call returns once the sum is on the rank)."""
+    """Host seconds spent in the collectives of some groups (wraps each one's
+    `_run`; with gloo every call returns once the sum is on the rank)."""
 
-    def __init__(self, group):
+    def __init__(self, *groups):
         self.calls, self.seconds = 0, 0.0
+        for group in groups:
+            if group is not None:
+                self._wrap(group)
+
+    def _wrap(self, group):
         inner = group._run
 
         def timed(op, t, **kw):
@@ -198,6 +223,77 @@ def _serve(sched, reqs):
         sched.step()
 
 
+# K6 under EP against its route's plain model over the rank's expert range
+# (chip_smoke.py's MOE_TOL / MOE_MODEL_TOL): max |kernel - model| <= 1e-4 *
+# max|model|, plus one bf16 ulp of the value (2^-7 of it) for a bf16 output
+K6_TOL = 1e-4
+K6_RS = (2, 32, 1024)  # an Engine's decode, a 16-slot step, a 512-token prefill
+
+
+def k6_check(torch, sched, cfg, tp_rank: int, timed: bool) -> dict:
+    """K6 on this rank's local experts of layer 0 (E/tp of them, the model's
+    tp_rank · E/tp onward), at K6_RS selections of seeded routing over the
+    model's E experts: gate and up in one call, then w2, each against its
+    route's plain model with the same range (the decode route against
+    moe_q4_matmul_plain, the prefill route against its rounding model),
+    every foreign row exactly 0, a second call bit-equal; with `timed` (rank
+    0 on the card) each call's device time, median of 10 after an L2
+    flush. Returns {R: {route, foreign rows, max errors, ms}}."""
+    from ..ops.moe_q4 import (moe_q4_gate_up, moe_q4_matmul, moe_q4_matmul_plain,
+                              moe_q4_matmul_tiled_plain, takes_decode)
+
+    dev = sched.device
+    lay = sched.params["layers"][0]
+    w1, w3, w2 = lay["experts.w1"], lay["experts.w3"], lay["experts.w2"]
+    n_local, K = w1.shape[0], cfg.n_experts_per_token
+    lo = tp_rank * n_local
+    timer = None
+    if timed:
+        from ..utils.cuda_timer import Timer
+
+        timer = Timer(dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    xdt = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    out = {"lo": lo, "n_local": n_local}
+    for r in K6_RS:
+        t = r // K
+        e = torch.rand((t, cfg.n_experts), generator=g, device=dev).argsort(dim=1)[:, :K]
+        e = e.to(torch.int32)
+        x = torch.randn((t, w1.shape[2]), generator=g, device=dev).to(xdt)
+        h = torch.randn((r, w2.shape[2]), generator=g, device=dev).to(xdt)
+        route = "decode" if dev.type != "cuda" or takes_decode(r) else "prefill"
+        model = moe_q4_matmul_plain if route == "decode" else moe_q4_matmul_tiled_plain
+        el = e.reshape(-1).long() - lo
+        foreign = ((el < 0) | (el >= n_local))
+
+        def run():
+            gate, up = moe_q4_gate_up(x, w1, w3, e, xdt, lo=lo)
+            return gate, up, moe_q4_matmul(h, w2, e.reshape(-1), torch.float32, lo=lo)
+
+        ys = run()
+        again = run()
+        row = {"route": route, "foreign_rows": int(foreign.sum()),
+               "repeat_bit_equal": all(torch.equal(a, b) for a, b in zip(ys, again))}
+        errs, zero = [], True
+        for y, (xx, w, ee) in zip(ys, ((x, w1, e), (x, w3, e), (h, w2, e.reshape(-1)))):
+            ref = model(xx, w, ee, torch.float32, lo=lo)
+            d = (y.float() - ref).abs()
+            lim = K6_TOL * ref.abs().max().item()
+            if y.dtype == torch.bfloat16:
+                lim = lim + 2.0 ** -7 * ref.abs()
+            row.setdefault("within", True)
+            row["within"] = row["within"] and bool((d <= lim).all())
+            errs.append(d.max().item())
+            zero = zero and bool((y.reshape(r, -1)[foreign] == 0).all())
+        row.update(max_abs_err=max(errs), foreign_zero=zero)
+        if timer is not None:
+            row["gate_up_ms"] = timer(lambda: moe_q4_gate_up(x, w1, w3, e, xdt, lo=lo))
+            row["w2_ms"] = timer(lambda: moe_q4_matmul(h, w2, e.reshape(-1), torch.float32,
+                                                       lo=lo))
+        out[r] = row
+    return out
+
+
 def _lead(torch, sched, spec, rng, out, clock):
     """Rank 0's part of steps 2-4."""
     from ..runtime.scheduler import GenRequest, RequestState
@@ -216,10 +312,10 @@ def _lead(torch, sched, spec, rng, out, clock):
     out["served"] = [list(r.out_ids) for r in reqs]
     out["finish"] = [r.finish.value for r in reqs]
     out["n_prefill"], out["n_decode"] = sched.n_prefill_calls - pf0, sched.n_decode_steps - dec0
-    out["launches"] = {k: fn.launches for k, fn in _kernels().items()}
-    # decode timing: 16 rows decoding, then a profiled window on rank 0
+    out["launches"] = {k: fn.launches for k, fn in _kernels(bool(cfg.n_experts)).items()}
+    # decode timing: every slot decoding, then a profiled window on rank 0
     reqs = [GenRequest(prompt_ids=_ids(rng, 16, cfg.vocab_size), max_new_tokens=48,
-                       stop_ids={-1}) for _ in range(16)]
+                       stop_ids={-1}) for _ in range(sched.n_slots)]
     for r in reqs:
         sched.submit(r)
     while not all(r.state == RequestState.RUNNING and r.out_ids for r in reqs):
@@ -255,10 +351,16 @@ def _lead(torch, sched, spec, rng, out, clock):
                               collective_host_ms=(clock.seconds - c1[1]) * 1e3,
                               collective_calls=clock.calls - c1[0])
     _serve(sched, reqs)
-    # a session suspended to disk, one file per rank, against one that never was
+    # a session suspended to disk, one file per rank of its dp group, against
+    # one that never was; under dp both sit in group 1 (short requests fill
+    # the leader's group first), so that the leader holds none of their pages
     first, second = _ids(rng, 300, cfg.vocab_size), _ids(rng, 40, cfg.vocab_size)
-    for sid in ("disk", "kept"):
-        sched.generate(first, max_new_tokens=16, session_id=sid, stop_ids={-1})
+    fill = [GenRequest(prompt_ids=_ids(rng, 8, cfg.vocab_size), max_new_tokens=2,
+                       stop_ids={-1}) for _ in range(sched._spg if sched._dp > 1 else 0)]
+    sess = [GenRequest(prompt_ids=list(first), max_new_tokens=16, session_id=sid,
+                       stop_ids={-1}) for sid in ("disk", "kept")]
+    _serve(sched, fill + sess)
+    out["disk_group"] = sched.kv.alloc.group_of.get("disk")
     with tempfile.TemporaryDirectory() as d:
         ok = sched.suspend_session("disk", to_dir=d) and sched.resume_session("disk")
         # this request's collectives come after every rank's resume, which
@@ -267,8 +369,16 @@ def _lead(torch, sched, spec, rng, out, clock):
                                          stop_ids={-1}).token_ids
         out["disk_files"] = sorted(p.name for p in Path(d).iterdir())
     out["disk_ok"] = ok
+    out["disk_group_after"] = sched.kv.alloc.group_of.get("disk")
     out["kept_ids"] = sched.generate(second, max_new_tokens=32, session_id="kept",
                                      stop_ids={-1}).token_ids
+    # greedy requests, held against one device on rank 0 after the followers stop
+    out["greedy_prompts"] = [_ids(rng, int(rng.integers(16, 257)), cfg.vocab_size)
+                             for _ in range(spec.get("greedy", 0))]
+    greedy = [GenRequest(prompt_ids=list(p), max_new_tokens=spec["new_tokens"], stop_ids={-1})
+              for p in out["greedy_prompts"]]
+    _serve(sched, greedy)
+    out["greedy_ids"] = [list(r.out_ids) for r in greedy]
 
 
 def rank_main(rank: int, world: int, store_path: str, out_path: str, spec: dict) -> None:
@@ -276,18 +386,25 @@ def rank_main(rank: int, world: int, store_path: str, out_path: str, spec: dict)
 
     from ..models.base import fuse_params
     from ..models.init import random_q4_params
-    from ..parallel.distributed import init_tp_group, shutdown
-    from ..parallel.mesh import Mesh
+    from ..parallel.distributed import init_mesh_group, shutdown
+    from ..parallel.tp_forward import TPGroup
     from ..runtime.coordination import StepChannel
     from ..runtime.scheduler import BatchScheduler
 
     if spec.get("threads"):
         torch.set_num_threads(spec["threads"])
-    group = init_tp_group(world, rank, device=spec["device"], backend=spec["backend"],
-                          store_path=store_path, timeout_s=spec["timeout_s"])
+    dp = spec.get("dp", 1)
+    mesh = init_mesh_group(dp, world // dp, rank, device=spec["device"],
+                           backend=spec["backend"], store_path=store_path,
+                           timeout_s=spec["timeout_s"])
+    group = mesh.group
+    # the world, for rank 0's logits (the tp group is the world at dp = 1)
+    world_group = group if dp == 1 else TPGroup(rank, world, None, group.backend, group.device,
+                                                group.store)
     cfg = _config(spec)
+    moe = bool(cfg.n_experts)
     out = {"rank": rank, "world": world, "backend": group.backend, "device": str(group.device),
-           "layers": cfg.n_layers}
+           "layers": cfg.n_layers, "dp_index": mesh.dp_index, "tp_rank": group.rank}
     t0 = time.perf_counter()
     params = random_q4_params(cfg, seed=spec["seed"], device=group.device)
     if rank == 0:
@@ -296,21 +413,23 @@ def rank_main(rank: int, world: int, store_path: str, out_path: str, spec: dict)
     else:
         chan = StepChannel.connect("127.0.0.1", int(group.store.get("tp_check_port")),
                                    timeout=spec["timeout_s"])
-    sched = BatchScheduler(params, cfg, n_slots=16, n_pages=spec["n_pages"], page_size=64,
-                           max_seq_len=2048, device=group.device,
-                           mesh=Mesh(1, 1, world, group), step_channel=chan)
+    n_slots = spec.get("n_slots", 16)
+    sched = BatchScheduler(params, cfg, n_slots=n_slots, n_pages=spec["n_pages"], page_size=64,
+                           max_seq_len=2048, device=group.device, mesh=mesh, step_channel=chan)
     del params
     if group.device.type == "cuda":
         torch.cuda.empty_cache()
     out["setup_s"] = time.perf_counter() - t0
     lay = sched.params["layers"][0]
     out["shapes"] = {k: tuple(v.data.shape) for k, v in lay.items() if hasattr(v, "fmt")}
-    out["shapes"]["lm_head"] = tuple(sched.params["lm_head"].data.shape)
+    # the lm_head's rows (a tied one is the embedding's)
+    out["shapes"]["lm_head"] = tuple(sched.params.get("lm_head", sched.params["embed"]).data.shape)
     out["shapes"]["pool"] = tuple(sched.kv.state.k_pool.shape)
+    out["rows"] = sched._in.tokens.shape[0]
     # 0. both routes of every collective, where gloo carries CUDA tensors
     out["route_check"] = (route_check(torch, group) if group.device.type == "cuda"
-                          and group.backend == "gloo" else None)
-    clock = _CollectiveClock(group)
+                          and group.backend == "gloo" and group.size > 1 else None)
+    clock = _CollectiveClock(group if group.size > 1 else None, mesh.rows)
     rng = np.random.default_rng(spec["seed"])
     # 1. the prefill's logits, every rank in step (no step channel)
     ids = _ids(rng, spec["prefill"], cfg.vocab_size)
@@ -320,25 +439,43 @@ def rank_main(rank: int, world: int, store_path: str, out_path: str, spec: dict)
     _sync(torch, group.device)
     out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
     lead = logits.clone()
-    group.broadcast_(lead, src=0)
+    world_group.broadcast_(lead, src=0)
     out["logits_equal_rank0"] = bool(torch.equal(lead, logits))
+    if spec.get("k6"):
+        out["k6"] = k6_check(torch, sched, cfg, group.rank,
+                             timed=rank == 0 and group.device.type == "cuda")
     # 2.-4.: rank 0 leads, the others replay; every rank counts its launches
+    # and records its prefill calls' shapes (the rows of K6's routes)
     sched.sampled_log = []
-    for fn in _kernels().values():
+    kernels = _kernels(moe)
+    for fn in kernels.values():
         fn.launches = 0
     pf0, dec0 = sched.n_prefill_calls, sched.n_decode_steps
+    calls = []
+    inner = sched._call_prefill
+
+    def recorded(toks, pos, pt, win):
+        calls.append(tuple(toks.shape))
+        return inner(toks, pos, pt, win)
+
+    sched._call_prefill = recorded
     if rank == 0:
         _lead(torch, sched, spec, rng, out, clock)
         chan.publish({"op": "stop"})
     else:
         sched.run_follower()
-    out["launches_all"] = {k: fn.launches for k, fn in _kernels().items()}
+    out["launches_all"] = {k: fn.launches for k, fn in kernels.items()}
     out["n_prefill_all"] = sched.n_prefill_calls - pf0
     out["n_decode_all"] = sched.n_decode_steps - dec0
+    out["prefill_shapes"] = calls
     out["sampled_log"] = [np.asarray(t) for t in sched.sampled_log]
     out["routes"] = {f"{op} {str(dt).replace('torch.', '')}": r
                      for (op, dt), r in group.routes.items()}
     out["graphs"] = sched.graphs.stats()
+    if group.device.type == "cuda" and moe:
+        from ..ops.moe_q4 import decode_max_r
+
+        out["decode_max_r"] = decode_max_r()
     chan.close()
     if rank == 0:
         # 5. the same weights on one device, the single-device path
@@ -353,21 +490,57 @@ def rank_main(rank: int, world: int, store_path: str, out_path: str, spec: dict)
                                      / torch.linalg.vector_norm(ref))
         out["logits_finite"] = bool(torch.isfinite(logits).all())
         out["logits_shape"] = tuple(logits.shape)
+        if out["greedy_prompts"]:
+            one = BatchScheduler(full, cfg, n_slots=n_slots, n_pages=spec["n_pages"],
+                                 page_size=64, max_seq_len=2048, device=group.device,
+                                 fuse=False)
+            from ..runtime.scheduler import GenRequest
+
+            reqs = [GenRequest(prompt_ids=list(p), max_new_tokens=spec["new_tokens"],
+                               stop_ids={-1}) for p in out["greedy_prompts"]]
+            _serve(one, reqs)
+            out["greedy_single_ids"] = [list(r.out_ids) for r in reqs]
     shutdown()
     with open(out_path, "wb") as f:
         pickle.dump(out, f)
 
 
-def expected_launches(n_layers: int, n_prefill: int, n_decode: int, cuda: bool) -> dict:
-    """K1-K4's launches for a rank's prefill calls and decode steps on the
-    card: 4 projections a layer a forward, the lm_head a decode step; K2 a
-    layer a decode step, K3 a layer a prefill call, K4 a layer a forward.
-    The CPU runs the plain versions and counts nothing."""
+def expected_launches(n_layers: int, n_prefill: int, n_decode: int, cuda: bool,
+                      moe: bool = False, n_gather_fwd: int = 0) -> dict:
+    """The path's kernels' launches for a rank's prefill calls and decode
+    steps on the card: K2 a layer a decode step, K3 a layer a prefill call,
+    K4 a layer a forward; K1 4 projections a layer a forward and the lm_head
+    a decode step, or for a MoE model 2 (wqkv, wo) and K6: one grouping and
+    two matmul launches a layer a forward over the rank's experts, and two
+    gathers a layer in each of the `n_gather_fwd` forwards whose selections
+    take K6's prefill route. The launches do not depend on the rows a rank
+    runs (its dp group's n_slots/dp). The CPU runs the plain versions and
+    counts nothing."""
+    names = ["q4_matmul", "paged_decode", "flash_prefill", "kv_write"]
+    if moe:
+        names += ["moe_q4_matmul", "moe_groups", "moe_gather"]
     if not cuda:
-        return {"q4_matmul": 0, "paged_decode": 0, "flash_prefill": 0, "kv_write": 0}
+        return dict.fromkeys(names, 0)
     fwd = n_prefill + n_decode
-    return {"q4_matmul": 4 * n_layers * fwd + n_decode, "paged_decode": n_layers * n_decode,
-            "flash_prefill": n_layers * n_prefill, "kv_write": n_layers * fwd}
+    out = {"q4_matmul": (2 if moe else 4) * n_layers * fwd + n_decode,
+           "paged_decode": n_layers * n_decode, "flash_prefill": n_layers * n_prefill,
+           "kv_write": n_layers * fwd}
+    if moe:
+        out.update(moe_q4_matmul=2 * n_layers * fwd, moe_groups=n_layers * fwd,
+                   moe_gather=2 * n_layers * n_gather_fwd)
+    return out
+
+
+def gather_forwards(res: dict, cfg, dp: int, n_slots: int) -> int:
+    """The forwards of a rank whose K6 selections (its rows x tokens x top-k)
+    pass the decode route's limit: its prefill calls by their recorded
+    shapes, and its decode steps (n_slots/dp rows of one token)."""
+    thr = res.get("decode_max_r")
+    if thr is None:
+        return 0
+    K = cfg.n_experts_per_token
+    pf = sum(1 for rows, T in res["prefill_shapes"] if (rows // dp) * T * K > thr)
+    return pf + (res["n_decode_all"] if (n_slots // dp) * K > thr else 0)
 
 
 # the tp logits' limit, rel L2 from the single-device path: 1e-2, about 60
@@ -377,61 +550,105 @@ def expected_launches(n_layers: int, n_prefill: int, n_decode: int, cuda: bool) 
 REL_L2_LIMIT = 1e-2
 
 
+def _want_shapes(cfg, spec, tp: int, dp: int) -> dict:
+    qdim, kvdim = cfg.n_heads * cfg.head_size, cfg.n_kv_heads * cfg.head_size
+    D, H, V = cfg.embedding_length, cfg.hidden_length, cfg.vocab_size
+    out = {"wqkv": ((qdim + 2 * kvdim) // tp, D // 2), "wo": (D, qdim // tp // 2),
+           "lm_head": (V // tp, D // 2),
+           "pool": (cfg.n_layers, cfg.n_kv_heads // tp, spec["n_pages"] // dp, 64,
+                    cfg.head_size)}
+    if cfg.n_experts:
+        E = cfg.n_experts // tp
+        out.update({"experts.w1": (E, H, D // 2), "experts.w3": (E, H, D // 2),
+                    "experts.w2": (E, D, H // 2)})
+    else:
+        out.update({"w13": (2 * H // tp, D // 2), "w2": (D, H // tp // 2)})
+    return out
+
+
 def check_ranks(ranks: list[dict], spec: dict, rel_l2_limit: float = REL_L2_LIMIT) -> list[str]:
     """What must hold of the ranks' results (rank order); the failures, as
     sentences (empty when every check holds)."""
     bad = []
     cfg, world = _config(spec), len(ranks)
+    dp = spec.get("dp", 1)
+    tp = world // dp
+    n_slots = spec.get("n_slots", 16)
+    moe = bool(cfg.n_experts)
     cuda = spec["device"] != "cpu"
     lead = ranks[0]
-    qdim, kvdim = cfg.n_heads * cfg.head_size, cfg.n_kv_heads * cfg.head_size
-    D, H, V = cfg.embedding_length, cfg.hidden_length, cfg.vocab_size
-    want_shapes = {"wqkv": ((qdim + 2 * kvdim) // world, D // 2), "wo": (D, qdim // world // 2),
-                   "w13": (2 * H // world, D // 2), "w2": (D, H // world // 2),
-                   "lm_head": (V // world, D // 2),
-                   "pool": (cfg.n_layers, cfg.n_kv_heads // world, spec["n_pages"], 64,
-                            cfg.head_size)}
+    want_shapes = _want_shapes(cfg, spec, tp, dp)
     for r, res in enumerate(ranks):
         if (res["rank"], res["world"], res["backend"]) != (r, world, spec["backend"]):
             bad.append(f"rank {r}: rank/world/backend {res['rank']}/{res['world']}/"
                        f"{res['backend']}")
+        if (res["dp_index"], res["tp_rank"]) != (r // tp, r % tp):
+            bad.append(f"rank {r}: dp group {res['dp_index']}, tp rank {res['tp_rank']}")
         if res["shapes"] != want_shapes:
             bad.append(f"rank {r}: local shapes {res['shapes']} != {want_shapes}")
+        if res["rows"] != n_slots // dp:
+            bad.append(f"rank {r}: {res['rows']} decode rows, not n_slots/dp")
         if not res["logits_equal_rank0"]:
             bad.append(f"rank {r}: its prefill logits differ from rank 0's")
-        want = expected_launches(cfg.n_layers, res["n_prefill_all"], res["n_decode_all"], cuda)
-        if res["launches_all"] != want or (cuda and min(want.values()) == 0):
+        want = expected_launches(cfg.n_layers, res["n_prefill_all"], res["n_decode_all"], cuda,
+                                 moe, gather_forwards(res, cfg, dp, n_slots))
+        if res["launches_all"] != want or (cuda and min(want[k] for k in want
+                                                        if k != "moe_gather") == 0):
             bad.append(f"rank {r}: launches {res['launches_all']} != {want}")
         if (res["n_prefill_all"], res["n_decode_all"]) != (lead["n_prefill_all"],
                                                           lead["n_decode_all"]):
             bad.append(f"rank {r}: {res['n_prefill_all']} prefill calls and "
                        f"{res['n_decode_all']} decode steps, rank 0 "
                        f"{lead['n_prefill_all']} and {lead['n_decode_all']}")
-        log, lead_log = res["sampled_log"], lead["sampled_log"]
+        first = ranks[r - r % tp]  # its dp group's first rank: the same rows
+        log, lead_log = res["sampled_log"], first["sampled_log"]
         if not lead_log or len(log) != len(lead_log) or any(
                 not np.array_equal(a, b) for a, b in zip(log, lead_log)):
-            bad.append(f"rank {r}: its sampled ids are not rank 0's, step for step")
+            bad.append(f"rank {r}: its sampled ids are not rank {r - r % tp}'s, step for step")
         rc = res["route_check"]
-        if cuda and spec["backend"] == "gloo" and (not rc or any(
+        if cuda and spec["backend"] == "gloo" and tp > 1 and (not rc or any(
                 v[0] not in ("direct", "host") or v[1:] != [0.0, 0.0] for v in rc.values())):
             bad.append(f"rank {r}: the collectives' routes {rc}")
         g = res["graphs"]
-        if g["graphs"] or not g["eager_reason"]:
+        if tp > 1 and (g["graphs"] or not g.get("eager_reason")):
             bad.append(f"rank {r}: graphs {g}")
-    want = expected_launches(cfg.n_layers, lead["n_prefill"], lead["n_decode"], cuda)
+        k6 = res.get("k6")
+        if spec.get("k6") and (not k6 or (k6["lo"], k6["n_local"]) != (
+                (r % tp) * cfg.n_experts // tp, cfg.n_experts // tp) or any(
+                not (k6[n]["within"] and k6[n]["foreign_zero"] and k6[n]["repeat_bit_equal"])
+                for n in K6_RS)):
+            bad.append(f"rank {r}: K6 over its experts {k6}")
+        if spec.get("k6") and cuda and [k6[n]["route"] for n in K6_RS] != [
+                "decode", "decode", "prefill"]:
+            bad.append(f"rank {r}: K6's routes {[k6[n]['route'] for n in K6_RS]}")
+    want = expected_launches(cfg.n_layers, lead["n_prefill"], lead["n_decode"], cuda, moe,
+                             gather_forwards(dict(lead, n_decode_all=lead["n_decode"],
+                                                  prefill_shapes=lead["prefill_shapes"][
+                                                      :lead["n_prefill"]]), cfg, dp, n_slots))
     if lead["launches"] != want:
         bad.append(f"served requests: launches {lead['launches']} != {want}")
     if lead["finish"] != ["MAX_TOKENS"] * spec["requests"] or any(
             len(ids) != spec["new_tokens"] for ids in lead["served"]):
         bad.append(f"served requests: finishes {lead['finish']}")
-    if not (lead["logits_finite"] and lead["logits_shape"] == (spec["logit_rows"], V)):
+    if not (lead["logits_finite"] and lead["logits_shape"] == (spec["logit_rows"],
+                                                                cfg.vocab_size)):
         bad.append(f"tp logits: finite {lead['logits_finite']}, shape {lead['logits_shape']}")
     if not lead["logits_rel_l2"] < rel_l2_limit:
         bad.append(f"tp logits: rel L2 {lead['logits_rel_l2']:.3e} from the single-device "
                    f"path (limit {rel_l2_limit})")
-    files = [f"disk.kv.p{r}.npz" for r in range(world)]
+    group = 1 if dp > 1 else 0
+    files = [f"disk.kv.p{group * tp + t}.npz" for t in range(tp)]
     if not lead["disk_ok"] or lead["disk_files"] != files or lead["disk_ids"] != lead[
-            "kept_ids"] or len(lead["disk_ids"]) != 32:
-        bad.append(f"disk suspend: ok {lead['disk_ok']}, files {lead['disk_files']}, ids "
+            "kept_ids"] or len(lead["disk_ids"]) != 32 or lead["disk_group"] != group \
+            or lead["disk_group_after"] != group:
+        bad.append(f"disk suspend: ok {lead['disk_ok']}, group {lead['disk_group']} -> "
+                   f"{lead['disk_group_after']}, files {lead['disk_files']}, ids "
                    f"{lead['disk_ids'][:6]}... against {lead['kept_ids'][:6]}...")
+    if spec.get("greedy") and (lead.get("greedy_ids") != lead.get("greedy_single_ids") or any(
+            len(ids) != spec["new_tokens"] for ids in lead["greedy_ids"])):
+        diff = [i for i, (a, b) in enumerate(zip(lead["greedy_ids"],
+                                                 lead.get("greedy_single_ids") or []))
+                if a != b]
+        bad.append(f"greedy requests: the mesh's ids differ from one device's in requests "
+                   f"{diff}")
     return bad

@@ -387,8 +387,10 @@ def test_q8_pool_and_unported_options(setup):
     assert r.generated_tokens == 4 and q8.kv.state.k_pool.scales.shape[-1] == 1
     from jlama_tpu_torch.parallel.mesh import Mesh
 
-    with pytest.raises(NotImplementedError, match="mesh dp=2"):
-        mk(setup, mesh=Mesh(dp=2))
+    # dp is served (tests/test_torch_dp_serving.py); a dp that does not
+    # divide the slots is not
+    with pytest.raises(ValueError, match="dp=3 does not divide n_slots=4"):
+        mk(setup, mesh=Mesh(dp=3))
     with pytest.raises(NotImplementedError, match="mesh pp=2"):
         mk(setup, mesh=Mesh(pp=2))
     with pytest.raises(ValueError, match="step_channel"):

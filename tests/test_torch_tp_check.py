@@ -1,10 +1,14 @@
-"""chip_smoke.py's tensor-parallel phase rehearsed on the CPU: the rank
-program (jlama_tpu_torch/scripts/tp_check.py) on two gloo ranks at a tiny
-Llama (head size 64, so that K2's and K3's plain versions run), started with
-`spawn` through a FileStore in tmp_path, and its checks (`check_ranks`),
-which the card run applies at Llama-3.1-8B's widths."""
+"""chip_smoke.py's mesh phases rehearsed on the CPU: the rank program
+(jlama_tpu_torch/scripts/tp_check.py) on gloo ranks at a tiny Llama (head
+size 64, so that K2's and K3's plain versions run) and a tiny Mixtral,
+started with `spawn` through a FileStore in tmp_path, and its checks
+(`check_ranks`), which the card runs apply at Llama-3.1-8B's widths (phase
+16, tp = 2), Llama-3.2-1B's (phase 17, dp = 2 x tp = 2) and Mixtral-8x7B's
+(phase 18, expert parallelism at tp = 2)."""
 
 import pickle
+
+import pytest
 
 from jlama_tpu_torch.scripts import tp_check
 from tests.torch_tp_ranks import start_ranks, wait_ranks
@@ -34,3 +38,46 @@ def test_tp_phase_rank_program_on_the_cpu(tmp_path):
     # a wrong expectation is caught
     broken = [dict(ranks[0], disk_ids=[]), ranks[1]]
     assert any("disk suspend" in b for b in tp_check.check_ranks(broken, SPEC))
+
+
+MESH_SPECS = {
+    # phase 17's path: dp = 2 x tp = 2, four ranks, greedy ids against one
+    # device; a tied lm_head, as Llama-3.2-1B's
+    "dp_tp": (4, dict(SPEC, dp=2, n_slots=4, greedy=4, hf_config=dict(
+        SPEC["hf_config"], tie_word_embeddings=True))),
+    # phase 18's: expert parallelism, 2 of 4 experts a rank, K6 over its range
+    "ep": (2, dict(SPEC, k6=True, hf_config=dict(
+        SPEC["hf_config"], model_type="mixtral", num_local_experts=4,
+        num_experts_per_tok=2))),
+}
+
+
+@pytest.mark.parametrize("name", list(MESH_SPECS))
+def test_mesh_phase_rank_programs_on_the_cpu(tmp_path, name):
+    """The dp x tp and EP specs of the rank program pass `check_ranks` on
+    the CPU: each rank's shapes (n_kv/tp heads of n_pages/dp pages, n_slots/dp
+    rows; E/tp experts), the session suspended in dp group 1 (that group's
+    files only), the greedy ids against one device, K6 over each rank's
+    expert range (foreign rows 0, a bit-equal repeat)."""
+    world, spec = MESH_SPECS[name]
+    procs, end = start_ranks(tp_check.rank_main,
+                             lambda r: (r, world, str(tmp_path / "store"),
+                                        str(tmp_path / f"rank{r}.pkl"), spec), world=world)
+    wait_ranks(procs, end)
+    ranks = []
+    for r in range(world):
+        with open(tmp_path / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    assert tp_check.check_ranks(ranks, spec) == []
+    lead = ranks[0]
+    if name == "dp_tp":
+        assert lead["disk_files"] == ["disk.kv.p2.npz", "disk.kv.p3.npz"]
+        assert len(lead["greedy_ids"]) == 4 and lead["greedy_ids"] == lead["greedy_single_ids"]
+        # a wrong expectation is caught
+        broken = [dict(lead, greedy_single_ids=[[]] * 4)] + ranks[1:]
+        assert any("greedy" in b for b in tp_check.check_ranks(broken, spec))
+    else:
+        assert [r["k6"]["lo"] for r in ranks] == [0, 2]
+        assert all(r["k6"][n]["foreign_rows"] > 0 for r in ranks for n in tp_check.K6_RS)
+        broken = [dict(lead, k6=dict(lead["k6"], lo=2)), ranks[1]]
+        assert any("K6" in b for b in tp_check.check_ranks(broken, spec))

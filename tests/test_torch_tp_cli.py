@@ -143,3 +143,31 @@ def test_serve_rank0_alone_starts_the_other_ranks(tmp_path):
             lead.wait(10)
     assert list(tmp.glob("jlama_tp_*")) == [], "rank 0 left its store directory"
     assert got == _one_device_answer(model_dir)
+
+
+def test_serve_mesh_2_1_1_answers_as_one_device(tmp_path):
+    """`serve --mesh 2,1,1 --num-processes 2`: two dp groups of one rank
+    each, rank 0 starting rank 1; its greedy answer equals one device's.
+    (The batch here has 2 slots: one a group.)"""
+    model_dir, _ = make_tiny_chat_model(tmp_path / "model")
+    env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=str(ROOT), TMPDIR=str(tmp_path))
+    lead = subprocess.Popen(
+        [sys.executable, "-m", "jlama_tpu_torch.cli", "serve", str(model_dir), "--mesh",
+         "2,1,1", "--num-processes", "2", "--host", "127.0.0.1", "--port", "0", *SERVE],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    end = time.monotonic() + DEADLINE
+    started = []
+    try:
+        got, seen = _ask(lead, end)
+        assert any("(dp group 0, tp rank 0)" in s for s in seen), "".join(seen)
+        started = [int(m.group(1)) for s in seen
+                   for m in [re.search(r"started rank 1/2 \(pid (\d+)\)", s)] if m]
+    finally:
+        for pid in [lead.pid, *started]:  # stopped by PID
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        lead.wait(10)
+    assert len(started) == 1
+    assert got == _one_device_answer(model_dir)

@@ -47,6 +47,11 @@ CONFIGS = {
                    tie_word_embeddings=True, query_pre_attn_scalar=16,
                    final_logit_softcapping=30.0, attn_logit_softcapping=50.0,
                    sliding_window=4),
+    "mixtral": dict(model_type="mixtral", hidden_size=64, intermediate_size=128,
+                    num_attention_heads=4, num_key_value_heads=2, num_hidden_layers=2,
+                    rms_norm_eps=1e-5, vocab_size=256, max_position_embeddings=128,
+                    rope_theta=10000.0, hidden_act="silu", num_local_experts=4,
+                    num_experts_per_tok=2),
 }
 
 
@@ -269,26 +274,37 @@ class _Rank0:
 
 
 REFUSALS = {
-    "dp": (dict(mesh=tmesh.Mesh(dp=2)), NotImplementedError, "dp=2"),
     "pp": (dict(mesh=tmesh.Mesh(pp=2)), NotImplementedError, "pp=2"),
     "q4s": (dict(mesh=tmesh.Mesh(tp=2, group=_Rank0()), weight_format="q4s"),
             NotImplementedError, "q4s"),
-    "moe": (dict(mesh=tmesh.Mesh(tp=2, group=_Rank0()), moe=True), NotImplementedError, "MoE"),
     "heads": (dict(mesh=tmesh.Mesh(tp=3, group=_Rank0())), ValueError, "divide the heads"),
+    # expert parallelism needs E % tp == 0 (the JAX gate), dp needs n_slots
+    # and n_pages % dp == 0
+    "experts_tp": (dict(mesh=tmesh.Mesh(tp=2, group=_Rank0()), moe=3), ValueError,
+                   "tp=2 does not divide n_experts=3"),
+    "dp_slots": (dict(mesh=tmesh.Mesh(dp=2), n_slots=3), ValueError,
+                 "dp=2 does not divide n_slots=3"),
+    "dp_pages": (dict(mesh=tmesh.Mesh(dp=2), n_pages=7), ValueError,
+                 "dp=2 does not divide n_pages=7"),
     "graphs": (dict(mesh=tmesh.Mesh(tp=2, group=_Rank0()), decode_graphs=True), ValueError,
                "decode_graphs=True under tp"),
     "no_group": (dict(mesh=tmesh.Mesh(tp=2)), ValueError, "TPGroup"),
     "channel_without_tp": (dict(step_channel=object()), ValueError, "step_channel"),
+    "q4s_dp_tp": (dict(mesh=tmesh.Mesh(dp=2, tp=2, group=_Rank0()), weight_format="q4s"),
+                  NotImplementedError, "q4s"),
     "gpt2": (dict(mesh=tmesh.Mesh(tp=2, group=_Rank0()), model_type="gpt2"),
              NotImplementedError, "tp for gpt2"),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSALS) + ["nccl_shared", "nccl_count", "nccl_cpu",
-                                                   "engine_mesh", "engine_rank_slice"])
+                                                   "engine_mesh", "engine_rank_slice", "dp",
+                                                   "moe"])
 def test_tp_refusals(case):
     """What tp does not serve raises with a message naming it; nothing runs
-    unsharded in its place."""
+    unsharded in its place. dp and MoE under tp, refused before, are served:
+    a dp rank holds its group's pages and rows, a MoE rank its E/tp experts
+    (tests/test_torch_dp_serving.py and tests/test_torch_ep.py serve them)."""
     from dataclasses import replace
 
     from jlama_tpu_torch.parallel import distributed
@@ -307,7 +323,22 @@ def test_tp_refusals(case):
         with pytest.raises(ValueError, match="NCCL needs a CUDA device"):
             distributed.init_tp_group(2, 0, device="cpu", backend="nccl", store_path="unused")
         return
+    if case == "moe":
+        _, _, mparams, mcfg = make_model("mixtral", "q4")
+        sched = BatchScheduler(mparams, mcfg, n_slots=2, n_pages=8, page_size=8,
+                               max_seq_len=32, device="cpu",
+                               mesh=tmesh.Mesh(tp=2, group=_Rank0()))
+        lay = sched.params["layers"][0]
+        assert lay["experts.w1"].data.shape[0] == mcfg.n_experts // 2
+        assert lay["router"].shape == (mcfg.n_experts, mcfg.embedding_length)
+        return
     _, _, tparams, tcfg = make_model("llama", "q4")
+    if case == "dp":
+        sched = BatchScheduler(tparams, tcfg, n_slots=2, n_pages=8, page_size=8,
+                               max_seq_len=32, device="cpu", mesh=tmesh.Mesh(dp=2, dp_index=1))
+        assert sched.kv.state.k_pool.shape[2] == 4 and sched.kv.page_offset == 4
+        assert sched._in.tokens.shape[0] == 1 and sched.counts.shape[0] == 1
+        return
     if case.startswith("engine"):
         from jlama_tpu_torch.runtime.engine import Engine
 
@@ -321,11 +352,11 @@ def test_tp_refusals(case):
                    device="cpu", fuse=False)
         return
     kw, exc, msg = REFUSALS[case]
-    kw = dict(kw)
-    if kw.pop("moe", False):
-        tcfg = replace(tcfg, n_experts=4, n_experts_per_token=2)
+    kw = dict(dict(n_slots=2, n_pages=8), **kw)
+    if "moe" in kw:
+        tcfg = replace(tcfg, model_type="mixtral", n_experts=kw.pop("moe"),
+                       n_experts_per_token=2)
     if "model_type" in kw:
         tcfg = replace(tcfg, model_type=kw.pop("model_type"))
     with pytest.raises(exc, match=msg):
-        BatchScheduler(tparams, tcfg, n_slots=2, n_pages=8, page_size=8, max_seq_len=32,
-                       device="cpu", **kw)
+        BatchScheduler(tparams, tcfg, page_size=8, max_seq_len=32, device="cpu", **kw)

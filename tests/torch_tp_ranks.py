@@ -131,3 +131,116 @@ def rank_main(rank: int, world: int, store_path: str, model_dir: str, out_dir: s
     with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
         pickle.dump(results, f)
 
+
+
+# ---------------------------------------------------------------------------
+# dp page groups and expert parallelism (tests/test_torch_dp_serving.py,
+# tests/test_torch_ep.py): one world of dp x tp ranks a spawn, rank r tp rank
+# r % tp of dp group r // tp
+# ---------------------------------------------------------------------------
+
+# the JAX tests' scheduler (tests/test_shard_map_tp.py::_mk_sched)
+MESH_SCHED = dict(n_pages=32, page_size=8, max_seq_len=48)
+DP_BATCH = [[1 + i, 5, 9 + i] for i in range(4)]  # test_dp_sharded_batch_parity
+DP_TP_PROMPTS = [[1, 5, 9 + i] for i in range(2)]  # test_dp_tp_combined_q4k
+EP_FLOAT_PROMPT = [1, 5, 9, 42, 7]  # test_moe_expert_parallel_shard_map
+EP_Q4_PROMPT = [1, 5, 9]  # test_moe_ep_quantized_gathered
+MOE_Q4_KEYS = ("experts.w1", "experts.w2", "experts.w3", "wq", "wk", "wv", "wo")
+
+
+SESSIONS = {"s1": [1, 5, 9], "s2": [2, 6], "s3": [3, 7, 11]}
+
+
+def dp_sessions(sched, req_cls, off_dir=None):
+    """tests/test_shard_map_tp.py::test_dp_sessions_pinned_to_group's
+    sessions, three at once so that the third lands in dp group 1 (slots are
+    taken in order, two a group), then one more request each; with
+    `off_dir`, s1 suspended to RAM and s3 (group 1) to disk in between."""
+    reqs = [sched.submit(req_cls(prompt_ids=list(p), max_new_tokens=3, session_id=sid))
+            for sid, p in SESSIONS.items()]
+    for _ in range(400):
+        if all(r.state.value == "DONE" for r in reqs):
+            break
+        sched.step()
+    out = [list(r.out_ids) for r in reqs]
+    if off_dir:
+        assert sched.suspend_session("s1"), "RAM suspend"
+        assert sched.suspend_session("s3", to_dir=off_dir), "disk suspend"
+    for sid, p in zip(SESSIONS, ([7], [8], [9])):
+        out.append(sched.generate(p, max_new_tokens=3, session_id=sid).token_ids)
+    return out
+
+
+def _mesh_lead(sched, kind, off_dir):
+    """The leader's requests of a world (`kind`); their ids by label."""
+    if kind == "dp2":
+        batch = run_requests(sched, DP_BATCH, max_new_tokens=5)
+        groups = {}
+        from jlama_tpu_torch.runtime.scheduler import GenRequest
+
+        sessions = dp_sessions(sched, GenRequest, off_dir)
+        for sid in SESSIONS:
+            groups[sid] = sched.kv.alloc.group_of.get(sid)
+        return {"batch": batch, "sessions": sessions, "session_groups": groups}
+    if kind == "dp2tp2":
+        return {"q4": [sched.generate(p, max_new_tokens=4).token_ids for p in DP_TP_PROMPTS],
+                "concurrent": run_requests(sched, CONCURRENT, max_new_tokens=6)}
+    prompt, n = (EP_FLOAT_PROMPT, 6) if kind == "ep_float" else (EP_Q4_PROMPT, 5)
+    return {"ids": sched.generate(prompt, max_new_tokens=n).token_ids}
+
+
+def mesh_rank_main(rank: int, dp: int, tp: int, store_path: str, model_dir: str, out_dir: str,
+                   kinds: tuple) -> None:
+    """One rank of a dp x tp world on the CPU: for each kind, the scheduler
+    over that kind's weights (dp2: float llama; dp2tp2: q4 llama; ep_float:
+    float Mixtral, its experts through the grouped route; ep_q4: q4 Mixtral,
+    its experts through K6's plain version), rank 0 leading and the others
+    replaying; pickles the ids, the shapes each rank holds and its log."""
+    import torch
+
+    from jlama_tpu_torch.models.loader import load_params
+    from jlama_tpu_torch.nn.qarray import QArray, quantize_q4
+    from jlama_tpu_torch.parallel.distributed import init_mesh_group, shutdown
+    from jlama_tpu_torch.runtime.coordination import StepChannel
+    from jlama_tpu_torch.runtime.scheduler import BatchScheduler
+
+    torch.set_num_threads(2)
+    mesh = init_mesh_group(dp, tp, rank, device="cpu", store_path=store_path, timeout_s=60)
+    store = mesh.group.store
+    if rank == 0:
+        chan = StepChannel.serve(0, dp * tp - 1, host="127.0.0.1", timeout=60,
+                                 on_bound=lambda p: store.set("step_port", str(p)))
+    else:
+        chan = StepChannel.connect("127.0.0.1", int(store.get("step_port")), timeout=60)
+    results = {"rank": rank, "dp_index": mesh.dp_index, "tp_rank": mesh.group.rank,
+               "rows_member": mesh.rows is not None}
+    for kind in kinds:
+        params, cfg = load_params(model_dir, device="cpu", float_dtype=torch.float32)
+        kw = dict(MESH_SCHED, n_slots=4 if kind.startswith("dp") else 2)
+        if kind == "dp2tp2":
+            params = quantize_layers(params)
+        if kind == "ep_q4":
+            params = dict(params, layers=[{k: quantize_q4(v.numpy()) if k in MOE_Q4_KEYS
+                                           else v for k, v in d.items()}
+                                          for d in params["layers"]])
+            kw["moe_ragged"] = False
+        sched = BatchScheduler(params, cfg, kv_dtype=torch.float32,
+                               compute_dtype=torch.float32, device="cpu", mesh=mesh,
+                               step_channel=chan, **kw)
+        sched.sampled_log = []
+        if rank == 0:
+            results[kind] = _mesh_lead(sched, kind, str(Path(out_dir) / "off"))
+            chan.publish({"op": "stop"})
+        else:
+            sched.run_follower()
+        lay = sched.params["layers"][0]
+        results[kind + "/log"] = [np.asarray(t) for t in sched.sampled_log]
+        results[kind + "/shapes"] = {k: tuple(v.data.shape if isinstance(v, QArray) else v.shape)
+                                     for k, v in lay.items()}
+        results[kind + "/pool"] = tuple(sched.kv.state.k_pool.shape)
+        results[kind + "/rows"] = sched._in.tokens.shape[0]
+        results[kind + "/graphs"] = sched.graphs.stats()
+    chan.close()
+    shutdown()
+    with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(results, f)
