@@ -302,7 +302,9 @@ Phases, each fatal on failure (exit code 1, no result line):
  15. cli - python -m jlama_tpu_torch.cli on the card, each command a
               subprocess with a temporary JLAMA_MODEL_HOME: a bf16
               Llama-3.2-1B in HF names written from seed 0 with the port's
-              writer (phase 12's tokenizer and template); quantize (timed;
+              writer (random_q4_params' values: block-32 nibbles times
+              scales, norms ones; phase 12's tokenizer and template);
+              quantize (timed;
               layer 0, the embedding and the final norm byte-equal to
               q4_quantize_np of the same values), quantize --quantize-to i8
               (its output loads as q8), list, complete (the text equal to an
@@ -367,6 +369,26 @@ Phases, each fatal on failure (exit code 1, no result line):
               matmuls a layer a forward, two gathers a layer on the prefill
               route) and K1-K4's on each rank. A failed rank fails either
               phase; a hung one is killed at its deadline and fails it.
+ 19. tp rest - the rest of tensor parallelism, two spawned ranks on cuda:0
+              over gloo (jlama_tpu_torch/scripts/tp_load_check.py): phase
+              15's JQ4 Llama-3.2-1B read shard-locally from disk
+              (load_params_sharded; each rank's payload bytes read, whole
+              rows of wo and w2, at most 0.8 of the file's, its tree
+              bit-equal to the slice of a whole load) and over ranged HTTP
+              from a server on 127.0.0.1 (the bytes fetched equal to those
+              read from disk, the tree equal to the disk one); q4 and q4s
+              serving on that slice and on random JQ4 weights of the same
+              config (the tp logits within rel L2 1e-2 of one device's and
+              the greedy ids one device's; K5 at the rank's own shapes
+              bit-equal to its plain version and on a repeat, timed on
+              rank 0);
+              GPT-2 at tp = 2 (greedy ids one device's, its
+              undivided vocabulary whole on both ranks); BERT-base on a mesh
+              OpenAIServer whose /v1/embeddings calls rank 1 replays (the
+              vectors within 5e-2 rel L2 of one device's embed_batch);
+              K1-K5's launches on each rank as its prefills and decode
+              steps imply. Phase 3 holds K5 at Llama-3.1-8B's tp = 2 rank
+              shapes and K1-K4 at GPT-2's and BERT's rank shapes.
 Phase 10 also serves its 8 requests through a q4s BatchScheduler (K5 for
 wqkv, wo and the lm_head, K6 for the experts; ids equal to an eager q4s
 scheduler's; the paged logits of 2 layers against the plain path) and runs
@@ -534,6 +556,15 @@ def check_k1(torch, timer, details):
     cases += [(name, n, k, m, bf16, out) for name, (n, k, out) in shapes_tp.items()
               for m in (1, 16, 512, 1024)]
     cases += [("tp_lm_head", c8.vocab_size // 2, D8, m, bf16, f32) for m in (1, 16)]
+    # GPT-2's and BERT-base's rank-local shapes at tp = 2 (phase 19): c_attn's
+    # and c_fc's rows / 2, c_proj's inputs / 2 (f32 out: the partials); GPT-2's
+    # decode step and a prefill, BERT's 32-row batch of 256-token rows (its
+    # undivided 50,257-row lm_head stays whole: gpt2_lm_head above)
+    shapes_2tp = {"gpt2_tp_wqkv": (3 * D2 // 2, D2, bf16), "gpt2_tp_wo": (D2, D2 // 2, f32),
+                  "gpt2_tp_w1": (c2.hidden_length // 2, D2, bf16),
+                  "gpt2_tp_w2": (D2, c2.hidden_length // 2, f32)}
+    cases += [(name, n, k, m, bf16, out) for name, (n, k, out) in shapes_2tp.items()
+              for m in (1, 16, 512, BERT_K1_M)]
     cases += [("uneven_n", 1000, 2048, m, bf16, bf16) for m in (1, 37)]
     cases += _ppl_window_cases(c1)
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -655,6 +686,19 @@ def check_k1(torch, timer, details):
         print(f"K1 {tag} ({len(rows)} launches): K1 {gpt2[f'ms_{tag}']:.4f} ms, torch.matmul "
               f"bf16 {gpt2[f'library_ms_{tag}']:.4f} ms, bound {gpt2[f'bound_ms_{tag}']:.4f} ms",
               flush=True)
+    # one tp = 2 rank of GPT-2 (phase 19): its decode step (12 x 4 at the rank's
+    # shapes + the whole lm_head), its 512-token prefill; BERT-base's forward
+    step2tp = [per_shape[(s_, 1)] for s_ in shapes_2tp for _ in range(c2.n_layers)] \
+        + [per_shape[("gpt2_lm_head", 1)]]
+    pre2tp = [per_shape[(s_, 512)] for s_ in shapes_2tp for _ in range(c2.n_layers)]
+    bert2tp = [per_shape[(s_, BERT_K1_M)] for s_ in shapes_2tp for _ in range(c2.n_layers)]
+    for tag, rows in (("gpt2_tp_rank", step2tp), ("gpt2_tp_rank_prefill512", pre2tp),
+                      ("bert_tp_rank_m8192", bert2tp)):
+        for key in ("ms", "library_ms", "bound_ms"):
+            gpt2[f"{key}_{tag}"] = sum(r[key] for r in rows)
+        print(f"K1 {tag} ({len(rows)} launches): K1 {gpt2[f'ms_{tag}']:.4f} ms, torch.matmul "
+              f"bf16 {gpt2[f'library_ms_{tag}']:.4f} ms, bound {gpt2[f'bound_ms_{tag}']:.4f} ms",
+              flush=True)
     print(f"K1 host time of one wrapper call (w13): {host_us[512]:.1f} us at M=512 (wgmma "
           f"route, x's tensor map made per call), {host_us[16]:.1f} us at M=16, "
           f"{host_us[1]:.1f} us at M=1 (the plan from a cache)", flush=True)
@@ -677,7 +721,8 @@ def check_k1(torch, timer, details):
                 f"*_prefill512: one 512-token prefill, {L} x (wqkv, wo, w13, w2) at M=512; "
                 f"*_gpt2: GPT-2's decode step, {c2.n_layers} x (wqkv, wo, w1, w2) + its "
                 f"50,257-row lm_head; *_gpt2_prefill512: its 512-token prefill; *_bert_m8192: "
-                f"BERT-base's forward of 32 rows x 256 tokens, {c2.n_layers} x 4 at M=8192")
+                f"BERT-base's forward of 32 rows x 256 tokens, {c2.n_layers} x 4 at M=8192; "
+                "*_gpt2_tp_rank*, *_bert_tp_rank*: the same at one tp = 2 rank's shapes")
 
 
 def _lossless_k5_case(torch, QArray, w, m, x_dtype, g):
@@ -732,6 +777,18 @@ def check_k5(torch, timer, details):
         ("gpt2_wqkv", (3 * D2, D2)), ("gpt2_wo", (D2, D2)), ("gpt2_w1", (H2, D2)),
         ("gpt2_w2", (D2, H2))) for m in (16, 256)]
     cases += [("gpt2_lm_head", c2.vocab_size, D2, m, bf16, f32) for m in (1, 16)]
+    # one tp = 2 rank of Llama-3.1-8B under q4s: wqkv N 3,072 and w13 N 14,336
+    # at K 4,096, wo K 2,048 and w2 K 7,168 = 28 groups (f32 out: the
+    # partials), the vocabulary-sharded lm_head N 64,128; the single-stream
+    # and 16-slot steps and a 512-token prefill (phase 19 runs the 1B's)
+    D8 = c8.embedding_length
+    shapes_tp = {"tp8b_wqkv": ((c8.n_heads + 2 * c8.n_kv_heads) * c8.head_size // 2, D8, bf16),
+                 "tp8b_wo": (D8, c8.n_heads * c8.head_size // 2, f32),
+                 "tp8b_w13": (c8.hidden_length, D8, bf16),
+                 "tp8b_w2": (D8, c8.hidden_length // 2, f32)}
+    cases += [(name, n, k, m, bf16, out) for name, (n, k, out) in shapes_tp.items()
+              for m in (1, 16, 512)]
+    cases += [("tp8b_lm_head", c8.vocab_size // 2, D8, m, bf16, f32) for m in (1, 16)]
     g = torch.Generator(device="cuda").manual_seed(11)
     max_decode_m = decode_max_m()
     worst = 0.0
@@ -812,6 +869,20 @@ def check_k5(torch, timer, details):
           f"K1 {pre_sum['k1_ms']:.4f} ms, torch.matmul bf16 {pre_sum['yardstick_ms']:.4f} ms, "
           f"torch._int_mm on the int8 codes {pre_sum['int_mm_ms']:.4f} ms, bound "
           f"{pre_sum['bound_ms']:.4f} ms", flush=True)
+    # one tp = 2 rank's Llama-3.1-8B steps under q4s: 32 x 4 at its shapes + its
+    # half of the lm_head (M = 1 and 16), and its 512-token prefill
+    tp_steps = {}
+    for m in (1, 16, 512):
+        rows = [per_shape[(s_, m)] for s_ in shapes_tp for _ in range(c8.n_layers)]
+        if m < 512:
+            rows.append(per_shape[("tp8b_lm_head", m)])
+        tp_steps[m] = {key: sum(r[key] for r in rows)
+                       for key in ("ms", "plain_ms", "yardstick_ms", "k1_ms", "bound_ms")}
+        print(f"K5 one tp = 2 rank's Llama-3.1-8B {'prefill' if m == 512 else 'step'} at M={m} "
+              f"({len(rows)} launches): {tp_steps[m]['ms']:.4f} ms (plain "
+              f"{tp_steps[m]['plain_ms']:.4f}, K1 {tp_steps[m]['k1_ms']:.4f}, torch.matmul bf16 "
+              f"{tp_steps[m]['yardstick_ms']:.4f}, bound {tp_steps[m]['bound_ms']:.4f})",
+              flush=True)
     graph_steps = _decode_step_graphs(torch, timer, c1, layer_shapes, steps)
     print(f"K5 host time of one wrapper call (w13): {host_us[512]:.1f} us at M=512 (the "
           f"pre-pass, the scratch, three tensor maps made per call), {host_us[16]:.1f} us at "
@@ -823,11 +894,15 @@ def check_k5(torch, timer, details):
                 **{f"{key}_prefill512": v for key, v in pre_sum.items()},
                 host_us_m512=host_us[512], host_us_m16=host_us[16], host_us_m1=host_us[1],
                 decode_step_graphs=graph_steps,
+                **{f"{key}_tp8b_rank_m{m}": v for m, row in tp_steps.items()
+                   for key, v in row.items()},
                 work=f"one decode step, M=1: {L} x (wqkv, wo, w13, w2) + lm_head = "
                      f"{4 * L + 1} launches; yardstick: torch.matmul on bf16 weights; "
                      "k1_ms: K1 on the same JQ4 weights; *_prefill512: one 512-token "
                      f"prefill, {L} x (wqkv, wo, w13, w2) at M=512; int_mm: torch._int_mm "
-                     "on the int8 codes, without the group scales")
+                     "on the int8 codes, without the group scales; *_tp8b_rank_m{1,16,512}: "
+                     "one tp = 2 rank's Llama-3.1-8B step (32 x 4 + half the lm_head) and "
+                     "prefill at its rank shapes")
 
 
 def _decode_step_graphs(torch, timer, c1, layer_shapes, summed) -> dict:
@@ -918,6 +993,10 @@ def check_k3(torch, timer, details):
     # of 128, its 512-token prefill and 4 serving chunks
     cases += [(1, 512, 512, 0, 128, None, None, bf16, (16, 4)),
               (4, 256, 1024, (0, 256, 512, 768), 128, None, None, bf16, (16, 4))]
+    # one tp = 2 rank of GPT-2 (phase 19): 6 heads on 6 KV heads of 64 (head
+    # group 1), a 512-token prefill and 4 serving chunks
+    cases += [(1, 512, 512, 0, 64, None, None, bf16, (6, 6)),
+              (4, 256, 1024, (0, 256, 512, 768), 64, None, None, bf16, (6, 6))]
     g = torch.Generator(device="cuda").manual_seed(2)
     worst = worst_model = 0.0
     main = host_us = gemma = gpt2 = None
@@ -1102,6 +1181,9 @@ def check_k2(torch, timer, details):
         # heads of 128, 16 slots on bf16 and q8 pools
         ("tp rank serving", 16, 4, 128, "bf16", None, None),
         ("tp rank serving", 16, 4, 128, "q8", None, None),
+        # one tp = 2 rank of GPT-2 (phase 19): 6 heads on 6 KV heads of 64
+        ("gpt2 tp rank serving", 6, 6, 64, "bf16", None, None),
+        ("gpt2 tp rank serving", 6, 6, 64, "q8", None, None),
     ]
     g = torch.Generator(device="cuda").manual_seed(4)
     gc = torch.Generator().manual_seed(4)
@@ -1290,6 +1372,9 @@ def check_k4(torch, timer, details):
     cases += [(label, B, T, 128, kind, True, 16, 4) for label, B, T, kind in (
         ("decode", 16, 1, "bf16"), ("decode", 16, 1, "q8"), ("prefill chunk", 4, 256, "bf16"),
         ("prefill chunk", 4, 256, "q8"))]
+    # one tp = 2 rank of GPT-2 (phase 19): 6 heads on 6 KV heads of 64, no RoPE
+    cases += [(label, B, T, 64, kind, False, 6, 6) for label, B, T, kind in (
+        ("decode", 16, 1, "bf16"), ("decode", 16, 1, "q8"), ("prefill chunk", 4, 256, "bf16"))]
     print(f"K4: an empty launch after the flush {empty_ms:.4f} ms", flush=True)
     gpt2 = None
     for label, B, T, hd, kind, rope, H, n_kv in cases:
@@ -3518,13 +3603,14 @@ def serving_front_path(torch, card_note) -> dict:
     if any(emb.params["layers"][i][k] is not v for i, d in enumerate(sched.params["layers"])
            for k, v in d.items()):
         fail("serving front: the embedding Engine copied a layer weight of the scheduler's")
-    n_embed, embed_hidden = [0], emb.run_embed_hidden
+    # its forward without a cache (under run_embed_hidden and run_embed_pooled)
+    n_embed, embed_hidden = [0], emb._hidden
 
     def counted_hidden(*a, **kw):
         n_embed[0] += 1
         return embed_hidden(*a, **kw)
 
-    emb.run_embed_hidden = counted_hidden
+    emb._hidden = counted_hidden
     sched.embed_engine = emb
     srv = OpenAIServer(sched, tok, model_name="llama-3.2-1b-random")
     loop = asyncio.new_event_loop()
@@ -3958,7 +4044,7 @@ def bert_path(torch, card_note) -> dict:
     sub = [seqs[0], seqs[1]] + [s for s in seqs[2:] if 30 < len(s) < 500][:4]
     cpu = Engine(_deq_cpu(torch, params), cfg, tok, device="cpu", compute_dtype=torch.float32,
                  kv_dtype=torch.float32)
-    memo, run_hidden = {}, cpu.run_embed_hidden
+    memo, run_hidden = {}, cpu._hidden  # its forward without a cache
 
     def hidden_once(toks, pos, tt, lens_=None):
         key = (np.asarray(toks).tobytes(), np.asarray(lens_).tobytes())
@@ -3966,7 +4052,7 @@ def bert_path(torch, card_note) -> dict:
             memo[key] = run_hidden(toks, pos, tt, lens_)
         return memo[key]
 
-    cpu.run_embed_hidden = hidden_once
+    cpu._hidden = hidden_once
     t2 = time.perf_counter()
     worst = {}
     for pooling in BERT_POOLINGS:
@@ -4137,9 +4223,14 @@ CLI_TEXTS = ("the quick brown fox jumps over the lazy dog and tells me a story o
 
 def _write_hf_llama(torch, out: Path, hf_config: dict, seed: int) -> float:
     """A float bf16 checkpoint in HF names (model.safetensors, config.json)
-    at a Llama config's full width, drawn on the card from the seed (normal,
-    std 0.02; norms around 1), written through the port's SafeTensorWriter
-    from uint16 views. Returns the seconds."""
+    at a Llama config's full width, drawn on the card from the seed as
+    `random_q4_params` draws its weights (each block of 32 a row: uniform
+    nibbles less 8 times a scale uniform in [0.5, 1.5] x 0.0043, std ≈
+    0.02; norms ones), written through the port's SafeTensorWriter from
+    uint16 views. Returns the seconds. (A normal draw of std 0.02 with norms
+    around 1 moved the 1B's logits by 3e-2 rel L2 between bf16 and f32
+    activations on one device, twenty times what this draw moves them: too
+    sensitive to rounding for a tp-against-one-device check.)"""
     import numpy as np
 
     from jlama_tpu_torch.st import SafeTensorWriter
@@ -4152,8 +4243,14 @@ def _write_hf_llama(torch, out: Path, hf_config: dict, seed: int) -> float:
     w = SafeTensorWriter(metadata={"format": "pt"})
 
     def add(name, *shape, norm=False):
-        x = torch.randn(shape, generator=g, device="cuda") * (0.1 if norm else 0.02) \
-            + (1.0 if norm else 0.0)
+        if norm:
+            x = torch.ones(shape, device="cuda")
+        else:
+            nib = torch.randint(0, 16, shape, generator=g, device="cuda", dtype=torch.uint8)
+            scales = (torch.rand((shape[0], shape[1] // 32), generator=g, device="cuda")
+                      + 0.5) * 0.0043
+            x = (nib.float() - 8) * scales.repeat_interleave(32, dim=1)
+            del nib, scales
         raw = x.to(torch.bfloat16).view(torch.int16).cpu().numpy().view(np.uint16)
         w.add_raw(name, "BF16", shape, raw)
 
@@ -4276,7 +4373,7 @@ def _fake_hub(root: Path):
     return srv
 
 
-def cli_path(torch, card_note) -> dict:
+def cli_path(torch, card_note, tmp) -> dict:
     """Phase 15: `python -m jlama_tpu_torch.cli` on the card, every command a
     subprocess with a temporary JLAMA_MODEL_HOME: a float bf16 Llama-3.2-1B
     written here from seed 0 (HF names, the port's writer, phase 12's
@@ -4289,11 +4386,12 @@ def cli_path(torch, card_note) -> dict:
     on the same prompt ids; one /v1/embeddings request); `serve --pallas
     w8a8` (one answer equal to an in-process q4s scheduler's); `download`
     of the JQ4 directory from a fake hub on 127.0.0.1 (files byte-equal);
-    `rm`; `version`. A command that exits non-zero fails the phase."""
+    `rm`; `version`. A command that exits non-zero fails the phase. The
+    model home lies under `tmp`, which the caller removes after phase 19
+    (which reads the JQ4 directory)."""
     import filecmp
     import os
     import shutil
-    import tempfile
 
     import numpy as np
 
@@ -4307,7 +4405,7 @@ def cli_path(torch, card_note) -> dict:
     from jlama_tpu_torch.tokenizers import load_tokenizer
 
     out: dict = {}
-    with tempfile.TemporaryDirectory(prefix="jlama_cli_") as tmp:
+    with contextlib.nullcontext(tmp) as tmp:
         home = Path(tmp) / "home"
         src = home / "llama1b"
         out["write_s"] = _write_hf_llama(torch, src, llama_1b_hf_config(), seed=0)
@@ -4616,6 +4714,149 @@ def ep_path(torch, card_note) -> dict:
                 ranks=[{k: r[k] for k in ("launches_all", "shapes", "k6")} for r in ranks])
 
 
+# phase 19: the rest of tensor parallelism, two ranks on the one card over gloo
+TPR_RANKS = 2
+TPR_DEADLINE_S = 420
+TPR_SPEC = dict(device="cuda:0", backend="gloo", timeout_s=TPR_DEADLINE_S, seed=0,
+                gpt2="gpt2", bert="bert", n_slots=8, n_pages=256, page_size=64,
+                max_seq_len=2048, requests=4, prompt_len=(64, 300), new_tokens=16,
+                prefill=512, logit_rows=64, k5_m=(1, 16, 512))
+
+
+def _range_server(root: Path):
+    """GET of the files under root on 127.0.0.1 (port 0), whole or one
+    `Range: bytes=a-b` read by seek. Returns the server (stop with
+    .shutdown())."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_GET(self):
+            f = root / self.path.split("?")[0].strip("/")
+            if not f.is_file():
+                self.send_response(404)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+                return
+            size = f.stat().st_size
+            lo, hi, rng = 0, size - 1, self.headers.get("Range")
+            if rng:
+                a, _, b = rng.split("=", 1)[1].partition("-")
+                lo, hi = int(a), min(int(b) if b else size - 1, size - 1)
+            with open(f, "rb") as fh:
+                fh.seek(lo)
+                data = fh.read(hi - lo + 1)
+            self.send_response(206 if rng else 200)
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv
+
+
+def tp_rest_path(torch, card_note, tmp) -> dict:
+    """Phase 19 (module docstring): two spawned ranks of
+    jlama_tpu_torch/scripts/tp_load_check.py on cuda:0 over gloo, phase 15's
+    JQ4 Llama-3.2-1B under `tmp` read from disk and over ranged HTTP from a
+    server here; `tp_load_check.check_ranks` holds the results. A failed or
+    hung rank fails the phase."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+
+    from jlama_tpu_torch.models.init import bert_base_config
+    from jlama_tpu_torch.scripts import tp_check, tp_load_check
+
+    home = Path(tmp) / "home"
+    model = "llama1b-JQ4"
+    rng = np.random.default_rng(19)
+    texts = [" ".join(FRONT_WORDS[int(i)] for i in rng.integers(0, len(FRONT_WORDS), n))
+             for n in (4, 16, 60, 100, 8, 32, 80, 2)]
+    torch.cuda.empty_cache()
+    srv = _range_server(home)
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            tok_path = Path(d) / "bert_tokenizer.json"
+            tok_path.write_text(json.dumps(bert_tokenizer_json(bert_base_config().vocab_size)))
+            spec = dict(TPR_SPEC, model_dir=str(home / model), bert_tokenizer=str(tok_path),
+                        url=f"http://127.0.0.1:{srv.server_address[1]}/{model}", texts=texts)
+            print(f"tp rest: {TPR_RANKS} ranks on {spec['device']} over {spec['backend']}: "
+                  f"{model} (phase 15's JQ4 Llama-3.2-1B, "
+                  f"{(home / model / 'model.safetensors').stat().st_size / 1e9:.3f} GB) from "
+                  f"disk and from {spec['url']}; q4, q4s, GPT-2 and a BERT-base mesh server",
+                  flush=True)
+            procs, end = tp_check.start_ranks(
+                tp_load_check.rank_main,
+                lambda r: (r, TPR_RANKS, f"{d}/store", f"{d}/rank{r}.pkl", spec),
+                TPR_RANKS, TPR_DEADLINE_S)
+            err = tp_check.wait_ranks(procs, end)
+            if err:
+                fail(f"tp rest: {err} ({TPR_DEADLINE_S} s)")
+            ranks = []
+            for r in range(TPR_RANKS):
+                with open(f"{d}/rank{r}.pkl", "rb") as f:
+                    ranks.append(pickle.load(f))
+    finally:
+        srv.shutdown()
+    wall = time.perf_counter() - t0
+    bad = tp_load_check.check_ranks(ranks, spec, LOGITS_REL_L2)
+    if bad:
+        fail("tp rest: " + "; ".join(bad))
+    lead = ranks[0]
+    for r in ranks:
+        loc, web = r["local"], r["http"]
+        print(f"tp rest: rank {r['rank']} read {loc['bytes_loaded']} of {loc['payload']} payload "
+              f"bytes from disk ({loc['bytes_loaded'] / loc['payload']:.4f} of them: half the "
+              f"column-parallel rows and the vocabulary, whole rows of wo and w2; limit "
+              f"{tp_load_check.READ_LIMIT}) in {loc['seconds']:.2f} s onto the card, its tree "
+              f"bit-equal to the slice of a whole load; over ranged HTTP it fetched "
+              f"{web['bytes_loaded']} payload bytes ({web['bytes_loaded'] / web['payload']:.4f})"
+              f" in {web['seconds']:.2f} s onto the host, the same tree", flush=True)
+    for name in tp_load_check.LLAMA_RUNS:
+        run = lead[name]
+        src = "phase 15's checkpoint, the disk slice" if name.startswith("disk") \
+            else "random JQ4 from the seed"
+        q4 = (f"; one device's q4s logits rel L2 {run['q4_rel_l2']:.3e} from its q4 logits"
+              if "q4_rel_l2" in run else "")
+        print(f"tp rest: {name} at tp = 2 ({src}): the {TPR_SPEC['prefill']}-token prefill's "
+              f"logits (last {TPR_SPEC['logit_rows']} rows) rel L2 {run['logits_rel_l2']:.3e} "
+              f"from one device's (limit {tp_check.REL_L2_LIMIT}), equal on both ranks (one "
+              f"device's own logits move by {run['f32_rel_l2']:.3e} with f32 activations{q4}); "
+              f"{len(run['ids'])} greedy requests of {TPR_SPEC['new_tokens']} tokens, the ids "
+              "one device's", flush=True)
+    print(f"tp rest: GPT-2 ids equal to one device's (its vocabulary flags {lead['gpt2_vocab']}); "
+          f"BERT-base's mesh /v1/embeddings of {len(texts)} texts in "
+          f"{lead['bert']['seconds'] * 1e3:.1f} ms, rel L2 from one device's embed_batch max "
+          f"{max(lead['bert_rel_l2']):.3e} (limit {LOGITS_REL_L2})", flush=True)
+    names = tp_load_check.LLAMA_RUNS + ("gpt2", "bert")
+    for r in ranks:
+        print(f"tp rest: rank {r['rank']} launches: "
+              + "; ".join(f"{name} {r[name]['launches']} ({r[name]['n_prefill']} prefills, "
+                          f"{r[name]['n_decode']} decode steps)" for name in names), flush=True)
+    k5 = {}
+    for name, rows in lead["k5"].items():
+        for m, row in rows.items():
+            k5[f"{name}_m{m}"] = row
+            times = (f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, bound "
+                     f"{row['bound_ms']:.4f} by {row['bound_by']}) " if "ms" in row else "")
+            print(f"K5 tp rank 0 {name} M={m} N={row['N']} K={row['K']}: {times}bit-equal to "
+                  f"the plain version and on a repeat on {card_note}", flush=True)
+    print(f"tp rest: phase wall {wall:.1f} s", flush=True)
+    rank0 = {k: lead[k] for k in ("local", "http", "bert_rel_l2", "gpt2_vocab")}
+    rank0.update({f"{name}_{k}": lead[name][k] for name in tp_load_check.LLAMA_RUNS
+                  for k in ("logits_rel_l2", "f32_rel_l2", "q4_rel_l2") if k in lead[name]})
+    return dict(spec=TPR_SPEC, wall_s=wall, rank0=rank0, k5_rank0=k5,
+                ranks=[{name: {k: r[name][k] for k in ("launches", "n_prefill", "n_decode")}
+                        for name in names} for r in ranks])
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write per-shape details as JSON here")
@@ -4748,8 +4989,12 @@ def main() -> None:
          "float_route": fmoe["float_route"], "logits_rel_l2": fmoe["logits_rel_l2"],
          "peak_memory_gb": fmoe["peak_memory_gb"]}), flush=True)
     # 15. the command line: quantize, list, complete, chat, serve, download, rm, version
+    # (its model home outlives it: phase 19 reads the JQ4 directory)
     torch.cuda.empty_cache()
-    out["cli"] = cli_path(torch, smi)
+    import tempfile
+
+    cli_home = tempfile.TemporaryDirectory(prefix="jlama_cli_")
+    out["cli"] = cli_path(torch, smi, cli_home.name)
     print(f"card {smi}: cli " + json.dumps(out["cli"]), flush=True)
     # 16. tensor parallelism: Llama-3.1-8B's widths at tp = 2, two ranks on this card
     torch.cuda.empty_cache()
@@ -4781,6 +5026,16 @@ def main() -> None:
                                                     "logits_rel_l2", "launches_all")}),
           flush=True)
 
+    # 19. the rest of tp: shard-local loading (disk, HTTP), q4s, GPT-2, BERT's mesh server
+    torch.cuda.empty_cache()
+    try:
+        tpr = tp_rest_path(torch, smi, cli_home.name)
+    finally:
+        cli_home.cleanup()
+    out["tp_rest"] = tpr
+    print(f"card {smi}: tp rest " + json.dumps(tpr["rank0"]), flush=True)
+    kern["w8a8_matmul"].update({f"tp_rank0_{k}_ms": v["ms"] for k, v in tpr["k5_rank0"].items()})
+
     routes = {
         "q4_matmul": ("jlama_tpu_torch/csrc/q4_matmul.cu", "jlama_tpu/ops/pallas_q4.py:113"),
         "paged_decode": ("jlama_tpu_torch/csrc/paged_decode.cu",
@@ -4797,10 +5052,15 @@ def main() -> None:
     kernels = []
     for k in KERNELS + ("moe_q4_matmul",):
         src, rep = routes[k]
-        if k == "w8a8_matmul":  # its path: q4s serving (phase 7), and GPT-2's (phase 13)
+        tpr_launches = {f"launches_tp_{name}_rank{i}": r[name]["launches"][k]
+                        for i, r in enumerate(tpr["ranks"]) for name in r
+                        if r[name]["launches"].get(k)}
+        if k == "w8a8_matmul":  # its path: q4s serving (phase 7), GPT-2's (phase 13), each
+            # tp rank's q4s (phase 19)
             launches = dict(launches=q4s_launches[k], launches_engine=None,
                             launches_ppl=out["perplexity"]["q4s"]["launches"][k],
-                            launches_gpt2_q4s=gpt2["q4s_serving"]["launches"][k])
+                            launches_gpt2_q4s=gpt2["q4s_serving"]["launches"][k],
+                            **tpr_launches)
         elif k == "moe_q4_matmul":  # its path: Mixtral serving and Engine (phase 10),
             # each expert-parallel rank's (phase 18)
             launches = dict(launches=moe["serving"]["launches"][k],
@@ -4815,7 +5075,7 @@ def main() -> None:
                                for i, r in enumerate(ep["ranks"])})
         else:  # phase 6 / phase 4, Gemma 2's serving / Engine (phase 11), GPT-2's and
             # BERT's (phase 13), each tp rank's (phase 16), each dp x tp rank's (phase
-            # 17), each expert-parallel rank's (phase 18)
+            # 17), each expert-parallel rank's (phase 18), each rank's of phase 19
             launches = dict(launches=serving_launches.get(k),
                             launches_tp_rank0=tp["rank0"]["launches_all"][k],
                             launches_tp_rank1=tp["rank1"]["launches_all"][k],
@@ -4828,7 +5088,8 @@ def main() -> None:
                             launches_gemma2_engine=g2["engine"]["launches"][k],
                             launches_gpt2=gpt2["serving"]["launches"][k],
                             launches_gpt2_engine=gpt2["engine"]["launches"][k],
-                            launches_bert=bert["launches"].get(k, 0))
+                            launches_bert=bert["launches"].get(k, 0),
+                            **tpr_launches)
         row = dict(name=k, route="cuda", source=src, replaces=rep, **launches)
         row.update(kern[k])
         kernels.append(row)

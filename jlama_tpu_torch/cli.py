@@ -32,11 +32,16 @@ fall-back:
   Rank 0 started alone with `--num-processes D·T` (no `--process-id`)
   starts the other ranks itself, on a file store in a temporary directory,
   and waits for them when it exits. `--device cpu` gives gloo ranks on the
-  CPU, else rank r runs on cuda:r over NCCL. `--mesh auto` goes through the
-  planner (its dp is served). `--mesh` with pp > 1, and
+  CPU, else rank r runs on cuda:r over NCCL. Each rank reads only its tp
+  slice of the checkpoint, from the model directory or, where the model is
+  an `http(s)://` URL, by ranged requests
+  (`parallel/distributed.py::load_params_sharded`). Every weight format
+  (`--pallas w8a8` too) and architecture one device serves is served, and
+  `/v1/embeddings` answers through an `Engine` over each rank's tree, its
+  calls replayed by the other ranks of dp group 0. `--mesh auto` goes
+  through the planner (its dp is served). `--mesh` with pp > 1, and
   `--no-pp-pipeline`, exit: those wait in ROADMAP queue 1 item 3 (module
-  10), as do embeddings across ranks (a mesh server has no `/v1/embeddings`
-  engine) and tp with `--pallas w8a8` (dp alone serves it);
+  10);
 - `--layer-mode` is accepted and changes nothing: the port's layers are
   always separate tensors.
 
@@ -231,14 +236,16 @@ def rank_argv(argv: list[str], rank: int, world: int, coordinator: str) -> list[
 
 def _mesh_stack(args, dp: int, tp: int):
     """Join the dp × tp world (rank r: tp rank r % tp of dp group r // tp),
-    read the checkpoint on the host, open the step channel, and build this
-    rank's scheduler. Returns (sched, tokenizer, model_dir, channel)."""
+    read this rank's slice of the checkpoint, open the step channel, and
+    build this rank's scheduler with its embeddings `Engine` over the same
+    tree. Returns (sched, tokenizer, model_dir, channel)."""
     import torch
 
-    from .models.loader import load_params
-    from .parallel.distributed import init_mesh_group
+    from .parallel.distributed import LOAD_STATS, init_mesh_group, load_params_sharded
     from .runtime.coordination import StepChannel, coordinator_host, default_step_port
+    from .runtime.engine import Engine
     from .runtime.scheduler import BatchScheduler
+    from .st import is_url
     from .tokenizers import load_tokenizer
 
     _check_pallas(args)
@@ -250,8 +257,6 @@ def _mesh_stack(args, dp: int, tp: int):
                          f"with --num-processes {world}")
     if not 0 <= rank < world:
         raise SystemExit(f"--process-id {rank}: expected 0..{world - 1}")
-    if args.pallas == "w8a8" and tp > 1:
-        raise SystemExit(f"--pallas w8a8 under tp: q4s under tp is not ported yet ({_QUEUE})")
     local = coord.startswith("file://")
     try:
         mesh = init_mesh_group(dp, tp, rank, device=args.device,
@@ -262,10 +267,17 @@ def _mesh_stack(args, dp: int, tp: int):
     group = mesh.group
     print(f"rank {rank}/{world}: {group.backend} on {group.device} (dp group "
           f"{mesh.dp_index}, tp rank {group.rank})", flush=True)
-    model_dir = _resolve_model(args.model, args)
+    # a model URL is read by ranged requests, each rank its ranges
+    model_dir = args.model if is_url(args.model) else _resolve_model(args.model, args)
     dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[args.working_dtype]
-    # every rank reads the whole checkpoint on the host and keeps its slice
-    params, cfg = load_params(model_dir, device="cpu", float_dtype=dtype)
+    # each rank reads only its tp slice, on the host, then moves it
+    try:
+        params, cfg = load_params_sharded(model_dir, None, mesh, device="cpu",
+                                          float_dtype=dtype)
+    except (NotImplementedError, ValueError) as e:
+        raise SystemExit(f"rank {rank}: {e}") from None
+    print(f"rank {rank}: read {LOAD_STATS['bytes_loaded']} of the checkpoint's "
+          f"{LOAD_STATS['payload']} payload bytes", flush=True)
     tokenizer = load_tokenizer(model_dir)
     if rank == 0:
         port = args.step_port if args.step_port is not None else (
@@ -285,6 +297,13 @@ def _mesh_stack(args, dp: int, tp: int):
     except (NotImplementedError, ValueError) as e:
         chan.close()
         raise SystemExit(f"rank {rank}: {e}") from None
+    del params
+    # one copy of the layer weights: the scheduler's rank tree, which the
+    # embeddings Engine shares (its calls go over the step channel)
+    sched.embed_engine = Engine(
+        sched.params, cfg, tokenizer, device=sched.device, max_seq_len=args.context,
+        fuse=False, moe_ragged=False, mesh=mesh, step_channel=chan,
+        step_lock=sched._lock)
     return sched, tokenizer, model_dir, chan
 
 
@@ -293,9 +312,9 @@ def build_server(args):
     the fused tree (q4s with `--pallas w8a8`), its `embed_engine` sharing
     that tree, pre-warmed to `--prewarm` tokens, behind an `OpenAIServer`.
     Returns (server, model_dir). With `--mesh D,1,T` (D · T > 1), rank 0
-    gets the mesh scheduler's server (no embeddings engine: embeddings
-    across ranks are not ported yet); a rank > 0 replays rank 0's steps
-    until it stops, and gets (None, model_dir)."""
+    gets the mesh scheduler's server (its embeddings engine's calls replayed
+    by the ranks of dp group 0); a rank > 0 replays rank 0's steps until it
+    stops, and gets (None, model_dir)."""
     import torch
 
     from .runtime.engine import Engine
@@ -319,7 +338,7 @@ def build_server(args):
                 shutdown()
             return None, model_dir
         _tune(sched, args)
-        server = OpenAIServer(sched, tokenizer, model_name=model_dir.name)
+        server = OpenAIServer(sched, tokenizer, model_name=Path(str(model_dir)).name)
         server.step_channel = chan  # closed by cmd_serve: the followers' stop
         return server, model_dir
     params, cfg, tokenizer, model_dir, device = _load(args)
@@ -382,7 +401,7 @@ def cmd_serve(args) -> None:
         server, model_dir = build_server(args)
         if server is None:  # a follower rank whose leader has stopped
             return
-        print(f"Serving {model_dir.name} on http://{args.host}:{args.port}")
+        print(f"Serving {Path(str(model_dir)).name} on http://{args.host}:{args.port}")
         try:
             server.run(host=args.host, port=args.port)
         finally:
@@ -474,8 +493,8 @@ def _add_model_opts(p: argparse.ArgumentParser) -> None:
     p.add_argument("--pallas", choices=["auto", "on", "off", "w8a8"],
                    default="auto",
                    help="auto and on: q4 weights through the q4 kernel (K1); w8a8: "
-                        "serve the q4s W4A8 format through the w8a8 kernel (K5); off "
-                        "exits (no dequantizing path on the card)")
+                        "serve the q4s W4A8 format through the w8a8 kernel (K5), on one "
+                        "device or a mesh; off exits (no dequantizing path on the card)")
     p.add_argument("--layer-mode", choices=["scan", "unrolled"], default="scan",
                    help="accepted for the JAX package's command line; the port's layers "
                         "are always separate tensors")
@@ -524,8 +543,9 @@ def build_parser() -> argparse.ArgumentParser:
         "(block-32 int8, dequantized in attention)",
     )
     p.add_argument("--mesh", default=None, metavar="DP,PP,TP",
-                   help="data and tensor parallelism over one process a rank, D,1,T (pp > "
-                        "1 is not ported yet and exits), or auto (the planner)")
+                   help="data and tensor parallelism over one process a rank, D,1,T (each "
+                        "rank reads only its slice of the checkpoint, locally or by ranged "
+                        "HTTP; pp > 1 is not ported yet and exits), or auto (the planner)")
     p.add_argument("--coordinator", default=None,
                    help="the ranks' rendezvous: host:port (a TCP store rank 0 serves) or "
                         "file:///path (a file store)")

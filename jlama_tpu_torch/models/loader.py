@@ -17,7 +17,7 @@ are probed; a BERT classifier head loads in f32.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -38,8 +38,31 @@ def _to_np_float(arr: np.ndarray, st_dtype: str) -> np.ndarray:
     return arr
 
 
+class Cut(NamedTuple):
+    """A tp rank's part of a tensor: `axis` "rows" (the second-to-last
+    dimension: a column-parallel weight), "cols" (the last: a row-parallel
+    weight's inputs, or a 1-D bias), "vocab" (rows where tp divides them,
+    else the whole table) or "experts" (axis 0 of an expert stack, which
+    the Mixtral map reads expert by expert); None: the whole tensor."""
+
+    axis: str | None = None
+    tp: int = 1
+    rank: int = 0
+
+    def span(self, n: int, what: str) -> tuple[int, int]:
+        if n % self.tp:
+            raise ValueError(f"{what}: dimension of size {n} does not divide over "
+                             f"tp={self.tp}")
+        per = n // self.tp
+        return self.rank * per, (self.rank + 1) * per
+
+
+WHOLE = Cut()
+
+
 class WeightReader:
-    """Reads possibly-quantized tensors from a SafeTensorIndex."""
+    """Reads possibly-quantized tensors from a SafeTensorIndex, whole or a
+    tp rank's `Cut` of them (only that slice is read)."""
 
     def __init__(self, idx: SafeTensorIndex, prefix: str = ""):
         self.idx = idx
@@ -48,17 +71,37 @@ class WeightReader:
     def has(self, name: str) -> bool:
         return self.prefix + name in self.idx
 
-    def load_linear(self, name: str):
+    def _ranges(self, name: str, cut: Cut):
+        """(row_range, col_range) of a cut of the tensor `name`."""
+        if cut.axis is None or cut.tp == 1:
+            return None, None
+        ti = self.idx.info(self.prefix + name)
+        if cut.axis == "cols":
+            k = ti.shape[-1]
+            if self.prefix + name + ".qb" in self.idx and (k // cut.tp) % 32:
+                # each rank's input slice must hold whole 32-element blocks
+                raise ValueError(f"{name}: {k // 32} blocks of 32 inputs do not divide over "
+                                 f"tp={cut.tp}")
+            return None, cut.span(k, name)
+        if cut.axis == "rows" or (cut.axis == "vocab" and ti.shape[-2] % cut.tp == 0):
+            return cut.span(ti.shape[-2], name), None
+        if cut.axis == "vocab":
+            return None, None
+        raise ValueError(f"{name}: no {cut.axis!r} cut of one tensor")
+
+    def load_linear(self, name: str, cut: Cut = WHOLE):
         """("q4"|"q8", data, scales) when quantized, else ("f", f32-or-raw, None)."""
-        data, scales, st_dtype = self.idx.load_quantized(self.prefix + name)
+        data, scales, st_dtype = self.idx.load_quantized(self.prefix + name,
+                                                         *self._ranges(name, cut))
         if st_dtype == "Q4":
             return ("q4", np.ascontiguousarray(data), np.ascontiguousarray(scales))
         if st_dtype == "I8" and scales is not None:
             return ("q8", np.ascontiguousarray(data), np.ascontiguousarray(scales))
         return ("f", _to_np_float(np.ascontiguousarray(data), st_dtype), None)
 
-    def load_float(self, name: str) -> np.ndarray:
-        data, scales, st_dtype = self.idx.load_quantized(self.prefix + name)
+    def load_float(self, name: str, cut: Cut = WHOLE) -> np.ndarray:
+        data, scales, st_dtype = self.idx.load_quantized(self.prefix + name,
+                                                         *self._ranges(name, cut))
         if st_dtype == "Q4":
             return blockq.q4_dequantize_np(data, scales)
         if st_dtype == "I8" and scales is not None:
@@ -97,10 +140,10 @@ def _leaf(item: tuple, device, float_dtype):
 
 def _llama_layer_map(prefix: str = "model.layers") -> dict[str, Callable]:
     def lin(name):
-        return lambda r, i: r.load_linear(f"{prefix}.{i}.{name}.weight")
+        return lambda r, i, c=WHOLE: r.load_linear(f"{prefix}.{i}.{name}.weight", c)
 
     def vec(name):
-        return lambda r, i: r.load_float(f"{prefix}.{i}.{name}")
+        return lambda r, i, c=WHOLE: r.load_float(f"{prefix}.{i}.{name}", c)
 
     return {
         "wq": lin("self_attn.q_proj"),
@@ -126,7 +169,7 @@ def _gemma2_layer_map(prefix: str = "model.layers") -> dict[str, Callable]:
     m = _llama_layer_map(prefix)
 
     def vec(name):
-        return lambda r, i: r.load_float(f"{prefix}.{i}.{name}")
+        return lambda r, i, c=WHOLE: r.load_float(f"{prefix}.{i}.{name}", c)
 
     m["post_attn_norm.weight:np"] = vec("post_attention_layernorm.weight")
     m["ff_norm.weight:np"] = vec("pre_feedforward_layernorm.weight")
@@ -138,16 +181,19 @@ def _mixtral_layer_map(n_experts: int, prefix: str = "model.layers") -> dict[str
     """The Llama map with the MLP replaced by the sparse MoE block
     (`jlama_tpu/models/loader.py:_mixtral_layer_map`): `router` from the
     gate, and each expert projection stacked over the experts into one
-    [E, out, in] leaf, made uniform across the experts first."""
+    [E, out, in] leaf, made uniform across the experts first. An "experts"
+    cut reads a tp rank's E/tp experts only (expert parallelism)."""
     m = _llama_layer_map(prefix)
     for k in ("w1", "w2", "w3"):
         m.pop(k)
 
     def expert_stack(wname):
-        def f(r, i):
+        def f(r, i, c=WHOLE):
+            e0, e1 = (c.span(n_experts, f"layers[{i}].experts.{wname}")
+                      if c.axis == "experts" else (0, n_experts))
             items = _stack_linears([
                 r.load_linear(f"{prefix}.{i}.block_sparse_moe.experts.{e}.{wname}.weight")
-                for e in range(n_experts)
+                for e in range(e0, e1)
             ])
             kind = items[0][0]
             return (kind, np.stack([d for _, d, _ in items]),
@@ -158,7 +204,8 @@ def _mixtral_layer_map(n_experts: int, prefix: str = "model.layers") -> dict[str
     m["experts.w1"] = expert_stack("w1")
     m["experts.w2"] = expert_stack("w2")
     m["experts.w3"] = expert_stack("w3")
-    m["router"] = lambda r, i: r.load_linear(f"{prefix}.{i}.block_sparse_moe.gate.weight")
+    m["router"] = lambda r, i, c=WHOLE: r.load_linear(
+        f"{prefix}.{i}.block_sparse_moe.gate.weight")
     return m
 
 
@@ -168,15 +215,15 @@ def _gpt2_layer_map(d: int) -> dict[str, Callable]:
     sliced the same way; all through `load_float`."""
 
     def convt(name):
-        return lambda r, i: ("f", np.ascontiguousarray(r.load_float(f"h.{i}.{name}.weight").T),
-                             None)
+        return lambda r, i, c=WHOLE: ("f", np.ascontiguousarray(
+            r.load_float(f"h.{i}.{name}.weight").T), None)
 
     def qkv(which):
-        return lambda r, i: ("f", np.ascontiguousarray(
+        return lambda r, i, c=WHOLE: ("f", np.ascontiguousarray(
             r.load_float(f"h.{i}.attn.c_attn.weight")[:, which * d:(which + 1) * d].T), None)
 
     def vec(name, split=None):
-        def f(r, i):
+        def f(r, i, c=WHOLE):
             b = r.load_float(f"h.{i}.{name}")
             return b if split is None else np.ascontiguousarray(b[split * d:(split + 1) * d])
 
@@ -208,10 +255,10 @@ def _bert_layer_map(prefix: str = "encoder.layer") -> dict[str, Callable]:
     `output.LayerNorm`."""
 
     def lin(name):
-        return lambda r, i: r.load_linear(f"{prefix}.{i}.{name}.weight")
+        return lambda r, i, c=WHOLE: r.load_linear(f"{prefix}.{i}.{name}.weight", c)
 
     def vec(name):
-        return lambda r, i: r.load_float(f"{prefix}.{i}.{name}")
+        return lambda r, i, c=WHOLE: r.load_float(f"{prefix}.{i}.{name}", c)
 
     return {
         "wq": lin("attention.self.query"),
@@ -286,6 +333,55 @@ def _layer_map(cfg: ModelConfig) -> dict[str, Callable]:
     return _llama_layer_map()
 
 
+def read_tree(idx, cfg: ModelConfig, device, float_dtype=torch.bfloat16,
+              cut_of: Callable[[str], Cut] | None = None) -> dict:
+    """The param tree of an open index (local or HTTP) on `device`, each
+    leaf whole or, with `cut_of` (our key -> its Cut), a tp rank's cut of
+    it, of which only the slice is read."""
+    if cfg.model_type not in TOPLEVEL_MAPS:
+        raise NotImplementedError(f"{cfg.model_type}: no loader map")
+    cut_of = cut_of or (lambda key: WHOLE)
+    r = WeightReader(idx, _strip_prefix(idx, cfg))
+    bare = WeightReader(idx)  # tensors outside the prefix (a top-level lm_head)
+    params: dict = {}
+    for key, hf_name in TOPLEVEL_MAPS[cfg.model_type].items():
+        hf = hf_name.rstrip("?")
+        src = r if r.has(hf) else bare if bare.has(hf) else None
+        if src is None:
+            if hf_name.endswith("?"):
+                continue
+            raise KeyError(f"missing tensor {hf!r} (prefix {r.prefix!r})")
+        if key.endswith(":np"):
+            arr = src.load_float(hf).astype(np.float32)
+            params[key[: -len(":np")]] = _tensor(arr, device)
+        else:
+            params[key] = _leaf(src.load_linear(hf, cut_of(key)), device, float_dtype)
+
+    layers: list[dict] = [{} for _ in range(cfg.n_layers)]
+    for key, fn in _layer_map(cfg).items():
+        optional = key.endswith("?")
+        key_clean = key.replace(":np", "").rstrip("?")
+        cut = cut_of(key_clean)
+        try:
+            items = [fn(r, i, cut) for i in range(cfg.n_layers)]
+        except KeyError:
+            if optional:
+                continue
+            raise
+        if ":np" in key:
+            for i, a in enumerate(items):
+                layers[i][key_clean] = _tensor(a.astype(np.float32), device)
+        else:
+            for i, item in enumerate(_stack_linears(items)):
+                layers[i][key_clean] = _leaf(item, device, float_dtype)
+    params["layers"] = layers
+    if cfg.model_type == "bert":  # the sequence-classification head, f32
+        for name in ("classifier.weight", "classifier.bias"):
+            if bare.has(name):
+                params[name] = _tensor(bare.load_float(name).astype(np.float32), device)
+    return params
+
+
 def load_params(
     model_dir: str | Path,
     cfg: ModelConfig | None = None,
@@ -294,9 +390,10 @@ def load_params(
 ) -> tuple[dict, ModelConfig]:
     """Load a model directory, or a model URL (`http(s)://`, its tensors
     fetched by ranged requests), into (params, cfg) on `device` (CUDA unless
-    the caller names one; raises without CUDA and without a device). The
-    JAX loader's partial loads (`layer_range`, `include_embeddings`,
-    `include_head`) come with the parallel modes (ROADMAP module 10)."""
+    the caller names one; raises without CUDA and without a device). A tp
+    rank reads only its slice through `parallel.distributed.
+    load_params_sharded`; the JAX loader's other partial loads
+    (`layer_range` for the pp ring) come with it (ROADMAP module 10)."""
     device = resolve_device(device)
     if not is_url(model_dir):
         model_dir = Path(model_dir)
@@ -306,43 +403,7 @@ def load_params(
         raise NotImplementedError(f"{cfg.model_type}: no loader map")
     idx = open_weights(model_dir)
     try:
-        r = WeightReader(idx, _strip_prefix(idx, cfg))
-        bare = WeightReader(idx)  # tensors outside the prefix (a top-level lm_head)
-        params: dict = {}
-        for key, hf_name in TOPLEVEL_MAPS[cfg.model_type].items():
-            hf = hf_name.rstrip("?")
-            src = r if r.has(hf) else bare if bare.has(hf) else None
-            if src is None:
-                if hf_name.endswith("?"):
-                    continue
-                raise KeyError(f"missing tensor {hf!r} (prefix {r.prefix!r})")
-            if key.endswith(":np"):
-                arr = src.load_float(hf).astype(np.float32)
-                params[key[: -len(":np")]] = _tensor(arr, device)
-            else:
-                params[key] = _leaf(src.load_linear(hf), device, float_dtype)
-
-        layers: list[dict] = [{} for _ in range(cfg.n_layers)]
-        for key, fn in _layer_map(cfg).items():
-            optional = key.endswith("?")
-            key_clean = key.replace(":np", "").rstrip("?")
-            try:
-                items = [fn(r, i) for i in range(cfg.n_layers)]
-            except KeyError:
-                if optional:
-                    continue
-                raise
-            if ":np" in key:
-                for i, a in enumerate(items):
-                    layers[i][key_clean] = _tensor(a.astype(np.float32), device)
-            else:
-                for i, item in enumerate(_stack_linears(items)):
-                    layers[i][key_clean] = _leaf(item, device, float_dtype)
-        params["layers"] = layers
-        if cfg.model_type == "bert":  # the sequence-classification head, f32
-            for name in ("classifier.weight", "classifier.bias"):
-                if bare.has(name):
-                    params[name] = _tensor(bare.load_float(name).astype(np.float32), device)
+        params = read_tree(idx, cfg, device, float_dtype)
     finally:
         idx.close()
     return params, cfg

@@ -16,16 +16,21 @@ case.
 
 The backend follows the rank's device: NCCL on CUDA, gloo on the CPU. The
 caller may name gloo on CUDA, which is how two ranks share one GPU (NCCL
-refuses that). Every rank reads the whole checkpoint on the host and keeps
-its own slice on the device; the JAX package's shard-local and HTTP shard
-loading (`jlama_tpu/parallel/distributed.py:95-402`) is not ported yet
-(ROADMAP queue 1 item 3).
+refuses that).
+
+`load_params_sharded` is the shard-local load
+(`jlama_tpu/parallel/distributed.py:95-402`): each rank reads only its tp
+slice of the checkpoint, from local files (mmap range reads) or from an
+`http(s)://` model URL (ranged requests), and gets its `RankSlice`
+directly, without the host ever holding the whole model. `LOAD_STATS
+["bytes_loaded"]` is the payload this process read in its last call.
 """
 
 from __future__ import annotations
 
 import datetime
 import socket
+from pathlib import Path
 
 import torch
 
@@ -130,6 +135,105 @@ def init_mesh_group(dp: int, tp: int, rank: int, *, device=None, backend: str | 
     rows = (TPGroup(g, dp, rows_pg, "gloo", torch.device("cpu"), store) if tp_rank == 0
             else None)
     return Mesh(dp, 1, tp, TPGroup(tp_rank, tp, tp_pg, backend, dev, store), g, rows)
+
+
+# the architectures read shard-locally (the JAX package's _SHARDED_ARCHS);
+# GPT-2 and BERT load whole and are then cut, as there: GPT-2's c_attn holds
+# q, k and v in one [D, 3D] Conv1D matrix, and both models are small
+SHARDED_ARCHS = ("llama", "mistral", "qwen2", "granite", "gemma", "gemma2", "mixtral")
+
+# diagnostics from this process's last load_params_sharded call:
+# {"bytes_loaded": payload bytes read, "payload": the checkpoint's payload bytes}
+LOAD_STATS: dict = {}
+
+
+def _cut_of(tp: int, rank: int):
+    """Our key -> its tp Cut (`parallel/mesh.py`'s plan before fusing)."""
+    from ..models.loader import Cut, WHOLE
+    from .mesh import COLUMN_PARALLEL, EXPERT_STACKS, ROW_PARALLEL, SPLIT_BIASES
+
+    def cut_of(key: str):
+        if key in COLUMN_PARALLEL:
+            return Cut("rows", tp, rank)
+        if key in ROW_PARALLEL or key in SPLIT_BIASES:
+            return Cut("cols", tp, rank)
+        if key in EXPERT_STACKS:
+            return Cut("experts", tp, rank)
+        if key in ("embed", "lm_head"):
+            return Cut("vocab", tp, rank)
+        return WHOLE  # norms, the router, row-parallel biases
+
+    return cut_of
+
+
+def payload_bytes(idx) -> int:
+    """The tensor payload of an open checkpoint index (every tensor's
+    bytes, its block scales included)."""
+    return sum(idx.info(n).nbytes for n in idx.names())
+
+
+def load_params_sharded(model_dir, cfg=None, mesh=None, device=None,
+                        float_dtype=torch.bfloat16):
+    """This rank's tree of a dp × tp `mesh`, read shard-locally: (params,
+    cfg). `model_dir` is a directory or an `http(s)://` model URL (each
+    rank then fetches only its ranges). Every rank of a dp group reads the
+    same tp slice, its tp rank's:
+
+    - output rows of wq, wk, wv, w1, w3 and their biases (a JQ4 weight's
+      data and block scales together);
+    - input columns of wo and w2, on whole blocks of 32;
+    - E/tp experts of each expert stack, tp rank · E/tp onward;
+    - vocabulary rows of the embedding and the lm_head where tp divides
+      them, else the whole table;
+    - the norms, the router and the row-parallel biases whole.
+
+    The rank's q, k, v and gate, up rows come fused: the tree is the
+    `RankSlice` that `mesh.shard_params` cuts from the whole fused tree,
+    bit for bit. GPT-2 and BERT (not in SHARDED_ARCHS) are read whole
+    and cut. tp = 1 (dp alone): the whole tree. On `device` (the mesh
+    group's unless named; CUDA otherwise)."""
+    from ..config import load_config
+    from ..device import resolve_device
+    from ..models.base import fuse_params
+    from ..models.loader import read_tree
+    from ..st import is_url, open_weights
+    from .mesh import RankSlice, shard_params
+
+    group = mesh.group if mesh is not None else None
+    tp = mesh.tp if mesh is not None else 1
+    rank = group.rank if tp > 1 else 0
+    if device is None and group is not None:
+        device = group.device
+    device = resolve_device(device)
+    if not is_url(model_dir):
+        model_dir = Path(model_dir)
+    if cfg is None:
+        cfg = load_config(model_dir)
+    idx = open_weights(model_dir)
+    try:
+        local = tp > 1 and cfg.model_type in SHARDED_ARCHS
+        params = read_tree(idx, cfg, device, float_dtype, _cut_of(tp, rank) if local else None)
+        LOAD_STATS.update(bytes_loaded=idx.bytes_loaded, payload=payload_bytes(idx))
+        # the whole tables' rows: a "vocab" cut took rows where tp divides them
+        vocab = {k: _whole_rows(idx, cfg, k) % tp == 0 for k in ("embed", "lm_head")
+                 if k in params}
+    finally:
+        idx.close()
+    if tp == 1:
+        return fuse_params(params), cfg
+    if not local:  # read whole, then cut (the JAX loader's fall-back for these models)
+        return shard_params(fuse_params(params, tp), cfg, tp, rank), cfg
+    flags = (vocab["embed"], vocab.get("lm_head", vocab["embed"]))
+    return RankSlice(fuse_params(params), tp, rank, flags), cfg
+
+
+def _whole_rows(idx, cfg, key: str) -> int:
+    """The rows of the checkpoint's embedding or lm_head, whole."""
+    from ..models.loader import TOPLEVEL_MAPS, _strip_prefix
+
+    hf = TOPLEVEL_MAPS[cfg.model_type][key].rstrip("?")
+    name = _strip_prefix(idx, cfg) + hf
+    return idx.info(name if name in idx else hf).shape[0]
 
 
 def shutdown() -> None:

@@ -14,6 +14,12 @@ sampled ids to the leader (`parallel/distributed.py::init_mesh_group`). A
 world of dp × tp ranks: rank r is tp rank r % tp of dp group r // tp. pp = 1
 only (the pp ring is ROADMAP queue 1 item 3).
 
+A rank's tree is a `RankSlice`: a dict that also says which slice it is (tp,
+rank) and whether its embedding and lm_head are cut over the vocabulary.
+`shard_params` makes one from a whole tree, `parallel/distributed.py::
+load_params_sharded` reads one from the checkpoint, and `rank_params`
+takes either on the rank's device for the scheduler and the `Engine`.
+
 `shard_params(params, cfg, tp, rank)` is the counterpart of `param_pspecs`
 and `shard_params`: it slices a full, fused tree into rank `rank`'s tree,
 by the JAX package's rules (`_LAYER_RULES` and `fit`):
@@ -155,6 +161,19 @@ SPLIT_BIASES = tuple(k + ".bias" for k in COLUMN_PARALLEL)
 EXPERT_STACKS = tuple(f"experts.{w}{t}" for w in ("w1", "w2", "w3") for t in ("", "_t"))
 
 
+class RankSlice(dict):
+    """One tp rank's param tree: the dict of leaves, plus `tp`, `rank` and
+    the vocabulary flags (`vocab`: embedding cut, lm_head cut), which the
+    leaves' shapes alone cannot tell apart from a whole tree's."""
+
+    def __init__(self, tree: dict, tp: int, rank: int, vocab: tuple[bool, bool]):
+        super().__init__(tree)
+        self.tp, self.rank, self.vocab = tp, rank, tuple(vocab)
+
+    def __reduce__(self):
+        return RankSlice, (dict(self), self.tp, self.rank, self.vocab)
+
+
 def vocab_sharded(leaf, tp: int) -> bool:
     """Whether an embedding or lm_head [V, D] is cut over tp (`fit`)."""
     return tp > 1 and leaf.shape[0] % tp == 0
@@ -226,13 +245,14 @@ def shard_layer(d: dict, tp: int, rank: int, where: str = "layer") -> dict:
 
 
 def shard_params(params: dict, cfg: ModelConfig, tp: int, rank: int) -> dict:
-    """Rank `rank`'s slice of a full, fused tree (see the module docstring).
-    Tensors come out contiguous (copies); replicated leaves are the input's."""
+    """Rank `rank`'s slice of a full, fused tree (see the module docstring),
+    a `RankSlice` where tp > 1. Tensors come out contiguous (copies);
+    replicated leaves are the input's."""
     if not 0 <= rank < tp:
         raise ValueError(f"rank {rank} is outside tp={tp}")
     if tp == 1:
         return params
-    out = {}
+    out = RankSlice({}, tp, rank, vocab_flags(params, tp))
     for k, v in params.items():
         if k == "layers":
             out[k] = [shard_layer(d, tp, rank, f"layers[{i}]") for i, d in enumerate(v)]
@@ -248,3 +268,66 @@ def vocab_flags(params: dict, tp: int) -> tuple[bool, bool]:
     lm_head is the embedding), the JAX package's `specs_ok` flags."""
     embed = vocab_sharded(params["embed"], tp)
     return embed, vocab_sharded(params["lm_head"], tp) if "lm_head" in params else embed
+
+
+def check_whole(params: dict, cfg: ModelConfig) -> None:
+    """Raise for a tree that holds a tp rank's slice of the config's (a
+    `RankSlice`, or a tree whose attention rows are a slice's) given
+    without the rank's mesh: a single-device path would run it as if
+    whole."""
+    if isinstance(params, RankSlice):
+        raise ValueError(f"these params are tp rank {params.rank} of {params.tp}'s slice: "
+                         "pass the rank's mesh (mesh=)")
+    lay = params["layers"][0] if params.get("layers") else {}
+    hd = cfg.head_size
+    want = {"wqkv": (cfg.n_heads + 2 * cfg.n_kv_heads) * hd, "wq": cfg.n_heads * hd}
+    for k, rows in want.items():
+        if k in lay and lay[k].shape[-2] != rows:
+            raise ValueError(f"{k} has {lay[k].shape[-2]} rows, the config {rows}: these "
+                             "params hold a tp rank's slice; pass it as a RankSlice with the "
+                             "rank's mesh (mesh=)")
+
+
+def rank_params(params: dict, cfg: ModelConfig, mesh, device, fuse: bool = True):
+    """A tp rank's tree on `device` and what its forward needs: (tree,
+    TPCtx, the rank's config). `params` is either the whole tree, which is
+    fused with the rows interleaved per rank (with `fuse`), cut
+    (`shard_params`) and then moved, or this rank's `RankSlice` (from
+    `shard_params` or `distributed.load_params_sharded`, which fuses),
+    which is moved as it is. The tree comes back a `RankSlice`."""
+    from ..models.base import fuse_params, params_to
+    from .tp_forward import TPCtx, localize_cfg
+
+    tp, rank = mesh.tp, mesh.group.rank
+    if isinstance(params, RankSlice):
+        if (params.tp, params.rank) != (tp, rank):
+            raise ValueError(f"params are tp rank {params.rank} of {params.tp}, the mesh "
+                             f"wants rank {rank} of {tp}")
+        vocab = params.vocab
+        local = params_to(dict(params), device)
+    else:
+        check_whole(params, cfg)
+        if fuse:
+            params = fuse_params(params, tp)
+        vocab = vocab_flags(params, tp)
+        local = params_to(dict(shard_params(params, cfg, tp, rank)), device)
+    return RankSlice(local, tp, rank, vocab), TPCtx(mesh.group, *vocab), localize_cfg(cfg, tp)
+
+
+def check_q4s_rank(params: dict, tp: int) -> None:
+    """Raise, naming the weight, where q4s under tp would not equal the cut
+    of the whole converted tree: a row-parallel q4 weight (wo, w2) whose
+    whole K is a multiple of K5's 256-group, so that one device converts
+    it, but whose rank slice of K is not."""
+    from ..ops.w8a8 import GROUP
+
+    for i, d in enumerate(params["layers"]):
+        for k in ROW_PARALLEL:
+            w = d.get(k)
+            if isinstance(w, QArray) and w.fmt == "q4" and w.data.dim() == 2:
+                local = w.shape[-1]
+                if (local * tp) % GROUP == 0 and local % GROUP:
+                    raise ValueError(
+                        f"layers[{i}].{k}: a rank's K of {local} (the whole {local * tp} over "
+                        f"tp={tp}) is no multiple of {GROUP}: q4s under tp cuts K5's "
+                        f"{GROUP}-groups of K over the ranks")

@@ -189,8 +189,13 @@ def gather_vocab_logits(logits: torch.Tensor, group) -> torch.Tensor:
     return group.all_gather(logits, dim=logits.ndim - 1)
 
 
-# the architectures tp serves (the JAX package's shard table)
-TP_ARCHS = ("llama", "mistral", "qwen2", "granite", "gemma", "gemma2", "mixtral")
+# the architectures tp serves: the JAX package's shard table, and GPT-2 and
+# BERT, which it serves on a mesh through GSPMD with the same rules (their
+# LayerNorms, learned positions, token types, BERT's embedding norm, pooler
+# and classifier replicated; GPT-2's undivided vocabulary replicated with
+# its tied lm_head, so its forward takes no vocabulary collective)
+TP_ARCHS = ("llama", "mistral", "qwen2", "granite", "gemma", "gemma2", "mixtral", "gpt2",
+            "bert")
 
 
 def check_tp(cfg: ModelConfig, mesh, quantized: bool = False, n_slots: int | None = None,
@@ -199,9 +204,10 @@ def check_tp(cfg: ModelConfig, mesh, quantized: bool = False, n_slots: int | Non
     (`jlama_tpu/parallel/tp_forward.py:121-156`) is false and its scheduler
     would fall back to GSPMD (the port has no GSPMD: a mesh request never
     runs unsharded): dp must divide the slots and the pages, tp the heads
-    (and the experts of a MoE model, which expert parallelism cuts over tp).
-    Also raises for what the port does not shard yet: pp > 1, GPT-2 and
-    BERT under tp (ROADMAP queue 1 item 3). At tp = 1 the weights are whole
+    (and the experts of a MoE model, which expert parallelism cuts over tp)
+    and the FFN's hidden size (GPT-2's and BERT's too: their w1 and its bias
+    are column-parallel). Also raises for what the port does not shard
+    yet: pp > 1 (ROADMAP queue 1 item 3). At tp = 1 the weights are whole
     on every rank, and a dp mesh serves what one device serves."""
     tp, dp, pp = mesh.tp, mesh.dp, mesh.pp
     if pp != 1:
@@ -217,8 +223,8 @@ def check_tp(cfg: ModelConfig, mesh, quantized: bool = False, n_slots: int | Non
     if tp == 1:
         return
     if cfg.model_type not in TP_ARCHS:
-        raise NotImplementedError(f"tp for {cfg.model_type} is not ported yet (ROADMAP queue "
-                                  f"1 item 3): tp serves {', '.join(TP_ARCHS)}")
+        raise NotImplementedError(f"tp for {cfg.model_type}: tp serves "
+                                  f"{', '.join(TP_ARCHS)}")
     if cfg.n_heads % tp or cfg.n_kv_heads % tp:
         raise ValueError(f"tp={tp} does not divide the heads (n_heads={cfg.n_heads}, "
                          f"n_kv_heads={cfg.n_kv_heads})")

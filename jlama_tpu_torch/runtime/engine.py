@@ -27,12 +27,24 @@
   length buckets, pad keys masked through `seq_lengths`, pooled on the
   device, so that only [R, D] comes back to the host.
 
-Meshes and the multi-host step channel come in later slices.
+On a tp mesh (`mesh=`, pp = 1) each rank holds its slice of the weights
+(`parallel/mesh.py::rank_params`: a `RankSlice`, or the whole tree, which
+it cuts) and n_kv/tp heads of each cache slot, and runs its forward under
+the rank's `TPGroup` (`parallel/tp_forward.py`). `generate` is SPMD: every
+rank calls it with the same arguments and seed, samples the same ids from
+the gathered logits and so runs the same steps; its steps run eagerly
+(`graphs.stats()["eager_reason"]`), as the tp scheduler's do. With a
+`step_channel` the leader (global rank 0) publishes each embed call
+(`run_embed_hidden`, `run_embed_pooled`) as the step ops embed_hidden and
+embed_pool before it runs it, holding `step_lock` (the scheduler's lock)
+across both so that the call keeps its place among the scheduler's steps;
+the other ranks replay it in `BatchScheduler.run_follower`.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import time
 import uuid
 from dataclasses import dataclass, field
@@ -49,6 +61,8 @@ from ..models.base import (KVCache, check_moe_device, forward_hidden, fuse_param
 from ..nn.layers import KVLayerCache
 from ..nn.qarray import QArray
 from ..nn.sampling import sample_token
+from ..parallel.mesh import RankSlice, check_whole, rank_params
+from ..parallel.tp_forward import TPCtx, check_tp, tp_context
 from ..prompt import PromptContext, extract_tool_calls
 from ..utils.metrics import GLOBAL_METRICS
 from .device_loop import decode_loop
@@ -143,21 +157,6 @@ def pool_hidden(params: dict, hidden: torch.Tensor, lens: torch.Tensor,
     return v / n.clamp(min=1e-12)
 
 
-def _check_whole(params: dict, cfg: ModelConfig) -> None:
-    """Raise for a tree whose attention rows are a tp rank's slice of the
-    config's (`parallel.mesh.shard_params`), which this single-device path
-    would run as if whole."""
-    lay = params["layers"][0] if params.get("layers") else {}
-    hd = cfg.head_size
-    want = {"wqkv": (cfg.n_heads + 2 * cfg.n_kv_heads) * hd, "wq": cfg.n_heads * hd}
-    for k, rows in want.items():
-        if k in lay and lay[k].shape[-2] != rows:
-            raise NotImplementedError(
-                f"{k} has {lay[k].shape[-2]} rows, the config {rows}: these params hold a tp "
-                "rank's slice, and tp for the Engine (embeddings too) is not ported yet "
-                "(ROADMAP queue 1 item 3)")
-
-
 class Engine:
     """Single-model, single-stream inference engine over a param tree."""
 
@@ -172,29 +171,57 @@ class Engine:
         compute_dtype=torch.bfloat16,
         max_device_sessions: int = 8,
         fuse: bool = True,
-        decode_graphs: bool = True,
+        decode_graphs: bool | None = None,
         moe_ragged: bool = True,
+        mesh=None,
+        step_channel=None,
+        step_lock=None,
     ):
         """device: CUDA unless named; raises without CUDA and without it.
         The params are moved there (a no-op for params already on it).
         decode_graphs=False runs every decode step and every prefill eagerly
-        on the card too (the yardstick the graphs are held against). moe_ragged: as in the
+        on the card too (the yardstick the graphs are held against); None:
+        graphs on one device, eager under tp (True under tp raises). moe_ragged: as in the
         JAX package, float MoE experts are transposed once into the grouped
         layout (`models.base.prepare_moe_ragged`); q4 experts are left as they
         are (K6), and float experts take the card's grouped product
-        (`ops/moe_float.py`). tp for the Engine is not ported yet (ROADMAP
-        queue 1 item 3): it takes no mesh, and params that hold one tp
-        rank's slice (a tp scheduler's), which would run unsharded, raise."""
-        _check_whole(params, cfg)
+        (`ops/moe_float.py`).
+
+        mesh: a `parallel.mesh.Mesh` whose tp > 1 takes this rank's
+        `TPGroup` and the params as the whole tree or this rank's
+        `RankSlice` (module docstring); without one, a rank's slice raises.
+        step_channel, step_lock: the scheduler's step channel and lock, for
+        an Engine that answers embeddings beside a mesh scheduler."""
         self.device = resolve_device(device)
+        tp = mesh.tp if mesh is not None else 1
+        if mesh is not None and mesh.pp != 1:
+            raise NotImplementedError(f"mesh pp={mesh.pp}: the pp ring is not ported yet "
+                                      "(ROADMAP queue 1 item 3)")
+        self._tp: TPCtx | None = None
+        self.fwd_cfg = cfg  # the forward's view: a rank's heads under tp
+        if tp > 1:
+            if mesh.group is None:
+                raise ValueError(f"mesh tp={tp} needs this rank's TPGroup (mesh.group)")
+            if decode_graphs:
+                raise ValueError("decode_graphs=True under tp: gloo's collectives cannot be "
+                                 "captured in a CUDA graph, and graphs with NCCL collectives "
+                                 "are not ported yet (ROADMAP queue 1 item 3)")
+            check_tp(cfg, mesh)
+            params, self._tp, self.fwd_cfg = rank_params(params, cfg, mesh, self.device, fuse)
+        else:
+            check_whole(params, cfg)
+            params = params_to(params, self.device)
+            if fuse:
+                params = fuse_params(params)
+        tp_rank = mesh.group.rank if tp > 1 else 0
+        self._is_leader = mesh is None or mesh.dp_index * tp + tp_rank == 0
+        self._chan = step_channel
+        self._lock = step_lock if step_lock is not None else threading.RLock()
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.max_seq_len = min(max_seq_len or cfg.context_length, cfg.context_length)
         self.kv_dtype = kv_dtype
         self.compute_dtype = compute_dtype
-        params = params_to(params, self.device)
-        if fuse:
-            params = fuse_params(params)
         if cfg.n_experts:
             if moe_ragged:
                 params = prepare_moe_ragged(params)
@@ -208,9 +235,16 @@ class Engine:
         self._slot_bufs: list[torch.Tensor] = []
         self._slot_caches: list[KVCache] = []
         self._free_slots: list[int] = []
+        if tp > 1:
+            self.params = RankSlice(params, tp, tp_rank, (self._tp.embed_vocab_sharded,
+                                                          self._tp.lm_head_vocab_sharded))
         self._in = DecodeInputs(1, self.device, history=self.max_seq_len, stops=True)
-        self.graphs = StepGraphs(self.device, decode_graphs)
-        self.prefill_graphs = StepGraphs(self.device, decode_graphs, pool_of=self.graphs)
+        graphs = decode_graphs if decode_graphs is not None else tp == 1
+        eager = ("tp: gloo's collectives cannot be captured in a CUDA graph (graphs with NCCL "
+                 "collectives are not ported yet)") if tp > 1 else None
+        self.graphs = StepGraphs(self.device, graphs, eager_reason=eager)
+        self.prefill_graphs = StepGraphs(self.device, graphs, pool_of=self.graphs,
+                                         eager_reason=eager)
 
     # ------------------------------------------------------------------
     # sessions
@@ -236,7 +270,7 @@ class Engine:
         self._evict_lru_to_host()
         if self._free_slots:
             return self._free_slots.pop()
-        cfg = self.cfg
+        cfg = self.fwd_cfg
         buf = torch.zeros((cfg.n_layers, 2, 1, cfg.n_kv_heads, self.max_seq_len, cfg.head_size),
                           dtype=self.kv_dtype, device=self.device)
         self._slot_bufs.append(buf)
@@ -269,18 +303,18 @@ class Engine:
         cache = self._slot_caches[slot]
 
         def run(tokens, positions):
-            forward_hidden(self.params, self.cfg, tokens, positions, cache,
+            forward_hidden(self.params, self.fwd_cfg, tokens, positions, cache,
                            dtype=self.compute_dtype, attn_window=win, inv_freq=self.inv_freq)
 
         T = toks.shape[1]
         if T > PREFILL_GRAPH_MAX:
-            with torch.inference_mode():
+            with torch.inference_mode(), tp_context(self._tp):
                 run(torch.from_numpy(toks).to(self.device), torch.from_numpy(pos).to(self.device))
             return
         key = (slot, T, win)
         inp = self.prefill_graphs.inputs(key, lambda: PrefillInputs(1, T, self.device))
         inp.load(tokens=toks, positions=pos)
-        with torch.inference_mode():
+        with torch.inference_mode(), tp_context(self._tp):
             self.prefill_graphs.run(key, lambda: run(inp.tokens, inp.positions))
 
     def _decode_step(self, cache: KVCache, win: int, greedy: bool, no_top_k: bool,
@@ -288,10 +322,10 @@ class Engine:
         """One decode step on the static inputs: the sampled ids [1]."""
         s = self._in
         hidden, _ = forward_hidden(
-            self.params, self.cfg, s.tokens, s.positions, cache, dtype=self.compute_dtype,
+            self.params, self.fwd_cfg, s.tokens, s.positions, cache, dtype=self.compute_dtype,
             attn_window=win, inv_freq=self.inv_freq,
         )
-        logits = lm_logits(self.params, self.cfg, hidden[:, -1:, :])[:, 0]
+        logits = lm_logits(self.params, self.fwd_cfg, hidden[:, -1:, :])[:, 0]
         nxt = sample_token(logits, None, 0.0 if greedy else s.temps,
                            top_k=0 if no_top_k else s.top_ks,
                            top_p=1.0 if no_top_p else s.top_ps, seeds=s.seeds, steps=s.steps)
@@ -374,7 +408,7 @@ class Engine:
             if chunk <= 0:
                 break
             win = min(_bucket(cur_pos + chunk + 1), self.max_seq_len)
-            with torch.inference_mode():
+            with torch.inference_mode(), tp_context(self._tp):
                 rows, nval = decode_loop(
                     self.graphs, (sess.slot, win, greedy, no_top_k, no_top_p, width),
                     lambda: self._decode_step(cache, win, greedy, no_top_k, no_top_p, width),
@@ -421,23 +455,40 @@ class Engine:
     def _dev_in(self, x) -> torch.Tensor | None:
         return None if x is None else torch.as_tensor(np.asarray(x)).long().to(self.device)
 
-    def run_embed_hidden(self, toks, pos, tt, lens=None) -> torch.Tensor:
-        """The forward without a cache over host arrays [R, T] (token types
-        `tt` and valid lengths `lens` [R] optional): hidden [R, T, D] on the
-        device."""
-        with torch.inference_mode():
+    def _publish(self, msg: dict) -> None:
+        if self._chan is not None and self._is_leader:
+            self._chan.publish(msg)
+
+    def _hidden(self, toks, pos, tt, lens) -> torch.Tensor:
+        """The forward without a cache (no publishing): hidden [R, T, D]."""
+        with torch.inference_mode(), tp_context(self._tp):
             hidden, _ = forward_hidden(
-                self.params, self.cfg, self._dev_in(toks), self._dev_in(pos), None,
+                self.params, self.fwd_cfg, self._dev_in(toks), self._dev_in(pos), None,
                 dtype=self.compute_dtype, inv_freq=self.inv_freq, token_types=self._dev_in(tt),
                 seq_lengths=self._dev_in(lens),
             )
         return hidden
 
+    def run_embed_hidden(self, toks, pos, tt, lens=None) -> torch.Tensor:
+        """The forward without a cache over host arrays [R, T] (token types
+        `tt` and valid lengths `lens` [R] optional): hidden [R, T, D] on the
+        device (the leader publishes it first: module docstring)."""
+        with self._lock:
+            self._publish({"op": "embed_hidden", "toks": np.asarray(toks),
+                           "pos": np.asarray(pos), "tt": None if tt is None else np.asarray(tt),
+                           "lens": None if lens is None else np.asarray(lens)})
+            return self._hidden(toks, pos, tt, lens)
+
     def run_embed_pooled(self, toks, pos, tt, lens, pooling: str) -> torch.Tensor:
-        """`run_embed_hidden` pooled on the device (`pool_hidden`): [R, D] f32."""
-        hidden = self.run_embed_hidden(toks, pos, tt, lens)
-        with torch.inference_mode():
-            return pool_hidden(self.params, hidden, self._dev_in(lens), pooling)
+        """`run_embed_hidden` pooled on the device (`pool_hidden`): [R, D] f32
+        (the leader publishes it first, as one step)."""
+        with self._lock:
+            self._publish({"op": "embed_pool", "toks": np.asarray(toks), "pos": np.asarray(pos),
+                           "tt": None if tt is None else np.asarray(tt),
+                           "lens": np.asarray(lens), "pooling": pooling})
+            hidden = self._hidden(toks, pos, tt, lens)
+            with torch.inference_mode():
+                return pool_hidden(self.params, hidden, self._dev_in(lens), pooling)
 
     def embed_tokens(self, token_ids: list[int], pooling: str = "AVG",
                      token_types: list[int] | None = None) -> np.ndarray:

@@ -85,7 +85,19 @@ which is slot order). A suspend gathers the pages on the session's group
 only, and a disk suspend writes that group's files. At tp = 1 a rank's
 forward holds no collective, so its decode steps and prefills stay CUDA
 graphs, the id gather outside them. Not ported yet (ROADMAP queue 1 item
-3): pp, tp for q4s and the embeddings `Engine`.
+3): pp.
+
+Under tp, q4s serves each rank's slice converted to K5's layout (its
+column-parallel rows, its 256-groups of wo's and w2's K, its vocabulary
+rows of the lm_head): the cut of the whole converted tree, so each rank's K
+of wo and w2 must be a multiple of 256 (`parallel/mesh.py::
+check_q4s_rank`). On a mesh, `embed_engine` is an `Engine` over the same
+rank tree (`Engine(..., mesh=, step_channel=, step_lock=)`): the leader
+publishes its embed calls as the step ops embed_hidden and embed_pool,
+under the scheduler's lock so that they keep their place among the steps,
+and `run_follower` replays them on the ranks of dp group 0; the other dp
+groups skip them (an embed call runs on the leader's group only, where the
+JAX package runs it replicated over dp).
 """
 
 from __future__ import annotations
@@ -111,8 +123,8 @@ from ..models.base import (check_moe_device, forward_hidden, fuse_params, lm_log
 from ..nn.qarray import QArray
 from ..nn.sampling import sample_token
 from ..ops.w8a8 import prepare_params_for_w8a8
-from ..parallel.mesh import shard_params, vocab_flags
-from ..parallel.tp_forward import TPCtx, check_tp, localize_cfg, tp_context
+from ..parallel.mesh import RankSlice, check_q4s_rank, check_whole, rank_params
+from ..parallel.tp_forward import TPCtx, check_tp, tp_context
 from ..prompt import extract_tool_calls
 from ..utils.metrics import GLOBAL_METRICS
 from .engine import FinishReason, Response, _bucket
@@ -229,14 +241,17 @@ class BatchScheduler:
         None: graphs on one device, eager under tp (True under tp raises).
 
         mesh: a `parallel.mesh.Mesh`; tp > 1 takes this rank's `TPGroup`
-        (`mesh.group`), and the params are the full tree, which each rank
-        fuses (interleaved per rank), slices and moves to its device (the
-        group's unless `device` is named); dp > 1 takes its dp index and, on
-        a group's first tp rank, `mesh.rows` (module docstring).
-        step_channel: rank 0's publishing end or a follower's receiving end
-        (`runtime/coordination.py`). pp > 1 and q4s under tp raise, as do
-        heads or experts that tp does not divide and slots or pages that dp
-        does not: nothing runs unsharded in their place.
+        (`mesh.group`), and the params are either the full tree, which each
+        rank fuses (interleaved per rank), slices and moves to its device
+        (the group's unless `device` is named), or this rank's `RankSlice`
+        (`parallel/distributed.py::load_params_sharded`, which reads only
+        the slice); dp > 1 takes its dp index and, on a group's first tp
+        rank, `mesh.rows` (module docstring). step_channel: rank 0's
+        publishing end or a follower's receiving end
+        (`runtime/coordination.py`). pp > 1 raises, as do heads or experts
+        that tp does not divide, slots or pages that dp does not, and under
+        q4s a rank's K of wo or w2 that is no multiple of 256: nothing runs
+        unsharded in their place.
 
         weight_format: None keeps the weights as they are. "q4s" re-quantizes
         the 2-D q4 weights to the W4A8 format after fusing (q4s rows are never
@@ -261,10 +276,6 @@ class BatchScheduler:
                      n_pages=n_pages)
             tp, dp = mesh.tp, mesh.dp
         if tp > 1:
-            if weight_format == "q4s":
-                raise NotImplementedError("weight_format='q4s' under tp is not ported yet "
-                                          "(ROADMAP queue 1 item 3): tp serves q4 and float "
-                                          "weights")
             if decode_graphs:
                 raise ValueError("decode_graphs=True under tp: gloo's collectives cannot be "
                                  "captured in a CUDA graph, and graphs with NCCL collectives "
@@ -287,13 +298,9 @@ class BatchScheduler:
             device = mesh.group.device
         if tp > 1:
             self.device = resolve_device(device)
-            if fuse:
-                params = fuse_params(params, tp)
-            embed_sh, lm_sh = vocab_flags(params, tp)
-            params = params_to(shard_params(params, cfg, tp, mesh.group.rank), self.device)
-            self._tp = TPCtx(mesh.group, embed_sh, lm_sh)
-            self.fwd_cfg = localize_cfg(cfg, tp)
+            params, self._tp, self.fwd_cfg = rank_params(params, cfg, mesh, self.device, fuse)
         else:
+            check_whole(params, cfg)
             self.device = resolve_device(device)
             params = params_to(params, self.device)
             if fuse:
@@ -303,7 +310,12 @@ class BatchScheduler:
                 params = prepare_moe_ragged(params)
             check_moe_device(params, self.device)
         if weight_format == "q4s":
+            if tp > 1:
+                check_q4s_rank(params, tp)
             params = prepare_params_for_w8a8(params)
+        if tp > 1:  # the rank's slice says so (an Engine sharing it reads the flags)
+            params = RankSlice(params, tp, mesh.group.rank,
+                               (self._tp.embed_vocab_sharded, self._tp.lm_head_vocab_sharded))
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -556,9 +568,22 @@ class BatchScheduler:
                                         msg["idxs"])
             elif op == "sdrop":
                 self._suspended.pop(msg["sid"], None)
-            elif op in ("ptick", "embed_hidden", "embed_pool"):
-                raise NotImplementedError(f"step op {op!r} is not ported yet (ROADMAP queue 1 "
-                                          "item 3: the pp pipeline, tp embeddings)")
+            elif op in ("embed_hidden", "embed_pool"):
+                # the leader's embed_engine call: its forward under the tp
+                # group of dp group 0 (the other dp groups skip it)
+                eng = self.embed_engine
+                if eng is None:
+                    raise RuntimeError("the leader published an embed step but this rank "
+                                       "has no embed_engine")
+                if self._g == 0:
+                    if op == "embed_hidden":
+                        eng.run_embed_hidden(msg["toks"], msg["pos"], msg["tt"], msg["lens"])
+                    else:
+                        eng.run_embed_pooled(msg["toks"], msg["pos"], msg["tt"], msg["lens"],
+                                             msg["pooling"])
+            elif op == "ptick":
+                raise NotImplementedError("step op 'ptick' (the pp pipeline) is not ported "
+                                          "yet (ROADMAP queue 1 item 3)")
             else:
                 raise ValueError(f"unknown step op {op!r}")
 

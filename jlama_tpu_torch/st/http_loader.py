@@ -2,10 +2,15 @@
 
 A copy of `jlama_tpu/st/http_loader.py` on `urllib` alone: fetch the header
 with a small ranged request, then download each tensor's byte range on
-demand, optionally only a row slice of it (the shard a tensor-parallel
-worker needs); parts are cached on disk and reused. Tensors come back as
-numpy arrays of their storage dtype, as the local `SafeTensorIndex` gives
-them (BF16 as uint16 bit patterns).
+demand, optionally only a slice of it (the shard a tensor-parallel rank
+needs: a row range fetches only its rows' bytes, a column range fetches the
+whole rows and cuts the columns locally, as the JAX loader does); parts are
+cached on disk and reused. Tensors come back as numpy arrays of their
+storage dtype, as the local `SafeTensorIndex` gives them (BF16 as uint16 bit
+patterns). `bytes_loaded` counts the tensor payload bytes fetched over the
+network (what was read, not what was kept: a column range counts its whole
+rows; a memo or disk-cache hit counts nothing), as the local index counts
+what it reads; a file loader's `bytes_fetched` adds the headers' bytes.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from pathlib import Path
 import numpy as np
 
 from .format import DTYPES, TensorInfo, parse_header
+from .reader import scale_cols, slice_payload
 
 
 class HTTPSafeTensorLoader:
@@ -34,7 +40,8 @@ class HTTPSafeTensorLoader:
         self.cache = Path(cache_dir) if cache_dir else None
         if self.cache:
             self.cache.mkdir(parents=True, exist_ok=True)
-        self.bytes_fetched = 0
+        self.bytes_fetched = 0  # every byte fetched, headers included
+        self.bytes_loaded = 0  # tensor payload bytes fetched
         # in-memory memo so column-sharded loads (full rows fetched, columns
         # cut locally) hit the network once per tensor, not once per shard
         self._memo: dict[tuple[int, int], bytes] = {}
@@ -46,8 +53,9 @@ class HTTPSafeTensorLoader:
 
     # ------------------------------------------------------------------
 
-    def _fetch_range(self, start: int, end: int) -> bytes:
-        """[start, end) bytes of the remote file, disk-cached."""
+    def _fetch_range(self, start: int, end: int, payload: bool = False) -> bytes:
+        """[start, end) bytes of the remote file, disk-cached (`payload`: a
+        tensor's bytes, counted in bytes_loaded when fetched)."""
         if (start, end) in self._memo:
             return self._memo[(start, end)]
         if self.cache:
@@ -66,6 +74,8 @@ class HTTPSafeTensorLoader:
                 "(server may not support Range requests)"
             )
         self.bytes_fetched += len(data)
+        if payload:
+            self.bytes_loaded += len(data)
         if self.cache:
             part.write_bytes(data)
         self._memo[(start, end)] = data
@@ -88,49 +98,33 @@ class HTTPSafeTensorLoader:
         row_range: tuple[int, int] | None = None,
         col_range: tuple[int, int] | None = None,
     ) -> np.ndarray:
-        """Download (a row-slice of) a tensor.
-
-        Row slicing fetches only that byte range of the file; rows must be
-        the second-to-last dim of a 2-D tensor. Column slicing fetches full
-        rows and cuts the column shard locally.
-        """
+        """Download (a slice of) a tensor, with the local reader's range
+        semantics. A row range of a 2-D tensor fetches only those rows'
+        bytes; a column range fetches whole rows and cuts the columns
+        locally."""
         ti = self.tensors[name]
         np_dtype, _ = DTYPES[ti.dtype]
         start = self.payload_start + ti.data_offsets[0]
         shape = list(ti.shape)
         if ti.dtype == "Q4":
             shape[-1] //= 2
-        if row_range is not None:
-            if len(shape) != 2:
-                raise ValueError("row slicing requires 2-D tensors")
+        if row_range is not None and len(shape) == 2:
             r0, r1 = row_range
             row_bytes = shape[-1] * np_dtype.itemsize
-            data = self._fetch_range(start + r0 * row_bytes, start + r1 * row_bytes)
+            data = self._fetch_range(start + r0 * row_bytes, start + r1 * row_bytes, True)
             arr = np.frombuffer(data, dtype=np_dtype).reshape(r1 - r0, shape[-1])
+            row_range = None
         else:
-            data = self._fetch_range(start, start + ti.nbytes)
+            data = self._fetch_range(start, start + ti.nbytes, True)
             arr = np.frombuffer(data, dtype=np_dtype).reshape(shape)
-        if col_range is not None:
-            c0, c1 = col_range
-            if ti.dtype == "Q4":
-                if c0 % 2 or c1 % 2:
-                    raise ValueError("Q4 column range must be even (packed bytes)")
-                arr = arr[..., c0 // 2 : c1 // 2]
-            else:
-                arr = arr[..., c0:c1]
-        return arr
+        return slice_payload(arr, ti, row_range, col_range)
 
     def load_quantized(self, name: str, row_range=None, col_range=None):
         ti = self.tensors[name]
+        quantized = name + ".qb" in self.tensors
+        scol = scale_cols(col_range) if quantized else None
         data = self.load(name, row_range, col_range)
-        scales = None
-        if name + ".qb" in self.tensors:
-            scol = None
-            if col_range is not None:
-                if col_range[0] % 32 or col_range[1] % 32:
-                    raise ValueError("quantized column range must be 32-aligned")
-                scol = (col_range[0] // 32, col_range[1] // 32)
-            scales = self.load(name + ".qb", row_range, scol)
+        scales = self.load(name + ".qb", row_range, scol) if quantized else None
         return data, scales, ti.dtype
 
 
@@ -167,8 +161,9 @@ class HTTPSafeTensorIndex:
 
     @property
     def bytes_loaded(self) -> int:
-        """Bytes actually fetched over the network (payload + headers)."""
-        return sum(f.bytes_fetched for f in self._files.values())
+        """Tensor payload bytes fetched over the network (the local index's
+        counter; a column range counts the whole rows it fetched)."""
+        return sum(f.bytes_loaded for f in self._files.values())
 
     def _fetch_json(self, fname: str):
         return fetch_json(f"{self.base_url}/{fname}", self.token)

@@ -275,8 +275,6 @@ class _Rank0:
 
 REFUSALS = {
     "pp": (dict(mesh=tmesh.Mesh(pp=2)), NotImplementedError, "pp=2"),
-    "q4s": (dict(mesh=tmesh.Mesh(tp=2, group=_Rank0()), weight_format="q4s"),
-            NotImplementedError, "q4s"),
     "heads": (dict(mesh=tmesh.Mesh(tp=3, group=_Rank0())), ValueError, "divide the heads"),
     # expert parallelism needs E % tp == 0 (the JAX gate), dp needs n_slots
     # and n_pages % dp == 0
@@ -290,21 +288,29 @@ REFUSALS = {
                "decode_graphs=True under tp"),
     "no_group": (dict(mesh=tmesh.Mesh(tp=2)), ValueError, "TPGroup"),
     "channel_without_tp": (dict(step_channel=object()), ValueError, "step_channel"),
-    "q4s_dp_tp": (dict(mesh=tmesh.Mesh(dp=2, tp=2, group=_Rank0()), weight_format="q4s"),
-                  NotImplementedError, "q4s"),
-    "gpt2": (dict(mesh=tmesh.Mesh(tp=2, group=_Rank0()), model_type="gpt2"),
-             NotImplementedError, "tp for gpt2"),
+    # a rank's slice of K of wo (256 inputs over 2 ranks) splits K5's 256-group
+    "q4s_rank_k": (dict(mesh=tmesh.Mesh(tp=2, group=_Rank0()), weight_format="q4s",
+                        wide=True), ValueError, r"layers\[0\]\.wo: a rank's K of 128"),
+    # a rank's slice without its mesh would run as if whole
+    "slice_no_mesh": (dict(rank_slice=True), ValueError, "tp rank 0 of 2's slice"),
 }
+
+
+def _q4s_fmts(params):
+    return {k: getattr(v, "fmt", None) for k, v in params["layers"][0].items()}
 
 
 @pytest.mark.parametrize("case", list(REFUSALS) + ["nccl_shared", "nccl_count", "nccl_cpu",
                                                    "engine_mesh", "engine_rank_slice", "dp",
-                                                   "moe"])
+                                                   "moe", "q4s", "q4s_dp_tp", "gpt2"])
 def test_tp_refusals(case):
     """What tp does not serve raises with a message naming it; nothing runs
     unsharded in its place. dp and MoE under tp, refused before, are served:
     a dp rank holds its group's pages and rows, a MoE rank its E/tp experts
-    (tests/test_torch_dp_serving.py and tests/test_torch_ep.py serve them)."""
+    (tests/test_torch_dp_serving.py and tests/test_torch_ep.py serve them);
+    so are q4s (each rank's slice converted, as one device converts the
+    whole tree), GPT-2 and BERT, and the Engine on a mesh
+    (tests/test_torch_tp_rest.py serves them)."""
     from dataclasses import replace
 
     from jlama_tpu_torch.parallel import distributed
@@ -342,17 +348,42 @@ def test_tp_refusals(case):
     if case.startswith("engine"):
         from jlama_tpu_torch.runtime.engine import Engine
 
-        if case == "engine_mesh":  # the Engine takes no mesh: tp serves through the scheduler
-            with pytest.raises(TypeError, match="mesh"):
-                Engine(tparams, tcfg, device="cpu", mesh=tmesh.Mesh(tp=2, group=_Rank0()))
+        if case == "engine_mesh":  # the Engine on a tp mesh: the rank's heads, eager steps
+            eng = Engine(tparams, tcfg, device="cpu", mesh=tmesh.Mesh(tp=2, group=_Rank0()))
+            assert eng.params["layers"][0]["wqkv"].data.shape[0] == (
+                (tcfg.n_heads + 2 * tcfg.n_kv_heads) * tcfg.head_size // 2)
+            assert eng.fwd_cfg.n_kv_heads == tcfg.n_kv_heads // 2
+            assert "gloo" in eng.graphs.stats()["eager_reason"]
             return
-        with pytest.raises(NotImplementedError, match="tp for the Engine"):
-            # a tp rank's slice, as a tp scheduler holds it
+        with pytest.raises(ValueError, match="pass the rank's mesh"):
+            # a tp rank's slice, as a tp scheduler holds it, without its mesh
             Engine(tmesh.shard_params(tbase.fuse_params(tparams, tp=2), tcfg, 2, 0), tcfg,
                    device="cpu", fuse=False)
         return
+    if case in ("q4s", "q4s_dp_tp"):  # served: the rank's formats are one device's
+        mesh = tmesh.Mesh(dp=2 if case == "q4s_dp_tp" else 1, tp=2, group=_Rank0())
+        kw = dict(n_slots=2, n_pages=8, page_size=8, max_seq_len=32, device="cpu",
+                  weight_format="q4s")
+        sched = BatchScheduler(tparams, tcfg, mesh=mesh, **kw)
+        one = BatchScheduler(tparams, tcfg, **kw)
+        assert _q4s_fmts(sched.params) == _q4s_fmts(one.params)
+        assert isinstance(sched.params, tmesh.RankSlice) and sched.params.rank == 0
+        return
+    if case == "gpt2":  # served: GPT-2's rules on the rank (the tiny llama's leaves)
+        sched = BatchScheduler(tparams, replace(tcfg, model_type="gpt2"), n_slots=2,
+                               n_pages=8, page_size=8, max_seq_len=32, device="cpu",
+                               mesh=tmesh.Mesh(tp=2, group=_Rank0()))
+        assert sched.fwd_cfg.n_heads == tcfg.n_heads // 2
+        return
     kw, exc, msg = REFUSALS[case]
     kw = dict(dict(n_slots=2, n_pages=8), **kw)
+    if kw.pop("wide", False):  # every K a multiple of 256: one device converts wo
+        from jlama_tpu_torch.models.init import random_q4_params
+
+        tcfg = replace(tcfg, embedding_length=256, hidden_length=512, head_size=64)
+        tparams = random_q4_params(tcfg, seed=0, device="cpu")
+    if kw.pop("rank_slice", False):
+        tparams = tmesh.shard_params(tbase.fuse_params(tparams, tp=2), tcfg, 2, 0)
     if "moe" in kw:
         tcfg = replace(tcfg, model_type="mixtral", n_experts=kw.pop("moe"),
                        n_experts_per_token=2)
