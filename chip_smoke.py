@@ -389,6 +389,33 @@ Phases, each fatal on failure (exit code 1, no result line):
               K1-K5's launches on each rank as its prefills and decode
               steps imply. Phase 3 holds K5 at Llama-3.1-8B's tp = 2 rank
               shapes and K1-K4 at GPT-2's and BERT's rank shapes.
+ 20. pp - pipeline parallelism. (a) Llama-3.1-8B's widths and all 32
+              layers at pp = 2 (PP_SPEC), two spawned ranks on cuda:0 over
+              gloo (jlama_tpu_torch/scripts/pp_check.py), each drawing only
+              its stage's 16 layers of the seeded random JQ4 tree: the
+              512-token prefill's last 64 logit rows through the
+              stage-serial forward against one rank's single-device path
+              on the whole tree (bit for bit expected; else rel L2 1e-2);
+              8 greedy requests of 32 tokens through the PipelinedScheduler
+              (16 slots, two microbatches of 8 rows) and then through the
+              stage-serial BatchScheduler (`--no-pp-pipeline`), both with
+              one device's ids; K1-K4's launches on each stage as its
+              prefill calls and computed cells (or steps) imply, the
+              lm_head's on the last stage only; the last stage's sampled
+              ids what stage 0 got over the ring's wrap-around; a session
+              suspended to one file per rank and resumed with the ids of
+              one that never was; the wall time of a tick and of a window,
+              the ring's exchanges and their host time a tick, and the
+              profiler's device time by kernel group on rank 0 (gloo
+              through the host on one GPU, which says nothing of NCCL's
+              speed).
+              (b) `python -m jlama_tpu_torch.cli serve --mesh 1,2,2
+              --num-processes 4 --device cuda:0` on
+              phase 15's JQ4 Llama-3.2-1B (rank 0 starting the other three,
+              each reading only its stage's 8 layers of its tp slice, its
+              bytes read below the payload): two greedy chat requests over
+              HTTP, each answer the one-device `serve`'s. A failed or hung
+              rank fails the phase.
 Phase 10 also serves its 8 requests through a q4s BatchScheduler (K5 for
 wqkv, wo and the lm_head, K6 for the experts; ids equal to an eager q4s
 scheduler's; the paged logits of 2 layers against the plain path) and runs
@@ -4294,22 +4321,31 @@ def _free_port() -> int:
 
 
 @contextlib.contextmanager
-def _cli_server(args, env, label):
+def _cli_server(args, env, label, lines: list | None = None):
     """`serve` in a subprocess on a free local port until /healthz answers;
-    stopped by its own PID (SIGINT, then SIGKILL after 30 s) on leaving."""
+    stopped by its own PID (SIGINT, then SIGKILL after 30 s) on leaving.
+    With `lines`, its output lines (those of the ranks it starts too) are
+    appended there as they come."""
     import signal
+    import threading
 
     port = _free_port()
     proc = subprocess.Popen([sys.executable, "-m", "jlama_tpu_torch.cli", "serve", *args,
                              "--host", "127.0.0.1", "--port", str(port)], env=env,
                             cwd=str(Path(__file__).resolve().parent),
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    reader = None
+    if lines is not None:
+        reader = threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True)
+        reader.start()
     t0 = time.perf_counter()
     try:
         while True:
             if proc.poll() is not None:
+                if reader is not None:
+                    reader.join(10)
                 fail(f"cli {label}: the server exited {proc.returncode}: "
-                     f"{proc.stdout.read()[-1500:]}")
+                     + ("".join(lines) if reader is not None else proc.stdout.read())[-1500:])
             try:
                 if _http(port, "GET", "/healthz")[0] == 200:
                     break
@@ -4329,6 +4365,8 @@ def _cli_server(args, env, label):
             except subprocess.TimeoutExpired:
                 proc.kill()
                 proc.wait()
+        if reader is not None:
+            reader.join(30)
         proc.stdout.close()
 
 
@@ -4487,6 +4525,8 @@ def cli_path(torch, card_note, tmp) -> dict:
                             "max_tokens": CLI_NEW, "temperature": 0.0, "stream": stream}
                     got, _, _, _ = _front_answer(_http(port, "POST", "/v1/chat/completions",
                                                        body, stream=stream), stream)
+                    if fmt is None:  # phase 20 holds its mesh server's answers to these
+                        out.setdefault("serve_answers", []).append(got)
                     ids = srv._encode(srv._render_prompt(body)[0])
                     ref = sched.generate(ids, max_new_tokens=CLI_NEW)
                     if got != ref.response_text:
@@ -4857,6 +4897,151 @@ def tp_rest_path(torch, card_note, tmp) -> dict:
                         for name in names} for r in ranks])
 
 
+# phase 20: pipeline parallelism, two stages on the one card over gloo
+PP_RANKS = 2
+PP_DEADLINE_S = 480
+PP_SPEC = dict(model="llama8b", layers=32, device="cuda:0", backend="gloo",
+               timeout_s=PP_DEADLINE_S, seed=0, n_slots=16, n_pages=256, prefill=512,
+               logit_rows=64, requests=8, new_tokens=32, timed=4, profile=2)
+PP_CLI_MESH = "1,2,2"
+
+
+def _pp_run(torch, card_note) -> tuple[list, float]:
+    """Run (a): the rank program on PP_RANKS spawned ranks; their results
+    (rank order) and the wall seconds. A failed check fails the phase."""
+    import pickle
+    import tempfile
+
+    from jlama_tpu_torch.scripts import pp_check, tp_check
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        procs, end = tp_check.start_ranks(
+            pp_check.rank_main,
+            lambda r: (r, PP_RANKS, f"{d}/store", f"{d}/rank{r}.pkl", PP_SPEC),
+            PP_RANKS, PP_DEADLINE_S)
+        err = tp_check.wait_ranks(procs, end)
+        if err:
+            fail(f"pp: {err} ({PP_DEADLINE_S} s)")
+        ranks = []
+        for r in range(PP_RANKS):
+            with open(f"{d}/rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+    wall = time.perf_counter() - t0
+    bad = pp_check.check_ranks(ranks, PP_SPEC)
+    if bad:
+        fail("pp: " + "; ".join(bad))
+    prof = ranks[0].get("pipe_profile")
+    if not prof or prof["device_ms_by_group"]["q4_matmul"] <= 0:
+        fail(f"pp: the profiler saw no K1 device time: {prof}")
+    return ranks, wall
+
+
+def _pp_cli(torch, card_note, tmp, one_device=None) -> dict:
+    """Run (b): the mesh server on phase 15's JQ4 1B, two greedy chat
+    requests; the answers must be the one-device `serve`'s to the same
+    requests (`one_device`: phase 15's; else a one-device server runs here
+    first), and each rank must have read less than the payload."""
+    import os
+
+    home = Path(tmp) / "home"
+    env = dict(os.environ, JLAMA_MODEL_HOME=str(home),
+               PYTHONPATH=str(Path(__file__).resolve().parent))
+    common = ["llama1b-JQ4", "--batch-slots", "16", "--kv-pages", "512", "--device", "cuda:0"]
+    answers = {}
+    lines: list[str] = []
+    runs = [(f"mesh {PP_CLI_MESH}", ["--mesh", PP_CLI_MESH, "--num-processes", "4"])]
+    if one_device is None:
+        runs.insert(0, ("one device", []))
+    else:
+        answers["one device"] = dict(texts=list(one_device[:2]), seconds=None)
+    for label, extra in runs:
+        got = []
+        t0 = time.perf_counter()
+        with _cli_server(common + extra, env, f"serve ({label})",
+                         lines=lines if extra else None) as port:
+            for text in CLI_TEXTS[:2]:
+                body = {"messages": [{"role": "user", "content": text}],
+                        "max_tokens": CLI_NEW, "temperature": 0.0}
+                got.append(_front_answer(_http(port, "POST", "/v1/chat/completions", body),
+                                         False)[0])
+        answers[label] = dict(texts=got, seconds=time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+    one, mesh = answers["one device"]["texts"], answers[f"mesh {PP_CLI_MESH}"]["texts"]
+    if one != mesh or not all(one):
+        fail(f"pp cli: the mesh server's answers {mesh} differ from one device's {one}")
+    # the ranks share one pipe, so a line may hold another rank's line too
+    text = "".join(lines)
+    reads = {int(r): (int(n), int(total)) for r, n, total in re.findall(
+        r"rank (\d+): read (\d+) of the checkpoint's (\d+) payload bytes", text)}
+    if sorted(reads) != [0, 1, 2, 3] or any(n >= total for n, total in reads.values()):
+        fail(f"pp cli: the ranks' reads {reads} (each below the payload, every rank)")
+    places = sorted(re.findall(r"rank \d/4: gloo on cuda:0 \([^)]*\)", text))
+    return dict(answers=answers, reads=reads, places=places)
+
+
+def pp_path(torch, card_note, tmp, one_device=None) -> dict:
+    """Phase 20 (module docstring): run (a) through pp_check's rank program,
+    run (b) through the command line (`one_device`: phase
+    15's one-device `serve` answers to CLI_TEXTS[:2]). A failed or hung rank
+    fails the phase, as does any failed check."""
+
+    cfg_note = (f"Llama-3.1-8B's widths, all {PP_SPEC['layers']} layers, random JQ4 weights "
+                f"from seed {PP_SPEC['seed']}, each rank drawing only its stage's "
+                f"{PP_SPEC['layers'] // PP_RANKS} layers")
+    print(f"pp: {PP_RANKS} stages, {cfg_note}; backend {PP_SPEC['backend']}, both ranks on "
+          f"{PP_SPEC['device']} (NCCL refuses two ranks on one GPU), so every hand-over goes "
+          "through pinned host memory: these times say nothing of NCCL's speed", flush=True)
+    t0 = time.perf_counter()
+    ranks, wall_a = _pp_run(torch, card_note)
+    lead, last = ranks[0], ranks[-1]
+    print(f"pp: the {PP_SPEC['prefill']}-token prefill's logits (last {PP_SPEC['logit_rows']} "
+          f"rows) through the stage-serial forward in {lead['prefill_ms']:.1f} ms: "
+          + ("bit-equal to" if lead["logits_bit_equal"] else
+             f"rel L2 {lead['logits_rel_l2']:.3e} from")
+          + " one rank's single-device path on the whole tree", flush=True)
+    for name, label in (("pipe", "PipelinedScheduler"), ("serial", "stage-serial")):
+        print(f"pp {name}: {PP_SPEC['requests']} greedy requests of {PP_SPEC['new_tokens']} "
+              f"tokens through the {label} in {lead[name + '_serve_s']:.2f} s, the ids one "
+              f"device's; launches "
+              + "; ".join(f"stage {r['stage']} {r[name + '_launches_all']} "
+                          f"(prefills, cells, steps {r[name + '_counts_all']})" for r in ranks)
+              + "; the last stage's samples what stage 0 got", flush=True)
+    t, tl = lead["pipe_timed"], lead["serial_timed"]
+    prof = lead["pipe_profile"]
+    print(f"pp on {card_note}, gloo through the host (not NCCL): the ring at "
+          f"{PP_SPEC['n_slots']} slots: {t['ms_per_step']:.2f} ms wall a window "
+          f"({t['ticks'] // t['steps']} ticks, {t['tokens'] // t['steps']} tokens), "
+          f"{t['ms_per_tick']:.2f} ms a tick, {t['p2p_calls_per_tick']:.2f} exchanges a tick "
+          f"on rank 0 taking {t['p2p_ms_per_tick']:.2f} ms of host time; stage-serial: "
+          f"{tl['ms_per_step']:.2f} ms wall a step of {tl['decode_steps'] // tl['steps']} "
+          f"decode steps ({tl['tokens'] // tl['steps']} tokens), {tl['p2p_calls']} exchanges "
+          f"taking {tl['p2p_ms']:.2f} ms; profiled {prof['steps']} windows on rank 0: wall "
+          f"{prof['wall_ms']:.2f} ms, device ms by group "
+          + ", ".join(f"{k} {v:.2f}" for k, v in prof["device_ms_by_group"].items()), flush=True)
+    print(f"pp: disk suspend files {lead['disk_files']}, the resumed session's ids those of one "
+          f"never suspended; set-up {lead['setup_s']:.1f} s; run (a) wall {wall_a:.1f} s",
+          flush=True)
+    t1 = time.perf_counter()
+    cli = _pp_cli(torch, card_note, tmp, one_device)
+    for r, (n, total) in sorted(cli["reads"].items()):
+        print(f"pp cli: rank {r} read {n} of {total} payload bytes ({n / total:.4f})",
+              flush=True)
+    print(f"pp cli: serve --mesh {PP_CLI_MESH} (rank 0 starting the other three, "
+          + "; ".join(cli["places"]) + f"): 2 greedy answers equal the one-device serve's "
+          + ("(phase 15's) " if one_device is not None else "")
+          + f"({cli['answers'][f'mesh {PP_CLI_MESH}']['seconds']:.1f} s with the starts); run (b) "
+          f"wall {time.perf_counter() - t1:.1f} s; phase wall {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    keep = ("setup_s", "prefill_ms", "logits_bit_equal", "logits_rel_l2", "pipe_serve_s",
+            "serial_serve_s", "pipe_timed", "serial_timed", "pipe_profile", "disk_files")
+    return dict(spec=PP_SPEC, wall_s=time.perf_counter() - t0, rank0={k: lead[k] for k in keep},
+                ranks=[{k: r[k] for k in ("pipe_launches_all", "serial_launches_all",
+                                          "pipe_counts_all", "serial_counts_all")}
+                       for r in ranks], cli=cli, last_stage=last["stage"])
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write per-shape details as JSON here")
@@ -4896,7 +5081,16 @@ def main() -> None:
                     print(f"  ptxas {src}: {line.strip()}")
 
     details: list[dict] = []
-    out = {"card": smi, "shapes": details}
+    out = {"card": smi, "shapes": details, "phase_s": {}}
+    lap_t = [t0]
+
+    def lap(phase: str) -> None:
+        """Each phase's wall seconds (the build's from the script's start)."""
+        now = time.perf_counter()
+        out["phase_s"][phase] = round(now - lap_t[0], 1)
+        lap_t[0] = now
+        print(f"phase {phase}: {out['phase_s'][phase]} s wall", flush=True)
+    lap("1-2 build")
     # 3. kernels against their plain versions
     from jlama_tpu_torch.utils.cuda_timer import BF16_OPS_PER_S, HBM_BYTES_PER_S, Timer
 
@@ -4910,6 +5104,7 @@ def main() -> None:
             "kv_write": check_k4(torch, timer, details),
             "w8a8_matmul": check_k5(torch, timer, details)}
     del timer
+    lap("3 kernels")
     # 4. and 5. the Engine path and where its time goes
     _count_unfused_rope()
     engine_launches, e2e, (eng, eager, prompt) = main_path(torch, smi)
@@ -4921,6 +5116,7 @@ def main() -> None:
     del eng, eager
     torch.cuda.empty_cache()
     print(f"card {smi}: engine " + json.dumps(e2e), flush=True)
+    lap("4-5 engine")
     # 6. serving
     serving_launches, serving = serving_path(torch, smi)
     out["serving"] = serving
@@ -4931,10 +5127,13 @@ def main() -> None:
     out["q4s_serving"] = q4s_serving
     print(f"card {smi}: q4s serving " + json.dumps(
         {k: v for k, v in q4s_serving.items() if k != "profile"}), flush=True)
+    lap("6-7 serving")
     # 8. perplexity
     out["perplexity"] = ppl_path(torch)
+    lap("8 perplexity")
     # 9. design benches
     benches = design_benches(torch)
+    lap("9 design benches")
     out["design_benches"] = dict(rows=benches["rows"], seconds=benches["seconds"],
                                  launches=benches["launches"])
     # 10. Mixtral-8x7B: MoE through K6, the Engine and the scheduler
@@ -4947,6 +5146,7 @@ def main() -> None:
          "serving": {k: v for k, v in moe["serving"].items() if not k.startswith("profile")},
          "logits_rel_l2": moe["logits_rel_l2"], "peak_memory_gb": moe["peak_memory_gb"]}),
         flush=True)
+    lap("10 mixtral")
     # 11. Gemma-2-2B: head size 256 through K2 and K3, the Engine and the scheduler
     torch.cuda.empty_cache()
     g2 = gemma2_path(torch, smi)
@@ -4956,12 +5156,14 @@ def main() -> None:
          "serving": {k: v for k, v in g2["serving"].items() if not k.startswith("profile")},
          "logits_rel_l2": g2["logits_rel_l2"], "peak_memory_gb": g2["peak_memory_gb"]}),
         flush=True)
+    lap("11 gemma2")
     # 12. the serving front: tokenizer, chat template and HTTP server over the scheduler
     torch.cuda.empty_cache()
     out["serving_front"] = serving_front_path(torch, smi)
     print(f"card {smi}: serving front " + json.dumps(
         {k: v for k, v in out["serving_front"].items() if k not in ("requests", "metrics")}),
         flush=True)
+    lap("12 serving front")
 
     # 13. GPT-2 and BERT-base: learned positions, LayerNorms, the post-norm encoder,
     # embeddings and classification
@@ -4979,7 +5181,8 @@ def main() -> None:
     out["bert"] = bert
     print(f"card {smi}: bert " + json.dumps({k: v for k, v in bert.items() if k != "profile"}),
           flush=True)
-    # 14. float (bf16) experts: Mixtral-8x7B's width, 8 layers, the grouped product
+    lap("13 gpt2 bert")
+    # 14. float (bf16) experts: Mixtral-8x7B's width, 4 layers, the grouped product
     torch.cuda.empty_cache()
     fmoe = float_moe_path(torch, smi)
     out["bf16_mixtral"] = fmoe
@@ -4988,6 +5191,7 @@ def main() -> None:
          "serving": {k: v for k, v in fmoe["serving"].items() if not k.startswith("profile")},
          "float_route": fmoe["float_route"], "logits_rel_l2": fmoe["logits_rel_l2"],
          "peak_memory_gb": fmoe["peak_memory_gb"]}), flush=True)
+    lap("14 bf16 mixtral")
     # 15. the command line: quantize, list, complete, chat, serve, download, rm, version
     # (its model home outlives it: phase 19 reads the JQ4 directory)
     torch.cuda.empty_cache()
@@ -4996,6 +5200,7 @@ def main() -> None:
     cli_home = tempfile.TemporaryDirectory(prefix="jlama_cli_")
     out["cli"] = cli_path(torch, smi, cli_home.name)
     print(f"card {smi}: cli " + json.dumps(out["cli"]), flush=True)
+    lap("15 cli")
     # 16. tensor parallelism: Llama-3.1-8B's widths at tp = 2, two ranks on this card
     torch.cuda.empty_cache()
     tp = tp_path(torch, smi)
@@ -5004,6 +5209,7 @@ def main() -> None:
                                            if k in ("decode_ms_per_step", "prefill_ms",
                                                     "logits_rel_l2", "launches_all")}),
           flush=True)
+    lap("16 tp")
 
     # 17. data parallelism: Llama-3.2-1B at dp = 2 x tp = 2, four ranks on this card
     torch.cuda.empty_cache()
@@ -5013,6 +5219,7 @@ def main() -> None:
                                            if k in ("decode_ms_per_step", "prefill_ms",
                                                     "logits_rel_l2", "launches_all")}),
           flush=True)
+    lap("17 dp")
     # 18. expert parallelism: Mixtral-8x7B's widths at tp = 2, K6 on each rank's experts
     torch.cuda.empty_cache()
     ep = ep_path(torch, smi)
@@ -5026,14 +5233,25 @@ def main() -> None:
                                                     "logits_rel_l2", "launches_all")}),
           flush=True)
 
+    lap("18 ep")
     # 19. the rest of tp: shard-local loading (disk, HTTP), q4s, GPT-2, BERT's mesh server
+    # 20. pp: Llama-3.1-8B's widths at pp = 2 (the ring and the stage-serial
+    # scheduler), and serve --mesh 1,2,2 on phase 15's checkpoint
     torch.cuda.empty_cache()
     try:
         tpr = tp_rest_path(torch, smi, cli_home.name)
+        out["tp_rest"] = tpr
+        print(f"card {smi}: tp rest " + json.dumps(tpr["rank0"]), flush=True)
+        lap("19 tp rest")
+        torch.cuda.empty_cache()
+        ppr = pp_path(torch, smi, cli_home.name, out["cli"]["serve_answers"])
+        lap("20 pp")
     finally:
         cli_home.cleanup()
-    out["tp_rest"] = tpr
-    print(f"card {smi}: tp rest " + json.dumps(tpr["rank0"]), flush=True)
+    out["pp"] = ppr
+    print(f"card {smi}: pp " + json.dumps({k: ppr["rank0"][k] for k in (
+        "prefill_ms", "logits_bit_equal", "logits_rel_l2", "pipe_timed", "serial_timed")}),
+        flush=True)
     kern["w8a8_matmul"].update({f"tp_rank0_{k}_ms": v["ms"] for k, v in tpr["k5_rank0"].items()})
 
     routes = {
@@ -5089,7 +5307,11 @@ def main() -> None:
                             launches_gpt2=gpt2["serving"]["launches"][k],
                             launches_gpt2_engine=gpt2["engine"]["launches"][k],
                             launches_bert=bert["launches"].get(k, 0),
-                            **tpr_launches)
+                            **tpr_launches,
+                            **{f"launches_pp_rank{i}": r["pipe_launches_all"][k]
+                               for i, r in enumerate(ppr["ranks"])},
+                            **{f"launches_pp_serial_rank{i}": r["serial_launches_all"][k]
+                               for i, r in enumerate(ppr["ranks"])})
         row = dict(name=k, route="cuda", source=src, replaces=rep, **launches)
         row.update(kern[k])
         kernels.append(row)

@@ -18,30 +18,35 @@ fall-back:
   layout; the JAX package's TPU layout "q4k" has no counterpart), w8a8
   serves q4s (`weight_format="q4s"`, K5); off exits, since the port has no
   dequantizing path on the card;
-- `serve --mesh D,1,T` is data and tensor parallelism over
-  `torch.distributed`, one process per rank, D · T ranks (rank r is tp rank
-  r % T of dp group r // T; D > 1 splits the slots and the KV pages into D
-  groups, T > 1 the weights, a MoE model's experts over T): rank 0 serves
-  HTTP, the others replay its steps (`BatchScheduler.run_follower`). Every
-  rank runs `serve` with `--mesh`, `--num-processes D·T`, its
+- `serve --mesh D,P,T` is data, pipeline and tensor parallelism over
+  `torch.distributed`, one process per rank, D · P · T ranks (rank r is tp
+  rank r % T of stage (r // T) % P of dp group r // (P · T); D > 1 splits
+  the slots and the KV pages into D groups, P > 1 the layers into P stages,
+  T > 1 the weights, a MoE model's experts over T): rank 0 serves HTTP, the
+  others replay its steps (`BatchScheduler.run_follower`). P > 1 serves
+  through the pp ring (`runtime/pipelined.py::PipelinedScheduler`; the
+  slots are rounded to a multiple of P, and `--itl-budget-ms` is ignored
+  there), or with `--no-pp-pipeline` through the stage-serial
+  `BatchScheduler`. Every rank runs `serve` with `--mesh`,
+  `--num-processes D·P·T`, its
   `--process-id` and the same `--coordinator`
   (`host:port`, a TCP store that rank 0 serves, as the JAX package's
   coordinator; or `file:///path`, a file store); rank 0 binds the step
   channel on `--step-port` (default: the coordinator's port + 1000, 0 with
   a file store) and hands the port it got to the others through the store.
-  Rank 0 started alone with `--num-processes D·T` (no `--process-id`)
+  Rank 0 started alone with `--num-processes D·P·T` (no `--process-id`)
   starts the other ranks itself, on a file store in a temporary directory,
   and waits for them when it exits. `--device cpu` gives gloo ranks on the
-  CPU, else rank r runs on cuda:r over NCCL. Each rank reads only its tp
-  slice of the checkpoint, from the model directory or, where the model is
-  an `http(s)://` URL, by ranged requests
+  CPU, else rank r runs on cuda:r over NCCL (`--device cuda:0`: every rank
+  on that one GPU, over gloo through the host, since NCCL refuses that).
+  Each rank reads only its stage's layers, cut to its tp slice, of the
+  checkpoint, from the model directory or, where the model is an
+  `http(s)://` URL, by ranged requests
   (`parallel/distributed.py::load_params_sharded`). Every weight format
   (`--pallas w8a8` too) and architecture one device serves is served, and
   `/v1/embeddings` answers through an `Engine` over each rank's tree, its
-  calls replayed by the other ranks of dp group 0. `--mesh auto` goes
-  through the planner (its dp is served). `--mesh` with pp > 1, and
-  `--no-pp-pipeline`, exit: those wait in ROADMAP queue 1 item 3 (module
-  10);
+  calls replayed by the other ranks of dp group 0. `--mesh auto` serves
+  the mesh the planner picks, its pp too;
 - `--layer-mode` is accepted and changes nothing: the port's layers are
   always separate tensors.
 
@@ -186,11 +191,9 @@ _PARALLEL_OPTS = ("coordinator", "num_processes", "process_id", "step_port")
 _QUEUE = "ROADMAP queue 1 item 3, module 10"
 
 
-def _serve_mesh(args) -> tuple[int, int]:
-    """The (dp, tp) that `serve` runs at ((1, 1): one device), from `--mesh`;
-    exits where the mesh or the options ask for what is not ported."""
-    if args.no_pp_pipeline:
-        raise SystemExit(f"--no-pp-pipeline: the pp pipeline is not ported yet ({_QUEUE})")
+def _serve_mesh(args) -> tuple[int, int, int]:
+    """The (dp, pp, tp) that `serve` runs at ((1, 1, 1): one device), from
+    `--mesh`; exits where the mesh or the options ask for what cannot run."""
     if args.mesh is None:
         dp = pp = tp = 1
     elif args.mesh == "auto":
@@ -210,21 +213,27 @@ def _serve_mesh(args) -> tuple[int, int]:
             dp, pp, tp = (int(x) for x in args.mesh.split(","))
         except ValueError:
             raise SystemExit(f"--mesh {args.mesh!r}: expected DP,PP,TP or auto") from None
-    if dp < 1 or tp < 1:
+    if dp < 1 or pp < 1 or tp < 1:
         raise SystemExit(f"--mesh {args.mesh!r}: each axis must be at least 1")
-    if pp != 1:
-        raise SystemExit(f"--mesh dp={dp},pp={pp},tp={tp}: pp > 1 (the pp ring) is not "
-                         f"ported yet ({_QUEUE}); the port serves --mesh D,1,T")
-    world = dp * tp
+    from .st import is_url
+
+    if pp > 1 and not is_url(args.model):
+        from .config import load_config
+
+        n_layers = load_config(_resolve_model(args.model, args)).n_layers
+        if n_layers % pp:  # the JAX pipeline's check, before any rank starts
+            raise SystemExit(f"--mesh dp={dp},pp={pp},tp={tp}: n_layers must divide by pp "
+                             f"(n_layers={n_layers})")
+    world = dp * pp * tp
     given = [o for o in _PARALLEL_OPTS if getattr(args, o, None) is not None]
     if world == 1 and given:
         flags = ", ".join("--" + o.replace("_", "-") for o in given)
-        raise SystemExit(f"{flags}: multi-process serving is tensor- or data-parallel "
-                         f"serving; give --mesh D,1,T with D * T > 1 ({_QUEUE})")
+        raise SystemExit(f"{flags}: multi-process serving is mesh serving; give --mesh D,P,T "
+                         f"with D * P * T > 1 ({_QUEUE})")
     if world > 1 and (args.num_processes or world) != world:
-        raise SystemExit(f"--num-processes {args.num_processes} != dp * tp = {world}: one "
+        raise SystemExit(f"--num-processes {args.num_processes} != dp * pp * tp = {world}: one "
                          "process a rank")
-    return dp, tp
+    return dp, pp, tp
 
 
 def rank_argv(argv: list[str], rank: int, world: int, coordinator: str) -> list[str]:
@@ -234,11 +243,13 @@ def rank_argv(argv: list[str], rank: int, world: int, coordinator: str) -> list[
                          "--coordinator", coordinator]
 
 
-def _mesh_stack(args, dp: int, tp: int):
-    """Join the dp × tp world (rank r: tp rank r % tp of dp group r // tp),
-    read this rank's slice of the checkpoint, open the step channel, and
-    build this rank's scheduler with its embeddings `Engine` over the same
-    tree. Returns (sched, tokenizer, model_dir, channel)."""
+def _mesh_stack(args, dp: int, pp: int, tp: int):
+    """Join the dp × pp × tp world (rank r: tp rank r % tp of stage
+    (r // tp) % pp of dp group r // (pp · tp)), read this rank's slice of
+    the checkpoint, open the step channel, and build this rank's scheduler
+    (the `PipelinedScheduler` where pp > 1, unless `--no-pp-pipeline`) with
+    its embeddings `Engine` over the same tree. Returns (sched, tokenizer,
+    model_dir, channel)."""
     import torch
 
     from .parallel.distributed import LOAD_STATS, init_mesh_group, load_params_sharded
@@ -249,28 +260,35 @@ def _mesh_stack(args, dp: int, tp: int):
     from .tokenizers import load_tokenizer
 
     _check_pallas(args)
-    world = dp * tp
+    world = dp * pp * tp
     rank, coord = args.process_id, args.coordinator
     if rank is None or coord is None:
-        raise SystemExit(f"--mesh {dp},1,{tp}: every rank takes --process-id and the same "
+        raise SystemExit(f"--mesh {dp},{pp},{tp}: every rank takes --process-id and the same "
                          "--coordinator (host:port or file:///path); or start rank 0 alone "
                          f"with --num-processes {world}")
     if not 0 <= rank < world:
         raise SystemExit(f"--process-id {rank}: expected 0..{world - 1}")
     local = coord.startswith("file://")
+    backend = _shared_gpu_backend(args.device)
+    if backend == "gloo":
+        _say(rank, f"warning: every rank of this host shares {args.device} over gloo: each "
+                   "collective and stage hand-over goes through host memory, many times "
+                   "slower than NCCL with one GPU a rank (leave out --device for that)",
+             err=True)
     try:
-        mesh = init_mesh_group(dp, tp, rank, device=args.device,
+        mesh = init_mesh_group(dp, tp, rank, pp=pp, device=args.device, backend=backend,
                                store_path=coord[len("file://"):] if local else None,
                                init_method=None if local else f"tcp://{coord}")
     except (RuntimeError, ValueError) as e:
         raise SystemExit(f"rank {rank}: {e}") from None
     group = mesh.group
-    print(f"rank {rank}/{world}: {group.backend} on {group.device} (dp group "
-          f"{mesh.dp_index}, tp rank {group.rank})", flush=True)
+    where = f"dp group {mesh.dp_index}" + (f", stage {mesh.stage}" if pp > 1 else "")
+    print(f"rank {rank}/{world}: {group.backend} on {group.device} ({where}, tp rank "
+          f"{group.rank})", flush=True)
     # a model URL is read by ranged requests, each rank its ranges
     model_dir = args.model if is_url(args.model) else _resolve_model(args.model, args)
     dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[args.working_dtype]
-    # each rank reads only its tp slice, on the host, then moves it
+    # each rank reads only its stage's layers of its tp slice, on the host, then moves it
     try:
         params, cfg = load_params_sharded(model_dir, None, mesh, device="cpu",
                                           float_dtype=dtype)
@@ -288,12 +306,27 @@ def _mesh_stack(args, dp: int, tp: int):
         host = "127.0.0.1" if local else coordinator_host(coord)
         chan = StepChannel.connect(host, int(group.store.get("jlama_step_port")))
     kv_dtype = {"bf16": torch.bfloat16, "f32": torch.float32, "q8": "q8"}[args.kv_dtype]
+    kw = dict(n_pages=args.kv_pages, page_size=args.page_size, max_seq_len=args.context,
+              kv_dtype=kv_dtype, weight_format="q4s" if args.pallas == "w8a8" else None,
+              mesh=mesh, step_channel=chan, device=group.device)
     try:
-        sched = BatchScheduler(
-            params, cfg, tokenizer, n_slots=args.batch_slots, n_pages=args.kv_pages,
-            page_size=args.page_size, max_seq_len=args.context, kv_dtype=kv_dtype,
-            weight_format="q4s" if args.pallas == "w8a8" else None,
-            mesh=mesh, step_channel=chan, device=group.device)
+        if pp > 1 and not args.no_pp_pipeline:
+            from .runtime.pipelined import PipelinedScheduler
+
+            slots = args.batch_slots
+            if slots % (dp * pp):
+                slots = dp * pp * max(1, slots // (dp * pp))
+                _say(rank, f"batch-slots rounded to {slots} (divisible by pp)")
+            _say(rank, f"pp={pp} pipeline decode enabled ({slots // (dp * pp)} "
+                       "rows/microbatch)")
+            if args.itl_budget_ms:
+                _say(rank, "warning: --itl-budget-ms is ignored on the pp pipeline path "
+                           "(fixed tick window); use --no-pp-pipeline for the budgeted "
+                           "scheduler", err=True)
+                args.itl_budget_ms = 0.0
+            sched = PipelinedScheduler(params, cfg, tokenizer, n_slots=slots, **kw)
+        else:
+            sched = BatchScheduler(params, cfg, tokenizer, n_slots=args.batch_slots, **kw)
     except (NotImplementedError, ValueError) as e:
         chan.close()
         raise SystemExit(f"rank {rank}: {e}") from None
@@ -307,11 +340,32 @@ def _mesh_stack(args, dp: int, tp: int):
     return sched, tokenizer, model_dir, chan
 
 
+def _shared_gpu_backend(device, device_count: int | None = None) -> str | None:
+    """gloo where every rank is told to run on one GPU (`--device cuda:N`)
+    on a host that has only that one (`device_count`, torch's count unless
+    given), which NCCL refuses; None (the device's default) otherwise, so
+    that on a host of several GPUs NCCL's device check refuses two ranks on
+    one GPU rather than the mesh quietly running through host memory."""
+    import torch
+
+    dev = torch.device(device) if device is not None else None
+    if dev is None or dev.type != "cuda" or dev.index is None:
+        return None
+    count = torch.cuda.device_count() if device_count is None else device_count
+    return "gloo" if count == 1 else None
+
+
+def _say(rank: int, msg: str, err: bool = False) -> None:
+    """A message of the JAX CLI, printed by rank 0 only."""
+    if rank == 0:
+        print(msg, file=sys.stderr if err else sys.stdout, flush=True)
+
+
 def build_server(args):
     """The serving stack of `serve` without starting it: the scheduler over
     the fused tree (q4s with `--pallas w8a8`), its `embed_engine` sharing
     that tree, pre-warmed to `--prewarm` tokens, behind an `OpenAIServer`.
-    Returns (server, model_dir). With `--mesh D,1,T` (D · T > 1), rank 0
+    Returns (server, model_dir). With `--mesh D,P,T` (D · P · T > 1), rank 0
     gets the mesh scheduler's server (its embeddings engine's calls replayed
     by the ranks of dp group 0); a rank > 0 replays rank 0's steps until it
     stops, and gets (None, model_dir)."""
@@ -321,11 +375,11 @@ def build_server(args):
     from .runtime.scheduler import BatchScheduler
     from .server.openai_api import OpenAIServer
 
-    dp, tp = _serve_mesh(args)
-    if dp * tp > 1:
+    dp, pp, tp = _serve_mesh(args)
+    if dp * pp * tp > 1:
         from .parallel.distributed import shutdown
 
-        sched, tokenizer, model_dir, chan = _mesh_stack(args, dp, tp)
+        sched, tokenizer, model_dir, chan = _mesh_stack(args, dp, pp, tp)
         if args.process_id > 0:
             print(f"follower {args.process_id} ready", flush=True)
             try:
@@ -386,8 +440,8 @@ def cmd_serve(args) -> None:
     ranks, store_dir = [], None
     if args.mesh is not None and args.process_id is None and (args.num_processes or 0) > 1:
         # rank 0 started alone: it starts the other ranks on a file store
-        dp, tp = _serve_mesh(args)
-        world = dp * tp
+        dp, pp, tp = _serve_mesh(args)
+        world = dp * pp * tp
         coord = args.coordinator
         if coord is None:
             store_dir = tempfile.mkdtemp(prefix="jlama_tp_")
@@ -543,21 +597,21 @@ def build_parser() -> argparse.ArgumentParser:
         "(block-32 int8, dequantized in attention)",
     )
     p.add_argument("--mesh", default=None, metavar="DP,PP,TP",
-                   help="data and tensor parallelism over one process a rank, D,1,T (each "
-                        "rank reads only its slice of the checkpoint, locally or by ranged "
-                        "HTTP; pp > 1 is not ported yet and exits), or auto (the planner)")
+                   help="data, pipeline and tensor parallelism over one process a rank, "
+                        "D,P,T (each rank reads only its stage's layers of its slice of the "
+                        "checkpoint, locally or by ranged HTTP), or auto (the planner)")
     p.add_argument("--coordinator", default=None,
                    help="the ranks' rendezvous: host:port (a TCP store rank 0 serves) or "
                         "file:///path (a file store)")
     p.add_argument("--num-processes", type=int, default=None,
-                   help="ranks in all (dp * tp); rank 0 alone with it starts the others")
+                   help="ranks in all (dp * pp * tp); rank 0 alone with it starts the others")
     p.add_argument("--process-id", type=int, default=None, help="this process's rank")
     p.add_argument("--step-port", type=int, default=None,
                    help="rank 0's TCP port for the step channel (default: the "
                         "coordinator's port + 1000; 0 with a file store: any free port)")
     p.add_argument("--no-pp-pipeline", action="store_true",
-                   help="with pp>1: storage-shard layers only; not ported yet "
-                        "(ROADMAP module 10): giving it exits")
+                   help="with pp>1: run each step stage by stage (the BatchScheduler over "
+                        "the layer-sharded stages) instead of the pipelined tick windows")
     p.add_argument("--prewarm", type=int, default=0, metavar="TOKENS",
                    help="run every serving shape up to this many context tokens once "
                         "before accepting requests (on the card: capture the decode graphs)")

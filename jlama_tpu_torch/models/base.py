@@ -145,9 +145,23 @@ def forward_hidden(
     keys past them (a batch of embeddings).
     """
     x = _embed(params, cfg, tokens, positions, token_types, dtype)
+    return forward_layers(params, cfg, x, positions, kv_cache, attn_window, inv_freq,
+                          seq_lengths), kv_cache
+
+
+def forward_layers(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+                   kv_cache, attn_window: int | None = None,
+                   inv_freq: torch.Tensor | None = None,
+                   seq_lengths: torch.Tensor | None = None,
+                   first_layer: int = 0) -> torch.Tensor:
+    """The transformer layers of `params["layers"]` over hidden states x
+    [B, T, D] (`forward_hidden` without the embedding; the caches as
+    there, indexed by the tree's own layers). A pipeline stage's tree holds
+    the model's layers `first_layer` onward, which gemma2's alternation of
+    sliding and global attention counts from."""
     if cfg.rope_theta:
         if inv_freq is None:
-            inv_freq = rope_inv_freq(cfg, tokens.device)
+            inv_freq = rope_inv_freq(cfg, positions.device)
         cos, sin = rope_cos_sin(positions, inv_freq)
     else:
         cos = sin = None
@@ -156,7 +170,8 @@ def forward_hidden(
     # the mistral window is ignored, as in the JAX package)
     for l, layer in enumerate(params["layers"]):
         sw = None
-        if cfg.sliding_window is not None and cfg.model_type == "gemma2" and l % 2 == 0:
+        if (cfg.sliding_window is not None and cfg.model_type == "gemma2"
+                and (first_layer + l) % 2 == 0):
             sw = cfg.sliding_window
         if kv_cache is None:
             cache_l = None
@@ -166,7 +181,7 @@ def forward_hidden(
             states, page_tables = kv_cache
             cache_l = L.PagedLayerCache(states[l].k_pool, states[l].v_pool, page_tables)
         x, _ = _block(x, layer, cfg, positions, cache_l, cos, sin, sw, attn_window, seq_lengths)
-    return x, kv_cache
+    return x
 
 
 def _interleave_concat(ts, dim: int, tp: int) -> torch.Tensor:

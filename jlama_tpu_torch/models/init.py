@@ -156,7 +156,8 @@ def init_params(
     return params
 
 
-def random_q4_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
+def random_q4_params(cfg: ModelConfig, seed: int = 0, device=None,
+                     layers: tuple[int, int] | None = None) -> dict:
     """Fast on-device random JQ4 weights at a config's full width.
 
     Every matrix, the embedding table included (which a tied lm_head then
@@ -168,7 +169,10 @@ def random_q4_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     their [E, N, K] tensors. Learned-position models (GPT-2, BERT) draw their
     norm weights, biases, `wpe`, token types and heads as normals of std 0.1
     around their ones and zeros, after every matrix of their layer; the
-    draws of every other config are as they were."""
+    draws of every other config are as they were. With `layers` = (lo, hi)
+    the tree keeps only those layers (a pipeline stage's), every value as
+    the whole draw's: the other layers are drawn one at a time and
+    dropped."""
     device = resolve_device(device)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
@@ -196,15 +200,18 @@ def random_q4_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
         return torch.randn((n,), generator=g, device=device) * 0.1 + base
 
     away = draw if cfg.learned_pos_embeddings else None
-    layers = []
-    for _ in range(cfg.n_layers):
+    lo, hi = layers or (0, cfg.n_layers)
+    out_layers = []
+    for i in range(cfg.n_layers):
         layer = {k: q4(*s) for k, s in _shapes(cfg).items()}
         if cfg.n_experts:
             layer["router"] = (torch.randn((cfg.n_experts, D), generator=g, device=device)
                                * 0.02).to(torch.bfloat16)
         layer.update(_norms_and_biases(cfg, device, away))
-        layers.append(layer)
-    params = {"embed": q4(cfg.vocab_size, D), "layers": layers}
+        if lo <= i < hi:
+            out_layers.append(layer)
+        del layer
+    params = {"embed": q4(cfg.vocab_size, D), "layers": out_layers}
     params.update(_top_level(cfg, device, away))
     if not cfg.tie_word_embeddings and cfg.model_type != "bert":  # bert has no lm_head
         params["lm_head"] = q4(cfg.vocab_size, D)

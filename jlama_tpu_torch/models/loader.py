@@ -334,10 +334,13 @@ def _layer_map(cfg: ModelConfig) -> dict[str, Callable]:
 
 
 def read_tree(idx, cfg: ModelConfig, device, float_dtype=torch.bfloat16,
-              cut_of: Callable[[str], Cut] | None = None) -> dict:
+              cut_of: Callable[[str], Cut] | None = None,
+              layers: tuple[int, int] | None = None) -> dict:
     """The param tree of an open index (local or HTTP) on `device`, each
     leaf whole or, with `cut_of` (our key -> its Cut), a tp rank's cut of
-    it, of which only the slice is read."""
+    it, of which only the slice is read; with `layers` = (lo, hi) only
+    those layers are read (a pipeline stage's), the top-level leaves whole
+    or cut as without."""
     if cfg.model_type not in TOPLEVEL_MAPS:
         raise NotImplementedError(f"{cfg.model_type}: no loader map")
     cut_of = cut_of or (lambda key: WHOLE)
@@ -357,24 +360,25 @@ def read_tree(idx, cfg: ModelConfig, device, float_dtype=torch.bfloat16,
         else:
             params[key] = _leaf(src.load_linear(hf, cut_of(key)), device, float_dtype)
 
-    layers: list[dict] = [{} for _ in range(cfg.n_layers)]
+    lo, hi = layers or (0, cfg.n_layers)
+    out_layers: list[dict] = [{} for _ in range(lo, hi)]
     for key, fn in _layer_map(cfg).items():
         optional = key.endswith("?")
         key_clean = key.replace(":np", "").rstrip("?")
         cut = cut_of(key_clean)
         try:
-            items = [fn(r, i, cut) for i in range(cfg.n_layers)]
+            items = [fn(r, i, cut) for i in range(lo, hi)]
         except KeyError:
             if optional:
                 continue
             raise
         if ":np" in key:
             for i, a in enumerate(items):
-                layers[i][key_clean] = _tensor(a.astype(np.float32), device)
+                out_layers[i][key_clean] = _tensor(a.astype(np.float32), device)
         else:
             for i, item in enumerate(_stack_linears(items)):
-                layers[i][key_clean] = _leaf(item, device, float_dtype)
-    params["layers"] = layers
+                out_layers[i][key_clean] = _leaf(item, device, float_dtype)
+    params["layers"] = out_layers
     if cfg.model_type == "bert":  # the sequence-classification head, f32
         for name in ("classifier.weight", "classifier.bias"):
             if bare.has(name):
@@ -390,10 +394,10 @@ def load_params(
 ) -> tuple[dict, ModelConfig]:
     """Load a model directory, or a model URL (`http(s)://`, its tensors
     fetched by ranged requests), into (params, cfg) on `device` (CUDA unless
-    the caller names one; raises without CUDA and without a device). A tp
-    rank reads only its slice through `parallel.distributed.
-    load_params_sharded`; the JAX loader's other partial loads
-    (`layer_range` for the pp ring) come with it (ROADMAP module 10)."""
+    the caller names one; raises without CUDA and without a device). A
+    mesh rank reads only its stage's layers, cut to its tp slice, through
+    `parallel.distributed.load_params_sharded` (`read_tree`'s `layers` and
+    `cut_of`)."""
     device = resolve_device(device)
     if not is_url(model_dir):
         model_dir = Path(model_dir)

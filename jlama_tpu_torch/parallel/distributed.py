@@ -1,26 +1,29 @@
-"""Joining a dp × tp mesh over `torch.distributed` (counterpart of
+"""Joining a dp × pp × tp mesh over `torch.distributed` (counterpart of
 `jlama_tpu/parallel/distributed.py:initialize_cluster`).
 
-One process per rank, a world of dp × tp ranks: rank r is tp rank r % tp of
-dp group r // tp. `init_mesh_group` builds the rendezvous store itself (a
-`FileStore` at a path every rank can read, or a `TCPStore` from
-`tcp://host:port`, rank 0 its server), checks the devices against the
-backend through that store, then calls `init_process_group` with the
-backend, the store, the world size and the rank all explicit. Where dp > 1
-it then makes each dp group's tp subgroup (`new_group`, the same backend;
-at dp = 1 the tp group is the world) and the group of the dp groups' first
-tp ranks, which carries each group's sampled ids to the leader (gloo: the
-ids go through the host), and returns the rank's `parallel.mesh.Mesh`: its
-`TPGroup`, its dp index and that group. `init_tp_group` is the dp = 1
-case.
+One process per rank, a world of dp × pp × tp ranks: rank r is tp rank
+r % tp of stage (r // tp) % pp of dp group r // (pp · tp) (the JAX device
+order `reshape(dp, pp, tp)`; rank 0 leads). `init_mesh_group` builds the
+rendezvous store itself (a `FileStore` at a path every rank can read, or a
+`TCPStore` from `tcp://host:port`, rank 0 its server), checks the devices
+against the backend through that store, then calls `init_process_group`
+with the backend, the store, the world size and the rank all explicit.
+Where the world is more than one tp group it then makes each (dp group,
+stage)'s tp subgroup (`new_group`, the same backend; otherwise the tp
+group is the world), where dp > 1 the group of the dp groups' first ranks
+(stage 0, tp rank 0), which carries each group's sampled ids to the leader
+(gloo: the ids go through the host), and where pp > 1 each (dp group, tp
+rank)'s group of pp stages, the `StageRing`'s (`parallel/pipeline.py`); it
+returns the rank's `parallel.mesh.Mesh`: its `TPGroup`, its dp index, that
+group, its stage and its ring. `init_tp_group` is the dp = pp = 1 case.
 
 The backend follows the rank's device: NCCL on CUDA, gloo on the CPU. The
 caller may name gloo on CUDA, which is how two ranks share one GPU (NCCL
 refuses that).
 
 `load_params_sharded` is the shard-local load
-(`jlama_tpu/parallel/distributed.py:95-402`): each rank reads only its tp
-slice of the checkpoint, from local files (mmap range reads) or from an
+(`jlama_tpu/parallel/distributed.py:95-402`): each rank reads only its
+stage's layers, cut to its tp slice, from local files (mmap range reads) or from an
 `http(s)://` model URL (ranged requests), and gets its `RankSlice`
 directly, without the host ever holding the whole model. `LOAD_STATS
 ["bytes_loaded"]` is the payload this process read in its last call.
@@ -90,21 +93,23 @@ def init_tp_group(world_size: int, rank: int, *, device=None, backend: str | Non
                            local_rank=local_rank, timeout_s=timeout_s).group
 
 
-def init_mesh_group(dp: int, tp: int, rank: int, *, device=None, backend: str | None = None,
-                    store_path: str | None = None, init_method: str | None = None,
-                    local_rank: int | None = None, timeout_s: float = 300.0):
-    """Join the dp × tp world as global `rank`; returns the rank's
+def init_mesh_group(dp: int, tp: int, rank: int, *, pp: int = 1, device=None,
+                    backend: str | None = None, store_path: str | None = None,
+                    init_method: str | None = None, local_rank: int | None = None,
+                    timeout_s: float = 300.0):
+    """Join the dp × pp × tp world as global `rank`; returns the rank's
     `parallel.mesh.Mesh` (module docstring). Its `group.store` is the
     rendezvous store, which the step channel's port goes through."""
     import torch.distributed as dist
 
     from .mesh import Mesh
+    from .pipeline import StageRing
 
-    if dp < 1 or tp < 1:
-        raise ValueError(f"mesh dp={dp}, tp={tp}: each must be at least 1")
-    world_size = dp * tp
+    if dp < 1 or pp < 1 or tp < 1:
+        raise ValueError(f"mesh dp={dp}, pp={pp}, tp={tp}: each must be at least 1")
+    world_size = dp * pp * tp
     if not 0 <= rank < world_size:
-        raise ValueError(f"rank {rank} is outside the world of dp*tp={world_size} ranks")
+        raise ValueError(f"rank {rank} is outside the world of dp*pp*tp={world_size} ranks")
     dev = rank_device(rank, device, local_rank)
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if backend == "nccl" and dev.type != "cuda":
@@ -122,19 +127,43 @@ def init_mesh_group(dp: int, tp: int, rank: int, *, device=None, backend: str | 
     timeout = datetime.timedelta(seconds=timeout_s)
     dist.init_process_group(backend, store=store, rank=rank, world_size=world_size,
                             timeout=timeout)
-    g, tp_rank = divmod(rank, tp)
-    if dp == 1:
+    g, rem = divmod(rank, pp * tp)
+    stage, tp_rank = divmod(rem, tp)
+    if dp == 1 and pp == 1:
         return Mesh(1, 1, tp, TPGroup(rank, tp, None, backend, dev, store))
+
+    def place(d, s, t):
+        return d * pp * tp + s * tp + t
+
     # every rank enters every new_group, in the same order
     tp_pg = None
     for d in range(dp):
-        pg = dist.new_group(list(range(d * tp, (d + 1) * tp)), timeout=timeout, backend=backend)
-        if d == g:
-            tp_pg = pg
-    rows_pg = dist.new_group([d * tp for d in range(dp)], timeout=timeout, backend="gloo")
-    rows = (TPGroup(g, dp, rows_pg, "gloo", torch.device("cpu"), store) if tp_rank == 0
-            else None)
-    return Mesh(dp, 1, tp, TPGroup(tp_rank, tp, tp_pg, backend, dev, store), g, rows)
+        for s in range(pp):
+            pg = dist.new_group([place(d, s, t) for t in range(tp)], timeout=timeout,
+                                backend=backend)
+            if (d, s) == (g, stage):
+                tp_pg = pg
+    rows = None
+    if dp > 1:
+        rows_pg = dist.new_group([place(d, 0, 0) for d in range(dp)], timeout=timeout,
+                                 backend="gloo")
+        if (stage, tp_rank) == (0, 0):
+            rows = TPGroup(g, dp, rows_pg, "gloo", torch.device("cpu"), store)
+    ring = None
+    if pp > 1:
+        for d in range(dp):
+            for t in range(tp):
+                pg = dist.new_group([place(d, s, t) for s in range(pp)], timeout=timeout,
+                                    backend=backend)
+                if (d, t) == (g, tp_rank):
+                    pp_pg = pg
+        ring = StageRing(stage, pp, place(g, (stage - 1) % pp, tp_rank),
+                         place(g, (stage + 1) % pp, tp_rank), backend, dev,
+                         TPGroup(stage, pp, pp_pg, backend, dev, store))
+        if backend == "nccl":  # NCCL's first point-to-point call wants the group set up
+            dist.barrier(group=pp_pg)
+    return Mesh(dp, pp, tp, TPGroup(tp_rank, tp, tp_pg, backend, dev, store), g, rows, stage,
+                ring)
 
 
 # the architectures read shard-locally (the JAX package's _SHARDED_ARCHS);
@@ -174,10 +203,11 @@ def payload_bytes(idx) -> int:
 
 def load_params_sharded(model_dir, cfg=None, mesh=None, device=None,
                         float_dtype=torch.bfloat16):
-    """This rank's tree of a dp × tp `mesh`, read shard-locally: (params,
-    cfg). `model_dir` is a directory or an `http(s)://` model URL (each
-    rank then fetches only its ranges). Every rank of a dp group reads the
-    same tp slice, its tp rank's:
+    """This rank's tree of a dp × pp × tp `mesh`, read shard-locally:
+    (params, cfg). `model_dir` is a directory or an `http(s)://` model URL
+    (each rank then fetches only its ranges). Every rank of a dp group reads
+    its stage's layers (`pipeline.stage_range`) and, of those, its tp rank's
+    slice:
 
     - output rows of wq, wk, wv, w1, w3 and their biases (a JQ4 weight's
       data and block scales together);
@@ -187,20 +217,23 @@ def load_params_sharded(model_dir, cfg=None, mesh=None, device=None,
       them, else the whole table;
     - the norms, the router and the row-parallel biases whole.
 
-    The rank's q, k, v and gate, up rows come fused: the tree is the
-    `RankSlice` that `mesh.shard_params` cuts from the whole fused tree,
-    bit for bit. GPT-2 and BERT (not in SHARDED_ARCHS) are read whole
-    and cut. tp = 1 (dp alone): the whole tree. On `device` (the mesh
-    group's unless named; CUDA otherwise)."""
+    The top-level leaves are read on every stage, as the JAX loader places
+    them (replicated over pp). The rank's q, k, v and gate, up rows come
+    fused: the tree is the `RankSlice` that `mesh.shard_params` cuts from
+    the stage's layers of the whole fused tree, bit for bit. GPT-2 and BERT
+    (not in SHARDED_ARCHS) are read whole and cut. dp alone: the whole tree.
+    On `device` (the mesh group's unless named; CUDA otherwise)."""
     from ..config import load_config
     from ..device import resolve_device
     from ..models.base import fuse_params
     from ..models.loader import read_tree
     from ..st import is_url, open_weights
-    from .mesh import RankSlice, shard_params
+    from .mesh import RankSlice, shard_params, vocab_flags
+    from .pipeline import stage_cut, stage_range
 
     group = mesh.group if mesh is not None else None
     tp = mesh.tp if mesh is not None else 1
+    pp, stage = (mesh.pp, mesh.stage) if mesh is not None else (1, 0)
     rank = group.rank if tp > 1 else 0
     if device is None and group is not None:
         device = group.device
@@ -211,20 +244,25 @@ def load_params_sharded(model_dir, cfg=None, mesh=None, device=None,
         cfg = load_config(model_dir)
     idx = open_weights(model_dir)
     try:
-        local = tp > 1 and cfg.model_type in SHARDED_ARCHS
-        params = read_tree(idx, cfg, device, float_dtype, _cut_of(tp, rank) if local else None)
+        local = cfg.model_type in SHARDED_ARCHS
+        cut = _cut_of(tp, rank) if local and tp > 1 else None
+        layers = stage_range(cfg.n_layers, pp, stage) if local else None
+        params = read_tree(idx, cfg, device, float_dtype, cut, layers)
         LOAD_STATS.update(bytes_loaded=idx.bytes_loaded, payload=payload_bytes(idx))
         # the whole tables' rows: a "vocab" cut took rows where tp divides them
         vocab = {k: _whole_rows(idx, cfg, k) % tp == 0 for k in ("embed", "lm_head")
                  if k in params}
     finally:
         idx.close()
-    if tp == 1:
+    if tp == 1 and pp == 1:
         return fuse_params(params), cfg
     if not local:  # read whole, then cut (the JAX loader's fall-back for these models)
-        return shard_params(fuse_params(params, tp), cfg, tp, rank), cfg
-    flags = (vocab["embed"], vocab.get("lm_head", vocab["embed"]))
-    return RankSlice(fuse_params(params), tp, rank, flags), cfg
+        params = stage_cut(params, cfg, pp, stage)
+        return RankSlice(shard_params(fuse_params(params, tp), cfg, tp, rank), tp, rank,
+                         vocab_flags(params, tp), pp, stage), cfg
+    flags = (vocab["embed"], vocab.get("lm_head", vocab["embed"])) if tp > 1 else (False,
+                                                                                  False)
+    return RankSlice(fuse_params(params), tp, rank, flags, pp, stage), cfg
 
 
 def _whole_rows(idx, cfg, key: str) -> int:

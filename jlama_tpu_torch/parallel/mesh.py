@@ -8,14 +8,17 @@ A mesh has the JAX package's three axes:
   tp — tensor parallel (heads and the FFN hidden size)
 
 The torch idiom is one process per GPU, so a mesh here is its shape, this
-rank's tp `TPGroup` (`parallel/tp_forward.py`), its dp index and, on the
-first tp rank of each dp group, the group that carries the dp groups'
-sampled ids to the leader (`parallel/distributed.py::init_mesh_group`). A
-world of dp × tp ranks: rank r is tp rank r % tp of dp group r // tp. pp = 1
-only (the pp ring is ROADMAP queue 1 item 3).
+rank's tp `TPGroup` (`parallel/tp_forward.py`), its dp index, its stage and
+stage ring (`parallel/pipeline.py::StageRing`) and, on the first tp rank of
+each dp group's stage 0, the group that carries the dp groups' sampled ids
+to the leader (`parallel/distributed.py::init_mesh_group`). A world of dp ×
+pp × tp ranks: rank r is tp rank r % tp of stage (r // tp) % pp of dp group
+r // (pp · tp), the JAX device order `reshape(dp, pp, tp)`.
 
 A rank's tree is a `RankSlice`: a dict that also says which slice it is (tp,
-rank) and whether its embedding and lm_head are cut over the vocabulary.
+rank, and pp, stage: a stage's tree holds its L/pp layers and every
+top-level leaf) and whether its embedding and lm_head are cut over the
+vocabulary.
 `shard_params` makes one from a whole tree, `parallel/distributed.py::
 load_params_sharded` reads one from the checkpoint, and `rank_params`
 takes either on the rank's device for the scheduler and the `Engine`.
@@ -57,9 +60,10 @@ from ..nn.qarray import QArray
 
 class Mesh(NamedTuple):
     """A mesh's shape and this rank's place in it: its tp group (None where
-    tp = dp = 1), its dp index, and `rows`, the group of the dp groups' first
-    tp ranks that carries the sampled ids to the leader (None where dp = 1
-    and on the other tp ranks)."""
+    the world is one rank), its dp index, `rows`, the group of the dp
+    groups' first ranks that carries the sampled ids to the leader (None
+    where dp = 1 and on the other ranks), its stage and its `StageRing`
+    (None where pp = 1)."""
 
     dp: int = 1
     pp: int = 1
@@ -67,6 +71,8 @@ class Mesh(NamedTuple):
     group: object | None = None
     dp_index: int = 0
     rows: object | None = None
+    stage: int = 0
+    ring: object | None = None
 
     @property
     def shape(self) -> dict:
@@ -162,16 +168,18 @@ EXPERT_STACKS = tuple(f"experts.{w}{t}" for w in ("w1", "w2", "w3") for t in (""
 
 
 class RankSlice(dict):
-    """One tp rank's param tree: the dict of leaves, plus `tp`, `rank` and
-    the vocabulary flags (`vocab`: embedding cut, lm_head cut), which the
-    leaves' shapes alone cannot tell apart from a whole tree's."""
+    """One rank's param tree: the dict of leaves, plus `tp`, `rank`, `pp`,
+    `stage` and the vocabulary flags (`vocab`: embedding cut, lm_head cut),
+    which the leaves' shapes alone cannot tell apart from a whole tree's."""
 
-    def __init__(self, tree: dict, tp: int, rank: int, vocab: tuple[bool, bool]):
+    def __init__(self, tree: dict, tp: int, rank: int, vocab: tuple[bool, bool], pp: int = 1,
+                 stage: int = 0):
         super().__init__(tree)
         self.tp, self.rank, self.vocab = tp, rank, tuple(vocab)
+        self.pp, self.stage = pp, stage
 
     def __reduce__(self):
-        return RankSlice, (dict(self), self.tp, self.rank, self.vocab)
+        return RankSlice, (dict(self), self.tp, self.rank, self.vocab, self.pp, self.stage)
 
 
 def vocab_sharded(leaf, tp: int) -> bool:
@@ -276,8 +284,9 @@ def check_whole(params: dict, cfg: ModelConfig) -> None:
     without the rank's mesh: a single-device path would run it as if
     whole."""
     if isinstance(params, RankSlice):
-        raise ValueError(f"these params are tp rank {params.rank} of {params.tp}'s slice: "
-                         "pass the rank's mesh (mesh=)")
+        what = (f"tp rank {params.rank} of {params.tp}'s slice" if params.tp > 1
+                else f"stage {params.stage} of {params.pp}'s layers")
+        raise ValueError(f"these params are {what}: pass the rank's mesh (mesh=)")
     lay = params["layers"][0] if params.get("layers") else {}
     hd = cfg.head_size
     want = {"wqkv": (cfg.n_heads + 2 * cfg.n_kv_heads) * hd, "wq": cfg.n_heads * hd}
@@ -289,29 +298,35 @@ def check_whole(params: dict, cfg: ModelConfig) -> None:
 
 
 def rank_params(params: dict, cfg: ModelConfig, mesh, device, fuse: bool = True):
-    """A tp rank's tree on `device` and what its forward needs: (tree,
-    TPCtx, the rank's config). `params` is either the whole tree, which is
-    fused with the rows interleaved per rank (with `fuse`), cut
-    (`shard_params`) and then moved, or this rank's `RankSlice` (from
-    `shard_params` or `distributed.load_params_sharded`, which fuses),
-    which is moved as it is. The tree comes back a `RankSlice`."""
+    """A rank's tree on `device` and what its forward needs: (tree, TPCtx
+    or None at tp = 1, the rank's config). `params` is either the whole
+    tree, which is cut to the rank's stage (`pipeline.stage_cut`), fused
+    with the rows interleaved per tp rank (with `fuse`), cut (`shard_params`)
+    and then moved, or this rank's `RankSlice` (from `shard_params` or
+    `distributed.load_params_sharded`, which fuses), which is moved as it
+    is. The tree comes back a `RankSlice`."""
     from ..models.base import fuse_params, params_to
+    from .pipeline import stage_cut
     from .tp_forward import TPCtx, localize_cfg
 
-    tp, rank = mesh.tp, mesh.group.rank
+    tp, pp, stage = mesh.tp, mesh.pp, mesh.stage
+    rank = mesh.group.rank if tp > 1 else 0
     if isinstance(params, RankSlice):
-        if (params.tp, params.rank) != (tp, rank):
-            raise ValueError(f"params are tp rank {params.rank} of {params.tp}, the mesh "
-                             f"wants rank {rank} of {tp}")
+        if (params.tp, params.rank, params.pp, params.stage) != (tp, rank, pp, stage):
+            raise ValueError(f"params are tp rank {params.rank} of {params.tp}, stage "
+                             f"{params.stage} of {params.pp}; the mesh wants tp rank {rank} of "
+                             f"{tp}, stage {stage} of {pp}")
         vocab = params.vocab
         local = params_to(dict(params), device)
     else:
         check_whole(params, cfg)
+        params = stage_cut(params, cfg, pp, stage)
         if fuse:
             params = fuse_params(params, tp)
         vocab = vocab_flags(params, tp)
         local = params_to(dict(shard_params(params, cfg, tp, rank)), device)
-    return RankSlice(local, tp, rank, vocab), TPCtx(mesh.group, *vocab), localize_cfg(cfg, tp)
+    ctx = TPCtx(mesh.group, *vocab) if tp > 1 else None
+    return RankSlice(local, tp, rank, vocab, pp, stage), ctx, localize_cfg(cfg, tp)
 
 
 def check_q4s_rank(params: dict, tp: int) -> None:

@@ -206,13 +206,17 @@ def check_tp(cfg: ModelConfig, mesh, quantized: bool = False, n_slots: int | Non
     runs unsharded): dp must divide the slots and the pages, tp the heads
     (and the experts of a MoE model, which expert parallelism cuts over tp)
     and the FFN's hidden size (GPT-2's and BERT's too: their w1 and its bias
-    are column-parallel). Also raises for what the port does not shard
-    yet: pp > 1 (ROADMAP queue 1 item 3). At tp = 1 the weights are whole
-    on every rank, and a dp mesh serves what one device serves."""
+    are column-parallel); pp must divide the layers, as the JAX pipeline
+    requires (`jlama_tpu/parallel/pipeline.py:99, 202, 263`), and a pp > 1
+    mesh needs the rank's stage ring. At tp = 1 the weights are whole on
+    every rank of a stage, and a dp mesh serves what one device serves."""
     tp, dp, pp = mesh.tp, mesh.dp, mesh.pp
-    if pp != 1:
-        raise NotImplementedError(f"mesh pp={pp}: the pp ring and the pipelined scheduler "
-                                  "are not ported yet (ROADMAP queue 1 item 3)")
+    if pp > 1:
+        if cfg.n_layers % pp:
+            raise ValueError(f"n_layers must divide by pp (n_layers={cfg.n_layers}, pp={pp})")
+        if mesh.ring is None:
+            raise ValueError(f"mesh pp={pp} needs this rank's stage ring (mesh.ring, from "
+                             "parallel.distributed.init_mesh_group)")
     if dp > 1:
         if n_slots is not None and n_slots % dp:
             raise ValueError(f"dp={dp} does not divide n_slots={n_slots} (each dp group "

@@ -27,7 +27,7 @@
   length buckets, pad keys masked through `seq_lengths`, pooled on the
   device, so that only [R, D] comes back to the host.
 
-On a tp mesh (`mesh=`, pp = 1) each rank holds its slice of the weights
+On a tp mesh (`mesh=`) each rank holds its slice of the weights
 (`parallel/mesh.py::rank_params`: a `RankSlice`, or the whole tree, which
 it cuts) and n_kv/tp heads of each cache slot, and runs its forward under
 the rank's `TPGroup` (`parallel/tp_forward.py`). `generate` is SPMD: every
@@ -39,6 +39,14 @@ the gathered logits and so runs the same steps; its steps run eagerly
 embed_pool before it runs it, holding `step_lock` (the scheduler's lock)
 across both so that the call keeps its place among the scheduler's steps;
 the other ranks replay it in `BatchScheduler.run_follower`.
+
+On a pp mesh each rank holds its stage's layers (and a cache slot of those
+layers) and every forward runs stage by stage (`parallel/pipeline.py::
+stage_hidden`): stage 0 embeds, each stage runs its layers and hands the
+hidden state on. `generate` is SPMD as under tp: the last stage samples and
+broadcasts each id to every stage, so that every rank runs the same steps.
+An embed call's result comes back to stage 0 over the ring's wrap-around
+(the other stages' calls return None).
 """
 
 from __future__ import annotations
@@ -56,12 +64,13 @@ import torch
 
 from ..config import ModelConfig
 from ..device import resolve_device
-from ..models.base import (KVCache, check_moe_device, forward_hidden, fuse_params, lm_logits,
+from ..models.base import (KVCache, check_moe_device, fuse_params, lm_logits,
                            params_to, prepare_moe_ragged, rope_inv_freq)
 from ..nn.layers import KVLayerCache
 from ..nn.qarray import QArray
 from ..nn.sampling import sample_token
 from ..parallel.mesh import RankSlice, check_whole, rank_params
+from ..parallel.pipeline import stage_cfg, stage_hidden
 from ..parallel.tp_forward import TPCtx, check_tp, tp_context
 from ..prompt import PromptContext, extract_tool_calls
 from ..utils.metrics import GLOBAL_METRICS
@@ -188,24 +197,29 @@ class Engine:
         (`ops/moe_float.py`).
 
         mesh: a `parallel.mesh.Mesh` whose tp > 1 takes this rank's
-        `TPGroup` and the params as the whole tree or this rank's
-        `RankSlice` (module docstring); without one, a rank's slice raises.
+        `TPGroup`, whose pp > 1 its stage ring, and the params as the whole
+        tree or this rank's `RankSlice` (module docstring); without one, a
+        rank's slice raises.
         step_channel, step_lock: the scheduler's step channel and lock, for
         an Engine that answers embeddings beside a mesh scheduler."""
         self.device = resolve_device(device)
         tp = mesh.tp if mesh is not None else 1
-        if mesh is not None and mesh.pp != 1:
-            raise NotImplementedError(f"mesh pp={mesh.pp}: the pp ring is not ported yet "
-                                      "(ROADMAP queue 1 item 3)")
+        pp = mesh.pp if mesh is not None else 1
         self._tp: TPCtx | None = None
+        self._ring = mesh.ring if pp > 1 else None  # the stage ring
+        stage = mesh.stage if pp > 1 else 0
+        self._first_layer = stage * (cfg.n_layers // pp)
         self.fwd_cfg = cfg  # the forward's view: a rank's heads under tp
-        if tp > 1:
-            if mesh.group is None:
+        if tp > 1 or pp > 1:
+            if tp > 1 and mesh.group is None:
                 raise ValueError(f"mesh tp={tp} needs this rank's TPGroup (mesh.group)")
-            if decode_graphs:
+            if decode_graphs and tp > 1:
                 raise ValueError("decode_graphs=True under tp: gloo's collectives cannot be "
                                  "captured in a CUDA graph, and graphs with NCCL collectives "
                                  "are not ported yet (ROADMAP queue 1 item 3)")
+            if decode_graphs:
+                raise ValueError("decode_graphs=True under pp: a stage's step hands its "
+                                 "hidden state to another process")
             check_tp(cfg, mesh)
             params, self._tp, self.fwd_cfg = rank_params(params, cfg, mesh, self.device, fuse)
         else:
@@ -214,7 +228,7 @@ class Engine:
             if fuse:
                 params = fuse_params(params)
         tp_rank = mesh.group.rank if tp > 1 else 0
-        self._is_leader = mesh is None or mesh.dp_index * tp + tp_rank == 0
+        self._is_leader = mesh is None or (mesh.dp_index * pp + stage) * tp + tp_rank == 0
         self._chan = step_channel
         self._lock = step_lock if step_lock is not None else threading.RLock()
         self.cfg = cfg
@@ -235,13 +249,21 @@ class Engine:
         self._slot_bufs: list[torch.Tensor] = []
         self._slot_caches: list[KVCache] = []
         self._free_slots: list[int] = []
-        if tp > 1:
-            self.params = RankSlice(params, tp, tp_rank, (self._tp.embed_vocab_sharded,
-                                                          self._tp.lm_head_vocab_sharded))
+        if tp > 1 or pp > 1:
+            vocab = ((self._tp.embed_vocab_sharded, self._tp.lm_head_vocab_sharded) if tp > 1
+                     else (False, False))
+            self.params = RankSlice(params, tp, tp_rank, vocab, pp, stage)
+        self._cache_cfg = stage_cfg(self.fwd_cfg, pp)  # a cache slot's layers: the stage's
         self._in = DecodeInputs(1, self.device, history=self.max_seq_len, stops=True)
-        graphs = decode_graphs if decode_graphs is not None else tp == 1
-        eager = ("tp: gloo's collectives cannot be captured in a CUDA graph (graphs with NCCL "
-                 "collectives are not ported yet)") if tp > 1 else None
+        graphs = decode_graphs if decode_graphs is not None else tp == 1 and pp == 1
+        eager = None
+        if tp > 1:
+            eager = ("tp: gloo's collectives cannot be captured in a CUDA graph (graphs with "
+                     "NCCL collectives are not ported yet)")
+        elif pp > 1:
+            eager = ("pp: a stage's step receives its input from the previous stage's process "
+                     "and hands its output on (graphs of a stage's compute alone are not "
+                     "ported)")
         self.graphs = StepGraphs(self.device, graphs, eager_reason=eager)
         self.prefill_graphs = StepGraphs(self.device, graphs, pool_of=self.graphs,
                                          eager_reason=eager)
@@ -270,7 +292,7 @@ class Engine:
         self._evict_lru_to_host()
         if self._free_slots:
             return self._free_slots.pop()
-        cfg = self.fwd_cfg
+        cfg = self._cache_cfg
         buf = torch.zeros((cfg.n_layers, 2, 1, cfg.n_kv_heads, self.max_seq_len, cfg.head_size),
                           dtype=self.kv_dtype, device=self.device)
         self._slot_bufs.append(buf)
@@ -303,8 +325,7 @@ class Engine:
         cache = self._slot_caches[slot]
 
         def run(tokens, positions):
-            forward_hidden(self.params, self.fwd_cfg, tokens, positions, cache,
-                           dtype=self.compute_dtype, attn_window=win, inv_freq=self.inv_freq)
+            self._forward(tokens, positions, cache, win)
 
         T = toks.shape[1]
         if T > PREFILL_GRAPH_MAX:
@@ -319,18 +340,28 @@ class Engine:
 
     def _decode_step(self, cache: KVCache, win: int, greedy: bool, no_top_k: bool,
                      no_top_p: bool, stop_width: int) -> torch.Tensor:
-        """One decode step on the static inputs: the sampled ids [1]."""
+        """One decode step on the static inputs: the sampled ids [1] (under
+        pp sampled on the last stage and broadcast to every stage)."""
         s = self._in
-        hidden, _ = forward_hidden(
-            self.params, self.fwd_cfg, s.tokens, s.positions, cache, dtype=self.compute_dtype,
-            attn_window=win, inv_freq=self.inv_freq,
-        )
-        logits = lm_logits(self.params, self.fwd_cfg, hidden[:, -1:, :])[:, 0]
-        nxt = sample_token(logits, None, 0.0 if greedy else s.temps,
-                           top_k=0 if no_top_k else s.top_ks,
-                           top_p=1.0 if no_top_p else s.top_ps, seeds=s.seeds, steps=s.steps)
+        hidden = self._forward(s.tokens, s.positions, cache, win)
+        if hidden is None:  # a stage before the last: the last stage's id
+            nxt = torch.zeros((1,), dtype=torch.int64, device=self.device)
+        else:
+            logits = lm_logits(self.params, self.fwd_cfg, hidden[:, -1:, :])[:, 0]
+            nxt = sample_token(logits, None, 0.0 if greedy else s.temps,
+                               top_k=0 if no_top_k else s.top_ks,
+                               top_p=1.0 if no_top_p else s.top_ps, seeds=s.seeds, steps=s.steps)
+        if self._ring is not None:
+            self._ring.broadcast_last(nxt)
         s.advance(nxt, stop_width)
         return nxt
+
+    def _forward(self, tokens, positions, cache, win, token_types=None, seq_lengths=None):
+        """One forward's hidden states; under pp the stage-serial forward,
+        whose hidden state ends on the last stage (None on the others)."""
+        return stage_hidden(self._ring, self.params, self.fwd_cfg, tokens, positions, cache,
+                            self.compute_dtype, win, self.inv_freq, self._first_layer,
+                            token_types, seq_lengths)
 
     # ------------------------------------------------------------------
     # token-level generation
@@ -459,15 +490,26 @@ class Engine:
         if self._chan is not None and self._is_leader:
             self._chan.publish(msg)
 
-    def _hidden(self, toks, pos, tt, lens) -> torch.Tensor:
-        """The forward without a cache (no publishing): hidden [R, T, D]."""
+    def _hidden(self, toks, pos, tt, lens) -> torch.Tensor | None:
+        """The forward without a cache (no publishing): hidden [R, T, D]
+        (under pp on the last stage; None on the others)."""
         with torch.inference_mode(), tp_context(self._tp):
-            hidden, _ = forward_hidden(
-                self.params, self.fwd_cfg, self._dev_in(toks), self._dev_in(pos), None,
-                dtype=self.compute_dtype, inv_freq=self.inv_freq, token_types=self._dev_in(tt),
-                seq_lengths=self._dev_in(lens),
-            )
-        return hidden
+            return self._forward(self._dev_in(toks), self._dev_in(pos), None, None,
+                                 self._dev_in(tt), self._dev_in(lens))
+
+    def _to_first(self, t: torch.Tensor | None, shape, dtype) -> torch.Tensor | None:
+        """Under pp, an embed call's result from the last stage on stage 0
+        (the ring's wrap-around); the stages between get None."""
+        ring = self._ring
+        if ring is None:
+            return t
+        with torch.inference_mode():
+            if ring.last:
+                ring.exchange(send_first=t)
+                return None
+            if ring.first:
+                return ring.exchange(recv_last=(shape, dtype))[1]
+        return None
 
     def run_embed_hidden(self, toks, pos, tt, lens=None) -> torch.Tensor:
         """The forward without a cache over host arrays [R, T] (token types
@@ -477,7 +519,9 @@ class Engine:
             self._publish({"op": "embed_hidden", "toks": np.asarray(toks),
                            "pos": np.asarray(pos), "tt": None if tt is None else np.asarray(tt),
                            "lens": None if lens is None else np.asarray(lens)})
-            return self._hidden(toks, pos, tt, lens)
+            h = self._hidden(toks, pos, tt, lens)
+            return self._to_first(h, (*np.shape(toks), self.cfg.embedding_length),
+                                  self.compute_dtype)
 
     def run_embed_pooled(self, toks, pos, tt, lens, pooling: str) -> torch.Tensor:
         """`run_embed_hidden` pooled on the device (`pool_hidden`): [R, D] f32
@@ -487,8 +531,12 @@ class Engine:
                            "tt": None if tt is None else np.asarray(tt),
                            "lens": np.asarray(lens), "pooling": pooling})
             hidden = self._hidden(toks, pos, tt, lens)
-            with torch.inference_mode():
-                return pool_hidden(self.params, hidden, self._dev_in(lens), pooling)
+            v = None
+            if hidden is not None:
+                with torch.inference_mode():
+                    v = pool_hidden(self.params, hidden, self._dev_in(lens), pooling)
+            return self._to_first(v, (np.shape(toks)[0], self.cfg.embedding_length),
+                                  torch.float32)
 
     def embed_tokens(self, token_ids: list[int], pooling: str = "AVG",
                      token_types: list[int] | None = None) -> np.ndarray:

@@ -51,7 +51,7 @@ shares the scheduler's fused tree, `Engine(sched.params, sched.cfg,
 tokenizer, device=sched.device, fuse=False, moe_ragged=False)`, so that the
 layer weights are held once.
 
-Tensor parallelism (`mesh` with tp > 1, pp = 1): one process per rank,
+Tensor parallelism (`mesh` with tp > 1): one process per rank,
 each holding its slice of the fused tree (`parallel/mesh.py::shard_params`)
 and n_kv/tp heads of the KV pool, its forward under a tp context
 (`parallel/tp_forward.py`: an all-reduce after wo and w2, the
@@ -59,7 +59,8 @@ vocabulary-sharded embedding and lm_head). Rank 0 owns the scheduler: the
 page allocator, the sessions, the HTTP server. Before each device call it
 publishes the call's inputs on `step_channel` (`runtime/coordination.py`:
 ops prefill, decode, decode_chain, counts_reset, suspend, resume, sdrop,
-ping, stop, at the JAX leader's points), and the other ranks replay them in
+ping, stop, and the pipelined scheduler's ptick, at the JAX leader's
+points), and the other ranks replay them in
 `run_follower`. A chained window (decode_chain) carries no tokens: every rank
 samples its own from the same gathered logits with the same seeds and
 counters, so all ranks feed back the same ids. A disk suspend writes one
@@ -84,8 +85,23 @@ rows' sampled ids to the leader (`mesh.rows`, one all-gather in dp order,
 which is slot order). A suspend gathers the pages on the session's group
 only, and a disk suspend writes that group's files. At tp = 1 a rank's
 forward holds no collective, so its decode steps and prefills stay CUDA
-graphs, the id gather outside them. Not ported yet (ROADMAP queue 1 item
-3): pp.
+graphs, the id gather outside them.
+
+Pipeline parallelism (`mesh` with pp > 1; `jlama_tpu/runtime/scheduler.py`
+on a pp mesh, which the JAX package runs through GSPMD): a world of dp × pp
+× tp ranks, rank r tp rank r % tp of stage (r // tp) % pp of dp group
+r // (pp · tp). Each rank holds its stage's L/pp layers (cut to its tp
+slice) and a pool of those layers' pages. This scheduler runs every device
+call stage by stage (`parallel/pipeline.py::stage_hidden`): stage 0 embeds
+and runs its layers, writing its pages, and hands the hidden state on; the
+last stage computes the logits and samples, and the ring's wrap-around
+carries the ids back to stage 0, whose first rank of each dp group then
+sends them to the leader as under dp. This is `serve --no-pp-pipeline`; the
+pipelined decode is `runtime/pipelined.py::PipelinedScheduler`. The leader
+keeps the allocator, the sessions and the server and publishes each call as
+under tp; every rank replays its stage's part. A suspend gathers each
+rank's own layers' pages (a disk suspend writes one file per rank). The
+steps run eagerly under pp (`graphs.stats()["eager_reason"]`).
 
 Under tp, q4s serves each rank's slice converted to K5's layout (its
 column-parallel rows, its 256-groups of wo's and w2's K, its vocabulary
@@ -118,12 +134,13 @@ import torch
 from ..config import ModelConfig
 from ..device import resolve_device
 from ..kv.paged import PagedKVCache
-from ..models.base import (check_moe_device, forward_hidden, fuse_params, lm_logits, params_to,
+from ..models.base import (check_moe_device, fuse_params, lm_logits, params_to,
                            prepare_moe_ragged, rope_inv_freq)
 from ..nn.qarray import QArray
 from ..nn.sampling import sample_token
 from ..ops.w8a8 import prepare_params_for_w8a8
 from ..parallel.mesh import RankSlice, check_q4s_rank, check_whole, rank_params
+from ..parallel.pipeline import stage_cfg, stage_hidden
 from ..parallel.tp_forward import TPCtx, check_tp, tp_context
 from ..prompt import extract_tool_calls
 from ..utils.metrics import GLOBAL_METRICS
@@ -248,10 +265,12 @@ class BatchScheduler:
         the slice); dp > 1 takes its dp index and, on a group's first tp
         rank, `mesh.rows` (module docstring). step_channel: rank 0's
         publishing end or a follower's receiving end
-        (`runtime/coordination.py`). pp > 1 raises, as do heads or experts
-        that tp does not divide, slots or pages that dp does not, and under
-        q4s a rank's K of wo or w2 that is no multiple of 256: nothing runs
-        unsharded in their place.
+        (`runtime/coordination.py`). pp > 1 takes the rank's stage ring
+        (`mesh.ring`) and runs stage by stage (module docstring). Layers
+        that pp does not divide raise, as do heads or experts that tp does
+        not divide, slots or pages that dp does not, and under q4s a rank's
+        K of wo or w2 that is no multiple of 256: nothing runs unsharded in
+        their place.
 
         weight_format: None keeps the weights as they are. "q4s" re-quantizes
         the 2-D q4 weights to the W4A8 format after fusing (q4s rows are never
@@ -270,11 +289,11 @@ class BatchScheduler:
         if weight_format not in (None, "q4s"):
             raise ValueError(f"weight_format {weight_format!r}: expected None or 'q4s' "
                              "(q4 weights need no repack: pass None)")
-        tp = dp = 1
+        tp = dp = pp = 1
         if mesh is not None:
             check_tp(cfg, mesh, quantized=_has_qleaves(params), n_slots=n_slots,
                      n_pages=n_pages)
-            tp, dp = mesh.tp, mesh.dp
+            tp, dp, pp = mesh.tp, mesh.dp, mesh.pp
         if tp > 1:
             if decode_graphs:
                 raise ValueError("decode_graphs=True under tp: gloo's collectives cannot be "
@@ -282,21 +301,28 @@ class BatchScheduler:
                                  "are not ported yet (ROADMAP queue 1 item 3)")
             if mesh.group is None:
                 raise ValueError(f"mesh tp={tp} needs this rank's TPGroup (mesh.group)")
-        if step_channel is not None and tp * dp == 1:
-            raise ValueError("a step_channel needs a mesh of more than one rank (dp * tp > 1): "
-                             "multi-process serving is tensor- or data-parallel serving")
+        if pp > 1 and decode_graphs:
+            raise ValueError("decode_graphs=True under pp: a stage's step hands its hidden "
+                             "state to another process between its layers and the sampler")
+        if step_channel is not None and tp * dp * pp == 1:
+            raise ValueError("a step_channel needs a mesh of more than one rank (dp * pp * tp "
+                             "> 1): multi-process serving is mesh serving")
         self._chan = step_channel
         tp_rank = mesh.group.rank if tp > 1 else 0
         self._dp, self._g = dp, mesh.dp_index if mesh is not None else 0
         self._spg = n_slots // dp  # slots of a dp group: this rank's rows
         self._rows = mesh.rows if dp > 1 else None  # the ids' way to the leader
-        self._world, self._grank = dp * tp, self._g * tp + tp_rank  # global rank
+        self._ring = mesh.ring if pp > 1 else None  # the stage ring
+        stage = mesh.stage if pp > 1 else 0
+        self._first_layer = stage * (cfg.n_layers // pp)  # the stage's first layer
+        self._world = dp * pp * tp
+        self._grank = (self._g * pp + stage) * tp + tp_rank  # global rank
         self._is_leader = self._grank == 0
         self._tp: TPCtx | None = None
         self.fwd_cfg = cfg  # the forward's view: a rank's heads under tp
-        if tp * dp > 1 and device is None and mesh.group is not None:
+        if self._world > 1 and device is None and mesh.group is not None:
             device = mesh.group.device
-        if tp > 1:
+        if tp > 1 or pp > 1:
             self.device = resolve_device(device)
             params, self._tp, self.fwd_cfg = rank_params(params, cfg, mesh, self.device, fuse)
         else:
@@ -313,9 +339,10 @@ class BatchScheduler:
             if tp > 1:
                 check_q4s_rank(params, tp)
             params = prepare_params_for_w8a8(params)
-        if tp > 1:  # the rank's slice says so (an Engine sharing it reads the flags)
-            params = RankSlice(params, tp, mesh.group.rank,
-                               (self._tp.embed_vocab_sharded, self._tp.lm_head_vocab_sharded))
+        if tp > 1 or pp > 1:  # the rank's slice says so (an Engine sharing it reads it)
+            vocab = ((self._tp.embed_vocab_sharded, self._tp.lm_head_vocab_sharded) if tp > 1
+                     else (False, False))
+            params = RankSlice(params, tp, tp_rank, vocab, pp, stage)
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -324,7 +351,7 @@ class BatchScheduler:
         max_seq = min(max_seq_len or cfg.context_length, cfg.context_length)
         self.max_seq_len = max_seq
         self.kv = PagedKVCache(
-            self.fwd_cfg, n_pages=n_pages, page_size=page_size,
+            stage_cfg(self.fwd_cfg, pp), n_pages=n_pages, page_size=page_size,
             max_pages_per_seq=-(-max_seq // page_size), dtype=kv_dtype, device=self.device,
             groups=dp, group=self._g if dp > 1 else None,
         )
@@ -355,7 +382,11 @@ class BatchScheduler:
         if tp > 1:
             eager = ("tp: gloo's collectives cannot be captured in a CUDA graph (graphs "
                      "with NCCL collectives are not ported yet)")
-        graphs = decode_graphs if decode_graphs is not None else tp == 1
+        elif pp > 1:
+            eager = ("pp: a stage's step receives its input from the previous stage's process "
+                     "and hands its output on between its layers and the sampler (graphs of "
+                     "a stage's compute alone are not ported)")
+        graphs = decode_graphs if decode_graphs is not None else tp == 1 and pp == 1
         self.graphs = StepGraphs(self.device, graphs, eager_reason=eager)
         self.prefill_graphs = StepGraphs(self.device, graphs, pool_of=self.graphs,
                                          eager_reason=eager)
@@ -460,13 +491,18 @@ class BatchScheduler:
         inp.load(tokens=toks, positions=pos, page_tables=pt)
 
         def run():
-            forward_hidden(self.params, self.fwd_cfg, inp.tokens, inp.positions,
-                           (self._layers, inp.page_tables), dtype=self.compute_dtype,
-                           attn_window=win, inv_freq=self.inv_freq)
+            self._forward(inp.tokens, inp.positions, (self._layers, inp.page_tables), win)
 
         with torch.inference_mode(), tp_context(self._tp):
             self.prefill_graphs.run(key, run)
         self.n_prefill_calls += 1
+
+    def _forward(self, tokens, positions, cache, win: int):
+        """One forward's hidden states over the paged cache; under pp the
+        stage-serial forward, whose hidden state ends on the last stage
+        (None on the others)."""
+        return stage_hidden(self._ring, self.params, self.fwd_cfg, tokens, positions, cache,
+                            self.compute_dtype, win, self.inv_freq, self._first_layer)
 
     def _counts_reset(self, slot: int) -> None:
         if self._chan is not None and self._is_leader:
@@ -478,12 +514,16 @@ class BatchScheduler:
 
     def _decode_step(self, ct: dict, win: int) -> torch.Tensor:
         """One decode step over all slots on the static inputs: forward,
-        penalties, sampling. Returns the sampled ids [B]."""
+        penalties, sampling. Returns the sampled ids [B]. Under pp the last
+        stage samples and sends the ids to stage 0, which returns them; the
+        stages between return None."""
         s = self._in
-        hidden, _ = forward_hidden(
-            self.params, self.fwd_cfg, s.tokens, s.positions, (self._layers, s.page_tables),
-            dtype=self.compute_dtype, attn_window=win, inv_freq=self.inv_freq,
-        )
+        hidden = self._forward(s.tokens, s.positions, (self._layers, s.page_tables), win)
+        if hidden is None:  # a stage before the last: stage 0 takes the last stage's ids
+            toks = (self._ring.exchange(recv_last=((self._spg,), torch.int64))[1]
+                    if self._ring.first else None)
+            s.advance(toks if toks is not None else s.tokens[:, 0])
+            return toks
         logits = lm_logits(self.params, self.fwd_cfg, hidden[:, -1:, :])[:, 0]
         if ct["use_pen"]:
             # OpenAI presence/frequency penalties over generated tokens
@@ -501,6 +541,8 @@ class BatchScheduler:
         )
         if ct["use_pen"]:
             self.counts[self._slot_idx, toks] += 1
+        if self._ring is not None:  # the wrap-around: the ids back to stage 0
+            self._ring.exchange(send_first=toks)
         s.advance(toks)
         return toks
 
@@ -582,8 +624,7 @@ class BatchScheduler:
                         eng.run_embed_pooled(msg["toks"], msg["pos"], msg["tt"], msg["lens"],
                                              msg["pooling"])
             elif op == "ptick":
-                raise NotImplementedError("step op 'ptick' (the pp pipeline) is not ported "
-                                          "yet (ROADMAP queue 1 item 3)")
+                self._run_ticks(msg, publish=False, collect=False)
             else:
                 raise ValueError(f"unknown step op {op!r}")
 
@@ -603,11 +644,18 @@ class BatchScheduler:
             for _ in range(depth):
                 toks = self.graphs.run(key, lambda: self._decode_step(ct, win))
                 self.n_decode_steps += 1
+                if toks is None:  # a pp stage between the first and the last
+                    toks_windows.append(None)
+                    continue
                 toks_windows.append(self._to_host(toks) if self._dp == 1
                                     else self._gather_ids(toks))
                 if self.sampled_log is not None:
                     self.sampled_log.append(toks.cpu().numpy())
         return toks_windows
+
+    def _run_ticks(self, msg: dict, publish: bool, collect: bool):
+        raise ValueError("the leader published a pipelined tick window (step op 'ptick'), "
+                         "which only the PipelinedScheduler (runtime/pipelined.py) runs")
 
     # ------------------------------------------------------------------
 

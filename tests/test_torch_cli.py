@@ -206,13 +206,19 @@ def test_serve_w8a8_prewarm_and_exits(home, monkeypatch):
     assert made == ["q4s"] and warmed == [32]
     with pytest.raises(SystemExit, match="dequantizing"):
         tcli.build_server(_serve_args(home, "--pallas", "off"))
-    for opt in (["--mesh", "2,2,1"], ["--mesh", "1,2,2"], ["--coordinator", "h:1"],
+    # pp meshes are served (tests/test_torch_pp_cli.py): their refusals are
+    # the JAX pipeline's (the layers must divide by pp) and a world's
+    for opt in (["--mesh", "2,2,1", "--num-processes", "2"],
+                ["--mesh", "1,2,2", "--num-processes", "2"], ["--coordinator", "h:1"],
                 ["--num-processes", "2"], ["--process-id", "0"], ["--step-port", "9"],
-                ["--no-pp-pipeline"], ["--mesh", "1,1,2", "--num-processes", "4"],
+                ["--no-pp-pipeline", "--num-processes", "2"],
+                ["--mesh", "1,1,2", "--num-processes", "4"],
                 ["--mesh", "2,1,2", "--num-processes", "2"]):
         with pytest.raises(SystemExit, match="module 10|one process a rank"):
             tcli.build_server(_serve_args(home, *opt))
-    for mesh in ("1,1,2", "2,1,1", "2,1,2"):  # served meshes: every rank needs its place
+    with pytest.raises(SystemExit, match="n_layers must divide by pp"):
+        tcli.build_server(_serve_args(home, "--mesh", "1,3,1", "--no-pp-pipeline"))
+    for mesh in ("1,1,2", "2,1,1", "2,1,2", "2,2,1", "1,2,2"):  # served meshes: every rank
         with pytest.raises(SystemExit, match="--process-id and the same --coordinator"):
             tcli.build_server(_serve_args(home, "--mesh", mesh))
     assert made == ["q4s"]  # the exits come before any loading

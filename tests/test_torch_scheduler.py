@@ -391,7 +391,12 @@ def test_q8_pool_and_unported_options(setup):
     # divide the slots is not
     with pytest.raises(ValueError, match="dp=3 does not divide n_slots=4"):
         mk(setup, mesh=Mesh(dp=3))
-    with pytest.raises(NotImplementedError, match="mesh pp=2"):
+    # pp is served (tests/test_torch_pipelined_sched.py); a pp that does not
+    # divide the layers is not (the JAX pipeline's check), nor a pp mesh
+    # without the rank's stage ring
+    with pytest.raises(ValueError, match="n_layers must divide by pp"):
+        mk(setup, mesh=Mesh(pp=3))
+    with pytest.raises(ValueError, match="stage ring"):
         mk(setup, mesh=Mesh(pp=2))
     with pytest.raises(ValueError, match="step_channel"):
         mk(setup, step_channel=object())

@@ -2,9 +2,10 @@
 parallel/tp_forward.py and the tp hooks of nn/layers.py and
 models/base.py), held against jlama_tpu in f32.
 
-The ranks are threads here: `ThreadGroup` stands in for a `TPGroup`, each
-collective a barrier, then a sum or a concatenation in rank order. The
-multi-process path over torch.distributed is tests/test_torch_tp_serving.py.
+The ranks are threads here: `tests/torch_thread_ranks.py::ThreadGroup`
+stands in for a `TPGroup`, each collective a barrier, then a sum or a
+concatenation in rank order. The multi-process path over torch.distributed
+is tests/test_torch_tp_serving.py.
 """
 
 import threading
@@ -29,6 +30,7 @@ from jlama_tpu_torch.parallel import mesh as tmesh
 from jlama_tpu_torch.parallel import tp_forward as ttpf
 from tests.helpers import TINY_LLAMA_CONFIG
 from tests.test_torch_bridge import port_tree
+from tests.torch_thread_ranks import run_ranks
 
 TP = 2
 TOL = 1e-4  # f32, as tests/test_multiprocess.py holds the JAX tp forward
@@ -53,66 +55,6 @@ CONFIGS = {
                     rope_theta=10000.0, hidden_act="silu", num_local_experts=4,
                     num_experts_per_tok=2),
 }
-
-
-class _Shared:
-    def __init__(self, size):
-        self.size = size
-        self.barrier = threading.Barrier(size, timeout=60)
-        self.slots = [None] * size
-
-
-class ThreadGroup:
-    """A TPGroup stand-in for ranks that are threads of one process."""
-
-    def __init__(self, shared: _Shared, rank: int):
-        self.shared, self.rank, self.size = shared, rank, shared.size
-
-    def _exchange(self, t):
-        self.shared.slots[self.rank] = t.clone()
-        self.shared.barrier.wait()
-        parts = list(self.shared.slots)
-        self.shared.barrier.wait()
-        return parts
-
-    def all_reduce_(self, t):
-        parts = self._exchange(t)
-        total = parts[0]
-        for p in parts[1:]:
-            total = total + p
-        t.copy_(total)
-        return t
-
-    def all_gather(self, t, dim=-1):
-        return torch.cat(self._exchange(t), dim=dim)
-
-    def broadcast_(self, t, src=0):
-        t.copy_(self._exchange(t)[src])
-        return t
-
-
-def run_ranks(tp, fn):
-    """fn(group) on tp threads; their results in rank order."""
-    shared = _Shared(tp)
-    out, errs = [None] * tp, []
-
-    def run(rank):
-        try:
-            out[rank] = fn(ThreadGroup(shared, rank))
-        except BaseException as e:  # noqa: BLE001 - re-raised below
-            errs.append(e)
-            shared.barrier.abort()
-
-    threads = [threading.Thread(target=run, args=(r,), name=f"rank{r}", daemon=True)
-               for r in range(tp)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=120)
-        assert not t.is_alive()
-    if errs:
-        raise errs[0]
-    return out
 
 
 def _perturb(tree, rng):
@@ -274,7 +216,9 @@ class _Rank0:
 
 
 REFUSALS = {
-    "pp": (dict(mesh=tmesh.Mesh(pp=2)), NotImplementedError, "pp=2"),
+    # pp is served (tests/test_torch_pipeline.py); a pp that does not divide
+    # the layers is not, as in the JAX pipeline
+    "pp": (dict(mesh=tmesh.Mesh(pp=4)), ValueError, "n_layers must divide by pp"),
     "heads": (dict(mesh=tmesh.Mesh(tp=3, group=_Rank0())), ValueError, "divide the heads"),
     # expert parallelism needs E % tp == 0 (the JAX gate), dp needs n_slots
     # and n_pages % dp == 0
@@ -391,3 +335,59 @@ def test_tp_refusals(case):
         tcfg = replace(tcfg, model_type=kw.pop("model_type"))
     with pytest.raises(exc, match=msg):
         BatchScheduler(tparams, tcfg, page_size=8, max_seq_len=32, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tp_distance_on_a_normal_draw_is_jaxs(seed):
+    """ROADMAP §3's open item, on the CPU: on a tiny normal(0, 0.02) draw
+    (jlama_tpu's `init_params`, its projections q4), the port's tp = 2 f32
+    logits lie from its one-device logits no farther than f32 rounding, as
+    jlama_tpu's tp = 2 shard_map forward lies from its single device: both
+    under 1e-5, the port's within 4 times jlama_tpu's. The tp forward adds
+    no distance of its own on such a draw."""
+    hf = CONFIGS["llama"]
+    jcfg, tcfg = jax_config(hf), from_hf_config(hf)
+    jparams = jax_init(jcfg, seed=seed, dtype=jnp.float32, quantize="q4")
+    tparams = port_tree(jparams)
+    toks = torch.from_numpy(TOKENS).long()
+    pos = torch.arange(TOKENS.shape[1]).expand(TOKENS.shape)
+    one = tbase.forward_logits(tbase.fuse_params(tparams), tcfg, toks, pos,
+                               dtype=torch.float32)[0].numpy()
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    d_port = rel(port_tp_logits(tparams, tcfg)[0], one)
+    d_jax = rel(jax_tp_logits(jparams, jcfg), jax_single_logits(jparams, jcfg))
+    assert d_port < 1e-5 and d_jax < 1e-5, (d_port, d_jax)
+    assert d_port < 4 * d_jax, (d_port, d_jax)
+
+
+# wide and deep enough for f32 reorderings to flip bf16 roundings: 256 x 64
+# rows x 4 layers (at 64 wide and 2 layers hardly one flips)
+CAST_LLAMA = dict(TINY_LLAMA_CONFIG, hidden_size=256, intermediate_size=1024,
+                  num_attention_heads=4, num_key_value_heads=2, num_hidden_layers=4,
+                  vocab_size=1024)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tp_distance_on_a_normal_draw_comes_from_k1s_bf16_cast(seed):
+    """ROADMAP §3's item, its cause on the CPU: the card's K1 route past 16
+    rows rounds f32 x to bf16 (`q4_matmul_tiled_plain` models it). On a
+    normal(0, 0.02) q4 draw at 64 rows, tp = 2 adds f32 rounding only where
+    K1 keeps f32 x (under 1e-5), and the cast turns that reordering into a
+    distance at least 100 times larger: bf16 flips of the next layers'
+    inputs. tests/test_torch_cuda_tp_distance.py holds the card's kernels
+    to it at Llama-3.2-1B's widths."""
+    from jlama_tpu_torch.models.init import init_params
+    from jlama_tpu_torch.ops.q4_matmul import q4_matmul_plain, q4_matmul_tiled_plain
+    from tests.torch_thread_ranks import tp_distance
+
+    cfg = from_hf_config(CAST_LLAMA)
+    params = init_params(cfg, seed=seed, dtype=torch.float32, quantize="q4", device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, 64))).long()
+    d_f32 = tp_distance(params, cfg, toks, matmul=q4_matmul_plain)
+    d_cast = tp_distance(params, cfg, toks, matmul=q4_matmul_tiled_plain)
+    assert d_f32 < 1e-5, d_f32
+    assert d_cast > 100 * d_f32, (d_f32, d_cast)
