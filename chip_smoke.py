@@ -353,7 +353,20 @@ Phases, each fatal on failure (exit code 1, no result line):
               ranks only; the wall time per decode step, and the
               profiler's device time of K1-K4 on rank 0 beside the
               collectives' host time (the tp collectives and the gather of
-              the ids to the leader).
+              the ids to the leader). Then the train step on the same mesh
+              (jlama_tpu_torch/scripts/train_check.py, TRAIN_LLAMA: the
+              1B's widths, 4 layers, f32 weights from seed 0, 4 x 64
+              tokens): every rank's gradients and SGD update of the f32
+              composition within rel L2 1e-4 (8e-3 for phase 18's float
+              experts, whose card route rounds to bf16:
+              train_check.MOE_CARD_LIMIT) of its slice of one device's
+              step on the whole tree (run on the rank itself), its loss
+              within 1e-4 relative of one device's and the same on every
+              rank, a bf16 step's loss within 1e-2, each replicated leaf
+              bit-equal on every rank that holds it, no K3 launch; in
+              phase 18 also the witness, the f32 composition with the float
+              experts through their plain version (no bf16 rounding),
+              gradients and loss within 1e-4 of one device's.
  18. ep - expert parallelism at Mixtral-8x7B's widths (EP_SPEC: 8 of its 32
               layers, random JQ4 from seed 0): tp = 2, two spawned ranks on
               cuda:0 over gloo, each holding 4 of the 8 experts of every
@@ -367,8 +380,12 @@ Phases, each fatal on failure (exit code 1, no result line):
               rank's range, every foreign row exactly 0, a bit-equal
               repeat, timed on rank 0; K6's launches (a grouping and two
               matmuls a layer a forward, two gathers a layer on the prefill
-              route) and K1-K4's on each rank. A failed rank fails either
-              phase; a hung one is killed at its deadline and fails it.
+              route) and K1-K4's on each rank. Then the train step as in
+              phase 17 at Mixtral-8x7B's widths, 1 layer of f32 float
+              experts (4 a rank, through K6's gather with its scatter-add
+              backward and the grouped product), 2 x 64 tokens. A failed
+              rank fails either phase; a hung one is killed at its deadline
+              and fails it.
  19. tp rest - the rest of tensor parallelism, two spawned ranks on cuda:0
               over gloo (jlama_tpu_torch/scripts/tp_load_check.py): phase
               15's JQ4 Llama-3.2-1B read shard-locally from disk
@@ -408,7 +425,11 @@ Phases, each fatal on failure (exit code 1, no result line):
               the ring's exchanges and their host time a tick, and the
               profiler's device time by kernel group on rank 0 (gloo
               through the host on one GPU, which says nothing of NCCL's
-              speed).
+              speed); then the train step as in phase 17 at pp = 2 (the
+              1B's widths, tied, 4 layers: stage by stage, the backward
+              handing each stage's input gradient back, the tied
+              embedding's gradient summed over the stages, bit-equal on
+              both).
               (b) `python -m jlama_tpu_torch.cli serve --mesh 1,2,2
               --num-processes 4 --device cuda:0` on
               phase 15's JQ4 Llama-3.2-1B (rank 0 starting the other three,
@@ -416,6 +437,25 @@ Phases, each fatal on failure (exit code 1, no result line):
               bytes read below the payload): two greedy chat requests over
               HTTP, each answer the one-device `serve`'s. A failed or hung
               rank fails the phase.
+ 21. train - (a) the train step (jlama_tpu_torch/parallel/train.py) at
+              Llama-3.2-1B's widths, 16 layers (TRAIN_SPEC), f32 weights
+              of init_params's law (normal(0, 0.02) matrices, norms ones)
+              drawn on the card from seed 0, 4 x 256 tokens: `loss_fn`'s
+              loss (bf16 activations, the dense attention) within 1e-3
+              relative of the same loss composed in f64 on the card and
+              the f32 composition's within 1e-5 (TRAIN_LOSS_REL), each
+              gradient leaf within rel L2 1e-1 of the f64 gradient (bf16's
+              own error here: 2.65e-2-5.95e-2, TRAIN_BF16_REL_L2), the f32
+              composition's within 1e-3; the SGD update p - lr * g bit for
+              bit on every leaf; the loss falling over 3 steps of
+              make_train_step on the batch; no K3 launch; a step's wall
+              time, tokens/s, torch.profiler's device time and the peak
+              memory. (b) jlama_tpu_torch/scripts/ppl_trained.py at its
+              full size (6 layers, d 256, 400 Adam steps): the loss down by
+              more than 1.0 and JQ4 within 0.1 of f32's perplexity, the q4
+              windows through K1 and the q4s windows through K5; the four
+              perplexities printed beside PPL_TRAINED_r05.json's JAX
+              figures (another initial draw: context, not a limit).
 Phase 10 also serves its 8 requests through a q4s BatchScheduler (K5 for
 wqkv, wo and the lm_head, K6 for the experts; ids equal to an eager q4s
 scheduler's; the paged logits of 2 layers against the plain path) and runs
@@ -4640,6 +4680,58 @@ def _print_mesh_serving(label, lead, ranks, spec, card_note, wall) -> None:
           f"({prof['collective_calls']} calls); phase wall {wall:.1f} s", flush=True)
 
 
+def _print_train(label, ranks, spec, card_note) -> dict:
+    """The mesh's train step (train_check.rank_train on every rank, checked
+    by its rank program's check_ranks): each rank's distances from one
+    device and its times; returns the phase's train figures."""
+    t = spec["train"]
+    rows = []
+    for r in ranks:
+        tr = r["train"]
+        g = max(tr["grad_rel_l2"].values())
+        u = max(v[0] for v in tr["update_rel_l2"].values())
+        rows.append(dict(stage=tr["stage"], dp_index=tr["dp_index"], tp_rank=tr["tp_rank"],
+                         grad_rel_l2=g, update_rel_l2=u, loss=tr["loss"],
+                         bf16_loss=tr["bf16_loss"], step_ms=tr["step_ms"],
+                         bf16_step_ms=tr["bf16_step_ms"], one_device_ms=tr["one_device_ms"],
+                         peak_gb=tr.get("peak_gb"), train_s=tr["train_s"]))
+    shared = {}
+    for r in ranks:
+        for key in r["train"]["digests"]:
+            shared[key] = shared.get(key, 0) + 1
+    n_shared = sum(1 for v in shared.values() if v > 1)
+    print(f"{label} train: {t['model']}'s widths, {t['layers']} layers, f32 weights from seed "
+          f"{t['seed']}, {t['batch']} x {t['seq']} tokens, lr {t['lr']}; every rank's f32 "
+          f"composition against one device's step on the whole tree (limit "
+          f"{ranks[0]['train']['limit']}): "
+          + "; ".join(f"rank {i} (stage {w['stage']}, dp {w['dp_index']}, tp {w['tp_rank']}) "
+                      f"max gradient rel L2 {w['grad_rel_l2']:.3e}, max update "
+                      f"{w['update_rel_l2']:.3e}" for i, w in enumerate(rows))
+          + f"; loss {rows[0]['loss']:.6f} (one device {ranks[0]['train']['one_device_loss']:.6f}),"
+          f" the bf16 step's {rows[0]['bf16_loss']:.6f} (one device "
+          f"{ranks[0]['train']['one_device_bf16_loss']:.6f}); {n_shared} replicated leaves "
+          "bit-equal on every rank that holds them, after both steps; no K3 launch", flush=True)
+    print(f"{label} train on {card_note}, gloo through the host: the f32 step "
+          + ", ".join(f"{w['step_ms']:.1f}" for w in rows) + " ms wall a rank, the bf16 step "
+          + ", ".join(f"{w['bf16_step_ms']:.1f}" for w in rows) + " ms, one device's f32 "
+          f"step and bf16 loss {rows[0]['one_device_ms']:.1f} ms; peak memory of the steps "
+          + ", ".join(f"{w['peak_gb']:.2f}" for w in rows if w["peak_gb"] is not None)
+          + " GB; the check's wall on each rank "
+          + ", ".join(f"{w['train_s']:.1f}" for w in rows) + " s", flush=True)
+    wit = [r["train"]["witness"] for r in ranks if "witness" in r["train"]]
+    for w, row in zip(wit, rows):
+        row["witness_grad_rel_l2"] = max(w["grad_rel_l2"].values())
+    if wit:
+        print(f"{label} train: the witness, the same f32 composition with the float experts "
+              "through _moe_float_plain (no bf16 rounding), against one device's through it "
+              "(limit 1e-4): " + "; ".join(
+                  f"rank {i} max gradient rel L2 {max(w['grad_rel_l2'].values()):.3e} "
+                  f"({max(w['grad_rel_l2'], key=w['grad_rel_l2'].get)}), loss "
+                  f"{w['loss']:.6f} (one device {w['one_device_loss']:.6f})"
+                  for i, w in enumerate(wit)), flush=True)
+    return dict(spec=t, ranks=rows, replicated_leaves=n_shared)
+
+
 _MESH_KEEP = ("setup_s", "prefill_ms", "serve_s", "n_prefill", "n_decode", "launches",
               "launches_all", "decode_ms_per_step", "decode_steps_timed",
               "collective_ms_per_step", "collectives_per_step", "profile", "logits_rel_l2",
@@ -4681,9 +4773,14 @@ def tp_path(torch, card_note) -> dict:
 # phase 17: dp page groups, dp = 2 x tp = 2 on the one card over gloo
 DP_RANKS = 4
 DP_DEADLINE_S = 420
+# each mesh phase's train step (jlama_tpu_torch/scripts/train_check.py) at
+# its model's widths: f32 weights drawn from the seed, a batch of `batch`
+# sequences of `seq` tokens
+TRAIN_LLAMA = dict(model="llama1b", layers=4, batch=4, seq=64, lr=0.1, seed=0)
 DP_SPEC = dict(model="llama1b", layers=16, dp=2, device="cuda:0", backend="gloo",
                timeout_s=DP_DEADLINE_S, seed=0, n_pages=512, n_slots=16, prefill=512,
-               logit_rows=64, requests=8, new_tokens=32, timed_steps=16, profile=8, greedy=16)
+               logit_rows=64, requests=8, new_tokens=32, timed_steps=16, profile=8, greedy=16,
+               train=TRAIN_LLAMA)
 
 
 def dp_path(torch, card_note) -> dict:
@@ -4710,7 +4807,8 @@ def dp_path(torch, card_note) -> dict:
           "through the mesh, ids equal to one rank's single-device BatchScheduler's on the "
           "same prompts; session 'disk' resumed in group "
           f"{lead['disk_group_after']} with the ids of one never suspended", flush=True)
-    return dict(spec=DP_SPEC, wall_s=wall, rank0={k: lead[k] for k in _MESH_KEEP},
+    train = _print_train("dp", ranks, DP_SPEC, card_note)
+    return dict(spec=DP_SPEC, wall_s=wall, train=train, rank0={k: lead[k] for k in _MESH_KEEP},
                 ranks=[{k: r[k] for k in ("launches_all", "shapes", "rows", "dp_index",
                                            "tp_rank")} for r in ranks])
 
@@ -4720,7 +4818,8 @@ EP_RANKS = 2
 EP_DEADLINE_S = 420
 EP_SPEC = dict(model="mixtral", layers=8, device="cuda:0", backend="gloo",
                timeout_s=EP_DEADLINE_S, seed=0, n_pages=256, prefill=512, logit_rows=64,
-               requests=8, new_tokens=32, timed_steps=16, profile=8, k6=True)
+               requests=8, new_tokens=32, timed_steps=16, profile=8, k6=True,
+               train=dict(model="mixtral", layers=1, batch=2, seq=64, lr=0.1, seed=0))
 
 
 def ep_path(torch, card_note) -> dict:
@@ -4750,7 +4849,9 @@ def ep_path(torch, card_note) -> dict:
                           + (f", gate+up {k6[n]['gate_up_ms']:.4f} ms, w2 {k6[n]['w2_ms']:.4f} "
                              "ms" if "gate_up_ms" in k6[n] else "")
                           for n in (2, 32, 1024)) + f" on {card_note}", flush=True)
-    return dict(spec=EP_SPEC, wall_s=wall, rank0={k: lead[k] for k in _MESH_KEEP + ("k6",)},
+    train = _print_train("ep", ranks, EP_SPEC, card_note)
+    return dict(spec=EP_SPEC, wall_s=wall, train=train,
+                rank0={k: lead[k] for k in _MESH_KEEP + ("k6",)},
                 ranks=[{k: r[k] for k in ("launches_all", "shapes", "k6")} for r in ranks])
 
 
@@ -4902,7 +5003,7 @@ PP_RANKS = 2
 PP_DEADLINE_S = 480
 PP_SPEC = dict(model="llama8b", layers=32, device="cuda:0", backend="gloo",
                timeout_s=PP_DEADLINE_S, seed=0, n_slots=16, n_pages=256, prefill=512,
-               logit_rows=64, requests=8, new_tokens=32, timed=4, profile=2)
+               logit_rows=64, requests=8, new_tokens=32, timed=4, profile=2, train=TRAIN_LLAMA)
 PP_CLI_MESH = "1,2,2"
 
 
@@ -5023,6 +5124,7 @@ def pp_path(torch, card_note, tmp, one_device=None) -> dict:
     print(f"pp: disk suspend files {lead['disk_files']}, the resumed session's ids those of one "
           f"never suspended; set-up {lead['setup_s']:.1f} s; run (a) wall {wall_a:.1f} s",
           flush=True)
+    train = _print_train("pp", ranks, PP_SPEC, card_note)
     t1 = time.perf_counter()
     cli = _pp_cli(torch, card_note, tmp, one_device)
     for r, (n, total) in sorted(cli["reads"].items()):
@@ -5036,10 +5138,179 @@ def pp_path(torch, card_note, tmp, one_device=None) -> dict:
           flush=True)
     keep = ("setup_s", "prefill_ms", "logits_bit_equal", "logits_rel_l2", "pipe_serve_s",
             "serial_serve_s", "pipe_timed", "serial_timed", "pipe_profile", "disk_files")
-    return dict(spec=PP_SPEC, wall_s=time.perf_counter() - t0, rank0={k: lead[k] for k in keep},
+    return dict(spec=PP_SPEC, wall_s=time.perf_counter() - t0, train=train,
+                rank0={k: lead[k] for k in keep},
                 ranks=[{k: r[k] for k in ("pipe_launches_all", "serial_launches_all",
                                           "pipe_counts_all", "serial_counts_all")}
                        for r in ranks], cli=cli, last_stage=last["stage"])
+
+
+# phase 21: the train step on one device, and ppl_trained at its full size
+TRAIN_SPEC = dict(layers=16, batch=4, seq=256, seed=0, lr=0.1, steps=3)
+# the losses against the f64 composition's, relative: loss_fn's (bf16
+# activations; 2.6e-5 read on the H100) and the f32 composition's (8e-8)
+TRAIN_LOSS_REL = {"bf16": 1e-3, "f32": 1e-5}
+# loss_fn's gradient, each leaf, against the f64 composition's: bf16's own
+# error at these widths and this depth, 2.65e-2 (final_norm) to 5.95e-2
+# (layer 15's wq, wk) on the H100, most leaves 4-5e-2: the bf16 forward's hidden
+# states move the near-uniform softmax's probabilities by that much (on the
+# CPU the same composition gives JAX's bf16 gradient, bit for bit on most
+# leaves, tests/test_torch_train.py)
+TRAIN_BF16_REL_L2 = 1e-1
+TRAIN_F32_REL_L2 = 1e-3  # the f32 composition's gradient, each leaf, against f64's
+
+
+def train_path(torch, card_note) -> dict:
+    """Phase 21 (module docstring): (a) the train step at Llama-3.2-1B's
+    widths, TRAIN_SPEC's depth and batch, f32 weights drawn on the card,
+    against the same loss composed in f64; the SGD update; the loss
+    over three steps; the step's wall and device time; (b) ppl_trained at
+    its full size. Every check is fatal."""
+    from dataclasses import replace
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from jlama_tpu_torch.models.init import llama_1b_config, random_float_params
+    from jlama_tpu_torch.ops.attention import flash_prefill
+    from jlama_tpu_torch.parallel.train import (_named_leaves, make_train_step, sgd_,
+                                                tree_leaves, value_and_grad)
+    from jlama_tpu_torch.scripts import ppl_trained
+    from jlama_tpu_torch.scripts.train_check import rel_l2
+
+    spec = TRAIN_SPEC
+    cfg = replace(llama_1b_config(), n_layers=spec["layers"])
+    t0 = time.perf_counter()
+    # init_params's law (normal(0, 0.02) matrices, norms ones), the values
+    # drawn on the card: its host draw of the 1.24 B values took 22.5 s. The
+    # layout is random_float_params's; its own values (dequantized uniform
+    # nibbles, not centred) put loss_fn's gradient of layer 9's wk 128 times
+    # its f64 gradient's norm from it, where init_params's law gives at most
+    # 5.95e-2 (H100)
+    params = random_float_params(cfg, seed=spec["seed"], device="cuda", dtype=torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(spec["seed"])
+    for d in [params] + params["layers"]:
+        for k, v in d.items():
+            if isinstance(v, torch.Tensor) and v.dim() == 2:
+                d[k] = torch.randn(v.shape, generator=g, device="cuda") * 0.02
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    B, T = spec["batch"], spec["seq"]
+    rng = np.random.default_rng(spec["seed"])
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T))).cuda()
+    positions = torch.arange(T, device="cuda").expand(B, T)
+    names = [n for n, _ in _named_leaves(params)]
+    k3 = flash_prefill.launches
+    # (a) the real loss_fn against the f64 and the f32 compositions
+    t0 = time.perf_counter()
+    loss64, g64 = value_and_grad(params, cfg, tokens, positions, dtype=torch.float64)
+    loss32, g32 = value_and_grad(params, cfg, tokens, positions, dtype=torch.float32)
+    lossb, gb = value_and_grad(params, cfg, tokens, positions)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    loss64, loss32, lossb_f = float(loss64), float(loss32), float(lossb)
+    for what, got in (("bf16", lossb_f), ("f32", loss32)):
+        if not abs(got - loss64) <= TRAIN_LOSS_REL[what] * abs(loss64):
+            fail(f"train: the {what} composition's loss {got} against the f64 composition's "
+                 f"{loss64} (limit {TRAIN_LOSS_REL[what]} relative)")
+    rel_b = {n: rel_l2(a, b) for n, a, b in zip(names, tree_leaves(gb), tree_leaves(g64))}
+    rel_32 = {n: rel_l2(a, b) for n, a, b in zip(names, tree_leaves(g32), tree_leaves(g64))}
+    worst_b, worst_32 = max(rel_b.items(), key=lambda kv: kv[1]), \
+        max(rel_32.items(), key=lambda kv: kv[1])
+    if not worst_b[1] <= TRAIN_BF16_REL_L2:
+        fail(f"train: loss_fn's gradient {worst_b[0]} rel L2 {worst_b[1]:.3e} from the f64 "
+             f"composition's (limit {TRAIN_BF16_REL_L2})")
+    if not worst_32[1] <= TRAIN_F32_REL_L2:
+        fail(f"train: the f32 composition's gradient {worst_32[0]} rel L2 {worst_32[1]:.3e} "
+             f"from the f64 composition's (limit {TRAIN_F32_REL_L2})")
+    del g64, g32
+    # the SGD update, bit for bit
+    before = [p.clone() for p in tree_leaves(params)]
+    sgd_(params, gb, spec["lr"])
+    moved = [n for n, p, p0, g in zip(names, tree_leaves(params), before, tree_leaves(gb))
+             if not torch.equal(p, p0 - spec["lr"] * g)]
+    if moved:
+        fail(f"train: the SGD update of {moved[:4]} is not p - lr * g bit for bit")
+    del before, gb
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # three steps of make_train_step on the same batch: the loss must fall
+    step = make_train_step(cfg, lr=spec["lr"])
+    losses, walls = [lossb_f], []
+    for _ in range(spec["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, loss = step(params, tokens, positions)
+        losses.append(float(loss))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    if not all(a > b for a, b in zip(losses, losses[1:])):
+        fail(f"train: the loss did not fall over {spec['steps']} steps on one batch: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, tokens, positions)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                      for e in prof.key_averages() if str(e.device_type).endswith("CUDA")),
+                     reverse=True)
+    dev_ms = sum(k[0] for k in kernels)
+    if dev_ms <= 0:
+        fail("train: the profiler saw no device time in the step")
+    if flash_prefill.launches != k3:
+        fail(f"train: {flash_prefill.launches - k3} K3 launches on the train path")
+    step_ms = statistics.median(walls)
+    print(f"train: Llama-3.2-1B's widths, {spec['layers']} layers, f32 weights drawn on the "
+          f"card from seed {spec['seed']} ({draw_s:.1f} s), a batch of {B} x {T} "
+          f"tokens; loss_fn (bf16 activations) {lossb_f:.6f}, the f32 composition "
+          f"{loss32:.6f}, the f64 composition {loss64:.6f} (limits {TRAIN_LOSS_REL['bf16']}, "
+          f"{TRAIN_LOSS_REL['f32']} relative); "
+          f"gradients against f64: loss_fn's max rel L2 {worst_b[1]:.3e} ({worst_b[0]}, limit "
+          f"{TRAIN_BF16_REL_L2}), the f32 composition's {worst_32[1]:.3e} ({worst_32[0]}, limit "
+          f"{TRAIN_F32_REL_L2}); the SGD update p - lr * g bit for bit on all {len(names)} "
+          f"leaves; the three compositions in {ref_s:.1f} s", flush=True)
+    print(f"train: the loss over {spec['steps']} steps of make_train_step on the batch (lr "
+          f"{spec['lr']}): " + " -> ".join(f"{x:.6f}" for x in losses) + "; no K3 launch",
+          flush=True)
+    print(f"train on {card_note}: a step {step_ms:.1f} ms wall (median of {len(walls)}: "
+          + ", ".join(f"{w:.1f}" for w in walls) + f"), {B * T / step_ms * 1e3:.0f} tokens/s; "
+          f"profiled: wall {prof_wall:.1f} ms (profiler on), device {dev_ms:.1f} ms over "
+          f"{sum(k[1] for k in kernels)} kernels, busy share {dev_ms / prof_wall:.3f}; peak "
+          f"memory of the steps {peak:.2f} GB", flush=True)
+    for ms, c, key in kernels[:8]:
+        print(f"  {ms:8.3f} ms {c:6d}x {key[:90]}")
+    out = dict(spec=spec, loss=dict(bf16=lossb_f, f32=loss32, f64=loss64),
+               grad_rel_l2_bf16=worst_b, grad_rel_l2_f32=worst_32, losses=losses,
+               step_ms=step_ms, step_walls_ms=walls, device_ms=dev_ms, profiled_wall_ms=prof_wall,
+               tokens_per_s=B * T / step_ms * 1e3, peak_memory_gb=peak,
+               top=[dict(ms=ms, count=c, kernel=key[:90]) for ms, c, key in kernels[:8]])
+    del params, step
+    _fresh_memory(torch)
+    # (b) ppl_trained at its full size
+    t0 = time.perf_counter()
+    res = ppl_trained.run(device="cuda")
+    bad = ppl_trained.failures(res)
+    if bad:
+        fail("ppl_trained: " + "; ".join(bad))
+    if not (res["launches"]["q4"]["q4_matmul"] > 0 and res["launches"]["q4s"]["w8a8_matmul"] > 0):
+        fail(f"ppl_trained: the q4 windows went through K1 and the q4s windows through K5 "
+             f"no time: {res['launches']}")
+    jax_fig = json.loads((Path(__file__).resolve().parent / "PPL_TRAINED_r05.json").read_text())
+    print(f"ppl_trained: {res['model']['layers']} layers, d {res['model']['d']}, "
+          f"{res['model']['train_steps']} Adam steps in {res['train_s']:.1f} s on {card_note}: "
+          f"loss {res['loss_first']} -> {res['loss_final']} (the JAX record's "
+          f"{jax_fig['loss_first']} -> {jax_fig['loss_final']}); perplexity "
+          + ", ".join(f"{k} {v} (JAX {jax_fig['ppl'].get(k)})" for k, v in res["ppl"].items())
+          + f"; |JQ4 - fp32| {res['delta_q4_vs_fp32']} (budget {res['budget']}; JAX "
+          f"{jax_fig['delta_q4_vs_fp32']}), |q8 - fp32| {res['delta_q8_vs_fp32']}; launches "
+          + ", ".join(f"{k} K1 {v['q4_matmul']} K5 {v['w8a8_matmul']}"
+                      for k, v in res["launches"].items())
+          + " (the JAX figures come from another initial draw: context, not a limit); "
+          f"phase (b) wall {time.perf_counter() - t0:.1f} s", flush=True)
+    out["ppl_trained"] = res
+    return out
 
 
 def main() -> None:
@@ -5252,6 +5523,13 @@ def main() -> None:
     print(f"card {smi}: pp " + json.dumps({k: ppr["rank0"][k] for k in (
         "prefill_ms", "logits_bit_equal", "logits_rel_l2", "pipe_timed", "serial_timed")}),
         flush=True)
+    # 21. the train step on one device (Llama-3.2-1B's widths) and ppl_trained
+    _fresh_memory(torch)
+    out["train"] = train_path(torch, smi)
+    print(f"card {smi}: train " + json.dumps(
+        {k: out["train"][k] for k in ("loss", "losses", "step_ms", "device_ms",
+                                      "tokens_per_s", "peak_memory_gb")}), flush=True)
+    lap("21 train")
     kern["w8a8_matmul"].update({f"tp_rank0_{k}_ms": v["ms"] for k, v in tpr["k5_rank0"].items()})
 
     routes = {

@@ -81,12 +81,12 @@ def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor, positions: torc
 
 
 def _block(x, layer_params: dict, cfg: ModelConfig, positions, cache, cos, sin,
-           sliding_window, attn_window=None, seq_lengths=None):
+           sliding_window, attn_window=None, seq_lengths=None, dense_attention=False):
     """One transformer block: pre-norm, or BERT's post-norm encoder block."""
     if cfg.model_type == "bert":  # attention, add, norm; MLP, add, norm
         attn_out, cache = L.self_attention_block(
             x, layer_params, cfg, positions, cache, cos, sin, sliding_window, attn_window,
-            seq_lengths,
+            seq_lengths, dense_attention,
         )
         x = L.norm(x + attn_out, layer_params, cfg, "attn_norm")
         x = L.norm(x + L.mlp_block(x, layer_params, cfg), layer_params, cfg, "ff_norm")
@@ -95,7 +95,7 @@ def _block(x, layer_params: dict, cfg: ModelConfig, positions, cache, cos, sin,
     h = L.norm(x, layer_params, cfg, "attn_norm")
     attn_out, cache = L.self_attention_block(
         h, layer_params, cfg, positions, cache, cos, sin, sliding_window, attn_window,
-        seq_lengths,
+        seq_lengths, dense_attention,
     )
     if cfg.post_attn_norm:
         attn_out = L.norm(attn_out, layer_params, cfg, "post_attn_norm")
@@ -127,6 +127,7 @@ def forward_hidden(
     inv_freq: torch.Tensor | None = None,
     token_types: torch.Tensor | None = None,
     seq_lengths: torch.Tensor | None = None,
+    dense_attention: bool = False,
 ) -> tuple[torch.Tensor, KVCache | tuple[list, torch.Tensor] | None]:
     """Run embedding + all transformer layers. Returns (hidden [B,T,D], cache).
 
@@ -143,17 +144,21 @@ def forward_hidden(
     token_types: BERT's segment ids [B, T] (None: all 0). seq_lengths: [B]
     valid tokens per right-padded row; the dense attention path masks the
     keys past them (a batch of embeddings).
+
+    dense_attention: a forward without a cache takes the dense masked
+    attention at every head size, never K3 (the train step,
+    `parallel/train.py`: K3 has no backward).
     """
     x = _embed(params, cfg, tokens, positions, token_types, dtype)
     return forward_layers(params, cfg, x, positions, kv_cache, attn_window, inv_freq,
-                          seq_lengths), kv_cache
+                          seq_lengths, dense_attention=dense_attention), kv_cache
 
 
 def forward_layers(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
                    kv_cache, attn_window: int | None = None,
                    inv_freq: torch.Tensor | None = None,
                    seq_lengths: torch.Tensor | None = None,
-                   first_layer: int = 0) -> torch.Tensor:
+                   first_layer: int = 0, dense_attention: bool = False) -> torch.Tensor:
     """The transformer layers of `params["layers"]` over hidden states x
     [B, T, D] (`forward_hidden` without the embedding; the caches as
     there, indexed by the tree's own layers). A pipeline stage's tree holds
@@ -180,7 +185,8 @@ def forward_layers(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: t
         else:
             states, page_tables = kv_cache
             cache_l = L.PagedLayerCache(states[l].k_pool, states[l].v_pool, page_tables)
-        x, _ = _block(x, layer, cfg, positions, cache_l, cos, sin, sw, attn_window, seq_lengths)
+        x, _ = _block(x, layer, cfg, positions, cache_l, cos, sin, sw, attn_window, seq_lengths,
+                      dense_attention)
     return x
 
 
@@ -295,11 +301,14 @@ def final_hidden(params: dict, cfg: ModelConfig, hidden: torch.Tensor) -> torch.
 
 
 def lm_logits(params: dict, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
-    """Project to f32 vocab logits with the multiplier/softcap semantics."""
+    """Project to f32 vocab logits (f64 from f64 hidden states: a reference
+    composition) with the multiplier/softcap semantics."""
     h = final_hidden(params, cfg, hidden)
     w = params.get("lm_head", params["embed"])
-    logits = linear(h, w, out_dtype=torch.float32)
     ctx = tp_forward.current()
+    if ctx is not None and ctx.lm_head_vocab_sharded:
+        h = tp_forward.tp_input(h)  # each rank's columns give part of h's gradient
+    logits = linear(h, w, out_dtype=torch.promote_types(h.dtype, torch.float32))
     if ctx is not None and ctx.lm_head_vocab_sharded:
         # each rank computed its vocabulary columns: gather them in rank
         # order (the multiplier and softcap then apply to the full logits)

@@ -29,6 +29,9 @@ A MoE layer's experts are cut over the ranks instead (expert parallelism,
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import math
 from typing import NamedTuple
 
 import torch
@@ -38,10 +41,10 @@ from ..config import ModelConfig
 from ..kv.paged import gather_kv_layer, page_size_of, write_kv_layer
 from ..ops.attention import HEAD_SIZES, flash_prefill, paged_decode
 from ..ops.kv_write import dense_page_table, dense_pool_view, kv_write
-from ..ops.linear import linear
+from ..ops.linear import add_bias, linear
 from ..ops.moe_float import moe_float_experts, stack_in_out
 from ..ops.moe_q4 import moe_groups, moe_q4_gate_up, moe_q4_matmul
-from ..parallel.tp_forward import current, tp_reduce
+from ..parallel.tp_forward import current, tp_input, tp_reduce
 from ..utils.debug import debug
 from .qarray import QArray
 from .rope import apply_rope
@@ -76,9 +79,7 @@ def _row_parallel_linear(x: torch.Tensor, w, bias=None) -> torch.Tensor:
     if current() is None:
         return linear(x, w, bias)
     y = tp_reduce(linear(x, w, out_dtype=torch.float32)).to(x.dtype)
-    if bias is not None:
-        y = y + bias.to(y.dtype)
-    return y
+    return y if bias is None else add_bias(y, bias)
 
 
 # ---------------------------------------------------------------------------
@@ -88,10 +89,11 @@ def _row_parallel_linear(x: torch.Tensor, w, bias=None) -> torch.Tensor:
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
              weight_offset: float = 0.0) -> torch.Tensor:
-    xf = x.to(torch.float32)
+    ct = torch.promote_types(x.dtype, torch.float32)  # f32; f64 for an f64 reference
+    xf = x.to(ct)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     normed = xf * torch.rsqrt(var + eps)
-    w = weight.to(torch.float32)
+    w = weight.to(ct)
     if weight_offset:
         w = w + weight_offset  # gemma's (1+w)
     return (normed * w).to(x.dtype)
@@ -99,11 +101,12 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float) -> torch.Tensor:
-    xf = x.to(torch.float32)
+    ct = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(ct)
     mean = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.mean(torch.square(xf - mean), dim=-1, keepdim=True)
     normed = (xf - mean) * torch.rsqrt(var + eps)
-    return (normed * weight.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
+    return (normed * weight.to(ct) + bias.to(ct)).to(x.dtype)
 
 
 def norm(x, params: dict, cfg: ModelConfig, prefix: str) -> torch.Tensor:
@@ -118,12 +121,66 @@ def norm(x, params: dict, cfg: ModelConfig, prefix: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+class _SiluSteps(torch.autograd.Function):
+    """SiLU as the JAX package computes it, op by op in x's dtype: x · s,
+    s = 1 / (1 + exp(−x)) (`jax.nn.silu` and `lax.logistic`'s lowering),
+    each step rounded; the backward is JAX's too: g·s + (g·x)·(s·(1 − s)),
+    each product and the sum rounded (`logistic`'s JVP rule)."""
+
+    @staticmethod
+    def forward(fctx, x):
+        s = torch.reciprocal(1 + torch.exp(-x))
+        fctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(fctx, g):
+        x, s = fctx.saved_tensors
+        return g * s + (g * x) * (s * (1 - s))
+
+
+class _GeluTanhSteps(torch.autograd.Function):
+    """GELU's tanh approximation as `jax.nn.gelu(approximate=True)` computes
+    it, op by op in x's dtype: x · (0.5 · (1 + tanh(c · (x + a · x³)))),
+    x³ = (x·x)·x, the constants a and c in x's dtype, each step rounded; the
+    backward is JAX's linearization of those steps transposed: tanh's
+    (g + g·t)·(1 − t), x³'s g·(3·x²), and x's three cotangents summed in the
+    order JAX accumulates them."""
+
+    @staticmethod
+    def forward(fctx, x):
+        a = torch.tensor(0.044715, dtype=x.dtype)
+        c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype)
+        t = torch.tanh(c * (x + a * ((x * x) * x)))
+        cdf = 0.5 * (1 + t)
+        fctx.save_for_backward(x, t, cdf)
+        return x * cdf
+
+    @staticmethod
+    def backward(fctx, g):
+        x, t, cdf = fctx.saved_tensors
+        a = torch.tensor(0.044715, dtype=x.dtype)
+        c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype)
+        u = ((g * x) * 0.5) * (1 - t)  # through cdf = 0.5 (1 + t), into tanh's rule
+        b = (u + u * t) * c  # the cotangent of x + a·x³
+        return (g * cdf + b) + (b * a) * (3 * (x * x))
+
+
+def _differentiable(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
 def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The MLP's activation. Under autograd (the train step) SiLU and GELU's
+    tanh approximation round step by step as the JAX package's do, forward
+    and backward (`_SiluSteps`, `_GeluTanhSteps`); elsewhere each is one
+    fused op."""
     if kind in ("silu", "swish"):
-        return F.silu(x)
-    if kind in ("gelu", "gelu_new", "gelu_fast", "gelu_pytorch_tanh"):
-        # the tanh approximation for all GELU variants but "gelu"
-        return F.gelu(x, approximate="tanh" if kind != "gelu" else "none")
+        return _SiluSteps.apply(x) if _differentiable(x) else F.silu(x)
+    if kind in ("gelu_new", "gelu_fast", "gelu_pytorch_tanh"):
+        return _GeluTanhSteps.apply(x) if _differentiable(x) else F.gelu(x, approximate="tanh")
+    if kind == "gelu":
+        return F.gelu(x, approximate="none")
     if kind == "tanh":
         return torch.tanh(x)
     raise ValueError(f"unknown activation {kind!r}")
@@ -177,25 +234,23 @@ def multi_head_attention(
     scale: float,
     softcap: float | None = None,
 ) -> torch.Tensor:
-    """Dense attention with GQA head-group mapping, f32 softmax.
+    """Dense attention with GQA head-group mapping, f32 softmax (f64 for
+    f64 q: a reference composition).
 
     Returns [B, T, n_heads, hd]."""
     B, T, n_heads, hd = q.shape
     n_kv = k.shape[1]
     g = n_heads // n_kv
+    ct = torch.promote_types(q.dtype, torch.float32)
     qg = q.reshape(B, T, n_kv, g, hd)
-    scores = torch.einsum(
-        "btkgh,bksh->bkgts", qg.to(torch.float32), k.to(torch.float32)
-    )
+    scores = torch.einsum("btkgh,bksh->bkgts", qg.to(ct), k.to(ct))
     scores = scores * scale
     if softcap is not None:
         scores = torch.tanh(scores / softcap) * softcap
     m = mask[:, None, None, :, :]
     scores = torch.where(m, scores, torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum(
-        "bkgts,bksh->btkgh", probs.to(v.dtype).to(torch.float32), v.to(torch.float32)
-    )
+    out = torch.einsum("bkgts,bksh->btkgh", probs.to(v.dtype).to(ct), v.to(ct))
     return out.reshape(B, T, n_heads, hd).to(q.dtype)
 
 
@@ -218,6 +273,7 @@ def self_attention_block(
     sliding_window: int | None,
     attn_window: int | None = None,
     seq_lengths: torch.Tensor | None = None,
+    dense_attention: bool = False,
 ) -> tuple[torch.Tensor, KVLayerCache | None]:
     """QKV projections, RoPE, cache update, attention, output projection.
     With a cache, RoPE and the cache update are one K4 launch.
@@ -231,10 +287,14 @@ def self_attention_block(
     whenever seq_lengths is given: with the pads on the right, the causal
     mask alone keeps every valid query off the pad keys, and the dense path's
     f32 scores of a 32-row batch at the longest bucket would not fit a card.
+
+    dense_attention: the path without a cache takes the dense masked
+    attention at every head size (the train step: K3 has no backward).
     """
     B, T, D = x.shape
     hd = cfg.head_size
 
+    x = tp_input(x)  # under tp and autograd: the projections' input gradient summed
     if "wqkv" in params:
         qdim = cfg.n_heads * hd
         kvdim = cfg.n_kv_heads * hd
@@ -282,7 +342,7 @@ def self_attention_block(
         out = paged_decode(q[:, 0], dense_pool_view(k_att), dense_pool_view(v_att),
                            dense_page_table(B, q.device), positions[:, 0] + 1, scale,
                            softcap=cfg.attn_logit_softcap, window=sliding_window)[:, None]
-    elif T > 1 and cfg.causal and hd in HEAD_SIZES:
+    elif T > 1 and cfg.causal and hd in HEAD_SIZES and not dense_attention:
         # K3: unlike the JAX gate (head_size % 128, a Mosaic limit), any
         # head size the kernel is built for takes it, Llama-3.2-1B's 64 too
         out = flash_prefill(
@@ -344,6 +404,7 @@ def _paged_attention(q, k, v, cache: PagedLayerCache, cfg: ModelConfig, position
 
 
 def mlp_block(x: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
+    x = tp_input(x)  # column-parallel w13 / w1, w3
     if "w13" in params:  # fused gate+up (see models.base.fuse_params)
         h = linear(x, params["w13"])
         half = h.shape[-1] // 2
@@ -361,6 +422,23 @@ def mlp_block(x: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # MoE
 # ---------------------------------------------------------------------------
+
+
+_PLAIN_FLOAT_EXPERTS = contextvars.ContextVar("plain_float_experts", default=False)
+
+
+@contextlib.contextmanager
+def plain_float_experts():
+    """Inside it, float experts run `_moe_float_plain` on every device: the
+    card's route rounds x and the down projection to bf16 (ROADMAP §3),
+    the plain one does not at f32 activations. It reads the grouping back
+    to the host, so it is for checks (`scripts/train_check.py`'s witness
+    of the card route's rounding), not for a served step."""
+    tok = _PLAIN_FLOAT_EXPERTS.set(True)
+    try:
+        yield
+    finally:
+        _PLAIN_FLOAT_EXPERTS.reset(tok)
 
 
 def moe_block(x: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
@@ -383,7 +461,8 @@ def moe_block(x: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
     (`experts.w*` [E, out, in], or `experts.w*_t` [E, in, out] after
     `models.base.prepare_moe_ragged`) take `_moe_ragged`'s grouped products:
     on the card `ops/moe_float.py` (K6's grouping and gather, the card's
-    grouped product, no host sync), on the CPU `_moe_float_plain`.
+    grouped product, no host sync), on the CPU (or inside
+    `plain_float_experts`) `_moe_float_plain`.
 
     Expert parallelism (`jlama_tpu/nn/layers.py:509-560`): inside a tp
     context whose expert stacks hold fewer than the model's E experts (each
@@ -396,26 +475,29 @@ def moe_block(x: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
     B, T, D = x.shape
     K = cfg.n_experts_per_token
     router = params["router"]
-    # a float router as the JAX package runs it: products of the activation
-    # dtype's values exact in f32, f32 sums
-    logits = linear(x if isinstance(router, QArray) else x.to(torch.float32), router,
-                    out_dtype=torch.float32)
+    # the router as the JAX package runs it: a float router in the
+    # activation dtype, its products exact in f32 and summed there
+    logits = linear(x, router, out_dtype=torch.float32)
     topk_w, topk_idx = torch.topk(logits, K, dim=-1)
     topk_w = torch.softmax(topk_w, dim=-1)
-    xf = x.reshape(B * T, D)
     e = topk_idx.reshape(B * T, K).to(torch.int32)
     w1 = params.get("experts.w1")
     n_local = params.get("experts.w1", params.get("experts.w1_t")).shape[0]
     ctx = current()
     ep = ctx is not None and n_local < cfg.n_experts
     lo = ctx.group.rank * n_local if ep else None
+    # under autograd a rank's experts give only their part of the gradients
+    # of the experts' input and of the routing weights (so of the replicated
+    # router): both are summed over the ranks
+    xf = tp_input(x).reshape(B * T, D)
+    topk_w = tp_input(topk_w)
     if isinstance(w1, QArray):
         groups = moe_groups(e, n_local, lo or 0)
         gate, up = moe_q4_gate_up(xf, w1, params["experts.w3"], e, groups=groups, lo=lo)
         h = (activation(gate, cfg.activation) * up).reshape(B * T * K, -1)
         y = moe_q4_matmul(h, params["experts.w2"], e.reshape(-1), out_dtype=torch.float32,
                           groups=groups, lo=lo)
-    elif xf.device.type == "cpu":
+    elif xf.device.type == "cpu" or _PLAIN_FLOAT_EXPERTS.get():
         y = _moe_float_plain(xf, params, cfg, e, lo)
     else:
         t = "experts.w1_t" in params
@@ -431,31 +513,37 @@ def moe_block(x: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
 
 def _moe_float_plain(xf: torch.Tensor, params: dict, cfg: ModelConfig,
                      e: torch.Tensor, lo: int | None = None) -> torch.Tensor:
-    """Float experts, one group of selections per expert (`_moe_ragged`'s
-    grouped matmuls): weights in x's dtype, f32 sums, gate and up in x's
-    dtype, the down projection in f32. [N, K] ids -> [N·K, D] f32. The CPU's
-    path, and the card tests' reference for `ops/moe_float.py` (on any
-    device; the grouping is read back to the host). lo: the model's id of
-    the stacks' first expert under expert parallelism; rows of experts
+    """Float experts, one group of selections per expert: weights in x's
+    dtype, f32 sums, gate and up in x's dtype; the down projection in f32
+    for stacks in the grouped layout `experts.w*_t` (`_moe_ragged`'s grouped
+    matmuls), in x's dtype for the loader's `experts.w*` (the JAX package's
+    per-expert path, `linear(gate * up, w2)`). [N, K] ids -> [N·K, D] f32.
+    The CPU's path, and the card tests' reference for `ops/moe_float.py` (on
+    any device; the grouping is read back to the host). lo: the model's id
+    of the stacks' first expert under expert parallelism; rows of experts
     outside the stacks stay 0."""
     ragged = "experts.w1_t" in params  # [E, in, out]; else [E, out, in]
+    dt = xf.dtype
 
     def mm(a, key, ex, out_dtype):
-        w = params[key + ("_t" if ragged else "")][ex].to(a.dtype)
+        w = params[key + ("_t" if ragged else "")][ex].to(dt)
         w = w if ragged else w.t()
         return torch.matmul(a.to(torch.float32), w.to(torch.float32)).to(out_dtype)
 
     K = cfg.n_experts_per_token
     ef = e.reshape(-1).long() - (lo or 0)
     n_local = params["experts.w1" + ("_t" if ragged else "")].shape[0]
-    xs = xf.repeat_interleave(K, dim=0)
+    # each selection's copy of its token's row, in f32 (x's values), one copy
+    # for the gate and one for the up projection: under autograd each
+    # projection's gradient of x sums its selections in f32 and rounds once,
+    # as the JAX package's products batched over the experts do
+    x1, x3 = (xf.to(torch.float32).repeat_interleave(K, dim=0) for _ in range(2))
     y = torch.zeros((ef.numel(), xf.shape[1]), dtype=torch.float32, device=xf.device)
     for ex in torch.unique(ef).tolist():
         if not 0 <= ex < n_local:  # another rank's expert: the row stays 0
             continue
         idx = (ef == ex).nonzero()[:, 0]
-        xi = xs[idx]
-        h = activation(mm(xi, "experts.w1", ex, xi.dtype), cfg.activation) \
-            * mm(xi, "experts.w3", ex, xi.dtype)
-        y[idx] = mm(h, "experts.w2", ex, torch.float32)
+        h = activation(mm(x1[idx], "experts.w1", ex, dt), cfg.activation) \
+            * mm(x3[idx], "experts.w3", ex, dt)
+        y[idx] = mm(h, "experts.w2", ex, torch.float32 if ragged else dt).to(torch.float32)
     return y

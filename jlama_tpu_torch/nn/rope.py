@@ -44,13 +44,14 @@ def rope_cos_sin(
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """HF rotate-half RoPE in f32.
+    """HF rotate-half RoPE in f32 (f64 for f64 x).
 
     x: [..., T, n_heads, head_size]; cos/sin: [..., T, head_size/2].
     """
     half = x.shape[-1] // 2
-    x1 = x[..., :half].to(torch.float32)
-    x2 = x[..., half:].to(torch.float32)
+    ct = torch.promote_types(x.dtype, torch.float32)
+    x1 = x[..., :half].to(ct)
+    x2 = x[..., half:].to(ct)
     c = cos[..., None, :]  # broadcast over heads
     s = sin[..., None, :]
     out1 = x1 * c - x2 * s

@@ -159,7 +159,13 @@ def flash_prefill_tiled_plain(q, k, v, pos0, scale, softcap=None, causal=True, w
 def flash_prefill(q, k, v, pos0, scale, softcap=None, causal=True, window=None):
     """q [B,H,T,hd], k/v [B,n_kv,S,hd] (any batch/head/row strides, unit last
     stride; bf16: 16-byte aligned bases and strides), pos0 [B] int ->
-    [B,H,T,hd] in q's dtype."""
+    [B,H,T,hd] in q's dtype. Raises under autograd (grad mode on and an
+    input that requires grad), on both devices: the kernel has no backward,
+    as the TPU kernel has none, so a differentiable forward takes the dense
+    masked attention (`forward_hidden(..., dense_attention=True)`)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError("flash_prefill has no backward: a forward under autograd takes the "
+                           "dense masked attention (forward_hidden(..., dense_attention=True))")
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, pos0, scale, softcap, causal, window)
     if q.device.type != "cuda":

@@ -295,10 +295,51 @@ def moe_gather(x: torch.Tensor, groups: MoEGroups, per: int) -> torch.Tensor:
     for the rows i < offsets[E] that hold a selection of the stack (the
     foreign tail past offsets[E]: on the card those rows are left
     unwritten). On the card one launch of `moe_gather_kernel` (bf16 x), with
-    offsets[E] read on the device; on the CPU plain indexing of every row."""
-    r = groups.order.numel()
+    offsets[E] read on the device; on the CPU plain indexing of every row.
+    Under autograd (x requires grad) the card's launch is differentiable:
+    its backward is `moe_gather_backward`, the plain scatter-add (the JAX
+    package's is XLA's transpose of its gather)."""
     if x.device.type == "cpu":
         return x[groups.order.long() // per]
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Gather.apply(x, groups, per)
+    return _gather_launch(x, groups, per)
+
+
+def moe_gather_backward(g: torch.Tensor, groups: MoEGroups, per: int, rows: int) -> torch.Tensor:
+    """The gather's backward: each gathered row's gradient g [R, K] added
+    onto its token's row of x [rows, K] (`index_add_`, summed in f32, then
+    g's dtype), the foreign tail past offsets[E] left out (the card leaves
+    those rows unwritten, so they carry no gradient)."""
+    gf = torch.where(_held(groups)[:, None], g.to(torch.float32),
+                     torch.zeros((), device=g.device))
+    gx = torch.zeros((rows, g.shape[1]), dtype=torch.float32, device=g.device)
+    return gx.index_add_(0, groups.order.long() // per, gf).to(g.dtype)
+
+
+def _held(groups: MoEGroups) -> torch.Tensor:
+    """[R] bool: the order's rows that hold a selection of the stack."""
+    return torch.arange(groups.order.numel(), device=groups.order.device) < groups.offsets[-1]
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, groups, per):
+        fctx.groups, fctx.per, fctx.rows = groups, per, x.shape[0]
+        # the foreign tail zeroed, not left unwritten: no NaN of stale memory
+        # reaches the backward's products through it
+        xg = _gather_launch(x, groups, per)
+        return torch.where(_held(groups)[:, None], xg, torch.zeros((), dtype=xg.dtype,
+                                                                   device=xg.device))
+
+    @staticmethod
+    def backward(fctx, g):
+        return moe_gather_backward(g, fctx.groups, fctx.per, fctx.rows), None, None
+
+
+def _gather_launch(x: torch.Tensor, groups: MoEGroups, per: int) -> torch.Tensor:
+    """The card's `moe_gather_kernel` launch (counted)."""
+    r = groups.order.numel()
     if x.device.type != "cuda":
         raise ValueError(f"moe_gather: unsupported device {x.device}")
     if x.dtype != torch.bfloat16 or x.dim() != 2 or not x.is_contiguous() or x.data_ptr() % 16:

@@ -163,6 +163,33 @@ class StageRing:
     def recv_prev(self, shape, dtype) -> torch.Tensor:
         return self.exchange(recv_prev=(shape, dtype))[0]
 
+    def exchange_back(self, send_prev=None, recv_next=None):
+        """The backward's hand-over, against the ring's direction (the train
+        step, `parallel/train.py`): post `send_prev` to the previous stage
+        and a receive of `recv_next` (shape, dtype) from the next one
+        together, then wait. Returns what came from the next stage, or
+        None."""
+        import torch.distributed as dist
+
+        if send_prev is not None and self.first:
+            raise ValueError("stage 0 has no previous stage to send back to")
+        if recv_next is not None and self.last:
+            raise ValueError("the last stage has no next stage to receive from")
+        t0 = time.perf_counter()
+        ops, buf = [], None
+        if send_prev is not None:
+            ops.append(dist.P2POp(dist.isend, self._out(send_prev), self.prev))
+        if recv_next is not None:
+            buf = self._buffer(*recv_next)
+            ops.append(dist.P2POp(dist.irecv, buf, self.next))
+        if not ops:
+            return None
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+        self.calls += 1
+        self.seconds += time.perf_counter() - t0
+        return None if buf is None else buf.to(self.device)
+
     def broadcast_last(self, t: torch.Tensor) -> torch.Tensor:
         """`t` from the last stage on every stage, in place (the JAX psum of
         a buffer that only the last stage filled)."""

@@ -162,18 +162,80 @@ class tp_context:
         _CTX.reset(self._tok)
 
 
+# Under autograd (the train step, `parallel/train.py`) each collective is
+# one of Megatron's conjugate pairs: a sum whose backward is the identity,
+# an identity whose backward is a sum (where a column-parallel block takes
+# its replicated input, so that the input's gradient sums the ranks'
+# parts), and the logits' gather, whose backward keeps this rank's columns.
+# Outside autograd the forward runs as before, the sum in place.
+
+
+def _differentiable(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, y, group):
+        return group.all_reduce_(y.contiguous().clone())
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, group):
+        fctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.group.all_reduce_(g.contiguous().clone()), None
+
+
+class _GatherCols(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, y, group):
+        fctx.group, fctx.n = group, y.shape[-1]
+        return group.all_gather(y, dim=y.ndim - 1)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g.narrow(-1, fctx.group.rank * fctx.n, fctx.n), None
+
+
+def _sum(y: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the group's ranks: in place, or out of place with an
+    identity backward where y takes part in autograd."""
+    return _Sum.apply(y, group) if _differentiable(y) else group.all_reduce_(y)
+
+
 def tp_reduce(y: torch.Tensor) -> torch.Tensor:
     """Sum a row-parallel projection's partial outputs over the tp ranks
-    (one all-reduce, in place). The identity outside a tp context."""
+    (one all-reduce, in place; out of place under autograd, its backward
+    the identity). The identity outside a tp context."""
     ctx = _CTX.get()
     if ctx is not None:
-        ctx.group.all_reduce_(y)
+        y = _sum(y, ctx.group)
     return y
+
+
+def tp_input(x: torch.Tensor) -> torch.Tensor:
+    """x as a column-parallel block takes it: the identity, whose backward
+    under autograd sums x's gradient over the tp ranks (each rank's block
+    gives only its part). x itself outside a tp context or autograd."""
+    ctx = _CTX.get()
+    if ctx is None or not _differentiable(x):
+        return x
+    return _Copy.apply(x, ctx.group)
 
 
 def sharded_vocab_gather(emb, tokens: torch.Tensor, group) -> torch.Tensor:
     """Embedding rows from a vocabulary-sharded table: each rank gathers the
-    tokens it owns (zeros elsewhere), then one all-reduce assembles them.
+    tokens it owns (zeros elsewhere), then one all-reduce assembles them
+    (under autograd its backward reaches this rank's rows only).
     Returns f32 [B, T, D]."""
     local_v = emb.shape[0]
     idx = tokens - group.rank * local_v
@@ -181,11 +243,14 @@ def sharded_vocab_gather(emb, tokens: torch.Tensor, group) -> torch.Tensor:
     rows = emb[idx.clamp(0, local_v - 1)]
     x = rows.dequantize(torch.float32) if isinstance(rows, QArray) else rows.to(torch.float32)
     x = torch.where(valid[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
-    return group.all_reduce_(x.contiguous())
+    return _sum(x.contiguous(), group)
 
 
 def gather_vocab_logits(logits: torch.Tensor, group) -> torch.Tensor:
-    """The vocabulary-sharded logit columns concatenated into [..., V]."""
+    """The vocabulary-sharded logit columns concatenated into [..., V]
+    (under autograd the backward keeps this rank's columns)."""
+    if _differentiable(logits):
+        return _GatherCols.apply(logits, group)
     return group.all_gather(logits, dim=logits.ndim - 1)
 
 

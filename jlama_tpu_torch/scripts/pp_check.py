@@ -240,6 +240,15 @@ def rank_main(rank: int, world: int, store_path: str, out_path: str, spec: dict)
                            stop_ids={-1}) for p in prompts]
         _serve(single, reqs)
         out["single_ids"] = [list(r.out_ids) for r in reqs]
+    if spec.get("train"):
+        # the train step on this mesh, each rank against one device
+        # (scripts/train_check.py), once the serving trees are freed
+        from .train_check import rank_train
+
+        sched = one = full = params = single = None  # noqa: F841
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out["train"] = rank_train(mesh, spec["train"])
     shutdown()
     with open(out_path, "wb") as f:
         pickle.dump(out, f)
@@ -319,4 +328,8 @@ def check_ranks(ranks: list[dict], spec: dict, rel_l2_limit: float = REL_L2_LIMI
             lead["disk_ids"] != lead["kept_ids"] or len(lead["disk_ids"]) != 32:
         bad.append(f"disk suspend: ok {lead['disk_ok']}, files {lead['disk_files']}, ids "
                    f"{lead['disk_ids'][:6]}... against {lead['kept_ids'][:6]}...")
+    if spec.get("train"):
+        from .train_check import check_train
+
+        bad += check_train([r["train"] for r in ranks], spec["train"])
     return bad

@@ -500,6 +500,15 @@ def rank_main(rank: int, world: int, store_path: str, out_path: str, spec: dict)
                                stop_ids={-1}) for p in out["greedy_prompts"]]
             _serve(one, reqs)
             out["greedy_single_ids"] = [list(r.out_ids) for r in reqs]
+    if spec.get("train"):
+        # the train step on this mesh, each rank against one device
+        # (scripts/train_check.py), once the serving trees are freed
+        from .train_check import rank_train
+
+        sched = one = full = params = single = None  # noqa: F841
+        if group.device.type == "cuda":
+            torch.cuda.empty_cache()
+        out["train"] = rank_train(mesh, spec["train"])
     shutdown()
     with open(out_path, "wb") as f:
         pickle.dump(out, f)
@@ -651,4 +660,8 @@ def check_ranks(ranks: list[dict], spec: dict, rel_l2_limit: float = REL_L2_LIMI
                 if a != b]
         bad.append(f"greedy requests: the mesh's ids differ from one device's in requests "
                    f"{diff}")
+    if spec.get("train"):
+        from .train_check import check_train
+
+        bad += check_train([r["train"] for r in ranks], spec["train"])
     return bad

@@ -13,8 +13,12 @@ from jlama_tpu_torch.scripts import pp_check
 from tests.test_torch_tp_check import SPEC as TP_SPEC
 from tests.torch_tp_ranks import start_ranks, wait_ranks
 
-SPEC = dict(TP_SPEC, hf_config=dict(TP_SPEC["hf_config"], num_hidden_layers=4), n_slots=4,
-            timed=2, profile=0, disk_prompt=48, max_seq_len=256)
+HF = dict(TP_SPEC["hf_config"], num_hidden_layers=4)
+# the train step (scripts/train_check.py) on a tied model: the embedding is
+# used on both stages and must take one update on both
+SPEC = dict(TP_SPEC, hf_config=HF, n_slots=4, timed=2, profile=0, disk_prompt=48,
+            max_seq_len=256, train=dict(hf_config=dict(HF, tie_word_embeddings=True), batch=4,
+                                        seq=16, lr=0.5, seed=0))
 
 
 def test_pp_phase_rank_program_on_the_cpu(tmp_path):
@@ -35,6 +39,8 @@ def test_pp_phase_rank_program_on_the_cpu(tmp_path):
     # nothing but takes the last ids back)
     assert t["ticks"] == 9 * t["steps"] and t["p2p_calls"] == t["ticks"]
     assert lead["serial_timed"]["decode_steps"] > 0
+    # the train step: the tied embedding held by both stages, bit-equal
+    assert all(("top", "embed", "all") in r["train"]["digests"] for r in ranks)
     # a wrong expectation is caught
     broken = [dict(ranks[0], pipe_ids=[]), ranks[1]]
     assert any("pipe: the ids differ" in b for b in pp_check.check_ranks(broken, SPEC))

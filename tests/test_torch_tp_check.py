@@ -40,15 +40,21 @@ def test_tp_phase_rank_program_on_the_cpu(tmp_path):
     assert any("disk suspend" in b for b in tp_check.check_ranks(broken, SPEC))
 
 
+TIED = dict(SPEC["hf_config"], tie_word_embeddings=True)
+MIXTRAL = dict(SPEC["hf_config"], model_type="mixtral", num_local_experts=4,
+               num_experts_per_tok=2)
 MESH_SPECS = {
     # phase 17's path: dp = 2 x tp = 2, four ranks, greedy ids against one
-    # device; a tied lm_head, as Llama-3.2-1B's
-    "dp_tp": (4, dict(SPEC, dp=2, n_slots=4, greedy=4, hf_config=dict(
-        SPEC["hf_config"], tie_word_embeddings=True))),
-    # phase 18's: expert parallelism, 2 of 4 experts a rank, K6 over its range
-    "ep": (2, dict(SPEC, k6=True, hf_config=dict(
-        SPEC["hf_config"], model_type="mixtral", num_local_experts=4,
-        num_experts_per_tok=2))),
+    # device; a tied lm_head, as Llama-3.2-1B's; then the train step
+    # (scripts/train_check.py) on the same mesh
+    "dp_tp": (4, dict(SPEC, dp=2, n_slots=4, greedy=4, hf_config=TIED,
+                      train=dict(hf_config=TIED, batch=4, seq=16, lr=0.5, seed=0))),
+    # phase 18's: expert parallelism, 2 of 4 experts a rank, K6 over its
+    # range; then the train step on float experts, with the witness of the
+    # plain experts and the bf16 readings, which the card runs
+    "ep": (2, dict(SPEC, k6=True, hf_config=MIXTRAL,
+                   train=dict(hf_config=MIXTRAL, batch=4, seq=16, lr=0.5, seed=0,
+                              witness=True, bf16_reading=True))),
 }
 
 
@@ -81,3 +87,23 @@ def test_mesh_phase_rank_programs_on_the_cpu(tmp_path, name):
         assert all(r["k6"][n]["foreign_rows"] > 0 for r in ranks for n in tp_check.K6_RS)
         broken = [dict(lead, k6=dict(lead["k6"], lo=2)), ranks[1]]
         assert any("K6" in b for b in tp_check.check_ranks(broken, spec))
+    # the train step: every rank's f32 composition against one device's, the
+    # replicated leaves bit-equal; a wrong expectation is caught
+    assert all(r["train"]["k3_launches"] == 0 for r in ranks)
+    key = next(k for k in ranks[0]["train"]["digests"] if k[-1] == "all")
+    broken = [dict(ranks[0], train=dict(ranks[0]["train"], digests={
+        **ranks[0]["train"]["digests"], key: "0"}))] + ranks[1:]
+    assert any("differs across ranks" in b for b in tp_check.check_ranks(broken, spec))
+    # the f32 loss is held to F32_LIMIT on every mesh
+    tr = ranks[0]["train"]
+    broken = [dict(ranks[0], train=dict(tr, loss=tr["one_device_loss"] * (1 + 1e-3)))]
+    assert any("f32 loss" in b for b in tp_check.check_ranks(broken + ranks[1:], spec))
+    if name == "ep":
+        # the witness (the plain experts) runs and is held to F32_LIMIT too
+        w = tr["witness"]
+        assert max(w["grad_rel_l2"].values()) <= 1e-4
+        assert max(tr["bf16_reading"].values()) > 1e-4
+        leaf = next(iter(w["grad_rel_l2"]))
+        broken = [dict(ranks[0], train=dict(tr, witness=dict(
+            w, grad_rel_l2={**w["grad_rel_l2"], leaf: 1e-3})))] + ranks[1:]
+        assert any("witness" in b for b in tp_check.check_ranks(broken, spec))
