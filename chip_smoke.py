@@ -335,8 +335,19 @@ Phases, each fatal on failure (exit code 1, no result line):
               suspended to one file per rank and resumed with the ids of one
               that never was; the wall time per decode step at 16 slots, and
               torch.profiler's device time of K1-K4 on rank 0 beside the
-              collectives' host time (gloo through the host, not NCCL). A
-              failed rank fails the phase; a hung one is killed at
+              collectives' host time (gloo through the host, not NCCL). The
+              scheduler runs on CUDA graphs (the default on every mesh:
+              each step a chain of segments cut at its collectives,
+              runtime/graphs.py), then again as the eager yardstick
+              (decode_graphs=False: the served requests, with the same
+              ids, launches and logits' prints, bit for bit, on every
+              rank, and a timed decode); Engine(mesh=) generates 8 greedy
+              tokens on graphs and eagerly, the same ids and prints, one
+              device's. Each rank's graphs, segments a graph, replays,
+              capture seconds, pool MB, collectives' host time and
+              launches, and rank 0's decode step on graphs against eager,
+              each less its collectives' host time, beside the device time
+              a step. A failed rank fails the phase; a hung one is killed at
               TP_DEADLINE_S and fails it.
  17. dp - data-parallel page groups at Llama-3.2-1B's full width and depth
               (DP_SPEC: 16 layers, random JQ4 weights from seed 0): dp = 2
@@ -353,7 +364,8 @@ Phases, each fatal on failure (exit code 1, no result line):
               ranks only; the wall time per decode step, and the
               profiler's device time of K1-K4 on rank 0 beside the
               collectives' host time (the tp collectives and the gather of
-              the ids to the leader). Then the train step on the same mesh
+              the ids to the leader); graphs against the eager yardstick
+              and Engine(mesh=) as in phase 16. Then the train step on the same mesh
               (jlama_tpu_torch/scripts/train_check.py, TRAIN_LLAMA: the
               1B's widths, 4 layers, f32 weights from seed 0, 4 x 64
               tokens): every rank's gradients and SGD update of the f32
@@ -380,7 +392,9 @@ Phases, each fatal on failure (exit code 1, no result line):
               rank's range, every foreign row exactly 0, a bit-equal
               repeat, timed on rank 0; K6's launches (a grouping and two
               matmuls a layer a forward, two gathers a layer on the prefill
-              route) and K1-K4's on each rank. Then the train step as in
+              route) and K1-K4's on each rank; graphs against the eager
+              yardstick and Engine(mesh=) as in phase 16 (EP's K6 inside
+              the segments). Then the train step as in
               phase 17 at Mixtral-8x7B's widths, 1 layer of f32 float
               experts (4 a rank, through K6's gather with its scatter-add
               backward and the grouped product), 2 x 64 tokens. A failed
@@ -404,7 +418,10 @@ Phases, each fatal on failure (exit code 1, no result line):
               OpenAIServer whose /v1/embeddings calls rank 1 replays (the
               vectors within 5e-2 rel L2 of one device's embed_batch);
               K1-K5's launches on each rank as its prefills and decode
-              steps imply. Phase 3 holds K5 at Llama-3.1-8B's tp = 2 rank
+              steps imply; every scheduler on graphs, captured and replayed
+              on each rank, and GPT-2's requests again on its eager
+              yardstick (the same ids, launches and logits' prints). Phase
+              3 holds K5 at Llama-3.1-8B's tp = 2 rank
               shapes and K1-K4 at GPT-2's and BERT's rank shapes.
  20. pp - pipeline parallelism. (a) Llama-3.1-8B's widths and all 32
               layers at pp = 2 (PP_SPEC), two spawned ranks on cuda:0 over
@@ -425,7 +442,13 @@ Phases, each fatal on failure (exit code 1, no result line):
               the ring's exchanges and their host time a tick, and the
               profiler's device time by kernel group on rank 0 (gloo
               through the host on one GPU, which says nothing of NCCL's
-              speed); then the train step as in phase 17 at pp = 2 (the
+              speed); both schedulers on graphs (a stage's step or tick
+              window a chain of segments cut at its hand-overs), each then
+              again as its eager yardstick (the same ids, launches and the
+              last stage's logits' prints; the ring's timed windows), each
+              stage's graphs, and the ring window on graphs against eager,
+              each less its exchanges' host time; Engine(mesh=) as in
+              phase 16; then the train step as in phase 17 at pp = 2 (the
               1B's widths, tied, 4 layers: stage by stage, the backward
               handing each stage's input gradient back, the tied
               embedding's gradient summed over the stages, bit-equal on
@@ -4735,7 +4758,75 @@ def _print_train(label, ranks, spec, card_note) -> dict:
 _MESH_KEEP = ("setup_s", "prefill_ms", "serve_s", "n_prefill", "n_decode", "launches",
               "launches_all", "decode_ms_per_step", "decode_steps_timed",
               "collective_ms_per_step", "collectives_per_step", "profile", "logits_rel_l2",
-              "shapes", "routes", "route_check", "disk_files", "rows")
+              "shapes", "routes", "route_check", "disk_files", "rows", "graphs",
+              "prefill_graphs", "collective_calls", "collective_s")
+
+
+def _no_prints(d: dict) -> dict:
+    """A rank result's dict without its logits' prints (arrays)."""
+    return {k: _no_prints(v) if isinstance(v, dict) else v for k, v in d.items()
+            if k != "prints"}
+
+
+def _graph_row(g: dict, pf: dict | None = None) -> dict:
+    """One owner's graph stats (with its prefill graphs' where given): graphs,
+    segments a graph, replays, first uses, capture seconds, pool MB."""
+    pf = pf or dict(graphs=0, replays=0, capture_s=0.0, pool_bytes=0, segments=0)
+    return dict(graphs=g["graphs"], segments=g["segments"],
+                segments_per_graph=g["segments"] / max(g["graphs"], 1), replays=g["replays"],
+                first_uses=g["eager_steps"], prefill_graphs=pf["graphs"],
+                prefill_replays=pf["replays"], capture_s=g["capture_s"] + pf["capture_s"],
+                pool_mb=(g["pool_bytes"] + pf["pool_bytes"]) / 2**20)
+
+
+def _graph_text(row: dict) -> str:
+    return (f"{row['graphs']} graphs of {row['segments']} segments "
+            f"({row['segments_per_graph']:.1f} a graph), {row['replays']} replays + "
+            f"{row['first_uses']} first uses, prefill {row['prefill_graphs']} graphs "
+            f"({row['prefill_replays']} replays), captures {row['capture_s']:.2f} s, pool "
+            f"{row['pool_mb']:.1f} MB")
+
+
+def _print_mesh_graphs(label, ranks, card_note) -> dict:
+    """Phases 16-18: each rank's graphs (the scheduler's, its prefills',
+    the Engine's), its collectives' host time over the session and its
+    launches on graphs and on the eager yardstick; rank 0's decode step on
+    graphs against the yardstick's in this call, each less its
+    collectives' host time, and the device time a step (profiled on
+    graphs). The ranks' checks (tp_check.check_ranks) already held the
+    graphed logits bit-equal to the yardstick's and the ids to one
+    device's."""
+    from jlama_tpu_torch.scripts.tp_check import ENGINE_NEW
+
+    rows = []
+    for r in ranks:
+        row = dict(rank=r["rank"], **_graph_row(r["graphs"], r["prefill_graphs"]),
+                   engine=_graph_row(r["engine"]["graphs"]["graphs"]),
+                   collective_calls=r["collective_calls"], collective_s=r["collective_s"],
+                   launches=r["launches_all"], eager_launches=r["eager"]["launches_all"])
+        rows.append(row)
+        print(f"{label} graphs, rank {r['rank']}: scheduler {_graph_text(row)}; "
+              f"{row['collective_calls']} collectives taking {row['collective_s']:.2f} s of "
+              f"host time over the session; Engine(mesh=) {_graph_text(row['engine'])}; "
+              f"launches {row['launches']} (eager yardstick {row['eager_launches']})",
+              flush=True)
+    lead, y = ranks[0], ranks[0]["eager"]
+    prof = lead["profile"]
+    dev = sum(prof["device_ms_by_group"].values()) / prof["steps"]
+    g_ms, g_c = lead["decode_ms_per_step"], lead["collective_ms_per_step"]
+    e_ms, e_c = y["decode_ms_per_step"], y["collective_ms_per_step"]
+    print(f"{label} graphs against eager on {card_note}, rank 0, a decode step at "
+          f"{lead['rows']} rows a rank: graphs {g_ms:.2f} ms wall, {g_c:.2f} of it in "
+          f"{lead['collectives_per_step']:.0f} collectives, the rest {g_ms - g_c:.2f}; eager "
+          f"{e_ms:.2f}, {e_c:.2f} in {y['collectives_per_step']:.0f} collectives, the rest "
+          f"{e_ms - e_c:.2f}; device {dev:.2f} ms a step (profiled on graphs, busy "
+          f"{dev * prof['steps'] / prof['wall_ms']:.3f}); the served requests' ids, launches "
+          "and logits' prints equal on graphs and eager on every rank; Engine(mesh=)'s "
+          f"{ENGINE_NEW} tokens the same on graphs and eager, and one device's", flush=True)
+    return dict(ranks=rows, graphs_ms=g_ms, graphs_collective_ms=g_c, eager_ms=e_ms,
+                eager_collective_ms=e_c, device_ms=dev,
+                busy=dev * prof["steps"] / prof["wall_ms"],
+                eager_steps_timed=y["decode_steps_timed"])
 
 
 def tp_path(torch, card_note) -> dict:
@@ -4766,8 +4857,10 @@ def tp_path(torch, card_note) -> dict:
               f"{op} {v[0]} {v[1]:.3g} / staged {v[2]:.3g}" for op, v in
               sorted(r["route_check"].items())) for r in ranks), flush=True)
     _print_mesh_serving("tp", lead, ranks, TP_SPEC, card_note, wall)
+    graphs = _print_mesh_graphs("tp", ranks, card_note)
     return dict(spec=TP_SPEC, wall_s=wall, rank0={k: lead[k] for k in _MESH_KEEP},
-                rank1={k: ranks[1][k] for k in ("launches_all", "routes", "shapes")})
+                rank1={k: ranks[1][k] for k in ("launches_all", "routes", "shapes")},
+                graphs=graphs)
 
 
 # phase 17: dp page groups, dp = 2 x tp = 2 on the one card over gloo
@@ -4807,8 +4900,10 @@ def dp_path(torch, card_note) -> dict:
           "through the mesh, ids equal to one rank's single-device BatchScheduler's on the "
           "same prompts; session 'disk' resumed in group "
           f"{lead['disk_group_after']} with the ids of one never suspended", flush=True)
+    graphs = _print_mesh_graphs("dp", ranks, card_note)
     train = _print_train("dp", ranks, DP_SPEC, card_note)
-    return dict(spec=DP_SPEC, wall_s=wall, train=train, rank0={k: lead[k] for k in _MESH_KEEP},
+    return dict(spec=DP_SPEC, wall_s=wall, train=train, graphs=graphs,
+                rank0={k: lead[k] for k in _MESH_KEEP},
                 ranks=[{k: r[k] for k in ("launches_all", "shapes", "rows", "dp_index",
                                            "tp_rank")} for r in ranks])
 
@@ -4849,8 +4944,9 @@ def ep_path(torch, card_note) -> dict:
                           + (f", gate+up {k6[n]['gate_up_ms']:.4f} ms, w2 {k6[n]['w2_ms']:.4f} "
                              "ms" if "gate_up_ms" in k6[n] else "")
                           for n in (2, 32, 1024)) + f" on {card_note}", flush=True)
+    graphs = _print_mesh_graphs("ep", ranks, card_note)
     train = _print_train("ep", ranks, EP_SPEC, card_note)
-    return dict(spec=EP_SPEC, wall_s=wall, train=train,
+    return dict(spec=EP_SPEC, wall_s=wall, train=train, graphs=graphs,
                 rank0={k: lead[k] for k in _MESH_KEEP + ("k6",)},
                 ranks=[{k: r[k] for k in ("launches_all", "shapes", "k6")} for r in ranks])
 
@@ -4981,6 +5077,15 @@ def tp_rest_path(torch, card_note, tmp) -> dict:
         print(f"tp rest: rank {r['rank']} launches: "
               + "; ".join(f"{name} {r[name]['launches']} ({r[name]['n_prefill']} prefills, "
                           f"{r[name]['n_decode']} decode steps)" for name in names), flush=True)
+    graph_rows = []
+    for r in ranks:
+        rows = {name: _graph_row(r[name]["graphs"]) for name in names + ("gpt2_eager",)}
+        graph_rows.append(rows)
+        print(f"tp rest graphs, rank {r['rank']}: " + "; ".join(
+            f"{name} {_graph_text(row)}" for name, row in rows.items()), flush=True)
+    print(f"tp rest: GPT-2's {len(lead['gpt2']['ids'])} requests again on its eager yardstick: "
+          "the ids, the launches and the logits' prints of its graphs, on both ranks",
+          flush=True)
     k5 = {}
     for name, rows in lead["k5"].items():
         for m, row in rows.items():
@@ -4993,7 +5098,7 @@ def tp_rest_path(torch, card_note, tmp) -> dict:
     rank0 = {k: lead[k] for k in ("local", "http", "bert_rel_l2", "gpt2_vocab")}
     rank0.update({f"{name}_{k}": lead[name][k] for name in tp_load_check.LLAMA_RUNS
                   for k in ("logits_rel_l2", "f32_rel_l2", "q4_rel_l2") if k in lead[name]})
-    return dict(spec=TPR_SPEC, wall_s=wall, rank0=rank0, k5_rank0=k5,
+    return dict(spec=TPR_SPEC, wall_s=wall, rank0=rank0, k5_rank0=k5, graphs=graph_rows,
                 ranks=[{name: {k: r[name][k] for k in ("launches", "n_prefill", "n_decode")}
                         for name in names} for r in ranks])
 
@@ -5037,6 +5142,48 @@ def _pp_run(torch, card_note) -> tuple[list, float]:
     if not prof or prof["device_ms_by_group"]["q4_matmul"] <= 0:
         fail(f"pp: the profiler saw no K1 device time: {prof}")
     return ranks, wall
+
+
+def _print_pp_graphs(ranks, card_note) -> dict:
+    """Phase 20 (a): each stage's graphs (the ring's tick windows, the
+    stage-serial steps, their prefills, the Engine's) and its launches on
+    the eager yardsticks; rank 0's ring window on graphs against the
+    yardstick's in this call, each less its exchanges' host time, and the
+    device time a window (profiled on graphs). pp_check.check_ranks already
+    held the graphed logits bit-equal to the yardsticks' and the ids to
+    one device's."""
+    from jlama_tpu_torch.scripts.tp_check import ENGINE_NEW
+
+    rows = []
+    for r in ranks:
+        row = dict(stage=r["stage"], pipe=_graph_row(r["pipe_graphs"]),
+                   serial=_graph_row(r["serial_graphs"]),
+                   engine=_graph_row(r["engine"]["graphs"]["graphs"]),
+                   p2p_calls=r["p2p_calls"], p2p_s=r["p2p_s"],
+                   eager_launches={n: r[n + "_eager_launches_all"] for n in ("pipe", "serial")})
+        rows.append(row)
+        print(f"pp graphs, stage {r['stage']}: ring {_graph_text(row['pipe'])}; stage-serial "
+              f"{_graph_text(row['serial'])}; Engine(mesh=) {_graph_text(row['engine'])}; "
+              f"{r['p2p_calls']} exchanges in {r['p2p_s']:.2f} s of host time in all; launches "
+              f"on the eager yardsticks: ring {row['eager_launches']['pipe']}, stage-serial "
+              f"{row['eager_launches']['serial']}", flush=True)
+    lead = ranks[0]
+    t, y, prof = lead["pipe_timed"], lead["pipe_eager_timed"], lead["pipe_profile"]
+    dev = sum(prof["device_ms_by_group"].values()) / prof["steps"]
+    g_x, e_x = t["p2p_ms"] / t["steps"], y["p2p_ms"] / y["steps"]
+    print(f"pp graphs against eager on {card_note}, stage 0, a ring window of "
+          f"{t['ticks'] // t['steps']} ticks ({t['tokens'] // t['steps']} tokens): graphs "
+          f"{t['ms_per_step']:.2f} ms wall, {g_x:.2f} of it in "
+          f"{t['p2p_calls'] / t['steps']:.0f} exchanges, the rest {t['ms_per_step'] - g_x:.2f}; "
+          f"eager {y['ms_per_step']:.2f}, {e_x:.2f} in exchanges, the rest "
+          f"{y['ms_per_step'] - e_x:.2f}; device {dev:.2f} ms a window (profiled on graphs, "
+          f"busy {dev * prof['steps'] / prof['wall_ms']:.3f}); both schedulers' served ids and "
+          "launches, and the last stage's logits' prints, equal on graphs and eager; "
+          f"Engine(mesh=)'s {ENGINE_NEW} tokens the same on graphs and eager, and one device's",
+          flush=True)
+    return dict(stages=rows, graphs_ms=t["ms_per_step"], graphs_p2p_ms=g_x,
+                eager_ms=y["ms_per_step"], eager_p2p_ms=e_x, device_ms=dev,
+                busy=dev * prof["steps"] / prof["wall_ms"])
 
 
 def _pp_cli(torch, card_note, tmp, one_device=None) -> dict:
@@ -5124,6 +5271,7 @@ def pp_path(torch, card_note, tmp, one_device=None) -> dict:
     print(f"pp: disk suspend files {lead['disk_files']}, the resumed session's ids those of one "
           f"never suspended; set-up {lead['setup_s']:.1f} s; run (a) wall {wall_a:.1f} s",
           flush=True)
+    graphs = _print_pp_graphs(ranks, card_note)
     train = _print_train("pp", ranks, PP_SPEC, card_note)
     t1 = time.perf_counter()
     cli = _pp_cli(torch, card_note, tmp, one_device)
@@ -5137,8 +5285,9 @@ def pp_path(torch, card_note, tmp, one_device=None) -> dict:
           f"wall {time.perf_counter() - t1:.1f} s; phase wall {time.perf_counter() - t0:.1f} s",
           flush=True)
     keep = ("setup_s", "prefill_ms", "logits_bit_equal", "logits_rel_l2", "pipe_serve_s",
-            "serial_serve_s", "pipe_timed", "serial_timed", "pipe_profile", "disk_files")
-    return dict(spec=PP_SPEC, wall_s=time.perf_counter() - t0, train=train,
+            "serial_serve_s", "pipe_timed", "serial_timed", "pipe_profile", "disk_files",
+            "pipe_eager_timed", "pipe_eager_serve_s", "serial_eager_serve_s")
+    return dict(spec=PP_SPEC, wall_s=time.perf_counter() - t0, train=train, graphs=graphs,
                 rank0={k: lead[k] for k in keep},
                 ranks=[{k: r[k] for k in ("pipe_launches_all", "serial_launches_all",
                                           "pipe_counts_all", "serial_counts_all")}

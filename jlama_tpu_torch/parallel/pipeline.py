@@ -129,8 +129,17 @@ class StageRing:
         stage's ids) to stage 0, and receives of (shape, dtype) from the
         previous stage (`recv_prev`) and, on stage 0, from the last one
         (`recv_last`). Returns (from previous, from last), each a tensor on
-        the rank's device or None."""
+        the rank's device or None.
+
+        The exchange is a boundary op of the step being run
+        (`runtime/graphs.py::boundary`): in a captured step it runs between
+        two segments on buffers made once for the key (the tensors sent,
+        their pinned host copies on the host route, the receive buffers and
+        their device copies), and the tensors returned keep their
+        addresses."""
         import torch.distributed as dist
+
+        from ..runtime.graphs import boundary
 
         if send_first is not None and not self.last:
             raise ValueError("only the last stage sends to stage 0")
@@ -138,24 +147,45 @@ class StageRing:
             raise ValueError("only stage 0 receives from the last stage")
         if send_next is not None and self.last:
             raise ValueError("the last stage has no next stage (its ids go to stage 0)")
-        t0 = time.perf_counter()
-        ops, bufs = [], []
-        for t, peer in ((send_next, self.next), (send_first, self.next)):
-            if t is not None:
-                ops.append(dist.P2POp(dist.isend, self._out(t), peer))
-        for spec, peer in ((recv_prev, self.prev), (recv_last, self.prev)):
-            buf = None if spec is None else self._buffer(*spec)
-            if buf is not None:
-                ops.append(dist.P2POp(dist.irecv, buf, peer))
-            bufs.append(buf)
-        if not ops:
+        sends = [(name, t.contiguous()) for name, t in (("send_next", send_next),
+                                                         ("send_first", send_first))
+                 if t is not None]
+        recvs = [(name, spec) for name, spec in (("recv_prev", recv_prev),
+                                                 ("recv_last", recv_last))]
+        if not sends and recv_prev is None and recv_last is None:
             return None, None
-        for w in dist.batch_isend_irecv(ops):
-            w.wait()
-        out = tuple(None if b is None else b.to(self.device) for b in bufs)
-        self.calls += 1
-        self.seconds += time.perf_counter() - t0
-        return out
+        desc = ("exchange", tuple((name, tuple(t.shape), t.dtype) for name, t in sends)
+                + tuple((name, tuple(spec[0]), spec[1]) for name, spec in recvs
+                        if spec is not None))
+        host = self.route == "host"
+
+        def build():
+            out_bufs = [(t, torch.empty(t.shape, dtype=t.dtype, pin_memory=True) if host
+                         else t) for _, t in sends]
+            in_bufs = [None if spec is None else self._buffer(*spec) for _, spec in recvs]
+            results = tuple(None if b is None else
+                            (torch.empty(b.shape, dtype=b.dtype, device=self.device) if host
+                             else b) for b in in_bufs)
+
+            def run():
+                t0 = time.perf_counter()
+                ops = []
+                for t, b in out_bufs:
+                    if b is not t:
+                        b.copy_(t)
+                    ops.append(dist.P2POp(dist.isend, b, self.next))
+                ops += [dist.P2POp(dist.irecv, b, self.prev) for b in in_bufs if b is not None]
+                for w in dist.batch_isend_irecv(ops):
+                    w.wait()
+                for b, r in zip(in_bufs, results):
+                    if b is not None and r is not b:
+                        r.copy_(b)
+                self.calls += 1
+                self.seconds += time.perf_counter() - t0
+
+            return run, results
+
+        return boundary(desc, build)
 
     def send_next(self, t: torch.Tensor) -> None:
         self.exchange(send_next=t)
@@ -313,12 +343,20 @@ class PipelinedDecode:
     previous stage handed on; from tick pp − 1 on it returns, on every
     stage, the f32 logits [b, V] of microbatch (t − pp + 1) mod M (the one
     fed again at tick t + 1), else None. `tp` is the stage's tp context;
-    the caches live on `device` (CUDA unless named)."""
+    the caches live on `device` (CUDA unless named).
+
+    A tick is a step of `graphs` (`runtime/graphs.py`), keyed by its
+    microbatch (each has its own cache), whether it hands an activation on
+    and whether it returns logits: its exchange and the logits' broadcast
+    are boundary ops, the cell a segment. The cell reads its tokens and
+    positions from static copies made before the step, and hands its
+    activation on from one static buffer."""
 
     def __init__(self, params: dict, cfg: ModelConfig, ring: StageRing, b: int, max_len: int,
                  dtype=torch.float32, device=None, tp=None):
         from ..device import resolve_device
         from ..models.base import KVCache, rope_inv_freq
+        from ..runtime.graphs import StepGraphs
 
         device = resolve_device(device)
         self.params, self.cfg, self.ring, self.b, self.dtype = params, cfg, ring, b, dtype
@@ -328,25 +366,42 @@ class PipelinedDecode:
         self.caches = [KVCache.init(scfg, b, max_len, dtype, device) for _ in range(self.M)]
         self.inv_freq = rope_inv_freq(cfg, device)
         self.tp = tp
-        self._pending = None
+        self.graphs = StepGraphs(device)
+        self._tokens = torch.zeros((b,), dtype=torch.int64, device=device)
+        self._positions = torch.zeros((b, 1), dtype=torch.int64, device=device)
+        self._act = torch.zeros((b, 1, cfg.embedding_length), dtype=dtype, device=device)
+        self._send = False  # whether the last tick computed an activation to hand on
 
     def tick(self, tokens: torch.Tensor, positions: torch.Tensor, t: int):
         from .tp_forward import tp_context
 
         ring, b = self.ring, self.b
+        c = t - ring.stage if t >= ring.stage else None
+        mb = None if c is None else c % self.M
+        emit, send = t >= ring.pp - 1, self._send
         with torch.inference_mode(), tp_context(self.tp):
-            c, prev, _ = ring_tick(ring, t, None, send=self._pending,
-                                   recv=((b, 1, self.cfg.embedding_length), self.dtype))
-            self._pending = logits = None
-            if c is not None:
-                mb = c % self.M
-                self._pending, logits = decode_cell(
-                    ring, self.params, self.cfg, tokens[mb], prev, positions[mb][:, None],
-                    self.caches[mb], self.dtype, inv_freq=self.inv_freq,
-                    first_layer=self.first)
-            if t < ring.pp - 1:
-                return None
-            if logits is None:
-                logits = torch.zeros((b, self.cfg.vocab_size), dtype=torch.float32,
-                                     device=tokens.device)
-            return ring.broadcast_last(logits)
+            if mb is not None:
+                self._tokens.copy_(tokens[mb])
+                self._positions.copy_(positions[mb][:, None])
+
+            def step():
+                _, prev, _ = ring_tick(ring, t, None, send=self._act if send else None,
+                                       recv=((b, 1, self.cfg.embedding_length), self.dtype))
+                logits = None
+                if mb is not None:
+                    act, logits = decode_cell(
+                        ring, self.params, self.cfg, self._tokens, prev, self._positions,
+                        self.caches[mb], self.dtype, inv_freq=self.inv_freq,
+                        first_layer=self.first)
+                    if act is not None:
+                        self._act.copy_(act)
+                if not emit:
+                    return None
+                if logits is None:
+                    logits = torch.zeros((b, self.cfg.vocab_size), dtype=torch.float32,
+                                         device=self._act.device)
+                return ring.broadcast_last(logits)
+
+            out = self.graphs.run((mb, send, emit), step)
+        self._send = mb is not None and not ring.last
+        return out

@@ -23,6 +23,7 @@ extra tensor.
 from __future__ import annotations
 
 import contextvars
+import time
 from dataclasses import replace
 from typing import NamedTuple
 
@@ -64,6 +65,7 @@ class TPGroup:
         self.device = device
         self.store = store  # the rendezvous store (the step channel's port goes through it)
         self.routes: dict[tuple[str, torch.dtype], str] = {}  # -> "direct" | "host"
+        self.calls, self.seconds = 0, 0.0  # collectives run, and their host seconds
 
     def _staged(self, op: str, t: torch.Tensor) -> bool:
         if t.device.type != "cuda" or self.backend != "gloo":
@@ -103,31 +105,70 @@ class TPGroup:
 
         return rank if self.group is None else dist.get_global_rank(self.group, rank)
 
-    def _run(self, op: str, t: torch.Tensor, **kw) -> torch.Tensor:
-        t = t.contiguous()
-        if not self._staged(op, t):
-            return self._direct(op, t, **kw)
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t)
-        out = self._direct(op, host, **kw)
-        return out.to(t.device)
+    def _collective(self, op: str, t: torch.Tensor, dim: int = -1, src: int = 0):
+        """The collective `op` on the contiguous t as a boundary op of the
+        step being run (`runtime/graphs.py::boundary`): in a captured step
+        it runs between two segments, on buffers made once and kept with
+        the key's graph (t, which the segment before wrote, the pinned host
+        copies of the staged route, the gathered output). The route is
+        decided at build time, which a key's eager first use reaches first.
+        Returns t (all_reduce, broadcast: in place) or the gathered tensor."""
+        import torch.distributed as dist
+
+        from ..runtime.graphs import boundary
+
+        def build():
+            staged = self._staged(op, t)
+            x = torch.empty(t.shape, dtype=t.dtype, pin_memory=True) if staged else t
+            out = cat = parts = None
+            if op == "all_gather":
+                shape = list(t.shape)
+                shape[dim] *= self.size
+                out = torch.empty(shape, dtype=t.dtype, device=t.device)
+                cat = torch.empty(shape, dtype=t.dtype, pin_memory=True) if staged else out
+                parts = [torch.empty_like(x) for _ in range(self.size)]
+
+            def run():
+                t0 = time.perf_counter()
+                if staged:
+                    x.copy_(t)
+                if op == "all_reduce":
+                    dist.all_reduce(x, group=self.group)
+                elif op == "broadcast":
+                    dist.broadcast(x, src=self._global(src), group=self.group)
+                else:
+                    dist.all_gather(parts, x, group=self.group)
+                    torch.cat(parts, dim=dim, out=cat)
+                if staged:
+                    if out is None:
+                        t.copy_(x)
+                    else:
+                        out.copy_(cat)
+                self.calls += 1
+                self.seconds += time.perf_counter() - t0
+
+            return run, (t if out is None else out)
+
+        return boundary((op, tuple(t.shape), t.dtype), build)
 
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum `t` over the ranks, in place (t must be contiguous)."""
-        out = self._run("all_reduce", t)
-        if out is not t:
-            t.copy_(out)
+        """Sum `t` over the ranks, in place."""
+        c = t.contiguous()
+        self._collective("all_reduce", c)
+        if c is not t:
+            t.copy_(c)
         return t
 
     def all_gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """The ranks' `t` concatenated along `dim`, in rank order."""
-        return self._run("all_gather", t, dim=dim)
+        return self._collective("all_gather", t.contiguous(), dim=dim)
 
     def broadcast_(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """`t` from rank `src` (group rank), in place."""
-        out = self._run("broadcast", t, src=src)
-        if out is not t:
-            t.copy_(out)
+        c = t.contiguous()
+        self._collective("broadcast", c, src=src)
+        if c is not t:
+            t.copy_(c)
         return t
 
 

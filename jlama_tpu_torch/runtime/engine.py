@@ -32,8 +32,9 @@ On a tp mesh (`mesh=`) each rank holds its slice of the weights
 it cuts) and n_kv/tp heads of each cache slot, and runs its forward under
 the rank's `TPGroup` (`parallel/tp_forward.py`). `generate` is SPMD: every
 rank calls it with the same arguments and seed, samples the same ids from
-the gathered logits and so runs the same steps; its steps run eagerly
-(`graphs.stats()["eager_reason"]`), as the tp scheduler's do. With a
+the gathered logits and so runs the same steps; on the card its decode
+steps and prefills are graphs cut at their collectives into segments
+(`runtime/graphs.py`), as the tp scheduler's are. With a
 `step_channel` the leader (global rank 0) publishes each embed call
 (`run_embed_hidden`, `run_embed_pooled`) as the step ops embed_hidden and
 embed_pool before it runs it, holding `step_lock` (the scheduler's lock)
@@ -44,7 +45,8 @@ On a pp mesh each rank holds its stage's layers (and a cache slot of those
 layers) and every forward runs stage by stage (`parallel/pipeline.py::
 stage_hidden`): stage 0 embeds, each stage runs its layers and hands the
 hidden state on. `generate` is SPMD as under tp: the last stage samples and
-broadcasts each id to every stage, so that every rank runs the same steps.
+broadcasts each id to every stage, so that every rank runs the same steps;
+a step's receive, send and broadcast cut its graph into segments.
 An embed call's result comes back to stage 0 over the ring's wrap-around
 (the other stages' calls return None).
 """
@@ -189,8 +191,8 @@ class Engine:
         """device: CUDA unless named; raises without CUDA and without it.
         The params are moved there (a no-op for params already on it).
         decode_graphs=False runs every decode step and every prefill eagerly
-        on the card too (the yardstick the graphs are held against); None:
-        graphs on one device, eager under tp (True under tp raises). moe_ragged: as in the
+        on the card too (the yardstick the graphs are held against); None or
+        True: graphs on the card, on one device and on a mesh. moe_ragged: as in the
         JAX package, float MoE experts are transposed once into the grouped
         layout (`models.base.prepare_moe_ragged`); q4 experts are left as they
         are (K6), and float experts take the card's grouped product
@@ -213,13 +215,6 @@ class Engine:
         if tp > 1 or pp > 1:
             if tp > 1 and mesh.group is None:
                 raise ValueError(f"mesh tp={tp} needs this rank's TPGroup (mesh.group)")
-            if decode_graphs and tp > 1:
-                raise ValueError("decode_graphs=True under tp: gloo's collectives cannot be "
-                                 "captured in a CUDA graph, and graphs with NCCL collectives "
-                                 "are not ported yet (ROADMAP queue 1 item 3)")
-            if decode_graphs:
-                raise ValueError("decode_graphs=True under pp: a stage's step hands its "
-                                 "hidden state to another process")
             check_tp(cfg, mesh)
             params, self._tp, self.fwd_cfg = rank_params(params, cfg, mesh, self.device, fuse)
         else:
@@ -255,15 +250,10 @@ class Engine:
             self.params = RankSlice(params, tp, tp_rank, vocab, pp, stage)
         self._cache_cfg = stage_cfg(self.fwd_cfg, pp)  # a cache slot's layers: the stage's
         self._in = DecodeInputs(1, self.device, history=self.max_seq_len, stops=True)
-        graphs = decode_graphs if decode_graphs is not None else tp == 1 and pp == 1
-        eager = None
-        if tp > 1:
-            eager = ("tp: gloo's collectives cannot be captured in a CUDA graph (graphs with "
-                     "NCCL collectives are not ported yet)")
-        elif pp > 1:
-            eager = ("pp: a stage's step receives its input from the previous stage's process "
-                     "and hands its output on (graphs of a stage's compute alone are not "
-                     "ported)")
+        # on a mesh too: a step's collectives and hand-overs cut its graph
+        # into segments (runtime/graphs.py)
+        graphs = decode_graphs is not False
+        eager = None if graphs else "decode_graphs=False: the eager yardstick"
         self.graphs = StepGraphs(self.device, graphs, eager_reason=eager)
         self.prefill_graphs = StepGraphs(self.device, graphs, pool_of=self.graphs,
                                          eager_reason=eager)

@@ -38,11 +38,31 @@ no wrapper on these paths syncs with the host.
 The kernel wrappers' `launches` counters count launches on the device: a
 capture takes each counter's delta and puts the counter back, and each
 replay adds the delta.
+
+Steps on a mesh (the counterpart of the JAX package's jitted `shard_map`
+steps and its jitted pipeline tick window): a tp step's collectives and a
+pp stage's hand-overs are host work between parts of the step's device
+work, which one graph cannot hold (gloo's collectives run on the host; NCCL's
+inside a capture would need every rank's GPU of its own). Each such op is a
+`boundary`: while a step is captured, the capture ends at the op, the op's
+buffers are made outside any capture and the op is recorded with them (not
+run: a capture runs nothing), and the next segment's capture begins in the
+owner's same pool. A key's graph is then a chain of segments, and a replay
+runs segment 0, op 0, segment 1, ... in capture order, the only order in
+which segments that share one pool may run. Each segment carries its own
+launch-counter deltas. Outside a capture a boundary op runs at once, so
+eager steps (first uses, the CPU, the yardstick) run as before. On one
+device a step has no boundary and its graph is one segment.
+`record_plan()` lists the boundary ops of the steps run inside it, in
+order (the CPU tests hold every rank's plan equal).
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -52,6 +72,9 @@ from ..utils import debug
 # the stop-id buffer's least width (the JAX package's MAX_STOP_IDS); a
 # larger set doubles it, each width its own buffer and its own graphs
 MAX_STOP_IDS = 8
+
+# this thread's capture in progress (`_Segments`) and plan recorder (a list)
+_LOCAL = threading.local()
 
 
 def kernel_wrappers() -> tuple:
@@ -174,6 +197,98 @@ class PrefillInputs:
             _load(getattr(self, name), value)
 
 
+def boundary(desc: tuple, build):
+    """A boundary op of the step being run (module docstring): host work
+    between two parts of its device work. build() makes the op's buffers
+    and returns (op, result): op() does the work on those buffers, the same
+    ones at every run; result is what the caller gets (tensors among the
+    buffers, or None). Outside a capture op() runs now; while a StepGraphs
+    captures on this thread, the segment ends, build() runs outside the
+    capture, op is recorded for the replays, and the next segment begins.
+    desc (what the op is: name, shapes, dtype) goes to the plan being
+    recorded, if any."""
+    plan = getattr(_LOCAL, "plan", None)
+    if plan is not None:
+        plan.append(desc)
+    segs = getattr(_LOCAL, "capture", None)
+    if segs is None:
+        op, result = build()
+        op()
+        return result
+    segs.close()
+    op, result = build()
+    segs.ops.append(op)
+    segs.open()
+    return result
+
+
+def capturing() -> bool:
+    """Whether a step is being captured on this thread (its boundary ops'
+    buffers, made between two segments, too)."""
+    return getattr(_LOCAL, "capture", None) is not None
+
+
+@contextlib.contextmanager
+def record_plan():
+    """The boundary ops of the steps run inside, in order: yields the list
+    that each op's desc is appended to."""
+    prev, _LOCAL.plan = getattr(_LOCAL, "plan", None), []
+    try:
+        yield _LOCAL.plan
+    finally:
+        _LOCAL.plan = prev
+
+
+class _Segments:
+    """One key's step as a chain of CUDA graphs cut at its boundary ops. It
+    stands in for the CUDAGraph that `torch.cuda.graph` captures into: its
+    capture_begin opens the first segment (on the capture stream, in the
+    pool, in the mode that torch.cuda.graph passes) and its capture_end
+    closes the last; `boundary` closes and opens the ones between."""
+
+    def __init__(self, counters):
+        self.graphs: list = []
+        self.ops: list = []  # ops[i] runs between graphs[i] and graphs[i + 1]
+        self.deltas: list = []  # per segment: its launches of each counter
+        self.replays = 0
+        self._counters = counters
+        self._args = None
+        self._graph = self._marks = None
+
+    def capture_begin(self, *args, **kw):
+        self._args = (args, kw)
+        self.open()
+
+    def capture_end(self):
+        self.close()
+
+    def open(self):
+        args, kw = self._args
+        self._marks = [c.launches for c in self._counters]
+        self._graph = torch.cuda.CUDAGraph()
+        self._graph.capture_begin(*args, **kw)
+
+    def close(self):
+        graph, self._graph = self._graph, None
+        if graph is None:  # a failure between a close and the next open
+            return
+        self.graphs.append(graph)
+        self.deltas.append(tuple(c.launches - m for c, m in zip(self._counters, self._marks)))
+        with warnings.catch_warnings():
+            # a segment between two ops may hold no work (a hand-over right
+            # after a receive); replaying it launches nothing
+            warnings.filterwarnings("ignore", message="The CUDA Graph is empty")
+            graph.capture_end()
+
+    def replay(self):
+        ops = self.ops
+        for i, graph in enumerate(self.graphs):
+            graph.replay()
+            if i < len(ops):
+                ops[i]()
+        self.replays += 1
+
+
 class StepGraphs:
     """One owner's steps by key (see the module docstring).
 
@@ -190,7 +305,7 @@ class StepGraphs:
         self.eager_reason = eager_reason  # why an owner runs its steps eagerly, if it says
         self.counters = kernel_wrappers() if counters is None else tuple(counters)
         self._seen: set = set()
-        self._graphs: dict = {}  # key -> (graph, outputs, counter deltas)
+        self._graphs: dict = {}  # key -> (its _Segments, outputs, counter deltas)
         self._inputs: dict = {}  # key -> its static inputs (`inputs`)
         self._pool = pool_of._pool if pool_of is not None else [None]  # one shared handle
         self.eager_steps = 0
@@ -200,6 +315,7 @@ class StepGraphs:
 
     def stats(self) -> dict:
         st = dict(graphs=len(self._graphs), keys=len(self._seen),
+                  segments=sum(len(e[0].graphs) for e in self._graphs.values()),
                   eager_steps=self.eager_steps, replays=self.replays,
                   capture_s=self.capture_s, pool_bytes=self.pool_bytes)
         if self.eager_reason is not None:  # an owner that never captures says why
@@ -227,8 +343,8 @@ class StepGraphs:
             self._seen.add(key)
             self.eager_steps += 1
             return fn()
-        graph, outputs, delta = entry
-        graph.replay()
+        segs, outputs, delta = entry
+        segs.replay()
         for c, d in zip(self.counters, delta):
             c.launches += d
         self.replays += 1
@@ -244,17 +360,20 @@ class StepGraphs:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
         before = [c.launches for c in self.counters]
-        graph = torch.cuda.CUDAGraph()
+        segs = _Segments(self.counters)
+        _LOCAL.capture = segs
         try:
             # thread_local: the capturing thread may not sync or allocate
             # outside the pool; request threads' own work is not the graph's
-            with torch.cuda.graph(graph, pool=self._pool[0], capture_error_mode="thread_local"):
+            with torch.cuda.graph(segs, pool=self._pool[0], capture_error_mode="thread_local"):
                 outputs = fn()
         finally:
-            delta = tuple(c.launches - b for c, b in zip(self.counters, before))
+            _LOCAL.capture = None
             for c, b in zip(self.counters, before):
                 c.launches = b
+        delta = tuple(sum(d) for d in zip(*segs.deltas)) if segs.deltas else \
+            (0,) * len(self.counters)
         self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
-        self._graphs[key] = entry = (graph, outputs, delta)
+        self._graphs[key] = entry = (segs, outputs, delta)
         self.capture_s += time.perf_counter() - t0
         return entry

@@ -49,6 +49,7 @@ from ..nn.sampling import sample_token
 from ..parallel.pipeline import decode_cell, ring_tick
 from ..parallel.tp_forward import tp_context
 from .engine import FinishReason, _bucket
+from .graphs import DecodeInputs
 from .scheduler import BatchScheduler, GenRequest, RequestState
 
 
@@ -57,9 +58,11 @@ class PipelinedScheduler(BatchScheduler):
                  page_size=64, max_seq_len=None, kv_dtype=torch.bfloat16,
                  compute_dtype=torch.bfloat16, seed=0, decode_lag=None, prefill_chunk=256,
                  max_sessions=64, fuse=True, moe_ragged=True, weight_format=None,
-                 step_channel=None, device=None):
+                 step_channel=None, device=None, decode_graphs=None):
         """As `BatchScheduler` on a mesh whose pp >= 2; n_slots must divide
-        by dp · pp (each dp group's slots into pp microbatches)."""
+        by dp · pp (each dp group's slots into pp microbatches).
+        decode_graphs=False runs every tick window eagerly on the card too
+        (the yardstick)."""
         if mesh is None or mesh.pp < 2:
             raise ValueError("PipelinedScheduler needs a mesh with pp >= 2")
         pp = mesh.pp
@@ -73,7 +76,8 @@ class PipelinedScheduler(BatchScheduler):
             max_seq_len=max_seq_len, kv_dtype=kv_dtype, compute_dtype=compute_dtype,
             seed=seed, mesh=mesh, prefill_chunk=prefill_chunk, max_sessions=max_sessions,
             fuse=fuse, decode_lag=decode_lag, weight_format=weight_format,
-            step_channel=step_channel, device=device, moe_ragged=moe_ragged)
+            step_channel=step_channel, device=device, moe_ragged=moe_ragged,
+            decode_graphs=decode_graphs)
         self.pp = pp
         self.M = pp  # microbatches == stages (full pipeline occupancy)
         self.b = self._spg // pp  # rows a microbatch
@@ -98,20 +102,22 @@ class PipelinedScheduler(BatchScheduler):
 
     def warmup(self, max_context=None, prefill_rows=None, decode_windows=None,
                prefill_windows=None) -> None:
-        """Run a tick window (W = 1) at every window bucket and every
-        prefill shape that traffic up to `max_context` tokens reaches."""
+        """Run a tick window (W = 1) at every window bucket twice, so that on
+        the card each is captured, and every prefill shape that traffic up
+        to `max_context` tokens reaches."""
         wins = self._window_buckets(max_context or self.max_seq_len)
         decode_windows = decode_windows if decode_windows is not None else wins
         B = self.n_slots
         zeros = lambda *s: np.zeros(s, np.int32)  # noqa: E731
         pts = self.kv.page_table(["__empty__"] * B, groups=self._slot_groups())
         for win in decode_windows:
-            self._run_ticks(
-                {"tokens": zeros(B), "positions": zeros(B), "pts": pts, "seeds": zeros(B),
-                 "steps": zeros(B), "temps": np.zeros(B, np.float32),
-                 "top_ps": np.ones(B, np.float32), "top_ks": zeros(B),
-                 "n_ticks": (self.pp - 1) + self.M, "win": int(win)},
-                publish=True, collect=False)
+            for _ in range(2):
+                self._run_ticks(
+                    {"tokens": zeros(B), "positions": zeros(B), "pts": pts,
+                     "seeds": zeros(B), "steps": zeros(B), "temps": np.zeros(B, np.float32),
+                     "top_ps": np.ones(B, np.float32), "top_ks": zeros(B),
+                     "n_ticks": (self.pp - 1) + self.M, "win": int(win)},
+                    publish=True, collect=False)
         super().warmup(max_context, prefill_rows, decode_windows=[],
                        prefill_windows=prefill_windows)
 
@@ -122,61 +128,37 @@ class PipelinedScheduler(BatchScheduler):
         positions, page tables and sampling parameters, the tick count and
         the attention window). Returns, on the leader with `collect`, the
         window's W arrays of sampled ids [n_slots] (sample w of every slot);
-        None elsewhere."""
+        None elsewhere.
+
+        The window is one step of `graphs` (the JAX package's jitted tick
+        window), keyed by (ticks, attention window, all greedy, all top_k
+        0, all top_p 1) and read from that key's static inputs: on the card
+        its cells are graph segments and its exchanges the boundary ops
+        between them (`runtime/graphs.py`)."""
         if publish and self._chan is not None and self._is_leader:
             self._chan.publish({"op": "ptick", **msg})
-        ring, M, b, pp = self._ring, self.M, self.b, self.pp
+        ring, M, b = self._ring, self.M, self.b
         n_ticks, win = int(msg["n_ticks"]), int(msg["win"])
-        W = (n_ticks - (pp - 1)) // M
-        dev, loc = self.device, self._local
-
-        def t_(a, dtype=torch.int64):
-            return torch.as_tensor(np.asarray(loc(a))).to(dev, dtype)
-
-        tokens = t_(msg["tokens"]).reshape(M, b)
-        positions = t_(msg["positions"]).reshape(M, b)
-        pts = torch.as_tensor(self.kv.local_tables(np.asarray(loc(msg["pts"])))).to(
-            dev, torch.int32).reshape(M, b, -1)
-        seeds, steps = t_(msg["seeds"]), t_(msg["steps"])
-        temps = t_(msg["temps"], torch.float32)
-        top_ps, top_ks = t_(msg["top_ps"], torch.float32), t_(msg["top_ks"])
+        W = (n_ticks - (self.pp - 1)) // M
+        loc = self._local
         greedy = not bool(np.any(np.asarray(loc(msg["temps"])) != 0.0))
         all_k0 = not bool(np.any(np.asarray(loc(msg["top_ks"])) > 0))
         all_p1 = bool(np.all(np.asarray(loc(msg["top_ps"])) >= 1.0))
-        act = ((b, 1, self.cfg.embedding_length), self.compute_dtype)
-        ids = torch.zeros((W, M, b), dtype=torch.int64, device=dev) if ring.first else None
-        feed = list(tokens)  # stage 0: each microbatch's next token
-        pending_act = pending_ids = None
-
+        key = ("ptick", n_ticks, win, greedy, all_k0, all_p1)
+        inp = self.graphs.inputs(key, lambda: DecodeInputs(
+            M * b, self.device, pages=self.kv.max_pages_per_seq))
+        inp.load(tokens=loc(msg["tokens"]), positions=loc(msg["positions"]),
+                 page_tables=self.kv.local_tables(np.asarray(loc(msg["pts"]))),
+                 seeds=loc(msg["seeds"]), steps=loc(msg["steps"]), temps=loc(msg["temps"]),
+                 top_ps=loc(msg["top_ps"]), top_ks=loc(msg["top_ks"]))
         with torch.inference_mode(), tp_context(self._tp):
-            for t in range(n_ticks + 1):  # the last boundary only hands on
-                c, prev, got = ring_tick(ring, t, M * W, send=pending_act,
-                                         send_ids=pending_ids, recv=act, ids_back=(b,))
-                pending_act = pending_ids = None
-                if got is not None:  # stage 0: the ids that left the ring at tick t - 1
-                    w, mb = divmod(t - 1 - (pp - 1), M)
-                    ids[w, mb] = got
-                    feed[mb] = got
-                if c is None:
-                    continue
-                w, mb = divmod(c, M)
-                self.n_cells += 1
-                pending_act, logits = decode_cell(
-                    ring, self.params, self.fwd_cfg, feed[mb], prev,
-                    (positions[mb] + w)[:, None], (self._layers, pts[mb]), self.compute_dtype,
-                    win, self.inv_freq, self._first_layer)
-                if logits is None:
-                    continue
-                r = slice(mb * b, (mb + 1) * b)
-                pending_ids = sample_token(
-                    logits, None, 0.0 if greedy else temps[r],
-                    top_k=0 if greedy or all_k0 else top_ks[r],
-                    top_p=1.0 if greedy or all_p1 else top_ps[r],
-                    seeds=seeds[r], steps=steps[r] + w)
-                if self.window_log is not None:
-                    self.window_log.append(pending_ids.cpu().numpy())
+            ids, cells = self.graphs.run(
+                key, lambda: self._window(inp, n_ticks, win, W, greedy, all_k0, all_p1))
         self.n_decode_steps += W
         self.n_ticks += n_ticks
+        self.n_cells += M * W
+        if self.window_log is not None and cells is not None:
+            self.window_log.extend(cells.cpu().numpy())
         if not ring.first:
             return None
         win_ids = ids.reshape(W, M * b).cpu()
@@ -187,6 +169,47 @@ class PipelinedScheduler(BatchScheduler):
                 return None
             win_ids = self._rows.all_gather(win_ids.to(torch.int32), dim=1)
         return list(win_ids.numpy()) if collect else None
+
+    def _window(self, inp: DecodeInputs, n_ticks: int, win: int, W: int, greedy: bool,
+                all_k0: bool, all_p1: bool):
+        """One tick window on the static inputs: (ids [W, M, b] on stage 0,
+        each cell's sampled ids [M·W, b] on the last stage), None where a
+        stage has none."""
+        ring, M, b, pp = self._ring, self.M, self.b, self.pp
+        tokens = inp.tokens.reshape(M, b)
+        positions = inp.positions.reshape(M, b)
+        pts = inp.page_tables.reshape(M, b, -1)
+        act = ((b, 1, self.cfg.embedding_length), self.compute_dtype)
+        ids = torch.zeros((W, M, b), dtype=torch.int64, device=self.device) \
+            if ring.first else None
+        cells = [] if ring.last else None
+        feed = list(tokens)  # stage 0: each microbatch's next token
+        pending_act = pending_ids = None
+        for t in range(n_ticks + 1):  # the last boundary only hands on
+            c, prev, got = ring_tick(ring, t, M * W, send=pending_act, send_ids=pending_ids,
+                                     recv=act, ids_back=(b,))
+            pending_act = pending_ids = None
+            if got is not None:  # stage 0: the ids that left the ring at tick t - 1
+                w, mb = divmod(t - 1 - (pp - 1), M)
+                ids[w, mb] = got
+                feed[mb] = got
+            if c is None:
+                continue
+            w, mb = divmod(c, M)
+            pending_act, logits = decode_cell(
+                ring, self.params, self.fwd_cfg, feed[mb], prev, (positions[mb] + w)[:, None],
+                (self._layers, pts[mb]), self.compute_dtype, win, self.inv_freq,
+                self._first_layer)
+            if logits is None:
+                continue
+            r = slice(mb * b, (mb + 1) * b)
+            pending_ids = sample_token(
+                logits, None, 0.0 if greedy else inp.temps[r],
+                top_k=0 if greedy or all_k0 else inp.top_ks[r],
+                top_p=1.0 if greedy or all_p1 else inp.top_ps[r],
+                seeds=inp.seeds[r], steps=inp.steps[r] + w)
+            cells.append(pending_ids)
+        return ids, (torch.stack(cells) if cells is not None else None)
 
     # -- the pipelined decode window -----------------------------------
 

@@ -65,9 +65,13 @@ points), and the other ranks replay them in
 samples its own from the same gathered logits with the same seeds and
 counters, so all ranks feed back the same ids. A disk suspend writes one
 file per rank, `{to_dir}/{sid}.kv.p{global rank}.npz` (the JAX package's
-multi-process layout). The steps run eagerly under tp (gloo's collectives
-cannot be captured in a CUDA graph; `graphs.stats()["eager_reason"]` says
-so). MoE under tp is expert parallelism: each rank holds E/tp experts of
+multi-process layout). On the card the steps are CUDA graphs under tp too
+(the JAX package's jitted shard_map steps): a step's collectives are its
+boundary ops (`runtime/graphs.py`), so its graph is a chain of segments,
+the compute between two collectives each, and the collectives run between
+the segments' replays; `warmup()` captures the same keys on every rank,
+whose followers reach each key's first and second use at the leader's
+steps. MoE under tp is expert parallelism: each rank holds E/tp experts of
 every layer (`nn/layers.py::moe_block`).
 
 Data parallelism (`mesh` with dp > 1; `jlama_tpu/runtime/scheduler.py:
@@ -100,8 +104,10 @@ sends them to the leader as under dp. This is `serve --no-pp-pipeline`; the
 pipelined decode is `runtime/pipelined.py::PipelinedScheduler`. The leader
 keeps the allocator, the sessions and the server and publishes each call as
 under tp; every rank replays its stage's part. A suspend gathers each
-rank's own layers' pages (a disk suspend writes one file per rank). The
-steps run eagerly under pp (`graphs.stats()["eager_reason"]`).
+rank's own layers' pages (a disk suspend writes one file per rank). On the
+card a stage's step is a chain of graph segments cut at its hand-overs
+(its receive from the previous stage, its send to the next, the ids' way
+back to stage 0), which run between the replays.
 
 Under tp, q4s serves each rank's slice converted to K5's layout (its
 column-parallel rows, its 256-groups of wo's and w2's K, its vocabulary
@@ -255,7 +261,8 @@ class BatchScheduler:
         raises without CUDA and without it. The params are moved there.
         decode_graphs=False runs every decode step and every prefill call
         eagerly on the card too (the yardstick the graphs are held against);
-        None: graphs on one device, eager under tp (True under tp raises).
+        None or True: graphs on the card, on one device and on every mesh
+        (a step's collectives and hand-overs cut its graph into segments).
 
         mesh: a `parallel.mesh.Mesh`; tp > 1 takes this rank's `TPGroup`
         (`mesh.group`), and the params are either the full tree, which each
@@ -294,16 +301,8 @@ class BatchScheduler:
             check_tp(cfg, mesh, quantized=_has_qleaves(params), n_slots=n_slots,
                      n_pages=n_pages)
             tp, dp, pp = mesh.tp, mesh.dp, mesh.pp
-        if tp > 1:
-            if decode_graphs:
-                raise ValueError("decode_graphs=True under tp: gloo's collectives cannot be "
-                                 "captured in a CUDA graph, and graphs with NCCL collectives "
-                                 "are not ported yet (ROADMAP queue 1 item 3)")
-            if mesh.group is None:
-                raise ValueError(f"mesh tp={tp} needs this rank's TPGroup (mesh.group)")
-        if pp > 1 and decode_graphs:
-            raise ValueError("decode_graphs=True under pp: a stage's step hands its hidden "
-                             "state to another process between its layers and the sampler")
+        if tp > 1 and mesh.group is None:
+            raise ValueError(f"mesh tp={tp} needs this rank's TPGroup (mesh.group)")
         if step_channel is not None and tp * dp * pp == 1:
             raise ValueError("a step_channel needs a mesh of more than one rank (dp * pp * tp "
                              "> 1): multi-process serving is mesh serving")
@@ -378,15 +377,10 @@ class BatchScheduler:
         # one set of static step inputs, read by every decode graph (this
         # rank's rows: its dp group's slots)
         self._in = DecodeInputs(self._spg, self.device, pages=self.kv.max_pages_per_seq)
-        eager = None
-        if tp > 1:
-            eager = ("tp: gloo's collectives cannot be captured in a CUDA graph (graphs "
-                     "with NCCL collectives are not ported yet)")
-        elif pp > 1:
-            eager = ("pp: a stage's step receives its input from the previous stage's process "
-                     "and hands its output on between its layers and the sampler (graphs of "
-                     "a stage's compute alone are not ported)")
-        graphs = decode_graphs if decode_graphs is not None else tp == 1 and pp == 1
+        # on a mesh too: a step's collectives and hand-overs cut its graph
+        # into segments (runtime/graphs.py)
+        graphs = decode_graphs is not False
+        eager = None if graphs else "decode_graphs=False: the eager yardstick"
         self.graphs = StepGraphs(self.device, graphs, eager_reason=eager)
         self.prefill_graphs = StepGraphs(self.device, graphs, pool_of=self.graphs,
                                          eager_reason=eager)

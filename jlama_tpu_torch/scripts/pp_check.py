@@ -24,12 +24,19 @@ handed over through the store), the others run `run_follower`. In order:
    session suspended to disk (one file per rank) and resumed, its ids
    against a session that never suspended;
 3. the stage-serial BatchScheduler (`serve --no-pp-pipeline`): the same
-   requests, launches counted, a timed decode;
-4. on rank 0, after the followers stop: the whole tree on one device
+   requests, launches counted, a timed decode; both schedulers run on
+   graphs (the default: on the card a stage's step or tick window is a
+   chain of segments cut at its hand-overs), and then each again as its
+   eager yardstick (`decode_graphs=False`: the requests, and the ring's
+   timed windows), whose ids, launches and logits' prints on the last
+   stage (`tp_check.LogitsPrints`) must be the graphed run's;
+4. `Engine(mesh=)` on both stages in step, `tp_check.ENGINE_NEW` greedy
+   tokens on graphs and eagerly (`tp_check.engine_check`);
+5. on rank 0, after the followers stop: the whole tree on one device
    through the single-device path, the same prompt's logits (expected bit
    for bit: the same kernels at the same shapes, and the ring only copies
-   bytes) and the requests through a single-device BatchScheduler, whose
-   ids both schedulers' must equal.
+   bytes), the requests through a single-device BatchScheduler, whose ids
+   every scheduler's must equal, and the Engine's tokens.
 
 Each rank pickles its results to `out_path`; `check_ranks` holds them
 (chip_smoke.py phase 20; tests/test_torch_pp_check.py on the CPU).
@@ -45,10 +52,14 @@ from types import SimpleNamespace
 
 import numpy as np
 
-from .tp_check import KERNEL_GROUPS, _config, _ids, _kernels, _logits, _serve, _sync
+from .tp_check import (ENGINE_NEW, KERNEL_GROUPS, TIMED_NEW, TIMED_PROMPT, WARM_STEPS,
+                       LogitsPrints, _config, _ids, _kernels, _logits, _serve, _sync,
+                       engine_check, graphs_problem, prints_problem)
 
 REL_L2_LIMIT = 1e-2  # tp_check's, the fall-back where the logits are not bit-equal
 NAMES = ("pipe", "serial")
+# the runs: each scheduler on graphs (the default), then its eager yardstick
+RUNS = (("pipe", True), ("serial", True), ("pipe_eager", False), ("serial_eager", False))
 
 
 def _reset(kernels) -> None:
@@ -56,26 +67,30 @@ def _reset(kernels) -> None:
         fn.launches = 0
 
 
-def _timed(torch, sched, ring, spec, rng, out, name):
-    """Every slot decoding: the wall time of `spec["timed"]` scheduler steps
-    (tick windows for the ring, decode windows for the stage-serial
-    scheduler), their ticks and the ring's exchanges; on the card
-    torch.profiler over `spec["profile"]` steps (device time by group)."""
+def _timed(torch, sched, ring, spec, rng, out, name, profile=True):
+    """Every slot decoding (`tp_check.TIMED_PROMPT`-token prompts, then
+    `tp_check.WARM_STEPS` scheduler steps): the wall time of `spec["timed"]`
+    scheduler steps (tick windows for the ring, decode windows for the
+    stage-serial scheduler), their ticks, the ring's exchanges and the
+    steps that were a key's first use; on the card torch.profiler over
+    `spec["profile"]` steps (device time by group)."""
     from ..runtime.scheduler import GenRequest, RequestState
 
     cfg = sched.cfg
-    reqs = [GenRequest(prompt_ids=_ids(rng, 16, cfg.vocab_size), max_new_tokens=64,
-                       stop_ids={-1}) for _ in range(sched.n_slots)]
+    reqs = [GenRequest(prompt_ids=_ids(rng, TIMED_PROMPT, cfg.vocab_size),
+                       max_new_tokens=TIMED_NEW, stop_ids={-1}) for _ in range(sched.n_slots)]
     for r in reqs:
         sched.submit(r)
     while not all(r.state == RequestState.RUNNING and r.out_ids for r in reqs):
+        sched.step()
+    for _ in range(WARM_STEPS):
         sched.step()
 
     def run(n):
         _sync(torch, sched.device)
         t0, tok0 = time.perf_counter(), sum(len(r.out_ids) for r in reqs)
         c0, s0, k0 = ring.calls, ring.seconds, getattr(sched, "n_ticks", 0)
-        d0 = sched.n_decode_steps
+        d0, e0 = sched.n_decode_steps, sched.graphs.stats()["eager_steps"]
         for _ in range(n):
             sched.step()
         _sync(torch, sched.device)
@@ -83,7 +98,8 @@ def _timed(torch, sched, ring, spec, rng, out, name):
                     tokens=sum(len(r.out_ids) for r in reqs) - tok0,
                     decode_steps=sched.n_decode_steps - d0,
                     ticks=getattr(sched, "n_ticks", 0) - k0, p2p_calls=ring.calls - c0,
-                    p2p_ms=(ring.seconds - s0) * 1e3)
+                    p2p_ms=(ring.seconds - s0) * 1e3,
+                    first_uses=sched.graphs.stats()["eager_steps"] - e0)
 
     t = out[name + "_timed"] = run(spec["timed"])
     t["ms_per_step"] = t["wall_ms"] / t["steps"]
@@ -91,7 +107,7 @@ def _timed(torch, sched, ring, spec, rng, out, name):
         t["ms_per_tick"] = t["wall_ms"] / t["ticks"]
         t["p2p_calls_per_tick"] = t["p2p_calls"] / t["ticks"]
         t["p2p_ms_per_tick"] = t["p2p_ms"] / t["ticks"]
-    if spec["profile"] and sched.device.type == "cuda":
+    if profile and spec["profile"] and sched.device.type == "cuda":
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -135,6 +151,7 @@ def rank_main(rank: int, world: int, store_path: str, out_path: str, spec: dict)
     from ..parallel.mesh import RankSlice
     from ..parallel.pipeline import stage_hidden, stage_range
     from ..runtime.coordination import StepChannel
+    from ..runtime.engine import Engine
     from ..runtime.pipelined import PipelinedScheduler
     from ..runtime.scheduler import BatchScheduler, GenRequest
 
@@ -160,6 +177,7 @@ def rank_main(rank: int, world: int, store_path: str, out_path: str, spec: dict)
     _sync(torch, dev)
     out["setup_s"] = time.perf_counter() - t0
     rng = np.random.default_rng(spec["seed"])
+    engine_prompt = _ids(np.random.default_rng(spec["seed"] + 3), 100, cfg.vocab_size)
     # 1. the prefill's logits through the stage-serial forward, every rank in step
     ids = _ids(rng, spec["prefill"], cfg.vocab_size)
     rows = spec["logit_rows"]
@@ -178,18 +196,22 @@ def rank_main(rank: int, world: int, store_path: str, out_path: str, spec: dict)
                for _ in range(spec["requests"])]
     kernels = _kernels()
     max_seq = spec.get("max_seq_len", 2048)
+    prints = LogitsPrints(torch, dev)
     # 2. and 3.: rank 0 leads each scheduler, the others replay; every rank
-    # counts its launches from 0 over the requests
-    for name in NAMES:
-        cls = PipelinedScheduler if name == "pipe" else BatchScheduler
+    # counts its launches from 0 over the requests; each on graphs (the
+    # default), then again as the eager yardstick (the requests, and the
+    # ring's timed windows)
+    for name, graphs in RUNS:
+        cls = PipelinedScheduler if name.startswith("pipe") else BatchScheduler
         sched = cls(params, cfg, n_slots=spec["n_slots"], n_pages=spec["n_pages"],
                     page_size=64, max_seq_len=max_seq, device=dev, mesh=mesh,
-                    step_channel=chan)
+                    step_channel=chan, decode_graphs=graphs)
         sched.sampled_log = []
-        if name == "pipe":
+        if name.startswith("pipe"):
             sched.window_log = []
         pf0, dec0, cells0 = sched.n_prefill_calls, sched.n_decode_steps, 0
         _reset(kernels)
+        prints.begin()
         if rank == 0:
             reqs = [GenRequest(prompt_ids=list(p), max_new_tokens=spec["new_tokens"],
                                stop_ids={-1}) for p in prompts]
@@ -201,23 +223,27 @@ def rank_main(rank: int, world: int, store_path: str, out_path: str, spec: dict)
             out[name + "_counts"] = (sched.n_prefill_calls - pf0,
                                      getattr(sched, "n_cells", 0) - cells0,
                                      sched.n_decode_steps - dec0)
-            _timed(torch, sched, ring, spec, rng, out, name)
+            if graphs or name == "pipe_eager":
+                _timed(torch, sched, ring, spec, rng, out, name, profile=graphs)
             if name == "pipe":
                 _disk_check(sched, rng, out, spec.get("disk_prompt", 300))
             chan.publish({"op": "stop"})
         else:
             sched.run_follower()
+        out[name + "_prints"] = prints.take()
         out[name + "_launches_all"] = {k: fn.launches for k, fn in kernels.items()}
         out[name + "_counts_all"] = (sched.n_prefill_calls - pf0,
                                      getattr(sched, "n_cells", 0) - cells0,
                                      sched.n_decode_steps - dec0)
         out[name + "_graphs"] = sched.graphs.stats()
         out[name + "_pool"] = tuple(sched.kv.state.k_pool.shape)
-        out[name + "_log"] = [np.asarray(t) for t in (sched.window_log if name == "pipe"
+        out[name + "_log"] = [np.asarray(t) for t in (sched.window_log if name.startswith("pipe")
                                                       else sched.sampled_log)]
         del sched
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+    # 4. Engine(mesh=), both stages in step, on graphs and eagerly
+    out["engine"] = engine_check(torch, params, cfg, mesh, dev, prints, engine_prompt, kernels)
     out["p2p_calls"], out["p2p_s"] = ring.calls, ring.seconds
     chan.close()
     if rank == 0:
@@ -240,6 +266,11 @@ def rank_main(rank: int, world: int, store_path: str, out_path: str, spec: dict)
                            stop_ids={-1}) for p in prompts]
         _serve(single, reqs)
         out["single_ids"] = [list(r.out_ids) for r in reqs]
+        del single
+        eng = Engine(full, cfg, device=dev, max_seq_len=512, fuse=False)
+        out["engine_single_ids"] = eng.generate_tokens(
+            list(engine_prompt), max_new_tokens=ENGINE_NEW, stop_ids=set()).token_ids
+        del eng
     if spec.get("train"):
         # the train step on this mesh, each rank against one device
         # (scripts/train_check.py), once the serving trees are freed
@@ -287,9 +318,9 @@ def check_ranks(ranks: list[dict], spec: dict, rel_l2_limit: float = REL_L2_LIMI
         ls = cfg.n_layers // pp
         if res["layers"] != (r * ls, (r + 1) * ls):
             bad.append(f"rank {r}: layers {res['layers']}")
-        for name in NAMES:
+        for name, graphs in RUNS:
             n_pf, n_cells, n_dec = res[name + "_counts_all"]
-            fwd = n_cells if name == "pipe" else n_dec
+            fwd = n_cells if name.startswith("pipe") else n_dec
             want = expected_launches(cfg.n_layers, pp, r, n_pf, fwd, cuda)
             got = res[name + "_launches_all"]
             if got != want or (cuda and min(want.values()) == 0):
@@ -298,25 +329,57 @@ def check_ranks(ranks: list[dict], spec: dict, rel_l2_limit: float = REL_L2_LIMI
                     res[name + "_counts_all"][2] != lead[name + "_counts_all"][2]:
                 bad.append(f"rank {r}: {name} prefill calls and decode steps "
                            f"{res[name + '_counts_all']}, rank 0 {lead[name + '_counts_all']}")
-            g = res[name + "_graphs"]
-            if g["graphs"] or not g.get("eager_reason"):
-                bad.append(f"rank {r}: {name} graphs {g}")
+            why = graphs_problem(res[name + "_graphs"], cuda, eager=not graphs)
+            if why:
+                bad.append(f"rank {r}: {name} {why}")
             if res[name + "_pool"][0] != ls:
                 bad.append(f"rank {r}: {name} pool {res[name + '_pool']} holds not its "
                            f"{ls} layers")
+        # the logits (the last stage's): each run's served requests on graphs
+        # against its eager yardstick, bit for bit
+        for name, k in (("pipe", 1), ("serial", 2)):
+            a, b = res[name + "_prints"], res[name + "_eager_prints"]
+            why = (prints_problem(a, b, lead[name + "_counts"][k]) if r == pp - 1
+                   else None if len(a) == len(b) == 0 else f"{len(a)}, {len(b)} prints")
+            if why:
+                bad.append(f"rank {r}: {name} graphed against eager, {why}")
+        e = res["engine"]
+        for run in ("graphs", "eager"):
+            want = expected_launches(cfg.n_layers, pp, r, 1, ENGINE_NEW, cuda)
+            if e[run]["launches"] != want:
+                bad.append(f"rank {r}: Engine ({run}) launches {e[run]['launches']} != {want}")
+        n_prints = ENGINE_NEW if r == pp - 1 else 0
+        why = (graphs_problem(e["graphs"]["graphs"], cuda)
+               or graphs_problem(e["eager"]["graphs"], cuda, eager=True)
+               or (prints_problem(e["graphs"]["prints"], e["eager"]["prints"], n_prints)
+                   if n_prints else None))
+        if why or e["graphs"]["ids"] != e["eager"]["ids"] or e["graphs"]["ids"] != lead[
+                "engine"]["graphs"]["ids"]:
+            bad.append(f"rank {r}: Engine(mesh=): {why}, ids {e['graphs']['ids']} / eager "
+                       f"{e['eager']['ids']} / rank 0 {lead['engine']['graphs']['ids']}")
         if r == pp - 1:
             # what the last stage sampled is what stage 0 got, in order
-            for name in NAMES:
+            for name, _ in RUNS:
                 a, b = (np.concatenate([np.ravel(x) for x in log]) if log else np.zeros(0)
                         for log in (res[name + "_log"], lead[name + "_log"]))
                 if not len(a) or not np.array_equal(a, b):
                     bad.append(f"{name}: the last stage's sampled ids are not stage 0's")
-    for name in NAMES:
+    for name, _ in RUNS:
         if lead[name + "_ids"] != lead["single_ids"] or any(
                 len(ids) != spec["new_tokens"] for ids in lead[name + "_ids"]):
             diff = [i for i, (a, b) in enumerate(zip(lead[name + "_ids"], lead["single_ids"]))
                     if a != b]
             bad.append(f"{name}: the ids differ from one device's in requests {diff}")
+    for name in NAMES:
+        if (lead[name + "_launches"], lead[name + "_counts"]) != (
+                lead[name + "_eager_launches"], lead[name + "_eager_counts"]):
+            bad.append(f"{name}: the eager yardstick's launches or counts differ from the "
+                       f"graphs' ({lead[name + '_eager_launches']}, "
+                       f"{lead[name + '_eager_counts']} against {lead[name + '_launches']}, "
+                       f"{lead[name + '_counts']})")
+    if lead["engine"]["graphs"]["ids"] != lead["engine_single_ids"]:
+        bad.append(f"Engine(mesh=): ids {lead['engine']['graphs']['ids']}, one device's "
+                   f"{lead['engine_single_ids']}")
     if not (lead["logits_finite"] and lead["logits_shape"] == (spec["logit_rows"],
                                                                 cfg.vocab_size)):
         bad.append(f"pp logits: finite {lead['logits_finite']}, shape {lead['logits_shape']}")

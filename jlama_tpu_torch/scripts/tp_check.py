@@ -27,7 +27,10 @@ while the others run `run_follower`. In order:
    repeat; timed on rank 0);
 2. `spec["requests"]` served requests (seeded prompts and lengths, half of
    them sampled), every rank's sampled ids logged per decode step, and the
-   kernels' launches counted from 0 over them;
+   kernels' launches counted from 0 over them; the scheduler runs on
+   graphs (the default: on the card each step a chain of segments cut at
+   its collectives), and every rank prints each decode step's logits
+   (`LogitsPrints`);
 3. a decode timing run: a request a slot (16-token prompts), the wall time
    per decode step once every row decodes; and torch.profiler over `profile`
    steps of it on rank 0 (device time by kernel), with the collectives'
@@ -36,11 +39,18 @@ while the others run `run_follower`. In order:
    dp the session sits in group 1, the leader's group full of short
    requests when it arrives) and resumed, its greedy ids against a session
    that never suspended; then `spec["greedy"]` greedy requests;
-5. on rank 0, after the followers stop: the same weights on one device
+5. the eager yardstick (`decode_graphs=False`) over the same slice: the
+   served requests again, whose ids, launches and logits' prints must be
+   the graphed run's, then a timed decode as in 3 (every rank's launches
+   as its calls imply);
+6. `Engine(mesh=)` on every rank in step (SPMD), `ENGINE_NEW` greedy
+   tokens on graphs and eagerly: the same ids, prints and launches, graphs
+   captured and replayed;
+7. on rank 0, after the followers stop: the same weights on one device
    through the single-device path, the same prompt's logits, and their
-   relative L2 distance from the tp logits (`REL_L2_LIMIT`); and the greedy
+   relative L2 distance from the tp logits (`REL_L2_LIMIT`); the greedy
    requests through a single-device BatchScheduler, whose ids must equal
-   the mesh's.
+   the mesh's; the Engine's tokens on one device.
 
 Each rank pickles its results to `out_path`; the caller starts the ranks
 and waits for them (`start_ranks`, `wait_ranks`) and compares them
@@ -169,27 +179,81 @@ def _kernels(moe: bool = False):
 
 
 class _CollectiveClock:
-    """Host seconds spent in the collectives of some groups (wraps each one's
-    `_run`; with gloo every call returns once the sum is on the rank)."""
+    """Host seconds spent in the collectives of some groups: the sum of
+    their `calls` and `seconds` (a collective counts where it runs, on its
+    replay's turn inside a captured step too; with gloo every call returns
+    once the result is on the rank)."""
 
     def __init__(self, *groups):
-        self.calls, self.seconds = 0, 0.0
-        for group in groups:
-            if group is not None:
-                self._wrap(group)
+        self.groups = [g for g in groups if g is not None]
 
-    def _wrap(self, group):
-        inner = group._run
+    @property
+    def calls(self) -> int:
+        return sum(g.calls for g in self.groups)
 
-        def timed(op, t, **kw):
-            t0 = time.perf_counter()
-            try:
-                return inner(op, t, **kw)
-            finally:
-                self.calls += 1
-                self.seconds += time.perf_counter() - t0
+    @property
+    def seconds(self) -> float:
+        return sum(g.seconds for g in self.groups)
 
-        group._run = timed
+
+class LogitsPrints:
+    """A print of every f32 logits tensor this process computes through
+    `lm_logits` (`models.base`'s, as `runtime.scheduler` and
+    `runtime.engine` call it): the sum of its elements' bit patterns as
+    int32, and their sum weighted by position (1, 2, ...), both in int64,
+    into the next row of a device buffer through a device-side counter,
+    so that a captured step prints at each replay. Equal prints: the same
+    bits, barring a collision. `begin()` starts a session's buffer (a graph
+    captured in it keeps printing into it); `take()` returns its [n, 2]
+    prints."""
+
+    N = 1 << 14  # prints a session keeps (later ones overwrite the last)
+
+    def __init__(self, torch, device):
+        from ..models import base
+        from ..runtime import engine, scheduler
+
+        self.torch, self.device = torch, torch.device(device)
+        self.buf = self.ctr = None
+        self._weights = {}
+        self._kept = []  # every session's buffers: a graph writes them by address
+        inner = base.lm_logits
+
+        def lm_logits(params, cfg, hidden):
+            out = inner(params, cfg, hidden)
+            if self.buf is not None and out.dtype == torch.float32:
+                self._print(out)
+            return out
+
+        for mod in (base, engine, scheduler):
+            mod.lm_logits = lm_logits
+
+    def _print(self, logits):
+        torch = self.torch
+        bits = logits.detach().contiguous().view(torch.int32).reshape(-1)
+        w = self._weights.get(bits.numel())
+        if w is None:
+            from ..runtime.graphs import capturing
+
+            if capturing():  # a capture runs nothing: the weights would stay unwritten
+                raise RuntimeError("LogitsPrints: a new logits shape first met in a capture")
+            w = self._weights[bits.numel()] = torch.arange(
+                1, bits.numel() + 1, dtype=torch.int32, device=bits.device)
+        v = torch.stack([bits.sum(dtype=torch.int64), (bits * w).sum(dtype=torch.int64)])
+        self.buf.index_copy_(0, self.ctr.clamp(max=self.N - 1), v[None])
+        self.ctr.add_(1)
+
+    def begin(self) -> None:
+        torch = self.torch
+        self.buf = torch.zeros((self.N, 2), dtype=torch.int64, device=self.device)
+        self.ctr = torch.zeros(1, dtype=torch.int64, device=self.device)
+        self._kept.append((self.buf, self.ctr))
+
+    def take(self) -> np.ndarray:
+        n = min(int(self.ctr), self.N)
+        out = self.buf[:n].cpu().numpy()
+        self.buf = self.ctr = None
+        return out
 
 
 def _sync(torch, device):
@@ -294,43 +358,69 @@ def k6_check(torch, sched, cfg, tp_rank: int, timed: bool) -> dict:
     return out
 
 
-def _lead(torch, sched, spec, rng, out, clock):
-    """Rank 0's part of steps 2-4."""
-    from ..runtime.scheduler import GenRequest, RequestState
+def _served_specs(rng, spec, vocab) -> list[dict]:
+    """The served requests of step 2 (seeded prompts and lengths, half of
+    them sampled), as GenRequest arguments."""
+    return [dict(prompt_ids=_ids(rng, int(rng.integers(32, spec["prefill"] + 1)), vocab),
+                 max_new_tokens=spec["new_tokens"], temperature=0.8 if i % 2 else 0.0,
+                 top_k=40 if i % 2 else 0, seed=100 + i)
+            for i in range(spec["requests"])]
 
-    cfg, n = sched.cfg, spec["requests"]
+
+def _serve_specs(torch, sched, specs, kernels) -> dict:
+    """Serve the requests; their ids and finishes, the seconds, the prefill
+    calls and decode steps, and the kernels' launches since their reset."""
+    from ..runtime.scheduler import GenRequest
+
     pf0, dec0 = sched.n_prefill_calls, sched.n_decode_steps
-    reqs = [GenRequest(prompt_ids=_ids(rng, int(rng.integers(32, spec["prefill"] + 1)),
-                                       cfg.vocab_size),
-                       max_new_tokens=spec["new_tokens"], stop_ids={-1},
-                       temperature=0.8 if i % 2 else 0.0, top_k=40 if i % 2 else 0,
-                       seed=100 + i)
-            for i in range(n)]
+    reqs = [GenRequest(stop_ids={-1}, **s) for s in specs]
     t0 = time.perf_counter()
     _serve(sched, reqs)
-    out["serve_s"] = time.perf_counter() - t0
-    out["served"] = [list(r.out_ids) for r in reqs]
-    out["finish"] = [r.finish.value for r in reqs]
-    out["n_prefill"], out["n_decode"] = sched.n_prefill_calls - pf0, sched.n_decode_steps - dec0
-    out["launches"] = {k: fn.launches for k, fn in _kernels(bool(cfg.n_experts)).items()}
-    # decode timing: every slot decoding, then a profiled window on rank 0
-    reqs = [GenRequest(prompt_ids=_ids(rng, 16, cfg.vocab_size), max_new_tokens=48,
-                       stop_ids={-1}) for _ in range(sched.n_slots)]
+    return dict(serve_s=time.perf_counter() - t0, served=[list(r.out_ids) for r in reqs],
+                finish=[r.finish.value for r in reqs], n_prefill=sched.n_prefill_calls - pf0,
+                n_decode=sched.n_decode_steps - dec0,
+                launches={k: fn.launches for k, fn in kernels.items()})
+
+
+# the timed requests' prompt: their positions (72 to 120) keep every decode
+# window in the 128-token bucket, so that the timed steps hold no key's first
+# use or capture
+TIMED_PROMPT, TIMED_NEW = 72, 48
+WARM_STEPS = 2  # scheduler steps between every slot decoding and the timing
+
+
+def _timed_decode(torch, sched, spec, rng, clock, profile: bool) -> dict:
+    """A request a slot (`TIMED_PROMPT`-token prompts), every slot decoding
+    and `WARM_STEPS` more scheduler steps run: the wall time per decode step
+    over `spec["timed_steps"]` steps, the collectives' host time in them and
+    the steps that were a key's first use (0 on graphs: every step a
+    replay); with `profile` (on the card) torch.profiler over
+    `spec["profile"]` more steps (device time by kernel group). Then the
+    requests run to their end."""
+    from ..runtime.scheduler import GenRequest, RequestState
+
+    cfg, out = sched.cfg, {}
+    reqs = [GenRequest(prompt_ids=_ids(rng, TIMED_PROMPT, cfg.vocab_size),
+                       max_new_tokens=TIMED_NEW, stop_ids={-1}) for _ in range(sched.n_slots)]
     for r in reqs:
         sched.submit(r)
     while not all(r.state == RequestState.RUNNING and r.out_ids for r in reqs):
         sched.step()
+    for _ in range(WARM_STEPS):
+        sched.step()
     _sync(torch, sched.device)
+    g0 = sched.graphs.stats()
     t0, n0, c0 = time.perf_counter(), sched.n_decode_steps, (clock.calls, clock.seconds)
     while sched.n_decode_steps - n0 < spec["timed_steps"]:
         sched.step()
     _sync(torch, sched.device)
     steps = sched.n_decode_steps - n0
+    out["timed_first_uses"] = sched.graphs.stats()["eager_steps"] - g0["eager_steps"]
     out["decode_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / steps
     out["decode_steps_timed"] = steps
     out["collective_ms_per_step"] = (clock.seconds - c0[1]) * 1e3 / steps
     out["collectives_per_step"] = (clock.calls - c0[0]) / steps
-    if spec["profile"] and sched.device.type == "cuda":
+    if profile and spec["profile"] and sched.device.type == "cuda":
         from torch.profiler import ProfilerActivity, profile
 
         c1 = (clock.calls, clock.seconds)
@@ -351,6 +441,17 @@ def _lead(torch, sched, spec, rng, out, clock):
                               collective_host_ms=(clock.seconds - c1[1]) * 1e3,
                               collective_calls=clock.calls - c1[0])
     _serve(sched, reqs)
+    return out
+
+
+def _lead(torch, sched, spec, rng, out, clock, kernels):
+    """Rank 0's part of steps 2-4."""
+    from ..runtime.scheduler import GenRequest
+
+    cfg = sched.cfg
+    out["served_specs"] = _served_specs(rng, spec, cfg.vocab_size)
+    out.update(_serve_specs(torch, sched, out["served_specs"], kernels))
+    out.update(_timed_decode(torch, sched, spec, rng, clock, profile=True))
     # a session suspended to disk, one file per rank of its dp group, against
     # one that never was; under dp both sit in group 1 (short requests fill
     # the leader's group first), so that the leader holds none of their pages
@@ -381,6 +482,68 @@ def _lead(torch, sched, spec, rng, out, clock):
     out["greedy_ids"] = [list(r.out_ids) for r in greedy]
 
 
+ENGINE_NEW = 8  # the Engine check's greedy tokens, after a 100-token prompt
+
+
+def engine_check(torch, params, cfg, mesh, device, prints, prompt, kernels) -> dict:
+    """`Engine(mesh=)` on every rank, SPMD (each rank its slice, the same
+    call): `ENGINE_NEW` greedy tokens after `prompt`, on graphs (the
+    default) and on the eager yardstick (`decode_graphs=False`): per run
+    the ids, the logits' prints, the kernels' launches and the graph
+    stats."""
+    from ..runtime.engine import Engine
+
+    out = {}
+    for run, graphs in (("graphs", True), ("eager", False)):
+        eng = Engine(params, cfg, device=device, max_seq_len=512, fuse=False, mesh=mesh,
+                     decode_graphs=graphs)
+        for fn in kernels.values():
+            fn.launches = 0
+        prints.begin()
+        ids = eng.generate_tokens(list(prompt), max_new_tokens=ENGINE_NEW,
+                                  stop_ids=set()).token_ids
+        _sync(torch, device)
+        out[run] = dict(ids=ids, prints=prints.take(), graphs=eng.graphs.stats(),
+                        launches={k: fn.launches for k, fn in kernels.items()})
+        del eng
+    return out
+
+
+def graphs_problem(g: dict, cuda: bool, eager: bool = False) -> str | None:
+    """What is wrong with a mesh owner's graph stats, or None: on the card a
+    graphed owner captured graphs and replayed them, the eager yardstick
+    captured nothing and says why; on the CPU nothing captures, and only
+    the yardstick gives a reason."""
+    if eager:
+        return None if g["graphs"] == 0 and g.get("eager_reason") else f"eager {g}"
+    if "eager_reason" in g or (cuda and not (g["graphs"] > 0 and g["replays"] > 0)) or (
+            not cuda and g["graphs"]):
+        return f"graphs {g}"
+    return None
+
+
+def prints_problem(a, b, n: int) -> str | None:
+    """Whether two runs' logits prints agree over their first n (both must
+    hold them), or what is wrong."""
+    if len(a) < n or len(b) < n or n == 0:
+        return f"{len(a)} and {len(b)} prints for {n} steps"
+    if not np.array_equal(a[:n], b[:n]):
+        k = int(np.flatnonzero((a[:n] != b[:n]).any(axis=1))[0])
+        return f"the logits differ from step {k} of {n}"
+    return None
+
+
+def _recording(sched, calls: list):
+    """sched's prefill call, recording each call's [rows, T] in `calls`."""
+    inner = sched._call_prefill
+
+    def recorded(toks, pos, pt, win):
+        calls.append(tuple(toks.shape))
+        return inner(toks, pos, pt, win)
+
+    return recorded
+
+
 def rank_main(rank: int, world: int, store_path: str, out_path: str, spec: dict) -> None:
     import torch
 
@@ -389,6 +552,7 @@ def rank_main(rank: int, world: int, store_path: str, out_path: str, spec: dict)
     from ..parallel.distributed import init_mesh_group, shutdown
     from ..parallel.tp_forward import TPGroup
     from ..runtime.coordination import StepChannel
+    from ..runtime.engine import Engine
     from ..runtime.scheduler import BatchScheduler
 
     if spec.get("threads"):
@@ -430,7 +594,9 @@ def rank_main(rank: int, world: int, store_path: str, out_path: str, spec: dict)
     out["route_check"] = (route_check(torch, group) if group.device.type == "cuda"
                           and group.backend == "gloo" and group.size > 1 else None)
     clock = _CollectiveClock(group if group.size > 1 else None, mesh.rows)
+    prints = LogitsPrints(torch, group.device)
     rng = np.random.default_rng(spec["seed"])
+    engine_prompt = _ids(np.random.default_rng(spec["seed"] + 3), 100, cfg.vocab_size)
     # 1. the prefill's logits, every rank in step (no step channel)
     ids = _ids(rng, spec["prefill"], cfg.vocab_size)
     _sync(torch, group.device)
@@ -452,31 +618,56 @@ def rank_main(rank: int, world: int, store_path: str, out_path: str, spec: dict)
         fn.launches = 0
     pf0, dec0 = sched.n_prefill_calls, sched.n_decode_steps
     calls = []
-    inner = sched._call_prefill
-
-    def recorded(toks, pos, pt, win):
-        calls.append(tuple(toks.shape))
-        return inner(toks, pos, pt, win)
-
-    sched._call_prefill = recorded
+    sched._call_prefill = _recording(sched, calls)
+    prints.begin()
     if rank == 0:
-        _lead(torch, sched, spec, rng, out, clock)
+        _lead(torch, sched, spec, rng, out, clock, kernels)
         chan.publish({"op": "stop"})
     else:
         sched.run_follower()
+    out["prints"] = prints.take()
     out["launches_all"] = {k: fn.launches for k, fn in kernels.items()}
     out["n_prefill_all"] = sched.n_prefill_calls - pf0
     out["n_decode_all"] = sched.n_decode_steps - dec0
-    out["prefill_shapes"] = calls
+    out["prefill_shapes"] = list(calls)
     out["sampled_log"] = [np.asarray(t) for t in sched.sampled_log]
     out["routes"] = {f"{op} {str(dt).replace('torch.', '')}": r
                      for (op, dt), r in group.routes.items()}
     out["graphs"] = sched.graphs.stats()
+    out["prefill_graphs"] = sched.prefill_graphs.stats()
+    out["collective_calls"], out["collective_s"] = clock.calls, clock.seconds
     if group.device.type == "cuda" and moe:
         from ..ops.moe_q4 import decode_max_r
 
         out["decode_max_r"] = decode_max_r()
+    # 5. the eager yardstick over the same slice: the served requests again,
+    # then a timed decode; every rank counts its launches from 0
+    eager = BatchScheduler(sched.params, cfg, n_slots=n_slots, n_pages=spec["n_pages"],
+                           page_size=64, max_seq_len=2048, device=group.device, mesh=mesh,
+                           step_channel=chan, fuse=False, decode_graphs=False)
+    for fn in kernels.values():
+        fn.launches = 0
+    pf0, dec0, calls = eager.n_prefill_calls, eager.n_decode_steps, []
+    eager._call_prefill = _recording(eager, calls)
+    prints.begin()
+    yard = {}
+    if rank == 0:
+        yard = _serve_specs(torch, eager, out["served_specs"], kernels)
+        yard.update(_timed_decode(torch, eager, spec, np.random.default_rng(spec["seed"] + 7),
+                                  clock, profile=False))
+        chan.publish({"op": "stop"})
+    else:
+        eager.run_follower()
+    yard.update(prints=prints.take(), launches_all={k: fn.launches for k, fn in kernels.items()},
+                n_prefill_all=eager.n_prefill_calls - pf0,
+                n_decode_all=eager.n_decode_steps - dec0, prefill_shapes=list(calls),
+                graphs=eager.graphs.stats())
+    out["eager"] = yard
+    del eager
     chan.close()
+    # 6. Engine(mesh=), every rank in step, on graphs and eagerly
+    out["engine"] = engine_check(torch, sched.params, cfg, mesh, group.device, prints,
+                                 engine_prompt, kernels)
     if rank == 0:
         # 5. the same weights on one device, the single-device path
         del sched
@@ -486,6 +677,10 @@ def rank_main(rank: int, world: int, store_path: str, out_path: str, spec: dict)
         one = SimpleNamespace(params=full, fwd_cfg=cfg, device=group.device,
                               compute_dtype=torch.bfloat16)
         ref = _logits(torch, one, ids, spec["logit_rows"], None)
+        eng = Engine(full, cfg, device=group.device, max_seq_len=512, fuse=False)
+        out["engine_single_ids"] = eng.generate_tokens(
+            list(engine_prompt), max_new_tokens=ENGINE_NEW, stop_ids=set()).token_ids
+        del eng
         out["logits_rel_l2"] = float(torch.linalg.vector_norm(logits - ref)
                                      / torch.linalg.vector_norm(ref))
         out["logits_finite"] = bool(torch.isfinite(logits).all())
@@ -618,9 +813,37 @@ def check_ranks(ranks: list[dict], spec: dict, rel_l2_limit: float = REL_L2_LIMI
         if cuda and spec["backend"] == "gloo" and tp > 1 and (not rc or any(
                 v[0] not in ("direct", "host") or v[1:] != [0.0, 0.0] for v in rc.values())):
             bad.append(f"rank {r}: the collectives' routes {rc}")
-        g = res["graphs"]
-        if tp > 1 and (g["graphs"] or not g.get("eager_reason")):
-            bad.append(f"rank {r}: graphs {g}")
+        for what, g, eager in (("decode", res["graphs"], False),
+                               ("prefill", dict(res["prefill_graphs"], replays=1), False),
+                               ("yardstick", res["eager"]["graphs"], True)):
+            why = graphs_problem(g, cuda, eager)
+            if why:
+                bad.append(f"rank {r}: {what} {why}")
+        # the eager yardstick: its launches as its calls imply, its logits
+        # those of the graphed run's served requests, bit for bit
+        y = res["eager"]
+        want = expected_launches(cfg.n_layers, y["n_prefill_all"], y["n_decode_all"], cuda,
+                                 moe, gather_forwards(dict(y, decode_max_r=res.get(
+                                     "decode_max_r")), cfg, dp, n_slots))
+        if y["launches_all"] != want:
+            bad.append(f"rank {r}: the yardstick's launches {y['launches_all']} != {want}")
+        why = prints_problem(res["prints"], y["prints"], lead["n_decode"])
+        if why:
+            bad.append(f"rank {r}: graphed against eager, {why}")
+        e = res["engine"]
+        for run in ("graphs", "eager"):
+            want = expected_launches(cfg.n_layers, 1, ENGINE_NEW, cuda, moe,
+                                     int(moe and cuda and 99 * cfg.n_experts_per_token
+                                         > res.get("decode_max_r", 0)))
+            if e[run]["launches"] != want:
+                bad.append(f"rank {r}: Engine ({run}) launches {e[run]['launches']} != {want}")
+        why = (graphs_problem(e["graphs"]["graphs"], cuda)
+               or graphs_problem(e["eager"]["graphs"], cuda, eager=True)
+               or prints_problem(e["graphs"]["prints"], e["eager"]["prints"], ENGINE_NEW))
+        if why or e["graphs"]["ids"] != e["eager"]["ids"] or e["graphs"]["ids"] != lead[
+                "engine"]["graphs"]["ids"]:
+            bad.append(f"rank {r}: Engine(mesh=): {why}, ids {e['graphs']['ids']} / eager "
+                       f"{e['eager']['ids']} / rank 0 {lead['engine']['graphs']['ids']}")
         k6 = res.get("k6")
         if spec.get("k6") and (not k6 or (k6["lo"], k6["n_local"]) != (
                 (r % tp) * cfg.n_experts // tp, cfg.n_experts // tp) or any(
@@ -636,6 +859,16 @@ def check_ranks(ranks: list[dict], spec: dict, rel_l2_limit: float = REL_L2_LIMI
                                                       :lead["n_prefill"]]), cfg, dp, n_slots))
     if lead["launches"] != want:
         bad.append(f"served requests: launches {lead['launches']} != {want}")
+    y = lead["eager"]
+    if (y["served"], y["launches"], y["n_prefill"], y["n_decode"]) != (
+            lead["served"], lead["launches"], lead["n_prefill"], lead["n_decode"]):
+        bad.append(f"served requests: the eager yardstick's ids, launches, prefill calls or "
+                   f"decode steps differ from the graphs' ({y['launches']}, {y['n_prefill']}, "
+                   f"{y['n_decode']} against {lead['launches']}, {lead['n_prefill']}, "
+                   f"{lead['n_decode']})")
+    if lead["engine"]["graphs"]["ids"] != lead["engine_single_ids"]:
+        bad.append(f"Engine(mesh=): ids {lead['engine']['graphs']['ids']}, one device's "
+                   f"{lead['engine_single_ids']}")
     if lead["finish"] != ["MAX_TOKENS"] * spec["requests"] or any(
             len(ids) != spec["new_tokens"] for ids in lead["served"]):
         bad.append(f"served requests: finishes {lead['finish']}")

@@ -25,7 +25,11 @@ store) and the others replaying its steps, runs in order:
 4. the same on random JQ4 weights of the same config from `spec["seed"]`
    ("rand_q4", "rand_q4s": the whole tree on every rank, which cuts it);
 5. GPT-2 (`spec["gpt2"]`, random JQ4 from `spec["seed"]`): the greedy
-   requests at tp = 2, K1-K4's launches;
+   requests at tp = 2, K1-K4's launches; then the same requests on its
+   eager yardstick (`decode_graphs=False`), whose ids, launches and
+   logits' prints (`tp_check.LogitsPrints`) must be the graphed run's
+   (every scheduler here runs on graphs: on the card a step is a chain of
+   segments cut at its collectives);
 6. BERT (`spec["bert"]`, its tokenizer.json at `spec["bert_tokenizer"]`): a
    mesh `OpenAIServer` on 127.0.0.1 whose embeddings `Engine` shares the
    scheduler's rank tree; rank 0 posts `spec["texts"]` to `/v1/embeddings`
@@ -48,7 +52,8 @@ from types import SimpleNamespace
 
 import numpy as np
 
-from .tp_check import REL_L2_LIMIT, _ids, _logits, _serve, _sync, expected_launches
+from .tp_check import (REL_L2_LIMIT, LogitsPrints, _ids, _logits, _serve, _sync,
+                       expected_launches, graphs_problem, prints_problem)
 
 # the largest share of the checkpoint's payload a rank may read
 # (tests/test_shard_local_load.py's bound); at tp = 2 a rank reads half of
@@ -302,8 +307,16 @@ def rank_main(rank: int, world: int, store_path: str, out_path: str, spec: dict)
     gprompts = _prompts(spec, gcfg.vocab_size, spec["seed"] + 2)
     sched = BatchScheduler(random_q4_params(gcfg, seed=spec["seed"], device=dev), gcfg, **kw)
     out["gpt2_vocab"] = sched.params.vocab
+    prints = LogitsPrints(torch, dev)
+    prints.begin()
     served("gpt2", sched, lambda: {"ids": greedy(sched, gprompts)})
-    del sched
+    out["gpt2"]["prints"] = prints.take()
+    # its eager yardstick: the same requests, ids and logits' prints
+    eager = BatchScheduler(sched.params, gcfg, **dict(kw, fuse=False, decode_graphs=False))
+    prints.begin()
+    served("gpt2_eager", eager, lambda: {"ids": greedy(eager, gprompts)})
+    out["gpt2_eager"]["prints"] = prints.take()
+    del sched, eager
     # 6. BERT: /v1/embeddings on a mesh server, the embed steps replayed
     bcfg = _config(spec["bert"])
     with open(spec["bert_tokenizer"]) as f:
@@ -394,10 +407,10 @@ def check_ranks(ranks: list[dict], spec: dict, embed_limit: float) -> list[str]:
             bad.append(f"rank {r}: the HTTP load (equal to the disk load's tree: "
                        f"{res.get('http_equal')}) fetched {res['http']['bytes_loaded']} bytes, "
                        f"the disk load read {loc['bytes_loaded']}")
-        for name in LLAMA_RUNS + ("gpt2",):
+        for name in LLAMA_RUNS + ("gpt2", "gpt2_eager"):
             s = res[name]
             matmul = "w8a8_matmul" if name.endswith("q4s") else "q4_matmul"
-            n_layers = gcfg.n_layers if name == "gpt2" else cfg.n_layers
+            n_layers = gcfg.n_layers if name.startswith("gpt2") else cfg.n_layers
             want = dict(expected_launches(n_layers, s["n_prefill"], s["n_decode"], cuda),
                         w8a8_matmul=0)
             if matmul == "w8a8_matmul":  # every projection and the lm_head through K5
@@ -409,10 +422,17 @@ def check_ranks(ranks: list[dict], spec: dict, embed_limit: float) -> list[str]:
                                                   lead[name]["n_decode"]):
                 bad.append(f"rank {r} {name}: {s['n_prefill']} prefills and {s['n_decode']} "
                            "decode steps, not rank 0's")
-            if s["graphs"]["graphs"] or not s["graphs"].get("eager_reason"):
-                bad.append(f"rank {r} {name}: graphs {s['graphs']}")
-            if name != "gpt2" and not np.array_equal(s["logits"], lead[name]["logits"]):
+            why = graphs_problem(s["graphs"], cuda, eager=name == "gpt2_eager")
+            if why:
+                bad.append(f"rank {r} {name}: {why}")
+            if not name.startswith("gpt2") and not np.array_equal(s["logits"],
+                                                                  lead[name]["logits"]):
                 bad.append(f"rank {r}: its {name} logits differ from rank 0's")
+        g, y = res["gpt2"], res["gpt2_eager"]
+        why = prints_problem(g["prints"], y["prints"], g["n_decode"])
+        if why or (g["launches"], len(g["prints"])) != (y["launches"], len(y["prints"])):
+            bad.append(f"rank {r} gpt2: graphed against eager, {why}, launches "
+                       f"{g['launches']} / {y['launches']}")
         b = res["bert"]
         want_k1 = 4 * bcfg.n_layers if cuda else 0
         if b["launches"]["q4_matmul"] != want_k1 or b["n_decode"] or b["n_prefill"]:
@@ -431,7 +451,8 @@ def check_ranks(ranks: list[dict], spec: dict, embed_limit: float) -> list[str]:
         if not (s["logits_finite"] and s["logits_rel_l2"] < REL_L2_LIMIT):
             bad.append(f"{name}: the tp logits' rel L2 {s['logits_rel_l2']} from one device's "
                        f"(limit {REL_L2_LIMIT}; finite {s['logits_finite']})")
-    for name in LLAMA_RUNS + ("gpt2",):
+    lead["gpt2_eager"]["single_ids"] = lead["gpt2"]["single_ids"]
+    for name in LLAMA_RUNS + ("gpt2", "gpt2_eager"):
         if lead[name]["ids"] != lead[name]["single_ids"]:
             bad.append(f"{name}: the tp ids {lead[name]['ids']} differ from one device's "
                        f"{lead[name]['single_ids']}")

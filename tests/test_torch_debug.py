@@ -125,19 +125,30 @@ class _Counter:
 
 
 class _FakeGraph:
+    def capture_begin(self, *pool, capture_error_mode="global"):
+        pass
+
+    def capture_end(self):
+        pass
+
     def replay(self):
         pass
 
 
 @pytest.fixture
 def fake_cuda(monkeypatch):
-    """torch.cuda's graph calls replaced, as in tests/test_torch_graphs.py."""
+    """torch.cuda's graph calls replaced, as in tests/test_torch_graphs.py
+    (the fake begins and ends the capture on the object it is given)."""
     captured = []
 
     @contextlib.contextmanager
     def graph(g, pool=None, capture_error_mode="global"):
         captured.append(pool)
-        yield
+        g.capture_begin(pool, capture_error_mode=capture_error_mode)
+        try:
+            yield
+        finally:
+            g.capture_end()
 
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
     monkeypatch.setattr(torch.cuda, "graph", graph)
@@ -172,8 +183,8 @@ def test_graphs_run_eagerly_while_the_hook_is_on(hooks, fake_cuda):
     for key in ("old", "new", "new", "new"):
         g.run(key, step)
     assert len(runs) == 6 and len(fake_cuda) == 1
-    assert g.stats() | {"capture_s": 0} == dict(graphs=1, keys=1, eager_steps=5, replays=1,
-                                                capture_s=0, pool_bytes=0)
+    assert g.stats() | {"capture_s": 0} == dict(graphs=1, keys=1, segments=1, eager_steps=5,
+                                                replays=1, capture_s=0, pool_bytes=0)
     debug.disable()
     for key in ("old", "new", "new"):
         g.run(key, step)

@@ -161,6 +161,12 @@ class _FakeGraph:
     def __init__(self):
         self.replays = 0
 
+    def capture_begin(self, *pool, capture_error_mode="global"):
+        pass
+
+    def capture_end(self):
+        pass
+
     def replay(self):
         self.replays += 1
 
@@ -168,13 +174,19 @@ class _FakeGraph:
 @pytest.fixture
 def fake_cuda(monkeypatch):
     """torch.cuda's graph calls replaced, so that StepGraphs' bookkeeping
-    runs on the CPU; records each capture's keyword arguments."""
+    runs on the CPU; records each capture's keyword arguments. As
+    torch.cuda.graph does, the fake begins and ends the capture on the
+    object it is given."""
     captured = []
 
     @contextlib.contextmanager
     def graph(g, pool=None, capture_error_mode="global"):
         captured.append(dict(pool=pool, mode=capture_error_mode))
-        yield
+        g.capture_begin(pool, capture_error_mode=capture_error_mode)
+        try:
+            yield
+        finally:
+            g.capture_end()
 
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
     monkeypatch.setattr(torch.cuda, "graph", graph)
@@ -212,8 +224,8 @@ def test_counters_capture_and_replay_bookkeeping(fake_cuda):
     g.run("k2", step)
     g.run("k2", step)
     assert [c["pool"] for c in fake_cuda] == [("pool",)] * 2
-    assert g.stats() | {"capture_s": 0} == dict(graphs=2, keys=2, eager_steps=2, replays=3,
-                                                capture_s=0, pool_bytes=2000)
+    assert g.stats() | {"capture_s": 0} == dict(graphs=2, keys=2, segments=2, eager_steps=2,
+                                                replays=3, capture_s=0, pool_bytes=2000)
     assert (a.launches, b.launches) == (10, 5)
 
 

@@ -228,8 +228,6 @@ REFUSALS = {
                  "dp=2 does not divide n_slots=3"),
     "dp_pages": (dict(mesh=tmesh.Mesh(dp=2), n_pages=7), ValueError,
                  "dp=2 does not divide n_pages=7"),
-    "graphs": (dict(mesh=tmesh.Mesh(tp=2, group=_Rank0()), decode_graphs=True), ValueError,
-               "decode_graphs=True under tp"),
     "no_group": (dict(mesh=tmesh.Mesh(tp=2)), ValueError, "TPGroup"),
     "channel_without_tp": (dict(step_channel=object()), ValueError, "step_channel"),
     # a rank's slice of K of wo (256 inputs over 2 ranks) splits K5's 256-group
@@ -244,9 +242,10 @@ def _q4s_fmts(params):
     return {k: getattr(v, "fmt", None) for k, v in params["layers"][0].items()}
 
 
-@pytest.mark.parametrize("case", list(REFUSALS) + ["nccl_shared", "nccl_count", "nccl_cpu",
-                                                   "engine_mesh", "engine_rank_slice", "dp",
-                                                   "moe", "q4s", "q4s_dp_tp", "gpt2"])
+@pytest.mark.parametrize("case", list(REFUSALS) + ["graphs", "nccl_shared", "nccl_count",
+                                                   "nccl_cpu", "engine_mesh",
+                                                   "engine_rank_slice", "dp", "moe", "q4s",
+                                                   "q4s_dp_tp", "gpt2"])
 def test_tp_refusals(case):
     """What tp does not serve raises with a message naming it; nothing runs
     unsharded in its place. dp and MoE under tp, refused before, are served:
@@ -254,12 +253,30 @@ def test_tp_refusals(case):
     (tests/test_torch_dp_serving.py and tests/test_torch_ep.py serve them);
     so are q4s (each rank's slice converted, as one device converts the
     whole tree), GPT-2 and BERT, and the Engine on a mesh
-    (tests/test_torch_tp_rest.py serves them)."""
+    (tests/test_torch_tp_rest.py serves them). decode_graphs=True under tp,
+    refused before, builds: a mesh step's collectives cut its graph into
+    segments (tests/test_torch_mesh_graphs.py)."""
     from dataclasses import replace
 
     from jlama_tpu_torch.parallel import distributed
     from jlama_tpu_torch.runtime.scheduler import BatchScheduler
 
+    if case == "graphs":  # served: graphs on, no reason to run eagerly
+        from jlama_tpu_torch.runtime.engine import Engine
+
+        _, _, tparams, tcfg = make_model("llama", "q4")
+        mesh = tmesh.Mesh(tp=2, group=_Rank0())
+        for owner in (BatchScheduler(tparams, tcfg, n_slots=2, n_pages=8, page_size=8,
+                                     max_seq_len=32, device="cpu", mesh=mesh,
+                                     decode_graphs=True),
+                      Engine(tparams, tcfg, device="cpu", mesh=mesh, decode_graphs=True)):
+            st = owner.graphs.stats()
+            assert "eager_reason" not in st and st["graphs"] == 0  # the CPU never captures
+            assert "eager_reason" not in owner.prefill_graphs.stats()
+        yard = BatchScheduler(tparams, tcfg, n_slots=2, n_pages=8, page_size=8, max_seq_len=32,
+                              device="cpu", mesh=mesh, decode_graphs=False)
+        assert "yardstick" in yard.graphs.stats()["eager_reason"]
+        return
     if case == "nccl_shared":
         with pytest.raises(ValueError, match="two ranks share h/cuda:0"):
             distributed.check_nccl_devices(["h/cuda:0", "h/cuda:0"], 2)
@@ -292,12 +309,12 @@ def test_tp_refusals(case):
     if case.startswith("engine"):
         from jlama_tpu_torch.runtime.engine import Engine
 
-        if case == "engine_mesh":  # the Engine on a tp mesh: the rank's heads, eager steps
+        if case == "engine_mesh":  # the Engine on a tp mesh: the rank's heads, graphs on
             eng = Engine(tparams, tcfg, device="cpu", mesh=tmesh.Mesh(tp=2, group=_Rank0()))
             assert eng.params["layers"][0]["wqkv"].data.shape[0] == (
                 (tcfg.n_heads + 2 * tcfg.n_kv_heads) * tcfg.head_size // 2)
             assert eng.fwd_cfg.n_kv_heads == tcfg.n_kv_heads // 2
-            assert "gloo" in eng.graphs.stats()["eager_reason"]
+            assert "eager_reason" not in eng.graphs.stats()
             return
         with pytest.raises(ValueError, match="pass the rank's mesh"):
             # a tp rank's slice, as a tp scheduler holds it, without its mesh

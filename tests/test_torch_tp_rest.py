@@ -355,8 +355,9 @@ def test_bert_row_parallel_biases_are_added_once(bert_jax, monkeypatch):
 def test_engine_tp2_greedy_ids_match_jax_engine_mesh():
     """`Engine(mesh=)` at tp = 2 (each rank its heads and n_kv/2 of each
     cache slot, the decode loop SPMD on both ranks) gives the greedy ids of
-    jlama_tpu's `Engine(mesh=)` at tp = 2; its steps run eagerly and say
-    why, and a session's second turn continues from its cache."""
+    jlama_tpu's `Engine(mesh=)` at tp = 2; its graphs are on (the CPU runs
+    them eagerly, giving no reason), and a session's second turn continues
+    from its cache."""
     from jlama_tpu.parallel.mesh import make_mesh
     from jlama_tpu.runtime.engine import Engine as JEngine
 
@@ -373,10 +374,10 @@ def test_engine_tp2_greedy_ids_match_jax_engine_mesh():
         ids = [eng.generate_tokens([1, 5, 9, 42, 7], max_new_tokens=8, session_id="s").token_ids,
                eng.generate_tokens([3, 8], max_new_tokens=5, session_id="s").token_ids]
         stats = eng.graphs.stats()
-        return ids, stats["graphs"], stats["eager_reason"], eng._slot_bufs[0].shape
+        return ids, stats["graphs"], stats.get("eager_reason"), eng._slot_bufs[0].shape
 
     got = run_ranks(TP, rank_fn)
     for ids, graphs, reason, shape in got:
         assert ids == ref
-        assert graphs == 0 and "gloo" in reason
+        assert graphs == 0 and reason is None  # graphs on; the CPU never captures
         assert shape[3] == CONFIGS["llama"]["num_key_value_heads"] // TP

@@ -117,7 +117,8 @@ def test_every_rank_samples_the_leaders_ids(served):
 
 def test_rank_shards_pools_and_files(served):
     """Each rank holds 1/tp of the fused weights (q4 data [N, K/2]) and of
-    the KV heads, ran its steps eagerly (saying why), and wrote its own
+    the KV heads, kept its graphs on (the CPU runs every step eagerly, with
+    no reason given: only the yardstick gives one), and wrote its own
     shard file of the disk suspend."""
     _, out, ranks = served
     for rank, res in enumerate(ranks):
@@ -127,8 +128,8 @@ def test_rank_shards_pools_and_files(served):
         assert sh["wqkv"] == ((64 + 2 * 32) // 2, 32) and sh["wo"] == (64, 32 // 2)
         assert sh["w13"] == (2 * 128 // 2, 32) and sh["w2"] == (64, 64 // 2)
         assert res["float/pool"] == (1, 64, 8, 16)  # n_kv/tp heads
-        g = res["float/graphs"]
-        assert g["graphs"] == 0 and "gloo" in g["eager_reason"]
+        g = res["float/graphs"]  # graphs on (the default), which the CPU never captures
+        assert g["graphs"] == 0 and g["eager_steps"] > 0 and "eager_reason" not in g
         f = out / "off" / f"disk.kv.p{rank}.npz"
         with np.load(f) as z:
             assert len(z.files) == 2 and z[z.files[0]].shape[:3] == (1, 2, 1)
